@@ -15,12 +15,27 @@ Phases, one line each:
    and score queries, churn, a model refresh, and Algorithm 1 per call,
    each held against the plain path.  The launches of each CUDA kernel
    are counted over this phase alone.
-5. timing: each kernel's median time over CUDA events, its plain
+5. tenants: the same config and weights serving 16 tenants on one
+   ScorerRuntime, each 62,500 items of the serve phase's corpus in a
+   65,536-slot slab, through ``QueryFrontend(pack=True)`` (one fused
+   launch per wave of 16 tenants x 4 requests) and then through a
+   ``pack=False`` frontend on the same states: every reply held against
+   the plain scores, packed replies bitwise equal to unpacked ones,
+   requests per second both ways, and the card's idle share over packed
+   waves.  The multi-tenant kernel's launches are counted over the
+   timed packed waves alone.
+6. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
-   rate and f32 flops over its f32 rate).
-6. profile: with torch.profiler, the device time of a top-K call by CUDA
+   rate and f32 flops over its f32 rate); beside the multi-tenant
+   kernel, the summed time of one single-tenant top-K call per tenant.
+7. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, and the device's idle share while the serving engine answers
    Bq = 1 queries.
+
+A profiled window counts only when the profiler saw exactly the launches
+of each hand-written kernel that ``ops.LAUNCHES`` counted in it: the
+tracer can drop events, and a dropped kernel reads as idle time.  A
+window is tried up to three times, then reported "not measured".
 
 Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises, so the ``ok`` line is never printed after
@@ -31,10 +46,13 @@ kernels sum in another order than PyTorch's einsum (and use fused
 multiply-adds), and full-width scores reach tens, so a bound relative to
 the score is the meaningful one.  Top-K ids must equal the plain stable
 top-K's, except where the plain scores tie within that tolerance; planted
-exact ties must go to the lower slot.
+exact ties must go to the lower slot.  Row [s] of the multi-tenant kernel
+must equal the single-tenant top-K kernel on segment s bitwise, and a
+packed reply the unpacked one.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import subprocess
@@ -61,6 +79,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.serving.corpus import masked_slab_scores  # noqa: E402
 from repro_torch.serving.engine import CorpusState  # noqa: E402
+from repro_torch.serving.frontend import QueryFrontend  # noqa: E402
+from repro_torch.serving.runtime import ScorerRuntime  # noqa: E402
 
 TOL = 1e-5
 
@@ -69,6 +89,10 @@ FULL = SimpleNamespace(
     n3=65_536, m3=38, bq3s=(1, 4), edge_n=1000,
     make_config=dplr_fwfm.make_config, items=1_000_000, capacity=1 << 20,
     queries=20, batch=16, churn=(1000, 1000, 100), percall_n=65_536, topk=16,
+    # multi-tenant kernel: (S, Bq, n_s, K), and a ragged masked case
+    multi=(16, 4, 65_536, 16), ragged=((1100, 70_000, 20_000), 2, 1024),
+    tenants=16, tenant_items=62_500, tenant_capacity=65_536, tenant_bq=4,
+    waves=16, warm_waves=2, profile_waves=4,
 )
 
 # NVIDIA data-sheet peaks: (device memory bytes/s, f32 flop/s outside the
@@ -80,6 +104,10 @@ PEAKS = (
     ("H100", 3.35e12, 67e12),    # SXM
 )
 
+# The entry points the serve phase drives; the tenants phase drives
+# dplr_corpus_score_multi.
+SERVE_KERNELS = ("dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items")
+
 KERNEL_ROWS = {
     "dplr_corpus_score": ("src/repro_torch/kernels/csrc/dplr_corpus_score.cu",
                           "src/repro/kernels/dplr_corpus_score.py:196"),
@@ -87,6 +115,8 @@ KERNEL_ROWS = {
                          "src/repro/kernels/dplr_corpus_score.py:212"),
     "dplr_score_items": ("src/repro_torch/kernels/csrc/dplr_score.cu",
                          "src/repro/kernels/dplr_score.py:75"),
+    "dplr_corpus_score_multi": ("src/repro_torch/kernels/csrc/dplr_corpus_score.cu",
+                                "src/repro/kernels/dplr_corpus_score.py:376"),
 }
 
 
@@ -224,10 +254,59 @@ def kernel_checks(dev, sz) -> dict:
         _sync(dev)
         err = max(err, check_close(one, want[0], f"score_items n={n3} per query"))
         errs["dplr_score_items"] = max(errs["dplr_score_items"], err)
+    errs["dplr_corpus_score_multi"], more = multi_checks(dev, sz, gen)
+    notes += more
     print(f"phase kernels: all within {TOL:g} x max(1, |s|); max |diff| "
           + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + "; " + ", ".join(notes), flush=True)
     return errs
+
+
+def multi_inputs(dev, ns, lives, Bq, rho, k, gen):
+    """Per-segment corpus inputs, stacked where the multi-tenant entry
+    stacks them: (Q_parts, a_parts, valid_parts, e, P_C, a_C)."""
+    parts = [corpus_inputs(dev, n, live, Bq, rho, k, gen) for n, live in zip(ns, lives)]
+    return ([list(p) for p in parts],
+            (tuple(p[0] for p in parts), tuple(p[1] for p in parts),
+             tuple(p[5] for p in parts), *(torch.stack([p[j] for p in parts])
+                                           for j in (2, 3, 4))))
+
+
+def multi_checks(dev, sz, gen) -> tuple[float, list]:
+    """The multi-tenant kernel against its plain version, segment by
+    segment, and row [s] bitwise against the single-tenant top-K kernel on
+    segment s: S equal segments with planted ties, then a ragged masked
+    case whose K exceeds one segment's live slots."""
+    S, Bq, n_s, K = sz.multi
+    ns, Bq2, K2 = sz.ragged
+    err, notes = 0.0, []
+    for case, (ns_, Bq_, K_) in (("equal", ((n_s,) * S, Bq, K)), ("ragged", (ns, Bq2, K2))):
+        parts, args = multi_inputs(dev, ns_, ns_, Bq_, sz.rho, sz.k, gen)
+        planted = []
+        for s, p in enumerate(parts):
+            if case == "equal":
+                planted.append(plant(p[0], p[1], p[5]))
+            else:                                  # random dead slots
+                p[5].copy_(torch.rand(ns_[s], generator=gen, device=dev) > (0.6 if s == 0
+                                                                            else 0.25))
+        if case == "ragged" and not int(parts[0][5].sum()) < K_ <= min(ns_):
+            raise AssertionError("ragged case: K must exceed segment 0's live slots")
+        vals, ids = ops.dplr_corpus_score_multi(*args, topk=K_)
+        _sync(dev)
+        diffs = 0
+        for s, p in enumerate(parts):
+            full = ref.dplr_corpus_score_ref(*p)
+            e_, d = check_topk(vals[s], ids[s], full, K_, f"multi {case} segment {s}",
+                               planted=planted[s] if planted else ())
+            err, diffs = max(err, e_), diffs + d
+            one_v, one_i = ops.dplr_corpus_score(*p, topk=K_)
+            if not (torch.equal(vals[s], one_v) and torch.equal(ids[s], one_i)):
+                raise AssertionError(f"multi {case} segment {s}: row differs from the "
+                                     f"single-tenant kernel")
+        notes.append(f"multi {case} S={len(ns_)} Bq={Bq_} K={K_}: rows bitwise = single, "
+                     f"{diffs} ids differ from plain")
+        del parts, args, full
+    return err, notes
 
 
 # -- phase 4: the serving path ------------------------------------------------
@@ -292,8 +371,8 @@ def plain_rank_items(params, cfg, q):
 
 
 def serving_phase(dev, sz):
-    """Returns the launches of each CUDA kernel, the engine and the query
-    contexts."""
+    """Returns the launches of each CUDA kernel, the engine, the query
+    contexts, the corpus and the data generator."""
     cfg = sz.make_config()
     # host data first, outside every timed window
     t0 = time.perf_counter()
@@ -358,7 +437,7 @@ def serving_phase(dev, sz):
     _sync(dev)
     check_topk(vals, ids, got, K, "corpus topk against percall scores", size=size)
 
-    launches = {g: ops.LAUNCHES[g] for gs in ops.KERNELS.values() for g in gs}
+    launches = {g: ops.LAUNCHES[g] for name in SERVE_KERNELS for g in ops.KERNELS[name]}
     if dev.type == "cuda" and not all(launches.values()):
         raise AssertionError(f"a kernel was not launched on the serving path: {launches}")
     print(f"phase serve: {cfg.layout.n_fields} fields k={cfg.embed_dim} rho={cfg.rank}, "
@@ -368,10 +447,104 @@ def serving_phase(dev, sz):
           f"differ from plain, all within the tie rule; churn +{n_add} -{n_remove} "
           f"~{n_update}, refresh and percall n={sz.percall_n} all agree; "
           f"launches {launches}", flush=True)
-    return launches, engine, ctxs
+    return SimpleNamespace(launches=launches, engine=engine, ctxs=ctxs, corpus=corpus,
+                           data=data)
 
 
-# -- phase 5: timing ----------------------------------------------------------
+# -- phase 5: tenants ---------------------------------------------------------
+
+def tenants_phase(dev, sz, serve) -> dict:
+    """16 tenants (``sz.tenants``) on one ScorerRuntime, each a disjoint
+    slice of the serve phase's corpus in its own slab, with the serve
+    phase's weights.  Waves of tenants x ``tenant_bq`` requests at
+    K = ``topk`` go through a packed frontend (one fused launch a wave),
+    then the same waves through an unpacked one on the same states.
+    Returns the multi-tenant kernel's launches over the timed packed
+    waves."""
+    cfg, params, data = serve.engine.cfg, serve.engine.params, serve.data
+    T, per, cap, bq, K = sz.tenants, sz.tenant_items, sz.tenant_capacity, sz.tenant_bq, sz.topk
+    ids, w = serve.corpus["item_ids"][0], serve.corpus["item_weights"][0]
+    pool = [data.context_query(5000 + s)["context_ids"] for s in range(4 * T * bq)]
+    runtime = ScorerRuntime(cfg, device=dev)
+    states = {}
+    for i in range(T):
+        st = CorpusState(None, ids[i * per:(i + 1) * per], w[i * per:(i + 1) * per],
+                         capacity=cap, runtime=runtime)
+        st.refresh(params)
+        states[f"t{i}"] = st
+    names = list(states)
+    ctx_of = lambda wave, i, j: pool[(wave * T * bq + i * bq + j) % len(pool)]  # noqa: E731
+
+    def run(fe, got, waves):
+        """``waves`` more waves, numbered on from the ``len(got)`` done."""
+        for wave in range(len(got), len(got) + waves):
+            pend = [fe.submit(ctx_of(wave, i, j), k=K, tenant=name)
+                    for i, name in enumerate(names) for j in range(bq)]
+            fe.pump()
+            fe.resolve()
+            got.append([p.result() for p in pend])
+        _sync(dev)
+
+    replies, rates, launches = {}, {}, {}
+    share = "device time not measured"
+    multi = ops.KERNELS["dplr_corpus_score_multi"]
+    for pack in (True, False):
+        fe = QueryFrontend(states, max_batch=bq, max_k=K, auto_pump=False, pack=pack)
+        got = []
+        run(fe, got, sz.warm_waves)
+        if pack:
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        run(fe, got, sz.waves)
+        rates[pack] = sz.waves * T * bq / (time.perf_counter() - t0)
+        if pack:
+            launches = {g: ops.LAUNCHES[g] for gs in ops.KERNELS.values() for g in gs}
+            if dev.type == "cuda" and not all(launches[g] for g in multi):
+                raise AssertionError(f"the multi-tenant kernel was not launched: {launches}")
+            split, wall, seen = profiled(dev, lambda: run(fe, got, sz.profile_waves))
+            if split is not None:
+                busy = sum(ms for ms, _ in split.values())
+                kern = sum(split.get(g, (0.0, 0))[0] for g in multi)
+                share = (f"device busy {busy:.3f} ms of {wall:.3f} ms wall over "
+                         f"{sz.profile_waves} packed waves, idle share "
+                         f"{1 - busy / wall:.3f}; per wave: multi-tenant kernel "
+                         f"{kern / sz.profile_waves:.4f} ms, other kernels "
+                         f"{(busy - kern) / sz.profile_waves:.4f} ms, wall "
+                         f"{wall / sz.profile_waves:.3f} ms; profiler saw {seen}")
+            elif seen:
+                share = f"device time not measured (profiler saw {seen})"
+            packing = fe.health()["packing"]
+            if packing["fused_dispatches"] < len(got):
+                raise AssertionError(f"fewer fused dispatches than waves: {packing}")
+        else:
+            run(fe, got, len(replies[True]) - len(got))
+        fe.close()
+        replies[pack] = got
+    total = len(replies[True])
+    diffs = 0
+    for wave, (packed, unpacked) in enumerate(zip(replies[True], replies[False])):
+        for i, name in enumerate(names):
+            rows = packed[i * bq:(i + 1) * bq]
+            for (pv, pi), (uv, ui) in zip(rows, unpacked[i * bq:(i + 1) * bq]):
+                if not (np.array_equal(pv, uv) and np.array_equal(pi, ui)):
+                    raise AssertionError(f"wave {wave} tenant {name}: packed reply != "
+                                         f"unpacked reply")
+            got = (torch.as_tensor(np.stack([v for v, _ in rows]), device=dev),
+                   torch.as_tensor(np.stack([i_ for _, i_ in rows]), device=dev))
+            ctx = np.concatenate([ctx_of(wave, i, j) for j in range(bq)])
+            diffs += check_serving(states[name], ctx, got, f"tenants wave {wave} {name}")
+    print(f"phase tenants: {T} tenants x {per} items in {cap}-slot slabs on one "
+          f"ScorerRuntime; waves of {T} x {bq} requests at K={K}; packed "
+          f"{rates[True]:.1f} req/s, unpacked {rates[False]:.1f} req/s over {sz.waves} "
+          f"waves (host clock, after {sz.warm_waves} warm-up waves); "
+          f"{packing['fused_dispatches']} fused dispatches for {total} waves, mean group "
+          f"{packing['mean_group']:.2f}; {total * T * bq} replies checked against plain "
+          f"({diffs} ids differ, all within the tie rule), packed = unpacked bitwise; "
+          f"{share}; launches {launches}", flush=True)
+    return launches
+
+
+# -- phase 6: timing ----------------------------------------------------------
 
 def _sync(dev):
     if dev.type == "cuda":
@@ -446,6 +619,24 @@ def timing_phase(dev, sz, peaks) -> dict:
                      f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         if Bq3 == max(sz.bq3s):
             rows["dplr_score_items"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    del V
+
+    S, Bq4, n_s, K = sz.multi
+    live_s = sz.tenant_items
+    parts, args = multi_inputs(dev, (n_s,) * S, (live_s,) * S, Bq4, rho, k, gen)
+    ms = device_ms(lambda: ops.dplr_corpus_score_multi(*args, topk=K))
+    plain = device_ms(lambda: ref.dplr_corpus_multi_topk_ref(*args, K), 3, 2)
+    single = device_ms(lambda: [ops.dplr_corpus_score(*p, topk=K) for p in parts])
+    nbytes = (S * (live_s * (rk_ + 1) * 4 + n_s) + S * (rho + Bq4 * (rk_ + 1)) * 4
+              + S * Bq4 * K * 8)
+    flops = S * Bq4 * live_s * (3 * rk_ + 2 * rho + 3)
+    bnd, by = bound_ms(nbytes, flops, peaks)
+    extra.append(f"dplr_corpus_score_multi S={S} n_s={n_s} ({live_s} live) Bq={Bq4} K={K}: "
+                 f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}); "
+                 f"{S} single-tenant dplr_corpus_score(topk={K}) calls at Bq={Bq4}: "
+                 f"{single:.4f} ms summed")
+    rows["dplr_corpus_score_multi"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                           single_calls_ms=single)
     print("phase timing: " + "; ".join(extra), flush=True)
     return rows
 
@@ -463,6 +654,31 @@ def _device_times(prof) -> dict:
     return out
 
 
+def profiled(dev, fn, tries: int = 3):
+    """Run ``fn`` in a torch.profiler window until the profiler saw, for
+    each CUDA kernel ``ops.LAUNCHES`` counted in the window, exactly that
+    many launches.  Returns (``_device_times`` split, wall ms of the last
+    window, {kernel: (seen, counted)} of the last window); the split is
+    None when no window agreed or the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    wall, seen = 0.0, {}
+    for _ in range(tries):
+        before = collections.Counter(ops.LAUNCHES)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        counted = ops.LAUNCHES - before
+        split = _device_times(prof)
+        seen = {g: (split.get(g, (0.0, 0))[1], n) for g, n in counted.items()}
+        if split and all(a == b for a, b in seen.values()):
+            return split, wall, seen
+    return None, wall, seen
+
+
 def profile_phase(dev, sz, engine, ctxs) -> None:
     """Where the device time goes: the split of one top-K call between its
     stage-1 and merge kernels, and the device's busy share while the
@@ -471,41 +687,35 @@ def profile_phase(dev, sz, engine, ctxs) -> None:
     device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gen = torch.Generator(device=dev).manual_seed(2)
     Bq, reps = max(sz.bqs), 3
     Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, sz.n, sz.live, Bq, sz.rho, sz.k, gen)
-    with profile(activities=acts):       # a first window, discarded: tracing starts up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        # a first window, discarded: tracing starts up
         ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid, topk=16)
         _sync(dev)
     parts = []
     for K in (16, 1024):
-        with profile(activities=acts) as prof:
-            for _ in range(reps):
-                ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid, topk=K)
-            _sync(dev)
-        split = _device_times(prof)
+        split, _, seen = profiled(dev, lambda: [
+            ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid, topk=K) for _ in range(reps)])
         t0 = time.perf_counter()           # host time to issue the calls
         for _ in range(reps):
             ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid, topk=K)
         host = (time.perf_counter() - t0) * 1e3 / reps
         _sync(dev)
         parts.append(f"topk Bq={Bq} K={K}, per call: host issue {host:.4f} ms; " + (", ".join(
-            f"{k} {ms / reps:.4f} ms ({calls // reps} launches)"
-            for k, (ms, calls) in sorted(split.items())) or "not measured"))
+            f"{k} {ms / reps:.4f} ms ({calls / reps:g} launches)"
+            for k, (ms, calls) in sorted(split.items())) if split is not None
+            else f"not measured (profiler saw {seen})"))
     del Q
 
     engine.topk(ctxs[0], sz.topk)
     _sync(dev)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for ctx in ctxs:
-            engine.topk(ctx, sz.topk)
-        _sync(dev)
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(ms for ms, _ in _device_times(prof).values())
+    split, wall, seen = profiled(dev, lambda: [engine.topk(ctx, sz.topk) for ctx in ctxs])
+    busy = sum(ms for ms, _ in split.values()) if split is not None else 0.0
     share = (f"device busy {busy:.3f} ms of {wall:.3f} ms wall, idle share "
-             f"{1 - busy / wall:.3f}" if busy else "device time not measured")
+             f"{1 - busy / wall:.3f}" if busy else
+             f"device time not measured (profiler saw {seen})")
     print(f"phase profile: {'; '.join(parts)}; serving {len(ctxs)} top-{sz.topk} "
           f"queries at Bq=1 on the {engine.n_items}-item engine of the serve phase "
           f"(profiled): {share}", flush=True)
@@ -539,9 +749,13 @@ def main() -> None:
           + " | ".join(logs), flush=True)
 
     errs = kernel_checks(dev, FULL)
-    launches, engine, ctxs = serving_phase(dev, FULL)
+    serve = serving_phase(dev, FULL)
+    launches = dict(serve.launches)
+    tenant_launches = tenants_phase(dev, FULL, serve)
+    for g in ops.KERNELS["dplr_corpus_score_multi"]:
+        launches[g] = tenant_launches[g]
     rows = timing_phase(dev, FULL, peaks)
-    profile_phase(dev, FULL, engine, ctxs)
+    profile_phase(dev, FULL, serve.engine, serve.ctxs)
     kernels = []
     for name, cuda_kernels in ops.KERNELS.items():
         source, replaces = KERNEL_ROWS[name]

@@ -66,6 +66,14 @@ __device__ inline float eigen_square_sum(const float* q, const float* pc,
   return acc;
 }
 
+// One slot's masked-before score, (a_C + a_I) + 0.5 * sum_r e_r ||P_C,r + Q_I,r||^2,
+// with the final multiply-add written out so that every kernel that scores
+// a slot rounds it the same way.
+__device__ inline float slot_score(float ac, float ai, const float* q, const float* pc,
+                                   const float* e, int rho, int k) {
+  return fmaf(0.5f, eigen_square_sum(q, pc, e, rho, k), ac + ai);
+}
+
 // The top-K order: a higher value first, and among equal values the lower
 // slot id first (the tie rule of lax.top_k and of a stable descending sort).
 __device__ inline bool ranks_before(float va, int ia, float vb, int ib) {

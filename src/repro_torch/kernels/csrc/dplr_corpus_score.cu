@@ -1,11 +1,13 @@
 // Corpus-cached DPLR-FwFM scoring against a capacity-padded item slab, in
-// two modes: the full (Bq, n) score matrix, and a masked top-K per query.
+// three modes: the full (Bq, n) score matrix, a masked top-K per query, and
+// the masked top-K of S tenants' slabs in one launch.
 //
 //   s[q, i] = (a_C[q] + a_I[i]) + 0.5 * sum_r e_r ||P_C[q, r] + Q_I[i, r]||^2
 //   s[q, i] = -1e30 where valid[i] == 0
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/dplr_corpus_score.py,
-// dplr_corpus_score(): _kernel_full (topk=None) and _kernel_topk (topk=K).
+// Replaces the Pallas TPU kernels of src/repro/kernels/dplr_corpus_score.py:
+// dplr_corpus_score() (_kernel_full for topk=None, _kernel_topk for topk=K)
+// and dplr_corpus_score_multi() (_kernel_multi_topk).
 //
 // What bounds it on an H100: memory.  Each item costs rho*k*4 bytes of Q_I
 // (192 B at rho = 3, k = 16) plus 5 bytes of a_I and valid, against
@@ -31,6 +33,18 @@
 //    slot as in lax.top_k, and the result is the same from run to run (no
 //    atomics).  The query index is blockIdx.x, so the blocks that read one
 //    chunk of Q_I for different queries run together and share it in L2.
+//  * Multi-tenant mode: the TPU kernel concatenates the S slabs on the item
+//    axis (a copy of every slab on every call) and scores each tile against
+//    all S * Bq query rows, masking the foreign ones.  Here the S slabs stay
+//    where they are: a table of S (Q_I, a_I, valid, n) entries travels as a
+//    kernel parameter, and stage 1 runs one block per (stacked query row,
+//    chunk of that row's own segment), so no slab is copied and no foreign
+//    row is scored.  Rows of a shorter segment pad their list count up to
+//    the longest segment's with sentinel lists (-inf, INT_MAX), so that one
+//    merge schedule serves all S * Bq rows.  A block scores and sorts with
+//    the same device code as the single-slab mode; the top-K order is a
+//    total order, so row [s] is bitwise the single-slab top-K of segment s
+//    whatever the chunking.
 //  * All arithmetic is f32 in the direct form, not the GEMM expansion
 //    ||P_C||^2 + 2<P_C, Q_I> + ||Q_I||^2, whose rounding differs.
 #include "common.cuh"
@@ -46,6 +60,7 @@ constexpr int kTopkThreads = 256;
 constexpr int kMergeThreads = 512;
 constexpr int kMaxSort = 16384;    // entries one block sorts in shared memory
 constexpr int kMaxTopK = 4096;
+constexpr int kMaxSegments = 64;   // segments of one multi-tenant launch
 constexpr size_t kMaxSmem = 232448;
 
 __global__ void corpus_score_full(const float* __restrict__ Q,
@@ -81,21 +96,20 @@ __global__ void corpus_score_full(const float* __restrict__ Q,
   const float* q = qs + threadIdx.x * RKP;
   for (int j = 0; j < nq; ++j) {
     float s = kNegInf;
-    if (live)
-      s = (ac[j] + ai) + 0.5f * repro::eigen_square_sum(q, pc + j * RK, es, rho, k);
+    if (live) s = repro::slot_score(ac[j], ai, q, pc + j * RK, es, rho, k);
     out[(long long)(q0 + j) * n + i] = s;
   }
 }
 
 // Writes the block's sorted list: the first K entries, relabeled, to the
-// final (Bq, K) outputs, or all L entries to the scratch list `list`.
-__device__ void write_list(const float* sv, const int* si, int q, long long list,
+// final outputs (row q of K), or all L entries to the scratch list `list`.
+__device__ void write_list(const float* sv, const int* si, long long q, long long list,
                            int L, float* out_v, int* out_i, int is_final, int K,
                            long long index_offset, long long index_stride) {
   if (is_final) {
     for (int t = threadIdx.x; t < K; t += blockDim.x) {
-      out_v[(long long)q * K + t] = sv[t];
-      out_i[(long long)q * K + t] = (int)(index_offset + index_stride * (long long)si[t]);
+      out_v[q * K + t] = sv[t];
+      out_i[q * K + t] = (int)(index_offset + index_stride * (long long)si[t]);
     }
   } else {
     for (int t = threadIdx.x; t < L; t += blockDim.x) {
@@ -105,17 +119,18 @@ __device__ void write_list(const float* sv, const int* si, int q, long long list
   }
 }
 
-// Stage 1: block (q, chunk) scores slots [chunk * CH, (chunk + 1) * CH) for
-// query q, sorts them and keeps its best L.
-__global__ void corpus_topk_chunks(const float* __restrict__ Q,
-                                   const float* __restrict__ aI,
-                                   const unsigned char* __restrict__ valid,
-                                   const float* __restrict__ e,
-                                   const float* __restrict__ PC,
-                                   const float* __restrict__ aC, long long n,
-                                   int rho, int k, int CH, int tile, int L,
-                                   float* out_v, int* out_i, int is_final, int K,
-                                   long long index_offset, long long index_stride) {
+// The stage-1 work of one block: score slots [chunk * CH, (chunk + 1) * CH)
+// of one slab for one query (P_C row `pc_row`, scalar `ac`, eigenvalues
+// `e`), sort them and write the best L to list `list` (or, final, the best
+// K to row `row`).  Shared by the single-slab and the multi-tenant kernels,
+// so that both score and order a slot identically.
+__device__ void chunk_topk(const float* __restrict__ Q, const float* __restrict__ aI,
+                           const unsigned char* __restrict__ valid, long long n,
+                           const float* __restrict__ e, const float* __restrict__ pc_row,
+                           float ac, int rho, int k, long long chunk, int CH, int tile,
+                           int L, long long row, long long list, float* out_v, int* out_i,
+                           int is_final, int K, long long index_offset,
+                           long long index_stride) {
   extern __shared__ float smem[];
   const int RK = rho * k;
   const int RKP = repro::padded_stride(RK);
@@ -125,12 +140,9 @@ __global__ void corpus_topk_chunks(const float* __restrict__ Q,
   float* sv = qs + tile * RKP;      // CH
   int* si = (int*)(sv + CH);        // CH
 
-  const int q = blockIdx.x;
-  const long long chunk = blockIdx.y;
   const long long base = chunk * CH;
-  for (int t = threadIdx.x; t < RK; t += blockDim.x) pc[t] = PC[(long long)q * RK + t];
+  for (int t = threadIdx.x; t < RK; t += blockDim.x) pc[t] = pc_row[t];
   for (int t = threadIdx.x; t < rho; t += blockDim.x) es[t] = e[t];
-  const float ac = aC[q];
 
   for (int off = 0; off < CH; off += tile) {
     const int rows = min(tile, CH - off);
@@ -144,7 +156,7 @@ __global__ void corpus_topk_chunks(const float* __restrict__ Q,
       if (i < n) {
         v = kNegInf;
         if (valid == nullptr || valid[i] != 0)
-          v = (ac + aI[i]) + 0.5f * repro::eigen_square_sum(qs + t * RKP, pc, es, rho, k);
+          v = repro::slot_score(ac, aI[i], qs + t * RKP, pc, es, rho, k);
         id = (int)i;
       }
       sv[off + t] = v;
@@ -152,26 +164,80 @@ __global__ void corpus_topk_chunks(const float* __restrict__ Q,
     }
   }
   repro::bitonic_sort(sv, si, CH);
-  write_list(sv, si, q, (long long)q * gridDim.y + chunk, L, out_v, out_i, is_final,
-             K, index_offset, index_stride);
+  write_list(sv, si, row, list, L, out_v, out_i, is_final, K, index_offset, index_stride);
+}
+
+// Stage 1: block (q, chunk) scores slots [chunk * CH, (chunk + 1) * CH) for
+// query q, sorts them and keeps its best L.
+__global__ void corpus_topk_chunks(const float* __restrict__ Q,
+                                   const float* __restrict__ aI,
+                                   const unsigned char* __restrict__ valid,
+                                   const float* __restrict__ e,
+                                   const float* __restrict__ PC,
+                                   const float* __restrict__ aC, long long n,
+                                   int rho, int k, int CH, int tile, int L,
+                                   float* out_v, int* out_i, int is_final, int K,
+                                   long long index_offset, long long index_stride) {
+  const int q = blockIdx.x;
+  const long long chunk = blockIdx.y;
+  chunk_topk(Q, aI, valid, n, e, PC + (long long)q * rho * k, aC[q], rho, k, chunk, CH,
+             tile, L, q, (long long)q * gridDim.y + chunk, out_v, out_i, is_final, K,
+             index_offset, index_stride);
+}
+
+// The S slabs of a multi-tenant launch, by value in the kernel's parameters
+// (S <= kMaxSegments; 2 KB of the 4 KB a launch may pass).
+struct Segments {
+  const float* Q[kMaxSegments];
+  const float* aI[kMaxSegments];
+  const unsigned char* valid[kMaxSegments];   // nullptr: every slot live
+  long long n[kMaxSegments];
+};
+
+// Multi-tenant stage 1: block (row, chunk), row = s * Bq + q, does the
+// single-slab block's work on chunk `chunk` of segment s alone.  A chunk
+// past the end of a shorter segment writes a sentinel list instead.
+__global__ void corpus_multi_topk_chunks(const __grid_constant__ Segments segs,
+                                         const float* __restrict__ e,
+                                         const float* __restrict__ PC,
+                                         const float* __restrict__ aC, int Bq, int rho,
+                                         int k, int CH, int tile, int L, float* out_v,
+                                         int* out_i, int is_final, int K,
+                                         long long index_offset,
+                                         long long index_stride) {
+  const int row = blockIdx.x;
+  const int s = row / Bq;
+  const long long chunk = blockIdx.y;
+  const long long list = (long long)row * gridDim.y + chunk;
+  const long long n = segs.n[s];
+  if (chunk * CH >= n) {
+    for (int t = threadIdx.x; t < L; t += blockDim.x) {
+      out_v[list * L + t] = -CUDART_INF_F;
+      out_i[list * L + t] = INT_MAX;
+    }
+    return;
+  }
+  chunk_topk(segs.Q[s], segs.aI[s], segs.valid[s], n, e + (long long)s * rho,
+             PC + (long long)row * rho * k, aC[row], rho, k, chunk, CH, tile, L, row,
+             list, out_v, out_i, is_final, K, index_offset, index_stride);
 }
 
 // Stage 2: block (q, group) merges lists [group * G, (group + 1) * G) of
-// query q into one list of the best L.
-__global__ void topk_merge(const float* __restrict__ in_v, const int* __restrict__ in_i,
-                           long long n_lists, int L, int G, float* out_v, int* out_i,
-                           int is_final, int K, long long index_offset,
-                           long long index_stride) {
+// query row q into one list of the best L.
+__device__ void merge_lists(const float* __restrict__ in_v, const int* __restrict__ in_i,
+                            long long n_lists, int L, int G, float* out_v, int* out_i,
+                            int is_final, int K, long long index_offset,
+                            long long index_stride) {
   extern __shared__ float smem[];
   const int N = G * L;
   float* sv = smem;
   int* si = (int*)(sv + N);
-  const int q = blockIdx.x;
+  const long long q = blockIdx.x;
   const long long group = blockIdx.y;
   for (int t = threadIdx.x; t < N; t += blockDim.x) {
     const long long list = group * G + t / L;
     if (list < n_lists) {
-      const long long src = ((long long)q * n_lists + list) * L + (t % L);
+      const long long src = (q * n_lists + list) * L + (t % L);
       sv[t] = in_v[src];
       si[t] = in_i[src];
     } else {
@@ -180,9 +246,31 @@ __global__ void topk_merge(const float* __restrict__ in_v, const int* __restrict
     }
   }
   repro::bitonic_sort(sv, si, N);
-  write_list(sv, si, q, (long long)q * gridDim.y + group, L, out_v, out_i, is_final, K,
-             index_offset, index_stride);
+  write_list(sv, si, q, q * gridDim.y + group, L, out_v, out_i, is_final, K, index_offset,
+             index_stride);
 }
+
+// The merge as two __global__ functions of one body, one per C entry, so
+// that a launch count or a profile tells the single-slab top-K's merges
+// from the multi-tenant top-K's.
+__global__ void topk_merge(const float* __restrict__ in_v, const int* __restrict__ in_i,
+                           long long n_lists, int L, int G, float* out_v, int* out_i,
+                           int is_final, int K, long long index_offset,
+                           long long index_stride) {
+  merge_lists(in_v, in_i, n_lists, L, G, out_v, out_i, is_final, K, index_offset,
+              index_stride);
+}
+
+__global__ void multi_topk_merge(const float* __restrict__ in_v,
+                                 const int* __restrict__ in_i, long long n_lists, int L,
+                                 int G, float* out_v, int* out_i, int is_final, int K,
+                                 long long index_offset, long long index_stride) {
+  merge_lists(in_v, in_i, n_lists, L, G, out_v, out_i, is_final, K, index_offset,
+              index_stride);
+}
+
+using MergeKernel = void (*)(const float*, const int*, long long, int, int, float*, int*,
+                             int, int, long long, long long);
 
 int next_pow2(long long x) {
   int p = 1;
@@ -216,6 +304,47 @@ int merge_group(long long n_lists, int L) {
 size_t chunk_smem(int rho, int k, int CH, int tile) {
   const int RK = rho * k;
   return (size_t)(RK + rho + tile * repro::padded_stride(RK) + 2 * CH) * sizeof(float);
+}
+
+// The stage-1 tile (rows of Q_I staged at a time): the largest that fits
+// beside a CH-entry sort in shared memory; 0 when none does.
+int chunk_tile(int rho, int k, int CH) {
+  int tile = kTopkThreads;
+  while (tile > 32 && chunk_smem(rho, k, CH, tile) > kMaxSmem) tile >>= 1;
+  return chunk_smem(rho, k, CH, tile) > kMaxSmem ? 0 : tile;
+}
+
+// Stage 2: merge `rows` rows of n_lists lists each, from scratch region A,
+// launched again until one list per row remains; the last round writes the
+// final (rows, K) outputs.  Two scratch regions are used in turn: A holds
+// the stage-1 lists, B the first merge's, A again the second's, and so on
+// (each merge at least halves the list count).  Counts the launches in
+// *launched.
+cudaError_t merge_rounds(MergeKernel kernel, long long rows, long long n_lists, int L,
+                         float* scratch_v, int* scratch_i, float* out_v, int* out_i, int K,
+                         long long index_offset, long long index_stride,
+                         cudaStream_t s, int* launched) {
+  const long long region_a = rows * n_lists * L;
+  float* bufs_v[2] = {scratch_v, scratch_v + region_a};
+  int* bufs_i[2] = {scratch_i, scratch_i + region_a};
+  int cur = 0;
+  while (n_lists > 1) {
+    const int G = merge_group(n_lists, L);
+    const long long groups = (n_lists + G - 1) / G;
+    const bool last = groups == 1;
+    const size_t smem2 = (size_t)G * L * (sizeof(float) + sizeof(int));
+    cudaError_t err = repro::allow_smem(kernel, smem2);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((unsigned)rows, (unsigned)groups), kMergeThreads, smem2, s>>>(
+        bufs_v[cur], bufs_i[cur], n_lists, L, G, last ? out_v : bufs_v[1 - cur],
+        last ? out_i : bufs_i[1 - cur], last ? 1 : 0, K, index_offset, index_stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+    n_lists = groups;
+    cur = 1 - cur;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -266,50 +395,75 @@ int dplr_corpus_topk(const float* Q, const float* aI, const unsigned char* valid
   const cudaStream_t s = (cudaStream_t)stream;
   const TopkPlan p = plan_topk(n, K);
   if (p.n_chunks > 65535) return (int)cudaErrorInvalidValue;
-
-  int tile = kTopkThreads;
-  while (tile > 32 && chunk_smem(rho, k, p.CH, tile) > kMaxSmem) tile >>= 1;
+  const int tile = chunk_tile(rho, k, p.CH);
+  if (tile == 0) return (int)cudaErrorInvalidValue;
   const size_t smem1 = chunk_smem(rho, k, p.CH, tile);
-  if (smem1 > kMaxSmem) return (int)cudaErrorInvalidValue;
   err = repro::allow_smem(corpus_topk_chunks, smem1);
   if (err != cudaSuccess) return (int)err;
-
-  // Two scratch regions used in turn: A holds the stage-1 lists, B the
-  // first merge's, A again the second's, and so on (each merge at least
-  // halves the list count).
-  const long long region_a = (long long)Bq * p.n_chunks * p.L;
-  float* bufs_v[2] = {scratch_v, scratch_v + region_a};
-  int* bufs_i[2] = {scratch_i, scratch_i + region_a};
 
   const bool one_chunk = p.n_chunks == 1;
   corpus_topk_chunks<<<dim3((unsigned)Bq, (unsigned)p.n_chunks), kTopkThreads, smem1, s>>>(
       Q, aI, valid, e, PC, aC, n, rho, k, p.CH, tile, p.L,
-      one_chunk ? out_v : bufs_v[0], one_chunk ? out_i : bufs_i[0], one_chunk ? 1 : 0, K,
+      one_chunk ? out_v : scratch_v, one_chunk ? out_i : scratch_i, one_chunk ? 1 : 0, K,
       index_offset, index_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   launched[0] = 1;
-  if (one_chunk) return (int)cudaSuccess;
+  return (int)merge_rounds(topk_merge, Bq, p.n_chunks, p.L, scratch_v, scratch_i, out_v,
+                           out_i, K, index_offset, index_stride, s, launched + 1);
+}
 
-  long long n_lists = p.n_chunks;
-  int cur = 0;
-  while (n_lists > 1) {
-    const int G = merge_group(n_lists, p.L);
-    const long long groups = (n_lists + G - 1) / G;
-    const bool last = groups == 1;
-    const size_t smem2 = (size_t)G * p.L * (sizeof(float) + sizeof(int));
-    err = repro::allow_smem(topk_merge, smem2);
-    if (err != cudaSuccess) return (int)err;
-    topk_merge<<<dim3((unsigned)Bq, (unsigned)groups), kMergeThreads, smem2, s>>>(
-        bufs_v[cur], bufs_i[cur], n_lists, p.L, G, last ? out_v : bufs_v[1 - cur],
-        last ? out_i : bufs_i[1 - cur], last ? 1 : 0, K, index_offset, index_stride);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    ++launched[1];
-    n_lists = groups;
-    cur = 1 - cur;
+// The masked top-K of S segments in one launch: row s * Bq + q of the
+// (S * Bq, K) outputs is query q of segment s against segment s's slab
+// (Q[s] (n[s], rho, k), aI[s], valid[s] or nullptr) with eigenvalues
+// e[s * rho ...], ids segment-local and relabeled.  Scratch: as many as
+// dplr_corpus_topk_scratch(max n, S * Bq, K) gives.  Writes the launches
+// it made to launched[0] (corpus_multi_topk_chunks) and launched[1]
+// (multi_topk_merge).
+int dplr_corpus_multi_topk(int S, const float* const* Q, const float* const* aI,
+                           const unsigned char* const* valid, const long long* n,
+                           const float* e, const float* PC, const float* aC, int Bq,
+                           int rho, int k, int K, long long index_offset,
+                           long long index_stride, float* scratch_v, int* scratch_i,
+                           float* out_v, int* out_i, int* launched, void* stream,
+                           int device) {
+  launched[0] = launched[1] = 0;
+  if (S <= 0 || S > kMaxSegments || Bq <= 0 || K <= 0 || K > kMaxTopK ||
+      rho * k > kMaxRK || (long long)S * Bq > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  Segments segs;
+  long long n_max = 0;
+  for (int j = 0; j < kMaxSegments; ++j) {
+    const bool in = j < S;
+    segs.Q[j] = in ? Q[j] : nullptr;
+    segs.aI[j] = in ? aI[j] : nullptr;
+    segs.valid[j] = in && valid != nullptr ? valid[j] : nullptr;
+    segs.n[j] = in ? n[j] : 0;
+    if (in && n[j] < K) return (int)cudaErrorInvalidValue;
+    if (in && n[j] > n_max) n_max = n[j];
   }
-  return (int)cudaSuccess;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const TopkPlan p = plan_topk(n_max, K);
+  if (p.n_chunks > 65535) return (int)cudaErrorInvalidValue;
+  const int tile = chunk_tile(rho, k, p.CH);
+  if (tile == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem1 = chunk_smem(rho, k, p.CH, tile);
+  err = repro::allow_smem(corpus_multi_topk_chunks, smem1);
+  if (err != cudaSuccess) return (int)err;
+
+  const long long rows = (long long)S * Bq;
+  const bool one_chunk = p.n_chunks == 1;
+  corpus_multi_topk_chunks<<<dim3((unsigned)rows, (unsigned)p.n_chunks), kTopkThreads,
+                             smem1, s>>>(
+      segs, e, PC, aC, Bq, rho, k, p.CH, tile, p.L, one_chunk ? out_v : scratch_v,
+      one_chunk ? out_i : scratch_i, one_chunk ? 1 : 0, K, index_offset, index_stride);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  launched[0] = 1;
+  return (int)merge_rounds(multi_topk_merge, rows, p.n_chunks, p.L, scratch_v, scratch_i,
+                           out_v, out_i, K, index_offset, index_stride, s, launched + 1);
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ DPLR-FwFM scores of a query batch against the item slab,
 
 with dead slots pinned to exactly ``NEG_INF``, either as the full
 ``(Bq, n)`` matrix or reduced to a top-K per query (ties to the lowest
-slot).  The kernel's design is described at the top of the ``.cu`` file.
+slot), and the top-K of S tenants' slabs in one launch.  The kernels'
+design is described at the top of the ``.cu`` file.
 
 These functions take CUDA tensors that ``repro_torch.kernels.ops`` has
 already checked, launch on the current stream and allocate their outputs
@@ -30,6 +31,8 @@ NEG_INF = -1e30
 MAX_RK = 128
 # Largest K of the top-K mode (kMaxTopK in csrc/dplr_corpus_score.cu).
 MAX_TOPK = 4096
+# Most segments of one multi-tenant launch (kMaxSegments there).
+MAX_SEGMENTS = 64
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -44,6 +47,9 @@ def _lib() -> ctypes.CDLL:
     lib.dplr_corpus_topk.argtypes = ([_P] * 6 + [_L, _I, _I, _I, _I, _L, _L]
                                      + [_P] * 6 + [_I])
     lib.dplr_corpus_topk.restype = _I
+    lib.dplr_corpus_multi_topk.argtypes = ([_I] + [_P] * 7 + [_I, _I, _I, _I, _L, _L]
+                                           + [_P] * 6 + [_I])
+    lib.dplr_corpus_multi_topk.restype = _I
     return lib
 
 
@@ -90,3 +96,33 @@ def launch_topk(Q_I, a_I, e, P_C, a_C, valid, K: int, index_offset: int,
         ctypes.addressof(launched), _stream(dev), dev.index)
     _build.check(status, "dplr_corpus_topk launch")
     return vals, ids, {"corpus_topk_chunks": launched[0], "topk_merge": launched[1]}
+
+
+def launch_multi_topk(Q_parts, a_parts, valid_parts, e, P_C, a_C, K: int,
+                      index_offset: int, index_stride: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """``(S, Bq, K) f32 scores, (S, Bq, K) int32 segment-local ids`` best
+    first, and the launches made, ``{"corpus_multi_topk_chunks": 1,
+    "multi_topk_merge": m}``.  The segments' slabs are passed by pointer
+    (a table in the launch's parameters), never copied."""
+    S = len(Q_parts)
+    _, rho, k = Q_parts[0].shape
+    Bq = P_C.shape[1]
+    dev = P_C.device
+    lib = _lib()
+    ptrs = lambda ts: (ctypes.c_void_p * S)(*[_ptr(t) for t in ts])  # noqa: E731
+    n = (ctypes.c_longlong * S)(*[q.shape[0] for q in Q_parts])
+    m = lib.dplr_corpus_topk_scratch(max(n), S * Bq, K)
+    scratch_v = torch.empty(m, dtype=torch.float32, device=dev)
+    scratch_i = torch.empty(m, dtype=torch.int32, device=dev)
+    vals = torch.empty((S, Bq, K), dtype=torch.float32, device=dev)
+    ids = torch.empty((S, Bq, K), dtype=torch.int32, device=dev)
+    launched = (ctypes.c_int * 2)()
+    status = lib.dplr_corpus_multi_topk(
+        S, ptrs(Q_parts), ptrs(a_parts), ptrs(valid_parts), n,
+        _ptr(e), _ptr(P_C), _ptr(a_C), Bq, rho, k, K, index_offset, index_stride,
+        _ptr(scratch_v), _ptr(scratch_i), _ptr(vals), _ptr(ids),
+        ctypes.addressof(launched), _stream(dev), dev.index)
+    _build.check(status, "dplr_corpus_multi_topk launch")
+    return vals, ids, {"corpus_multi_topk_chunks": launched[0],
+                       "multi_topk_merge": launched[1]}

@@ -26,6 +26,7 @@ KERNELS = {
     "dplr_corpus_score": ("corpus_score_full",),
     "dplr_corpus_topk": ("corpus_topk_chunks", "topk_merge"),
     "dplr_score_items": ("dplr_score_items_kernel",),
+    "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
 }
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -54,7 +55,7 @@ def _check_for_kernel(**tensors) -> None:
     for name, t in tensors.items():
         if t is None:
             continue
-        want = torch.bool if name == "valid" else torch.float32
+        want = torch.bool if name.startswith("valid") else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {want}")
         if not t.is_contiguous():
@@ -96,6 +97,62 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
         return out
     vals, ids, launched = _corpus.launch_topk(Q_I, a_I, e, P_C, a_C, valid, topk,
                                               int(index_offset), int(index_stride))
+    LAUNCHES.update(launched)
+    return vals, ids
+
+
+def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk: int,
+                            index_offset: int = 0, index_stride: int = 1):
+    """S tenants' masked top-K in one call: ``((S, Bq, K) scores, (S, Bq, K)
+    int32 ids)``, row ``[s]`` equal to ``dplr_corpus_score(..., topk=K)``
+    on segment ``s`` alone (its slab, ``e[s]``, ``P_C[s]``, ``a_C[s]``);
+    ids are segment-local slots labeled ``index_offset + index_stride * i``.
+
+    ``Q_parts``: S tensors ``(n_s, rho, k)``; ``a_parts``: S ``(n_s,)``;
+    ``valid_parts``: S ``(n_s,)`` bool (or None entries), or None (all
+    live); ``e (S, rho)``, ``P_C (S, Bq, rho, k)``, ``a_C (S, Bq)``.
+    Segments may differ in length; K is bounded by the smallest."""
+    S = len(Q_parts)
+    if S == 0:
+        raise ValueError("dplr_corpus_score_multi needs >= 1 segment")
+    if valid_parts is None:
+        valid_parts = (None,) * S
+    if not (len(a_parts) == S == len(valid_parts) and P_C.shape[0] == S
+            and a_C.shape[0] == S and e.shape[0] == S):
+        raise ValueError(f"segment-count mismatch: {S} Q_parts vs {len(a_parts)} "
+                         f"a_parts, {len(valid_parts)} valid_parts, e {tuple(e.shape)}, "
+                         f"P_C {tuple(P_C.shape)}, a_C {tuple(a_C.shape)}")
+    if S > _corpus.MAX_SEGMENTS:
+        raise ValueError(f"{S} segments > {_corpus.MAX_SEGMENTS}, the kernel's limit")
+    if Q_parts[0].ndim != 3:
+        raise ValueError(f"Q_parts[0] must be (n, rho, k), got {tuple(Q_parts[0].shape)}")
+    _, rho, k = Q_parts[0].shape
+    Bq = P_C.shape[1]
+    for s in range(S):
+        n_s = Q_parts[s].shape[0]
+        _check_shape(f"Q_parts[{s}]", Q_parts[s], (n_s, rho, k))
+        _check_shape(f"a_parts[{s}]", a_parts[s], (n_s,))
+        _check_shape(f"valid_parts[{s}]", valid_parts[s], (n_s,))
+    _check_shape("e", e, (S, rho))
+    _check_shape("P_C", P_C, (S, Bq, rho, k))
+    _check_shape("a_C", a_C, (S, Bq))
+    if rho * k > _corpus.MAX_RK:
+        raise ValueError(f"rho * k = {rho * k} > {_corpus.MAX_RK}, the kernel's limit")
+    n_min = min(q.shape[0] for q in Q_parts)
+    if not 0 < topk <= min(n_min, _corpus.MAX_TOPK):
+        raise ValueError(f"topk={topk} out of range for smallest segment n={n_min} "
+                         f"(the kernel takes K <= {_corpus.MAX_TOPK})")
+    segs = {f"{name}{s}": t for s in range(S)
+            for name, t in (("Q_I", Q_parts[s]), ("a_I", a_parts[s]),
+                            ("valid", valid_parts[s]))}
+    dev = _device(e=e, P_C=P_C, a_C=a_C, **segs)
+    if dev.type == "cpu":
+        return ref.dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C,
+                                              topk, index_offset, index_stride)
+    _check_for_kernel(e=e, P_C=P_C, a_C=a_C, **segs)
+    vals, ids, launched = _corpus.launch_multi_topk(
+        Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, int(index_offset),
+        int(index_stride))
     LAUNCHES.update(launched)
     return vals, ids
 

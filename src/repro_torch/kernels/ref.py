@@ -48,3 +48,17 @@ def dplr_corpus_topk_ref(Q_I, a_I, e, P_C, a_C, topk, valid=None,
     vals, idx = topk_stable(dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C,
                                                   valid), topk)
     return vals, (index_offset + index_stride * idx).to(torch.int32)
+
+
+def dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk,
+                               index_offset=0, index_stride=1):
+    """``((S, Bq, K) scores, (S, Bq, K) int32 ids)``: S single-segment
+    top-K passes stacked, segment ``s`` scored against its own slab with
+    its own eigenvalues ``e[s]``, ids segment-local before the relabel."""
+    if valid_parts is None:
+        valid_parts = (None,) * len(Q_parts)
+    vals, ids = zip(*(
+        dplr_corpus_topk_ref(Q_parts[s], a_parts[s], e[s], P_C[s], a_C[s], topk,
+                             valid_parts[s], index_offset, index_stride)
+        for s in range(len(Q_parts))))
+    return torch.stack(vals), torch.stack(ids)

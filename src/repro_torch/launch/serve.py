@@ -3,6 +3,8 @@ corpus (or these N candidates) for this context" queries.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config full \
         --engine corpus|percall --items N --queries Q [--topk K] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --tenant-demo --tenants N \
+        --items N --queries Q [--fe-batch B --max-wait-ms W --inflight D --capacity C]
 
 ``--engine corpus`` (the default) serves through ``CorpusRankingEngine``:
 the item side is precomputed once into a capacity-padded slab, and each
@@ -14,6 +16,14 @@ projects every candidate on every query.  Weights are random, from
 ``--seed``; items and contexts come from ``SyntheticCTR``.  Prints the
 same latency line as ``repro.launch.serve``; the first two queries are
 dropped as warm-up.
+
+``--tenant-demo`` serves ``--tenants`` corpora (at least 2) behind one
+shared ``ScorerRuntime`` through the tenant-routed ``QueryFrontend``:
+mixed-tenant traffic with churn bursts on tenant t0, every reply checked
+live and against its tenant's own state (and one tenant against a
+dedicated engine), then a 5x burst that admission control sheds with
+``Overloaded``.  Prints the summary lines of ``repro.launch.serve``'s
+tenant demo, without its trace counts (nothing here is traced).
 """
 from __future__ import annotations
 
@@ -28,7 +38,10 @@ from repro_torch.data.synthetic_ctr import SyntheticCTR
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import fwfm
 from repro_torch.serving.corpus import next_pow2
-from repro_torch.serving.engine import CorpusRankingEngine
+from repro_torch.serving.engine import CorpusRankingEngine, CorpusState
+from repro_torch.serving.errors import Overloaded
+from repro_torch.serving.frontend import QueryFrontend
+from repro_torch.serving.runtime import ScorerRuntime
 
 
 def _report(tag: str, lat: np.ndarray, queries: int, items: int) -> None:
@@ -46,6 +59,102 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _tenant_demo(args, cfg, params, data, dev) -> None:
+    """``--tenants`` corpora on one ScorerRuntime behind the frontend;
+    asserts live, per-tenant replies equal to the tenant's own state,
+    a shared-runtime tenant equal to a dedicated engine, and fast
+    admission shedding."""
+    rng = np.random.default_rng(args.seed)
+    T = max(args.tenants, 2)
+    runtime = ScorerRuntime(cfg, device=dev)
+    capacity = args.capacity or next_pow2(2 * args.items)
+    names = [f"t{i}" for i in range(T)]
+    corpora = {n: data.ranking_query(args.items, 1000 + i) for i, n in enumerate(names)}
+    states = {}
+    for name in names:
+        c = corpora[name]
+        states[name] = CorpusState(None, c["item_ids"][0], c["item_weights"][0],
+                                   capacity=capacity, runtime=runtime)
+        states[name].refresh(params, step=0)
+    max_k = max(args.topk or 10, 1)
+    fe = QueryFrontend(states, max_batch=args.fe_batch, max_k=max_k,
+                       max_wait=args.max_wait_ms * 1e-3, inflight=args.inflight)
+    warm_dispatches = fe.warmup(data.context_query(0)["context_ids"], tenant="t0")
+
+    n = args.queries
+    ctxs = [data.context_query(s)["context_ids"] for s in range(n)]
+    ks = rng.integers(1, max_k + 1, n)
+    lanes = [names[int(rng.integers(T))] for _ in range(n)]
+    churn_at = set(range(10, n, 20))           # churn bursts, tenant t0 only
+    pend = []
+    t0 = time.perf_counter()
+    last_churn = -1
+    for s in range(n):
+        if s in churn_at:
+            upd = data.ranking_query(2, 50_000 + s)
+            fe.update_items(rng.choice(states["t0"].valid_slots, 2, replace=False),
+                            upd["item_ids"][0], upd["item_weights"][0], tenant="t0")
+            last_churn = s
+        pend.append(fe.submit(ctxs[s], k=int(ks[s]), tenant=lanes[s]))
+    fe.drain()
+    wall = time.perf_counter() - t0
+    # every reply live at delivery; equal to a lone call on its tenant's own
+    # state for requests scored against the final corpus (the other tenants
+    # never churned, t0 after its last burst).  A lone call has Bq = 1 where
+    # the frontend batched: compare as the parity tests do.
+    checked = 0
+    for s, p in enumerate(pend):
+        sc, sl = p.result()
+        assert states[lanes[s]].is_live(sl).all(), f"tenant {lanes[s]} reply: a dead slot"
+        if lanes[s] != "t0" or s > last_churn:
+            wv, wi = states[lanes[s]].topk(np.asarray(ctxs[s]).reshape(1, -1), int(ks[s]))
+            wv, wi = wv[0].cpu().numpy(), wi[0].cpu().numpy()
+            assert np.allclose(sc, wv, atol=1e-5, rtol=1e-5), "tenant reply != lone call"
+            full = states[lanes[s]].score(np.asarray(ctxs[s]).reshape(1, -1))[0].cpu().numpy()
+            assert np.allclose(full[sl], wv, atol=1e-5, rtol=1e-5), \
+                "tenant reply ids != lone call, beyond ties"
+            checked += 1
+    # a tenant on the shared runtime against a dedicated engine: same shapes,
+    # so bitwise equal
+    c = corpora["t1"]
+    dedicated = CorpusRankingEngine(cfg, c["item_ids"][0], c["item_weights"][0],
+                                    capacity=capacity, device=dev)
+    dedicated.refresh(params, step=0)
+    for s in range(0, n, max(n // 8, 1)):
+        ctx = np.asarray(ctxs[s]).reshape(1, -1)
+        got, want = states["t1"].topk(ctx, max_k), dedicated.topk(ctx, max_k)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            "shared-runtime tenant != dedicated engine"
+
+    # admission control under a 5x burst: bounded queue, fast sheds, and
+    # every accepted request still answered
+    fe.auto_pump = False
+    fe.admit_depth = max(args.fe_batch, 4)
+    sheds = accepted = 0
+    for s in range(5 * fe.admit_depth):
+        try:
+            fe.submit(ctxs[s % n], k=int(ks[s % n]), tenant="t1")
+            accepted += 1
+        except Overloaded:
+            sheds += 1
+    fe.drain()
+    assert accepted == fe.admit_depth and sheds == 4 * fe.admit_depth, \
+        f"admission control off: {accepted} accepted, {sheds} shed"
+    assert fe.stats["expired"] == 0
+    fe.close()
+
+    lat = np.asarray([(p.done_time - p.submit_time) * 1e3 for p in pend])
+    per_tenant = {t: fe.lane_stats(t)["completed"] for t in names}
+    print(f"tenant demo: {T} tenants x {args.items} items (capacity {capacity}) on ONE "
+          f"ScorerRuntime ({dev.type}); {n} mixed requests in {wall * 1e3:.0f} ms, "
+          f"{len(churn_at)} t0 churn bursts")
+    print(f"  warmup    : {warm_dispatches} dispatch on t0 alone, at the largest bucket")
+    print(f"  replies   : p50 {np.percentile(lat, 50):.2f}  p95 {np.percentile(lat, 95):.2f} "
+          f"ms; {checked} checked (incl. vs a dedicated engine); per-tenant {per_tenant}")
+    print(f"  admission : 5x burst -> {accepted} accepted / {sheds} shed fast "
+          f"(Overloaded), 0 deadline expiries")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default="smoke", choices=["smoke", "full"])
@@ -58,9 +167,24 @@ def main(argv=None):
                     help="corpus engine: fused top-K, only (1, K) leaves the scorer")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tenant-demo", action="store_true",
+                    help="serve --tenants corpora on one shared ScorerRuntime through "
+                         "the tenant-routed frontend")
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="tenant count for --tenant-demo (min 2)")
+    ap.add_argument("--capacity", type=int, default=0,
+                    help="--tenant-demo slab capacity (power of two; 0: 2x items, "
+                         "rounded up)")
+    ap.add_argument("--max-wait-ms", type=float, default=2.0,
+                    help="frontend: max ms a queued request waits before a partial "
+                         "batch dispatches")
+    ap.add_argument("--fe-batch", type=int, default=16,
+                    help="frontend max micro-batch size (power of two)")
+    ap.add_argument("--inflight", type=int, default=2,
+                    help="frontend in-flight dispatch window depth")
     args = ap.parse_args(argv)
-    if args.topk and args.engine != "corpus":
-        ap.error("--topk requires --engine corpus")
+    if (args.topk or args.tenant_demo) and args.engine != "corpus":
+        ap.error("--topk/--tenant-demo require --engine corpus")
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -69,6 +193,8 @@ def main(argv=None):
     cfg = dplr_fwfm.make_smoke() if args.config == "smoke" else dplr_fwfm.make_config()
     params = fwfm.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     data = SyntheticCTR(cfg.layout, embed_dim=4, seed=args.seed)
+    if args.tenant_demo:
+        return _tenant_demo(args, cfg, params, data, dev)
 
     lat = []
     if args.engine == "corpus":

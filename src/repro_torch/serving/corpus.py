@@ -8,6 +8,7 @@ once per row per model refresh, and again only for the rows that churn:
     Q_I[i]   = U_I @ V_I[i]                      (cap, rho, k)
     t_I[i]   = sum_{f in item fields} d_f ||v_f||^2        (cap,)
     lin_I[i] = <b_item, x_item[i]>                         (cap,)
+    a_I[i]   = lin_I[i] + 0.5 * t_I[i]                     (cap,)
 
 and a query costs only its context cache (P_C, s_C, lin_C) plus O(rho k)
 per item:
@@ -53,15 +54,18 @@ class ItemCorpusCache(NamedTuple):
     t_I: torch.Tensor     # (cap,)         sum_f d_f ||v_f||^2 (item fields)
     lin_I: torch.Tensor   # (cap,)         first-order item term
     valid: torch.Tensor   # (cap,)         bool liveness mask
+    a_I: torch.Tensor     # (cap,)         the kernels' per-item addend, item_addend()
 
     @property
     def capacity(self) -> int:
         return self.Q_I.shape[0]
 
-    @property
-    def a_I(self) -> torch.Tensor:
-        """(cap,) fused per-item scalar addend: lin_I + 0.5 * t_I."""
-        return self.lin_I + 0.5 * self.t_I
+
+def item_addend(t_I, lin_I):
+    """The fused per-item scalar the kernels add, ``lin_I + 0.5 * t_I``:
+    stored in the slab when its rows are built or written, so that no
+    scoring call recomputes it over the whole capacity."""
+    return lin_I + 0.5 * t_I
 
 
 def corpus_rows(params: dict, cfg, item_ids, item_weights):
@@ -122,4 +126,5 @@ def build_corpus_cache(params: dict, cfg, item_ids, item_weights, *,
                          item_weights[s:s + BUILD_CHUNK])
              for s in range(0, cap, BUILD_CHUNK)]
     Q_I, t_I, lin_I = (torch.cat(x) for x in zip(*parts))
-    return ItemCorpusCache(Q_I=Q_I, t_I=t_I, lin_I=lin_I, valid=valid.to(dev))
+    return ItemCorpusCache(Q_I=Q_I, t_I=t_I, lin_I=lin_I, valid=valid.to(dev),
+                           a_I=item_addend(t_I, lin_I))

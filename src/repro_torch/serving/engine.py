@@ -1,10 +1,22 @@
 """CorpusState: one tenant's mutable corpus behind a ScorerRuntime.
 Port of ``repro.serving.engine`` for one device (no mesh, no fault
-injector, no frontend; ``maybe_refresh`` waits for the checkpoint port).
+injector; ``maybe_refresh`` waits for the checkpoint port).
 
-``CorpusRankingEngine`` is an alias of ``CorpusState``.  Each state
-builds its own runtime; sharing one runtime across tenants waits for the
-multi-tenant port.
+The serving stack is three layers:
+
+    ScorerRuntime  (serving/runtime.py)   shared: the scoring dispatch,
+                                          corpus-independent
+    CorpusState    (this module)          per tenant: the slab, its
+                                          free-list, params, ``on_mutate``
+    QueryFrontend  (serving/frontend.py)  shared: tenant-routed queues,
+                                          micro-batching, packing
+
+``CorpusState(..., runtime=rt)`` puts a tenant on a shared runtime;
+without ``runtime`` it builds a private one.  ``CorpusRankingEngine`` is
+an alias of ``CorpusState``.  ``fused_topk`` answers S tenants sharing a
+runtime in one kernel launch (``dplr_corpus_score_multi``), each row
+equal to that tenant's own ``topk``.  There is no fallback from the
+kernel to a plain path: on the card a launch runs or raises.
 
 A state answers ``(Bq queries x capacity candidates)`` per call: per query
 only the context cache is computed, then every candidate costs O(rho k)
@@ -20,6 +32,7 @@ is called before any mutation or refresh (a frontend's writer barrier).
 from __future__ import annotations
 
 import heapq
+import time
 
 import numpy as np
 import torch
@@ -37,8 +50,20 @@ class CorpusState:
     and weights (numpy or tensors; weights default to ones)."""
 
     def __init__(self, cfg, item_ids, item_weights=None, *,
-                 capacity: int | None = None, device=None):
-        self.runtime = ScorerRuntime(cfg, device=device)
+                 capacity: int | None = None, device=None,
+                 runtime: ScorerRuntime | None = None):
+        if runtime is None:
+            runtime = ScorerRuntime(cfg, device=device)
+        else:
+            if cfg is not None and cfg is not runtime.cfg:
+                raise ValueError("CorpusState(cfg=..., runtime=...): the runtime was "
+                                 "built for a different config; pass runtime.cfg "
+                                 "(or cfg=None)")
+            if device is not None and torch.device(device) != runtime.device:
+                raise ValueError("CorpusState(device=..., runtime=...): device is a "
+                                 "runtime property; build the ScorerRuntime with it "
+                                 "instead")
+        self.runtime = runtime
 
         ids = np.asarray(torch.as_tensor(item_ids).cpu(), np.int32)
         n0 = int(ids.shape[0])
@@ -65,6 +90,7 @@ class CorpusState:
         self.cache: ItemCorpusCache | None = None
         self.model_step: int | None = None
         self.refresh_count = 0
+        self.last_refresh_time: float | None = None     # time.monotonic
         self.on_mutate = None
 
     @property
@@ -81,6 +107,25 @@ class CorpusState:
     def n_items(self) -> int:
         """Live (valid) item count, not the slab capacity."""
         return self.capacity - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        """Live fraction of the slab, ``n_items / capacity``: the
+        autoscaling signal."""
+        return 1.0 - len(self._free) / self.capacity
+
+    def maybe_autoscale(self, high: float) -> bool:
+        """Double the slab once ``occupancy >= high``, behind the writer
+        barrier, at a scheduled tick rather than inside an ``add_items``
+        on the hot path.  A no-op before the first ``refresh`` or below the
+        mark.  Returns True when it grew."""
+        if not 0.0 < high <= 1.0:
+            raise ValueError(f"high={high} outside (0, 1]")
+        if self.cache is None or self.occupancy < high:
+            return False
+        self._begin_write()
+        self._grow(1)
+        return True
 
     @property
     def valid_slots(self) -> np.ndarray:
@@ -186,6 +231,7 @@ class CorpusState:
                 t_I=torch.cat([c.t_I, c.t_I.new_zeros(extra)]),
                 lin_I=torch.cat([c.lin_I, c.lin_I.new_zeros(extra)]),
                 valid=torch.cat([c.valid, c.valid.new_zeros(extra)]),
+                a_I=torch.cat([c.a_I, c.a_I.new_zeros(extra)]),
             )
 
     # -- model lifecycle ----------------------------------------------------
@@ -202,6 +248,7 @@ class CorpusState:
             torch.as_tensor(self._valid_np, device=dev))
         self.model_step = step
         self.refresh_count += 1
+        self.last_refresh_time = time.monotonic()
 
     # -- scoring ------------------------------------------------------------
 
@@ -235,6 +282,53 @@ class CorpusState:
                              f"{self.n_items} live items")
         ids, w = self._ctx_tensors(context_ids, context_weights)
         return self.runtime.topk(self.params, self.cache, ids, w, K)
+
+    def warmup_grid(self, context_ids, context_weights=None, *,
+                    max_batch: int = 16, max_k: int = 16) -> int:
+        """One dispatch at the largest corner of the (Bq bucket x K bucket)
+        grid a frontend can reach, with one representative context: the
+        kernels' build and load, and the allocator's growth to the largest
+        scratch, are paid here, not by a request.  Nothing is traced, so
+        the rest of the grid costs its first launch no more than any
+        later one.  Returns the number of dispatches.  Call after
+        ``refresh``."""
+        ctx = np.asarray(torch.as_tensor(context_ids).cpu(), np.int32).reshape(-1)
+        w = (np.ones(ctx.shape, np.float32) if context_weights is None
+             else np.asarray(torch.as_tensor(context_weights).cpu(), np.float32).reshape(-1))
+        k = min(next_pow2(max_k), 1 << (self.n_items.bit_length() - 1))
+        self.topk(np.tile(ctx, (max_batch, 1)), k, np.tile(w, (max_batch, 1)))
+        return 1
+
+
+def fused_topk(states, context_ids, K: int, context_weights=None):
+    """One kernel launch answering S tenants' micro-batches:
+    ``((S, Bq, K) scores, (S, Bq, K) int32 slots)``, row ``[s]`` equal to
+    ``states[s].topk(context_ids[s], K)``.  The path a ``QueryFrontend``
+    packs same-runtime tenants through (``pack=True``).
+
+    ``states`` must share one ``ScorerRuntime`` and each be ready with
+    ``K <= n_items``; ``context_ids``: (S, Bq, m_C_slots), one common Bq
+    (the frontend buckets before packing); weights default to ones."""
+    states = tuple(states)
+    if not states:
+        raise ValueError("fused_topk needs at least one state")
+    rt = states[0].runtime
+    for st in states:
+        if st.runtime is not rt:
+            raise ValueError("fused_topk states must share one ScorerRuntime (tenants "
+                             "on different runtimes cannot pack into one dispatch)")
+        st._require_ready()
+        if not 0 < K <= st.n_items:
+            raise ValueError(f"fused_topk K={K} out of range for a corpus of "
+                             f"{st.n_items} live items")
+    ids = torch.as_tensor(context_ids, device=rt.device)
+    if ids.ndim != 3 or ids.shape[0] != len(states):
+        raise ValueError(f"context_ids must stack to (S={len(states)}, Bq, m_C_slots), "
+                         f"got {tuple(ids.shape)}")
+    w = (torch.ones(ids.shape, dtype=rt.wdtype, device=rt.device) if context_weights is None
+         else torch.as_tensor(context_weights, dtype=rt.wdtype, device=rt.device))
+    return rt.multi_topk(tuple(st.params for st in states),
+                         tuple(st.cache for st in states), ids, w, K)
 
 
 CorpusRankingEngine = CorpusState

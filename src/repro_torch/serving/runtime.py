@@ -7,14 +7,18 @@ and the row computation and scatter of churn writes.  Shapes:
 
     score(params, cache, ctx_ids, ctx_w)      -> (Bq, capacity) f32
     topk(params, cache, ctx_ids, ctx_w, K)    -> ((Bq, K) f32, (Bq, K) int32)
+    multi_topk(params_parts, cache_parts, ctx_ids, ctx_w, K)
+                                              -> ((S, Bq, K) f32, (S, Bq, K) int32)
     build(params, slab_ids, slab_w, valid)    -> ItemCorpusCache
     write_rows(params, cache, slots, ids, w)  -> ItemCorpusCache
     drop_rows(cache, slots)                   -> ItemCorpusCache
 
-Scoring goes through ``kernels.ops.dplr_corpus_score``: the CUDA kernel
-for a slab on the card, its plain version for a slab on the CPU.  Calls
-return as soon as the work is queued on the device; reading a result
-waits for it.
+One runtime may serve many tenants (``CorpusState(..., runtime=rt)``):
+it holds no corpus.  Scoring goes through ``kernels.ops``
+(``dplr_corpus_score``, and ``dplr_corpus_score_multi`` for S tenants in
+one launch): the CUDA kernel for a slab on the card, its plain version
+for a slab on the CPU.  Calls return as soon as the work is queued on the
+device; reading a result waits for it.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.serving.corpus import (
     ItemCorpusCache,
     build_corpus_cache,
     corpus_rows,
+    item_addend,
     next_pow2,
 )
 
@@ -59,9 +64,16 @@ class ScorerRuntime:
         ctx = rk.dplr_context_cache(p, V_C, self.cfg.layout.n_context)
         return ctx.P_C.contiguous(), ctx.s_C, lin_C
 
-    def _kernel_score(self, params, cache, ctx_ids, ctx_w, K=None):
+    def _query(self, params, ctx_ids, ctx_w):
+        """The kernels' query side: P_C (Bq, rho, k) and the per-query
+        addend a_C = bias + lin_C + s_C / 2 (Bq,).  The one place that
+        forms a_C, so a tenant's rows of a packed launch round exactly as
+        its own ``topk`` does."""
         P_C, s_C, lin_C = self.context(params, ctx_ids, ctx_w)
-        a_C = (params["bias"] + lin_C + 0.5 * s_C).contiguous()
+        return P_C, (params["bias"] + lin_C + 0.5 * s_C).contiguous()
+
+    def _kernel_score(self, params, cache, ctx_ids, ctx_w, K=None):
+        P_C, a_C = self._query(params, ctx_ids, ctx_w)
         return kops.dplr_corpus_score(cache.Q_I, cache.a_I, params["e"], P_C, a_C,
                                       valid=cache.valid, topk=K)
 
@@ -73,6 +85,19 @@ class ScorerRuntime:
         """((Bq, K) scores, (Bq, K) int32 slots), best first, ties to the
         lowest slot."""
         return self._kernel_score(params, cache, ctx_ids, ctx_w, K=K)
+
+    def multi_topk(self, params_parts, cache_parts, ctx_ids, ctx_w, K: int):
+        """S tenants' top-K in one kernel launch: ``((S, Bq, K) scores,
+        (S, Bq, K) int32 slots)``, row ``[s]`` equal to ``topk`` on tenant
+        ``s`` alone.  ``ctx_ids``/``ctx_w``: (S, Bq, m_C_slots).  Each
+        tenant's query side is computed with its own params, one call per
+        tenant, by the same ``_query`` as ``topk``."""
+        pcs, acs = zip(*(self._query(params, ctx_ids[s], ctx_w[s])
+                         for s, params in enumerate(params_parts)))
+        return kops.dplr_corpus_score_multi(
+            tuple(c.Q_I for c in cache_parts), tuple(c.a_I for c in cache_parts),
+            tuple(c.valid for c in cache_parts), torch.stack([p["e"] for p in params_parts]),
+            torch.stack(pcs), torch.stack(acs), topk=K)
 
     def write_rows(self, params, cache, slots, ids, w) -> ItemCorpusCache:
         """Compute the rows of Δn (slot -> item) writes, scatter them into
@@ -93,6 +118,7 @@ class ScorerRuntime:
         cache.Q_I[idx] = Q[:dn]
         cache.t_I[idx] = t[:dn]
         cache.lin_I[idx] = lin[:dn]
+        cache.a_I[idx] = item_addend(t, lin)[:dn]
         cache.valid[idx] = True
         return cache
 

@@ -1,7 +1,8 @@
-"""``chip_smoke.py`` rehearsed on the CPU: its kernel, serving and timing
-phases run at a tiny size with the plain versions (the timer stubbed,
-since CUDA events need a card), and without a card the script exits
-non-zero and prints nothing, in the repo and alone in a directory."""
+"""``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
+timing and profile phases run at a tiny size with the plain versions (the
+timer stubbed, since CUDA events need a card), and without a card the
+script exits non-zero and prints nothing, in the repo and alone in a
+directory."""
 import os
 import shutil
 import subprocess
@@ -17,7 +18,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, m3=38,
              bq3s=(1, 2), edge_n=1000, items=3000, capacity=4096, queries=3, batch=4,
-             churn=(20, 20, 5), percall_n=512, topk=5)
+             churn=(20, 20, 5), percall_n=512, topk=5,
+             multi=(4, 2, 2048, 16), ragged=((300, 1000, 700), 2, 256),
+             tenants=4, tenant_items=700, tenant_capacity=1024, tenant_bq=4,
+             waves=3, warm_waves=1, profile_waves=1)
 
 
 @pytest.fixture
@@ -33,17 +37,22 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     sz = SimpleNamespace(make_config=dplr_fwfm.make_smoke, **SMALL)
     cpu = torch.device("cpu")
     errs = chip_smoke.kernel_checks(cpu, sz)
-    assert set(errs) == {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items"}
-    launches, engine, ctxs = chip_smoke.serving_phase(cpu, sz)
-    assert sum(launches.values()) == 0          # the CPU runs no kernel
+    assert set(errs) == {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
+                         "dplr_corpus_score_multi"}
+    serve = chip_smoke.serving_phase(cpu, sz)
+    assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
+    launches = chip_smoke.tenants_phase(cpu, sz, serve)
+    assert sum(launches.values()) == 0
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, *a: (fn(), 1.0)[1])
     rows = chip_smoke.timing_phase(cpu, sz, (3.35e12, 67e12))
+    assert set(rows) == set(errs)
     for row in rows.values():
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
-    chip_smoke.profile_phase(cpu, sz, engine, ctxs)
+    chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "timing", "profile"):
+    for phase in ("kernels", "serve", "tenants", "timing", "profile"):
         assert f"phase {phase}:" in out
+    assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
 
 
 def test_checks_catch_a_wrong_top_k(chip_smoke):

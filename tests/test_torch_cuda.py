@@ -68,3 +68,44 @@ def test_cuda_score_items_matches_plain(cuda):
     assert ops.LAUNCHES == {"dplr_score_items_kernel": 1}
     with pytest.raises(TypeError, match="dtype"):
         ops.dplr_score_items(args[0].double(), *args[1:])
+
+
+def _segments(ns, Bq, rho=3, k=16, seed=20):
+    """Per-segment corpus inputs (numpy), one seed each, dead slots and
+    planted ties in every segment."""
+    return [corpus_inputs(seed + s, n, rho, k, Bq) for s, n in enumerate(ns)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,Bq,K", [
+    ((1100, 70_000, 5000), 2, 7),
+    ((1100, 70_000, 5000), 2, 1024),    # K above segment 0's ~825 live slots
+    ((65_536,) * 16, 4, 16),
+])
+def test_cuda_multi_kernel_matches_plain_and_single_segment_kernel(cuda, ns, Bq, K):
+    parts = [tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in p)
+             for p in _segments(ns, Bq)]
+    Q_parts = tuple(p[0] for p in parts)
+    a_parts = tuple(p[1] for p in parts)
+    valid_parts = tuple(p[5] for p in parts)
+    e, P_C, a_C = (torch.stack([p[j] for p in parts]) for j in (2, 3, 4))
+    ops.reset_launches()
+    vals, ids = ops.dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C,
+                                            topk=K)
+    assert vals.shape == ids.shape == (len(ns), Bq, K) and ids.dtype == torch.int32
+    assert ops.LAUNCHES["corpus_multi_topk_chunks"] == 1
+    assert ops.LAUNCHES["multi_topk_merge"] >= 1
+    want_v, want_i = ref.dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C,
+                                                    a_C, K)
+    for s, p in enumerate(parts):
+        full = ref.dplr_corpus_score_ref(*p)
+        assert_topk(vals[s], ids[s], want_v[s], want_i[s], full)
+        one_v, one_i = ops.dplr_corpus_score(*p[:5], valid=p[5], topk=K)
+        assert torch.equal(vals[s], one_v) and torch.equal(ids[s], one_i), s
+    # relabeling, and no valid masks at all
+    vals, ids = ops.dplr_corpus_score_multi(Q_parts, a_parts, None, e, P_C, a_C, topk=K,
+                                            index_offset=3, index_stride=4)
+    for s, p in enumerate(parts):
+        one_v, one_i = ops.dplr_corpus_score(*p[:5], topk=K, index_offset=3,
+                                             index_stride=4)
+        assert torch.equal(vals[s], one_v) and torch.equal(ids[s], one_i), s

@@ -40,6 +40,19 @@ engine = CorpusState(cfg, q["item_ids"][0], device="cpu")
 engine.refresh(fwfm.init(torch.Generator().manual_seed(0), cfg))
 vals, ids = engine.topk(q["context_ids"], 5)
 assert vals.shape == (1, 5) and engine.is_live(ids.numpy()).all()
+from repro_torch.serving.frontend import QueryFrontend
+from repro_torch.serving.runtime import ScorerRuntime
+rt = ScorerRuntime(cfg, device="cpu")
+states = {}
+for t in ("a", "b"):
+    states[t] = CorpusState(None, q["item_ids"][0], runtime=rt)
+    states[t].refresh(engine.params)
+fe = QueryFrontend(states, max_batch=1, max_k=5, auto_pump=False, pack=True)
+pend = [fe.submit(q["context_ids"], k=5, tenant=t) for t in states]
+fe.pump()
+fe.drain()
+assert fe.stats["fused_dispatches"] == 1
+assert all((p.result()[1] == ids.numpy()[0]).all() for p in pend)
 print("ok")
 """
 
