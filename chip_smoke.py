@@ -9,12 +9,14 @@ Phases, one line each:
 1. card: the ``nvidia-smi`` name and power limit; TF32 off.
 2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc (sm_90a).
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes the serving path gives it, plus ragged and all-dead edges.
+   at the shapes the serving and eval paths give it, plus ragged,
+   all-dead and multi-hot edges.
 4. serve: the full config (82 fields, k = 16, rho = 3, random weights from
    a seed) serving a 1,000,000-item corpus from a 2^20-slot slab: top-K
    and score queries, churn, a model refresh, and Algorithm 1 per call,
-   each held against the plain path.  The launches of each CUDA kernel
-   are counted over this phase alone.
+   each held against the plain path (whose field lookups are the plain
+   embedding bag, so no check runs a kernel).  The launches of each CUDA
+   kernel are counted over this phase alone.
 5. tenants: the same config and weights serving 16 tenants on one
    ScorerRuntime, each 62,500 items of the serve phase's corpus in a
    65,536-slot slab, through ``QueryFrontend(pack=True)`` (one fused
@@ -24,11 +26,23 @@ Phases, one line each:
    requests per second both ways, and the card's idle share over packed
    waves.  The multi-tenant kernel's launches are counted over the
    timed packed waves alone.
-6. timing: each kernel's median time over CUDA events, its plain
+6. eval: the paper's comparison through ``eval.harness`` on the serve
+   phase's data: ``evaluate_pointwise`` on 20,000 held-out rows for the
+   DPLR model, the full-FwFM baseline (``make_fwfm_baseline``, random
+   weights from a seed) and its matched-pruned form (249 of 3,321
+   entries), each model's logits held against the plain path;
+   ``model_scores(pruned=)`` against ``apply(pruned_mask=)``; and
+   ``serving_parity`` for the DPLR model at 16 queries x 4,096 items
+   (model, engine and frontend scores against the plain scores, top-10
+   ids equal except at ties).  Kernel launches are counted over this
+   phase alone.
+7. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and f32 flops over its f32 rate); beside the multi-tenant
-   kernel, the summed time of one single-tenant top-K call per tenant.
-7. profile: with torch.profiler, the device time of a top-K call by CUDA
+   kernel, the summed time of one single-tenant top-K call per tenant;
+   beside the embedding-bag and FwFM kernels, one PyTorch call that
+   computes the same function (``library_ms``).
+8. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, and the device's idle share while the serving engine answers
    Bq = 1 queries.
 
@@ -41,7 +55,11 @@ Then a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  Any failed check raises, so the ``ok`` line is never printed after
 a failure.  Exits non-zero where there is no CUDA card.
 
-Tolerance on the card: ``|got - plain| <= 1e-5 * max(1, |plain|)``.  The
+Tolerance on the card: ``|got - plain| <= 1e-5 * max(1, |plain|)``, or
+``max(1, size)`` where a score is a sum of terms much larger than itself
+(``size``: the summed magnitude of the terms).  The embedding bag is
+bitwise on one-hot layouts (one slot a bag) and within
+``1e-6 * sum |w * row|`` on multi-hot ones.  The
 kernels sum in another order than PyTorch's einsum (and use fused
 multiply-adds), and full-width scores reach tens, so a bound relative to
 the score is the meaningful one.  Top-K ids must equal the plain stable
@@ -53,6 +71,7 @@ packed reply the unpacked one.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import re
 import subprocess
@@ -63,18 +82,23 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import dplr_fwfm  # noqa: E402
 from repro_torch.core import ranking as rk  # noqa: E402
-from repro_torch.core.dplr import DPLRParams, dplr_diagonal  # noqa: E402
+from repro_torch.core.dplr import DPLRParams, dplr_diagonal, materialize_R  # noqa: E402
+from repro_torch.core.fields import FeatureLayout  # noqa: E402
+from repro_torch.core.interactions import dplr_pairwise  # noqa: E402
+from repro_torch.core.pruning import matched_param_count, prune_matched  # noqa: E402
 from repro_torch.data.synthetic_ctr import SyntheticCTR  # noqa: E402
 from repro_torch.embedding.bag import (  # noqa: E402
     item_arena_ids,
-    lookup_item_embeddings,
     lookup_linear_terms,
+    padded_rows,
 )
+from repro_torch.eval import harness  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.serving.corpus import masked_slab_scores  # noqa: E402
@@ -93,6 +117,14 @@ FULL = SimpleNamespace(
     multi=(16, 4, 65_536, 16), ragged=((1100, 70_000, 20_000), 2, 1024),
     tenants=16, tenant_items=62_500, tenant_capacity=65_536, tenant_bq=4,
     waves=16, warm_waves=2, profile_waves=4,
+    # embedding bag: rows of the context lookup (Bq), of the slab build
+    # (items), of pointwise eval; and a B whose threads end mid-block
+    bag_rows=(16, 1_000_000, 4096), bag_ragged=4097,
+    # fwfm_pairwise (B, m): the eval batch, serve_bulk's pointwise batch,
+    # and one example of a 39-field model
+    pairs=((4096, 82), (262_144, 82), (1, 39)),
+    make_fwfm=dplr_fwfm.make_fwfm_baseline, eval_n=20_000, eval_batch=4096,
+    parity=(16, 4096), pruned_q=(4, 1024),
 )
 
 # NVIDIA data-sheet peaks: (device memory bytes/s, f32 flop/s outside the
@@ -105,8 +137,10 @@ PEAKS = (
 )
 
 # The entry points the serve phase drives; the tenants phase drives
-# dplr_corpus_score_multi.
-SERVE_KERNELS = ("dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items")
+# dplr_corpus_score_multi, the eval phase embedding_bag and fwfm_pairwise.
+SERVE_KERNELS = ("dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
+                 "embedding_bag")
+EVAL_KERNELS = ("embedding_bag", "fwfm_pairwise")
 
 KERNEL_ROWS = {
     "dplr_corpus_score": ("src/repro_torch/kernels/csrc/dplr_corpus_score.cu",
@@ -117,6 +151,10 @@ KERNEL_ROWS = {
                          "src/repro/kernels/dplr_score.py:75"),
     "dplr_corpus_score_multi": ("src/repro_torch/kernels/csrc/dplr_corpus_score.cu",
                                 "src/repro/kernels/dplr_corpus_score.py:376"),
+    "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag.py:78"),
+    "fwfm_pairwise": ("src/repro_torch/kernels/csrc/fwfm_interaction.cu",
+                      "src/repro/kernels/fwfm_interaction.py:49"),
 }
 
 
@@ -256,7 +294,12 @@ def kernel_checks(dev, sz) -> dict:
         errs["dplr_score_items"] = max(errs["dplr_score_items"], err)
     errs["dplr_corpus_score_multi"], more = multi_checks(dev, sz, gen)
     notes += more
-    print(f"phase kernels: all within {TOL:g} x max(1, |s|); max |diff| "
+    errs["embedding_bag"], more = bag_checks(dev, sz, gen)
+    notes += more
+    errs["fwfm_pairwise"], more = pair_checks(dev, sz, gen)
+    notes += more
+    print(f"phase kernels: all within {TOL:g} x max(1, |s|) (embedding_bag: bitwise on "
+          f"one-hot layouts, 1e-6 x sum |w row| on multi-hot); max |diff| "
           + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + "; " + ", ".join(notes), flush=True)
     return errs
@@ -309,7 +352,131 @@ def multi_checks(dev, sz, gen) -> tuple[float, list]:
     return err, notes
 
 
+def bag_case(layout: FeatureLayout, kind, B: int, gen):
+    """Inputs of one ``embedding_bag`` call on the lookup path for ``kind``
+    fields of ``layout`` (None: all): (B, n_slots) int32 arena-global ids,
+    each slot uniform over its field's rows, weights in [0.5, 1.5), and
+    the slot -> field map on the device (``ops.bag_map``)."""
+    dev = gen.device
+    slots = np.arange(layout.n_slots) if kind is None else layout.slots_of(kind)
+    fields = layout.slot_to_field[slots]
+    vocab = torch.as_tensor(np.array([f.vocab_size for f in layout.fields])[fields],
+                            device=dev)
+    base = torch.as_tensor(layout.field_offsets[fields].astype(np.int64), device=dev)
+    local = (torch.rand((B, len(slots)), generator=gen, device=dev) * vocab).long()
+    ids = (base + torch.minimum(local, vocab - 1)).to(torch.int32)
+    w = torch.rand((B, len(slots)), generator=gen, device=dev) + 0.5
+    sub = layout if kind is None else layout.subset(kind)
+    return ids, w, ops.bag_map(sub.slot_to_field, sub.n_fields, dev)
+
+
+def multi_hot(layout: FeatureLayout) -> FeatureLayout:
+    """``layout`` with field i holding 1 + i % 4 slots (bags of 1-4 slots),
+    as ``tiered_layout(..., multi_hot=)`` gives them."""
+    return FeatureLayout(tuple(dataclasses.replace(f, multiplicity=1 + i % 4)
+                               for i, f in enumerate(layout.fields)))
+
+
+def bag_checks(dev, sz, gen) -> tuple[float, list]:
+    """The embedding-bag kernel against its plain version on the full
+    arena: the context lookup (Bq rows of the context slots), the slab
+    build (item slots), pointwise rows, a ragged B and a multi-hot layout.
+    One-hot layouts must match bitwise; an id outside the table must raise
+    in the plain version and poison its bag (NaN) in the kernel."""
+    cfg = sz.make_config()
+    lay, k = cfg.layout, cfg.embed_dim
+    table = torch.randn((padded_rows(lay.total_vocab), k), generator=gen, device=dev) / k**0.5
+    Bq, items, rows_ = sz.bag_rows
+    cases = (("context", lay, "context", Bq), ("corpus", lay, "item", items),
+             ("pointwise", lay, None, rows_), ("ragged", lay, None, sz.bag_ragged),
+             ("multi-hot", multi_hot(lay), None, rows_))
+    err, notes = 0.0, []
+    for name, layout, kind, B in cases:
+        ids, w, bags = bag_case(layout, kind, B, gen)
+        seg, nb = bags.segments, bags.n_bags
+        got = ops.embedding_bag(table, ids, w, bags)
+        want = ref.embedding_bag_ref(table, ids, w, seg, nb)
+        _sync(dev)
+        what = f"embedding_bag {name} B={B} slots={ids.shape[1]}"
+        if layout.n_slots == layout.n_fields:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: not bitwise equal to the plain version")
+        else:
+            size = ref.embedding_bag_ref(table.abs(), ids, w, seg, nb)
+            bad = (got - want).abs() > 1e-6 * size
+            if bad.any() or not torch.isfinite(got).all():
+                raise AssertionError(f"{what}: {int(bad.sum())} values off")
+        err = max(err, float((got - want).abs().max()))
+        notes.append(f"{name} {tuple(ids.shape)}")
+        del got, want
+    ids[1, 2] = table.shape[0]                         # past the last row
+    if dev.type == "cuda":
+        got = ops.embedding_bag(table, ids, w, bags)
+        bag = int(seg[2])
+        if not (got[1, bag].isnan().all() and torch.isfinite(got[0]).all()
+                and int(got.isnan().sum()) == k):
+            raise AssertionError("embedding_bag: an id past the table did not poison "
+                                 "exactly its bag")
+    try:
+        ref.embedding_bag_ref(table, ids, w, seg, nb)
+    except IndexError:
+        pass
+    else:
+        raise AssertionError("embedding_bag plain version: an id past the table passed")
+    return err, ["embedding_bag " + ", ".join(notes) + ": one-hot bitwise, an id past "
+                 "the table poisons its bag"]
+
+
+def pair_inputs(B: int, m: int, k: int, gen):
+    """V (B, m, k) at embedding scale and a symmetric zero-diagonal R."""
+    dev = gen.device
+    V = torch.randn((B, m, k), generator=gen, device=dev) / k**0.5
+    R = torch.randn((m, m), generator=gen, device=dev) * 0.1
+    R = 0.5 * (R + R.T)
+    return V, R - torch.diag(torch.diag(R))
+
+
+def pair_size(V, R):
+    """0.5 * sum_ij |R_ij G_ij|: the summed magnitude of the FwFM terms."""
+    return 0.5 * torch.einsum("bij,ij->b", torch.einsum("bik,bjk->bij", V, V).abs(),
+                              R.abs())
+
+
+def pair_checks(dev, sz, gen) -> tuple[float, list]:
+    """The FwFM pairwise kernel against its plain version, within
+    ``TOL * max(1, 0.5 * sum |R_ij G_ij|)`` (ROADMAP's size-scaled rule)."""
+    err, notes = 0.0, []
+    for B, m in sz.pairs:
+        V, R = pair_inputs(B, m, sz.k, gen)
+        got = ops.fwfm_pairwise(V, R)
+        _sync(dev)
+        err = max(err, check_close(got, ref.fwfm_pairwise_ref(V, R),
+                                   f"fwfm_pairwise B={B} m={m}", size=pair_size(V, R)))
+        notes.append(f"B={B} m={m}")
+        del V, got
+    return err, ["fwfm_pairwise " + ", ".join(notes)]
+
+
 # -- phase 4: the serving path ------------------------------------------------
+
+def plain_fields(table, layout: FeatureLayout, ids, w, item: bool = False):
+    """A field lookup in plain PyTorch (``lookup_field_embeddings``, or
+    ``lookup_item_embeddings`` with ``item``): the arena offsets added here
+    and the plain embedding bag, so that no check launches a kernel."""
+    shift = layout.subset("context").total_vocab if item else 0
+    lay = layout.subset("item") if item else layout
+    off = torch.as_tensor(lay.slot_offsets.astype(np.int64) + shift, device=table.device)
+    return ref.embedding_bag_ref(table, ids.long() + off, w, lay.slot_to_field, lay.n_fields)
+
+
+def plain_context(params, cfg, ctx_ids, ctx_w):
+    """``ScorerRuntime.context`` in plain PyTorch: (P_C, s_C, lin_C)."""
+    ctx_layout = cfg.layout.subset("context")
+    V_C = plain_fields(params["embedding"], ctx_layout, ctx_ids, ctx_w)
+    lin_C = lookup_linear_terms(params["linear"], ctx_layout, ctx_ids, ctx_w)
+    c = rk.dplr_context_cache(DPLRParams(params["U"], params["e"]), V_C,
+                              cfg.layout.n_context)
+    return c.P_C, c.s_C, lin_C
 
 def plain_scores(engine, ids):
     """The plain versions of the engine's scoring on its slab: the kernel's
@@ -321,9 +488,10 @@ def plain_scores(engine, ids):
     negative, term_e positive), so any two summation orders part by a few
     roundings of the terms, whatever the score: the size, not |score|,
     scales the tolerance (``check_close(..., size=)``)."""
-    rt, c, p = engine.runtime, engine.cache, engine.params
+    c, p = engine.cache, engine.params
     ctx = torch.as_tensor(ids, device=engine.device)
-    P_C, s_C, lin_C = rt.context(p, ctx, torch.ones(ctx.shape, device=engine.device))
+    P_C, s_C, lin_C = plain_context(p, engine.cfg, ctx,
+                                    torch.ones(ctx.shape, device=engine.device))
     a_C = p["bias"] + lin_C + 0.5 * s_C
     kernel_form = ref.dplr_corpus_score_ref(c.Q_I, c.a_I, p["e"], P_C, a_C, c.valid)
     jnp_form = masked_slab_scores(p, c.Q_I, c.t_I, c.lin_I, c.valid, P_C, s_C, lin_C)
@@ -356,12 +524,12 @@ def plain_rank_items(params, cfg, q):
     kernel), and the summed size of its terms (see ``plain_scores``)."""
     lay = cfg.layout
     nC = lay.n_context
-    V_C, lin_C = fwfm.context_inputs(params, cfg, q["context_ids"], q["context_weights"])
-    V_I = lookup_item_embeddings(params["embedding"], lay, q["item_ids"], q["item_weights"])
+    V_I = plain_fields(params["embedding"], lay, q["item_ids"], q["item_weights"], item=True)
     lin_I = lookup_linear_terms(params["linear"], lay.subset("item"),
                                 item_arena_ids(lay, q["item_ids"]), q["item_weights"])
     p = DPLRParams(params["U"], params["e"])
-    cache = rk.dplr_context_cache(p, V_C, nC)
+    P_C, s_C, lin_C = plain_context(params, cfg, q["context_ids"], q["context_weights"])
+    cache = rk.DPLRContextCache(P_C=P_C, s_C=s_C)
     pw = rk.dplr_score_items(p, cache, V_I, nC)
     d = dplr_diagonal(p)
     pw_size = ref.dplr_score_items_ref(V_I, p.U[:, nC:], p.e.abs(), d[nC:].abs(),
@@ -544,7 +712,110 @@ def tenants_phase(dev, sz, serve) -> dict:
     return launches
 
 
-# -- phase 6: timing ----------------------------------------------------------
+# -- phase 6: eval ------------------------------------------------------------
+
+def plain_apply(params, cfg, ids, w, pruned_mask=None):
+    """``fwfm.apply`` in plain PyTorch (plain embedding bag and pairwise
+    term, no kernel), and the summed size of its terms:
+    ``|bias| + sum |b_s w_s| + 0.5 sum_ij |R_ij G_ij|`` (R materialized
+    for DPLR)."""
+    V = plain_fields(params["embedding"], cfg.layout, ids, w)
+    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w)
+    if cfg.interaction == "dplr":
+        p = DPLRParams(params["U"], params["e"])
+        pw, R = dplr_pairwise(V, p), materialize_R(p)
+    else:
+        R = fwfm.field_matrix(params, cfg)
+        if pruned_mask is not None:
+            R = R * pruned_mask
+        pw = ref.fwfm_pairwise_ref(V, R)
+    size = (params["bias"].abs() + lookup_linear_terms(params["linear"].abs(), cfg.layout,
+                                                       ids, w.abs()) + pair_size(V, R))
+    return params["bias"] + lin + pw, size
+
+
+def eval_phase(dev, sz, serve) -> dict:
+    """The paper's comparison through ``eval.harness`` on the serve phase's
+    data and DPLR weights: pointwise eval of DPLR, full FwFM and
+    matched-pruned FwFM, each model's logits against the plain path; the
+    pruned model's Algorithm 1 against its pointwise scores; and
+    ``serving_parity`` (model, engine, frontend) for DPLR against the
+    plain scores.  Returns the launches of each CUDA kernel over the
+    phase."""
+    cfg, params, data = serve.engine.cfg, serve.engine.params, serve.data
+    t0 = time.perf_counter()
+    split = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(sz.eval_n, 10**6).items()}
+    Q, n = sz.parity
+    parity_set = harness.ranking_eval_set(data, n_queries=Q, n_items=n, seed=11)
+    Qp, n_p = sz.pruned_q
+    pruned_set = harness.ranking_eval_set(data, n_queries=Qp, n_items=n_p, seed=13)
+    host_s = time.perf_counter() - t0
+
+    ops.reset_launches()
+    fcfg = sz.make_fwfm()
+    fparams = fwfm.init(torch.Generator(device=dev).manual_seed(1), fcfg)
+    m = fcfg.n_fields
+    pr = prune_matched(fwfm.field_matrix(fparams, fcfg), m, cfg.rank)
+    if len(pr.entries_r) != matched_param_count(m, cfg.rank):
+        raise AssertionError(f"pruned R keeps {len(pr.entries_r)} entries")
+    parts = []
+    for name, p, c, mask in (("dplr", params, cfg, None), ("fwfm", fparams, fcfg, None),
+                             ("pruned-fwfm", fparams, fcfg, pr.mask)):
+        res = harness.evaluate_pointwise(p, c, data, n=sz.eval_n, batch_size=sz.eval_batch,
+                                         pruned_mask=mask)
+        labels, logits = harness.score_split(p, c, data, n=sz.eval_n,
+                                             batch_size=sz.eval_batch, pruned_mask=mask)
+        if not np.array_equal(labels, split["label"].cpu().numpy()):
+            raise AssertionError(f"eval {name}: labels differ from the split's")
+        want, size = plain_apply(p, c, split["ids"], split["weights"], mask)
+        err = check_close(torch.as_tensor(logits, device=dev), want, f"eval {name} logits",
+                          size=size)
+        parts.append(f"{name}: AUC {res['auc']:.4f}, log-loss {res['logloss']:.4f}, "
+                     f"calibration {res['calibration_ratio']:.4f} (logits max |diff| "
+                     f"{err:.3g} from plain)")
+
+    # Algorithm 1 with the pruned cache against pointwise pruned scoring
+    got = torch.as_tensor(harness.model_scores(fparams, fcfg, pruned_set, pruned=pr),
+                          device=dev)
+    lay = fcfg.layout
+    order = np.argsort(np.concatenate([lay.slots_of("context"), lay.slots_of("item")]))
+    rows = {key: torch.cat([torch.as_tensor(getattr(pruned_set, f"context_{key}"), device=dev)
+                            [:, None].expand(Qp, n_p, -1),
+                            torch.as_tensor(getattr(pruned_set, f"item_{key}"), device=dev)
+                            [None].expand(Qp, n_p, -1)], -1)[..., order].reshape(Qp * n_p, -1)
+            for key in ("ids", "weights")}
+    pointwise = fwfm.apply(fparams, fcfg, rows, pruned_mask=pr.mask).reshape(Qp, n_p)
+    want, size = plain_apply(fparams, fcfg, rows["ids"], rows["weights"], pr.mask)
+    check_close(got, pointwise, "model_scores(pruned=) vs apply(pruned_mask=)",
+                size=size.reshape(Qp, n_p))
+    check_close(got, want.reshape(Qp, n_p), "model_scores(pruned=) vs plain",
+                size=size.reshape(Qp, n_p))
+
+    rep_ = harness.serving_parity(params, cfg, parity_set, k=10)
+    want, size = plain_rank_items(params, cfg, parity_set.query(dev))
+    diffs = {}
+    for path, scores in rep_["scores"].items():
+        s_ = torch.as_tensor(scores, device=dev)
+        check_close(s_, want, f"serving_parity {path}", size=size)
+        vals, ids = ref.topk_stable(s_, 10)
+        diffs[path] = check_topk(vals, ids.to(torch.int32), want, 10,
+                                 f"serving_parity {path} top-10", size=size)[1]
+    launches = {g: ops.LAUNCHES[g] for name in EVAL_KERNELS for g in ops.KERNELS[name]}
+    if dev.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched on the eval path: {launches}")
+    model = rep_["paths"]["model"]
+    print(f"phase eval: host data {host_s:.1f} s; evaluate_pointwise on {sz.eval_n} rows, "
+          f"batch {sz.eval_batch}: " + "; ".join(parts)
+          + f"; pruned R keeps {len(pr.entries_r)} of {m * (m - 1) // 2} entries; "
+          f"model_scores(pruned=) = apply(pruned_mask=) on {Qp} x {n_p}; serving_parity "
+          f"Q={Q} n={n}: model ndcg@10 {model['ndcg@10']:.4f}, mrr {model['mrr']:.4f}; "
+          f"max |diff| vs model {rep_['max_abs_diff']}, bitwise {rep_['bit_exact']}; "
+          f"top-10 ids differing from plain (all within the tie rule) {diffs}; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+# -- phase 7: timing ----------------------------------------------------------
 
 def _sync(dev):
     if dev.type == "cuda":
@@ -637,6 +908,50 @@ def timing_phase(dev, sz, peaks) -> dict:
                  f"{single:.4f} ms summed")
     rows["dplr_corpus_score_multi"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                            single_calls_ms=single)
+    del parts, args
+
+    # embedding_bag at the lookup path's shapes; library: F.embedding_bag
+    # with one slot a bag (every bag of the dplr-fwfm layout holds one)
+    cfg = sz.make_config()
+    lay, ek = cfg.layout, cfg.embed_dim
+    table = torch.randn((padded_rows(lay.total_vocab), ek), generator=gen, device=dev)
+    Bq_b, items, pw_rows = sz.bag_rows
+    for label, kind, B in (("context", "context", Bq_b), ("corpus", "item", items),
+                           ("pointwise", None, pw_rows)):
+        ids, w, bags = bag_case(lay, kind, B, gen)
+        nb = bags.n_bags
+        ms = device_ms(lambda: ops.embedding_bag(table, ids, w, bags))
+        plain = device_ms(lambda: ref.embedding_bag_ref(table, ids, w, bags.segments, nb),
+                          3, 2)
+        lib_ids, lib_w = ids.reshape(-1, 1).long(), w.reshape(-1, 1)
+        lib = device_ms(lambda: F.embedding_bag(lib_ids, table, per_sample_weights=lib_w,
+                                                mode="sum"))
+        slots = ids.numel()
+        bnd, by = bound_ms(slots * (ek * 4 + 8) + B * nb * ek * 4, 2 * slots * ek, peaks)
+        extra.append(f"embedding_bag {label} {tuple(ids.shape)}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, F.embedding_bag {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if label == "corpus":
+            rows["embedding_bag"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                         library_ms=lib)
+        del ids, w, lib_ids, lib_w
+    del table
+
+    # fwfm_pairwise; library: one einsum with TF32 off.  The Gram is
+    # symmetric, so the function needs its m (m + 1) / 2 distinct dot
+    # products (2k flops each) contracted with R_ij + R_ji (2 flops each):
+    # m (m + 1) (k + 1) flops an example, half of what the kernel does
+    for B, m in sz.pairs:
+        V, R = pair_inputs(B, m, k, gen)
+        ms = device_ms(lambda: ops.fwfm_pairwise(V, R))
+        plain = device_ms(lambda: ref.fwfm_pairwise_ref(V, R), 3, 2)
+        lib = device_ms(lambda: torch.einsum("bik,bjk,ij->b", V, V, R))
+        bnd, by = bound_ms((B * m * k + m * m + B) * 4, B * m * (m + 1) * (k + 1), peaks)
+        extra.append(f"fwfm_pairwise B={B} m={m} k={k}: {ms:.4f} ms, plain {plain:.4f} ms, "
+                     f"einsum {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        if B == max(b for b, _ in sz.pairs):
+            rows["fwfm_pairwise"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                         library_ms=lib)
+        del V
     print("phase timing: " + "; ".join(extra), flush=True)
     return rows
 
@@ -754,15 +1069,19 @@ def main() -> None:
     tenant_launches = tenants_phase(dev, FULL, serve)
     for g in ops.KERNELS["dplr_corpus_score_multi"]:
         launches[g] = tenant_launches[g]
+    for g, count in eval_phase(dev, FULL, serve).items():
+        launches[g] = launches.get(g, 0) + count
     rows = timing_phase(dev, FULL, peaks)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)
     kernels = []
     for name, cuda_kernels in ops.KERNELS.items():
         source, replaces = KERNEL_ROWS[name]
+        row = dict(rows[name])
+        row.setdefault("library_ms", None)
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=sum(launches[g] for g in cuda_kernels),
                             cuda_launches={g: launches[g] for g in cuda_kernels},
-                            max_abs_err=errs[name], **rows[name], library_ms=None))
+                            max_abs_err=errs[name], **row))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

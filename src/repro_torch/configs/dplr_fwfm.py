@@ -4,6 +4,8 @@
 Sized from the paper's deployment (Section 5.3): 82 fields (44 context,
 38 item), embed_dim k = 16, rank rho = 3.  Arena about 3.3e7 rows.
 """
+import dataclasses
+
 from repro_torch.configs._recsys_common import smoke_layout, tiered_layout
 from repro_torch.models.recsys.fwfm import FwFMConfig
 
@@ -23,3 +25,8 @@ def make_config() -> FwFMConfig:
 
 def make_smoke() -> FwFMConfig:
     return FwFMConfig(layout=smoke_layout(7, 5), embed_dim=8, interaction="dplr", rank=2)
+
+
+def make_fwfm_baseline() -> FwFMConfig:
+    """Full-FwFM baseline (the O(m^2 k) model the paper starts from)."""
+    return dataclasses.replace(make_config(), interaction="fwfm")

@@ -1,16 +1,46 @@
 """EmbeddingBag substrate.  Port of ``repro.embedding.bag``.
 
 All fields share one arena table with per-field row offsets (one
-allocation, one gather).  A lookup gathers the slot rows, weights them,
-and adds them into per-field bags over the static slot -> bag map with
-``index_add_`` (multi-hot fields average their values, Section 3.2).
+allocation, one gather).  A lookup adds each slot's field offset to its
+local id and sums the weighted rows into per-field bags over the static
+slot -> bag map (multi-hot fields average their values, Section 3.2).
+The gather and bag-sum is one call of ``kops.embedding_bag``: the CUDA
+kernel for a table on the card, its plain version for one on the CPU.
+
+A layout's static arrays (slot offsets, the slot -> field map and its
+CSR for the kernel) are made and copied to the device once per (layout,
+device) and kept (``_statics``), not on every lookup.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.fields import FeatureLayout
+from repro_torch.kernels import ops as kops
+
+
+class _Statics(NamedTuple):
+    offsets: torch.Tensor    # (n_slots,) arena offset added to each local id
+    bags: kops.BagMap        # slot -> bag (field) map
+
+
+@functools.lru_cache(maxsize=None)
+def _statics(layout: FeatureLayout, kind: str | None, device: str) -> _Statics:
+    """The static maps of ``layout`` (``kind="item"``: of its item fields,
+    offsets shifted past the context rows), on ``device``.  Offsets are
+    int32 where every arena row id fits, so int32 local ids stay int32."""
+    shift = 0
+    if kind == "item":
+        shift = layout.subset("context").total_vocab
+        layout = layout.subset("item")
+    offsets = layout.slot_offsets.astype(np.int64) + shift
+    dtype = torch.int32 if shift + layout.total_vocab < 2**31 else torch.int64
+    return _Statics(torch.as_tensor(offsets, dtype=dtype, device=device),
+                    kops.bag_map(layout.slot_to_field, layout.n_fields, device))
 
 
 def init_embedding_table(generator: torch.Generator, n_rows: int, dim: int, *,
@@ -24,49 +54,46 @@ def init_embedding_table(generator: torch.Generator, n_rows: int, dim: int, *,
     return table.mul_(scale).to(dtype)
 
 
-def _static(index: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(index, np.int64), device=like.device)
-
-
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
                   segment_ids: np.ndarray, n_bags: int) -> torch.Tensor:
     """``out[..., b, :] = sum_{s: seg[s] = b} w_s * table[id_s]`` for
     arena-global ``ids (..., n_slots)``; weights are cast to the table
-    dtype before the product."""
-    flat = table[ids.long()]                                  # (..., n_slots, k)
-    weighted = flat * weights[..., None].to(flat.dtype)
-    out = torch.zeros((*ids.shape[:-1], n_bags, table.shape[-1]),
-                      dtype=flat.dtype, device=flat.device)
-    return out.index_add_(out.ndim - 2, _static(segment_ids, table), weighted)
+    dtype before the product.  Copies the map to the table's device on
+    every call: the lookups below use the copy that ``_statics`` keeps."""
+    return _bag(table, ids, weights, kops.bag_map(segment_ids, n_bags, table.device))
+
+
+def _bag(table, ids, weights, bags: kops.BagMap):
+    w = weights.to(table.dtype).contiguous()
+    return kops.embedding_bag(table, ids.contiguous(), w, bags)
+
+
+def _lookup(table, st: _Statics, ids, weights):
+    return _bag(table, ids + st.offsets, weights, st.bags)
 
 
 def lookup_field_embeddings(table, layout: FeatureLayout, ids, weights):
     """(batch..., n_fields, k) field embedding matrix V from local ids."""
-    arena_ids = ids.long() + _static(layout.slot_offsets, table)
-    return embedding_bag(table, arena_ids, weights, layout.slot_to_field,
-                         layout.n_fields)
+    return _lookup(table, _statics(layout, None, str(table.device)), ids, weights)
 
 
 def item_arena_ids(layout: FeatureLayout, ids):
     """Arena-global ids for item-side local slot ids: the arena stores the
     context fields' rows first, so item ids shift by the context vocab."""
-    return ids.long() + layout.subset("context").total_vocab
+    return ids + layout.subset("context").total_vocab
 
 
 def lookup_item_embeddings(table, layout: FeatureLayout, ids, weights):
     """(..., m_item, k) item-field embedding matrix V_I from local item ids
     (``layout`` is the full context + item layout)."""
-    item_layout = layout.subset("item")
-    arena = item_arena_ids(layout, ids) + _static(item_layout.slot_offsets, table)
-    return embedding_bag(table, arena, weights, item_layout.slot_to_field,
-                         item_layout.n_fields)
+    return _lookup(table, _statics(layout, "item", str(table.device)), ids, weights)
 
 
 def lookup_linear_terms(table, layout: FeatureLayout, ids, weights):
     """(batch...,) first-order term <b, x> of the FM/FwFM model."""
     tab = table.reshape(-1)
-    arena_ids = ids.long() + _static(layout.slot_offsets, table)
-    return (tab[arena_ids] * weights.to(tab.dtype)).sum(dim=-1)
+    offsets = _statics(layout, None, str(table.device)).offsets
+    return (tab[ids.long() + offsets] * weights.to(tab.dtype)).sum(dim=-1)
 
 
 def padded_rows(n_rows: int, multiple: int = 2048) -> int:

@@ -1,0 +1,70 @@
+"""Launcher for the embedding-bag CUDA kernel (``csrc/embedding_bag.cu``).
+
+Counterpart of ``repro.kernels.embedding_bag``:
+
+    out[b, bag, :] = sum_{s: seg[s] = bag} w[b, s] * table[ids[b, s], :]
+
+for arena-global ``ids (B, n_slots)`` (int32 or int64), ``weights
+(B, n_slots)`` and a static slot -> bag map ``seg``.  The kernel reads the
+map as CSR (bag -> its slots in ascending order): ``bag_map`` builds it on
+the host, and its caller keeps the result for as long as the map lives
+(``embedding.bag`` keeps one per layout and device).  Takes CUDA tensors
+that ``repro_torch.kernels.ops`` has already checked; callers go through
+``ops``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+class BagMap(NamedTuple):
+    """A static slot -> bag map on one device, with its CSR for the kernel:
+    bag ``b`` holds slots ``bag_slots[bag_ptr[b]:bag_ptr[b + 1]]``."""
+    segments: torch.Tensor    # (n_slots,) int64: slot -> bag
+    bag_ptr: torch.Tensor     # (n_bags + 1,) int32
+    bag_slots: torch.Tensor   # (n_slots,) int32, ascending within a bag
+    n_bags: int
+
+
+def bag_map(segment_ids, n_bags: int, device) -> BagMap:
+    """The ``BagMap`` of ``segment_ids`` (slot -> bag, in ``[0, n_bags)``)
+    on ``device``: three host-to-device copies, so build it once per map."""
+    seg = np.asarray(segment_ids, np.int64).reshape(-1)
+    if seg.size and (seg.min() < 0 or seg.max() >= n_bags):
+        raise ValueError(f"segment ids must lie in [0, {n_bags})")
+    ptr = np.zeros(n_bags + 1, np.int32)
+    ptr[1:] = np.cumsum(np.bincount(seg, minlength=n_bags))
+    order = np.argsort(seg, kind="stable").astype(np.int32)
+    return BagMap(*(torch.as_tensor(a, device=device) for a in (seg, ptr, order)),
+                  int(n_bags))
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("embedding_bag")
+    lib.embedding_bag.argtypes = [_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]
+    lib.embedding_bag.restype = _I
+    return lib
+
+
+def launch(table, ids, weights, bags: BagMap) -> torch.Tensor:
+    """``(B, n_bags, k)`` f32 bags for 2-D ``ids``/``weights`` (B, n_slots)."""
+    B, n_slots = ids.shape
+    rows, k = table.shape
+    dev = table.device
+    out = torch.empty((B, bags.n_bags, k), dtype=torch.float32, device=dev)
+    status = _lib().embedding_bag(
+        table.data_ptr(), rows, k, ids.data_ptr(), int(ids.dtype == torch.int64),
+        weights.data_ptr(), bags.bag_ptr.data_ptr(), bags.bag_slots.data_ptr(), B, n_slots,
+        bags.n_bags, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    _build.check(status, "embedding_bag launch")
+    return out

@@ -15,11 +15,14 @@ per round, so its launches are not its calls.
 from __future__ import annotations
 
 import collections
+import math
 
 import torch
 
 from repro_torch.kernels import dplr_corpus_score as _corpus
 from repro_torch.kernels import dplr_score as _dplr
+from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import fwfm_interaction as _fwfm
 from repro_torch.kernels import ref
 
 KERNELS = {
@@ -27,6 +30,8 @@ KERNELS = {
     "dplr_corpus_topk": ("corpus_topk_chunks", "topk_merge"),
     "dplr_score_items": ("dplr_score_items_kernel",),
     "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
+    "embedding_bag": ("embedding_bag_kernel",),
+    "fwfm_pairwise": ("fwfm_pairwise_kernel",),
 }
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -184,3 +189,116 @@ def dplr_score_items(V_I, U_I, e, d_I, P_C, s_C):
         out = _dplr.launch(V_I, U_I, e, d_I, P_C, s_C)
         LAUNCHES["dplr_score_items_kernel"] += 1
     return out if batched else out[0]
+
+
+BagMap = _bag.BagMap
+bag_map = _bag.bag_map
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def embedding_bag(table, ids, weights, bags: BagMap):
+    """Weighted bags ``(..., n_bags, k)`` in the table's dtype:
+    ``out[..., b, :] = sum_{s: seg[s] = b} w[..., s] * table[ids[..., s]]``.
+
+    ``table (rows, k)``; ``ids (..., n_slots)`` arena-global rows, int32 or
+    int64 (the kernel reads either, so no copy changes their type);
+    ``weights (..., n_slots)``; ``bags`` the static slot -> bag map on the
+    table's device (``bag_map``, built once per map).  Leading dims flatten
+    into one batch axis for the kernel.  An id outside ``[0, rows)``: the
+    plain version raises, the kernel writes that bag as NaN (it never reads
+    the row).  Differentiable in ``table`` and ``weights`` on both devices;
+    on the card the backward is ``ref.embedding_bag_vjp``."""
+    if table.ndim != 2:
+        raise ValueError(f"table must be (rows, k), got {tuple(table.shape)}")
+    if ids.ndim < 1 or tuple(weights.shape) != tuple(ids.shape):
+        raise ValueError(f"ids {tuple(ids.shape)} and weights {tuple(weights.shape)} "
+                         f"must be one (..., n_slots) shape")
+    n_slots = ids.shape[-1]
+    if bags.segments.shape != (n_slots,):
+        raise ValueError(f"bags: {bags.segments.shape[0]} slots, ids have {n_slots}")
+    dev = _device(table=table, ids=ids, weights=weights, segments=bags.segments)
+    if dev.type == "cpu":
+        return ref.embedding_bag_ref(table, ids, weights, bags.segments, bags.n_bags)
+    _check_for_kernel(table=table, weights=weights)
+    if ids.dtype not in (torch.int32, torch.int64) or not ids.is_contiguous():
+        raise TypeError(f"ids: the kernel takes contiguous int32 or int64, got {ids.dtype}")
+    if _needs_grad(table, weights):
+        return _EmbeddingBag.apply(table, ids, weights, bags)
+    return _embedding_bag_launch(table, ids, weights, bags)
+
+
+def _embedding_bag_launch(table, ids, weights, bags: BagMap):
+    lead, n_slots = ids.shape[:-1], ids.shape[-1]
+    B = math.prod(lead)
+    if B == 0:
+        return table.new_zeros((*lead, bags.n_bags, table.shape[1]))
+    out = _bag.launch(table, ids.view(B, n_slots), weights.view(B, n_slots), bags)
+    LAUNCHES["embedding_bag_kernel"] += 1
+    return out.view(*lead, bags.n_bags, table.shape[1])
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """The kernel forward with the plain backward, for a table or weights
+    that need a gradient on the card."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, bags):
+        ctx.save_for_backward(table, ids, weights, bags.segments)
+        return _embedding_bag_launch(table, ids, weights, bags)
+
+    @staticmethod
+    def backward(ctx, grad):
+        table, ids, weights, segments = ctx.saved_tensors
+        d_table, d_weights = ref.embedding_bag_vjp(table, ids, weights, segments, grad)
+        return (d_table if ctx.needs_input_grad[0] else None, None,
+                d_weights if ctx.needs_input_grad[2] else None, None)
+
+
+def fwfm_pairwise(V, R):
+    """Full FwFM pairwise term ``(...,)``: ``0.5 * sum_ij <v_i, v_j> R_ij``
+    for ``V (..., m, k)`` and ``R (m, m)``.  The kernel takes ``m <= 128``
+    and ``k <= 32`` (a CUDA tensor beyond that raises); the plain version
+    takes any.  Differentiable in ``V`` and ``R`` on both devices; on the
+    card the backward is ``ref.fwfm_pairwise_vjp``."""
+    if V.ndim < 2:
+        raise ValueError(f"V must be (..., m, k), got {tuple(V.shape)}")
+    m, k = V.shape[-2:]
+    _check_shape("R", R, (m, m))
+    dev = _device(V=V, R=R)
+    if dev.type == "cpu":
+        return ref.fwfm_pairwise_ref(V, R)
+    _fwfm.check_limits(m, k)
+    _check_for_kernel(V=V, R=R)
+    if _needs_grad(V, R):
+        return _FwFMPairwise.apply(V, R)
+    return _fwfm_pairwise_launch(V, R)
+
+
+def _fwfm_pairwise_launch(V, R):
+    lead, (m, k) = V.shape[:-2], V.shape[-2:]
+    B = math.prod(lead)
+    if B == 0:
+        return V.new_zeros(lead)
+    out = _fwfm.launch(V.view(B, m, k), R)
+    LAUNCHES["fwfm_pairwise_kernel"] += 1
+    return out.view(lead)
+
+
+class _FwFMPairwise(torch.autograd.Function):
+    """The kernel forward with the plain backward, for ``V`` or ``R`` that
+    need a gradient on the card."""
+
+    @staticmethod
+    def forward(ctx, V, R):
+        ctx.save_for_backward(V, R)
+        return _fwfm_pairwise_launch(V, R)
+
+    @staticmethod
+    def backward(ctx, grad):
+        V, R = ctx.saved_tensors
+        d_V, d_R = ref.fwfm_pairwise_vjp(V, R, grad)
+        return (d_V if ctx.needs_input_grad[0] else None,
+                d_R if ctx.needs_input_grad[1] else None)

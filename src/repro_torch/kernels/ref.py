@@ -8,6 +8,7 @@ path calls them on the card.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.dplr_corpus_score import NEG_INF
@@ -62,3 +63,51 @@ def dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk,
                              valid_parts[s], index_offset, index_stride)
         for s in range(len(Q_parts))))
     return torch.stack(vals), torch.stack(ids)
+
+
+def embedding_bag_ref(table, ids, weights, segment_ids, n_bags: int):
+    """``(..., n_bags, k)``: ``out[..., b, :] = sum_{s: seg[s] = b} w_s *
+    table[id_s]`` for arena-global ``ids (..., n_slots)``, the weights cast
+    to the table dtype before the product.  An id outside ``[0, rows)``
+    raises ``IndexError`` (indexing alone would wrap a negative one)."""
+    if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= table.shape[0]):
+        raise IndexError(f"embedding ids must lie in [0, {table.shape[0]})")
+    flat = table[ids.long()]                                  # (..., n_slots, k)
+    weighted = flat * weights[..., None].to(flat.dtype)
+    out = torch.zeros((*ids.shape[:-1], n_bags, table.shape[-1]),
+                      dtype=flat.dtype, device=flat.device)
+    return out.index_add_(out.ndim - 2, _segments(segment_ids, table.device), weighted)
+
+
+def _segments(segment_ids, device) -> torch.Tensor:
+    if isinstance(segment_ids, torch.Tensor):
+        return segment_ids.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(segment_ids, np.int64), device=device)
+
+
+def embedding_bag_vjp(table, ids, weights, segment_ids, grad):
+    """``(d table, d weights)`` of ``embedding_bag_ref`` for the output
+    gradient ``grad (..., n_bags, k)``: each slot's bag gradient, times its
+    weight, added into its row; and its dot with the row."""
+    g = grad.index_select(grad.ndim - 2, _segments(segment_ids, grad.device))
+    rows = ids.reshape(-1).long()
+    d_table = torch.zeros_like(table).index_add_(
+        0, rows, (g * weights[..., None].to(g.dtype)).reshape(-1, table.shape[-1]))
+    d_weights = (g * table[rows].view(g.shape)).sum(-1).to(weights.dtype)
+    return d_table, d_weights
+
+
+def fwfm_pairwise_ref(V, R):
+    """``(...,)`` full FwFM term ``0.5 * sum_ij <v_i, v_j> R_ij`` for
+    ``V (..., m, k)``, ``R (m, m)``."""
+    G = torch.einsum("...ik,...jk->...ij", V, V)
+    return 0.5 * torch.einsum("...ij,ij->...", G, R)
+
+
+def fwfm_pairwise_vjp(V, R, grad):
+    """``(d V, d R)`` of ``fwfm_pairwise_ref`` for the output gradient
+    ``grad (...,)``: ``d v_i = g * 0.5 * sum_j (R_ij + R_ji) v_j`` and
+    ``d R = 0.5 * sum_b g_b G_b``."""
+    d_V = grad[..., None, None] * torch.einsum("ij,...jk->...ik", 0.5 * (R + R.T), V)
+    d_R = 0.5 * torch.einsum("...,...ik,...jk->ij", grad, V, V)
+    return d_V, d_R

@@ -9,10 +9,14 @@ keys (``bias``, ``linear``, ``embedding``, and ``U``/``e`` or ``R``), so
 ``repro_torch.interop`` carries weights across unchanged.
 
 Two scoring entry points:
-  * ``apply``       - pointwise scoring of full rows (training / eval)
+  * ``apply``       - pointwise scoring of full rows (training / eval):
+                      the field lookup is the ``embedding_bag`` kernel,
+                      and for "fwfm" (full, or pruned by ``pruned_mask``)
+                      the pairwise term is the ``fwfm_pairwise`` kernel.
   * ``rank_items``  - Algorithm 1: context cached once per query, then n
                       candidates; for "dplr" the item step is the
-                      ``dplr_score_items`` kernel, one launch per batch.
+                      ``dplr_score_items`` kernel, one launch per batch;
+                      ``pruned=`` serves a pruned fwfm model.
 """
 from __future__ import annotations
 
@@ -24,7 +28,12 @@ import torch
 from repro_torch.core import ranking as rk
 from repro_torch.core.dplr import DPLRParams, dplr_diagonal, init_dplr
 from repro_torch.core.fields import FeatureLayout
-from repro_torch.core.interactions import dplr_pairwise, fm_pairwise, fwfm_pairwise
+from repro_torch.core.interactions import (
+    dplr_pairwise,
+    fm_pairwise,
+    fwfm_pairwise,
+    pruned_pairwise_dense,
+)
 from repro_torch.embedding.bag import (
     init_embedding_table,
     item_arena_ids,
@@ -79,20 +88,26 @@ def field_matrix(params: dict, cfg: FwFMConfig) -> torch.Tensor:
     return R - torch.diag(torch.diag(R))
 
 
-def _pairwise(params: dict, cfg: FwFMConfig, V: torch.Tensor) -> torch.Tensor:
+def _pairwise(params: dict, cfg: FwFMConfig, V: torch.Tensor,
+              pruned_mask: torch.Tensor | None) -> torch.Tensor:
     if cfg.interaction == "fm":
         return fm_pairwise(V)
     if cfg.interaction == "fwfm":
-        return fwfm_pairwise(V, field_matrix(params, cfg))
+        R = field_matrix(params, cfg)
+        if pruned_mask is not None:
+            return pruned_pairwise_dense(V, R, pruned_mask)
+        return fwfm_pairwise(V, R)
     return dplr_pairwise(V, DPLRParams(params["U"], params["e"]))
 
 
-def apply(params: dict, cfg: FwFMConfig, batch: dict) -> torch.Tensor:
-    """Pointwise logits/scores for full rows: batch = {ids, weights}."""
+def apply(params: dict, cfg: FwFMConfig, batch: dict,
+          pruned_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Pointwise logits/scores for full rows: batch = {ids, weights};
+    ``pruned_mask`` (m, m) scores a pruned fwfm model."""
     ids, w = batch["ids"], batch["weights"]
     V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w)
     lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w)
-    return params["bias"] + lin + _pairwise(params, cfg, V)
+    return params["bias"] + lin + _pairwise(params, cfg, V, pruned_mask)
 
 
 def loss(params: dict, cfg: FwFMConfig, batch: dict) -> torch.Tensor:
@@ -123,7 +138,7 @@ def context_inputs(params: dict, cfg: FwFMConfig, ctx_ids, ctx_w):
     return V_C, lin_C
 
 
-def rank_items(params: dict, cfg: FwFMConfig, query: dict) -> torch.Tensor:
+def rank_items(params: dict, cfg: FwFMConfig, query: dict, pruned=None) -> torch.Tensor:
     """Score n items for each query context.  Shapes:
 
         query = {
@@ -133,7 +148,9 @@ def rank_items(params: dict, cfg: FwFMConfig, query: dict) -> torch.Tensor:
           "item_weights":    (Bq, n, n_item_slots),
         }
 
-    Returns (Bq, n) scores; the context-only work is O(1) per query."""
+    Returns (Bq, n) scores; the context-only work is O(1) per query.
+    ``pruned`` is an optional ``repro_torch.core.pruning.PrunedR`` for
+    serving a pruned fwfm model."""
     layout = cfg.layout
     _check_context_first(layout)
     V_C, lin_C = context_inputs(params, cfg, query["context_ids"],
@@ -155,6 +172,11 @@ def rank_items(params: dict, cfg: FwFMConfig, query: dict) -> torch.Tensor:
         pw = kops.dplr_score_items(V_I, p.U[:, nC:].contiguous(), p.e,
                                    d[nC:].contiguous(), cache.P_C.contiguous(),
                                    cache.s_C.contiguous())
+    elif pruned is not None:
+        groups = rk.split_pruned_entries(pruned.entries_i, pruned.entries_j,
+                                         pruned.entries_r, nC)
+        cache = rk.pruned_context_cache(groups, V_C, layout.n_item)
+        pw = rk.pruned_score_items(groups, cache, V_I)
     else:
         R = field_matrix(params, cfg)
         pw = rk.fwfm_score_items(R, rk.fwfm_context_cache(R, V_C, nC), V_I, nC)

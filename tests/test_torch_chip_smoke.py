@@ -1,8 +1,9 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
-timing and profile phases run at a tiny size with the plain versions (the
+eval, timing and profile phases run at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
 directory."""
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -21,7 +22,9 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              churn=(20, 20, 5), percall_n=512, topk=5,
              multi=(4, 2, 2048, 16), ragged=((300, 1000, 700), 2, 256),
              tenants=4, tenant_items=700, tenant_capacity=1024, tenant_bq=4,
-             waves=3, warm_waves=1, profile_waves=1)
+             waves=3, warm_waves=1, profile_waves=1,
+             bag_rows=(3, 500, 64), bag_ragged=33, pairs=((64, 12), (300, 12), (1, 39)),
+             eval_n=600, eval_batch=256, parity=(3, 64), pruned_q=(2, 16))
 
 
 @pytest.fixture
@@ -34,14 +37,21 @@ def chip_smoke(monkeypatch):
 def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     from repro_torch.configs import dplr_fwfm
 
-    sz = SimpleNamespace(make_config=dplr_fwfm.make_smoke, **SMALL)
+    sz = SimpleNamespace(
+        make_config=dplr_fwfm.make_smoke,
+        make_fwfm=lambda: dataclasses.replace(dplr_fwfm.make_smoke(), interaction="fwfm"),
+        **SMALL)
     cpu = torch.device("cpu")
     errs = chip_smoke.kernel_checks(cpu, sz)
     assert set(errs) == {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
-                         "dplr_corpus_score_multi"}
+                         "dplr_corpus_score_multi", "embedding_bag", "fwfm_pairwise"}
     serve = chip_smoke.serving_phase(cpu, sz)
     assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
+    assert "embedding_bag_kernel" in serve.launches
     launches = chip_smoke.tenants_phase(cpu, sz, serve)
+    assert sum(launches.values()) == 0
+    launches = chip_smoke.eval_phase(cpu, sz, serve)
+    assert set(launches) == {"embedding_bag_kernel", "fwfm_pairwise_kernel"}
     assert sum(launches.values()) == 0
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, *a: (fn(), 1.0)[1])
     rows = chip_smoke.timing_phase(cpu, sz, (3.35e12, 67e12))
@@ -50,7 +60,7 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "tenants", "timing", "profile"):
+    for phase in ("kernels", "serve", "tenants", "eval", "timing", "profile"):
         assert f"phase {phase}:" in out
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
 

@@ -109,3 +109,133 @@ def test_cuda_multi_kernel_matches_plain_and_single_segment_kernel(cuda, ns, Bq,
         one_v, one_i = ops.dplr_corpus_score(*p[:5], topk=K, index_offset=3,
                                              index_stride=4)
         assert torch.equal(vals[s], one_v) and torch.equal(ids[s], one_i), s
+
+
+def _bag(seed, B, slots, F, k, rows=5000, multi_hot=False):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((rows, k), dtype=np.float32)
+    ids = rng.integers(0, rows, (B, slots)).astype(np.int32)
+    w = rng.random((B, slots)).astype(np.float32)
+    seg = (np.sort(rng.integers(0, F, slots)) if multi_hot
+           else np.arange(slots) % F)
+    return table, ids, w, seg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,slots,F,k,multi_hot", [
+    (4097, 82, 82, 16, False),     # one slot a bag, threads end mid-block
+    (16, 44, 44, 16, False),
+    (33, 30, 7, 16, True),         # bags of several slots (and maybe empty ones)
+    (9, 5, 3, 6, True),            # k % 4 != 0: one float a thread
+])
+def test_cuda_embedding_bag_matches_plain(cuda, B, slots, F, k, multi_hot):
+    table, ids, w, seg = _bag(30, B, slots, F, k, multi_hot=multi_hot)
+    table, ids, w = (torch.from_numpy(a).to(cuda) for a in (table, ids, w))
+    bags = ops.bag_map(seg, F, cuda)
+    ops.reset_launches()
+    got = ops.embedding_bag(table, ids, w, bags)
+    want = ref.embedding_bag_ref(table, ids, w, seg, F)
+    assert ops.LAUNCHES == {"embedding_bag_kernel": 1}
+    if not multi_hot:
+        assert torch.equal(got, want)
+    else:
+        size = ref.embedding_bag_ref(table.abs(), ids, w, seg, F)
+        assert ((got - want).abs() <= 1e-6 * size).all()
+    assert torch.equal(ops.embedding_bag(table, ids.long(), w, bags), got)
+    lead = ops.embedding_bag(table, ids[:8].reshape(2, 4, slots), w[:8].reshape(2, 4, slots),
+                             bags)
+    assert torch.equal(lead.reshape(8, F, k), got[:8])
+    empty = ops.embedding_bag(table, ids[:0], w[:0], bags)
+    assert empty.shape == (0, F, k) and ops.LAUNCHES["embedding_bag_kernel"] == 3
+    bad = ids.clone()
+    bad[1, 2] = -1
+    out = ops.embedding_bag(table, bad, w, bags)
+    assert out[1, int(seg[2])].isnan().all() and int(out.isnan().sum()) == k
+    with pytest.raises(TypeError, match="dtype"):
+        ops.embedding_bag(table.double(), ids, w, bags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,k", [(300, 14, 16), (4096, 82, 16), (1, 39, 16), (5, 128, 32),
+                                   (7, 3, 4), (50, 82, 10), (3, 5, 1)])
+def test_cuda_fwfm_pairwise_matches_plain(cuda, B, m, k):
+    rng = np.random.default_rng(31)
+    V = torch.from_numpy((rng.standard_normal((B, m, k)) / np.sqrt(k)).astype(np.float32))
+    R = rng.standard_normal((m, m)).astype(np.float32) * np.float32(0.1)
+    R = torch.from_numpy(0.5 * (R + R.T))
+    V, R = V.to(cuda), R.to(cuda)
+    ops.reset_launches()
+    got = ops.fwfm_pairwise(V, R)
+    assert ops.LAUNCHES == {"fwfm_pairwise_kernel": 1}
+    want = ref.fwfm_pairwise_ref(V, R)
+    size = 0.5 * torch.einsum("bij,ij->b", torch.einsum("bik,bjk->bij", V, V).abs(), R.abs())
+    assert ((got - want).abs() <= 1e-5 * torch.clamp(size, min=1.0)).all()
+    # a row's value does not depend on the batch it is in
+    assert torch.equal(ops.fwfm_pairwise(V[-1:].contiguous(), R), got[-1:])
+
+
+@pytest.mark.cuda
+def test_cuda_fwfm_pairwise_takes_a_misaligned_tensor_and_raises_past_its_limits(cuda):
+    rng = np.random.default_rng(32)
+    flat = torch.from_numpy(rng.standard_normal(3 * 8 * 16 + 1).astype(np.float32)).to(cuda)
+    V = flat[1:].view(3, 8, 16)                        # 4 bytes past a 16-byte boundary
+    R = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32)).to(cuda)
+    assert_scores(ops.fwfm_pairwise(V, R), ref.fwfm_pairwise_ref(V, R))
+    for m, k in ((129, 16), (8, 36)):
+        with pytest.raises(ValueError, match="the kernel takes m"):
+            ops.fwfm_pairwise(torch.zeros((2, m, k), device=cuda),
+                              torch.zeros((m, m), device=cuda))
+
+
+@pytest.mark.cuda
+def test_cuda_baseline_apply_matches_the_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.core.pruning import prune_matched
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.models.recsys import fwfm
+
+    cfg = dataclasses.replace(dplr_fwfm.make_smoke(), interaction="fwfm")
+    params = fwfm.init(torch.Generator().manual_seed(0), cfg)
+    pr = prune_matched(fwfm.field_matrix(params, cfg), cfg.n_fields, 2)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticCTR(cfg.layout, seed=0).batch(300, seed=1).items()}
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    for mask in (None, pr.mask):
+        ops.reset_launches()
+        got = fwfm.apply(on_card, cfg, {k: v.to(cuda) for k, v in batch.items()},
+                         pruned_mask=None if mask is None else mask.to(cuda))
+        assert ops.LAUNCHES == {"embedding_bag_kernel": 1, "fwfm_pairwise_kernel": 1}
+        want = fwfm.apply(params, cfg, batch, pruned_mask=mask)
+        assert_scores(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interaction", ["dplr", "fwfm"])
+def test_cuda_loss_gradients_match_the_cpu(cuda, interaction):
+    """The kernels run forward on the card and the plain vjp backward:
+    ``loss.backward()`` gives every parameter the CPU's gradient."""
+    import dataclasses
+
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.models.recsys import fwfm
+
+    cfg = dataclasses.replace(dplr_fwfm.make_smoke(), interaction=interaction)
+    params = fwfm.init(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticCTR(cfg.layout, seed=0).batch(300, seed=1).items()}
+    grads = []
+    for dev in ("cpu", cuda):
+        p = {k: v.detach().to(dev).requires_grad_() for k, v in params.items()}
+        ops.reset_launches()
+        fwfm.loss(p, cfg, {k: v.to(dev) for k, v in batch.items()}).backward()
+        grads.append({k: v.grad for k, v in p.items()})
+    want = {"embedding_bag_kernel": 1}
+    if interaction == "fwfm":
+        want["fwfm_pairwise_kernel"] = 1
+    assert ops.LAUNCHES == want
+    for name, g in grads[0].items():
+        assert grads[1][name] is not None, name
+        assert_scores(grads[1][name], g)

@@ -53,6 +53,17 @@ fe.pump()
 fe.drain()
 assert fe.stats["fused_dispatches"] == 1
 assert all((p.result()[1] == ids.numpy()[0]).all() for p in pend)
+import dataclasses
+from repro_torch.core.pruning import prune_matched
+from repro_torch.eval import harness
+fcfg = dataclasses.replace(cfg, interaction="fwfm")
+fparams = fwfm.init(torch.Generator().manual_seed(1), fcfg)
+pr = prune_matched(fwfm.field_matrix(fparams, fcfg), fcfg.n_fields, 2)
+for p_, c_, mask in ((engine.params, cfg, None), (fparams, fcfg, pr.mask)):
+    got = harness.evaluate_pointwise(p_, c_, data, n=300, batch_size=128, pruned_mask=mask)
+    assert 0.0 <= got["auc"] <= 1.0
+es = harness.ranking_eval_set(data, n_queries=2, n_items=16)
+assert harness.serving_parity(engine.params, cfg, es, k=3)["max_abs_diff"]["engine"] < 1e-4
 print("ok")
 """
 

@@ -155,3 +155,177 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# -- kernel 5: embedding_bag --------------------------------------------------
+
+def _bag_inputs(seed, B, slots, F, k, rows=200, multi_hot=False):
+    """(table, ids, weights, seg) as numpy: arena-global ids, a sorted slot
+    -> bag map (with ``multi_hot``, bags of 1-4 slots and one empty bag)."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((rows, k), dtype=np.float32)
+    ids = rng.integers(0, rows, (B, slots)).astype(np.int32)
+    w = rng.random((B, slots)).astype(np.float32)
+    if multi_hot:
+        sizes = [1, 4, 0, 2, 3][:F]
+        seg = np.repeat(np.arange(len(sizes)), sizes)[:slots]
+    else:
+        seg = np.sort(rng.integers(0, F, slots))
+    return table, ids, w, seg
+
+
+@pytest.mark.parametrize("B,slots,F,k,multi_hot", [
+    (32, 6, 4, 16, False),      # tests/test_kernels.py's shapes
+    (17, 3, 3, 8, False),
+    (9, 10, 5, 16, True),       # bags of 1-4 slots and an empty bag
+])
+def test_embedding_bag_matches_pallas_and_oracle(B, slots, F, k, multi_hot):
+    table, ids, w, seg = _bag_inputs(9, B, slots, F, k, multi_hot=multi_hot)
+    got = ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                            torch.from_numpy(w), ops.bag_map(seg, F, "cpu"))
+    assert got.shape == (B, F, k) and got.dtype == torch.float32
+    assert_scores(got, jops.embedding_bag(jnp.asarray(table), jnp.asarray(ids),
+                                          jnp.asarray(w), segment_ids=seg, n_bags=F))
+    assert_scores(got, jref.embedding_bag_ref(jnp.asarray(table), jnp.asarray(ids),
+                                              jnp.asarray(w), seg, F))
+
+
+def test_embedding_bag_flattens_leading_dims_and_takes_int64_ids():
+    table, ids, w, seg = _bag_inputs(10, 12, 5, 3, 8)
+    t, i, ww = (torch.from_numpy(a) for a in (table, ids, w))
+    bags = ops.bag_map(seg, 3, "cpu")
+    flat = ops.embedding_bag(t, i, ww, bags)
+    batched = ops.embedding_bag(t, i.view(3, 4, 5), ww.view(3, 4, 5), bags)
+    assert batched.shape == (3, 4, 3, 8)
+    assert torch.equal(batched.reshape(12, 3, 8), flat)
+    assert torch.equal(ops.embedding_bag(t, i.long(), ww, bags), flat)
+
+
+def test_embedding_bag_rejects_ids_outside_the_table():
+    table, ids, w, seg = _bag_inputs(11, 4, 3, 2, 8)
+    for bad in (-1, table.shape[0]):
+        ids[1, 2] = bad
+        with pytest.raises(IndexError, match="embedding ids"):
+            ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                              torch.from_numpy(w), ops.bag_map(seg, 2, "cpu"))
+
+
+def test_embedding_bag_csr_is_in_slot_order_and_built_once():
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.embedding import bag
+
+    seg = np.array([2, 0, 2, 1, 0, 2])
+    bags = ops.bag_map(seg, 4, "cpu")
+    assert bags.bag_ptr.tolist() == [0, 2, 3, 6, 6]          # bag 3 is empty
+    assert bags.bag_slots.tolist() == [1, 4, 3, 0, 2, 5]     # ascending within a bag
+    assert bags.segments.tolist() == seg.tolist() and bags.n_bags == 4
+    with pytest.raises(ValueError, match="segment ids"):
+        ops.bag_map(np.array([0, 3]), 3, "cpu")
+    # a layout's map is built once per device and kept for its lookups
+    layout = dplr_fwfm.make_smoke().layout
+    kept = bag._statics(layout, "item", "cpu").bags
+    assert bag._statics(layout, "item", "cpu").bags is kept
+    np.testing.assert_array_equal(kept.segments.numpy(), layout.subset("item").slot_to_field)
+
+
+# -- kernel 6: fwfm_pairwise --------------------------------------------------
+
+def _symmetric(rng, m):
+    R = rng.standard_normal((m, m)).astype(np.float32)
+    R = 0.5 * (R + R.T)
+    np.fill_diagonal(R, 0)
+    return R
+
+
+@pytest.mark.parametrize("B,m,k,block_b", [
+    (64, 8, 8, 32),             # tests/test_kernels.py's shapes
+    (300, 14, 16, 128),
+    (128, 39, 16, 64),
+    (1, 82, 16, 8),             # the full dplr-fwfm field count
+])
+def test_fwfm_pairwise_matches_pallas_and_oracle(B, m, k, block_b):
+    rng = np.random.default_rng(12)
+    V = (rng.standard_normal((B, m, k)) / np.sqrt(k)).astype(np.float32)
+    R = _symmetric(rng, m) * np.float32(0.1)
+    got = ops.fwfm_pairwise(torch.from_numpy(V), torch.from_numpy(R))
+    assert got.shape == (B,) and got.dtype == torch.float32
+    assert_scores(got, jops.fwfm_pairwise(jnp.asarray(V), jnp.asarray(R), block_b=block_b))
+    assert_scores(got, jref.fwfm_pairwise_ref(jnp.asarray(V), jnp.asarray(R)))
+    batched = ops.fwfm_pairwise(torch.from_numpy(V).view(1, B, m, k), torch.from_numpy(R))
+    assert torch.equal(batched.view(B), got)
+
+
+@pytest.mark.parametrize("m,k", [(129, 16), (8, 36), (8, 10)])
+def test_fwfm_pairwise_rejects_what_the_kernel_does_not_take(m, k):
+    """The kernel's limits are m <= 128 and k <= 32 (a k that is not a
+    multiple of 4 takes its scalar path); the plain version has none."""
+    from repro_torch.kernels import fwfm_interaction
+
+    if m > fwfm_interaction.MAX_M or k > fwfm_interaction.MAX_K:
+        with pytest.raises(ValueError, match="the kernel takes m"):
+            fwfm_interaction.check_limits(m, k)
+    else:
+        fwfm_interaction.check_limits(m, k)
+    rng = np.random.default_rng(13)
+    V = (rng.standard_normal((3, m, k)) / np.sqrt(k)).astype(np.float32)
+    R = _symmetric(rng, m) * np.float32(0.1)
+    assert_scores(ops.fwfm_pairwise(torch.from_numpy(V), torch.from_numpy(R)),
+                  jref.fwfm_pairwise_ref(jnp.asarray(V), jnp.asarray(R)))
+
+
+# -- gradients: the card's kernels run forward, the plain vjp backward --------
+
+def test_embedding_bag_vjp_matches_autograd_of_the_plain_version():
+    table, ids, w, seg = _bag_inputs(14, 9, 10, 5, 16, multi_hot=True)
+    t = torch.from_numpy(table).requires_grad_()
+    ww = torch.from_numpy(w).requires_grad_()
+    i = torch.from_numpy(ids).view(3, 3, 10)
+    out = ref.embedding_bag_ref(t, i, ww.view(3, 3, 10), seg, 5)
+    grad = torch.from_numpy(np.random.default_rng(15).standard_normal(out.shape)
+                            .astype(np.float32))
+    want = torch.autograd.grad(out, (t, ww), grad)
+    got = ref.embedding_bag_vjp(t.detach(), i, ww.detach().view(3, 3, 10), seg, grad)
+    assert_scores(got[0], want[0].numpy())
+    assert_scores(got[1].reshape(9, 10), want[1].numpy())
+
+
+@pytest.mark.parametrize("lead,m,k", [((7,), 8, 8), ((2, 3), 14, 10)])
+def test_fwfm_pairwise_vjp_matches_autograd_of_the_plain_version(lead, m, k):
+    rng = np.random.default_rng(16)
+    V = torch.from_numpy((rng.standard_normal((*lead, m, k)) / np.sqrt(k))
+                         .astype(np.float32)).requires_grad_()
+    R = torch.from_numpy(rng.standard_normal((m, m)).astype(np.float32)).requires_grad_()
+    grad = torch.from_numpy(rng.standard_normal(lead).astype(np.float32))
+    want = torch.autograd.grad(ref.fwfm_pairwise_ref(V, R), (V, R), grad)
+    got = ref.fwfm_pairwise_vjp(V.detach(), R.detach(), grad)
+    assert_scores(got[0], want[0].numpy())
+    assert_scores(got[1], want[1].numpy())
+
+
+def test_kernel_autograd_functions_pass_the_plain_vjp(monkeypatch):
+    """The autograd wrappers that the card uses, driven on the CPU with the
+    launchers replaced by the plain versions: their gradients are the
+    plain version's autograd gradients."""
+    from repro_torch.kernels import embedding_bag as kbag
+    from repro_torch.kernels import fwfm_interaction as kfwfm
+
+    monkeypatch.setattr(kbag, "launch", lambda t, i, w, b: ref.embedding_bag_ref(
+        t, i, w, b.segments, b.n_bags))
+    monkeypatch.setattr(kfwfm, "launch", ref.fwfm_pairwise_ref)
+    table, ids, w, seg = _bag_inputs(17, 6, 10, 5, 8, multi_hot=True)
+    bags = ops.bag_map(seg, 5, "cpu")
+    t = torch.from_numpy(table).requires_grad_()
+    R = torch.from_numpy(_symmetric(np.random.default_rng(18), 5)).requires_grad_()
+
+    def score(bag_fn, pair_fn):
+        V = bag_fn(t, torch.from_numpy(ids), torch.from_numpy(w), bags)
+        return (pair_fn(V, R) ** 2).sum()
+
+    plain = torch.autograd.grad(score(lambda *a: ref.embedding_bag_ref(
+        *a[:3], a[3].segments, a[3].n_bags), ref.fwfm_pairwise_ref), (t, R))
+    ops.reset_launches()
+    wired = torch.autograd.grad(score(ops._EmbeddingBag.apply, ops._FwFMPairwise.apply),
+                                (t, R))
+    assert ops.LAUNCHES == {"embedding_bag_kernel": 1, "fwfm_pairwise_kernel": 1}
+    for g, want in zip(wired, plain):
+        assert_scores(g, want.numpy())
