@@ -36,13 +36,25 @@ Phases, one line each:
    (model, engine and frontend scores against the plain scores, top-10
    ids equal except at ties).  Kernel launches are counted over this
    phase alone.
-7. timing: each kernel's median time over CUDA events, its plain
+7. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
+   from a seed, bf16 compute): a prefill of B = 2 prompts of 32,752
+   tokens into a 32,768-slot cache through the flash-attention kernel
+   (26 launches), the same prefill through the attention's plain version
+   and a plain f32 prefill, both bf16 prefills held against the f32 one
+   on the last logits and the cache; then 16 greedy ``decode_step``s from
+   the kernel prefill's cache, held against one pass over the same tokens
+   at those positions on that cache.  Prefill seconds,
+   decode ms a step (host clock, synchronized) and peak memory.
+8. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
-   rate and f32 flops over its f32 rate); beside the multi-tenant
-   kernel, the summed time of one single-tenant top-K call per tenant;
-   beside the embedding-bag and FwFM kernels, one PyTorch call that
-   computes the same function (``library_ms``).
-8. profile: with torch.profiler, the device time of a top-K call by CUDA
+   rate and flops over its f32 rate, or its bf16 tensor-core rate for
+   flash attention); beside the multi-tenant kernel, the summed time of
+   one single-tenant top-K call per tenant; beside the embedding-bag,
+   FwFM and flash-attention kernels, one PyTorch call that computes the
+   same function (``library_ms``; for the windowed attention,
+   ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
+   mask).
+9. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, and the device's idle share while the serving engine answers
    Bq = 1 queries.
 
@@ -67,10 +79,27 @@ top-K's, except where the plain scores tie within that tolerance; planted
 exact ties must go to the lower slot.  Row [s] of the multi-tenant kernel
 must equal the single-tenant top-K kernel on segment s bitwise, and a
 packed reply the unpacked one.
+
+Flash attention, against its plain version (which rounds where the
+kernel rounds): f32 within ``1e-5 * max|v|``; bf16 within ``2^-7 * max|v|``
+and, per element, within ``2^-7 (|o| + sum_j p_j |v_j| / l) + 1e-5 max|v|``
+(one output ulp, one ulp of each p, which both round once at running
+maxima that may differ, and the f32 bound).  The lm phase's bounds: the
+kernel path's largest error from an f32 prefill (through
+``gqa_attention``), on the last logits and on the cache, at most
+``1.25x`` the plain path's; a decode step's logit within ``3e-3 + 3e-2
+|x|`` of one pass over the decoded positions on the same cache: the
+JAX package's ``test_decode_matches_forward`` bound.  That pass attends
+through ``gqa_attention``, which rounds its scores to bf16 as decode
+does, and reads the prefill's cache as decode does; only the shapes of
+its products differ (all positions at once).  The ratio with one
+rounding of each term (``2^-8 size``, ``size`` the logit's summed
+``|h_d E_vd|``) added is printed too.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -83,10 +112,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import dplr_fwfm  # noqa: E402
+from repro_torch.configs import dplr_fwfm, gemma3_1b  # noqa: E402
 from repro_torch.core import ranking as rk  # noqa: E402
 from repro_torch.core.dplr import DPLRParams, dplr_diagonal, materialize_R  # noqa: E402
 from repro_torch.core.fields import FeatureLayout  # noqa: E402
@@ -101,6 +131,8 @@ from repro_torch.embedding.bag import (  # noqa: E402
 from repro_torch.eval import harness  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
+from repro_torch.models.transformer import attention  # noqa: E402
+from repro_torch.models.transformer import model as tm  # noqa: E402
 from repro_torch.serving.corpus import masked_slab_scores  # noqa: E402
 from repro_torch.serving.engine import CorpusState  # noqa: E402
 from repro_torch.serving.frontend import QueryFrontend  # noqa: E402
@@ -125,15 +157,24 @@ FULL = SimpleNamespace(
     pairs=((4096, 82), (262_144, 82), (1, 39)),
     make_fwfm=dplr_fwfm.make_fwfm_baseline, eval_n=20_000, eval_batch=4096,
     parity=(16, 4096), pruned_q=(4, 1024),
+    # flash attention (B, S, H, KV, hd, window): gemma3-1b's global and
+    # windowed layers at the lm phase's batch, then ragged small cases
+    # (GQA, MHA, 9 heads a kv head)
+    flash=((2, 32_752, 4, 1, 256, None), (2, 32_752, 4, 1, 256, 1024)),
+    flash_small=((1, 1000, 4, 1, 256, 64), (2, 777, 8, 8, 64, None),
+                 (1, 300, 36, 4, 128, 100)),
+    make_lm=gemma3_1b.make_config, lm_batch=2, lm_prompt=32_752, lm_cache=32_768,
+    lm_steps=16,
 )
 
 # NVIDIA data-sheet peaks: (device memory bytes/s, f32 flop/s outside the
-# tensor cores), by the card name torch reports.
+# tensor cores, dense bf16 tensor-core flop/s), by the card name torch
+# reports.
 PEAKS = (
-    ("H200", 4.8e12, 67e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),    # SXM
+    ("H200", 4.8e12, 67e12, 989e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100", 3.35e12, 67e12, 989e12),    # SXM
 )
 
 # The entry points the serve phase drives; the tenants phase drives
@@ -155,6 +196,8 @@ KERNEL_ROWS = {
                       "src/repro/kernels/embedding_bag.py:78"),
     "fwfm_pairwise": ("src/repro_torch/kernels/csrc/fwfm_interaction.cu",
                       "src/repro/kernels/fwfm_interaction.py:49"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:124"),
 }
 
 
@@ -298,8 +341,12 @@ def kernel_checks(dev, sz) -> dict:
     notes += more
     errs["fwfm_pairwise"], more = pair_checks(dev, sz, gen)
     notes += more
+    errs["flash_attention"], more = flash_checks(dev, sz, gen)
+    notes += more
     print(f"phase kernels: all within {TOL:g} x max(1, |s|) (embedding_bag: bitwise on "
-          f"one-hot layouts, 1e-6 x sum |w row| on multi-hot); max |diff| "
+          f"one-hot layouts, 1e-6 x sum |w row| on multi-hot; flash_attention: "
+          f"{FLASH_TOL[torch.float32]:g} max|v| in f32, 2^-7 max|v| and per element "
+          f"2^-7 (|o| + sum p|v|/l) + 1e-5 max|v| in bf16); max |diff| "
           + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + "; " + ", ".join(notes), flush=True)
     return errs
@@ -455,6 +502,55 @@ def pair_checks(dev, sz, gen) -> tuple[float, list]:
         notes.append(f"B={B} m={m}")
         del V, got
     return err, ["fwfm_pairwise " + ", ".join(notes)]
+
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def flash_inputs(B, S, H, KV, hd, dtype, gen):
+    """q (B, S, H, hd), k and v (B, S, KV, hd), standard normal in ``dtype``."""
+    return tuple(torch.randn((B, S, n, hd), generator=gen, device=gen.device).to(dtype)
+                 for n in (H, KV, KV))
+
+
+def flash_ratio(got, want, size, v) -> float:
+    """Largest ``|got - want|`` over its bound: ``FLASH_TOL[dtype] * max|v|``
+    and, in bf16, also per element ``2^-7 (|want| + size) + 1e-5 max|v|``
+    (``size = sum_j p_ij |v_j| / l_i`` from the plain version): one output
+    ulp, one ulp of each p, which both versions round once at maxima that
+    may differ, and the f32 bound for the f32 arithmetic they share."""
+    vmax = float(v.abs().max())
+    diff = (got.float() - want.float()).abs()
+    ratio = float(diff.max()) / (FLASH_TOL[got.dtype] * vmax)
+    if got.dtype == torch.bfloat16:
+        elem = 2.0**-7 * (want.float().abs() + size) + 1e-5 * vmax
+        ratio = max(ratio, float((diff / elem).max()))
+    return ratio
+
+
+def flash_checks(dev, sz, gen) -> tuple[float, list]:
+    """The flash-attention kernel against its plain version at gemma3-1b's
+    global and windowed layers and at ragged small shapes, in f32 and
+    bf16, within ``flash_ratio``'s bounds.  Returns the largest |diff| of
+    the bf16 cases (the model's type) and notes."""
+    err, notes = 0.0, []
+    for B, S, H, KV, hd, window in sz.flash + sz.flash_small:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(B, S, H, KV, hd, dtype, gen)
+            got = ops.flash_attention(q, k, v, window=window)
+            want, size = ref.flash_attention_plain(q, k, v, window=window, with_size=True)
+            _sync(dev)
+            e = float((got.float() - want.float()).abs().max())
+            ratio = flash_ratio(got, want, size, v)
+            what = f"{str(dtype)[6:]} {B}x{S}x{H}/{KV}x{hd} W={window}"
+            if got.dtype != dtype or not torch.isfinite(got).all() or not ratio <= 1.0:
+                raise AssertionError(f"flash_attention {what}: max |diff| {e:.3g}, "
+                                     f"{ratio:.3f} of its bound")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+            notes.append(f"{what}: {e:.3g} ({ratio:.3f} of its bound)")
+            del q, k, v, got, want, size
+    return err, ["flash_attention max |diff| " + ", ".join(notes)]
 
 
 # -- phase 4: the serving path ------------------------------------------------
@@ -815,7 +911,170 @@ def eval_phase(dev, sz, serve) -> dict:
     return launches
 
 
-# -- phase 7: timing ----------------------------------------------------------
+# -- phase 7: lm --------------------------------------------------------------
+
+LM_Q_CHUNK = 512   # the f32 reference prefill's query chunk (gqa_attention)
+
+
+def plain_prefill(params, cfg, tokens, max_seq, attend):
+    """``tm.prefill`` with ``attend(q, k, v, positions, window)`` in place of
+    the kernel, built from the port's layer pieces (as ``plain_apply``
+    builds ``fwfm.apply``): (last logits, bf16 cache)."""
+    cparams = tm.cast_params(params, cfg.compute_dtype)
+    B, S = tokens.shape
+    cache = tm.init_cache(cfg, B, max_seq, device=tokens.device)
+    x = tm.embed(cparams, cfg, tokens)
+    pos = torch.arange(S, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = tm.layer_params(cparams, i)
+        q, k, v = tm.attention_inputs(lp, cfg, x, pos)
+        x = tm.finish_layer(lp, cfg, x, attend(q, k, v, pos, cfg.window(i)))
+        cache[i, 0, :, :S] = k.to(torch.bfloat16)
+        cache[i, 1, :, :S] = v.to(torch.bfloat16)
+    return tm._logits(cparams, cfg, x[:, -1:]), cache
+
+
+def flash_plain(q, k, v, pos, window):
+    """The kernel's plain version (its rounding points)."""
+    return ref.flash_attention_plain(q, k, v, window=window)
+
+
+def gqa_chunked(q, k, v, pos, window):
+    """The JAX package's plain attention, in query chunks of ``LM_Q_CHUNK``."""
+    return attention.gqa_attention(q, k, v, n_kv_heads=k.shape[2], q_positions=pos,
+                                   k_positions=pos, window=window, q_chunk=LM_Q_CHUNK)
+
+
+def plain_extend(params, cfg, tokens, cache, start: int):
+    """One trunk pass over ``tokens (B, n)`` at positions ``start..start+n-1``
+    against the k/v that ``cache`` holds before ``start``: the n positions'
+    hidden states (pre-final-norm) and the cast parameters.  Its attention
+    is ``attention.gqa_attention``, whose bf16 scores round as
+    ``decode_attention``'s do, and its keys go through the cache's type as
+    decode's do; what it does not share with ``tm.decode_step`` is the
+    shape of each product (n positions at once, not one)."""
+    cparams = tm.cast_params(params, cfg.compute_dtype)
+    n = tokens.shape[1]
+    x = tm.embed(cparams, cfg, tokens)
+    q_pos = torch.arange(start, start + n, device=tokens.device)
+    k_pos = torch.arange(start + n, device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = tm.layer_params(cparams, i)
+        q, k, v = tm.attention_inputs(lp, cfg, x, q_pos)
+        keys, vals = (torch.cat([cache[i, j, :, :start], new.to(cache.dtype)], 1).to(q.dtype)
+                      for j, new in ((0, k), (1, v)))
+        x = tm.finish_layer(lp, cfg, x, attention.gqa_attention(
+            q, keys, vals, n_kv_heads=cfg.n_kv_heads, q_positions=q_pos, k_positions=k_pos,
+            window=cfg.window(i)))
+    return x, cparams
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def cache_diff(cache, want, S: int) -> float:
+    """Max |diff| over positions 0..S-1 of two caches, a layer at a time."""
+    return max(_max_diff(cache[i, :, :, :S], want[i, :, :, :S]) for i in range(cache.shape[0]))
+
+
+def lm_phase(dev, sz) -> int:
+    """gemma3-1b (``sz.make_lm``) at full width, random f32 weights from
+    seed 0, bf16 compute: the kernel prefill, the plain bf16 and f32
+    prefills (the f32 one through ``gqa_attention``), and greedy decode
+    from the kernel prefill's cache against one pass over the decoded
+    positions (``plain_extend``).  Returns the kernel's launches over the
+    kernel prefill."""
+    cfg = sz.make_lm()
+    f32_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    B, S, S_max, n_steps = sz.lm_batch, sz.lm_prompt, sz.lm_cache, sz.lm_steps
+    V = cfg.vocab
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = tm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = tm.prefill(params, cfg, tokens, S_max, device=dev)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES["flash_attention_kernel"]
+    if dev.type == "cuda" and launches != cfg.n_layers:
+        raise AssertionError(f"prefill launched the kernel {launches} times, "
+                             f"not once a layer ({cfg.n_layers})")
+    before = sum(ops.LAUNCHES.values())
+    t0 = time.perf_counter()
+    plain_logits, plain_cache = plain_prefill(params, cfg, tokens, S_max, flash_plain)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    f32_logits, f32_cache = plain_prefill(params, f32_cfg, tokens, S_max, gqa_chunked)
+    _sync(dev)
+    if sum(ops.LAUNCHES.values()) != before:
+        raise AssertionError("the plain prefills launched a kernel")
+    errs = {}
+    for name, got, want in (("logits", logits[..., :V], f32_logits[..., :V]),
+                            ("plain logits", plain_logits[..., :V], f32_logits[..., :V])):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"lm: non-finite {name}")
+        errs[name] = _max_diff(got, want)
+    errs["cache"] = cache_diff(cache, f32_cache, S)
+    errs["plain cache"] = cache_diff(plain_cache, f32_cache, S)
+    del plain_cache, f32_cache
+    rel = {name: errs[name] / max(errs[f"plain {name}"], 1e-30) for name in ("logits", "cache")}
+    for name in rel:
+        if not errs[name] <= 1.25 * errs[f"plain {name}"]:
+            raise AssertionError(f"lm: the kernel path's {name} error {errs[name]:.4g} from "
+                                 f"f32 > 1.25 x the plain path's {errs[f'plain {name}']:.4g}")
+    top1 = int((logits[..., :V].argmax(-1) == plain_logits[..., :V].argmax(-1)).sum())
+
+    # greedy decode from the kernel prefill, against one pass over the same
+    # tokens at those positions with decode's numerics
+    tok = logits[:, -1, :V].argmax(-1, keepdim=True)
+    fed, steps, step_ms = [], [], []
+    for i in range(n_steps):
+        fed.append(tok)
+        t0 = time.perf_counter()
+        lg, cache = tm.decode_step(params, cfg, tok, cache, S + i, device=dev)
+        _sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(lg[:, 0, :V])
+        tok = lg[:, -1, :V].argmax(-1, keepdim=True)
+    got = torch.stack(steps, 1)                                # (B, n_steps, V)
+    h, cparams = plain_extend(params, cfg, torch.cat(fed, 1), cache, S)
+    del cache
+    want = tm._logits(cparams, cfg, h)[..., :V]
+    emb = cparams["embed"][:V].float().abs()
+    size = tm._rms(h, cparams["final_ln"]).float().abs() @ emb.T
+    bound = 3e-3 + 3e-2 * want.float().abs()
+    diff = (got.float() - want.float()).abs()
+    ratio = float((diff / bound).max())
+    size_ratio = float((diff / (bound + 2.0**-8 * size)).max())
+    if not torch.isfinite(got).all() or ratio > 1.0:
+        raise AssertionError(f"lm decode: {int((diff > bound).sum())} of {diff.numel()} "
+                             f"logits beyond 3e-3 + 3e-2 |x| (max ratio {ratio:.3f})")
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
+            else "not measured")
+    print(f"phase lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
+          f"KV={cfg.n_kv_heads} hd={cfg.hd} vocab={V}, {cfg.n_params()} parameters (f32, "
+          f"seed 0), bf16 compute; B={B} prompts of {S} tokens into {S_max} slots; "
+          f"prefill {prefill_s:.3f} s through the kernel ({launches} launches, one a layer), "
+          f"{plain_s:.3f} s through the plain attention (host clock, synchronized); max |diff| "
+          f"from the plain f32 prefill: last logits {errs['logits']:.4g} (plain path "
+          f"{errs['plain logits']:.4g}, ratio {rel['logits']:.3f} <= 1.25), cache "
+          f"{errs['cache']:.4g} (plain path {errs['plain cache']:.4g}, ratio "
+          f"{rel['cache']:.3f} <= 1.25); top-1 token equal to "
+          f"the plain path's in {top1} of {B}; {n_steps} greedy decode steps, median "
+          f"{np.median(step_ms):.2f} ms a step; decode logits against one pass over the "
+          f"{n_steps} positions on the prefill's cache: max |diff| {float(diff.max()):.4g}, "
+          f"max |diff| / (3e-3 + 3e-2 |x|) {ratio:.3f} <= 1 (with 2^-8 size added, size up "
+          f"to {float(size.max()):.3g}: {size_ratio:.3f}); peak "
+          f"memory {peak}", flush=True)
+    return launches
+
+
+# -- phase 8: timing ----------------------------------------------------------
 
 def _sync(dev):
     if dev.type == "cuda":
@@ -840,8 +1099,10 @@ def device_ms(fn, batches=5, per_batch=10) -> float:
     return float(np.median(times))
 
 
-def bound_ms(nbytes: float, flops: float, peaks) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / peaks[0], flops / peaks[1]
+def bound_ms(nbytes: float, flops: float, peaks, tensor: bool = False) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate, or flops
+    over the f32 rate (the bf16 tensor-core rate with ``tensor``)."""
+    t_bytes, t_ops = nbytes / peaks[0], flops / peaks[2 if tensor else 1]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -952,8 +1213,58 @@ def timing_phase(dev, sz, peaks) -> dict:
             rows["fwfm_pairwise"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                          library_ms=lib)
         del V
+    rows["flash_attention"] = flash_timing(sz, peaks, gen, extra)
     print("phase timing: " + "; ".join(extra), flush=True)
     return rows
+
+
+def attention_pairs(S: int, window) -> int:
+    """(query, key) pairs causal attention over S positions computes."""
+    i = np.arange(S, dtype=np.int64)
+    return int(np.minimum(i + 1, S if window is None else window).sum())
+
+
+def flash_timing(sz, peaks, gen, extra) -> dict:
+    """Flash attention in bf16 at the lm phase's shapes (``sz.flash``): the
+    global layer's row, with the windowed layer's beside it.  Bound: 4 hd
+    flops a (query, key) pair and head at the bf16 tensor-core rate, or
+    q, k, v and out moved once.  Library (timed only; the port never calls
+    it): ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` on the
+    global layer; on the windowed one, which it has no option for, the
+    same call with the (S, S) causal-and-window mask, on its
+    memory-efficient backend (on the card) and k, v repeated to the query
+    heads outside the timed call."""
+    out = {}
+    for B, S, H, KV, hd, window in sz.flash:
+        q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, gen)
+        ms = device_ms(lambda: ops.flash_attention(q, k, v, window=window))
+        plain = device_ms(lambda: ref.flash_attention_plain(q, k, v, window=window), 3, 2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                   enable_gqa=True))
+        else:
+            i = torch.arange(S, device=q.device)
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+            with (sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION) if q.is_cuda
+                  else contextlib.nullcontext()):
+                lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                       attn_mask=band), 3, 2)
+            del band
+        flops = 4 * hd * attention_pairs(S, window) * B * H
+        bnd, by = bound_ms(B * S * (2 * H + 2 * KV) * hd * 2, flops, peaks, tensor=True)
+        label = "global" if window is None else f"window {window}"
+        extra.append(f"flash_attention bf16 B={B} S={S} H={H} KV={KV} hd={hd} {label}: "
+                     f"{ms:.4f} ms, plain {plain:.4f} ms, F.scaled_dot_product_attention "
+                     f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}, {flops / 1e12:.3f} TFLOP)")
+        row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
+        if window is None:
+            out.update(row)
+        else:
+            out["windowed"] = row
+        del q, k, v
+    return out
 
 
 def _device_times(prof) -> dict:
@@ -1046,12 +1357,13 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peaks = next(((bw, fl) for key, bw, fl in PEAKS if key in kind), None)
+    peaks = next((rates for key, *rates in PEAKS if key in kind), None)
     if peaks is None:
         raise SystemExit(f"chip_smoke: no peak rates known for {kind!r}")
     print(smi)
     print(f"phase card: {kind}; peaks {peaks[0] / 1e12:g} TB/s, {peaks[1] / 1e12:g} "
-          f"TFLOP/s f32; TF32 off", flush=True)
+          f"TFLOP/s f32, {peaks[2] / 1e12:g} TFLOP/s bf16 tensor cores (dense); TF32 off",
+          flush=True)
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -1071,6 +1383,7 @@ def main() -> None:
         launches[g] = tenant_launches[g]
     for g, count in eval_phase(dev, FULL, serve).items():
         launches[g] = launches.get(g, 0) + count
+    launches["flash_attention_kernel"] = lm_phase(dev, FULL)
     rows = timing_phase(dev, FULL, peaks)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)
     kernels = []

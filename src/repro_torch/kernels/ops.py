@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import dplr_corpus_score as _corpus
 from repro_torch.kernels import dplr_score as _dplr
 from repro_torch.kernels import embedding_bag as _bag
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fwfm_interaction as _fwfm
 from repro_torch.kernels import ref
 
@@ -32,6 +33,7 @@ KERNELS = {
     "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
     "embedding_bag": ("embedding_bag_kernel",),
     "fwfm_pairwise": ("fwfm_pairwise_kernel",),
+    "flash_attention": ("flash_attention_kernel",),
 }
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -302,3 +304,40 @@ class _FwFMPairwise(torch.autograd.Function):
         d_V, d_R = ref.fwfm_pairwise_vjp(V, R, grad)
         return (d_V if ctx.needs_input_grad[0] else None,
                 d_R if ctx.needs_input_grad[1] else None)
+
+
+def flash_attention(q, k, v, *, window: int | None = None):
+    """Causal GQA, optionally within a sliding ``window``: ``(B, S, H, hd)``
+    in q's dtype for ``q (B, S, H, hd)`` and ``k, v (B, S, KV, hd)``, query
+    position i attending to keys j <= i (and j > i - window).  The kernel
+    takes float32 or bfloat16 (one type for all three), ``H // KV <= 64``,
+    and hd in (16, 32, 64, 128, 256) in bfloat16 or a multiple of 4 up to
+    256 in float32; any S.  It has no backward: on the card, inputs that
+    need a gradient raise (training is ROADMAP queue 7)."""
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KV, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    _check_shape("k", k, (B, S, KV, hd))
+    _check_shape("v", v, (B, S, KV, hd))
+    if KV == 0 or H % KV != 0:
+        raise ValueError(f"{H} query heads do not group over {KV} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    dev = _device(q=q, k=k, v=v)
+    if dev.type == "cpu":
+        return ref.flash_attention_plain(q, k, v, window=window)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel "
+                        f"takes one type")
+    _flash.check_limits(q.dtype, H, KV, hd)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes a contiguous, 16-byte aligned tensor")
+    if _needs_grad(q, k, v):
+        raise NotImplementedError("flash_attention has no backward on the card "
+                                  "(training is ROADMAP queue 7)")
+    out = _flash.launch(q, k, v, window)
+    LAUNCHES["flash_attention_kernel"] += 1
+    return out

@@ -1,0 +1,293 @@
+"""Decoder-only LM (``repro.models.transformer.model``), dense
+configurations: gemma3-1b, and any other without experts.
+
+  * parameters are a tree ``{"embed", "layers": {name: (L, ...)}, "final_ln"}``
+    (plus ``"lm_head"`` untied), the JAX package's keys and shapes, so its
+    parameters pass through ``interop`` unchanged
+  * the layer loop runs each layer with its entry of ``layer_pattern``
+    (window or None), in place of the JAX package's scan over periods
+  * entry points: ``forward`` (logits), ``prefill`` (KV cache + last
+    logits), ``decode_step`` (one token against the cache); ``trunk`` gives
+    the hidden states.  Prefill and forward attend through the
+    flash-attention kernel (``kernels.ops.flash_attention``: the kernel on
+    the card, its plain version on the CPU); decode through the plain
+    ``attention.decode_attention``, as in the JAX package
+  * params are stored f32; every call casts them to ``compute_dtype``
+    (bf16); KV caches are bf16.  ``decode_step`` writes the new position
+    into the cache it is given, in place (the JAX function returns a new
+    cache): a copy of a full cache each step would double its memory
+
+Not ported: experts (``n_experts > 0`` raises; ROADMAP queue 13), the
+training loss and the mesh hooks (queues 7 and 10).  The entry points run
+on the card unless the caller passes ``device="cpu"``; the parameters
+must already be there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.transformer import attention as attn_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    rope_theta: float = 10000.0
+    mlp_type: str = "swiglu"                 # swiglu | geglu | gelu
+    # per-layer attention pattern, repeated over depth. Entries: window size
+    # (sliding-window attention) or None (full causal).
+    layer_pattern: tuple[Any, ...] = (None,)
+    tie_embeddings: bool = False
+    # MoE (n_experts == 0 -> dense FFN); only dense is ported
+    n_experts: int = 0
+    # numerics
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up to 128 (the JAX package shards the vocab axis
+        over any mesh axis <= 128 wide).  Padded logit columns are masked
+        to -1e30 in ``_logits``."""
+        return ((self.vocab + 127) // 128) * 128
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def window(self, layer: int):
+        """Layer ``layer``'s attention window (None: full causal)."""
+        return self.layer_pattern[layer % len(self.layer_pattern)]
+
+    def n_params(self) -> int:
+        """Total parameter count."""
+        return sum(math.prod(s) for s in _shapes(self).values())
+
+
+def _check_dense(cfg: TransformerConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not ported "
+                                  f"(ROADMAP queue 13)")
+
+
+def _shapes(cfg: TransformerConfig) -> dict:
+    """``{path: shape}`` of every parameter, paths as in the tree
+    (``"layers/wq"``), in the JAX package's init order."""
+    _check_dense(cfg)
+    L, d, H, KV, hd, f = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                          cfg.d_ff)
+    shapes = {"layers/ln_attn": (L, d), "layers/wq": (L, d, H * hd),
+              "layers/wk": (L, d, KV * hd), "layers/wv": (L, d, KV * hd),
+              "layers/wo": (L, H * hd, d), "layers/ln_mlp": (L, d)}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        shapes["layers/w_gate"] = (L, d, f)
+    shapes["layers/w_in"] = (L, d, f)
+    shapes["layers/w_out"] = (L, f, d)
+    shapes["embed"] = (cfg.vocab_padded, d)
+    shapes["final_ln"] = (d,)
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_padded)
+    return shapes
+
+
+def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
+    """Random parameters on the generator's device: norms at 1, linear
+    maps normal / sqrt(fan in) (``d`` for a stacked (L, d, n) map), the
+    embedding normal * 0.02."""
+    dev, dt = generator.device, cfg.param_dtype
+    params: dict = {"layers": {}}
+    for path, shape in _shapes(cfg).items():
+        name = path.split("/")[-1]
+        if name in ("ln_attn", "ln_mlp", "final_ln"):
+            t = torch.ones(shape, dtype=dt, device=dev)
+        else:
+            scale = 0.02 if name == "embed" else 1.0 / np.sqrt(shape[1] if len(shape) == 3
+                                                                else shape[0])
+            t = (torch.randn(shape, generator=generator, device=dev) * scale).to(dt)
+        if path.startswith("layers/"):
+            params["layers"][name] = t
+        else:
+            params[name] = t
+    return params
+
+
+def cast_params(params: dict, dtype) -> dict:
+    return {name: cast_params(p, dtype) if isinstance(p, dict) else p.to(dtype)
+            for name, p in params.items()}
+
+
+def _rms(x, scale, eps=1e-6):
+    var = (x.float() ** 2).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * scale
+
+
+def _mlp(lp, cfg, x):
+    if cfg.mlp_type == "swiglu":
+        a = F.silu(x @ lp["w_gate"]) * (x @ lp["w_in"])
+    elif cfg.mlp_type == "geglu":
+        a = F.gelu(x @ lp["w_gate"], approximate="tanh") * (x @ lp["w_in"])
+    else:
+        a = F.gelu(x @ lp["w_in"], approximate="tanh")
+    return a @ lp["w_out"]
+
+
+def attention_inputs(lp, cfg, x, positions):
+    """The attention inputs of one layer: rope'd q (B, S, H, hd), k and v
+    (B, S, KV, hd)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = _rms(x, lp["ln_attn"])
+    q = (h @ lp["wq"]).reshape(B, S, H, hd)
+    k = (h @ lp["wk"]).reshape(B, S, KV, hd)
+    v = (h @ lp["wv"]).reshape(B, S, KV, hd)
+    return (attn_lib.rope(q, positions, cfg.rope_theta),
+            attn_lib.rope(k, positions, cfg.rope_theta), v)
+
+
+def finish_layer(lp, cfg, x, o):
+    """The rest of a layer after attention: output projection, residual,
+    MLP."""
+    B, S, _ = x.shape
+    x = x + (o.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"])
+    return x + _mlp(lp, cfg, _rms(x, lp["ln_mlp"]))
+
+
+def _layer(lp: dict, cfg: TransformerConfig, window, x, positions, kv_slice=None,
+           cache_index=None):
+    """One transformer layer.  lp: this layer's params (no L dim).
+
+    Returns (x, (k, v)): without ``kv_slice`` the layer attends over its own
+    positions 0..S-1 through the flash-attention kernel and returns its new
+    k/v; with ``kv_slice = (k_cache, v_cache)`` (B, S_max, KV, hd) it writes
+    its k/v at ``cache_index``, in place, and attends against the cache."""
+    q, k, v = attention_inputs(lp, cfg, x, positions)
+    if kv_slice is None:
+        o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                window=window)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = kv_slice
+        S = x.shape[1]
+        k_cache[:, cache_index:cache_index + S] = k.to(k_cache.dtype)
+        v_cache[:, cache_index:cache_index + S] = v.to(v_cache.dtype)
+        o = attn_lib.decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                                      n_kv_heads=cfg.n_kv_heads, cache_index=cache_index,
+                                      window=window)
+        new_kv = (k_cache, v_cache)
+    return finish_layer(lp, cfg, x, o), new_kv
+
+
+def layer_params(cparams: dict, i: int) -> dict:
+    return {name: p[i] for name, p in cparams["layers"].items()}
+
+
+def _logits(params, cfg, x):
+    x = _rms(x, params["final_ln"])
+    out = x @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    if cfg.vocab_padded != cfg.vocab:   # mask pad columns out of softmaxes
+        col = torch.arange(out.shape[-1], device=out.device)
+        out = torch.where(col < cfg.vocab, out, torch.full_like(out, -1e30))
+    return out
+
+
+def _resolve(params: dict, device) -> torch.device:
+    """The device an entry point runs on (cuda unless ``device`` names
+    another); the parameters must be there."""
+    dev = resolve_device(device)
+    have = params["embed"].device
+    if have.type != dev.type:
+        raise ValueError(f"parameters are on {have}, the call asks for {dev}")
+    return have
+
+
+def embed(cparams: dict, cfg: TransformerConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the compute dtype (scaled by sqrt(d) when tied)."""
+    x = cparams["embed"][tokens]
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def trunk(params: dict, cfg: TransformerConfig, tokens, *, device=None):
+    """tokens (B, S) -> (final hidden states (B, S, d) pre-final-norm, the
+    parameters cast to the compute dtype)."""
+    _check_dense(cfg)
+    dev = _resolve(params, device)
+    cparams = cast_params(params, cfg.compute_dtype)
+    tokens = torch.as_tensor(tokens, device=dev)
+    x = embed(cparams, cfg, tokens)
+    pos = torch.arange(tokens.shape[1], device=dev)
+    for i in range(cfg.n_layers):
+        x, _ = _layer(layer_params(cparams, i), cfg, cfg.window(i), x, pos)
+    return x, cparams
+
+
+def forward(params: dict, cfg: TransformerConfig, tokens, *, device=None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, vocab_padded).  Eval forward."""
+    x, cparams = trunk(params, cfg, tokens, device=device)
+    return _logits(cparams, cfg, x)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device=None) -> torch.Tensor:
+    """(L, 2, B, S, KV, hd) KV cache of zeros."""
+    return torch.zeros((cfg.n_layers, 2, batch, max_seq, cfg.n_kv_heads, cfg.hd),
+                       dtype=dtype, device=resolve_device(device))
+
+
+def prefill(params: dict, cfg: TransformerConfig, tokens, max_seq: int, *, device=None):
+    """Process a prompt (any length S <= max_seq); returns (last-position
+    logits (B, 1, vocab_padded), bf16 cache (L, 2, B, max_seq, KV, hd))
+    holding positions 0..S-1."""
+    _check_dense(cfg)
+    dev = _resolve(params, device)
+    cparams = cast_params(params, cfg.compute_dtype)
+    tokens = torch.as_tensor(tokens, device=dev)
+    B, S = tokens.shape
+    if S > max_seq:
+        raise ValueError(f"a prompt of {S} tokens does not fit a {max_seq}-slot cache")
+    cache = init_cache(cfg, B, max_seq, device=dev)
+    x = embed(cparams, cfg, tokens)
+    pos = torch.arange(S, device=dev)
+    for i in range(cfg.n_layers):
+        x, (k, v) = _layer(layer_params(cparams, i), cfg, cfg.window(i), x, pos)
+        cache[i, 0, :, :S] = k.to(torch.bfloat16)
+        cache[i, 1, :, :S] = v.to(torch.bfloat16)
+    return _logits(cparams, cfg, x[:, -1:, :]), cache
+
+
+def decode_step(params: dict, cfg: TransformerConfig, tokens, cache: torch.Tensor,
+                cache_index: int, *, device=None):
+    """One decode step.  tokens (B, 1); cache (L, 2, B, S_max, KV, hd),
+    written at ``cache_index`` in place.  Returns (logits (B, 1,
+    vocab_padded), the cache)."""
+    _check_dense(cfg)
+    dev = _resolve(params, device)
+    cparams = cast_params(params, cfg.compute_dtype)
+    tokens = torch.as_tensor(tokens, device=dev)
+    cache_index = int(cache_index)
+    x = embed(cparams, cfg, tokens)
+    pos = torch.full((tokens.shape[0], 1), cache_index, device=dev)
+    for i in range(cfg.n_layers):
+        x, _ = _layer(layer_params(cparams, i), cfg, cfg.window(i), x, pos,
+                      (cache[i, 0], cache[i, 1]), cache_index)
+    return _logits(cparams, cfg, x), cache

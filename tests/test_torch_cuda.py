@@ -239,3 +239,103 @@ def test_cuda_loss_gradients_match_the_cpu(cuda, interaction):
     for name, g in grads[0].items():
         assert grads[1][name] is not None, name
         assert_scores(grads[1][name], g)
+
+
+# -- kernel 7: flash_attention ------------------------------------------------
+#
+# Against its plain version: f32 within 1e-5 max|v|; bf16 within 2^-7 max|v|
+# and, per element, within 2^-7 (|o| + sum_j p_j |v_j| / l) + 1e-5 max|v|
+# (chip_smoke.flash_ratio, with its reasons).
+
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 300, 4, 1, 256, None),     # gemma3-1b's heads, ragged S
+    (2, 300, 4, 1, 256, 64),       # a window
+    (1, 1000, 8, 8, 64, None),     # MHA
+    (1, 130, 8, 2, 128, 33),
+    (3, 65, 4, 4, 16, 7),
+    (1, 1, 4, 1, 32, None),
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, hd, window):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=cuda).to(dtype)
+               for n in (H, KV, KV))
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"flash_attention_kernel": 1}
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    want, size = ref.flash_attention_plain(q, k, v, window=window, with_size=True)
+    diff = (got.float() - want.float()).abs()
+    vmax = float(v.abs().max())
+    assert float(diff.max()) <= FLASH_TOL[dtype] * vmax, float(diff.max())
+    if dtype == torch.bfloat16:
+        ratio = float((diff / (2.0**-7 * (want.float().abs() + size) + 1e-5 * vmax)).max())
+        assert ratio <= 1.0, ratio
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_raises_on_what_it_does_not_take(cuda):
+    q, k = torch.zeros((1, 8, 4, 64), device=cuda), torch.zeros((1, 8, 1, 64), device=cuda)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            ops.flash_attention(q.to(dt), k.to(dt), k.to(dt))
+    with pytest.raises(TypeError, match="one type"):
+        ops.flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        b = torch.zeros((1, 8, 4, 48), device=cuda, dtype=torch.bfloat16)
+        ops.flash_attention(b, b[:, :, :1].contiguous(), b[:, :, :1].contiguous())
+    wide = torch.zeros((1, 8, 65, 64), device=cuda)
+    with pytest.raises(ValueError, match="<= 64"):
+        ops.flash_attention(wide, k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, k)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.flash_attention(q.requires_grad_(), k, k)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_and_decode_match_the_cpu(cuda):
+    """gemma3-1b's smoke config in f32 compute: prefill (one kernel launch a
+    layer) and decode on the card against the CPU's plain path, logits
+    within 2e-4, and the bf16 cache within 2e-4 plus one bf16 ulp (at most
+    2^-7 |x|).  Each decode step on the card starts from the CPU's cache
+    before that step, so both devices decode the same inputs: a cache
+    entry one ulp apart after the prefill would move what decode then
+    writes by more than f32 rounding."""
+    import dataclasses
+
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.models.transformer import model as tm
+
+    def cache_ratio(got, want):
+        got, want = got.float().cpu(), want.float()
+        return float(((got - want).abs() / (2e-4 + 2.0**-7 * want.abs())).max())
+
+    cfg = dataclasses.replace(gemma3_1b.make_smoke(), compute_dtype=torch.float32)
+    params = tm.init(torch.Generator().manual_seed(0), cfg)
+    gpu = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict) else v.to(cuda))
+           for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    V = cfg.vocab
+
+    lg_c, cache_c = tm.prefill(params, cfg, toks[:, :13], 16, device="cpu")
+    ops.reset_launches()
+    lg_g, cache_g = tm.prefill(gpu, cfg, toks[:, :13].to(cuda), 16, device=cuda)
+    assert ops.LAUNCHES == {"flash_attention_kernel": cfg.n_layers}
+    np.testing.assert_allclose(lg_g[..., :V].cpu().numpy(), lg_c[..., :V].numpy(),
+                               rtol=2e-4, atol=2e-4)
+    assert cache_ratio(cache_g, cache_c) <= 1.0
+    for t in range(13, 16):
+        cache_g = cache_c.to(cuda)
+        lg_c, cache_c = tm.decode_step(params, cfg, toks[:, t:t + 1], cache_c, t, device="cpu")
+        lg_g, cache_g = tm.decode_step(gpu, cfg, toks[:, t:t + 1].to(cuda), cache_g, t,
+                                       device=cuda)
+        np.testing.assert_allclose(lg_g[..., :V].cpu().numpy(), lg_c[..., :V].numpy(),
+                                   rtol=2e-4, atol=2e-4)
+        assert cache_ratio(cache_g, cache_c) <= 1.0, t
+    assert ops.LAUNCHES == {"flash_attention_kernel": cfg.n_layers}   # decode launches none

@@ -14,7 +14,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import dplr_fwfm  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.configs import gemma3_1b  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.models.transformer import model as tm  # noqa: E402
 from repro_torch.serving.engine import CorpusState  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -64,6 +66,14 @@ for p_, c_, mask in ((engine.params, cfg, None), (fparams, fcfg, pr.mask)):
     assert 0.0 <= got["auc"] <= 1.0
 es = harness.ranking_eval_set(data, n_queries=2, n_items=16)
 assert harness.serving_parity(engine.params, cfg, es, k=3)["max_abs_diff"]["engine"] < 1e-4
+from repro_torch.configs import gemma3_1b
+from repro_torch.models.transformer import model as tm
+lcfg = gemma3_1b.make_smoke()
+lp = tm.init(torch.Generator().manual_seed(0), lcfg)
+toks = torch.randint(0, lcfg.vocab, (2, 9))
+lg, cache = tm.prefill(lp, lcfg, toks, 12, device="cpu")
+lg, cache = tm.decode_step(lp, lcfg, lg[:, :, :lcfg.vocab].argmax(-1), cache, 9, device="cpu")
+assert lg.shape == (2, 1, lcfg.vocab_padded) and torch.isfinite(lg[..., :lcfg.vocab]).all()
 print("ok")
 """
 
@@ -94,3 +104,10 @@ def test_asking_for_the_card_without_one_raises(monkeypatch):
     cfg = dplr_fwfm.make_smoke()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CorpusState(cfg, np.zeros((4, cfg.layout.n_item), np.int32))
+    lcfg = gemma3_1b.make_smoke()
+    params = tm.init(torch.Generator().manual_seed(0), lcfg)
+    toks = np.zeros((1, 4), np.int64)
+    for call in (lambda: tm.prefill(params, lcfg, toks, 8), lambda: tm.forward(params, lcfg, toks),
+                 lambda: tm.init_cache(lcfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

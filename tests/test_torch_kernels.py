@@ -329,3 +329,77 @@ def test_kernel_autograd_functions_pass_the_plain_vjp(monkeypatch):
     assert ops.LAUNCHES == {"embedding_bag_kernel": 1, "fwfm_pairwise_kernel": 1}
     for g, want in zip(wired, plain):
         assert_scores(g, want.numpy())
+
+
+# -- kernel 7: flash_attention ------------------------------------------------
+#
+# f32 within atol = rtol = 1e-5.  bf16 within 2^-7 max|v|: both versions
+# round p and the output to bf16 once, and a running max that differs can
+# move each rounding by one ulp.  So, per element, also within
+# 2^-7 (|o| + sum_j p_j |v_j| / l) + 1e-5 max|v|: one output ulp, one ulp of
+# each p, and the f32 bound.
+
+def _attn_inputs(seed, B, S, H, KV, hd, dtype):
+    """q, k, v as numpy f32 holding values exact in ``dtype``, and as JAX
+    arrays of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    arrays = [jnp.asarray(rng.standard_normal((B, S, n, hd), dtype=np.float32), jdt)
+              for n in (H, KV, KV)]
+    return [np.asarray(a, np.float32) for a in arrays], arrays
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,block", [
+    (2, 128, 4, 1, 32, None, 64),     # GQA, G = 4
+    (1, 192, 4, 1, 256, 96, 64),      # gemma3-1b's heads, a window
+    (2, 128, 4, 4, 16, 48, 32),       # MHA with a window
+    (1, 200, 8, 2, 16, 64, 40),       # S not a multiple of 64
+    (1, 200, 8, 2, 16, None, 40),
+])
+def test_flash_attention_plain_matches_pallas_and_oracle(B, S, H, KV, hd, window, block,
+                                                         dtype):
+    arrays, (jq, jk, jv) = _attn_inputs(11, B, S, H, KV, hd, dtype)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window)
+    assert got.shape == q.shape and got.dtype == tdt
+    assert sum(ops.LAUNCHES.values()) == 0
+    pallas = jops.flash_attention(jq, jk, jv, window=window, block_q=block, block_k=block)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+    size = ref.flash_attention_plain(q, k, v, window=window, with_size=True)[1].numpy()
+    vmax = np.abs(arrays[2]).max()
+    # the default query block, and one that cuts the keys' span elsewhere
+    for out in (got, ref.flash_attention_plain(q, k, v, window=window, block=48)):
+        out = out.float().numpy()
+        for want in (pallas, oracle):
+            want = np.asarray(want, np.float32)
+            if dtype == "f32":
+                np.testing.assert_allclose(out, want, atol=1e-5, rtol=1e-5)
+            else:
+                diff = np.abs(out - want)
+                assert diff.max() <= 2.0**-7 * vmax
+                assert (diff <= 2.0**-7 * (np.abs(want) + size) + 1e-5 * vmax).all()
+
+
+def test_flash_attention_oracle_matches_jax():
+    arrays, jarrays = _attn_inputs(12, 2, 40, 4, 2, 8, "f32")
+    for window in (None, 7):
+        np.testing.assert_allclose(
+            ref.flash_attention_ref(*map(torch.from_numpy, arrays), window=window).numpy(),
+            np.asarray(jref.flash_attention_ref(*jarrays, causal=True, window=window)),
+            atol=1e-5, rtol=1e-5)
+
+
+def test_flash_attention_rejects_bad_shapes():
+    q, k = torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 3, 16))
+    with pytest.raises(ValueError, match="group"):
+        ops.flash_attention(q, k, k)
+    k = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="shape"):
+        ops.flash_attention(q, k, k[:, :4])
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, k, k, window=0)
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
