@@ -159,10 +159,10 @@ FULL = SimpleNamespace(
     parity=(16, 4096), pruned_q=(4, 1024),
     # flash attention (B, S, H, KV, hd, window): gemma3-1b's global and
     # windowed layers at the lm phase's batch, then ragged small cases
-    # (GQA, MHA, 9 heads a kv head)
+    # (GQA, MHA, 9 heads a kv head, S ragged against 128-key tiles at B = 3)
     flash=((2, 32_752, 4, 1, 256, None), (2, 32_752, 4, 1, 256, 1024)),
     flash_small=((1, 1000, 4, 1, 256, 64), (2, 777, 8, 8, 64, None),
-                 (1, 300, 36, 4, 128, 100)),
+                 (1, 300, 36, 4, 128, 100), (3, 1001, 8, 2, 128, None)),
     make_lm=gemma3_1b.make_config, lm_batch=2, lm_prompt=32_752, lm_cache=32_768,
     lm_steps=16,
 )
@@ -978,13 +978,13 @@ def cache_diff(cache, want, S: int) -> float:
     return max(_max_diff(cache[i, :, :, :S], want[i, :, :, :S]) for i in range(cache.shape[0]))
 
 
-def lm_phase(dev, sz) -> int:
+def lm_phase(dev, sz) -> dict:
     """gemma3-1b (``sz.make_lm``) at full width, random f32 weights from
     seed 0, bf16 compute: the kernel prefill, the plain bf16 and f32
     prefills (the f32 one through ``gqa_attention``), and greedy decode
     from the kernel prefill's cache against one pass over the decoded
-    positions (``plain_extend``).  Returns the kernel's launches over the
-    kernel prefill."""
+    positions (``plain_extend``).  Returns the launches of kernel 7's CUDA
+    kernels over the kernel prefill, by name."""
     cfg = sz.make_lm()
     f32_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
     B, S, S_max, n_steps = sz.lm_batch, sz.lm_prompt, sz.lm_cache, sz.lm_steps
@@ -1000,10 +1000,10 @@ def lm_phase(dev, sz) -> int:
     logits, cache = tm.prefill(params, cfg, tokens, S_max, device=dev)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
-    launches = ops.LAUNCHES["flash_attention_kernel"]
-    if dev.type == "cuda" and launches != cfg.n_layers:
-        raise AssertionError(f"prefill launched the kernel {launches} times, "
-                             f"not once a layer ({cfg.n_layers})")
+    launches = {g: ops.LAUNCHES[g] for g in ops.KERNELS["flash_attention"]}
+    if dev.type == "cuda" and launches["flash_attention_wgmma"] != cfg.n_layers:
+        raise AssertionError(f"prefill launched the kernels {launches}, not "
+                             f"flash_attention_wgmma once a layer ({cfg.n_layers})")
     before = sum(ops.LAUNCHES.values())
     t0 = time.perf_counter()
     plain_logits, plain_cache = plain_prefill(params, cfg, tokens, S_max, flash_plain)
@@ -1059,7 +1059,7 @@ def lm_phase(dev, sz) -> int:
     print(f"phase lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
           f"KV={cfg.n_kv_heads} hd={cfg.hd} vocab={V}, {cfg.n_params()} parameters (f32, "
           f"seed 0), bf16 compute; B={B} prompts of {S} tokens into {S_max} slots; "
-          f"prefill {prefill_s:.3f} s through the kernel ({launches} launches, one a layer), "
+          f"prefill {prefill_s:.3f} s through the kernel ({launches}, one a layer), "
           f"{plain_s:.3f} s through the plain attention (host clock, synchronized); max |diff| "
           f"from the plain f32 prefill: last logits {errs['logits']:.4g} (plain path "
           f"{errs['plain logits']:.4g}, ratio {rel['logits']:.3f} <= 1.25), cache "
@@ -1075,6 +1075,57 @@ def lm_phase(dev, sz) -> int:
 
 
 # -- phase 8: timing ----------------------------------------------------------
+
+def kernel_name(mangled: str) -> str:
+    """``flash_attention_wgmma<256>`` from a mangled kernel name: the last
+    name of its (possibly nested) name, then its template arguments where
+    they are integers or the builtin types used here."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            if m := re.match(r"Li(\d+)E", mangled[i:]):         # an int argument
+                args.append(m.group(1))
+                i += len(m.group(0))
+            elif m := re.match(r"\d+", mangled[i:]):            # a named type
+                j = i + len(m.group(0))
+                args.append(mangled[j:j + int(m.group(0))])
+                i = j + int(m.group(0))
+            elif mangled[i] in "fi":
+                args.append({"f": "float", "i": "int"}[mangled[i]])
+                i += 1
+            else:
+                break
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_report(log: str) -> list:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its name with template
+    arguments (``flash_attention_wgmma<256>``), registers, spill bytes and
+    any ptxas warning about it (such as serialized wgmma)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(_Z\w+)'", ln)
+        if m:
+            cur = dict(kernel=kernel_name(m.group(1)), registers=None, spill_stores=0,
+                       spill_loads=0, warnings=[])
+            out.append(cur)
+        elif cur is not None:
+            if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            elif m := re.search(r"Used (\d+) registers", ln):
+                cur["registers"] = int(m.group(1))
+            elif "warning" in ln.lower() or "Performance Loss" in ln:
+                cur["warnings"].append(ln.strip())
+    return out
+
 
 def _sync(dev):
     if dev.type == "cuda":
@@ -1369,9 +1420,13 @@ def main() -> None:
     built = _build.build_all()
     logs = []
     for src in _build.sources():
-        for ln in _build.build_log(src.stem).read_text().splitlines():
-            if "registers" in ln or ("spill" in ln and " 0 bytes spill" not in ln):
-                logs.append(f"{src.stem}: {ln.strip()}")
+        for fn in ptxas_report(_build.build_log(src.stem).read_text()):
+            logs.append(f"{fn['kernel']}: {fn['registers']} registers, {fn['spill_stores']} "
+                        f"bytes spill stores, {fn['spill_loads']} bytes spill loads"
+                        + "".join(f"; {w}" for w in fn["warnings"]))
+            if fn["kernel"].startswith("flash_attention_wgmma") and (
+                    fn["spill_stores"] or fn["spill_loads"]):
+                raise AssertionError(f"{fn['kernel']} spills registers: {logs[-1]}")
     print(f"phase build: {time.perf_counter() - t0:.1f} s ({len(built)} sources compiled); "
           + " | ".join(logs), flush=True)
 
@@ -1383,7 +1438,7 @@ def main() -> None:
         launches[g] = tenant_launches[g]
     for g, count in eval_phase(dev, FULL, serve).items():
         launches[g] = launches.get(g, 0) + count
-    launches["flash_attention_kernel"] = lm_phase(dev, FULL)
+    launches.update(lm_phase(dev, FULL))
     rows = timing_phase(dev, FULL, peaks)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)
     kernels = []

@@ -16,37 +16,59 @@
 // where that kernel rounds: scores in f32 times 1/sqrt(hd), masked scores
 // set to -1e30, p = exp(s - m) cast to v's type before the PV product with
 // f32 sums, the accumulator divided by max(l, 1e-30) and cast to q's type.
+// (The Hopper path masks with -inf: a key masked for a row then weighs 0
+// at once, where -1e30 gives it weight 1 until the row's first visible key
+// scales it by exactly 0, so the outputs are the same.)
 //
-// What bounds it on an H100: bf16 tensor-core operations.  A global layer
-// of gemma3-1b at S = 32,752 needs 4 hd S (S + 1) / 2 flops a head, 2.2
-// TFLOP a sequence, against 0.17 GB of q, k, v and out; a windowed layer
-// (W = 1024) ~0.14 TFLOP.
+// What bounds it on an H100 in bf16: tensor-core operations.  A global
+// layer of gemma3-1b at S = 32,752 needs 4 hd S (S + 1) / 2 flops a head,
+// 2.2 TFLOP a sequence, against 0.17 GB of q, k, v and out; a windowed
+// layer (W = 1024) ~0.14 TFLOP.  Two more limits sit close under it: k and
+// v come from L2 once per block at 128 flops a byte (128 rows a block),
+// ~34 GB a global layer at B = 2; and at hd = 256 shared memory carries,
+// per 64 x 64 consumer tile, 64 KB of wgmma reads for S = Q K^T (both
+// operands from shared memory), 32 KB for P V and 32 KB of TMA writes:
+// 128 KB per 4.2 MFLOP, as many 128-byte shared-memory clocks as the
+// tensor cores take for the flops.
 //
 // What the design does about it:
-//  * A block owns 64 rows: 64 / G query positions times the G query heads
-//    of one kv head (the GQA fold of the Pallas wrapper), so each k and v
-//    tile staged into shared memory serves all G heads.  The sequential
-//    kv grid axis of the TPU kernel becomes a loop inside the block, from
-//    the first 64-key tile the window reaches to the diagonal, so the work
-//    is ~S W on windowed layers and ~S^2 / 2 on global ones.  Blocks are
-//    issued heaviest (last query tile) first.
-//  * bf16: 4 warps, 16 rows each.  S = Q K^T and O += P V are
-//    mma.sync.m16n8k16 (bf16 in, f32 sums) with fragments read by ldmatrix
-//    from shared-memory rows padded by 16 bytes (no bank conflicts).  The
-//    score fragment becomes the A operand of the PV product in registers
-//    (rounded to bf16 there); the 16 x hd f32 accumulator stays in
-//    registers.  q, k and v tiles take 3 x 64 x (hd + 8) x 2 bytes of
-//    dynamic shared memory (101 KB at hd = 256, two blocks an SM).
+//  * bf16 at hd in {64, 128, 256} (flash_attention_wgmma): a block owns
+//    128 rows, 128 / G query positions times the G query heads of one kv
+//    head (the GQA fold of the Pallas wrapper), so each k and v byte staged
+//    serves 128 rows.  The sequential kv grid axis of the TPU kernel
+//    becomes a loop inside the block, from the first tile the window
+//    reaches to the diagonal: the work is ~S W on windowed layers and
+//    ~S^2 / 2 on global ones.  Blocks are issued heaviest (last query
+//    tile) first.  Three warpgroups: a producer, whose thread 0 loads Q
+//    once and K, V tiles (64 keys at hd = 256, 128 below) through a
+//    two-stage ring by TMA (rank-4 tensor maps, so a tile never reads past
+//    its sequence: rows past S load as zeros), each stage guarded by
+//    full and empty mbarriers for K and for V; and two consumers of 64
+//    rows.  A consumer runs S = Q K^T as wgmma m64nNk16 with both operands
+//    in 128-byte-swizzled shared memory, the streaming softmax in
+//    registers (masked only on tiles that cross the diagonal, the window's
+//    edge or S), then O += P V as wgmma with P in registers (the S
+//    accumulator layout is the A-fragment layout) and V read MN-major
+//    through the transpose bit; the 64 x hd f32 O accumulator stays in
+//    registers.  setmaxnreg moves registers from the producer (24) to the
+//    consumers (240).  K is released as soon as S is done, so the producer
+//    refills it while the consumer still works on V; the two consumers
+//    overlap each other's softmax with their products.  The softmax runs
+//    in base 2, with log2 e folded into the scale (__expf is ex2.approx
+//    already).
+//  * bf16 at hd in {16, 32} (flash_attention_kernel): 64 rows a block, 4
+//    warps of 16 rows on mma.sync.m16n8k16 with ldmatrix from padded
+//    shared memory, loads staged by all threads.
 //  * f32 (parity checks only): the same tiling on the CUDA cores, 256
 //    threads, 32-key tiles; no tensor cores, so no TF32.
-//  * Any S: the ragged last tiles are masked in the kernel and k, v rows
-//    past S are staged as zeros.
-// Speed is later work: no TMA, no wgmma, no overlap of loads with compute.
+//  * Any S: the ragged last tiles are masked in the kernel; rows past S are
+//    never written.
 #include <cuda_bf16.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -416,6 +438,363 @@ __device__ void attend_f32(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// ------------------------------------------------- bf16 on Hopper ----
+//
+// hd in {64, 128, 256}: a producer warpgroup and two consumer warpgroups.
+// Thread 0 of the producer loads the block's Q once and streams K and V
+// tiles through a ring of kStages stages with TMA.  Each stage has "full"
+// barriers for K and for V (completed by the TMA's bytes) and "empty" ones
+// for K and for V (one arrival per consumer warp once its products have
+// read the tile).  Consumer warpgroup c owns rows 64 c .. 64 c + 63: S =
+// Q K^T by wgmma from shared memory, the streaming softmax in registers,
+// O += P V by wgmma with P from registers and V read MN-major (the
+// transpose bit).
+
+constexpr int kWgThreads = 128;
+constexpr int kHopperRows = 128;               // rows of a block, 64 a consumer
+constexpr int kHopperThreads = 3 * kWgThreads;
+constexpr int kStages = 2;
+constexpr int kSwizzleRow = 128;               // bytes: 64 bf16, one swizzle row
+constexpr int kConsumerWarps = 2 * kWgThreads / 32;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;             // 2 x 128 x 240 + 128 x 24 <= 65,536
+
+template <int HD>
+struct HopperTile {
+  static constexpr int kKeys = HD == 256 ? 64 : 128;       // keys a K or V tile
+  static constexpr int kPanels = HD / 64;                  // 64-column panels
+  static constexpr int kQPanel = kHopperRows * kSwizzleRow;
+  static constexpr int kKVPanel = kKeys * kSwizzleRow;
+  static constexpr int kQBytes = kPanels * kQPanel;
+  static constexpr int kKVBytes = kPanels * kKVPanel;      // one K or V tile
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  // 1024 bytes of slack to align the tiles for the 128-byte swizzle
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBarriers;
+};
+
+// The block's shared memory, by address: Q, the K and V stages, and the
+// barriers (Q full; K full, V full, K empty, V empty per stage).
+template <int HD>
+struct Ring {
+  using T = HopperTile<HD>;
+  uint32_t q, k, v, bar;
+  __device__ __forceinline__ explicit Ring(unsigned char* smem_raw) {
+    q = (hopper::smem_addr(smem_raw) + 1023) & ~1023u;
+    k = q + T::kQBytes;
+    v = k + kStages * T::kKVBytes;
+    bar = v + kStages * T::kKVBytes;
+  }
+  __device__ __forceinline__ uint32_t k_tile(int st) const { return k + st * T::kKVBytes; }
+  __device__ __forceinline__ uint32_t v_tile(int st) const { return v + st * T::kKVBytes; }
+  __device__ __forceinline__ uint32_t q_full() const { return bar; }
+  __device__ __forceinline__ uint32_t k_full(int st) const { return bar + 8 * (1 + st); }
+  __device__ __forceinline__ uint32_t v_full(int st) const {
+    return bar + 8 * (1 + kStages + st);
+  }
+  __device__ __forceinline__ uint32_t k_empty(int st) const {
+    return bar + 8 * (1 + 2 * kStages + st);
+  }
+  __device__ __forceinline__ uint32_t v_empty(int st) const {
+    return bar + 8 * (1 + 3 * kStages + st);
+  }
+};
+
+// One consumer warpgroup's view of its 64 rows.
+struct ConsumerRows {
+  int qpos[2];           // this thread's rows: 16 warp + g and + 8
+  bool ok[2];
+  bool all_ok;           // every row of the block is a real (position, head)
+  int q_lo, q_hi, t4;
+};
+
+// S = Q K^T for this warpgroup's 64 rows and the N keys of a tile, issued
+// (not waited for).
+template <int HD, int N>
+__device__ __forceinline__ void issue_qk(float* s, uint32_t q_addr, uint32_t k_addr) {
+  using T = HopperTile<HD>;
+  const uint64_t qd = hopper::sw128_desc(q_addr, 16, 1024);
+  const uint64_t kd = hopper::sw128_desc(k_addr, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    // 16 columns: 32 bytes within a 128-byte row, then the next panel;
+    // the descriptor holds the address in 16-byte units
+    const uint32_t step = (kk & 3) * 2;
+    hopper::wgmma_ss<N>(s, qd + (kk >> 2) * (T::kQPanel >> 4) + step,
+                        kd + (kk >> 2) * (T::kKVPanel >> 4) + step, kk > 0);
+  }
+}
+
+// O += P V: V (N keys x HD) MN-major, 64-column panels kKVPanel apart and
+// 8-key groups 1024 bytes apart; issued, not waited for.
+template <int HD, int N>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t (*p)[4], uint32_t v_addr) {
+  using T = HopperTile<HD>;
+  const uint64_t vd = hopper::sw128_desc(v_addr, T::kKVPanel, 1024);
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc)
+    hopper::wgmma_rs_tb<HD>(o, p[kc], vd + kc * (16 * kSwizzleRow >> 4));
+}
+
+// The streaming softmax of one tile of scores (keys k0 .. k0 + N - 1), in
+// place: the mask where kMask (the tile crosses the diagonal, the window's
+// edge or S, or the block has rows past S or past G x positions), the
+// running max m (of scores times scale log2 e) and this thread's part of
+// the running sum l; s becomes P = 2^(s scale log2 e - m).  Returns in
+// alpha the factor by which O's rows shrink.
+template <int N, bool kMask>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float* alpha,
+                                             const ConsumerRows& rows, const Shape& sh, int k0,
+                                             float scale_log2) {
+  if constexpr (kMask) {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const int r = (j >> 1) & 1;
+      const int kpos = k0 + 8 * (j >> 2) + 2 * rows.t4 + (j & 1);
+      if (!(rows.ok[r] && visible(sh, rows.qpos[r], kpos))) s[j] = -CUDART_INF_F;
+    }
+  }
+  float tmax[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) tmax[(j >> 1) & 1] = fmaxf(tmax[(j >> 1) & 1], s[j]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    const float m_new = fmaxf(m[r], tmax[r] * scale_log2);
+    alpha[r] = hopper::ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float tsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) {
+    const int r = (j >> 1) & 1;
+    s[j] = hopper::ex2(fmaf(s[j], scale_log2, -m[r]));
+    tsum[r] += s[j];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + tsum[r];
+}
+
+template <int N>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float* alpha,
+                                             const ConsumerRows& rows, const Shape& sh, int k0,
+                                             float scale_log2) {
+  const bool edge = !rows.all_ok || k0 + N - 1 > rows.q_lo ||
+                    (sh.window > 0 && k0 <= rows.q_hi - sh.window);
+  if (edge) {
+    softmax_tile<N, true>(s, m, l, alpha, rows, sh, k0, scale_log2);
+  } else {
+    softmax_tile<N, false>(s, m, l, alpha, rows, sh, k0, scale_log2);
+  }
+}
+
+// P (the softmax's f32 tile) as the bf16 A fragments of O += P V: the
+// accumulator layout of S is the A-fragment layout, two keys a register.
+template <int N>
+__device__ __forceinline__ void pack_p(const float* s, uint32_t (*p)[4]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[kc][e] = pack_bf16(s[8 * kc + 2 * e], s[8 * kc + 2 * e + 1]);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void rescale(float* o, const float* alpha) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_p(uint32_t (*p)[4]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 16; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[kc][e])::"memory");
+}
+
+template <int HD>
+__device__ __forceinline__ void hopper_consumer(const Ring<HD>& ring,
+                                                __nv_bfloat16* __restrict__ out,
+                                                const Shape& sh, int q_lo, int q_hi, int t_first,
+                                                int t_last) {
+  using T = HopperTile<HD>;
+  constexpr int N = T::kKeys;
+  const int c = threadIdx.x / kWgThreads - 1;          // consumer 0 or 1
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2;
+  const int rows_used = sh.pos_per_block * sh.G;
+  const float scale_log2 = sh.scale * 1.4426950408889634f;
+  ConsumerRows rows;
+  rows.all_ok = rows_used == kHopperRows && q_lo + sh.pos_per_block <= sh.S;
+  rows.q_lo = q_lo;
+  rows.q_hi = q_hi;
+  rows.t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = 64 * c + 16 * warp + g + 8 * i;
+    rows.qpos[i] = q_lo + r / sh.G;
+    rows.ok[i] = r < rows_used && rows.qpos[i] < sh.S;
+  }
+  float o[HD / 2];
+#pragma unroll
+  for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
+  float m[2] = {repro::kNegInf, repro::kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  float s[N / 2];
+  uint32_t p[N / 16][4];
+  const uint32_t q_addr = ring.q + c * 64 * kSwizzleRow;
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  hopper::mbar_wait(ring.q_full(), 0);
+
+  for (int i = 0, tile = t_first; tile <= t_last; ++i, ++tile) {
+    const int st = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    hopper::mbar_wait(ring.k_full(st), parity);
+    hopper::fence_regs<N / 2>(s);
+    hopper::wgmma_fence();
+    issue_qk<HD, N>(s, q_addr, ring.k_tile(st));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs<N / 2>(s);
+    release(ring.k_empty(st));
+    softmax_tile<N>(s, m, l, alpha, rows, sh, tile * N, scale_log2);
+    pack_p<N>(s, p);
+    rescale<HD>(o, alpha);
+    hopper::mbar_wait(ring.v_full(st), parity);
+    hopper::fence_regs<HD / 2>(o);
+    hopper::wgmma_fence();
+    issue_pv<HD, N>(o, p, ring.v_tile(st));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait_all();
+    hopper::fence_regs<HD / 2>(o);
+    fence_p<N>(p);
+    release(ring.v_empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const long long seq = (long long)blockIdx.z * sh.S;
+  const int kvh = blockIdx.y;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!rows.ok[r]) continue;
+    const int row = 64 * c + 16 * warp + g + 8 * r;
+    const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* dst =
+        out + ((seq + rows.qpos[r]) * sh.H + kvh * sh.G + row % sh.G) * HD + 2 * rows.t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv_l, o[4 * j + 2 * r + 1] * inv_l);
+    }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void hopper_producer(const Ring<HD>& ring, const CUtensorMap* tq,
+                                                const CUtensorMap* tk, const CUtensorMap* tv,
+                                                const Shape& sh, int q_lo, int t_first,
+                                                int t_last) {
+  using T = HopperTile<HD>;
+  hopper::prefetch_tensor_map(tq);
+  hopper::prefetch_tensor_map(tk);
+  hopper::prefetch_tensor_map(tv);
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  hopper::mbar_expect_tx(ring.q_full(), T::kPanels * kSwizzleRow * sh.G * sh.pos_per_block);
+#pragma unroll
+  for (int pn = 0; pn < T::kPanels; ++pn)
+    hopper::tma_load_4d(ring.q + pn * T::kQPanel, tq, ring.q_full(), 64 * pn, kvh * sh.G, q_lo,
+                        b);
+  for (int i = 0, tile = t_first; tile <= t_last; ++i, ++tile) {
+    const int st = i % kStages;
+    const uint32_t parity = ((i / kStages) - 1) & 1;   // the stage's last release
+    if (i >= kStages) hopper::mbar_wait(ring.k_empty(st), parity);
+    hopper::mbar_expect_tx(ring.k_full(st), T::kKVBytes);
+#pragma unroll
+    for (int pn = 0; pn < T::kPanels; ++pn)
+      hopper::tma_load_4d(ring.k_tile(st) + pn * T::kKVPanel, tk, ring.k_full(st), 64 * pn, kvh,
+                          tile * T::kKeys, b);
+    if (i >= kStages) hopper::mbar_wait(ring.v_empty(st), parity);
+    hopper::mbar_expect_tx(ring.v_full(st), T::kKVBytes);
+#pragma unroll
+    for (int pn = 0; pn < T::kPanels; ++pn)
+      hopper::tma_load_4d(ring.v_tile(st) + pn * T::kKVPanel, tv, ring.v_full(st), 64 * pn, kvh,
+                          tile * T::kKeys, b);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_attention_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ out, Shape sh) {
+  using T = HopperTile<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<HD> ring(smem_raw);
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * sh.pos_per_block;
+  const int q_hi = min(q_lo + sh.pos_per_block, sh.S) - 1;
+  int t_first, t_last;
+  key_span(sh, q_lo, q_hi, T::kKeys, &t_first, &t_last);
+  constexpr int kEmptyArrivals = kConsumerWarps;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(ring.q_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(ring.k_full(st), 1);
+      hopper::mbar_init(ring.v_full(st), 1);
+      hopper::mbar_init(ring.k_empty(st), kEmptyArrivals);
+      hopper::mbar_init(ring.v_empty(st), kEmptyArrivals);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {
+    // the producer warpgroup: one thread issues every load
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) hopper_producer<HD>(ring, &tq, &tk, &tv, sh, q_lo, t_first, t_last);
+  } else {
+    hopper::regs_inc<kConsumerRegs>();
+    hopper_consumer<HD>(ring, out, sh, q_lo, q_hi, t_first, t_last);
+  }
+}
+
+template <int HD>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B,
+                         const Shape& sh, cudaStream_t stream) {
+  using T = HopperTile<HD>;
+  CUtensorMap tq, tk, tv;
+  const uint64_t e = sizeof(__nv_bfloat16);
+  const uint64_t q_dims[4] = {HD, (uint64_t)sh.H, (uint64_t)sh.S, (uint64_t)B};
+  const uint64_t q_strides[3] = {HD * e, sh.H * HD * e, (uint64_t)sh.S * sh.H * HD * e};
+  const uint64_t kv_dims[4] = {HD, (uint64_t)sh.KV, (uint64_t)sh.S, (uint64_t)B};
+  const uint64_t kv_strides[3] = {HD * e, sh.KV * HD * e, (uint64_t)sh.S * sh.KV * HD * e};
+  cudaError_t err = hopper::encode_bf16_4d(&tq, q, q_dims, q_strides, sh.G, sh.pos_per_block);
+  const uint32_t kv_box = T::kKeys;
+  if (err == cudaSuccess) err = hopper::encode_bf16_4d(&tk, k, kv_dims, kv_strides, 1, kv_box);
+  if (err == cudaSuccess) err = hopper::encode_bf16_4d(&tv, v, kv_dims, kv_strides, 1, kv_box);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_attention_wgmma<HD>;
+  err = repro::allow_smem(kernel, T::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sh.S + sh.pos_per_block - 1) / sh.pos_per_block, sh.KV, B);
+  kernel<<<grid, kHopperThreads, T::kSmem, stream>>>(tq, tk, tv,
+                                                     static_cast<__nv_bfloat16*>(out), sh);
+  return cudaGetLastError();
+}
+
 // One kernel name for both input types, so a launch counts the same way.
 template <typename T, int HD>
 __global__ void __launch_bounds__(sizeof(T) == 2 ? kThreadsBf16 : kThreadsF32)
@@ -470,6 +849,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, int 
   if (err != cudaSuccess) return (int)err;
   const int G = H / KV;
   const Shape sh{S, H, KV, G, kRows / G, window, scale};
+  const Shape wide{S, H, KV, G, kHopperRows / G, window, scale};
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     if (hd <= 0 || hd % 4 != 0 || hd > kMaxHdF32) return (int)cudaErrorInvalidValue;
@@ -479,9 +859,9 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, int 
   switch (hd) {
     case 16: return (int)launch<__nv_bfloat16, 16>(q, k, v, out, B, hd, sh, st);
     case 32: return (int)launch<__nv_bfloat16, 32>(q, k, v, out, B, hd, sh, st);
-    case 64: return (int)launch<__nv_bfloat16, 64>(q, k, v, out, B, hd, sh, st);
-    case 128: return (int)launch<__nv_bfloat16, 128>(q, k, v, out, B, hd, sh, st);
-    case 256: return (int)launch<__nv_bfloat16, 256>(q, k, v, out, B, hd, sh, st);
+    case 64: return (int)launch_wgmma<64>(q, k, v, out, B, wide, st);
+    case 128: return (int)launch_wgmma<128>(q, k, v, out, B, wide, st);
+    case 256: return (int)launch_wgmma<256>(q, k, v, out, B, wide, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -27,6 +27,16 @@ MAX_GROUP = 64
 BF16_HD = (16, 32, 64, 128, 256)
 MAX_HD_F32 = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bf16 at these head widths runs the Hopper kernel (TMA, wgmma, a producer
+# warpgroup); every other case runs the mma.sync / CUDA-core one.
+WGMMA_HD = (64, 128, 256)
+
+
+def kernel_name(dtype, hd: int) -> str:
+    """The ``__global__`` a launch at this type and head width runs."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HD:
+        return "flash_attention_wgmma"
+    return "flash_attention_kernel"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 

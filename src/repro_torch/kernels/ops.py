@@ -33,7 +33,7 @@ KERNELS = {
     "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
     "embedding_bag": ("embedding_bag_kernel",),
     "fwfm_pairwise": ("fwfm_pairwise_kernel",),
-    "flash_attention": ("flash_attention_kernel",),
+    "flash_attention": ("flash_attention_kernel", "flash_attention_wgmma"),
 }
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -69,6 +69,15 @@ def _check_for_kernel(**tensors) -> None:
             raise ValueError(f"{name}: the kernel takes a contiguous tensor")
 
 
+def _check_corpus_limits(rk: int, topk: int | None) -> None:
+    """Kernels 1-4's own limits, checked for CUDA tensors only: the plain
+    versions take any rho * k and any K."""
+    if rk > _corpus.MAX_RK:
+        raise ValueError(f"rho * k = {rk} > {_corpus.MAX_RK}, the kernel's limit")
+    if topk is not None and topk > _corpus.MAX_TOPK:
+        raise ValueError(f"topk={topk}: the kernel takes K <= {_corpus.MAX_TOPK}")
+
+
 def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = None,
                       index_offset: int = 0, index_stride: int = 1):
     """Masked corpus-cached scores: ``(Bq, n)``, or with ``topk=K`` the
@@ -86,17 +95,15 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
     _check_shape("P_C", P_C, (Bq, rho, k))
     _check_shape("a_C", a_C, (Bq,))
     _check_shape("valid", valid, (n,))
-    if rho * k > _corpus.MAX_RK:
-        raise ValueError(f"rho * k = {rho * k} > {_corpus.MAX_RK}, the kernel's limit")
-    if topk is not None and not 0 < topk <= min(n, _corpus.MAX_TOPK):
-        raise ValueError(f"topk={topk} out of range for n={n} "
-                         f"(the kernel takes K <= {_corpus.MAX_TOPK})")
+    if topk is not None and not 0 < topk <= n:
+        raise ValueError(f"topk={topk} out of range for n={n}")
     dev = _device(Q_I=Q_I, a_I=a_I, e=e, P_C=P_C, a_C=a_C, valid=valid)
     if dev.type == "cpu":
         if topk is None:
             return ref.dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid)
         return ref.dplr_corpus_topk_ref(Q_I, a_I, e, P_C, a_C, topk, valid,
                                          index_offset, index_stride)
+    _check_corpus_limits(rho * k, topk)
     _check_for_kernel(Q_I=Q_I, a_I=a_I, e=e, P_C=P_C, a_C=a_C, valid=valid)
     if topk is None:
         out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid)
@@ -129,8 +136,6 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
         raise ValueError(f"segment-count mismatch: {S} Q_parts vs {len(a_parts)} "
                          f"a_parts, {len(valid_parts)} valid_parts, e {tuple(e.shape)}, "
                          f"P_C {tuple(P_C.shape)}, a_C {tuple(a_C.shape)}")
-    if S > _corpus.MAX_SEGMENTS:
-        raise ValueError(f"{S} segments > {_corpus.MAX_SEGMENTS}, the kernel's limit")
     if Q_parts[0].ndim != 3:
         raise ValueError(f"Q_parts[0] must be (n, rho, k), got {tuple(Q_parts[0].shape)}")
     _, rho, k = Q_parts[0].shape
@@ -143,12 +148,9 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     _check_shape("e", e, (S, rho))
     _check_shape("P_C", P_C, (S, Bq, rho, k))
     _check_shape("a_C", a_C, (S, Bq))
-    if rho * k > _corpus.MAX_RK:
-        raise ValueError(f"rho * k = {rho * k} > {_corpus.MAX_RK}, the kernel's limit")
     n_min = min(q.shape[0] for q in Q_parts)
-    if not 0 < topk <= min(n_min, _corpus.MAX_TOPK):
-        raise ValueError(f"topk={topk} out of range for smallest segment n={n_min} "
-                         f"(the kernel takes K <= {_corpus.MAX_TOPK})")
+    if not 0 < topk <= n_min:
+        raise ValueError(f"topk={topk} out of range for smallest segment n={n_min}")
     segs = {f"{name}{s}": t for s in range(S)
             for name, t in (("Q_I", Q_parts[s]), ("a_I", a_parts[s]),
                             ("valid", valid_parts[s]))}
@@ -156,6 +158,9 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     if dev.type == "cpu":
         return ref.dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C,
                                               topk, index_offset, index_stride)
+    if S > _corpus.MAX_SEGMENTS:
+        raise ValueError(f"{S} segments > {_corpus.MAX_SEGMENTS}, the kernel's limit")
+    _check_corpus_limits(rho * k, topk)
     _check_for_kernel(e=e, P_C=P_C, a_C=a_C, **segs)
     vals, ids, launched = _corpus.launch_multi_topk(
         Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, int(index_offset),
@@ -181,12 +186,11 @@ def dplr_score_items(V_I, U_I, e, d_I, P_C, s_C):
     _check_shape("d_I", d_I, (mI,))
     _check_shape("P_C", P_C, (Bq, rho, k))
     _check_shape("s_C", s_C, (Bq,))
-    if rho * k > _corpus.MAX_RK:
-        raise ValueError(f"rho * k = {rho * k} > {_corpus.MAX_RK}, the kernel's limit")
     dev = _device(V_I=V_I, U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
     if dev.type == "cpu":
         out = ref.dplr_score_items_ref(V_I, U_I, e, d_I, P_C, s_C)
     else:
+        _check_corpus_limits(rho * k, None)
         _check_for_kernel(V_I=V_I, U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
         out = _dplr.launch(V_I, U_I, e, d_I, P_C, s_C)
         LAUNCHES["dplr_score_items_kernel"] += 1
@@ -339,5 +343,5 @@ def flash_attention(q, k, v, *, window: int | None = None):
         raise NotImplementedError("flash_attention has no backward on the card "
                                   "(training is ROADMAP queue 7)")
     out = _flash.launch(q, k, v, window)
-    LAUNCHES["flash_attention_kernel"] += 1
+    LAUNCHES[_flash.kernel_name(q.dtype, hd)] += 1
     return out

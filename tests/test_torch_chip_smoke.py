@@ -57,7 +57,9 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     launches = chip_smoke.eval_phase(cpu, sz, serve)
     assert set(launches) == {"embedding_bag_kernel", "fwfm_pairwise_kernel"}
     assert sum(launches.values()) == 0
-    assert chip_smoke.lm_phase(cpu, sz) == 0
+    launches = chip_smoke.lm_phase(cpu, sz)
+    assert set(launches) == {"flash_attention_kernel", "flash_attention_wgmma"}
+    assert sum(launches.values()) == 0
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, *a: (fn(), 1.0)[1])
     rows = chip_smoke.timing_phase(cpu, sz, (3.35e12, 67e12, 989e12))
     assert set(rows) == set(errs)

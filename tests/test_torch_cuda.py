@@ -13,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.dplr_corpus_score import MAX_TOPK, NEG_INF  # noqa: E402
+from repro_torch.kernels.dplr_corpus_score import (  # noqa: E402
+    MAX_RK, MAX_SEGMENTS, MAX_TOPK, NEG_INF)
 
 from test_torch_parity import assert_scores, assert_topk, corpus_inputs, to_np  # noqa: E402
 
@@ -68,6 +69,37 @@ def test_cuda_score_items_matches_plain(cuda):
     assert ops.LAUNCHES == {"dplr_score_items_kernel": 1}
     with pytest.raises(TypeError, match="dtype"):
         ops.dplr_score_items(args[0].double(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_corpus_kernels_refuse_past_their_limits(cuda):
+    """K > MAX_TOPK, rho * k > MAX_RK and more than MAX_SEGMENTS segments
+    raise on the card (the CPU's plain versions answer them:
+    ``test_torch_kernels.py``)."""
+    arrays = corpus_inputs(9, MAX_TOPK + 10, 2, 4, 2)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
+    with pytest.raises(ValueError, match="K <= "):
+        ops.dplr_corpus_score(*args, topk=MAX_TOPK + 1)
+    wide = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                 for a in corpus_inputs(9, 64, 3, MAX_RK // 3 + 1, 2))
+    with pytest.raises(ValueError, match="rho \\* k"):
+        ops.dplr_corpus_score(*wide)
+    with pytest.raises(ValueError, match="rho \\* k"):
+        ops.dplr_corpus_score(*wide, topk=4)
+    V = torch.zeros((2, 8, 5, MAX_RK // 3 + 1), device=cuda)
+    with pytest.raises(ValueError, match="rho \\* k"):
+        ops.dplr_score_items(V, torch.zeros((3, 5), device=cuda), torch.zeros(3, device=cuda),
+                             torch.zeros(5, device=cuda),
+                             torch.zeros((2, 3, MAX_RK // 3 + 1), device=cuda),
+                             torch.zeros(2, device=cuda))
+    S = MAX_SEGMENTS + 1
+    Q, a = (args[0][:64],) * S, (args[1][:64],) * S
+    e, P_C, a_C = (t[None].repeat(S, *(1,) * t.ndim) for t in args[2:5])
+    with pytest.raises(ValueError, match="segments"):
+        ops.dplr_corpus_score_multi(Q, a, None, e, P_C, a_C, topk=4)
+    Q, a = (args[0],) * 2, (args[1],) * 2
+    with pytest.raises(ValueError, match="K <= "):
+        ops.dplr_corpus_score_multi(Q, a, None, e[:2], P_C[:2], a_C[:2], topk=MAX_TOPK + 1)
 
 
 def _segments(ns, Bq, rho=3, k=16, seed=20):
@@ -250,6 +282,28 @@ def test_cuda_loss_gradients_match_the_cpu(cuda, interaction):
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
 
 
+def _flash_check(cuda, dtype, B, S, H, KV, hd, window, k_scale=None):
+    gen = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=cuda).to(dtype)
+               for n in (H, KV, KV))
+    if k_scale is not None:
+        k[1:] *= k_scale
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    # bf16 at hd 64, 128 and 256 runs the Hopper kernel; the rest PR 15's
+    wgmma = dtype == torch.bfloat16 and hd in (64, 128, 256)
+    assert ops.LAUNCHES == {"flash_attention_wgmma" if wgmma else "flash_attention_kernel": 1}
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    want, size = ref.flash_attention_plain(q, k, v, window=window, with_size=True)
+    diff = (got.float() - want.float()).abs()
+    vmax = float(v.abs().max())
+    assert float(diff.max()) <= FLASH_TOL[dtype] * vmax, float(diff.max())
+    if dtype == torch.bfloat16:
+        ratio = float((diff / (2.0**-7 * (want.float().abs() + size) + 1e-5 * vmax)).max())
+        assert ratio <= 1.0, ratio
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,hd,window", [
@@ -259,23 +313,33 @@ FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
     (1, 130, 8, 2, 128, 33),
     (3, 65, 4, 4, 16, 7),
     (1, 1, 4, 1, 32, None),
+    # the Hopper kernel's edges: S ragged against its 64- and 128-key tiles
+    # at B >= 2 (a read past S would take the next sequence's keys), 9
+    # query heads a kv head (126 of a block's 128 rows), a window longer
+    # than S and one shorter than a tile, and S = 1
+    (2, 4_000, 4, 1, 256, None),
+    (3, 1_001, 8, 2, 128, None),
+    (1, 300, 36, 4, 128, 100),
+    (2, 300, 4, 1, 256, 5_000),
+    (2, 300, 4, 1, 256, 7),
+    (2, 1, 4, 1, 256, None),
+    (2, 1, 8, 8, 64, None),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, hd, window):
-    gen = torch.Generator(device=cuda).manual_seed(S)
-    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=cuda).to(dtype)
-               for n in (H, KV, KV))
-    ops.reset_launches()
-    got = ops.flash_attention(q, k, v, window=window)
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"flash_attention_kernel": 1}
-    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
-    want, size = ref.flash_attention_plain(q, k, v, window=window, with_size=True)
-    diff = (got.float() - want.float()).abs()
-    vmax = float(v.abs().max())
-    assert float(diff.max()) <= FLASH_TOL[dtype] * vmax, float(diff.max())
-    if dtype == torch.bfloat16:
-        ratio = float((diff / (2.0**-7 * (want.float().abs() + size) + 1e-5 * vmax)).max())
-        assert ratio <= 1.0, ratio
+    _flash_check(cuda, dtype, B, S, H, KV, hd, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,window", [
+    (2, 4_000, 4, 1, 256, None),
+    (3, 1_001, 8, 2, 128, 300),
+    (2, 777, 8, 8, 64, None),
+])
+def test_cuda_flash_attention_keeps_sequences_apart(cuda, dtype, B, S, H, KV, hd, window):
+    """Keys of sequences 1.. are 50x larger: one of them leaking into
+    sequence 0's attention (a load past S) would dominate its softmax."""
+    _flash_check(cuda, dtype, B, S, H, KV, hd, window, k_scale=50.0)
 
 
 @pytest.mark.cuda

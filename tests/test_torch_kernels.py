@@ -119,6 +119,9 @@ def test_score_items_batched_equals_per_query_calls():
 
 
 def test_entry_points_reject_what_the_kernels_do_not_take():
+    """The range checks the reference makes too, on either device (the
+    kernels' own limits are checked on CUDA tensors only:
+    ``test_torch_cuda.py``)."""
     _, args = _both(corpus_inputs(5, 64, 3, 8, 2))
     with pytest.raises(ValueError, match="topk"):
         ops.dplr_corpus_score(*args, topk=65)
@@ -126,17 +129,59 @@ def test_entry_points_reject_what_the_kernels_do_not_take():
         ops.dplr_corpus_score(*args, topk=0)
     with pytest.raises(ValueError, match="shape"):
         ops.dplr_corpus_score(args[0], args[1][:10], *args[2:])
-    wide = torch.zeros((8, 3, MAX_RK // 3 + 1))
-    with pytest.raises(ValueError, match="rho \\* k"):
-        ops.dplr_corpus_score(wide, torch.zeros(8), torch.zeros(3),
-                              torch.zeros((1, *wide.shape[1:])), torch.zeros(1))
-    big = torch.zeros((MAX_TOPK + 1, 1, 1))
-    with pytest.raises(ValueError, match="topk"):
-        ops.dplr_corpus_score(big, torch.zeros(MAX_TOPK + 1), torch.zeros(1),
-                              torch.zeros((1, 1, 1)), torch.zeros(1), topk=MAX_TOPK + 1)
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="device"):
         ops.dplr_corpus_score(*meta)
+
+
+# Past the CUDA kernels' limits (K > MAX_TOPK, rho * k > MAX_RK, more than
+# MAX_SEGMENTS segments) the CPU path answers as the JAX oracles do.
+
+@pytest.mark.parametrize("n,rho,k,K", [
+    (MAX_TOPK + 904, 2, 4, MAX_TOPK + 1),      # K past the card's limit
+    (300, 3, MAX_RK // 3 + 1, 9),              # rho * k past it
+])
+def test_corpus_score_past_the_kernel_limits_matches_the_oracle(n, rho, k, K):
+    (jQ, ja, je, jP, jac, jv), args = _both(corpus_inputs(9, n, rho, k, 2))
+    full = ops.dplr_corpus_score(*args)
+    assert_scores(full, jref.dplr_corpus_score_ref(jQ, ja, je, jP, jac, jv))
+    vals, ids = ops.dplr_corpus_score(*args, topk=K)
+    want_v, want_i = jref.dplr_corpus_topk_ref(jQ, ja, je, jP, jac, K, jv)
+    assert_scores(vals, want_v)
+    np.testing.assert_array_equal(to_np(ids), to_np(want_i))
+
+
+def test_score_items_past_the_rk_limit_matches_the_oracle():
+    rng = np.random.default_rng(10)
+    n, mI, k, rho = 200, 6, MAX_RK // 2, 3            # rho * k = 192
+    arrays = (rng.standard_normal((n, mI, k), dtype=np.float32) / np.sqrt(k),
+              rng.standard_normal((rho, mI), dtype=np.float32) / np.sqrt(mI),
+              rng.random(rho).astype(np.float32) + 0.5,
+              -rng.random(mI).astype(np.float32),
+              rng.standard_normal((rho, k), dtype=np.float32) / np.sqrt(k),
+              np.float32(0.37))
+    jargs, args = _both([np.asarray(a, np.float32) for a in arrays])
+    assert_scores(ops.dplr_score_items(*args), jref.dplr_score_items_ref(*jargs))
+
+
+@pytest.mark.parametrize("ns,rk,K", [
+    ((MAX_TOPK + 500, MAX_TOPK + 100), (2, 4), MAX_TOPK + 1),   # K past the limit
+    ((40,) * 65, (3, 8), 5),                                    # 65 segments
+    ((70, 50), (3, MAX_RK // 3 + 1), 9),                        # rho * k past it
+])
+def test_corpus_multi_past_the_kernel_limits_matches_the_oracle(ns, rk, K):
+    parts = [corpus_inputs(40 + s, n, *rk, 2) for s, n in enumerate(ns)]
+    jparts, tparts = zip(*(_both(p) for p in parts))
+    e, P_C, a_C = (np.stack([p[j] for p in parts]) for j in (2, 3, 4))
+    vals, ids = ops.dplr_corpus_score_multi(
+        tuple(p[0] for p in tparts), tuple(p[1] for p in tparts),
+        tuple(p[5] for p in tparts), *(torch.from_numpy(a) for a in (e, P_C, a_C)), topk=K)
+    want_v, want_i = jref.dplr_corpus_multi_topk_ref(
+        tuple(p[0] for p in jparts), tuple(p[1] for p in jparts),
+        tuple(p[5] for p in jparts), *(jnp.asarray(a) for a in (e, P_C, a_C)), K)
+    assert vals.shape == ids.shape == (len(ns), 2, K)
+    assert_scores(vals, want_v)
+    np.testing.assert_array_equal(to_np(ids), to_np(want_i))
 
 
 def test_cpu_path_counts_no_launches():

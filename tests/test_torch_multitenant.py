@@ -132,10 +132,11 @@ def test_multi_validates():
         ops.dplr_corpus_score_multi(Q, a, None, e, PC, aC, topk=33)
     with pytest.raises(ValueError, match="shape"):
         ops.dplr_corpus_score_multi(Q, (a[0][:5],), None, e, PC, aC, topk=4)
-    S = MAX_SEGMENTS + 1
-    with pytest.raises(ValueError, match="segments"):
-        ops.dplr_corpus_score_multi(Q * S, a * S, None, e.repeat(S, 1),
-                                    PC.repeat(S, 1, 1, 1), aC.repeat(S, 1), topk=4)
+    S = MAX_SEGMENTS + 1          # past the kernel's limit: the CPU answers
+    vals, ids = ops.dplr_corpus_score_multi(Q * S, a * S, None, e.repeat(S, 1),
+                                            PC.repeat(S, 1, 1, 1), aC.repeat(S, 1), topk=4)
+    assert vals.shape == ids.shape == (S, PC.shape[1], 4)
+    assert all(torch.equal(ids[s], ids[0]) for s in range(S))
     ops.reset_launches()
     ops.dplr_corpus_score_multi(Q, a, None, e, PC, aC, topk=4)
     assert sum(ops.LAUNCHES.values()) == 0       # the CPU runs no kernel
