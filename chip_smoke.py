@@ -7,15 +7,18 @@
 Phases, one line each:
 
 1. card: the ``nvidia-smi`` name and power limit; TF32 off.
-2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc (sm_90a).
+2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc (sm_90a);
+   fails if a kernel of ``dplr_corpus_score.cu`` or ``flash_attention_wgmma``
+   spills registers.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the serving and eval paths give it, plus ragged,
-   all-dead and multi-hot edges.
+   all-dead and multi-hot edges; every top-K call also by C1 (below),
+   with K past 4,096, K = n and adversarial orders of the scores.
 4. serve: the full config (82 fields, k = 16, rho = 3, random weights from
    a seed) serving a 1,000,000-item corpus from a 2^20-slot slab: top-K
    and score queries, churn, a model refresh, and Algorithm 1 per call,
    each held against the plain path (whose field lookups are the plain
-   embedding bag, so no check runs a kernel).  The launches of each CUDA
+   embedding bag, so no check runs a kernel), and one top-65,536 query.  The launches of each CUDA
    kernel are counted over this phase alone.
 5. tenants: the same config and weights serving 16 tenants on one
    ScorerRuntime, each 62,500 items of the serve phase's corpus in a
@@ -32,7 +35,7 @@ Phases, one line each:
    weights from a seed) and its matched-pruned form (249 of 3,321
    entries), each model's logits held against the plain path;
    ``model_scores(pruned=)`` against ``apply(pruned_mask=)``; and
-   ``serving_parity`` for the DPLR model at 16 queries x 4,096 items
+   ``serving_parity`` for the DPLR model at 16 queries x 16,384 items
    (model, engine and frontend scores against the plain scores, top-10
    ids equal except at ties).  Kernel launches are counted over this
    phase alone.
@@ -48,15 +51,20 @@ Phases, one line each:
 8. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and flops over its f32 rate, or its bf16 tensor-core rate for
-   flash attention); beside the multi-tenant kernel, the summed time of
-   one single-tenant top-K call per tenant; beside the embedding-bag,
+   flash attention); the top-K at each shape of ``topk_times`` (Bq, K and
+   scores in random or rising order), each beside the yardstick kernel 1
+   + ``torch.topk`` (two calls, which the port never makes); beside the
+   multi-tenant kernel, the summed time of one single-tenant top-K call
+   per tenant and that yardstick per tenant; beside the embedding-bag,
    FwFM and flash-attention kernels, one PyTorch call that computes the
    same function (``library_ms``; for the windowed attention,
    ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
-   mask).
+   mask); and each top-K shape's peak device memory (its scratch and
+   outputs) beside the yardstick's.
 9. profile: with torch.profiler, the device time of a top-K call by CUDA
-   kernel, and the device's idle share while the serving engine answers
-   Bq = 1 queries.
+   kernel, the host's time to issue one (for the multi-tenant call, also
+   without the wrapper's checks), and the device's idle share while the
+   serving engine answers Bq = 1 queries.
 
 A profiled window counts only when the profiler saw exactly the launches
 of each hand-written kernel that ``ops.LAUNCHES`` counted in it: the
@@ -79,6 +87,13 @@ top-K's, except where the plain scores tie within that tolerance; planted
 exact ties must go to the lower slot.  Row [s] of the multi-tenant kernel
 must equal the single-tenant top-K kernel on segment s bitwise, and a
 packed reply the unpacked one.
+
+C1, exact: every top-K call of the kernel phase (kernels 2 and 4, each
+row of kernel 4 against its own segment) must return values and ids
+bitwise equal to ``ref.topk_stable`` of kernel 1's scores of the same
+inputs on the card, dead slots included, relabeled: the top-K kernels
+share kernel 1's scorer, so they select from the very scores kernel 1
+writes.
 
 Flash attention, against its plain version (which rounds where the
 kernel rounds): f32 within ``1e-5 * max|v|``; bf16 within ``2^-7 * max|v|``
@@ -145,6 +160,7 @@ FULL = SimpleNamespace(
     n3=65_536, m3=38, bq3s=(1, 4), edge_n=1000,
     make_config=dplr_fwfm.make_config, items=1_000_000, capacity=1 << 20,
     queries=20, batch=16, churn=(1000, 1000, 100), percall_n=65_536, topk=16,
+    big_topk=65_536,
     # multi-tenant kernel: (S, Bq, n_s, K), and a ragged masked case
     multi=(16, 4, 65_536, 16), ragged=((1100, 70_000, 20_000), 2, 1024),
     tenants=16, tenant_items=62_500, tenant_capacity=65_536, tenant_bq=4,
@@ -156,7 +172,15 @@ FULL = SimpleNamespace(
     # and one example of a 39-field model
     pairs=((4096, 82), (262_144, 82), (1, 39)),
     make_fwfm=dplr_fwfm.make_fwfm_baseline, eval_n=20_000, eval_batch=4096,
-    parity=(16, 4096), pruned_q=(4, 1024),
+    parity=(16, 16_384), pruned_q=(4, 1024),
+    # top-K past the old 4,096 limit, the adversarial orders (n, live, Bq,
+    # Ks) and K = n (n, Bq), all held by C1
+    big_ks=(4097, 65_536), adv=(1 << 20, 1_000_000, 16, (16, 1024, 4096, 4097, 65_536)),
+    large=(70_000, 2),
+    # timed top-K shapes (Bq, K, order of the scores); the first is the row's
+    topk_times=((16, 16, "random"), (1, 16, "random"), (16, 1024, "random"),
+                (1, 1024, "random"), (1, 4096, "random"), (16, 4096, "random"),
+                (16, 65_536, "random"), (16, 16, "rising"), (16, 1024, "rising")),
     # flash attention (B, S, H, KV, hd, window): gemma3-1b's global and
     # windowed layers at the lm phase's batch, then ragged small cases
     # (GQA, MHA, 9 heads a kv head, S ragged against 128-key tiles at B = 3)
@@ -254,6 +278,36 @@ def check_topk(vals, ids, full, K: int, what: str, offset=0, stride=1,
     return err, int((local != ref_i).sum())
 
 
+def ranked(scores):
+    """``scores (Bq, n)`` in the top-K order, all n: ``ref.topk_stable``
+    (a stable descending sort, ties to the lower slot)."""
+    return ref.topk_stable(scores, scores.shape[1])
+
+
+def check_exact(vals, ids, scores, K: int, what: str, offset=0, stride=1) -> None:
+    """C1: a top-K bitwise equal to ``ref.topk_stable(scores, K)`` with its
+    positions relabeled ``offset + stride * slot``, ``scores`` being kernel
+    1's ``(Bq, n)`` scores of the same inputs (dead slots included), or
+    ``ranked(scores)`` of them.  Values are compared by their bits, so a
+    value one ulp off, a pair of tied slots swapped or a dead slot above a
+    live one fails."""
+    want_v, want_i = scores if isinstance(scores, tuple) else ranked(scores)
+    want_v = want_v[:, :K].contiguous()
+    want_i = (offset + stride * want_i[:, :K]).to(torch.int32)
+    if vals.shape != want_v.shape or ids.shape != want_i.shape:
+        raise AssertionError(f"{what}: C1 shapes {tuple(vals.shape)}, {tuple(ids.shape)}, "
+                             f"want {tuple(want_v.shape)}")
+    if vals.dtype != torch.float32 or ids.dtype != torch.int32:
+        raise AssertionError(f"{what}: C1 dtypes {vals.dtype}, {ids.dtype}")
+    bad = (vals.contiguous().view(torch.int32) != want_v.view(torch.int32)) | (ids != want_i)
+    if bad.any():
+        r, c = (int(x) for x in bad.nonzero()[0])
+        raise AssertionError(
+            f"{what}: C1 {int(bad.sum())} of {bad.numel()} entries differ from kernel 1's "
+            f"scores sorted; first at row {r} rank {c}: {float(vals[r, c])!r} id "
+            f"{int(ids[r, c])}, want {float(want_v[r, c])!r} id {int(want_i[r, c])}")
+
+
 # -- phase 3: kernels against plain -------------------------------------------
 
 def corpus_inputs(dev, n, live, Bq, rho, k, gen):
@@ -281,10 +335,42 @@ def plant(Q, a_I, valid, n_pairs=8):
     return pairs
 
 
-def kernel_checks(dev, sz) -> dict:
-    gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {name: 0.0 for name in ops.KERNELS}
-    notes = []
+def adversarial(case: str, Q, a_I, valid, K: int, gen):
+    """Inputs of adversarial order ``case`` built from (Q, a_I, valid):
+    "rising" (a_I[i] += 1e-3 i, so the score grows with the slot),
+    "falling" (a_I[i] -= 1e-3 i), "equal" (one Q_I row and one a_I value
+    in every slot: the top-K is the first K live slots) or "few" (K // 2
+    live slots at random places: the top-K ends with the first dead slots
+    in ascending order).  Returns (Q, a_I, valid)."""
+    n = Q.shape[0]
+    ramp = 1e-3 * torch.arange(n, device=Q.device, dtype=torch.float32)
+    if case == "rising":
+        return Q, a_I + ramp, valid
+    if case == "falling":
+        return Q, a_I - ramp, valid
+    if case == "equal":
+        return Q[:1].expand_as(Q).contiguous(), a_I[:1].expand(n).contiguous(), valid
+    few = torch.zeros_like(valid)
+    few[torch.randperm(n, generator=gen, device=Q.device)[:K // 2]] = True
+    return Q, a_I, few
+
+
+def topk_exact(args, K: int, what: str, scores, **relabel):
+    """One top-K call held by C1 against kernel 1's ``scores`` (or their
+    ``ranked`` form).  Returns (vals, ids)."""
+    vals, ids = ops.dplr_corpus_score(*args, topk=K, **relabel)
+    _sync(vals.device)
+    check_exact(vals, ids, scores, K, what, relabel.get("index_offset", 0),
+                relabel.get("index_stride", 1))
+    return vals, ids
+
+
+def corpus_checks(dev, sz, gen, errs: dict, notes: list) -> None:
+    """Kernels 1 and 2 against their plain versions, and every top-K call
+    also by C1 against kernel 1's scores: at every (Bq, K) of ``sz.ks`` and
+    ``sz.big_ks``, relabeled, at the n = ``edge_n`` edge, in the
+    adversarial orders (``sz.adv``: n, live, Bq and Ks) and at K = n
+    (``sz.large``: n, Bq)."""
     bq_max = max(sz.bqs)
     Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, sz.n, sz.live, bq_max, sz.rho, sz.k, gen)
     pairs = plant(Q, a_I, valid)
@@ -295,30 +381,75 @@ def kernel_checks(dev, sz) -> dict:
         _sync(dev)
         errs["dplr_corpus_score"] = max(errs["dplr_corpus_score"],
                                         check_close(got, full, f"full Bq={Bq}"))
-        for K in sz.ks:
-            vals, ids = ops.dplr_corpus_score(*args, topk=K)
-            _sync(dev)
+        order = ranked(got)
+        for K in sz.ks + sz.big_ks:
+            vals, ids = topk_exact(args, K, f"topk Bq={Bq} K={K}", order)
             err, diff = check_topk(vals, ids, full, K, f"topk Bq={Bq} K={K}", planted=pairs)
             errs["dplr_corpus_topk"] = max(errs["dplr_corpus_topk"], err)
             notes.append(f"K={K}/Bq={Bq}:{diff} ids differ")
-        vals, ids = ops.dplr_corpus_score(*args, topk=16, index_offset=3, index_stride=4)
-        _sync(dev)
+        vals, ids = topk_exact(args, 16, f"topk Bq={Bq} offset/stride", order,
+                               index_offset=3, index_stride=4)
         err, _ = check_topk(vals, ids, full, 16, f"topk Bq={Bq} offset/stride",
                             offset=3, stride=4, planted=pairs)
         errs["dplr_corpus_topk"] = max(errs["dplr_corpus_topk"], err)
-    del Q, full
+        del full, got, order
+    del Q
+
+    # adversarial orders at the serving shape, held by C1 alone (their own
+    # generator, so that the other kernels' inputs stay what they were)
+    gen_adv = torch.Generator(device=dev).manual_seed(5)
+    n_adv, live_adv, bq_adv, ks_adv = sz.adv
+    Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, n_adv, live_adv, bq_adv, sz.rho, sz.k,
+                                               gen_adv)
+    base, pcs = (Q, a_I, valid), (P_C, a_C)
+    for case in ("rising", "falling", "equal", "few"):
+        for K in ks_adv:
+            if case == "few" or K == ks_adv[0]:
+                Qc, ac, vc = adversarial(case, *base, K, gen_adv)
+                args = (Qc, ac, e, *pcs, vc)
+                order = ranked(ops.dplr_corpus_score(*args))
+            vals, ids = topk_exact(args, K, f"topk {case} n={n_adv} Bq={bq_adv} K={K}", order)
+            if case == "equal" and not torch.equal(
+                    ids, torch.arange(K, device=dev, dtype=torch.int32).expand_as(ids)):
+                raise AssertionError(f"topk equal K={K}: not the first K live slots")
+            if case == "few":
+                dead = (~vc).nonzero()[:K - K // 2, 0].to(torch.int32)
+                if not torch.equal(ids[:, K // 2:], dead.expand(bq_adv, -1)):
+                    raise AssertionError(f"topk few K={K}: not the first dead slots, ascending")
+        del Qc, ac, vc, args, order
+    notes.append(f"C1 (bitwise = kernel 1 sorted) at every K, relabeled, and adversarial "
+                 f"rising/falling/equal/few at n={n_adv} Bq={bq_adv} K={list(ks_adv)}")
+    del Q, base
 
     # edge: n = 1000 (ragged last tile), one 128-slot tile all dead
     Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, sz.edge_n, sz.edge_n, 3, sz.rho, sz.k, gen)
     valid[128:256] = False
     args = (Q, a_I, e, P_C, a_C, valid)
     full = ref.dplr_corpus_score_ref(*args)
+    got = ops.dplr_corpus_score(*args)
     errs["dplr_corpus_score"] = max(errs["dplr_corpus_score"], check_close(
-        ops.dplr_corpus_score(*args), full, "full edge"))
-    vals, ids = ops.dplr_corpus_score(*args, topk=7)
-    _sync(dev)
+        got, full, "full edge"))
+    vals, ids = topk_exact(args, 7, "topk edge", got)
     errs["dplr_corpus_topk"] = max(errs["dplr_corpus_topk"],
                                    check_topk(vals, ids, full, 7, "topk edge")[0])
+
+    if sz.large is not None:                      # K = n, dead slots last
+        n_l, bq_l = sz.large
+        Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, n_l, n_l * 6 // 7, bq_l, sz.rho,
+                                                   sz.k, gen_adv)
+        args = (Q, a_I, e, P_C, a_C, valid)
+        vals, ids = topk_exact(args, n_l, f"topk K=n={n_l} Bq={bq_l}",
+                               ops.dplr_corpus_score(*args))
+        errs["dplr_corpus_topk"] = max(errs["dplr_corpus_topk"], check_topk(
+            vals, ids, ref.dplr_corpus_score_ref(*args), n_l, "topk K=n")[0])
+        notes.append(f"K=n={n_l} Bq={bq_l}")
+
+
+def kernel_checks(dev, sz) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {name: 0.0 for name in ops.KERNELS}
+    notes = []
+    corpus_checks(dev, sz, gen, errs, notes)
 
     for n3, Bq in [(sz.n3, b) for b in sz.bq3s] + [(sz.edge_n, 2)]:
         V = torch.randn((Bq, n3, sz.m3, sz.k), generator=gen, device=dev) * 0.25
@@ -389,6 +520,8 @@ def multi_checks(dev, sz, gen) -> tuple[float, list]:
             e_, d = check_topk(vals[s], ids[s], full, K_, f"multi {case} segment {s}",
                                planted=planted[s] if planted else ())
             err, diffs = max(err, e_), diffs + d
+            check_exact(vals[s], ids[s], ops.dplr_corpus_score(*p), K_,
+                        f"multi {case} segment {s}")
             one_v, one_i = ops.dplr_corpus_score(*p, topk=K_)
             if not (torch.equal(vals[s], one_v) and torch.equal(ids[s], one_i)):
                 raise AssertionError(f"multi {case} segment {s}: row differs from the "
@@ -396,6 +529,23 @@ def multi_checks(dev, sz, gen) -> tuple[float, list]:
         notes.append(f"multi {case} S={len(ns_)} Bq={Bq_} K={K_}: rows bitwise = single, "
                      f"{diffs} ids differ from plain")
         del parts, args, full
+    # adversarial orders, every row held by C1 against kernel 1 on its segment
+    # (their own generator, so that the later kernels' inputs stay as they were)
+    gen_adv = torch.Generator(device=dev).manual_seed(6)
+    for case in ("rising", "equal"):
+        parts, _ = multi_inputs(dev, (n_s,) * S, (n_s,) * S, Bq, sz.rho, sz.k, gen_adv)
+        parts = [[*adversarial(case, p[0], p[1], p[5], K, gen_adv)[:2], *p[2:]]
+                 for p in parts]
+        args = (tuple(p[0] for p in parts), tuple(p[1] for p in parts),
+                tuple(p[5] for p in parts),
+                *(torch.stack([p[j] for p in parts]) for j in (2, 3, 4)))
+        vals, ids = ops.dplr_corpus_score_multi(*args, topk=K)
+        _sync(dev)
+        for s, p in enumerate(parts):
+            check_exact(vals[s], ids[s], ops.dplr_corpus_score(*p), K,
+                        f"multi {case} segment {s}")
+        del parts, args
+    notes.append(f"multi rows by C1, also rising and equal at S={S} Bq={Bq} K={K}")
     return err, notes
 
 
@@ -671,6 +821,8 @@ def serving_phase(dev, sz):
                 for ctx, got in zip(ctxs, answers))
     diffs += check_serving(engine, batch, engine.topk(batch, K), "serve topk batch")
     check_serving(engine, ctxs[0], engine.score(ctxs[0]), "serve score")
+    big = engine.topk(ctxs[0], sz.big_topk)        # past 4096: the winners' sort kernels
+    check_serving(engine, ctxs[0], big, f"serve top-{sz.big_topk}")
 
     slots = engine.add_items(added)
     assert engine.is_live(slots).all()
@@ -707,7 +859,8 @@ def serving_phase(dev, sz):
     print(f"phase serve: {cfg.layout.n_fields} fields k={cfg.embed_dim} rho={cfg.rank}, "
           f"{sz.items} items in a {sz.capacity}-slot slab; host data {host_s:.1f} s, "
           f"slab build {build_s:.2f} s; {len(lat)} top-{K} queries at Bq=1 median "
-          f"{np.median(lat):.3f} ms (host clock, synchronized); {diffs} top-K ids "
+          f"{np.median(lat):.3f} ms (host clock, synchronized), one top-{sz.big_topk}; "
+          f"{diffs} top-K ids "
           f"differ from plain, all within the tie rule; churn +{n_add} -{n_remove} "
           f"~{n_update}, refresh and percall n={sz.percall_n} all agree; "
           f"launches {launches}", flush=True)
@@ -1150,6 +1303,23 @@ def device_ms(fn, batches=5, per_batch=10) -> float:
     return float(np.median(times))
 
 
+def peak_mib(dev, fn) -> float | None:
+    """MiB of device memory one call holds at its peak beyond what was
+    allocated before it (its scratch and outputs); None off the card."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - before) / 2**20
+
+
+def _mib(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.1f} MiB"
+
+
 def bound_ms(nbytes: float, flops: float, peaks, tensor: bool = False) -> tuple[float, str]:
     """The least time for the work: bytes over the memory rate, or flops
     over the f32 rate (the bf16 tensor-core rate with ``tensor``)."""
@@ -1167,23 +1337,40 @@ def timing_phase(dev, sz, peaks) -> dict:
     score_flops = live * (3 * rk_ + 2 * rho + 3)          # per query, live slots only
     in_bytes = live * (rk_ + 1) * 4 + n + (rho + Bq * (rk_ + 1)) * 4
     rows, extra = {}, []
-    for Bq_t, K in [(Bq, None), (1, None), (Bq, 16), (1, 16), (Bq, 1024)]:
+    for Bq_t in (Bq, 1):
         args = (Q, a_I, e, P_C[:Bq_t].contiguous(), a_C[:Bq_t].contiguous(), valid)
-        if K is None:
-            ms = device_ms(lambda: ops.dplr_corpus_score(*args))
-            plain = device_ms(lambda: ref.dplr_corpus_score_ref(*args), 3, 2)
-            out_bytes = Bq_t * n * 4
-        else:
-            ms = device_ms(lambda: ops.dplr_corpus_score(*args, topk=K))
-            plain = device_ms(lambda: ref.dplr_corpus_topk_ref(*args[:5], K, args[5]), 3, 2)
-            out_bytes = Bq_t * K * 8
-        bnd, by = bound_ms(in_bytes + out_bytes, Bq_t * score_flops, peaks)
-        name = "dplr_corpus_score" if K is None else "dplr_corpus_topk"
-        extra.append(f"{name} n={n} Bq={Bq_t}{'' if K is None else f' K={K}'}: "
-                     f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-        if Bq_t == Bq and K in (None, 16):
-            rows[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
-    del Q
+        ms = device_ms(lambda: ops.dplr_corpus_score(*args))
+        plain = device_ms(lambda: ref.dplr_corpus_score_ref(*args), 3, 2)
+        bnd, by = bound_ms(in_bytes + Bq_t * n * 4, Bq_t * score_flops, peaks)
+        extra.append(f"dplr_corpus_score n={n} Bq={Bq_t}: {ms:.4f} ms, plain {plain:.4f} ms, "
+                     f"bound {bnd:.4f} ms ({by})")
+        if Bq_t == Bq:
+            rows["dplr_corpus_score"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    # the top-K at each timed shape (Bq, K, order of the scores), beside the
+    # yardstick kernel 1 + torch.topk (two calls; the port never makes them)
+    rising = a_I + 1e-3 * torch.arange(n, device=dev, dtype=torch.float32)
+    shapes = []
+    for Bq_t, K, order in sz.topk_times:
+        args = (Q, rising if order == "rising" else a_I, e, P_C[:Bq_t].contiguous(),
+                a_C[:Bq_t].contiguous(), valid)
+        ms = device_ms(lambda: ops.dplr_corpus_score(*args, topk=K))
+        plain = device_ms(lambda: ref.dplr_corpus_topk_ref(*args[:5], K, args[5]), 3, 2)
+        yard = device_ms(lambda: torch.topk(ops.dplr_corpus_score(*args), K))
+        peak = peak_mib(dev, lambda: ops.dplr_corpus_score(*args, topk=K))
+        yard_peak = peak_mib(dev, lambda: torch.topk(ops.dplr_corpus_score(*args), K))
+        bnd, by = bound_ms(in_bytes + Bq_t * K * 8, Bq_t * score_flops, peaks)
+        shapes.append(dict(Bq=Bq_t, K=K, order=order, ms=ms, plain_ms=plain,
+                           yardstick_ms=yard, bound_ms=bnd, peak_mib=peak,
+                           yardstick_peak_mib=yard_peak))
+        extra.append(f"dplr_corpus_topk n={n} Bq={Bq_t} K={K} {order}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, kernel 1 + torch.topk {yard:.4f} ms, bound {bnd:.4f} ms "
+                     f"({by}); peak memory of a call {_mib(peak)}, of the yardstick "
+                     f"{_mib(yard_peak)}")
+        if (Bq_t, K, order) == sz.topk_times[0]:
+            rows["dplr_corpus_topk"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                            yardstick_ms=yard)
+    rows["dplr_corpus_topk"]["shapes"] = shapes
+    del Q, rising
 
     m, n3 = sz.m3, sz.n3
     for Bq3 in sz.bq3s:
@@ -1210,6 +1397,8 @@ def timing_phase(dev, sz, peaks) -> dict:
     ms = device_ms(lambda: ops.dplr_corpus_score_multi(*args, topk=K))
     plain = device_ms(lambda: ref.dplr_corpus_multi_topk_ref(*args, K), 3, 2)
     single = device_ms(lambda: [ops.dplr_corpus_score(*p, topk=K) for p in parts])
+    yard = device_ms(lambda: [torch.topk(ops.dplr_corpus_score(*p), K) for p in parts])
+    peak = peak_mib(dev, lambda: ops.dplr_corpus_score_multi(*args, topk=K))
     nbytes = (S * (live_s * (rk_ + 1) * 4 + n_s) + S * (rho + Bq4 * (rk_ + 1)) * 4
               + S * Bq4 * K * 8)
     flops = S * Bq4 * live_s * (3 * rk_ + 2 * rho + 3)
@@ -1217,9 +1406,11 @@ def timing_phase(dev, sz, peaks) -> dict:
     extra.append(f"dplr_corpus_score_multi S={S} n_s={n_s} ({live_s} live) Bq={Bq4} K={K}: "
                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}); "
                  f"{S} single-tenant dplr_corpus_score(topk={K}) calls at Bq={Bq4}: "
-                 f"{single:.4f} ms summed")
+                 f"{single:.4f} ms summed; {S} x (kernel 1 + torch.topk): {yard:.4f} ms; "
+                 f"peak memory of a call {_mib(peak)}")
     rows["dplr_corpus_score_multi"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                                           single_calls_ms=single)
+                                           single_calls_ms=single, yardstick_ms=yard,
+                                           peak_mib=peak)
     del parts, args
 
     # embedding_bag at the lookup path's shapes; library: F.embedding_bag
@@ -1324,7 +1515,7 @@ def _device_times(prof) -> dict:
     for evt in prof.key_averages():
         t = getattr(evt, "self_device_time_total", 0) or 0
         if t and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            m = re.search(r"(\w+)\(", evt.key)
+            m = re.search(r"(\w+)(?:<[^<>()]*>)?\(", evt.key)   # name<args>( -> name
             name = m.group(1) if m else evt.key[:60]
             ms, calls = out.get(name, (0.0, 0))
             out[name] = (ms + t / 1e3, calls + evt.count)
@@ -1356,13 +1547,29 @@ def profiled(dev, fn, tries: int = 3):
     return None, wall, seen
 
 
+def host_issue_ms(dev, fn, reps=20) -> float:
+    """Host time to issue one call, the mean over back-to-back calls
+    (after a warm-up), the device left to finish after the clock stops."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    _sync(dev)
+    return host
+
+
 def profile_phase(dev, sz, engine, ctxs) -> None:
     """Where the device time goes: the split of one top-K call between its
-    stage-1 and merge kernels, and the device's busy share while the
+    stage-1 and merge kernels (single-slab and multi-tenant), the host's
+    time to issue one, and the device's busy share while the
     serve phase's engine answers Bq = 1 top-K queries back to back (host
     clock around the window).  Reports "not measured" when the profiler sees no
     device time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import dplr_corpus_score as launchers
 
     gen = torch.Generator(device=dev).manual_seed(2)
     Bq, reps = max(sz.bqs), 3
@@ -1375,16 +1582,29 @@ def profile_phase(dev, sz, engine, ctxs) -> None:
     for K in (16, 1024):
         split, _, seen = profiled(dev, lambda: [
             ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid, topk=K) for _ in range(reps)])
-        t0 = time.perf_counter()           # host time to issue the calls
-        for _ in range(reps):
-            ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid, topk=K)
-        host = (time.perf_counter() - t0) * 1e3 / reps
-        _sync(dev)
+        host = host_issue_ms(dev, lambda: ops.dplr_corpus_score(Q, a_I, e, P_C, a_C, valid,
+                                                                topk=K))
         parts.append(f"topk Bq={Bq} K={K}, per call: host issue {host:.4f} ms; " + (", ".join(
             f"{k} {ms / reps:.4f} ms ({calls / reps:g} launches)"
             for k, (ms, calls) in sorted(split.items())) if split is not None
             else f"not measured (profiler saw {seen})"))
     del Q
+    S, Bq4, n_s, K4 = sz.multi
+    _, margs = multi_inputs(dev, (n_s,) * S, (sz.tenant_items,) * S, Bq4, sz.rho, sz.k, gen)
+    split, _, seen = profiled(dev, lambda: [
+        ops.dplr_corpus_score_multi(*margs, topk=K4) for _ in range(reps)])
+    host = host_issue_ms(dev, lambda: ops.dplr_corpus_score_multi(*margs, topk=K4))
+    # the same launches without the wrapper's checks: the difference is the
+    # wrapper's own host time (uncounted launches, outside the counted run)
+    bare = (host_issue_ms(dev, lambda: launchers.launch_multi_topk(*margs, K4, 0, 1))
+            if dev.type == "cuda" else None)
+    bare = "not measured (no card)" if bare is None else f"{bare:.4f} ms"
+    parts.append(f"multi S={S} Bq={Bq4} K={K4}, per call: host issue {host:.4f} ms "
+                 f"(launcher alone, no wrapper checks: {bare}); " + (
+        ", ".join(f"{k} {ms / reps:.4f} ms ({calls / reps:g} launches)"
+                  for k, (ms, calls) in sorted(split.items())) if split is not None
+        else f"not measured (profiler saw {seen})"))
+    del margs
 
     engine.topk(ctxs[0], sz.topk)
     _sync(dev)
@@ -1424,7 +1644,8 @@ def main() -> None:
             logs.append(f"{fn['kernel']}: {fn['registers']} registers, {fn['spill_stores']} "
                         f"bytes spill stores, {fn['spill_loads']} bytes spill loads"
                         + "".join(f"; {w}" for w in fn["warnings"]))
-            if fn["kernel"].startswith("flash_attention_wgmma") and (
+            if (fn["kernel"].startswith("flash_attention_wgmma")
+                    or src.stem == "dplr_corpus_score") and (
                     fn["spill_stores"] or fn["spill_loads"]):
                 raise AssertionError(f"{fn['kernel']} spills registers: {logs[-1]}")
     print(f"phase build: {time.perf_counter() - t0:.1f} s ({len(built)} sources compiled); "

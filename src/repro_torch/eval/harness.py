@@ -225,8 +225,8 @@ def serving_parity(params, cfg, eval_set: RankingEvalSet, *, k: int = 10,
     card the model path (``embedding_bag`` + ``dplr_score_items``) and the
     engine path (``embedding_bag`` + the corpus kernel on the cached slab)
     sum the same score in different orders.  The frontend's ``k = n``
-    reply goes through the top-K entry point: on the card ``n`` is at most
-    the kernel's K limit (4096); the CPU's plain version takes any ``n``."""
+    reply goes through the top-K entry point, which takes any ``n`` on
+    either device."""
     n = eval_set.n_items
     engine = CorpusState(cfg, eval_set.item_ids, eval_set.item_weights,
                          device=params["embedding"].device)

@@ -7,8 +7,9 @@ DPLR-FwFM scores of a query batch against the item slab,
 
 with dead slots pinned to exactly ``NEG_INF``, either as the full
 ``(Bq, n)`` matrix or reduced to a top-K per query (ties to the lowest
-slot), and the top-K of S tenants' slabs in one launch.  The kernels'
-design is described at the top of the ``.cu`` file.
+slot), and the top-K of S tenants' slabs in one launch, for any
+``0 < K <= n``.  The kernels' design is described at the top of the
+``.cu`` file.
 
 These functions take CUDA tensors that ``repro_torch.kernels.ops`` has
 already checked, launch on the current stream and allocate their outputs
@@ -29,8 +30,6 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 # Largest rho * k the kernels take (kMaxRK in csrc/common.cuh).
 MAX_RK = 128
-# Largest K of the top-K mode (kMaxTopK in csrc/dplr_corpus_score.cu).
-MAX_TOPK = 4096
 # Most segments of one multi-tenant launch (kMaxSegments there).
 MAX_SEGMENTS = 64
 
@@ -42,15 +41,20 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("dplr_corpus_score")
     lib.dplr_corpus_score_full.argtypes = [_P] * 6 + [_L, _I, _I, _I, _P, _P, _I]
     lib.dplr_corpus_score_full.restype = _I
-    lib.dplr_corpus_topk_scratch.argtypes = [_L, _I, _I]
+    lib.dplr_corpus_topk_scratch.argtypes = [_L, _L, _I]
     lib.dplr_corpus_topk_scratch.restype = _L
     lib.dplr_corpus_topk.argtypes = ([_P] * 6 + [_L, _I, _I, _I, _I, _L, _L]
-                                     + [_P] * 6 + [_I])
+                                     + [_P] * 5 + [_I])
     lib.dplr_corpus_topk.restype = _I
     lib.dplr_corpus_multi_topk.argtypes = ([_I] + [_P] * 7 + [_I, _I, _I, _I, _L, _L]
-                                           + [_P] * 6 + [_I])
+                                           + [_P] * 5 + [_I])
     lib.dplr_corpus_multi_topk.restype = _I
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_words(n: int, rows: int, K: int) -> int:
+    return _lib().dplr_corpus_topk_scratch(n, rows, K)
 
 
 def _ptr(t: torch.Tensor | None):
@@ -74,37 +78,42 @@ def launch_full(Q_I, a_I, e, P_C, a_C, valid) -> torch.Tensor:
     return out
 
 
+def _topk_launches(stage1: str, merge: str, launched) -> dict:
+    return {stage1: launched[0], merge: launched[1], "topk_sort_tiles": launched[2],
+            "topk_sort_merge": launched[3]}
+
+
 def launch_topk(Q_I, a_I, e, P_C, a_C, valid, K: int, index_offset: int,
                 index_stride: int) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """``(Bq, K) f32 scores, (Bq, K) int32 ids`` best first, and the
-    launches made, ``{"corpus_topk_chunks": 1, "topk_merge": m}``: the
-    merge runs once per round of stage-1 lists, 0 times for one list."""
+    launches made: ``corpus_topk_chunks`` and ``topk_merge`` once each,
+    and for K > 4096 ``topk_sort_tiles`` once and ``topk_sort_merge``
+    once per round of runs (none up to 16,384)."""
     n, rho, k = Q_I.shape
     Bq = P_C.shape[0]
     dev = Q_I.device
     lib = _lib()
-    m = lib.dplr_corpus_topk_scratch(n, Bq, K)
-    scratch_v = torch.empty(m, dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_words(n, Bq, K), dtype=torch.int32, device=dev)
     vals = torch.empty((Bq, K), dtype=torch.float32, device=dev)
     ids = torch.empty((Bq, K), dtype=torch.int32, device=dev)
-    launched = (ctypes.c_int * 2)()
+    launched = (ctypes.c_int * 4)()
     status = lib.dplr_corpus_topk(
         _ptr(Q_I), _ptr(a_I), _ptr(valid), _ptr(e), _ptr(P_C), _ptr(a_C),
         n, Bq, rho, k, K, index_offset, index_stride,
-        _ptr(scratch_v), _ptr(scratch_i), _ptr(vals), _ptr(ids),
+        _ptr(scratch), _ptr(vals), _ptr(ids),
         ctypes.addressof(launched), _stream(dev), dev.index)
     _build.check(status, "dplr_corpus_topk launch")
-    return vals, ids, {"corpus_topk_chunks": launched[0], "topk_merge": launched[1]}
+    return vals, ids, _topk_launches("corpus_topk_chunks", "topk_merge", launched)
 
 
 def launch_multi_topk(Q_parts, a_parts, valid_parts, e, P_C, a_C, K: int,
                       index_offset: int, index_stride: int
                       ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """``(S, Bq, K) f32 scores, (S, Bq, K) int32 segment-local ids`` best
-    first, and the launches made, ``{"corpus_multi_topk_chunks": 1,
-    "multi_topk_merge": m}``.  The segments' slabs are passed by pointer
-    (a table in the launch's parameters), never copied."""
+    first, and the launches made: ``corpus_multi_topk_chunks`` and
+    ``multi_topk_merge`` once each, and for K > 4096 the sort kernels as
+    in ``launch_topk``.  The segments' slabs are passed by pointer (a table
+    in the launch's parameters), never copied."""
     S = len(Q_parts)
     _, rho, k = Q_parts[0].shape
     Bq = P_C.shape[1]
@@ -112,17 +121,14 @@ def launch_multi_topk(Q_parts, a_parts, valid_parts, e, P_C, a_C, K: int,
     lib = _lib()
     ptrs = lambda ts: (ctypes.c_void_p * S)(*[_ptr(t) for t in ts])  # noqa: E731
     n = (ctypes.c_longlong * S)(*[q.shape[0] for q in Q_parts])
-    m = lib.dplr_corpus_topk_scratch(max(n), S * Bq, K)
-    scratch_v = torch.empty(m, dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(m, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_words(max(n), S * Bq, K), dtype=torch.int32, device=dev)
     vals = torch.empty((S, Bq, K), dtype=torch.float32, device=dev)
     ids = torch.empty((S, Bq, K), dtype=torch.int32, device=dev)
-    launched = (ctypes.c_int * 2)()
+    launched = (ctypes.c_int * 4)()
     status = lib.dplr_corpus_multi_topk(
         S, ptrs(Q_parts), ptrs(a_parts), ptrs(valid_parts), n,
         _ptr(e), _ptr(P_C), _ptr(a_C), Bq, rho, k, K, index_offset, index_stride,
-        _ptr(scratch_v), _ptr(scratch_i), _ptr(vals), _ptr(ids),
+        _ptr(scratch), _ptr(vals), _ptr(ids),
         ctypes.addressof(launched), _stream(dev), dev.index)
     _build.check(status, "dplr_corpus_multi_topk launch")
-    return vals, ids, {"corpus_multi_topk_chunks": launched[0],
-                       "multi_topk_merge": launched[1]}
+    return vals, ids, _topk_launches("corpus_multi_topk_chunks", "multi_topk_merge", launched)

@@ -9,8 +9,10 @@ to the plain version.  Any other device raises.
 ``LAUNCHES`` counts launches of each CUDA kernel (``__global__``
 function) by its name, and only those: a run reads it to show that its
 path went through the kernels.  ``KERNELS`` names the CUDA kernels behind
-each entry point; a top-K call launches stage 1 once and the merge once
-per round, so its launches are not its calls.
+each entry point; a top-K call launches stage 1 and the merge once each,
+and for K > 4096 the two sort kernels (listed under
+``dplr_corpus_topk``, which the multi-tenant entry shares), so its
+launches are not its calls.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from repro_torch.kernels import ref
 
 KERNELS = {
     "dplr_corpus_score": ("corpus_score_full",),
-    "dplr_corpus_topk": ("corpus_topk_chunks", "topk_merge"),
+    "dplr_corpus_topk": ("corpus_topk_chunks", "topk_merge", "topk_sort_tiles",
+                         "topk_sort_merge"),
     "dplr_score_items": ("dplr_score_items_kernel",),
     "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
     "embedding_bag": ("embedding_bag_kernel",),
@@ -42,8 +45,8 @@ def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def _device(**tensors) -> torch.device:
-    devices = {t.device for t in tensors.values() if t is not None}
+def _device(*tensors) -> torch.device:
+    devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
@@ -52,30 +55,35 @@ def _device(**tensors) -> torch.device:
     return dev
 
 
-def _check_shape(name: str, t, shape: tuple) -> None:
+def _check_shape(name: str, t, shape: tuple, index: int | None = None) -> None:
+    """``index``: the tensor's place in a list of them, named in the error
+    (formatted only then: the multi-tenant path checks 3 a segment a call)."""
     if t is not None and tuple(t.shape) != tuple(shape):
+        if index is not None:
+            name = f"{name}[{index}]"
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_for_kernel(**tensors) -> None:
-    """The CUDA kernels take f32 (``valid``: bool) contiguous tensors."""
+def _check_for_kernel(index: int | None = None, **tensors) -> None:
+    """The CUDA kernels take f32 (``valid``: bool) contiguous tensors;
+    ``index`` as in ``_check_shape``."""
     for name, t in tensors.items():
         if t is None:
             continue
         want = torch.bool if name.startswith("valid") else torch.float32
-        if t.dtype != want:
-            raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {want}")
-        if not t.is_contiguous():
+        if t.dtype != want or not t.is_contiguous():
+            if index is not None:
+                name = f"{name}{index}"
+            if t.dtype != want:
+                raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {want}")
             raise ValueError(f"{name}: the kernel takes a contiguous tensor")
 
 
-def _check_corpus_limits(rk: int, topk: int | None) -> None:
-    """Kernels 1-4's own limits, checked for CUDA tensors only: the plain
-    versions take any rho * k and any K."""
+def _check_corpus_limits(rk: int) -> None:
+    """Kernels 1-4's own limit, checked for CUDA tensors only: the plain
+    versions take any rho * k.  Both take any 0 < K <= n."""
     if rk > _corpus.MAX_RK:
         raise ValueError(f"rho * k = {rk} > {_corpus.MAX_RK}, the kernel's limit")
-    if topk is not None and topk > _corpus.MAX_TOPK:
-        raise ValueError(f"topk={topk}: the kernel takes K <= {_corpus.MAX_TOPK}")
 
 
 def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = None,
@@ -97,13 +105,13 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
     _check_shape("valid", valid, (n,))
     if topk is not None and not 0 < topk <= n:
         raise ValueError(f"topk={topk} out of range for n={n}")
-    dev = _device(Q_I=Q_I, a_I=a_I, e=e, P_C=P_C, a_C=a_C, valid=valid)
+    dev = _device(Q_I, a_I, e, P_C, a_C, valid)
     if dev.type == "cpu":
         if topk is None:
             return ref.dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid)
         return ref.dplr_corpus_topk_ref(Q_I, a_I, e, P_C, a_C, topk, valid,
                                          index_offset, index_stride)
-    _check_corpus_limits(rho * k, topk)
+    _check_corpus_limits(rho * k)
     _check_for_kernel(Q_I=Q_I, a_I=a_I, e=e, P_C=P_C, a_C=a_C, valid=valid)
     if topk is None:
         out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid)
@@ -142,26 +150,25 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     Bq = P_C.shape[1]
     for s in range(S):
         n_s = Q_parts[s].shape[0]
-        _check_shape(f"Q_parts[{s}]", Q_parts[s], (n_s, rho, k))
-        _check_shape(f"a_parts[{s}]", a_parts[s], (n_s,))
-        _check_shape(f"valid_parts[{s}]", valid_parts[s], (n_s,))
+        _check_shape("Q_parts", Q_parts[s], (n_s, rho, k), s)
+        _check_shape("a_parts", a_parts[s], (n_s,), s)
+        _check_shape("valid_parts", valid_parts[s], (n_s,), s)
     _check_shape("e", e, (S, rho))
     _check_shape("P_C", P_C, (S, Bq, rho, k))
     _check_shape("a_C", a_C, (S, Bq))
     n_min = min(q.shape[0] for q in Q_parts)
     if not 0 < topk <= n_min:
         raise ValueError(f"topk={topk} out of range for smallest segment n={n_min}")
-    segs = {f"{name}{s}": t for s in range(S)
-            for name, t in (("Q_I", Q_parts[s]), ("a_I", a_parts[s]),
-                            ("valid", valid_parts[s]))}
-    dev = _device(e=e, P_C=P_C, a_C=a_C, **segs)
+    dev = _device(e, P_C, a_C, *Q_parts, *a_parts, *valid_parts)
     if dev.type == "cpu":
         return ref.dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C,
                                               topk, index_offset, index_stride)
     if S > _corpus.MAX_SEGMENTS:
         raise ValueError(f"{S} segments > {_corpus.MAX_SEGMENTS}, the kernel's limit")
-    _check_corpus_limits(rho * k, topk)
-    _check_for_kernel(e=e, P_C=P_C, a_C=a_C, **segs)
+    _check_corpus_limits(rho * k)
+    _check_for_kernel(e=e, P_C=P_C, a_C=a_C)
+    for s in range(S):
+        _check_for_kernel(s, Q_I=Q_parts[s], a_I=a_parts[s], valid=valid_parts[s])
     vals, ids, launched = _corpus.launch_multi_topk(
         Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, int(index_offset),
         int(index_stride))
@@ -186,11 +193,11 @@ def dplr_score_items(V_I, U_I, e, d_I, P_C, s_C):
     _check_shape("d_I", d_I, (mI,))
     _check_shape("P_C", P_C, (Bq, rho, k))
     _check_shape("s_C", s_C, (Bq,))
-    dev = _device(V_I=V_I, U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
+    dev = _device(V_I, U_I, e, d_I, P_C, s_C)
     if dev.type == "cpu":
         out = ref.dplr_score_items_ref(V_I, U_I, e, d_I, P_C, s_C)
     else:
-        _check_corpus_limits(rho * k, None)
+        _check_corpus_limits(rho * k)
         _check_for_kernel(V_I=V_I, U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
         out = _dplr.launch(V_I, U_I, e, d_I, P_C, s_C)
         LAUNCHES["dplr_score_items_kernel"] += 1
@@ -225,7 +232,7 @@ def embedding_bag(table, ids, weights, bags: BagMap):
     n_slots = ids.shape[-1]
     if bags.segments.shape != (n_slots,):
         raise ValueError(f"bags: {bags.segments.shape[0]} slots, ids have {n_slots}")
-    dev = _device(table=table, ids=ids, weights=weights, segments=bags.segments)
+    dev = _device(table, ids, weights, bags.segments)
     if dev.type == "cpu":
         return ref.embedding_bag_ref(table, ids, weights, bags.segments, bags.n_bags)
     _check_for_kernel(table=table, weights=weights)
@@ -273,7 +280,7 @@ def fwfm_pairwise(V, R):
         raise ValueError(f"V must be (..., m, k), got {tuple(V.shape)}")
     m, k = V.shape[-2:]
     _check_shape("R", R, (m, m))
-    dev = _device(V=V, R=R)
+    dev = _device(V, R)
     if dev.type == "cpu":
         return ref.fwfm_pairwise_ref(V, R)
     _fwfm.check_limits(m, k)
@@ -329,7 +336,7 @@ def flash_attention(q, k, v, *, window: int | None = None):
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    dev = _device(q=q, k=k, v=v)
+    dev = _device(q, k, v)
     if dev.type == "cpu":
         return ref.flash_attention_plain(q, k, v, window=window)
     if not q.dtype == k.dtype == v.dtype:

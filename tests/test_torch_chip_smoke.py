@@ -1,6 +1,7 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
 eval, lm, timing and profile phases run at a tiny size with the plain versions (the
-timer stubbed, since CUDA events need a card), and without a card the
+timer stubbed, since CUDA events need a card), its exact top-K check (C1)
+catches what is not kernel 1's scores sorted, and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
 directory."""
 import dataclasses
@@ -25,6 +26,11 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              waves=3, warm_waves=1, profile_waves=1,
              bag_rows=(3, 500, 64), bag_ragged=33, pairs=((64, 12), (300, 12), (1, 39)),
              eval_n=600, eval_batch=256, parity=(3, 64), pruned_q=(2, 16),
+             big_ks=(4097, 6500), adv=(8192, 6000, 3, (16, 1024, 4097)), large=(7000, 2),
+             big_topk=2000,
+             topk_times=((3, 5, "random"), (1, 5, "random"), (3, 64, "random"),
+                         (1, 64, "random"), (1, 300, "random"), (3, 300, "random"),
+                         (3, 4097, "random"), (3, 5, "rising"), (3, 64, "rising")),
              flash=((2, 70, 4, 1, 16, None), (2, 70, 4, 1, 16, 8)),
              flash_small=((1, 33, 2, 2, 8, None), (1, 50, 9, 1, 4, 5)),
              lm_batch=2, lm_prompt=21, lm_cache=24, lm_steps=3)
@@ -84,6 +90,31 @@ def test_checks_catch_a_wrong_top_k(chip_smoke):
     with pytest.raises(AssertionError, match="id scores"):
         chip_smoke.check_topk(vals, torch.tensor([[1, 0]], dtype=torch.int32), full, 2,
                               "wrong id")
+
+
+def test_exact_check_catches_what_is_not_kernel_1_sorted(chip_smoke):
+    """C1 passes kernel 1's scores sorted, relabeled, and raises on a pair of
+    tied slots swapped, on a value one ulp off and on a dead slot ranked
+    above a live one."""
+    from repro_torch.kernels.dplr_corpus_score import NEG_INF
+
+    scores = torch.tensor([[3.0, 5.0, 5.0, NEG_INF, 1.0]])
+    ids = lambda *x: torch.tensor([x], dtype=torch.int32)  # noqa: E731
+    vals = torch.tensor([[5.0, 5.0, 3.0]])
+    chip_smoke.check_exact(vals, ids(1, 2, 0), scores, 3, "sorted")
+    chip_smoke.check_exact(vals, ids(7, 9, 5), scores, 3, "relabeled", offset=5, stride=2)
+    chip_smoke.check_exact(vals, ids(1, 2, 0), chip_smoke.ranked(scores), 3, "ranked")
+    with pytest.raises(AssertionError, match="C1"):
+        chip_smoke.check_exact(vals, ids(2, 1, 0), scores, 3, "tied slots swapped")
+    ulp = torch.nextafter(torch.tensor(5.0), torch.tensor(6.0))
+    with pytest.raises(AssertionError, match="C1"):
+        chip_smoke.check_exact(torch.stack([ulp, torch.tensor(5.0), torch.tensor(3.0)])[None],
+                               ids(1, 2, 0), scores, 3, "one ulp")
+    with pytest.raises(AssertionError, match="C1"):
+        chip_smoke.check_exact(torch.tensor([[5.0, 5.0, 3.0, NEG_INF, 1.0]]),
+                               ids(1, 2, 0, 3, 4), scores, 5, "dead above live")
+    chip_smoke.check_exact(torch.tensor([[5.0, 5.0, 3.0, 1.0, NEG_INF]]),
+                           ids(1, 2, 0, 4, 3), scores, 5, "dead last")
 
 
 def _run_without_card(cwd):

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.dplr_corpus_score import (  # noqa: E402
-    MAX_RK, MAX_SEGMENTS, MAX_TOPK, NEG_INF)
+    MAX_RK, MAX_SEGMENTS, NEG_INF)
 
 from test_torch_parity import assert_scores, assert_topk, corpus_inputs, to_np  # noqa: E402
 
@@ -29,9 +29,13 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,K,merges", [(1000, 7, 0), (70_000, 16, 1), (70_000, 1024, 1),
-                                        (70_000, MAX_TOPK, 2)])
-def test_cuda_corpus_kernels_match_plain(cuda, n, K, merges):
+@pytest.mark.parametrize("n,K,sorts", [(1000, 7, (0, 0)), (70_000, 16, (0, 0)),
+                                       (70_000, 1024, (0, 0)), (70_000, 4096, (0, 0)),
+                                       (70_000, 4097, (1, 0)), (70_000, 40_000, (1, 2))])
+def test_cuda_corpus_kernels_match_plain(cuda, n, K, sorts):
+    """Each top-K call launches stage 1 and the merge once; past K = 4096
+    the winners' sort adds ``topk_sort_tiles`` once and ``topk_sort_merge``
+    once per doubling of 16,384-entry runs (``sorts`` per call)."""
     arrays = corpus_inputs(7, n, 3, 16, 5)
     args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
     ops.reset_launches()
@@ -50,7 +54,9 @@ def test_cuda_corpus_kernels_match_plain(cuda, n, K, merges):
     assert_topk(vals, ids, *ref.dplr_corpus_topk_ref(*args[:5], K, args[5], 3, 4), full,
                 offset=3, stride=4)
     assert ops.LAUNCHES["corpus_score_full"] == ops.LAUNCHES["corpus_topk_chunks"] == 2
-    assert ops.LAUNCHES["topk_merge"] == 2 * merges
+    assert ops.LAUNCHES["topk_merge"] == 2
+    assert (ops.LAUNCHES["topk_sort_tiles"], ops.LAUNCHES["topk_sort_merge"]) == (
+        2 * sorts[0], 2 * sorts[1])
 
 
 @pytest.mark.cuda
@@ -73,13 +79,17 @@ def test_cuda_score_items_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_corpus_kernels_refuse_past_their_limits(cuda):
-    """K > MAX_TOPK, rho * k > MAX_RK and more than MAX_SEGMENTS segments
-    raise on the card (the CPU's plain versions answer them:
-    ``test_torch_kernels.py``)."""
-    arrays = corpus_inputs(9, MAX_TOPK + 10, 2, 4, 2)
+    """rho * k > MAX_RK and more than MAX_SEGMENTS segments raise on the card
+    (the CPU's plain versions answer them: ``test_torch_kernels.py``); any
+    0 < K <= n is answered, here K = 4097 (past the old limit) and K = n, as
+    the plain version answers it."""
+    n = 4096 + 10
+    arrays = corpus_inputs(9, n, 2, 4, 2)
     args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
-    with pytest.raises(ValueError, match="K <= "):
-        ops.dplr_corpus_score(*args, topk=MAX_TOPK + 1)
+    full = ref.dplr_corpus_score_ref(*args)
+    for K in (4097, n):
+        vals, ids = ops.dplr_corpus_score(*args, topk=K)
+        assert_topk(vals, ids, *ref.dplr_corpus_topk_ref(*args[:5], K, args[5]), full)
     wide = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
                  for a in corpus_inputs(9, 64, 3, MAX_RK // 3 + 1, 2))
     with pytest.raises(ValueError, match="rho \\* k"):
@@ -97,9 +107,65 @@ def test_cuda_corpus_kernels_refuse_past_their_limits(cuda):
     e, P_C, a_C = (t[None].repeat(S, *(1,) * t.ndim) for t in args[2:5])
     with pytest.raises(ValueError, match="segments"):
         ops.dplr_corpus_score_multi(Q, a, None, e, P_C, a_C, topk=4)
-    Q, a = (args[0],) * 2, (args[1],) * 2
-    with pytest.raises(ValueError, match="K <= "):
-        ops.dplr_corpus_score_multi(Q, a, None, e[:2], P_C[:2], a_C[:2], topk=MAX_TOPK + 1)
+    Q, a, valid = (args[0],) * 2, (args[1],) * 2, (args[5],) * 2
+    for K in (4097, n):
+        vals, ids = ops.dplr_corpus_score_multi(Q, a, valid, e[:2], P_C[:2], a_C[:2], topk=K)
+        want_v, want_i = ref.dplr_corpus_multi_topk_ref(Q, a, valid, e[:2], P_C[:2], a_C[:2], K)
+        for s in range(2):
+            assert_topk(vals[s], ids[s], want_v[s], want_i[s], full)
+
+
+def _adversarial(case, arrays, K, rng):
+    """corpus_inputs' arrays in an adversarial order: scores rising or
+    falling with the slot, every slot equal, or K // 2 live slots."""
+    Q, a_I, e, PC, a_C, valid = (np.array(a) for a in arrays)
+    n = len(a_I)
+    valid[:] = True
+    if case == "rising":
+        a_I += np.float32(1e-3) * np.arange(n, dtype=np.float32)
+    elif case == "falling":
+        a_I -= np.float32(1e-3) * np.arange(n, dtype=np.float32)
+    elif case == "equal":
+        Q[:], a_I[:] = Q[0], a_I[0]
+    else:
+        valid[:] = False
+        valid[rng.permutation(n)[:K // 2]] = True
+    return Q, a_I, e, PC, a_C, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rising", "falling", "equal", "few"])
+@pytest.mark.parametrize("K", [16, 1024, 4097, 20_000])
+def test_cuda_topk_in_adversarial_orders_is_kernel_1_sorted(cuda, case, K):
+    """The top-K is bitwise the stable sort of kernel 1's scores (dead slots
+    included), relabeled, whatever the order of the scores: rising or
+    falling with the slot, all equal (the first K slots), or fewer live
+    slots than K (then the first dead slots, ascending)."""
+    rng = np.random.default_rng(11)
+    arrays = _adversarial(case, corpus_inputs(12, 30_000, 3, 16, 3), K, rng)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
+    want_v, want_i = ref.topk_stable(ops.dplr_corpus_score(*args), K)
+    vals, ids = ops.dplr_corpus_score(*args, topk=K, index_offset=5, index_stride=2)
+    assert torch.equal(vals.view(torch.int32), want_v.contiguous().view(torch.int32))
+    assert torch.equal(ids, (5 + 2 * want_i).to(torch.int32))
+    if case == "equal":
+        assert torch.equal(ids[0], 5 + 2 * torch.arange(K, device=cuda, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bq", [1, 2, 4, 8, 16, 19])
+@pytest.mark.parametrize("K", [16, 1024])
+def test_cuda_topk_at_every_query_group_is_kernel_1_sorted(cuda, Bq, K):
+    """The kernels score 1, 2, 4, 8 or 16 query rows a block (19: a group
+    of 16 and a group of 3 rows padded to 4): at each, the top-K is bitwise
+    the stable sort of kernel 1's scores, relabeled."""
+    arrays = corpus_inputs(13, 5000, 3, 16, Bq)
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
+    want_v, want_i = ref.topk_stable(ops.dplr_corpus_score(*args), K)
+    assert_scores(want_v, ref.topk_stable(ref.dplr_corpus_score_ref(*args), K)[0])
+    vals, ids = ops.dplr_corpus_score(*args, topk=K, index_offset=1, index_stride=3)
+    assert torch.equal(vals.view(torch.int32), want_v.contiguous().view(torch.int32))
+    assert torch.equal(ids, (1 + 3 * want_i).to(torch.int32))
 
 
 def _segments(ns, Bq, rho=3, k=16, seed=20):

@@ -16,7 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.dplr_corpus_score import MAX_RK, MAX_TOPK, NEG_INF  # noqa: E402
+from repro_torch.kernels.dplr_corpus_score import MAX_RK, NEG_INF  # noqa: E402
 
 from test_torch_parity import assert_scores, assert_topk, corpus_inputs, to_np  # noqa: E402
 
@@ -134,11 +134,12 @@ def test_entry_points_reject_what_the_kernels_do_not_take():
         ops.dplr_corpus_score(*meta)
 
 
-# Past the CUDA kernels' limits (K > MAX_TOPK, rho * k > MAX_RK, more than
-# MAX_SEGMENTS segments) the CPU path answers as the JAX oracles do.
+# Past the CUDA kernels' limits (rho * k > MAX_RK, more than MAX_SEGMENTS
+# segments), and past the card's old K limit of 4096, the CPU path answers as
+# the JAX oracles do.
 
 @pytest.mark.parametrize("n,rho,k,K", [
-    (MAX_TOPK + 904, 2, 4, MAX_TOPK + 1),      # K past the card's limit
+    (4096 + 904, 2, 4, 4096 + 1),              # K past the card's old limit
     (300, 3, MAX_RK // 3 + 1, 9),              # rho * k past it
 ])
 def test_corpus_score_past_the_kernel_limits_matches_the_oracle(n, rho, k, K):
@@ -165,7 +166,7 @@ def test_score_items_past_the_rk_limit_matches_the_oracle():
 
 
 @pytest.mark.parametrize("ns,rk,K", [
-    ((MAX_TOPK + 500, MAX_TOPK + 100), (2, 4), MAX_TOPK + 1),   # K past the limit
+    ((4096 + 500, 4096 + 100), (2, 4), 4096 + 1),               # K past the old limit
     ((40,) * 65, (3, 8), 5),                                    # 65 segments
     ((70, 50), (3, MAX_RK // 3 + 1), 9),                        # rho * k past it
 ])
