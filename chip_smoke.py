@@ -8,12 +8,17 @@ Phases, one line each:
 
 1. card: the ``nvidia-smi`` name and power limit; TF32 off.
 2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc (sm_90a);
-   fails if a kernel of ``dplr_corpus_score.cu`` or ``flash_attention_wgmma``
-   spills registers.
+   fails if a kernel of ``dplr_corpus_score.cu``, ``dplr_score.cu`` or
+   ``fwfm_interaction.cu``, or ``flash_attention_wgmma``, spills registers.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the serving and eval paths give it, plus ragged,
    all-dead and multi-hot edges; every top-K call also by C1 (below),
-   with K past 4,096, K = n and adversarial orders of the scores.
+   with K past 4,096, K = n and adversarial orders of the scores; kernel
+   3's batched rows bitwise equal to per-query calls, at edges of its tile,
+   rho k = 128 and 3, a misaligned V_I and 65,536 queries; kernel 6 with a
+   general and a pruned R, m in (1, 2, 128) by k in (1, 3, 32), B at edges
+   of its tile, a misaligned V, and a ragged slice of the full batch
+   bitwise equal to the full call's rows.
 4. serve: the full config (82 fields, k = 16, rho = 3, random weights from
    a seed) serving a 1,000,000-item corpus from a 2^20-slot slab: top-K
    and score queries, churn, a model refresh, and Algorithm 1 per call,
@@ -117,6 +122,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -169,8 +175,12 @@ FULL = SimpleNamespace(
     # (items), of pointwise eval; and a B whose threads end mid-block
     bag_rows=(16, 1_000_000, 4096), bag_ragged=4097,
     # fwfm_pairwise (B, m): the eval batch, serve_bulk's pointwise batch,
-    # and one example of a 39-field model
-    pairs=((4096, 82), (262_144, 82), (1, 39)),
+    # and one example of a 39-field model; the B of the (m, k) grid of edge
+    # cases, and the multiple of the tile whose neighbours are checked
+    pairs=((4096, 82), (262_144, 82), (1, 39)), pair_small_b=333, pair_tiles=256,
+    # dplr_score_items: n at a multiple of the tile +- 1, and the query
+    # count of the n = 2 case
+    items_tiles=125, items_many=65_536,
     make_fwfm=dplr_fwfm.make_fwfm_baseline, eval_n=20_000, eval_batch=4096,
     parity=(16, 16_384), pruned_q=(4, 1024),
     # top-K past the old 4,096 limit, the adversarial orders (n, live, Bq,
@@ -452,20 +462,11 @@ def kernel_checks(dev, sz) -> dict:
     corpus_checks(dev, sz, gen, errs, notes)
 
     for n3, Bq in [(sz.n3, b) for b in sz.bq3s] + [(sz.edge_n, 2)]:
-        V = torch.randn((Bq, n3, sz.m3, sz.k), generator=gen, device=dev) * 0.25
-        U = torch.randn((sz.rho, sz.m3), generator=gen, device=dev) * 0.2
-        e3 = torch.rand((sz.rho,), generator=gen, device=dev) + 0.5
-        d = -torch.rand((sz.m3,), generator=gen, device=dev)
-        PC = torch.randn((Bq, sz.rho, sz.k), generator=gen, device=dev)
-        sC = torch.randn((Bq,), generator=gen, device=dev)
-        want = ref.dplr_score_items_ref(V, U, e3, d, PC, sC)
-        got = ops.dplr_score_items(V, U, e3, d, PC, sC)
-        _sync(dev)
-        err = check_close(got, want, f"score_items n={n3} Bq={Bq}")
-        one = ops.dplr_score_items(V[0], U, e3, d, PC[0], sC[0])
-        _sync(dev)
-        err = max(err, check_close(one, want[0], f"score_items n={n3} per query"))
-        errs["dplr_score_items"] = max(errs["dplr_score_items"], err)
+        args = items_inputs(n3, Bq, sz.m3, sz.rho, sz.k, gen)
+        errs["dplr_score_items"] = max(errs["dplr_score_items"],
+                                       items_check(args, f"n={n3} Bq={Bq}"))
+    errs["dplr_score_items"], more = items_edge_checks(dev, sz, errs["dplr_score_items"])
+    notes += more
     errs["dplr_corpus_score_multi"], more = multi_checks(dev, sz, gen)
     notes += more
     errs["embedding_bag"], more = bag_checks(dev, sz, gen)
@@ -481,6 +482,87 @@ def kernel_checks(dev, sz) -> dict:
           + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + "; " + ", ".join(notes), flush=True)
     return errs
+
+
+def items_inputs(n, Bq, mI, rho, k, gen, misaligned=False):
+    """Inputs of one ``dplr_score_items`` call: V_I (Bq, n, m_I, k), U_I,
+    e, d_I, P_C, s_C; ``misaligned`` puts V_I one float past a 16-byte
+    boundary."""
+    dev = gen.device
+    shape = (Bq, n, mI, k)
+    V = torch.randn(math.prod(shape) + misaligned, generator=gen, device=dev)
+    V = V[int(misaligned):].view(shape).mul_(0.25)
+    U = torch.randn((rho, mI), generator=gen, device=dev) * 0.2
+    e3 = torch.rand((rho,), generator=gen, device=dev) + 0.5
+    d = -torch.rand((mI,), generator=gen, device=dev)
+    PC = torch.randn((Bq, rho, k), generator=gen, device=dev)
+    sC = torch.randn((Bq,), generator=gen, device=dev)
+    return V, U, e3, d, PC, sC
+
+
+def check_same(got, want, what: str) -> None:
+    """On the card, ``got`` bitwise equal to ``want`` (the kernels' values do
+    not depend on the batch); on the CPU, whose plain versions promise no
+    such thing, within ``check_close``."""
+    if not got.is_cuda:
+        check_close(got, want, what)
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{what}: not bitwise equal, max |diff| "
+                             f"{float((got - want).abs().max()):.3g}")
+
+
+def items_check(args, what: str, rows=None) -> float:
+    """Kernel 3 against its plain version within ``check_close``, and each
+    row of the batched call (``rows``: those of these query indices, else
+    all) equal to the per-query call (``check_same``).  Returns max |diff|."""
+    V, U, e3, d, PC, sC = args
+    want = ref.dplr_score_items_ref(*args)
+    got = ops.dplr_score_items(*args)
+    _sync(V.device)
+    err = check_close(got, want, f"score_items {what}")
+    for q in range(V.shape[0]) if rows is None else rows:
+        one = ops.dplr_score_items(V[q], U, e3, d, PC[q], sC[q])
+        _sync(V.device)
+        check_same(got[q], one, f"score_items {what}: row {q} of the batched call against "
+                                f"the per-query call")
+    return err
+
+
+def items_tile(rho: int, k: int) -> int:
+    """Items a tile of kernel 3 holds: a warp's 32 lanes over the lanes an
+    item takes, ceil(rho / 4) * ceil(k / 4) rounded up to a power of two
+    (``geometry`` in ``csrc/dplr_score.cu``)."""
+    g = -(-rho // 4) * -(-k // 4)
+    return 32 // (1 << (g - 1).bit_length())
+
+
+def items_edge_checks(dev, sz, err: float) -> tuple[float, list]:
+    """Kernel 3's edges, each within ``check_close`` and batched rows bitwise
+    equal to per-query calls (their own generator, so that the later
+    kernels' inputs stay as they were): n one below and one above a
+    multiple of the tile, n = 1; rho k = 128 as (8, 16) and (2, 64), and
+    rho k = 3; m_I k odd; a misaligned V_I; m_I = 200, whose items the
+    kernel streams in two chunks of fields; and ``sz.items_many`` queries
+    of n = 2 (three of their rows checked bitwise)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tile = items_tile(sz.rho, sz.k)
+    cases = [(tile * sz.items_tiles - 1, 2, sz.m3, sz.rho, sz.k, False),
+             (tile * sz.items_tiles + 1, 2, sz.m3, sz.rho, sz.k, False),
+             (1, 3, sz.m3, sz.rho, sz.k, False),
+             (sz.edge_n, 2, sz.m3, 8, 16, False), (sz.edge_n, 2, sz.m3, 2, 64, False),
+             (sz.edge_n, 2, sz.m3, 1, 3, False), (sz.edge_n, 2, 13, sz.rho, 3, False),
+             (sz.edge_n, 3, sz.m3, sz.rho, sz.k, True), (sz.edge_n, 2, 200, sz.rho, sz.k, False)]
+    notes = []
+    for n, Bq, mI, rho, k, mis in cases:
+        what = f"n={n} m_I={mI} k={k} rho={rho} Bq={Bq}" + (" misaligned" if mis else "")
+        err = max(err, items_check(items_inputs(n, Bq, mI, rho, k, gen, mis), what))
+        notes.append(what)
+    Bq = sz.items_many
+    err = max(err, items_check(items_inputs(2, Bq, sz.m3, sz.rho, sz.k, gen),
+                               f"n=2 Bq={Bq}", rows=(0, Bq // 2, Bq - 1)))
+    notes.append(f"n=2 m_I={sz.m3} Bq={Bq}")
+    return err, ["dplr_score_items (batched rows bitwise = per query) n=" + str(sz.n3)
+                 + f" Bq={list(sz.bq3s)}, n={sz.edge_n} Bq=2, " + ", ".join(notes)]
 
 
 def multi_inputs(dev, ns, lives, Bq, rho, k, gen):
@@ -639,18 +721,74 @@ def pair_size(V, R):
                               R.abs())
 
 
+def pair_check(V, R, what: str) -> tuple[float, torch.Tensor]:
+    """Kernel 6 against its plain version within ``TOL * max(1, 0.5 * sum
+    |R_ij G_ij|)`` (ROADMAP's size-scaled rule).  Returns (max |diff|, the
+    kernel's values)."""
+    got = ops.fwfm_pairwise(V, R)
+    _sync(V.device)
+    return check_close(got, ref.fwfm_pairwise_ref(V, R), f"fwfm_pairwise {what}",
+                       size=pair_size(V, R)), got
+
+
+def pair_tile(m: int, k: int) -> int:
+    """Examples a tile of kernel 6 holds: 64 column quads over ceil(k / 4)
+    an example, fewer where shared memory runs out (``smem_bytes`` in
+    ``csrc/fwfm_interaction.cu``)."""
+    kp, mp = -(-k // 4) * 4, -(-m // 8) * 8
+    stride = m * kp + (kp - m * kp) % 32
+    tb = 64 // (kp // 4)
+    while tb > 1 and 32 + (m * mp + 2 * tb * stride + 2 * 64 * 12) * 4 > 232_448:
+        tb -= 1
+    return tb
+
+
 def pair_checks(dev, sz, gen) -> tuple[float, list]:
-    """The FwFM pairwise kernel against its plain version, within
-    ``TOL * max(1, 0.5 * sum |R_ij G_ij|)`` (ROADMAP's size-scaled rule)."""
+    """The FwFM pairwise kernel against its plain version (``pair_check``):
+    at ``sz.pairs`` with a symmetric zero-diagonal R; then, on their own
+    generator (so that the later kernels' inputs stay as they were), a
+    general R (not symmetric, non-zero diagonal) and the matched-pruned R
+    at the eval batch, a general R at the full batch (and a ragged slice of
+    it bitwise equal to the full call's rows), every m in (1, 2, 128) with
+    every k in (1, 3, 32), B one below and one above a multiple of the
+    kernel's tile, and a V one float past a 16-byte boundary."""
     err, notes = 0.0, []
     for B, m in sz.pairs:
         V, R = pair_inputs(B, m, sz.k, gen)
-        got = ops.fwfm_pairwise(V, R)
-        _sync(dev)
-        err = max(err, check_close(got, ref.fwfm_pairwise_ref(V, R),
-                                   f"fwfm_pairwise B={B} m={m}", size=pair_size(V, R)))
+        err = max(err, pair_check(V, R, f"B={B} m={m}")[0])
         notes.append(f"B={B} m={m}")
-        del V, got
+        del V
+    gen = torch.Generator(device=dev).manual_seed(8)
+    (b_eval, m), (b_full, _) = sz.pairs[:2]
+    V, R = pair_inputs(b_eval, m, sz.k, gen)
+    general = torch.randn((m, m), generator=gen, device=dev) * 0.1
+    pruned = R * prune_matched(R, m, sz.rho).mask.to(R)
+    for name, R_ in (("general", general), ("pruned", pruned)):
+        err = max(err, pair_check(V, R_, f"B={b_eval} m={m} {name} R")[0])
+        notes.append(f"B={b_eval} m={m} {name} R")
+    V = pair_inputs(b_full, m, sz.k, gen)[0]
+    e_, got = pair_check(V, general, f"B={b_full} m={m} general R")
+    lo, hi = 12_345 % b_full, min(b_full, 12_345 % b_full + b_eval + 1)
+    check_same(got[lo:hi], ops.fwfm_pairwise(V[lo:hi], general),
+               f"fwfm_pairwise: the full call's rows {lo}:{hi} against those rows alone")
+    err = max(err, e_)
+    notes.append(f"B={b_full} m={m} general R, rows {lo}:{hi} alone bitwise")
+    del V, got
+    for m_ in (1, 2, 128):
+        for k in (1, 3, 32):
+            V = torch.randn((sz.pair_small_b, m_, k), generator=gen, device=dev) / k**0.5
+            R_ = torch.randn((m_, m_), generator=gen, device=dev) * 0.1
+            err = max(err, pair_check(V, R_, f"B={sz.pair_small_b} m={m_} k={k}")[0])
+    notes.append(f"B={sz.pair_small_b} m in (1, 2, 128) x k in (1, 3, 32) general R")
+    tile = pair_tile(m, sz.k)
+    for B in (tile * sz.pair_tiles - 1, tile * sz.pair_tiles + 1):
+        V = pair_inputs(B, m, sz.k, gen)[0]
+        err = max(err, pair_check(V, general, f"B={B} m={m} general R")[0])
+        notes.append(f"B={B} m={m} (tile {tile})")
+    flat = torch.randn(b_eval * m * sz.k + 1, generator=gen, device=dev) / sz.k**0.5
+    V = flat[1:].view(b_eval, m, sz.k)
+    err = max(err, pair_check(V, general, f"B={b_eval} m={m} misaligned")[0])
+    notes.append(f"B={b_eval} m={m} misaligned")
     return err, ["fwfm_pairwise " + ", ".join(notes)]
 
 
@@ -1053,7 +1191,8 @@ def eval_phase(dev, sz, serve) -> dict:
     if dev.type == "cuda" and not all(launches.values()):
         raise AssertionError(f"a kernel was not launched on the eval path: {launches}")
     model = rep_["paths"]["model"]
-    print(f"phase eval: host data {host_s:.1f} s; evaluate_pointwise on {sz.eval_n} rows, "
+    print(f"phase eval: wall {time.perf_counter() - t0:.1f} s, of it host data {host_s:.1f} s; "
+          f"evaluate_pointwise on {sz.eval_n} rows, "
           f"batch {sz.eval_batch}: " + "; ".join(parts)
           + f"; pruned R keeps {len(pr.entries_r)} of {m * (m - 1) // 2} entries; "
           f"model_scores(pruned=) = apply(pruned_mask=) on {Qp} x {n_p}; serving_parity "
@@ -1280,6 +1419,20 @@ def ptxas_report(log: str) -> list:
     return out
 
 
+# The build fails if any kernel of these sources, or any kernel whose name
+# starts with one of these, spills registers.
+NO_SPILL_SOURCES = ("dplr_corpus_score", "dplr_score", "fwfm_interaction")
+NO_SPILL_KERNELS = ("flash_attention_wgmma",)
+
+
+def spilled(stem: str, log: str) -> list:
+    """The kernels of source ``stem``'s ptxas log that the build refuses:
+    those that spill, in ``NO_SPILL_SOURCES`` or named by ``NO_SPILL_KERNELS``."""
+    return [fn for fn in ptxas_report(log)
+            if (stem in NO_SPILL_SOURCES or fn["kernel"].startswith(NO_SPILL_KERNELS))
+            and (fn["spill_stores"] or fn["spill_loads"])]
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1373,6 +1526,7 @@ def timing_phase(dev, sz, peaks) -> dict:
     del Q, rising
 
     m, n3 = sz.m3, sz.n3
+    shapes = []
     for Bq3 in sz.bq3s:
         V = torch.randn((Bq3, n3, m, k), generator=gen, device=dev) * 0.25
         U = torch.randn((rho, m), generator=gen, device=dev) * 0.2
@@ -1381,14 +1535,18 @@ def timing_phase(dev, sz, peaks) -> dict:
         PC = torch.randn((Bq3, rho, k), generator=gen, device=dev)
         sC = torch.randn((Bq3,), generator=gen, device=dev)
         ms = device_ms(lambda: ops.dplr_score_items(V, U, e3, d, PC, sC))
+        host = host_issue_ms(dev, lambda: ops.dplr_score_items(V, U, e3, d, PC, sC))
         plain = device_ms(lambda: ref.dplr_score_items_ref(V, U, e3, d, PC, sC), 3, 2)
         nbytes = (Bq3 * n3 * (m * k + 1) + rho * m + rho + m + Bq3 * (rk_ + 1)) * 4
         flops = Bq3 * n3 * (m * k * (2 + 2 * rho) + 2 * m + rho * (2 * k + 2) + 3)
         bnd, by = bound_ms(nbytes, flops, peaks)
-        extra.append(f"dplr_score_items n={n3} m_I={m} Bq={Bq3}: {ms:.4f} ms, "
-                     f"plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        shapes.append(dict(n=n3, m_I=m, Bq=Bq3, ms=ms, host_issue_ms=host, plain_ms=plain,
+                           bound_ms=bnd))
+        extra.append(f"dplr_score_items n={n3} m_I={m} Bq={Bq3}: {ms:.4f} ms (host issue "
+                     f"{host:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         if Bq3 == max(sz.bq3s):
             rows["dplr_score_items"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+    rows["dplr_score_items"]["shapes"] = shapes
     del V
 
     S, Bq4, n_s, K = sz.multi
@@ -1442,19 +1600,24 @@ def timing_phase(dev, sz, peaks) -> dict:
     # fwfm_pairwise; library: one einsum with TF32 off.  The Gram is
     # symmetric, so the function needs its m (m + 1) / 2 distinct dot
     # products (2k flops each) contracted with R_ij + R_ji (2 flops each):
-    # m (m + 1) (k + 1) flops an example, half of what the kernel does
+    # m (m + 1) (k + 1) flops an example
+    shapes = []
     for B, m in sz.pairs:
         V, R = pair_inputs(B, m, k, gen)
         ms = device_ms(lambda: ops.fwfm_pairwise(V, R))
+        host = host_issue_ms(dev, lambda: ops.fwfm_pairwise(V, R))
         plain = device_ms(lambda: ref.fwfm_pairwise_ref(V, R), 3, 2)
         lib = device_ms(lambda: torch.einsum("bik,bjk,ij->b", V, V, R))
         bnd, by = bound_ms((B * m * k + m * m + B) * 4, B * m * (m + 1) * (k + 1), peaks)
-        extra.append(f"fwfm_pairwise B={B} m={m} k={k}: {ms:.4f} ms, plain {plain:.4f} ms, "
-                     f"einsum {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+        shapes.append(dict(B=B, m=m, ms=ms, host_issue_ms=host, plain_ms=plain, library_ms=lib,
+                           bound_ms=bnd))
+        extra.append(f"fwfm_pairwise B={B} m={m} k={k}: {ms:.4f} ms (host issue {host:.4f} "
+                     f"ms), plain {plain:.4f} ms, einsum {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
         if B == max(b for b, _ in sz.pairs):
             rows["fwfm_pairwise"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                          library_ms=lib)
         del V
+    rows["fwfm_pairwise"]["shapes"] = shapes
     rows["flash_attention"] = flash_timing(sz, peaks, gen, extra)
     print("phase timing: " + "; ".join(extra), flush=True)
     return rows
@@ -1640,14 +1803,14 @@ def main() -> None:
     built = _build.build_all()
     logs = []
     for src in _build.sources():
-        for fn in ptxas_report(_build.build_log(src.stem).read_text()):
+        log = _build.build_log(src.stem).read_text()
+        for fn in ptxas_report(log):
             logs.append(f"{fn['kernel']}: {fn['registers']} registers, {fn['spill_stores']} "
                         f"bytes spill stores, {fn['spill_loads']} bytes spill loads"
                         + "".join(f"; {w}" for w in fn["warnings"]))
-            if (fn["kernel"].startswith("flash_attention_wgmma")
-                    or src.stem == "dplr_corpus_score") and (
-                    fn["spill_stores"] or fn["spill_loads"]):
-                raise AssertionError(f"{fn['kernel']} spills registers: {logs[-1]}")
+        bad = spilled(src.stem, log)
+        if bad:
+            raise AssertionError(f"{', '.join(fn['kernel'] for fn in bad)} spill registers")
     print(f"phase build: {time.perf_counter() - t0:.1f} s ({len(built)} sources compiled); "
           + " | ".join(logs), flush=True)
 

@@ -5,90 +5,236 @@
 //   out[q, i] = 0.5 * ((s_C[q] + sum_m d_m ||v_m||^2) + sum_r e_r ||P_r||^2)
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/dplr_score.py,
-// dplr_score_items() (_kernel), which scores one query; the grid here has a
-// query axis, so fwfm.rank_items scores its whole (Bq, n) batch in one
-// launch where the JAX package vmaps the per-query kernel.
+// dplr_score_items() (_kernel), which scores one query; here one launch
+// scores a whole (Bq, n) batch, any Bq >= 1, where the JAX package vmaps
+// the per-query kernel.
 //
 // What bounds it on an H100: memory.  Each (query, item) reads m_I * k * 4
 // bytes of V_I (2432 B at m_I = 38, k = 16) for about (2 + 2 rho) * m_I * k
 // flops, well under the card's f32 rate per byte.
 //
-// What the design does about it: one thread per (query, item) streams its
-// item's m_I * k floats once, 8 loads in flight at a time, squaring each
-// for the d-term and adding it into the rho * k projection P as it goes.
-// The threads of a warp read rows 2.4 KB apart (not coalesced); each
-// 32-byte sector a thread touches is used whole, through L1.  P lives in the thread's own
-// row of shared memory (odd row stride: no bank conflicts), so rho * k may
-// be up to repro::kMaxRK = 128 without spilling registers.  U_I, e, d_I
-// and P_C[q] sit in shared memory, read by every thread of the block.
+// What the design does about it.  A block, one warp, walks tiles of T items
+// of one query ((query, tile) pairs flattened, a grid of at most one wave
+// of blocks, 5 blocks an SM at the serving shape), each tile's V_I
+// (T m_I k 4 contiguous bytes) copied into shared memory by bulk copies
+// (cp.async.bulk, one an item, issued by the warp's lanes together)
+// completed on an mbarrier, through a ring of 2 stages: one is scored
+// while the other loads.  Items sit in padded slots, stride congruent to kp mod 32 floats
+// (kp = k rounded up to 4): an item row is 608 floats at m_I = 38, k = 16,
+// a multiple of 32, so unpadded rows would put every item's field on the
+// same banks.  Where V_I is not 16-byte aligned or k % 4 != 0, the threads
+// stage each tile with plain loads into the same layout (k padded with
+// zeros), in the same kernel.  Items whose m_I k floats exceed a stage go
+// through in chunks of fields, P carried across them in registers.
+//
+// g threads share an item, each owning a 4-row by 4-column block of P in
+// registers (rows 4 rg.., columns 4 cq..; g = ceil(rho / 4) * kp / 4,
+// rounded up to a power of two, at most 32 since rho * k <= kMaxRK).  Per
+// field it reads its 4 columns as one 16-byte load and U_I's 4 rows as a
+// 16-byte broadcast, and adds d_m v^2 (row block 0 only); then the g
+// partial d- and e-terms are summed by shuffles in a fixed tree.  Each
+// score's operations and their order depend only on (m_I, k, rho), never
+// on Bq, n or the tile, so every row of a batched call is bitwise the
+// per-query call.
+#include <cstdint>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using repro::kMaxRK;
 
-constexpr int kTile = 128;  // items per block, one per thread
-constexpr size_t kMaxSmem = 232448;
+constexpr int kThreads = 32;   // one warp a block
+constexpr int kStages = 2;
+constexpr int kStageFloats = 24576;  // 96 KB a stage at most
+constexpr int kUFloats = 8192;       // U_I's chunk, 32 KB at most
 
-__global__ void dplr_score_items_kernel(const float* __restrict__ V,
-                                        const float* __restrict__ U,
-                                        const float* __restrict__ e,
-                                        const float* __restrict__ d,
-                                        const float* __restrict__ PC,
-                                        const float* __restrict__ sC, long long n,
-                                        int mI, int rho, int k,
-                                        float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int RK = rho * k;
-  const int RKP = repro::padded_stride(RK);
-  float* us = smem;            // rho * mI
-  float* es = us + rho * mI;   // rho
-  float* ds = es + rho;        // mI
-  float* pcs = ds + mI;        // RK
-  float* acc = pcs + RK;       // kTile * RKP
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
-  const int q = blockIdx.y;
-  for (int t = threadIdx.x; t < rho * mI; t += blockDim.x) us[t] = U[t];
-  for (int t = threadIdx.x; t < rho; t += blockDim.x) es[t] = e[t];
-  for (int t = threadIdx.x; t < mI; t += blockDim.x) ds[t] = d[t];
-  for (int t = threadIdx.x; t < RK; t += blockDim.x) pcs[t] = PC[(long long)q * RK + t];
+// Floats from one item's slot to the next: at least `width`, congruent to
+// kp mod 32.
+__host__ __device__ inline int slot_stride(int width, int kp) {
+  return width + ((kp - width) % 32 + 32) % 32;
+}
+
+// How (m_I, rho, k) maps onto the block: lanes an item (g used of gp),
+// items a tile (T), fields a chunk (FC) and the slot stride (S).
+struct Geometry {
+  int kp, kq, rhop, g, gp, T, FC, S;
+};
+
+__host__ __device__ inline Geometry geometry(int mI, int rho, int k) {
+  Geometry G;
+  G.kp = round4(k);
+  G.kq = G.kp / 4;
+  G.rhop = round4(rho);
+  G.g = G.rhop / 4 * G.kq;
+  G.gp = 1;
+  while (G.gp < G.g) G.gp *= 2;
+  G.T = kThreads / G.gp;
+  int fc = (kStageFloats / G.T - 32) / G.kp;
+  const int fu = kUFloats / (G.rhop + 1);
+  fc = fc < fu ? fc : fu;
+  fc = fc < mI ? fc : mI;
+  G.FC = fc > 1 ? fc : 1;
+  G.S = slot_stride(G.FC * G.kp, G.kp);
+  return G;
+}
+
+__host__ __device__ inline size_t smem_bytes(const Geometry& G) {
+  return 16 + ((size_t)kStages * G.T * G.S + (size_t)G.FC * (G.rhop + 1) + G.rhop) *
+                  sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    dplr_score_items_kernel(const float* __restrict__ V, const float* __restrict__ U,
+                            const float* __restrict__ e, const float* __restrict__ d,
+                            const float* __restrict__ PC, const float* __restrict__ sC,
+                            long long n, int Bq, int mI, int rho, int k, int bulk,
+                            float* __restrict__ out) {
+  const Geometry G = geometry(mI, rho, k);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
+  float* stages = reinterpret_cast<float*>(smem_raw + 16);  // kStages * T * S
+  float* us = stages + kStages * G.T * G.S;                  // FC * rhop: us[f * rhop + r]
+  float* ds = us + G.FC * G.rhop;                            // FC
+  float* es = ds + G.FC;                                     // rhop
+
+  const int n_fc = (mI + G.FC - 1) / G.FC > 1 ? (mI + G.FC - 1) / G.FC : 1;
+  const long long tiles_q = (n + G.T - 1) / G.T;
+  const long long n_tiles = tiles_q * Bq;
+  // Unit v of this block: chunk v % n_fc of tile blockIdx.x + (v / n_fc) * gridDim.x.
+  const long long n_units =
+      blockIdx.x < n_tiles ? ((n_tiles - 1 - blockIdx.x) / gridDim.x + 1) * n_fc : 0;
+  auto unit_tile = [&](long long v) { return blockIdx.x + v / n_fc * gridDim.x; };
+  auto unit_items = [&](long long tile, long long* first) {
+    const long long q = tile / tiles_q, i0 = tile % tiles_q * G.T;
+    *first = q * n + i0;
+    return (int)(n - i0 < G.T ? n - i0 : G.T);
+  };
+  auto unit_fields = [&](long long v, int* f0) {
+    *f0 = (int)(v % n_fc) * G.FC;
+    return mI - *f0 < G.FC ? mI - *f0 : G.FC;
+  };
+  // The warp issues a unit's copies, one an item a lane, all on the stage's
+  // barrier (lane 0 announces their bytes first).
+  auto issue = [&](long long v, int s) {
+    long long first;
+    const int nv = unit_items(unit_tile(v), &first);
+    int f0;
+    const uint32_t bytes = (uint32_t)(unit_fields(v, &f0) * k) * 4u;
+    const uint32_t bar = hopper::smem_addr(&full[s]);
+    if (threadIdx.x == 0) hopper::mbar_expect_tx(bar, bytes * nv);
+    __syncwarp();
+    float* dst = stages + s * G.T * G.S;
+    for (int it = threadIdx.x; it < nv; it += kThreads)
+      hopper::bulk_load(hopper::smem_addr(dst + it * G.S), V + ((first + it) * mI + f0) * k,
+                        bytes, bar);
+  };
+  auto load_u = [&](int f0, int fc) {
+    for (int t = threadIdx.x; t < fc * G.rhop; t += kThreads) {
+      const int f = t / G.rhop, r = t - f * G.rhop;
+      us[t] = r < rho ? U[r * mI + f0 + f] : 0.f;
+    }
+    for (int t = threadIdx.x; t < fc; t += kThreads) ds[t] = d[f0 + t];
+  };
+  if (bulk) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) hopper::mbar_init(hopper::smem_addr(&full[s]), 1);
+      hopper::mbar_init_fence();
+    }
+    __syncwarp();
+    for (int s = 0; s < kStages && s < n_units; ++s) issue(s, s);
+  }
+  for (int t = threadIdx.x; t < G.rhop; t += kThreads) es[t] = t < rho ? e[t] : 0.f;
+  if (n_fc == 1) load_u(0, mI);
   __syncthreads();
 
-  const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
-  if (i >= n) return;
-  float* P = acc + threadIdx.x * RKP;
-  for (int j = 0; j < RK; ++j) P[j] = pcs[j];
-  // The item's m_I * k floats are contiguous; they are read kStageBatch at
-  // a time, all loads issued before any is used, with (m, c) stepped along.
-  const float* v = V + ((long long)q * n + i) * mI * k;
-  const int total = mI * k;
-  float term_d = 0.f;
-  int m = 0, c = 0;
-  for (int j0 = 0; j0 < total; j0 += repro::kStageBatch) {
-    float x[repro::kStageBatch];
+  // This thread's item slot and block of P (lanes li >= g hold zeros).
+  const int it = threadIdx.x / G.gp, li = threadIdx.x % G.gp;
+  const bool active = li < G.g;
+  const int rg = active ? li / G.kq : 0, cq = active ? li % G.kq : 0;
+  float P[4][4];
+  float td = 0.f;
+  long long q = 0, item = 0;
+  int nv = 0;
+  for (long long v = 0; v < n_units; ++v) {
+    const int s = (int)(v % kStages);
+    const long long tile = unit_tile(v);
+    int f0;
+    const int fc = unit_fields(v, &f0);
+    if (f0 == 0) {  // a new tile: P starts from P_C[q]
+      long long first;
+      nv = unit_items(tile, &first);
+      q = tile / tiles_q;
+      item = first + it;
 #pragma unroll
-    for (int u = 0; u < repro::kStageBatch; ++u)
-      x[u] = j0 + u < total ? __ldg(v + j0 + u) : 0.f;
+      for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-    for (int u = 0; u < repro::kStageBatch; ++u) {
-      if (j0 + u < total) {
-        term_d = fmaf(ds[m] * x[u], x[u], term_d);
-        for (int r = 0; r < rho; ++r)
-          P[r * k + c] = fmaf(us[r * mI + m], x[u], P[r * k + c]);
-        if (++c == k) {
-          c = 0;
-          ++m;
+        for (int c = 0; c < 4; ++c) {
+          const int r = 4 * rg + rr, col = 4 * cq + c;
+          P[rr][c] = active && r < rho && col < k ? PC[(q * rho + r) * k + col] : 0.f;
         }
+      td = 0.f;
+    }
+    if (n_fc > 1) {
+      load_u(f0, fc);
+      __syncthreads();
+    }
+    float* X = stages + s * G.T * G.S;
+    if (bulk) {
+      hopper::mbar_wait(hopper::smem_addr(&full[s]), (uint32_t)(v / kStages) & 1);
+    } else {
+      long long first;
+      const int items = unit_items(tile, &first);
+      const int per = fc * G.kp;
+      for (int t = threadIdx.x; t < items * per; t += kThreads) {
+        const int b = t / per, r = t - b * per, f = r / G.kp, c = r - f * G.kp;
+        X[b * G.S + r] = c < k ? __ldg(V + ((first + b) * mI + f0 + f) * k + c) : 0.f;
+      }
+      __syncthreads();
+    }
+
+    if (active) {
+      const float* x = X + it * G.S + 4 * cq;
+      const float* u = us + 4 * rg;
+#pragma unroll 4
+      for (int f = 0; f < fc; ++f) {
+        const float4 xv = *reinterpret_cast<const float4*>(x + f * G.kp);
+        const float4 uv = *reinterpret_cast<const float4*>(u + f * G.rhop);
+        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+        const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
+        if (rg == 0) {
+          const float dm = ds[f];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) td = fmaf(dm * xs[c], xs[c], td);
+        }
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) P[rr][c] = fmaf(ur[rr], xs[c], P[rr][c]);
       }
     }
+    __syncthreads();  // the stage (and U_I's chunk) are read
+    if (bulk && v + kStages < n_units) issue(v + kStages, s);
+
+    if (f0 + fc == mI) {  // the tile's last chunk: finish its scores
+      float te = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        float sq = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sq = fmaf(P[rr][c], P[rr][c], sq);
+        te = fmaf(es[4 * rg + rr], sq, te);
+      }
+      for (int o = 1; o < G.gp; o *= 2) {
+        td += __shfl_xor_sync(0xffffffffu, td, o);
+        te += __shfl_xor_sync(0xffffffffu, te, o);
+      }
+      if (li == 0 && it < nv) out[item] = 0.5f * ((sC[q] + td) + te);
+    }
   }
-  float term_e = 0.f;
-  for (int r = 0; r < rho; ++r) {
-    float s = 0.f;
-    for (int c = 0; c < k; ++c) s = fmaf(P[r * k + c], P[r * k + c], s);
-    term_e = fmaf(es[r], s, term_e);
-  }
-  out[(long long)q * n + i] = 0.5f * ((sC[q] + term_d) + term_e);
 }
 
 }  // namespace
@@ -98,17 +244,26 @@ extern "C" {
 int dplr_score_items(const float* V, const float* U, const float* e, const float* d,
                      const float* PC, const float* sC, long long n, int Bq, int mI, int rho,
                      int k, float* out, void* stream, int device) {
-  if (n <= 0 || Bq <= 0 || Bq > 65535 || rho * k > kMaxRK) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || Bq <= 0 || mI < 0 || rho <= 0 || k <= 0 || rho * k > kMaxRK)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)(rho * mI + rho + mI + rho * k +
-                               kTile * repro::padded_stride(rho * k)) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const Geometry G = geometry(mI, rho, k);
+  const size_t smem = smem_bytes(G);
   err = repro::allow_smem(dplr_score_items_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((n + kTile - 1) / kTile), (unsigned)Bq);
-  dplr_score_items_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(V, U, e, d, PC, sC, n,
-                                                                      mI, rho, k, out);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dplr_score_items_kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (n + G.T - 1) / G.T * Bq;
+  const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
+  const int bulk = k % 4 == 0 && (uintptr_t)V % 16 == 0;
+  dplr_score_items_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      V, U, e, d, PC, sC, n, Bq, mI, rho, k, bulk, out);
   return (int)cudaGetLastError();
 }
 

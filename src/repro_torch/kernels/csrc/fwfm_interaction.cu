@@ -8,101 +8,266 @@
 //
 // What bounds it on an H100: f32 operations.  The Gram is symmetric, so the
 // function needs only its m (m + 1) / 2 distinct dot products, contracted
-// with R_ij + R_ji: about m (m + 1) (k + 1) flops an example (1.16e5 at
-// m = 82, k = 16) against m k 4 bytes read (5.2 KB), some 22 flops a byte,
-// just above the card's f32 rate per byte of device memory (20).  This
-// kernel does 2 m^2 (k + 1), the full Gram: twice what the function needs.
+// with W_ij = R_ij + R_ji (i < j) and W_ii = R_ii: m (m + 1) (k + 1) flops
+// an example (1.16e5 at m = 82, k = 16) against m k 4 bytes read (5.2 KB),
+// some 22 flops a byte, just above the card's f32 rate per byte of device
+// memory (20).  So V has to stream in while the CUDA cores compute.
 //
-// What the design does about it: a block keeps R in shared memory for its
-// whole life (odd row stride: the threads of a warp read R_ij for
-// different i from different banks) and walks over tiles of
-// floor(256 / m) examples, a grid of at most as many blocks as fit on the
-// card at once, so R is read from device memory once per block.  A tile's V
-// is staged into shared memory with 16-byte loads (4-byte loads when k % 4
-// != 0 or V is not 16-byte aligned), each row zero-padded to a multiple of
-// 4 floats, which adds exact zeros to every dot product.  Thread (e, i) of the
-// tile holds v_i in registers and computes row i of the Gram against every
-// v_j, which the threads of its example read as one shared-memory
-// broadcast, folding G_ij into sum_j R_ij G_ij as it goes; the tile's
-// example sums are then taken in a fixed order (i ascending).  All in f32
-// on the CUDA cores, by hand: no cuBLAS, no tensor cores.  The full m x m
-// sum is formed, so R's symmetry is not used (half the flops, left for
-// later work) and any R gives the plain version's result.
-// Limits: m <= kMaxM and k <= kMaxK (shared memory and registers).
+// What the design does about it.  With x = V[b, :, c] (one column of an
+// example), sum_ij <v_i, v_j> R_ij = sum_c sum_j x_j Z_j, where
+// Z_j = sum_{i <= j} W_ij x_i: per column a product with the triangle of W,
+// which holds each distinct dot product's weight once.  Over a tile of tb
+// examples that is one matrix product, W^T (m x m, triangular) times the
+// tile's (m x tb k) columns, done as an SGEMM on the CUDA cores:
+//
+// - W, built in shared memory from R once per block, as W[i][J] with
+//   J = j + shift (rows padded to mp, a multiple of 8, zeros where j < 0 or
+//   i > j).  Any R gives the plain version's result: non-symmetric, with a
+//   diagonal, or pruned.
+// - Each thread holds an 8 x 8 register tile of Z: 8 rows j (a "j-tile",
+//   the same for the whole warp, so W is read as 16-byte broadcasts) by two
+//   column quads (4 columns of one example each, quads lane and lane + 32
+//   of the tile's 64).  One step of i is 2 broadcast and 2 plain 16-byte
+//   shared loads for 64 FMAs.
+// - The triangle, j-tile t running i over [0, 8t + 8 - shift), is cut into
+//   12 equal runs of i-steps, one a compute warp (a run may cross j-tiles:
+//   each piece ends in its own contraction with x_j, which is linear, so
+//   the pieces add).  The warps finish together whatever m is.
+// - Examples live in padded slots (stride = m kp rounded up to kp mod 32
+//   floats, kp = k rounded up to 4), so the 8 examples a warp reads at once
+//   fall on different banks.  A block walks tiles of tb examples (a grid of
+//   at most one wave of blocks) through a ring of 2 stages.
+// - Warp-specialised: 12 compute warps, and one producer warp that fills a
+//   stage with one bulk copy an example (cp.async.bulk, tb m k 4
+//   contiguous bytes a tile, a lane a copy) completed on the stage's "full"
+//   mbarrier, and, once the compute warps have arrived on its "done"
+//   mbarrier, sums the tile and refills the stage.  So the compute warps
+//   never wait for one another or for a tile's sum and copies, only for
+//   data.  Where V is not 16-byte aligned or k % 4 != 0, the producer fills
+//   the same layout with 4-byte cp.async copies (zeros for k's padding),
+//   completed on the same mbarrier, in the same kernel.
+// - Each piece's contraction with x_j is branch-free, its 16 loads issued
+//   together (a branch and a load a row cost more than the piece's FMAs).
+// - Each example is reduced in a fixed order: a lane's quad partials in
+//   registers (its pieces in order), then the producer sums each example's
+//   quads' 12 warp partials in shared memory (16-byte loads).  No atomics.
+//   An example's operations and their order depend on (m, k) alone, so its
+//   value does not depend on B or on where it sits in the batch.
+//
+// All in f32 on the CUDA cores, by hand: no cuBLAS, no tensor cores.
+// Limits: m <= kMaxM and k <= kMaxK (shared memory and the 64 column quads
+// of a tile).
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxM = 128;
 constexpr int kMaxK = 32;
+constexpr int kWarps = 12;                 // compute warps; one more fills and sums
+constexpr int kThreads = 32 * (kWarps + 1);
+constexpr int kStages = 2;
+constexpr int kQuads = 64;   // column quads of a tile: two a lane
+constexpr int kRows = 8;     // rows j of a register tile (a j-tile)
+constexpr size_t kMaxSmem = 232448;
+static_assert(kWarps % 4 == 0, "a tile's sums read the warps' partials 4 at a time");
 
-__global__ void fwfm_pairwise_kernel(const float* __restrict__ V, const float* __restrict__ R,
-                                     long long B, int m, int k, int tb, int vec4,
-                                     float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  const int kq = (k + 3) / 4;
-  const int RS = repro::padded_stride(m);
-  float4* vs = smem4;                                       // tb * m * kq
-  float* rs = reinterpret_cast<float*>(vs + tb * m * kq);  // m * RS
-  float* part = rs + m * RS;                                // tb * m
-  for (int t = threadIdx.x; t < m * m; t += blockDim.x) rs[(t / m) * RS + t % m] = R[t];
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ inline int round8(int x) { return (x + 7) & ~7; }
 
-  const int e = threadIdx.x / m;
-  const int i = threadIdx.x - e * m;
+// Floats from one example's slot to the next: at least m kp, and congruent
+// to kp mod 32, so that consecutive examples' rows start kp banks apart.
+__host__ __device__ inline int slot_stride(int m, int kp) {
+  const int base = m * kp;
+  return base + ((kp - base) % 32 + 32) % 32;
+}
+
+// Shared memory: a header (each stage's "full" and "done" mbarriers), W
+// (m x mp), the stages (tb slots each) and each stage's per-warp quad
+// partials.
+constexpr int kHeader = 32;
+__host__ __device__ inline size_t smem_bytes(int m, int k, int tb) {
+  return kHeader + ((size_t)m * round8(m) + (size_t)kStages * tb * slot_stride(m, round4(k)) +
+                    (size_t)kStages * kQuads * kWarps) * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    fwfm_pairwise_kernel(const float* __restrict__ V, const float* __restrict__ R,
+                         long long B, int m, int k, int tb, int bulk,
+                         float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);  // kStages: the data landed
+  uint64_t* done = full + kStages;                         // kStages: the tile computed
+  const int kp = round4(k), kq = kp / 4;
+  const int mp = round8(m), shift = mp - m;
+  const int S = slot_stride(m, kp);
+  float* W = reinterpret_cast<float*>(smem_raw + kHeader);  // m * mp
+  float* stages = W + m * mp;                               // kStages * tb * S
+  float* parts = stages + kStages * tb * S;                 // kStages * kQuads * kWarps
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long n_tiles = (B + tb - 1) / tb;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+
+  // The producer warp fills a stage with a tile and signals full[s] (one
+  // bulk copy a slot a lane, lane 0 announcing their bytes first; or else
+  // 4-byte cp.async copies by every lane, zeros for k's padding, each lane
+  // arriving once its copies have landed), then, once the compute warps are
+  // done with it, sums the tile and refills the stage.  Its first fills go
+  // out before W is built.
+  const uint32_t slot_bytes = (uint32_t)(m * k) * 4u;
+  auto fill = [&](long long tile, int s) {
     const long long b0 = tile * tb;
     const int nb = (int)(B - b0 < tb ? B - b0 : tb);
-    __syncthreads();  // the last tile's reads of vs and part are done
-    if (vec4) {
-      const float4* src = reinterpret_cast<const float4*>(V + b0 * m * k);
-      for (int t = threadIdx.x; t < nb * m * kq; t += blockDim.x) vs[t] = __ldg(src + t);
+    const uint32_t bar = hopper::smem_addr(&full[s]);
+    float* dst = stages + s * tb * S;
+    if (bulk) {
+      if (lane == 0) hopper::mbar_expect_tx(bar, slot_bytes * nb);
+      __syncwarp();
+      for (int b = lane; b < nb; b += 32)
+        hopper::bulk_load(hopper::smem_addr(dst + b * S), V + (b0 + b) * m * k, slot_bytes,
+                          bar);
     } else {
-      const float* src = V + b0 * m * k;
-      float* dst = reinterpret_cast<float*>(vs);
-      const int kp = 4 * kq;
-      for (int t = threadIdx.x; t < nb * m * kp; t += blockDim.x) {
-        const int r = t / kp, c = t - r * kp;
-        dst[t] = c < k ? __ldg(src + (long long)r * k + c) : 0.f;
+      const int per = m * kp;  // floats a slot takes; lane walks r = lane, lane + 32, ...
+      for (int b = 0; b < nb; ++b) {
+        const float* src = V + (b0 + b) * m * k;
+        const uint32_t slot = hopper::smem_addr(dst + b * S);
+        int i = lane / kp, c = lane % kp;
+        for (int r = lane; r < per; r += 32) {
+          hopper::cp_async_4(slot + 4u * r, src + i * k + (c < k ? c : 0), c < k ? 4u : 0u);
+          c += 32 % kp;
+          i += 32 / kp + (c >= kp);
+          c -= c >= kp ? kp : 0;
+        }
       }
+      hopper::cp_async_arrive(bar);
     }
-    __syncthreads();
+  };
+  if (warp == kWarps) {
+    if (lane == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        hopper::mbar_init(hopper::smem_addr(&full[s]), bulk ? 1 : 32);
+        hopper::mbar_init(hopper::smem_addr(&done[s]), kWarps);
+      }
+      hopper::mbar_init_fence();
+    }
+    __syncwarp();
+    for (int s = 0; s < kStages; ++s)
+      if (blockIdx.x + (long long)s * gridDim.x < n_tiles)
+        fill(blockIdx.x + (long long)s * gridDim.x, s);
+  }
+  for (int t = threadIdx.x; t < m * mp; t += kThreads) {
+    const int i = t / mp, j = t - i * mp - shift;
+    float w = 0.f;
+    if (j >= 0 && i <= j) w = i < j ? R[i * m + j] + R[j * m + i] : R[i * m + i];
+    W[t] = w;
+  }
+  __syncthreads();  // W and the barriers are ready; no block-wide barrier after this
 
-    float acc = 0.f;
-    if (e < nb) {
-      float4 vi[kMaxK / 4];
-      const float4* row = vs + (e * m + i) * kq;
+  if (warp == kWarps) {
+    long long u = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++u) {
+      const int s = (int)(u % kStages);
+      hopper::mbar_wait(hopper::smem_addr(&done[s]), (uint32_t)(u / kStages) & 1);
+      const float* part = parts + s * kQuads * kWarps;  // part[quad * kWarps + warp]
+      const long long b0 = tile * tb;
+      const int nb = (int)(B - b0 < tb ? B - b0 : tb);
+      for (int e = lane; e < nb; e += 32) {  // its quads in order, each over the warps in order
+        const float4* q4 = reinterpret_cast<const float4*>(part + e * kq * kWarps);
+        float sum = 0.f;
+        for (int c = 0; c < kq; ++c) {
 #pragma unroll
-      for (int q = 0; q < kMaxK / 4; ++q)
-        if (q < kq) vi[q] = row[q];
-      const float4* vj = vs + e * m * kq;
-      const float* ri = rs + i * RS;
-      for (int j = 0; j < m; ++j, vj += kq) {
-        float g = 0.f;
-#pragma unroll
-        for (int q = 0; q < kMaxK / 4; ++q) {
-          if (q < kq) {
-            const float4 x = vj[q];
-            g = fmaf(vi[q].x, x.x, g);
-            g = fmaf(vi[q].y, x.y, g);
-            g = fmaf(vi[q].z, x.z, g);
-            g = fmaf(vi[q].w, x.w, g);
+          for (int h = 0; h < kWarps / 4; ++h) {
+            const float4 v = q4[c * (kWarps / 4) + h];
+            sum += v.x;
+            sum += v.y;
+            sum += v.z;
+            sum += v.w;
           }
         }
-        acc = fmaf(ri[j], g, acc);
+        out[b0 + e] = 0.5f * sum;
       }
+      __syncwarp();  // the partials are read before the stage (and they) refill
+      if (tile + (long long)kStages * gridDim.x < n_tiles)
+        fill(tile + (long long)kStages * gridDim.x, s);
     }
-    if (e < tb) part[threadIdx.x] = acc;
-    __syncthreads();
-    if (threadIdx.x < nb) {
-      const float* p = part + threadIdx.x * m;
-      float s = 0.f;
-      for (int r = 0; r < m; ++r) s += p[r];
-      out[b0 + threadIdx.x] = 0.5f * s;
+    return;
+  }
+
+  // A compute warp's run of the triangle's i-steps, [run0, run1): j-tile t
+  // (rows j = 8t - shift ...) takes 8t + 8 - shift of them.
+  const int n_jt = mp / kRows;
+  const int steps = 4 * n_jt * (n_jt + 1) - n_jt * shift;
+  const int run0 = steps * warp / kWarps, run1 = steps * (warp + 1) / kWarps;
+  // The lane's two quads: offsets into a stage (quads past the tile read
+  // quad 0, and their partials are never summed).
+  const int q0 = lane < tb * kq ? lane : 0, q1 = lane + 32 < tb * kq ? lane + 32 : 0;
+  const int off0 = q0 / kq * S + q0 % kq * 4, off1 = q1 / kq * S + q1 % kq * 4;
+
+  long long u = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++u) {
+    const int s = (int)(u % kStages);
+    const float* X = stages + s * tb * S;
+    hopper::mbar_wait(hopper::smem_addr(&full[s]), (uint32_t)(u / kStages) & 1);
+
+    float p0 = 0.f, p1 = 0.f;
+    int jt = 0, begin = 0;  // j-tile jt covers steps [begin, begin + its count)
+    for (int pos = run0; pos < run1;) {
+      const int count = kRows * jt + kRows - shift;
+      if (pos >= begin + count) {
+        begin += count;
+        ++jt;
+        continue;
+      }
+      const int i0 = pos - begin;
+      const int i1 = run1 - begin < count ? run1 - begin : count;
+      const int J0 = kRows * jt;
+      float acc[kRows][8];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+      for (int i = i0; i < i1; ++i) {
+        const float4 wa = *reinterpret_cast<const float4*>(W + i * mp + J0);
+        const float4 wb = *reinterpret_cast<const float4*>(W + i * mp + J0 + 4);
+        const float4 xa = *reinterpret_cast<const float4*>(X + off0 + i * kp);
+        const float4 xb = *reinterpret_cast<const float4*>(X + off1 + i * kp);
+        const float w[kRows] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+        const float x[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(w[r], x[c], acc[r][c]);
+      }
+      // This piece's share of sum_j x_j Z_j over the j-tile's rows, all 16
+      // loads issued first.  Rows j < 0 read row 0 against Z = 0 exactly
+      // (W is zero there), which leaves the sums as they are.
+      float4 xj[2 * kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int j = J0 + r - shift > 0 ? J0 + r - shift : 0;
+        xj[2 * r] = *reinterpret_cast<const float4*>(X + off0 + j * kp);
+        xj[2 * r + 1] = *reinterpret_cast<const float4*>(X + off1 + j * kp);
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        p0 = fmaf(xj[2 * r].x, acc[r][0], p0);
+        p0 = fmaf(xj[2 * r].y, acc[r][1], p0);
+        p0 = fmaf(xj[2 * r].z, acc[r][2], p0);
+        p0 = fmaf(xj[2 * r].w, acc[r][3], p0);
+        p1 = fmaf(xj[2 * r + 1].x, acc[r][4], p1);
+        p1 = fmaf(xj[2 * r + 1].y, acc[r][5], p1);
+        p1 = fmaf(xj[2 * r + 1].z, acc[r][6], p1);
+        p1 = fmaf(xj[2 * r + 1].w, acc[r][7], p1);
+      }
+      pos = begin + i1;
     }
+    float* part = parts + s * kQuads * kWarps;
+    part[lane * kWarps + warp] = p0;
+    part[(lane + 32) * kWarps + warp] = p1;
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(hopper::smem_addr(&done[s]));
   }
 }
 
@@ -117,11 +282,11 @@ int fwfm_pairwise(const float* V, const float* R, long long B, int m, int k, flo
   if (B == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int vec4 = k % 4 == 0 && (uintptr_t)V % 16 == 0;
-  const int tb = kThreads / m;
-  const int kp = (k + 3) / 4 * 4;
-  const size_t smem =
-      ((size_t)tb * m * kp + (size_t)m * repro::padded_stride(m) + (size_t)tb * m) * sizeof(float);
+  const int bulk = k % 4 == 0 && (uintptr_t)V % 16 == 0;
+  // Examples a tile: as many as fill the 64 quads, within shared memory.
+  int tb = kQuads / (round4(k) / 4);
+  while (tb > 1 && smem_bytes(m, k, tb) > kMaxSmem) --tb;
+  const size_t smem = smem_bytes(m, k, tb);
   err = repro::allow_smem(fwfm_pairwise_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, sms = 0;
@@ -133,7 +298,7 @@ int fwfm_pairwise(const float* V, const float* R, long long B, int m, int k, flo
   const long long tiles = (B + tb - 1) / tb;
   const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned grid = (unsigned)(tiles < most ? tiles : most);
-  fwfm_pairwise_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(V, R, B, m, k, tb, vec4,
+  fwfm_pairwise_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(V, R, B, m, k, tb, bulk,
                                                                       out);
   return (int)cudaGetLastError();
 }

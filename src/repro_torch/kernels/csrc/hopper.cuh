@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile loads
-// through a tensor map, wgmma with shared-memory descriptors, register
-// reallocation between warpgroups.  The host side encodes tensor maps
+// through a tensor map, 1-D bulk copies, wgmma with shared-memory
+// descriptors, register reallocation between warpgroups.  The host side encodes tensor maps
 // through the driver entry point that the runtime hands out, so no library
 // beyond the CUDA runtime is linked.
 #pragma once
@@ -108,6 +108,31 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// One 1-D bulk copy of `bytes` contiguous bytes from device memory at `src`
+// into shared memory at `dst`, completing on `bar`.  Both addresses and
+// `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One 4-byte asynchronous copy from device memory into shared memory at
+// `dst`; with `bytes` = 0 it writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed
+// (the arrival is one of the barrier's expected count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {

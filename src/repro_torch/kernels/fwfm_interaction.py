@@ -18,9 +18,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-# The kernel's limits (kMaxM, kMaxK in the .cu file).  R takes
-# m * (m | 1) * 4 bytes of shared memory (66 KB at m = 128); the full
-# dplr-fwfm config has m = 82, k = 16.  The plain version has no limit.
+# The kernel's limits (kMaxM, kMaxK in the .cu file).  The weights
+# W_ij = R_ij + R_ji (i <= j) take m * round8(m) * 4 bytes of shared memory
+# (64 KB at m = 128), and a tile's 64 column quads hold at least one
+# example up to k = 32; the full dplr-fwfm config has m = 82, k = 16.  The
+# plain version has no limit.
 MAX_M = 128
 MAX_K = 32
 

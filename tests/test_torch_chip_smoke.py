@@ -25,6 +25,7 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              tenants=4, tenant_items=700, tenant_capacity=1024, tenant_bq=4,
              waves=3, warm_waves=1, profile_waves=1,
              bag_rows=(3, 500, 64), bag_ragged=33, pairs=((64, 12), (300, 12), (1, 39)),
+             pair_small_b=5, pair_tiles=2, items_tiles=3, items_many=300,
              eval_n=600, eval_batch=256, parity=(3, 64), pruned_q=(2, 16),
              big_ks=(4097, 6500), adv=(8192, 6000, 3, (16, 1024, 4097)), large=(7000, 2),
              big_topk=2000,
@@ -72,11 +73,15 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     for row in rows.values():
         assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
     assert rows["flash_attention"]["windowed"]["bound_ms"] > 0
+    for name in ("dplr_score_items", "fwfm_pairwise"):
+        assert all(row["host_issue_ms"] > 0 for row in rows[name]["shapes"])
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
     for phase in ("kernels", "serve", "tenants", "eval", "lm", "timing", "profile"):
         assert f"phase {phase}:" in out
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
+    assert "n=2 m_I=38 Bq=300" in out and "Bq=3 misaligned" in out
+    assert "pruned R" in out and "m=12 misaligned" in out and "alone bitwise" in out
 
 
 def test_checks_catch_a_wrong_top_k(chip_smoke):
@@ -132,6 +137,42 @@ def test_alone_in_a_directory_exits_nonzero(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path)
     out = _run_without_card(tmp_path)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def _ptxas_log(mangled: str, spill: int) -> str:
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+            f"ptxas info    : Used 128 registers, used 1 barriers\n")
+
+
+def test_build_gate_refuses_a_spill_in_the_gated_sources(chip_smoke):
+    """Every kernel of the corpus, item-scoring and FwFM sources and
+    ``flash_attention_wgmma``: a spill there fails the build phase; a spill
+    elsewhere is reported, not refused."""
+    anon = "_ZN12_GLOBAL__N_1"
+    for stem, name in (("fwfm_interaction", "fwfm_pairwise_kernel"),
+                       ("dplr_score", "dplr_score_items_kernel"),
+                       ("dplr_corpus_score", "topk_merge")):
+        mangled = f"{anon}{len(name)}{name}EPKfS1_xiiiiPf"
+        assert [fn["kernel"] for fn in chip_smoke.spilled(stem, _ptxas_log(mangled, 8))] == [name]
+        assert chip_smoke.spilled(stem, _ptxas_log(mangled, 0)) == []
+    wgmma = f"{anon}21flash_attention_wgmmaILi256EEEvPK13__nv_bfloat16"
+    assert [fn["kernel"] for fn in chip_smoke.spilled("flash_attention", _ptxas_log(wgmma, 4))
+            ] == ["flash_attention_wgmma<256>"]
+    for stem, name in (("flash_attention", "flash_attention_kernel"),
+                       ("embedding_bag", "embedding_bag_kernel")):
+        assert chip_smoke.spilled(stem, _ptxas_log(f"{anon}{len(name)}{name}Ev", 48)) == []
+
+
+def test_tiles_at_the_served_shapes(chip_smoke):
+    """The tile sizes whose neighbours the kernel phase checks: 8 items at
+    rho = 3, k = 16 (4 lanes an item), 16 examples at m = 82, k = 16, and 4
+    at m = 128, k = 32, where shared memory runs out first."""
+    assert chip_smoke.items_tile(3, 16) == 8
+    assert chip_smoke.items_tile(8, 16) == 4 and chip_smoke.items_tile(1, 128) == 1
+    assert chip_smoke.pair_tile(82, 16) == 16
+    assert chip_smoke.pair_tile(128, 32) == 4 and chip_smoke.pair_tile(12, 1) == 64
 
 
 def test_attention_pairs_counts_the_causal_and_window_spans(chip_smoke):

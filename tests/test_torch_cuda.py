@@ -59,22 +59,71 @@ def test_cuda_corpus_kernels_match_plain(cuda, n, K, sorts):
         2 * sorts[0], 2 * sorts[1])
 
 
-@pytest.mark.cuda
-def test_cuda_score_items_matches_plain(cuda):
-    rng = np.random.default_rng(8)
-    Bq, n, mI, k, rho = 3, 1000, 38, 16, 3
+def _items_inputs(rng, Bq, n, mI, k, rho, cuda, misaligned=False):
     arrays = (rng.standard_normal((Bq, n, mI, k), dtype=np.float32) * 0.25,
               rng.standard_normal((rho, mI), dtype=np.float32) * 0.2,
               rng.random(rho).astype(np.float32) + 0.5,
               -rng.random(mI).astype(np.float32),
               rng.standard_normal((Bq, rho, k), dtype=np.float32),
               rng.standard_normal(Bq).astype(np.float32))
-    args = tuple(torch.from_numpy(a).to(cuda) for a in arrays)
-    ops.reset_launches()
-    assert_scores(ops.dplr_score_items(*args), ref.dplr_score_items_ref(*args))
-    assert ops.LAUNCHES == {"dplr_score_items_kernel": 1}
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    if misaligned:                                 # 4 bytes past a 16-byte boundary
+        flat = torch.empty(args[0].numel() + 1, device=cuda)
+        args[0] = flat[1:].view(args[0].shape).copy_(args[0])
+    return tuple(args)
+
+
+def _assert_items_close(got, args):
+    """Within 1e-5 * max(1, size), ``size`` the summed magnitude of the
+    score's terms: the rule of ROADMAP section 3 for scores that are
+    differences of larger terms (at rho k = 128 the terms reach ~100)."""
+    V, U, e, d, PC, sC = args
+    size = ref.dplr_score_items_ref(V, U, e.abs(), d.abs(), PC, sC.abs())
+    diff = (got - ref.dplr_score_items_ref(*args)).abs()
+    assert (diff <= 1e-5 * torch.clamp(size, min=1.0)).all(), float(diff.max())
+
+
+@pytest.mark.cuda
+def test_cuda_score_items_matches_plain(cuda):
+    """At the serving shape within atol = rtol = 1e-5; then, within the
+    size-scaled bound, n one below and one above a multiple of the kernel's
+    8-item tile and n = 1, rho k = 128 as (8, 16) and (2, 64), rho k = 3,
+    m_I k odd, a misaligned V_I and m_I = 200 (two chunks of fields); every
+    row of a batched call bitwise equal to the per-query call."""
+    rng = np.random.default_rng(8)
+    for i, (Bq, n, mI, k, rho, mis) in enumerate([
+            (3, 1000, 38, 16, 3, False), (2, 31, 38, 16, 3, False), (2, 33, 38, 16, 3, False),
+            (3, 1, 38, 16, 3, False), (2, 300, 38, 16, 8, False), (2, 300, 38, 64, 2, False),
+            (2, 299, 38, 3, 1, False), (2, 299, 13, 3, 3, False), (3, 1000, 38, 16, 3, True),
+            (2, 100, 200, 16, 3, False)]):
+        args = _items_inputs(rng, Bq, n, mI, k, rho, cuda, mis)
+        ops.reset_launches()
+        got = ops.dplr_score_items(*args)
+        assert ops.LAUNCHES == {"dplr_score_items_kernel": 1}
+        if i == 0:
+            assert_scores(got, ref.dplr_score_items_ref(*args))
+        else:
+            _assert_items_close(got, args)
+        V, U, e, d, PC, sC = args
+        for q in range(Bq):
+            assert torch.equal(ops.dplr_score_items(V[q], U, e, d, PC[q], sC[q]), got[q]), i
     with pytest.raises(TypeError, match="dtype"):
         ops.dplr_score_items(args[0].double(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_score_items_takes_65536_queries(cuda):
+    """Past the 65,535 a grid axis holds: the kernel walks (query, tile)
+    pairs, so any Bq >= 1 is one launch."""
+    rng = np.random.default_rng(9)
+    args = _items_inputs(rng, 65_536, 2, 38, 16, 3, cuda)
+    ops.reset_launches()
+    got = ops.dplr_score_items(*args)
+    assert ops.LAUNCHES == {"dplr_score_items_kernel": 1}
+    _assert_items_close(got, args)
+    V, U, e, d, PC, sC = args
+    for q in (0, 40_000, 65_535):
+        assert torch.equal(ops.dplr_score_items(V[q], U, e, d, PC[q], sC[q]), got[q])
 
 
 @pytest.mark.cuda
@@ -257,19 +306,24 @@ def test_cuda_embedding_bag_matches_plain(cuda, B, slots, F, k, multi_hot):
 @pytest.mark.parametrize("B,m,k", [(300, 14, 16), (4096, 82, 16), (1, 39, 16), (5, 128, 32),
                                    (7, 3, 4), (50, 82, 10), (3, 5, 1)])
 def test_cuda_fwfm_pairwise_matches_plain(cuda, B, m, k):
+    """With a symmetric R, a general one (not symmetric, non-zero diagonal)
+    and a pruned one (a third of a symmetric R's entries kept)."""
     rng = np.random.default_rng(31)
     V = torch.from_numpy((rng.standard_normal((B, m, k)) / np.sqrt(k)).astype(np.float32))
     R = rng.standard_normal((m, m)).astype(np.float32) * np.float32(0.1)
-    R = torch.from_numpy(0.5 * (R + R.T))
-    V, R = V.to(cuda), R.to(cuda)
-    ops.reset_launches()
-    got = ops.fwfm_pairwise(V, R)
-    assert ops.LAUNCHES == {"fwfm_pairwise_kernel": 1}
-    want = ref.fwfm_pairwise_ref(V, R)
-    size = 0.5 * torch.einsum("bij,ij->b", torch.einsum("bik,bjk->bij", V, V).abs(), R.abs())
-    assert ((got - want).abs() <= 1e-5 * torch.clamp(size, min=1.0)).all()
-    # a row's value does not depend on the batch it is in
-    assert torch.equal(ops.fwfm_pairwise(V[-1:].contiguous(), R), got[-1:])
+    keep = np.triu(rng.random((m, m)) < 0.3, 1)
+    sym = 0.5 * (R + R.T)
+    for R in (sym, R, sym * (keep | keep.T)):
+        V, R = V.to(cuda), torch.from_numpy(np.ascontiguousarray(R, np.float32)).to(cuda)
+        ops.reset_launches()
+        got = ops.fwfm_pairwise(V, R)
+        assert ops.LAUNCHES == {"fwfm_pairwise_kernel": 1}
+        want = ref.fwfm_pairwise_ref(V, R)
+        size = 0.5 * torch.einsum("bij,ij->b", torch.einsum("bik,bjk->bij", V, V).abs(),
+                                  R.abs())
+        assert ((got - want).abs() <= 1e-5 * torch.clamp(size, min=1.0)).all()
+        # a row's value does not depend on the batch it is in
+        assert torch.equal(ops.fwfm_pairwise(V[-1:].contiguous(), R), got[-1:])
 
 
 @pytest.mark.cuda

@@ -118,6 +118,26 @@ def test_score_items_batched_equals_per_query_calls():
         assert_scores(batched[q], ops.dplr_score_items(V[q], U, e, d, PC[q], sC[q]))
 
 
+def test_score_items_takes_more_queries_than_a_grid_axis():
+    """Bq past 65,535, n = 1: the JAX package vmaps its per-query kernel
+    over any number of queries, and the port takes as many."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    Bq, n, mI, k, rho = 65_537, 1, 3, 4, 2
+    arrays = (rng.standard_normal((Bq, n, mI, k), dtype=np.float32) / np.sqrt(k),
+              rng.standard_normal((rho, mI), dtype=np.float32) / np.sqrt(mI),
+              rng.random(rho).astype(np.float32) + 0.5,
+              -rng.random(mI).astype(np.float32),
+              rng.standard_normal((Bq, rho, k), dtype=np.float32),
+              rng.standard_normal(Bq).astype(np.float32))
+    jargs, args = _both([np.asarray(a, np.float32) for a in arrays])
+    got = ops.dplr_score_items(*args)
+    assert got.shape == (Bq, n)
+    per_query = jax.vmap(jref.dplr_score_items_ref, in_axes=(0, None, None, None, 0, 0))
+    assert_scores(got, per_query(*jargs))
+
+
 def test_entry_points_reject_what_the_kernels_do_not_take():
     """The range checks the reference makes too, on either device (the
     kernels' own limits are checked on CUDA tensors only:
