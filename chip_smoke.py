@@ -151,6 +151,8 @@ from repro_torch.embedding.bag import (  # noqa: E402
 )
 from repro_torch.eval import harness  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
+from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
 from repro_torch.models.transformer import model as tm  # noqa: E402
@@ -528,12 +530,25 @@ def items_check(args, what: str, rows=None) -> float:
     return err
 
 
-def items_tile(rho: int, k: int) -> int:
-    """Items a tile of kernel 3 holds: a warp's 32 lanes over the lanes an
-    item takes, ceil(rho / 4) * ceil(k / 4) rounded up to a power of two
-    (``geometry`` in ``csrc/dplr_score.cu``)."""
-    g = -(-rho // 4) * -(-k // 4)
-    return 32 // (1 << (g - 1).bit_length())
+def items_tile(dev, mI: int, rho: int, k: int) -> int:
+    """Items a tile of kernel 3 holds, as its library reports; 1 on the
+    CPU, whose plain version has no tiles."""
+    return items_kernel.tile(mI, rho, k) if dev.type == "cuda" else 1
+
+
+def items_witness(args) -> str:
+    """How far kernel 3 and its f32 plain version each sit from the f64
+    plain version, as max |diff| and as the largest share of
+    ``check_close``'s ``TOL * max(1, |s|)`` it takes.  A record, not a check."""
+    exact = ref.dplr_score_items_ref(*(a.double() for a in args))
+    bound = TOL * torch.clamp(exact.abs(), min=1.0)
+    parts = []
+    for name, got in (("kernel", ops.dplr_score_items(*args)),
+                      ("plain f32", ref.dplr_score_items_ref(*args))):
+        err = (got.double() - exact).abs()
+        parts.append(f"{name} {float(err.max()):.3g} ({float((err / bound).max()):.3f} of "
+                     f"the bound)")
+    return "against f64: " + ", ".join(parts)
 
 
 def items_edge_checks(dev, sz, err: float) -> tuple[float, list]:
@@ -543,9 +558,10 @@ def items_edge_checks(dev, sz, err: float) -> tuple[float, list]:
     multiple of the tile, n = 1; rho k = 128 as (8, 16) and (2, 64), and
     rho k = 3; m_I k odd; a misaligned V_I; m_I = 200, whose items the
     kernel streams in two chunks of fields; and ``sz.items_many`` queries
-    of n = 2 (three of their rows checked bitwise)."""
+    of n = 2 (three of their rows checked bitwise).  The rho k = 128 cases
+    also report their distance from an f64 plain version (``items_witness``)."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    tile = items_tile(sz.rho, sz.k)
+    tile = items_tile(dev, sz.m3, sz.rho, sz.k)
     cases = [(tile * sz.items_tiles - 1, 2, sz.m3, sz.rho, sz.k, False),
              (tile * sz.items_tiles + 1, 2, sz.m3, sz.rho, sz.k, False),
              (1, 3, sz.m3, sz.rho, sz.k, False),
@@ -555,8 +571,9 @@ def items_edge_checks(dev, sz, err: float) -> tuple[float, list]:
     notes = []
     for n, Bq, mI, rho, k, mis in cases:
         what = f"n={n} m_I={mI} k={k} rho={rho} Bq={Bq}" + (" misaligned" if mis else "")
-        err = max(err, items_check(items_inputs(n, Bq, mI, rho, k, gen, mis), what))
-        notes.append(what)
+        args = items_inputs(n, Bq, mI, rho, k, gen, mis)
+        err = max(err, items_check(args, what))
+        notes.append(what + (f" ({items_witness(args)})" if rho * k == 128 else ""))
     Bq = sz.items_many
     err = max(err, items_check(items_inputs(2, Bq, sz.m3, sz.rho, sz.k, gen),
                                f"n=2 Bq={Bq}", rows=(0, Bq // 2, Bq - 1)))
@@ -731,16 +748,10 @@ def pair_check(V, R, what: str) -> tuple[float, torch.Tensor]:
                        size=pair_size(V, R)), got
 
 
-def pair_tile(m: int, k: int) -> int:
-    """Examples a tile of kernel 6 holds: 64 column quads over ceil(k / 4)
-    an example, fewer where shared memory runs out (``smem_bytes`` in
-    ``csrc/fwfm_interaction.cu``)."""
-    kp, mp = -(-k // 4) * 4, -(-m // 8) * 8
-    stride = m * kp + (kp - m * kp) % 32
-    tb = 64 // (kp // 4)
-    while tb > 1 and 32 + (m * mp + 2 * tb * stride + 2 * 64 * 12) * 4 > 232_448:
-        tb -= 1
-    return tb
+def pair_tile(dev, m: int, k: int) -> int:
+    """Examples a tile of kernel 6 holds, as its library reports; 1 on the
+    CPU, whose plain version has no tiles."""
+    return pair_kernel.tile(m, k) if dev.type == "cuda" else 1
 
 
 def pair_checks(dev, sz, gen) -> tuple[float, list]:
@@ -780,7 +791,7 @@ def pair_checks(dev, sz, gen) -> tuple[float, list]:
             R_ = torch.randn((m_, m_), generator=gen, device=dev) * 0.1
             err = max(err, pair_check(V, R_, f"B={sz.pair_small_b} m={m_} k={k}")[0])
     notes.append(f"B={sz.pair_small_b} m in (1, 2, 128) x k in (1, 3, 32) general R")
-    tile = pair_tile(m, sz.k)
+    tile = pair_tile(dev, m, sz.k)
     for B in (tile * sz.pair_tiles - 1, tile * sz.pair_tiles + 1):
         V = pair_inputs(B, m, sz.k, gen)[0]
         err = max(err, pair_check(V, general, f"B={B} m={m} general R")[0])
@@ -1726,7 +1737,8 @@ def host_issue_ms(dev, fn, reps=20) -> float:
 def profile_phase(dev, sz, engine, ctxs) -> None:
     """Where the device time goes: the split of one top-K call between its
     stage-1 and merge kernels (single-slab and multi-tenant), the host's
-    time to issue one, and the device's busy share while the
+    time to issue one, kernels 3 and 6's card time a call at their timed
+    shapes, and the device's busy share while the
     serve phase's engine answers Bq = 1 top-K queries back to back (host
     clock around the window).  Reports "not measured" when the profiler sees no
     device time."""
@@ -1768,6 +1780,24 @@ def profile_phase(dev, sz, engine, ctxs) -> None:
                   for k, (ms, calls) in sorted(split.items())) if split is not None
         else f"not measured (profiler saw {seen})"))
     del margs
+
+    # kernels 3 and 6 at their timed shapes: card time a call (the timing
+    # phase's CUDA events also hold the host's issue time where it is longer)
+    timed = []
+    for Bq3 in sz.bq3s:
+        args = items_inputs(sz.n3, Bq3, sz.m3, sz.rho, sz.k, gen)
+        timed.append((f"dplr_score_items Bq={Bq3}", lambda a=args: ops.dplr_score_items(*a)))
+    for B, m in sz.pairs:
+        V, R = pair_inputs(B, m, sz.k, gen)
+        timed.append((f"fwfm_pairwise B={B} m={m}", lambda V=V, R=R: ops.fwfm_pairwise(V, R)))
+    for label, fn in timed:
+        fn()
+        split, _, seen = profiled(dev, lambda: [fn() for _ in range(reps)])
+        parts.append(f"{label}, per call: " + (", ".join(
+            f"{k} {ms / reps:.4f} ms ({calls / reps:g} launches)"
+            for k, (ms, calls) in sorted(split.items())) if split is not None
+            else f"not measured (profiler saw {seen})"))
+    del timed, args, V
 
     engine.topk(ctxs[0], sz.topk)
     _sync(dev)

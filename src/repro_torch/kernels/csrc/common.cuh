@@ -1,4 +1,5 @@
-// Device helpers shared by the corpus-scoring and item-scoring kernels.
+// Helpers shared by the kernels: the corpus and item scorers' device code,
+// and the launchers' shared-memory and grid set-up.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -6,6 +7,9 @@
 
 #include <climits>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace repro {
 
@@ -321,6 +325,31 @@ template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// Blocks of `kernel` the card holds at once (resident blocks an SM at
+// `threads` threads and `smem` bytes of dynamic shared memory, times the
+// SMs): the grid of a persistent kernel.  Asked of the runtime once per
+// (kernel, threads, smem, device) and kept, so that a launch adds no query.
+template <typename Kernel>
+inline cudaError_t one_wave(Kernel kernel, int threads, size_t smem, int device,
+                            long long* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t, int>, long long> known;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), threads, smem, device);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *blocks = known[key] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  return cudaSuccess;
 }
 
 }  // namespace repro

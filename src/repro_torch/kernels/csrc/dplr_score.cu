@@ -252,19 +252,22 @@ int dplr_score_items(const float* V, const float* U, const float* e, const float
   const size_t smem = smem_bytes(G);
   err = repro::allow_smem(dplr_score_items_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dplr_score_items_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  long long most = 0;
+  err = repro::one_wave(dplr_score_items_kernel, kThreads, smem, device, &most);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (n + G.T - 1) / G.T * Bq;
-  const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned grid = (unsigned)(tiles < most ? tiles : most);
   const int bulk = k % 4 == 0 && (uintptr_t)V % 16 == 0;
   dplr_score_items_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       V, U, e, d, PC, sC, n, Bq, mI, rho, k, bulk, out);
   return (int)cudaGetLastError();
+}
+
+// Items a tile holds at (m_I, rho, k), as the launch above cuts them; 0
+// where the launch refuses the shape.
+int dplr_score_items_tile(int mI, int rho, int k) {
+  if (mI < 0 || rho <= 0 || k <= 0 || rho * k > kMaxRK) return 0;
+  return geometry(mI, rho, k).T;
 }
 
 }  // extern "C"

@@ -93,6 +93,13 @@ __host__ __device__ inline size_t smem_bytes(int m, int k, int tb) {
                     (size_t)kStages * kQuads * kWarps) * sizeof(float);
 }
 
+// Examples a tile: as many as fill the 64 quads, within shared memory.
+inline int tile_examples(int m, int k) {
+  int tb = kQuads / (round4(k) / 4);
+  while (tb > 1 && smem_bytes(m, k, tb) > kMaxSmem) --tb;
+  return tb;
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
     fwfm_pairwise_kernel(const float* __restrict__ V, const float* __restrict__ R,
                          long long B, int m, int k, int tb, int bulk,
@@ -283,24 +290,25 @@ int fwfm_pairwise(const float* V, const float* R, long long B, int m, int k, flo
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bulk = k % 4 == 0 && (uintptr_t)V % 16 == 0;
-  // Examples a tile: as many as fill the 64 quads, within shared memory.
-  int tb = kQuads / (round4(k) / 4);
-  while (tb > 1 && smem_bytes(m, k, tb) > kMaxSmem) --tb;
+  const int tb = tile_examples(m, k);
   const size_t smem = smem_bytes(m, k, tb);
   err = repro::allow_smem(fwfm_pairwise_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fwfm_pairwise_kernel, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  long long most = 0;
+  err = repro::one_wave(fwfm_pairwise_kernel, kThreads, smem, device, &most);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (B + tb - 1) / tb;
-  const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned grid = (unsigned)(tiles < most ? tiles : most);
   fwfm_pairwise_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(V, R, B, m, k, tb, bulk,
                                                                       out);
   return (int)cudaGetLastError();
+}
+
+// Examples a tile holds at (m, k), as the launch above cuts them; 0 where
+// the launch refuses the shape.
+int fwfm_pairwise_tile(int m, int k) {
+  if (m <= 0 || m > kMaxM || k <= 0 || k > kMaxK) return 0;
+  return tile_examples(m, k);
 }
 
 }  // extern "C"

@@ -26,7 +26,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("dplr_score")
     lib.dplr_score_items.argtypes = [_P] * 6 + [_L, _I, _I, _I, _I, _P, _P, _I]
     lib.dplr_score_items.restype = _I
+    lib.dplr_score_items_tile.argtypes = [_I, _I, _I]
+    lib.dplr_score_items_tile.restype = _I
     return lib
+
+
+def tile(mI: int, rho: int, k: int) -> int:
+    """Items a tile of the kernel holds at (m_I, rho, k), as its launch
+    cuts them (0 where it refuses the shape).  Builds the kernel: CUDA only."""
+    return _lib().dplr_score_items_tile(mI, rho, k)
 
 
 def launch(V_I, U_I, e, d_I, P_C, s_C) -> torch.Tensor:

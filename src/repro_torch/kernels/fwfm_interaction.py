@@ -34,7 +34,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("fwfm_interaction")
     lib.fwfm_pairwise.argtypes = [_P, _P, _L, _I, _I, _P, _P, _I]
     lib.fwfm_pairwise.restype = _I
+    lib.fwfm_pairwise_tile.argtypes = [_I, _I]
+    lib.fwfm_pairwise_tile.restype = _I
     return lib
+
+
+def tile(m: int, k: int) -> int:
+    """Examples a tile of the kernel holds at (m, k), as its launch cuts
+    them (0 where it refuses the shape).  Builds the kernel: CUDA only."""
+    return _lib().fwfm_pairwise_tile(m, k)
 
 
 def check_limits(m: int, k: int) -> None:

@@ -165,14 +165,33 @@ def test_build_gate_refuses_a_spill_in_the_gated_sources(chip_smoke):
         assert chip_smoke.spilled(stem, _ptxas_log(f"{anon}{len(name)}{name}Ev", 48)) == []
 
 
-def test_tiles_at_the_served_shapes(chip_smoke):
-    """The tile sizes whose neighbours the kernel phase checks: 8 items at
-    rho = 3, k = 16 (4 lanes an item), 16 examples at m = 82, k = 16, and 4
-    at m = 128, k = 32, where shared memory runs out first."""
-    assert chip_smoke.items_tile(3, 16) == 8
-    assert chip_smoke.items_tile(8, 16) == 4 and chip_smoke.items_tile(1, 128) == 1
-    assert chip_smoke.pair_tile(82, 16) == 16
-    assert chip_smoke.pair_tile(128, 32) == 4 and chip_smoke.pair_tile(12, 1) == 64
+def test_tiles_at_the_served_shapes(chip_smoke, monkeypatch):
+    """The kernel phase's tile edges sit one below and one above a multiple
+    of the tile that the kernels' libraries report (``dplr_score.tile``,
+    ``fwfm_interaction.tile``: CUDA only, so stubbed here at the served
+    shapes' 8 items and 16 examples); the CPU's plain versions have no
+    tiles (1).  Kernel 3's rho k = 128 cases report their distance from
+    an f64 plain version."""
+    asked = []
+    monkeypatch.setattr(chip_smoke.items_kernel, "tile",
+                        lambda *shape: asked.append(("items", shape)) or 8)
+    monkeypatch.setattr(chip_smoke.pair_kernel, "tile",
+                        lambda *shape: asked.append(("pairs", shape)) or 16)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert chip_smoke.items_tile(cuda, 38, 3, 16) == 8
+    assert chip_smoke.pair_tile(cuda, 82, 16) == 16
+    assert asked == [("items", (38, 3, 16)), ("pairs", (82, 16))]
+    assert chip_smoke.items_tile(cpu, 38, 3, 16) == chip_smoke.pair_tile(cpu, 82, 16) == 1
+
+    monkeypatch.setattr(chip_smoke, "items_tile", lambda dev, *shape: 8)
+    monkeypatch.setattr(chip_smoke, "pair_tile", lambda dev, *shape: 16)
+    sz = SimpleNamespace(**SMALL)
+    _, notes = chip_smoke.items_edge_checks(cpu, sz, 0.0)
+    edges = [8 * sz.items_tiles - 1, 8 * sz.items_tiles + 1]
+    assert all(f"n={n} m_I={sz.m3} k={sz.k} " in notes[0] for n in edges)
+    assert notes[0].count("against f64: kernel") == 2
+    _, notes = chip_smoke.pair_checks(cpu, sz, torch.Generator().manual_seed(0))
+    assert all(f"B={16 * sz.pair_tiles + d} m=" in notes[0] for d in (-1, 1))
 
 
 def test_attention_pairs_counts_the_causal_and_window_spans(chip_smoke):

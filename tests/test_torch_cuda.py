@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import dplr_score, fwfm_interaction, ops, ref  # noqa: E402
 from repro_torch.kernels.dplr_corpus_score import (  # noqa: E402
     MAX_RK, MAX_SEGMENTS, NEG_INF)
 
@@ -83,16 +83,34 @@ def _assert_items_close(got, args):
     assert (diff <= 1e-5 * torch.clamp(size, min=1.0)).all(), float(diff.max())
 
 
+def _items_exact(got, args) -> str:
+    """How far ``got`` and the f32 plain version each sit from the f64 plain
+    version, as shares of atol + rtol |s| at 1e-5; asserts that ``got`` is
+    within the size-scaled bound of it (``_assert_items_close``)."""
+    V, U, e, d, PC, sC = args
+    exact = ref.dplr_score_items_ref(*(a.double() for a in args))
+    bound = 1e-5 * (1 + exact.abs())
+    plain = ref.dplr_score_items_ref(*args).double()
+    size = ref.dplr_score_items_ref(V, U, e.abs(), d.abs(), PC, sC.abs()).double()
+    assert ((got.double() - exact).abs() <= 1e-5 * torch.clamp(size, min=1.0)).all()
+    return (f"kernel {float(((got.double() - exact).abs() / bound).max()):.3f}, "
+            f"plain f32 {float(((plain - exact).abs() / bound).max()):.3f} of the bound")
+
+
 @pytest.mark.cuda
 def test_cuda_score_items_matches_plain(cuda):
     """At the serving shape within atol = rtol = 1e-5; then, within the
     size-scaled bound, n one below and one above a multiple of the kernel's
-    8-item tile and n = 1, rho k = 128 as (8, 16) and (2, 64), rho k = 3,
-    m_I k odd, a misaligned V_I and m_I = 200 (two chunks of fields); every
-    row of a batched call bitwise equal to the per-query call."""
+    tile (8 items here) and n = 1, rho k = 128 as (8, 16) and (2, 64), rho
+    k = 3, m_I k odd, a misaligned V_I and m_I = 200 (two chunks of fields);
+    every row of a batched call bitwise equal to the per-query call.  Each
+    case is also held to an f64 plain version; the distances from it, of
+    the kernel and of the f32 plain version, print with ``-s``."""
     rng = np.random.default_rng(8)
+    t = dplr_score.tile(38, 3, 16)
     for i, (Bq, n, mI, k, rho, mis) in enumerate([
-            (3, 1000, 38, 16, 3, False), (2, 31, 38, 16, 3, False), (2, 33, 38, 16, 3, False),
+            (3, 1000, 38, 16, 3, False), (2, 4 * t - 1, 38, 16, 3, False),
+            (2, 4 * t + 1, 38, 16, 3, False),
             (3, 1, 38, 16, 3, False), (2, 300, 38, 16, 8, False), (2, 300, 38, 64, 2, False),
             (2, 299, 38, 3, 1, False), (2, 299, 13, 3, 3, False), (3, 1000, 38, 16, 3, True),
             (2, 100, 200, 16, 3, False)]):
@@ -104,11 +122,27 @@ def test_cuda_score_items_matches_plain(cuda):
             assert_scores(got, ref.dplr_score_items_ref(*args))
         else:
             _assert_items_close(got, args)
+        print(f"Bq={Bq} n={n} m_I={mI} k={k} rho={rho}{' misaligned' if mis else ''}, "
+              f"against f64: {_items_exact(got, args)}")
         V, U, e, d, PC, sC = args
         for q in range(Bq):
             assert torch.equal(ops.dplr_score_items(V[q], U, e, d, PC[q], sC[q]), got[q]), i
     with pytest.raises(TypeError, match="dtype"):
         ops.dplr_score_items(args[0].double(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_cuda_tiles_at_the_served_shapes(cuda):
+    """The tiles the launches cut, as the libraries report them (chip_smoke
+    checks their edges): 8 items at m_I = 38, rho = 3, k = 16 (4 lanes an
+    item), fewer as rho k grows; 16 examples at m = 82, k = 16, 4 at
+    m = 128, k = 32 (shared memory runs out first), 64 at k = 1; 0 past
+    the limits."""
+    assert dplr_score.tile(38, 3, 16) == 8
+    assert dplr_score.tile(38, 8, 16) == 4 and dplr_score.tile(38, 2, 64) == 2
+    assert dplr_score.tile(38, 1, 128) == 1 and dplr_score.tile(38, 9, 16) == 0
+    assert fwfm_interaction.tile(82, 16) == 16 and fwfm_interaction.tile(128, 32) == 4
+    assert fwfm_interaction.tile(12, 1) == 64 and fwfm_interaction.tile(129, 16) == 0
 
 
 @pytest.mark.cuda
