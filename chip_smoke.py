@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card, at the full
-``dplr-fwfm`` width, and hold every kernel against its plain version.
+"""Drive the PyTorch port's serving and training paths on one CUDA card,
+at the full ``dplr-fwfm`` width, and hold every kernel against its plain
+version.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,9 @@ Phases, one line each:
    all-dead and multi-hot edges; every top-K call also by C1 (below),
    with K past 4,096, K = n and adversarial orders of the scores; kernel
    3's batched rows bitwise equal to per-query calls, at edges of its tile,
-   rho k = 128 and 3, a misaligned V_I and 65,536 queries; kernel 6 with a
+   rho k = 128 and 3, m_I = 200, a misaligned V_I and 65,536 queries;
+   kernel 5's backward at the train batch on skewed ids, bitwise equal to
+   itself on a second call; kernel 6 with a
    general and a pruned R, m in (1, 2, 128) by k in (1, 3, 32), B at edges
    of its tile, a misaligned V, and a ragged slice of the full batch
    bitwise equal to the full call's rows.
@@ -44,7 +47,21 @@ Phases, one line each:
    (model, engine and frontend scores against the plain scores, top-10
    ids equal except at ties).  Kernel launches are counted over this
    phase alone.
-7. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
+7. train: ``dplr-fwfm`` at full width through ``launch.train``'s
+   ``train_step`` and a ``ShardedPipeline``: step 1's loss and gradients
+   through the kernels against the plain forward with autograd; run A, 16
+   adagrad steps at B = 4,096, lr 0.05, checkpoints at steps 8 and 16
+   (``CheckpointManager(keep=2)`` in a temporary directory under
+   ``build/``); run B, restored from step 8, bitwise run A from step 9
+   (losses, params and accumulator); the plain path's 16 losses; the
+   full-FwFM baseline's 4 steps against its plain path and
+   ``posthoc_dplr`` of its R on the card against the CPU; then run A's
+   directory served through ``CorpusState.maybe_refresh`` (top-K by C1
+   and against plain, Algorithm 1, a second poll, a truncated newest step
+   raising ``RefreshFailed`` once).  Step time split by CUDA events,
+   checkpoint and refresh seconds, peak memory.  Kernel launches are
+   counted over run A, the baseline's steps and the serving.
+8. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
    from a seed, bf16 compute): a prefill of B = 2 prompts of 32,752
    tokens into a 32,768-slot cache through the flash-attention kernel
    (26 launches), the same prefill through the attention's plain version
@@ -53,7 +70,7 @@ Phases, one line each:
    the kernel prefill's cache, held against one pass over the same tokens
    at those positions on that cache.  Prefill seconds,
    decode ms a step (host clock, synchronized) and peak memory.
-8. timing: each kernel's median time over CUDA events, its plain
+9. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and flops over its f32 rate, or its bf16 tensor-core rate for
    flash attention); the top-K at each shape of ``topk_times`` (Bq, K and
@@ -66,7 +83,7 @@ Phases, one line each:
    ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
    mask); and each top-K shape's peak device memory (its scratch and
    outputs) beside the yardstick's.
-9. profile: with torch.profiler, the device time of a top-K call by CUDA
+10. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, the host's time to issue one (for the multi-tenant call, also
    without the wrapper's checks), and the device's idle share while the
    serving engine answers Bq = 1 queries.
@@ -87,7 +104,15 @@ bitwise on one-hot layouts (one slot a bag) and within
 ``1e-6 * sum |w * row|`` on multi-hot ones.  The
 kernels sum in another order than PyTorch's einsum (and use fused
 multiply-adds), and full-width scores reach tens, so a bound relative to
-the score is the meaningful one.  Top-K ids must equal the plain stable
+the score is the meaningful one.  Kernel 3's rho k = 128 and m_I = 200
+cases use the size-scaled form (their scores are differences of terms up
+to ~100).  Kernel 5's backward: within ``1e-6 * sum |w g|`` of the plain
+vjp per table element.  Training: step 1's loss within ``1e-5 max(1,
+|loss|)``, each arena row's gradient within ``1e-5`` of its terms'
+summed magnitude, every other gradient within ``1e-5`` of its tensor's
+largest entry; the kernel path's losses within ``1e-4 max(1, |loss|)`` of
+the plain path's over the run; ``posthoc_dplr``'s error on the card
+within 1% of the CPU's.  Top-K ids must equal the plain stable
 top-K's, except where the plain scores tie within that tolerance; planted
 exact ties must go to the lower slot.  Row [s] of the multi-tenant kernel
 must equal the single-tenant top-K kernel on segment s bitwise, and a
@@ -124,8 +149,10 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -137,12 +164,20 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import optim  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import dplr_fwfm, gemma3_1b  # noqa: E402
 from repro_torch.core import ranking as rk  # noqa: E402
-from repro_torch.core.dplr import DPLRParams, dplr_diagonal, materialize_R  # noqa: E402
+from repro_torch.core.dplr import (  # noqa: E402
+    DPLRParams,
+    dplr_diagonal,
+    materialize_R,
+    posthoc_dplr,
+)
 from repro_torch.core.fields import FeatureLayout  # noqa: E402
-from repro_torch.core.interactions import dplr_pairwise  # noqa: E402
+from repro_torch.core.interactions import dplr_pairwise, dplr_pairwise_explicit_d  # noqa: E402
 from repro_torch.core.pruning import matched_param_count, prune_matched  # noqa: E402
+from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
 from repro_torch.data.synthetic_ctr import SyntheticCTR  # noqa: E402
 from repro_torch.embedding.bag import (  # noqa: E402
     item_arena_ids,
@@ -153,11 +188,13 @@ from repro_torch.eval import harness  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
 from repro_torch.models.transformer import model as tm  # noqa: E402
 from repro_torch.serving.corpus import masked_slab_scores  # noqa: E402
 from repro_torch.serving.engine import CorpusState  # noqa: E402
+from repro_torch.serving.errors import RefreshFailed  # noqa: E402
 from repro_torch.serving.frontend import QueryFrontend  # noqa: E402
 from repro_torch.serving.runtime import ScorerRuntime  # noqa: E402
 
@@ -201,7 +238,15 @@ FULL = SimpleNamespace(
                  (1, 300, 36, 4, 128, 100), (3, 1001, 8, 2, 128, None)),
     make_lm=gemma3_1b.make_config, lm_batch=2, lm_prompt=32_752, lm_cache=32_768,
     lm_steps=16,
+    # training: adagrad steps at the JAX trainer's batch and lr, a checkpoint
+    # every train_save steps; the full-FwFM baseline's steps and its
+    # post-hoc DPLR rank; the Bq of the queries served from the checkpoint;
+    # the bytes a corrupt copy of the newest checkpoint keeps
+    train_batch=4096, train_steps=16, train_save=8, train_lr=0.05, base_steps=4,
+    posthoc_rank=3, train_serve_bqs=(1, 16), truncate_bytes=64 << 20,
 )
+
+BUILD = Path(__file__).resolve().parent / "build"
 
 # NVIDIA data-sheet peaks: (device memory bytes/s, f32 flop/s outside the
 # tensor cores, dense bf16 tensor-core flop/s), by the card name torch
@@ -218,6 +263,7 @@ PEAKS = (
 SERVE_KERNELS = ("dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
                  "embedding_bag")
 EVAL_KERNELS = ("embedding_bag", "fwfm_pairwise")
+TRAIN_KERNELS = ("embedding_bag", "embedding_bag_backward")
 
 KERNEL_ROWS = {
     "dplr_corpus_score": ("src/repro_torch/kernels/csrc/dplr_corpus_score.cu",
@@ -230,6 +276,10 @@ KERNEL_ROWS = {
                                 "src/repro/kernels/dplr_corpus_score.py:376"),
     "embedding_bag": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:78"),
+    # the backward of kernel 5's port (the JAX trainer differentiates the
+    # jnp lookup; the Pallas kernel has no vjp)
+    "embedding_bag_backward": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                               "src/repro/kernels/embedding_bag.py:78"),
     "fwfm_pairwise": ("src/repro_torch/kernels/csrc/fwfm_interaction.cu",
                       "src/repro/kernels/fwfm_interaction.py:49"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -473,6 +523,8 @@ def kernel_checks(dev, sz) -> dict:
     notes += more
     errs["embedding_bag"], more = bag_checks(dev, sz, gen)
     notes += more
+    errs["embedding_bag_backward"], more = bag_backward_checks(dev, sz)
+    notes += more
     errs["fwfm_pairwise"], more = pair_checks(dev, sz, gen)
     notes += more
     errs["flash_attention"], more = flash_checks(dev, sz, gen)
@@ -513,15 +565,23 @@ def check_same(got, want, what: str) -> None:
                              f"{float((got - want).abs().max()):.3g}")
 
 
-def items_check(args, what: str, rows=None) -> float:
-    """Kernel 3 against its plain version within ``check_close``, and each
+def items_size(args):
+    """The summed magnitude of a kernel-3 score's terms, ``0.5 (|s_C| +
+    sum_m |d_m| |v_m|^2 + sum_r |e_r| |P_r|^2)``."""
+    V, U, e3, d, PC, sC = args
+    return ref.dplr_score_items_ref(V, U, e3.abs(), d.abs(), PC, sC.abs())
+
+
+def items_check(args, what: str, rows=None, scaled: bool = False) -> float:
+    """Kernel 3 against its plain version within ``check_close`` (with
+    ``scaled``, within ``TOL * max(1, size)``, ``items_size``), and each
     row of the batched call (``rows``: those of these query indices, else
     all) equal to the per-query call (``check_same``).  Returns max |diff|."""
     V, U, e3, d, PC, sC = args
     want = ref.dplr_score_items_ref(*args)
     got = ops.dplr_score_items(*args)
     _sync(V.device)
-    err = check_close(got, want, f"score_items {what}")
+    err = check_close(got, want, f"score_items {what}", items_size(args) if scaled else None)
     for q in range(V.shape[0]) if rows is None else rows:
         one = ops.dplr_score_items(V[q], U, e3, d, PC[q], sC[q])
         _sync(V.device)
@@ -558,8 +618,11 @@ def items_edge_checks(dev, sz, err: float) -> tuple[float, list]:
     multiple of the tile, n = 1; rho k = 128 as (8, 16) and (2, 64), and
     rho k = 3; m_I k odd; a misaligned V_I; m_I = 200, whose items the
     kernel streams in two chunks of fields; and ``sz.items_many`` queries
-    of n = 2 (three of their rows checked bitwise).  The rho k = 128 cases
-    also report their distance from an f64 plain version (``items_witness``)."""
+    of n = 2 (three of their rows checked bitwise).  The rho k = 128 and
+    m_I = 200 cases, whose scores are differences of terms up to ~100, are
+    held within ``TOL * max(1, size)`` (``items_size``), the others within
+    the fixed bound; they also report their distance from an f64 plain
+    version (``items_witness``)."""
     gen = torch.Generator(device=dev).manual_seed(7)
     tile = items_tile(dev, sz.m3, sz.rho, sz.k)
     cases = [(tile * sz.items_tiles - 1, 2, sz.m3, sz.rho, sz.k, False),
@@ -572,8 +635,9 @@ def items_edge_checks(dev, sz, err: float) -> tuple[float, list]:
     for n, Bq, mI, rho, k, mis in cases:
         what = f"n={n} m_I={mI} k={k} rho={rho} Bq={Bq}" + (" misaligned" if mis else "")
         args = items_inputs(n, Bq, mI, rho, k, gen, mis)
-        err = max(err, items_check(args, what))
-        notes.append(what + (f" ({items_witness(args)})" if rho * k == 128 else ""))
+        large = rho * k == 128 or mI == 200
+        err = max(err, items_check(args, what, scaled=large))
+        notes.append(what + (f" ({items_witness(args)})" if large else ""))
     Bq = sz.items_many
     err = max(err, items_check(items_inputs(2, Bq, sz.m3, sz.rho, sz.k, gen),
                                f"n=2 Bq={Bq}", rows=(0, Bq // 2, Bq - 1)))
@@ -648,18 +712,21 @@ def multi_checks(dev, sz, gen) -> tuple[float, list]:
     return err, notes
 
 
-def bag_case(layout: FeatureLayout, kind, B: int, gen):
+def bag_case(layout: FeatureLayout, kind, B: int, gen, skew: bool = False):
     """Inputs of one ``embedding_bag`` call on the lookup path for ``kind``
     fields of ``layout`` (None: all): (B, n_slots) int32 arena-global ids,
-    each slot uniform over its field's rows, weights in [0.5, 1.5), and
-    the slot -> field map on the device (``ops.bag_map``)."""
+    each slot uniform over its field's rows (with ``skew``, the local id is
+    ``vocab * u^6``: about a third of a 1,000-row field's slots name its
+    first row, as Zipf traffic repeats its head), weights in [0.5, 1.5),
+    and the slot -> field map on the device (``ops.bag_map``)."""
     dev = gen.device
     slots = np.arange(layout.n_slots) if kind is None else layout.slots_of(kind)
     fields = layout.slot_to_field[slots]
     vocab = torch.as_tensor(np.array([f.vocab_size for f in layout.fields])[fields],
                             device=dev)
     base = torch.as_tensor(layout.field_offsets[fields].astype(np.int64), device=dev)
-    local = (torch.rand((B, len(slots)), generator=gen, device=dev) * vocab).long()
+    u = torch.rand((B, len(slots)), generator=gen, device=dev)
+    local = ((u ** 6 if skew else u) * vocab).long()
     ids = (base + torch.minimum(local, vocab - 1)).to(torch.int32)
     w = torch.rand((B, len(slots)), generator=gen, device=dev) + 0.5
     sub = layout if kind is None else layout.subset(kind)
@@ -721,6 +788,46 @@ def bag_checks(dev, sz, gen) -> tuple[float, list]:
         raise AssertionError("embedding_bag plain version: an id past the table passed")
     return err, ["embedding_bag " + ", ".join(notes) + ": one-hot bitwise, an id past "
                  "the table poisons its bag"]
+
+
+def bag_backward_checks(dev, sz) -> tuple[float, list]:
+    """The embedding bag's backward kernel (the table's gradient) against
+    ``ref.embedding_bag_vjp`` on the full arena at the train phase's batch,
+    within ``1e-6 * sum |w g|`` per element (rows no slot names: exactly
+    0), and bitwise equal to itself on a second call: skewed ids on the
+    one-hot and the multi-hot layout, and every example naming one row a
+    field.  Their own generator, so that the later kernels' inputs stay as
+    they were."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cfg = sz.make_config()
+    lay, k, B = cfg.layout, cfg.embed_dim, sz.train_batch
+    table = torch.randn((padded_rows(lay.total_vocab), k), generator=gen, device=dev) / k**0.5
+    err, notes = 0.0, []
+    for name, layout, same in (("one-hot", lay, False), ("multi-hot", multi_hot(lay), False),
+                               ("one row a field", lay, True)):
+        ids, w, bags = bag_case(layout, None, B, gen, skew=True)
+        if same:
+            ids = ids[:1].expand_as(ids).contiguous()
+        grad = torch.randn((B, bags.n_bags, k), generator=gen, device=dev)
+        got = ops.embedding_bag_backward(grad, table, ids, w, bags)
+        again = ops.embedding_bag_backward(grad, table, ids, w, bags)
+        want = ref.embedding_bag_vjp(table, ids, w, bags.segments, grad)[0]
+        size = ref.embedding_bag_vjp(table, ids, w, bags.segments, grad.abs())[0]
+        _sync(dev)
+        what = f"embedding_bag_backward {name} B={B} slots={ids.shape[1]}"
+        diff = (got - want).abs()
+        bad = diff > 1e-6 * size
+        if bad.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: {int(bad.sum())} values off, max |diff| "
+                                 f"{float(diff.max()):.3g}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls on the same input differ")
+        err = max(err, float(diff.max()))
+        rows = int(torch.unique(ids).numel())
+        notes.append(f"{name} ({rows} rows named by {ids.numel()} slots)")
+        del got, again, want, size, diff, bad
+    return err, ["embedding_bag_backward " + ", ".join(notes) + ": within 1e-6 x sum |w g|, "
+                 "bitwise on repeat"]
 
 
 def pair_inputs(B: int, m: int, k: int, gen):
@@ -1112,24 +1219,34 @@ def tenants_phase(dev, sz, serve) -> dict:
 
 # -- phase 6: eval ------------------------------------------------------------
 
-def plain_apply(params, cfg, ids, w, pruned_mask=None):
+def plain_logits(params, cfg, ids, w, pruned_mask=None, V=None):
     """``fwfm.apply`` in plain PyTorch (plain embedding bag and pairwise
-    term, no kernel), and the summed size of its terms:
+    term, no kernel); ``V``, when given, in place of the field lookup."""
+    if V is None:
+        V = plain_fields(params["embedding"], cfg.layout, ids, w)
+    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w)
+    if cfg.interaction == "dplr":
+        pw = dplr_pairwise(V, DPLRParams(params["U"], params["e"]))
+    else:
+        R = fwfm.field_matrix(params, cfg)
+        pw = ref.fwfm_pairwise_ref(V, R if pruned_mask is None else R * pruned_mask)
+    return params["bias"] + lin + pw
+
+
+def plain_apply(params, cfg, ids, w, pruned_mask=None):
+    """``plain_logits``, and the summed size of its terms:
     ``|bias| + sum |b_s w_s| + 0.5 sum_ij |R_ij G_ij|`` (R materialized
     for DPLR)."""
     V = plain_fields(params["embedding"], cfg.layout, ids, w)
-    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w)
     if cfg.interaction == "dplr":
-        p = DPLRParams(params["U"], params["e"])
-        pw, R = dplr_pairwise(V, p), materialize_R(p)
+        R = materialize_R(DPLRParams(params["U"], params["e"]))
     else:
         R = fwfm.field_matrix(params, cfg)
         if pruned_mask is not None:
             R = R * pruned_mask
-        pw = ref.fwfm_pairwise_ref(V, R)
     size = (params["bias"].abs() + lookup_linear_terms(params["linear"].abs(), cfg.layout,
                                                        ids, w.abs()) + pair_size(V, R))
-    return params["bias"] + lin + pw, size
+    return plain_logits(params, cfg, ids, w, pruned_mask, V), size
 
 
 def eval_phase(dev, sz, serve) -> dict:
@@ -1214,7 +1331,382 @@ def eval_phase(dev, sz, serve) -> dict:
     return launches
 
 
-# -- phase 7: lm --------------------------------------------------------------
+# -- phase 7: train -----------------------------------------------------------
+
+def bce(logits, label):
+    """``fwfm.loss``'s binary cross-entropy on logits, in plain PyTorch."""
+    y = label.to(logits.dtype)
+    return (torch.clamp(logits, min=0) - logits * y
+            + torch.log1p(torch.exp(-torch.abs(logits)))).mean()
+
+
+# the model's loss with no kernel in it (``train.train_step`` takes either)
+PLAIN_MODEL = SimpleNamespace(
+    loss=lambda p, cfg, b: bce(plain_logits(p, cfg, b["ids"], b["weights"]), b["label"]))
+
+
+class StepTimer:
+    """Marks a step's boundaries (CUDA events on the card, the host clock
+    on the CPU): ``begin()``, then ``train_step``'s ``mark`` after its
+    forward, backward and update."""
+
+    def __init__(self, dev):
+        self.dev, self.steps = dev, []
+
+    def _now(self):
+        if self.dev.type != "cuda":
+            return time.perf_counter()
+        evt = torch.cuda.Event(enable_timing=True)
+        evt.record()
+        return evt
+
+    def begin(self):
+        self.steps.append([self._now()])
+
+    def mark(self, name):
+        self.steps[-1].append(self._now())
+
+    def medians(self) -> dict:
+        """Median ms of each part and of the whole step."""
+        _sync(self.dev)
+        if self.dev.type == "cuda":
+            span = lambda a, b: a.elapsed_time(b)                       # noqa: E731
+        else:
+            span = lambda a, b: (b - a) * 1e3                           # noqa: E731
+        parts = np.array([[span(a, b) for a, b in zip(t[:-1], t[1:])] for t in self.steps])
+        med = dict(zip(("forward", "backward", "update"), np.median(parts, 0)))
+        med["step"] = float(np.median(parts.sum(1)))
+        return med
+
+
+def run_steps(mod, cfg, optimizer, params, state, make_batch, start, stop, lr, dev,
+              mgr=None, every=None, timer=None, prefetch=2):
+    """Steps ``start + 1 .. stop`` through ``train.train_step`` on batches from
+    a ``ShardedPipeline``; a checkpoint every ``every`` steps into ``mgr``.
+    Returns the losses (0-d tensors) and the saves' timing dicts."""
+    pipe = ShardedPipeline(make_batch, prefetch=prefetch).start(from_step=start)
+    losses, saves = [], []
+    try:
+        for step in range(start, stop):
+            _, batch = pipe.get()
+            batch = train.to_device(batch, dev)
+            if timer is not None:
+                timer.begin()
+            loss, params, state = train.train_step(mod, cfg, optimizer, params, state, batch,
+                                                   lr, mark=timer and timer.mark)
+            losses.append(loss)
+            if mgr is not None and (step + 1) % every == 0:
+                mgr.save({"params": params, "opt": state}, step + 1)
+                saves.append(mgr.last_save)
+    finally:
+        pipe.stop()
+        if mgr is not None:
+            mgr.wait()
+    return losses, saves
+
+
+def same_tree(a: dict, b: dict) -> bool:
+    """Every leaf of two nested dicts bitwise equal."""
+    return all(same_tree(a[k], b[k]) if isinstance(a[k], dict) else torch.equal(a[k], b[k])
+               for k in a) and a.keys() == b.keys()
+
+
+def grad_checks(dev, cfg, params, batch, what: str) -> str:
+    """Step 1's loss and gradients through the kernels against the plain
+    forward with autograd, from ``params`` on ``batch``.  The loss within
+    ``TOL * max(1, |loss|)``; each arena row's gradient within ``TOL *
+    size``, ``size`` the summed magnitude of the row's terms
+    (``dV_size``), rows no slot names exactly 0 on both; every other
+    gradient (U, e, bias, linear, R) within ``TOL * max|plain|`` of its
+    tensor."""
+    loss, got = optim.value_and_grad(fwfm.loss)(params, cfg, batch)
+    plain_loss, want = optim.value_and_grad(PLAIN_MODEL.loss)(params, cfg, batch)
+    check_close(loss, plain_loss, f"{what} step-1 loss")
+    ids, w = batch["ids"], batch["weights"]
+    table = params["embedding"]
+    V = plain_fields(table, cfg.layout, ids, w)
+    off = torch.as_tensor(cfg.layout.slot_offsets.astype(np.int64), device=dev)
+    arena = ids.long() + off
+    rows = torch.unique(arena)
+    size = ref.embedding_bag_vjp(table, arena, w.abs(), cfg.layout.slot_to_field,
+                                 dV_size(params, cfg, V, ids, w, batch["label"]))[0]
+    size = size.index_select(0, rows)
+    g, p_ = got["embedding"], want["embedding"]
+    if int(torch.count_nonzero(g)) != int(torch.count_nonzero(g.index_select(0, rows))) or \
+            int(torch.count_nonzero(p_)) != int(torch.count_nonzero(p_.index_select(0, rows))):
+        raise AssertionError(f"{what}: a row no slot names has a gradient")
+    diff = (g.index_select(0, rows) - p_.index_select(0, rows)).abs()
+    if (diff > TOL * size).any():
+        raise AssertionError(f"{what}: d_embedding off, max |diff| {float(diff.max()):.3g}")
+    parts = [f"loss {float(loss):.6f} (plain {float(plain_loss):.6f}), d_embedding on "
+             f"{rows.numel()} rows max |diff| {float(diff.max()):.3g}"]
+    for name in sorted(set(got) - {"embedding"}):
+        err = float((got[name] - want[name]).abs().max())
+        scale = float(want[name].abs().max())
+        if not err <= TOL * scale or not torch.isfinite(got[name]).all():
+            raise AssertionError(f"{what}: d_{name} off by {err:.3g} (max |d_{name}| "
+                                 f"{scale:.3g})")
+        parts.append(f"d_{name} {err:.3g} (of max {scale:.3g})")
+    return ", ".join(parts)
+
+
+def dV_size(params, cfg, V, ids, w, label):
+    """The summed magnitude of the terms of ``dL/dV`` (bounded above): the
+    vjp of the pairwise term with every factor by its magnitude (|V|, |R|
+    or |U|, |e|, |d|) at the cotangent ``|dL/dlogit|`` of the plain path."""
+    logits = plain_logits(params, cfg, ids, w, V=V).detach().requires_grad_()
+    Va = V.detach().abs().requires_grad_()
+    with torch.enable_grad():
+        g = torch.autograd.grad(bce(logits, label), logits)[0].abs()
+        if cfg.interaction == "dplr":
+            p = DPLRParams(params["U"].detach(), params["e"].detach())
+            pw = dplr_pairwise_explicit_d(Va, p.U.abs(), p.e.abs(), dplr_diagonal(p).abs())
+        else:
+            pw = ref.fwfm_pairwise_ref(Va, fwfm.field_matrix(params, cfg).detach().abs())
+        return torch.autograd.grad(pw, Va, grad_outputs=g)[0]
+
+
+def launches_of(names) -> dict:
+    return {g: ops.LAUNCHES[g] for name in names for g in ops.KERNELS[name]}
+
+
+def train_phase(dev, sz, serve) -> dict:
+    """Train ``dplr-fwfm`` at full width through ``launch.train``'s step
+    and pipeline, checkpoint it, resume it, hold it against the plain path,
+    train the full-FwFM baseline and factor its R, then serve the trained
+    checkpoint through ``CorpusState.maybe_refresh``.  Returns the launches
+    of each CUDA kernel over run A, the baseline's kernel run and the
+    serving of the checkpoint."""
+    t_phase = time.perf_counter()
+    cfg = sz.make_config()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    B, n_steps, every, lr = sz.train_batch, sz.train_steps, sz.train_save, sz.train_lr
+    t0 = time.perf_counter()
+    mod, make_batch = train.build_recsys_trainer("dplr-fwfm", cfg, B, seed=0)
+    data_s = time.perf_counter() - t0
+    optimizer = optim.adagrad()
+    init = lambda c: fwfm.init(torch.Generator(device=dev).manual_seed(0), c)  # noqa: E731
+    first = train.to_device(make_batch(0), dev)
+    notes = [f"step 1 against the plain path: {grad_checks(dev, cfg, init(cfg), first, 'dplr')}"]
+
+    # kernel 5's backward on step 1's input, twice
+    lay, k = cfg.layout, cfg.embed_dim
+    table = init(cfg)["embedding"]
+    arena = (first["ids"] + torch.as_tensor(lay.slot_offsets.astype(np.int32),
+                                            device=dev)).contiguous()
+    bags = ops.bag_map(lay.slot_to_field, lay.n_fields, dev)
+    g = torch.randn((B, lay.n_fields, k), generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev)
+    once = ops.embedding_bag_backward(g, table, arena, first["weights"], bags)
+    if not torch.equal(once, ops.embedding_bag_backward(g, table, arena, first["weights"],
+                                                        bags)):
+        raise AssertionError("train: kernel 5's backward differs between two calls")
+    bwd_ms = device_ms(lambda: ops.embedding_bag_backward(g, table, arena, first["weights"],
+                                                          bags), 3, 5) \
+        if dev.type == "cuda" else None
+    del table, once, g
+
+    BUILD.mkdir(parents=True, exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=BUILD))
+    try:
+        mgr = CheckpointManager(str(workdir / "run_a"), keep=2)
+        params = init(cfg)
+        state = optimizer.init(params)
+        ckpt_bytes = sum(t.numel() * t.element_size()
+                         for t in optim.optimizers.tree_leaves({"params": params, "opt": state}))
+        free = shutil.disk_usage(workdir).free
+        notes.append(f"a checkpoint holds {ckpt_bytes / 1e9:.3f} GB of tensors, "
+                     f"{len(range(every, n_steps + 1, every))} saved, {free / 1e9:.1f} GB free "
+                     f"on the disk before the first")
+        timer = StepTimer(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        losses_a, saves = run_steps(mod, cfg, optimizer, params, state, make_batch, 0, n_steps,
+                                    lr, dev, mgr, every, timer)
+        run_a_s = time.perf_counter() - t0
+        launches = launches_of(TRAIN_KERNELS)
+        if dev.type == "cuda" and not all(launches.values()):
+            raise AssertionError(f"train: a kernel was not launched in run A: {launches}")
+        per_step = {g_: n / n_steps for g_, n in launches.items()}
+        split = timer.medians()
+
+        # run B: resume from the step-`every` checkpoint into a fresh state
+        template = {"params": dict.fromkeys(params), "opt": {"acc": dict.fromkeys(params)}}
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(template, step=every, device=dev)
+        restore_s = time.perf_counter() - t0
+        if step != every:
+            raise AssertionError(f"train: restored step {step}, not {every}")
+        losses_b, _ = run_steps(mod, cfg, optimizer, restored["params"], restored["opt"],
+                                make_batch, every, n_steps, lr, dev)
+        if not (torch.equal(torch.stack(losses_b), torch.stack(losses_a[every:]))
+                and same_tree(restored, {"params": params, "opt": state})):
+            raise AssertionError("train: run B (resumed) is not bitwise run A")
+        del restored
+
+        # the plain path: the same steps with no kernel in the loss
+        pp = init(cfg)
+        losses_p, _ = run_steps(PLAIN_MODEL, cfg, optimizer, pp, optimizer.init(pp),
+                                make_batch, 0, n_steps, lr, dev)
+        del pp
+        la, lp = torch.stack(losses_a).double(), torch.stack(losses_p).double()
+        loss_err = float((la - lp).abs().max())
+        if ((la - lp).abs() > 1e-4 * torch.clamp(lp.abs(), min=1.0)).any():
+            raise AssertionError(f"train: the kernel path's losses leave the plain path's by "
+                                 f"{loss_err:.3g}")
+
+        base = baseline_run(dev, sz, make_batch, optimizer)
+        served = serve_trained(dev, sz, serve, mgr, params, n_steps, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for name, n in base["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    for name, n in served["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
+            else "not measured")
+    save_parts = "; ".join(
+        f"step {t['step']}: host copy {t['host_copy_s']:.2f} s, write {t['write_s']:.2f} s, "
+        f"checksum {t['checksum_s']:.2f} s, {t['bytes'] / 1e9:.3f} GB" for t in saves)
+    bwd = "not measured (no card)" if bwd_ms is None else f"{bwd_ms:.4f} ms"
+    print(f"phase train: {cfg.layout.n_fields} fields k={cfg.embed_dim} rho={cfg.rank}, "
+          f"{padded_rows(cfg.layout.total_vocab)}-row arena; SyntheticCTR(embed_dim=8, "
+          f"teacher_rank=2) built in {data_s:.1f} s; run A: {n_steps} adagrad steps at B={B} "
+          f"lr={lr} in {run_a_s:.1f} s, losses {float(losses_a[0]):.5f} -> "
+          f"{float(losses_a[-1]):.5f}; median step {split['step']:.3f} ms (forward "
+          f"{split['forward']:.3f}, backward {split['backward']:.3f}, optimizer "
+          f"{split['update']:.3f}; {'CUDA events' if dev.type == 'cuda' else 'host clock'}); "
+          f"kernel 5 launches a step {per_step}, its backward {bwd} a call at this step's "
+          f"input; checkpoints: {save_parts}; restore of step {every} {restore_s:.2f} s; "
+          f"run B from step {every}: losses and step {n_steps}'s params and accumulator "
+          f"bitwise run A's; the plain path's {n_steps} losses within 1e-4 x max(1, |loss|) "
+          f"(max |diff| {loss_err:.3g}); {'; '.join(notes)}; {base['note']}; "
+          f"{served['note']}; peak memory {peak}; wall {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def baseline_run(dev, sz, make_batch, optimizer) -> dict:
+    """The full-FwFM baseline (``sz.make_fwfm``): step 1 and
+    ``sz.base_steps`` steps through the kernels held against the plain
+    path, then ``posthoc_dplr`` of its trained R on the card and on the
+    CPU, their Frobenius errors within 1% of each other."""
+    bcfg = sz.make_fwfm()
+    init = lambda: fwfm.init(torch.Generator(device=dev).manual_seed(1), bcfg)  # noqa: E731
+    first = train.to_device(make_batch(0), dev)
+    grads = grad_checks(dev, bcfg, init(), first, "fwfm")
+    params = init()
+    ops.reset_launches()
+    losses, _ = run_steps(fwfm, bcfg, optimizer, params, optimizer.init(params), make_batch,
+                          0, sz.base_steps, sz.train_lr, dev)
+    launches = launches_of(("embedding_bag", "embedding_bag_backward", "fwfm_pairwise"))
+    if dev.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"train: a kernel was not launched in the baseline's steps: "
+                             f"{launches}")
+    pp = init()
+    plain, _ = run_steps(PLAIN_MODEL, bcfg, optimizer, pp, optimizer.init(pp), make_batch,
+                         0, sz.base_steps, sz.train_lr, dev)
+    del pp
+    la, lp = torch.stack(losses).double(), torch.stack(plain).double()
+    if ((la - lp).abs() > 1e-4 * torch.clamp(lp.abs(), min=1.0)).any():
+        raise AssertionError("train: the baseline's kernel-path losses leave the plain path's")
+    R = fwfm.field_matrix(params, bcfg).detach().cpu().numpy().astype(np.float64)
+    del params
+    fits = {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        U, e, d = posthoc_dplr(R, sz.posthoc_rank, device=where)
+        fits[where.type] = (float(np.linalg.norm((U.T * e) @ U + np.diag(d) - R)),
+                            time.perf_counter() - t0)
+    (err_dev, s_dev), (err_cpu, s_cpu) = fits[dev.type], fits["cpu"]
+    if not abs(err_dev - err_cpu) <= 0.01 * err_cpu:
+        raise AssertionError(f"posthoc_dplr on {dev}: Frobenius error {err_dev:.6g}, on the "
+                             f"CPU {err_cpu:.6g}")
+    return dict(launches=launches, note=(
+        f"baseline {bcfg.interaction} m={bcfg.n_fields}: step 1 against the plain path: "
+        f"{grads}; {sz.base_steps} steps, losses {float(losses[0]):.5f} -> "
+        f"{float(losses[-1]):.5f}, max |diff| from the plain path "
+        f"{float((la - lp).abs().max()):.3g}; posthoc_dplr(R, rank={sz.posthoc_rank}) "
+        f"Frobenius error {err_dev:.6g} on {dev.type} ({s_dev:.2f} s), {err_cpu:.6g} on the "
+        f"CPU ({s_cpu:.2f} s), |R|_F {float(np.linalg.norm(R)):.6g}"))
+
+
+def serve_trained(dev, sz, serve, mgr, params, step: int, workdir: Path) -> dict:
+    """Run A's checkpoint directory served through ``maybe_refresh``: a
+    ``CorpusState`` over the serve phase's corpus installs step ``step``,
+    answers top-K queries at each Bq of ``sz.train_serve_bqs`` (held by
+    ``check_serving`` and C1) and one Algorithm 1 call (against
+    ``plain_rank_items``); a second poll finds nothing; a truncated copy of
+    the newest step raises ``RefreshFailed`` once, the next poll finds
+    nothing, and the engine still answers from ``step``, bitwise as before."""
+    cfg, K = sz.make_config(), sz.topk
+    engine = CorpusState(cfg, serve.corpus["item_ids"][0], serve.corpus["item_weights"][0],
+                         capacity=sz.capacity, device=dev)
+    template = {"params": dict.fromkeys(params)}
+    pick = lambda t: t["params"]  # noqa: E731
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if not engine.maybe_refresh(mgr, template, select=pick) or engine.model_step != step:
+        raise AssertionError(f"maybe_refresh did not install step {step}")
+    _sync(dev)
+    refresh_s = time.perf_counter() - t0
+    if not same_tree(engine.params, params):
+        raise AssertionError("maybe_refresh installed params other than run A's")
+    answers, diffs = [], 0
+    for bq in sz.train_serve_bqs:
+        ctx = np.concatenate(serve.ctxs[:bq])
+        got = engine.topk(ctx, K)
+        diffs += check_serving(engine, ctx, got, f"trained top-{K} Bq={bq}")
+        check_exact(*got, engine.score(ctx), K, f"trained top-{K} Bq={bq}")
+        answers.append((ctx, got))
+    q = {k_: torch.as_tensor(v, device=dev)
+         for k_, v in serve.data.ranking_query(sz.percall_n, 3).items()}
+    got = fwfm.rank_items(engine.params, cfg, q)
+    _sync(dev)
+    want, size = plain_rank_items(engine.params, cfg, q)
+    check_close(got, want, "trained percall rank_items", size=size)
+    launches = launches_of(SERVE_KERNELS)
+    # K <= 4096 here, so the winners' sort kernels (topk_sort_*) do not run
+    ran = ("corpus_score_full", "corpus_topk_chunks", "topk_merge", "dplr_score_items_kernel",
+           "embedding_bag_kernel")
+    if dev.type == "cuda" and not all(launches[g] for g in ran):
+        raise AssertionError(f"a kernel was not launched serving the trained model: {launches}")
+    if engine.maybe_refresh(mgr, template, select=pick):
+        raise AssertionError("a second poll swapped again")
+    # a truncated copy of the newest step, one step on
+    src = Path(mgr.directory) / f"step_{step:08d}"
+    bad = Path(mgr.directory) / f"step_{step + 1:08d}"
+    bad.mkdir()
+    shutil.copy(src / "manifest.json", bad / "manifest.json")
+    with open(src / "arrays.npz", "rb") as f_in, open(bad / "arrays.npz", "wb") as f_out:
+        f_out.write(f_in.read(sz.truncate_bytes))
+    t0 = time.perf_counter()
+    try:
+        engine.maybe_refresh(mgr, template, select=pick)
+    except RefreshFailed as exc:
+        if exc.step != step + 1:
+            raise AssertionError(f"RefreshFailed names step {exc.step}") from exc
+    else:
+        raise AssertionError("a truncated newest step did not raise RefreshFailed")
+    failed_s = time.perf_counter() - t0
+    if engine.maybe_refresh(mgr, template, select=pick) or engine.model_step != step:
+        raise AssertionError("the poll after RefreshFailed did not keep serving the last step")
+    for ctx, (vals, ids) in answers:
+        again = engine.topk(ctx, K)
+        if not (torch.equal(again[0], vals) and torch.equal(again[1], ids)):
+            raise AssertionError("after RefreshFailed the engine answers differently")
+    return dict(launches=launches, note=(
+        f"served: maybe_refresh installed step {step} in {refresh_s:.2f} s (restore with the "
+        f"checksums of every retained step, and the slab build of {engine.n_items} items); "
+        f"top-{K} at Bq={list(sz.train_serve_bqs)} by C1 and against plain ({diffs} ids "
+        f"differ, all within the tie rule), Algorithm 1 on {sz.percall_n} items against "
+        f"plain; a second poll found nothing; a truncated step {step + 1} raised "
+        f"RefreshFailed once ({failed_s:.2f} s), the next poll found nothing and the engine "
+        f"answers from step {step} as before"))
+
+
+# -- phase 8: lm --------------------------------------------------------------
 
 LM_Q_CHUNK = 512   # the f32 reference prefill's query chunk (gqa_attention)
 
@@ -1377,7 +1869,7 @@ def lm_phase(dev, sz) -> dict:
     return launches
 
 
-# -- phase 8: timing ----------------------------------------------------------
+# -- phase 9: timing ----------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
     """``flash_attention_wgmma<256>`` from a mangled kernel name: the last
@@ -1606,6 +2098,7 @@ def timing_phase(dev, sz, peaks) -> dict:
             rows["embedding_bag"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                          library_ms=lib)
         del ids, w, lib_ids, lib_w
+    rows["embedding_bag_backward"] = bag_backward_timing(sz, peaks, gen, table, extra)
     del table
 
     # fwfm_pairwise; library: one einsum with TF32 off.  The Gram is
@@ -1629,9 +2122,47 @@ def timing_phase(dev, sz, peaks) -> dict:
                                          library_ms=lib)
         del V
     rows["fwfm_pairwise"]["shapes"] = shapes
+    # its backward on the card is the plain vjp, at the train batch
+    V, R = pair_inputs(sz.train_batch, sz.pairs[0][1], k, gen)
+    g = torch.randn((sz.train_batch,), generator=gen, device=dev)
+    bwd = device_ms(lambda: ref.fwfm_pairwise_vjp(V, R, g), 3, 5)
+    rows["fwfm_pairwise"]["backward_plain_ms"] = bwd
+    extra.append(f"fwfm_pairwise backward (plain vjp) B={sz.train_batch} m={sz.pairs[0][1]} "
+                 f"k={k}: {bwd:.4f} ms")
+    del V, g
     rows["flash_attention"] = flash_timing(sz, peaks, gen, extra)
     print("phase timing: " + "; ".join(extra), flush=True)
     return rows
+
+
+def bag_backward_timing(sz, peaks, gen, table, extra) -> dict:
+    """Kernel 5's backward at the train phase's batch (one-hot, skewed ids
+    on the full arena), the whole call: the zeroed table, the sort and the
+    kernel.  Plain: ``ref.embedding_bag_vjp``.  Library: a zeroed table and one
+    ``index_add_`` of the slots' ``g w`` rows into it (its order depends on
+    the run).  Bound: read g and the ids and weights, write the whole
+    table once."""
+    cfg = sz.make_config()
+    lay, k, B = cfg.layout, cfg.embed_dim, sz.train_batch
+    ids, w, bags = bag_case(lay, None, B, gen, skew=True)
+    g = torch.randn((B, bags.n_bags, k), generator=gen, device=table.device)
+    ms = device_ms(lambda: ops.embedding_bag_backward(g, table, ids, w, bags), 3, 5)
+    plain = device_ms(lambda: ref.embedding_bag_vjp(table, ids, w, bags.segments, g), 3, 2)
+    src = (g.index_select(1, bags.segments) * w[..., None]).reshape(-1, k)
+    flat = ids.reshape(-1).long()
+    lib = device_ms(lambda: torch.zeros_like(table).index_add_(0, flat, src), 3, 5)
+    # the call's set-up alone: the zeroed table and the sort of the slots
+    zeros = device_ms(lambda: torch.zeros_like(table), 3, 5)
+    sort = device_ms(lambda: torch.sort(ids.reshape(-1), stable=True), 3, 5)
+    slots = ids.numel()
+    nbytes = g.numel() * 4 + slots * (4 + 4) + table.numel() * 4
+    bnd, by = bound_ms(nbytes, 2 * slots * k, peaks)
+    extra.append(f"embedding_bag_backward {tuple(ids.shape)} on {table.shape[0]} rows: "
+                 f"{ms:.4f} ms (of it the zeroed table alone {zeros:.4f} ms, the sort alone "
+                 f"{sort:.4f} ms), plain {plain:.4f} ms, zeros + index_add_ {lib:.4f} ms, "
+                 f"bound {bnd:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                zeros_ms=zeros, sort_ms=sort)
 
 
 def attention_pairs(S: int, window) -> int:
@@ -1851,6 +2382,8 @@ def main() -> None:
     for g in ops.KERNELS["dplr_corpus_score_multi"]:
         launches[g] = tenant_launches[g]
     for g, count in eval_phase(dev, FULL, serve).items():
+        launches[g] = launches.get(g, 0) + count
+    for g, count in train_phase(dev, FULL, serve).items():
         launches[g] = launches.get(g, 0) + count
     launches.update(lm_phase(dev, FULL))
     rows = timing_phase(dev, FULL, peaks)

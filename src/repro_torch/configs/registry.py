@@ -1,0 +1,82 @@
+"""Architecture registry of the port.  Port of ``repro.configs.registry``,
+holding the entries the port can build: ``dplr-fwfm`` (recsys; trains
+and serves) and ``gemma3-1b`` (lm; serves, and its training raises until
+kernel 7 has a backward).  The JAX package registers each architecture
+in its config module; here the two entries are made below, so that the
+config modules stay free of the registry."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.configs import dplr_fwfm, gemma3_1b
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell for an architecture.
+
+    kind:
+      lm:     train | prefill | decode
+      recsys: train | rank | pointwise
+    """
+
+    name: str
+    kind: str
+    dims: dict
+    skip: str | None = None      # reason when the cell is N/A for this arch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    name: str
+    family: str                   # lm | recsys
+    make_config: Callable[[], Any]
+    make_smoke: Callable[[], Any]
+    shapes: tuple[ShapeSpec, ...]
+    notes: str = ""
+
+
+REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    assert spec.name not in REGISTRY, spec.name
+    REGISTRY[spec.name] = spec
+    return spec
+
+
+def get(name: str) -> ArchSpec:
+    return REGISTRY[name]
+
+
+def lm_shapes(long_ctx_skip: str | None) -> tuple[ShapeSpec, ...]:
+    return (
+        ShapeSpec("train_4k", "train", {"seq": 4096, "batch": 256}),
+        ShapeSpec("prefill_32k", "prefill", {"seq": 32768, "batch": 32}),
+        ShapeSpec("decode_32k", "decode", {"seq": 32768, "batch": 128}),
+        ShapeSpec("long_500k", "decode", {"seq": 524288, "batch": 1},
+                  skip=long_ctx_skip),
+    )
+
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", {"batch": 65536}),
+    ShapeSpec("serve_p99", "rank", {"n_queries": 1, "n_items": 512}),
+    ShapeSpec("serve_bulk", "pointwise", {"batch": 262144}),
+    ShapeSpec("retrieval_cand", "rank", {"n_queries": 1, "n_items": 1_000_000}),
+)
+
+register(ArchSpec(
+    name="gemma3-1b", family="lm",
+    make_config=gemma3_1b.make_config, make_smoke=gemma3_1b.make_smoke,
+    shapes=lm_shapes(None),
+    notes="dense; serving only in the port (training needs kernel 7's backward)",
+))
+
+register(ArchSpec(
+    name="dplr-fwfm", family="recsys",
+    make_config=dplr_fwfm.make_config, make_smoke=dplr_fwfm.make_smoke,
+    shapes=RECSYS_SHAPES,
+    notes="the paper's own model; 'fwfm'/'fm' interactions are the baselines",
+))

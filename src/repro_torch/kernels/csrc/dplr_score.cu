@@ -32,10 +32,23 @@
 // rounded up to a power of two, at most 32 since rho * k <= kMaxRK).  Per
 // field it reads its 4 columns as one 16-byte load and U_I's 4 rows as a
 // 16-byte broadcast, and adds d_m v^2 (row block 0 only); then the g
-// partial d- and e-terms are summed by shuffles in a fixed tree.  Each
-// score's operations and their order depend only on (m_I, k, rho), never
-// on Bq, n or the tile, so every row of a batched call is bitwise the
-// per-query call.
+// partial d- and e-terms are summed by shuffles in a fixed tree.
+//
+// Sums over fields are blocked: the products of each run of G.FB fields
+// (field indices b * G.FB.. of the item, whatever chunk they arrive in)
+// go into partial sums that start from 0, and each block's
+// partials are added into P and the d-term when the block ends, with the
+// rounding error of that addition carried to the next block (Kahan's
+// compensated sum; P's 16 carries a thread sit in shared memory, touched
+// once a block, so that the registers do not spill).  One running sum over all m_I fields would grow its
+// rounding error with m_I (at m_I = 200 it sat 2.6x the plain version's
+// distance from an f64 version); the blocks keep every sum short, and the
+// compensation keeps the sum of blocks close to exact.  Up to
+// kOneBlockFields item fields (the served shapes: 38) the whole item is
+// one block, whose running sum is as close as the plain version's and
+// costs no block ends; past it, blocks of kFieldBlock.  Each score's operations
+// and their order depend only on (m_I, k, rho), never on Bq, n or the
+// tile, so every row of a batched call is bitwise the per-query call.
 #include <cstdint>
 
 #include "common.cuh"
@@ -49,8 +62,19 @@ constexpr int kThreads = 32;   // one warp a block
 constexpr int kStages = 2;
 constexpr int kStageFloats = 24576;  // 96 KB a stage at most
 constexpr int kUFloats = 8192;       // U_I's chunk, 32 KB at most
+constexpr int kFieldBlock = 8;       // fields a partial sum spans past kOneBlockFields
+constexpr int kOneBlockFields = 48;  // up to this m_I, one block of all fields
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// sum += x, with the addition's rounding error kept in carry (as its
+// negative) and taken off the next term: Kahan's compensated sum.
+__device__ inline void kahan_add(float& sum, float& carry, float x) {
+  const float y = __fsub_rn(x, carry);
+  const float t = __fadd_rn(sum, y);
+  carry = __fsub_rn(__fsub_rn(t, sum), y);
+  sum = t;
+}
 
 // Floats from one item's slot to the next: at least `width`, congruent to
 // kp mod 32.
@@ -61,7 +85,7 @@ __host__ __device__ inline int slot_stride(int width, int kp) {
 // How (m_I, rho, k) maps onto the block: lanes an item (g used of gp),
 // items a tile (T), fields a chunk (FC) and the slot stride (S).
 struct Geometry {
-  int kp, kq, rhop, g, gp, T, FC, S;
+  int kp, kq, rhop, g, gp, T, FC, S, FB;
 };
 
 __host__ __device__ inline Geometry geometry(int mI, int rho, int k) {
@@ -79,11 +103,13 @@ __host__ __device__ inline Geometry geometry(int mI, int rho, int k) {
   fc = fc < mI ? fc : mI;
   G.FC = fc > 1 ? fc : 1;
   G.S = slot_stride(G.FC * G.kp, G.kp);
+  G.FB = mI <= kOneBlockFields ? (mI > 1 ? mI : 1) : kFieldBlock;
   return G;
 }
 
 __host__ __device__ inline size_t smem_bytes(const Geometry& G) {
-  return 16 + ((size_t)kStages * G.T * G.S + (size_t)G.FC * (G.rhop + 1) + G.rhop) *
+  return 16 + ((size_t)kStages * G.T * G.S + (size_t)G.FC * (G.rhop + 1) + G.rhop +
+               16 * kThreads) *
                   sizeof(float);
 }
 
@@ -100,6 +126,7 @@ __global__ void __launch_bounds__(kThreads)
   float* us = stages + kStages * G.T * G.S;                  // FC * rhop: us[f * rhop + r]
   float* ds = us + G.FC * G.rhop;                            // FC
   float* es = ds + G.FC;                                     // rhop
+  float* pc = es + G.rhop + threadIdx.x;  // this thread's carries of P, stride kThreads
 
   const int n_fc = (mI + G.FC - 1) / G.FC > 1 ? (mI + G.FC - 1) / G.FC : 1;
   const long long tiles_q = (n + G.T - 1) / G.T;
@@ -155,8 +182,8 @@ __global__ void __launch_bounds__(kThreads)
   const int it = threadIdx.x / G.gp, li = threadIdx.x % G.gp;
   const bool active = li < G.g;
   const int rg = active ? li / G.kq : 0, cq = active ? li % G.kq : 0;
-  float P[4][4];
-  float td = 0.f;
+  float P[4][4], Pb[4][4];  // P: the sum of blocks, Pb: a block
+  float td = 0.f, tdb = 0.f, tdc = 0.f;
   long long q = 0, item = 0;
   int nv = 0;
   for (long long v = 0; v < n_units; ++v) {
@@ -175,8 +202,10 @@ __global__ void __launch_bounds__(kThreads)
         for (int c = 0; c < 4; ++c) {
           const int r = 4 * rg + rr, col = 4 * cq + c;
           P[rr][c] = active && r < rho && col < k ? PC[(q * rho + r) * k + col] : 0.f;
+          Pb[rr][c] = 0.f;
+          pc[(4 * rr + c) * kThreads] = 0.f;
         }
-      td = 0.f;
+      td = tdb = tdc = 0.f;
     }
     if (n_fc > 1) {
       load_u(f0, fc);
@@ -199,21 +228,40 @@ __global__ void __launch_bounds__(kThreads)
     if (active) {
       const float* x = X + it * G.S + 4 * cq;
       const float* u = us + 4 * rg;
+      // the chunk's fields, cut where a block of G.FB item fields ends
+      for (int fb = 0; fb < fc;) {
+        const int gend = ((f0 + fb) / G.FB + 1) * G.FB;
+        const int fe = gend - f0 < fc ? gend - f0 : fc;
 #pragma unroll 4
-      for (int f = 0; f < fc; ++f) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + f * G.kp);
-        const float4 uv = *reinterpret_cast<const float4*>(u + f * G.rhop);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
-        if (rg == 0) {
-          const float dm = ds[f];
+        for (int f = fb; f < fe; ++f) {
+          const float4 xv = *reinterpret_cast<const float4*>(x + f * G.kp);
+          const float4 uv = *reinterpret_cast<const float4*>(u + f * G.rhop);
+          const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+          const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
+          if (rg == 0) {
+            const float dm = ds[f];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) td = fmaf(dm * xs[c], xs[c], td);
+            for (int c = 0; c < 4; ++c) tdb = fmaf(dm * xs[c], xs[c], tdb);
+          }
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) Pb[rr][c] = fmaf(ur[rr], xs[c], Pb[rr][c]);
         }
+        if (f0 + fe == gend || f0 + fe == mI) {  // a block ends: add its partials
 #pragma unroll
-        for (int rr = 0; rr < 4; ++rr)
+          for (int rr = 0; rr < 4; ++rr)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) P[rr][c] = fmaf(ur[rr], xs[c], P[rr][c]);
+            for (int c = 0; c < 4; ++c) {
+              float carry = pc[(4 * rr + c) * kThreads];
+              kahan_add(P[rr][c], carry, Pb[rr][c]);
+              pc[(4 * rr + c) * kThreads] = carry;
+              Pb[rr][c] = 0.f;
+            }
+          kahan_add(td, tdc, tdb);
+          tdb = 0.f;
+        }
+        fb = fe;
       }
     }
     __syncthreads();  // the stage (and U_I's chunk) are read
@@ -225,9 +273,13 @@ __global__ void __launch_bounds__(kThreads)
       for (int rr = 0; rr < 4; ++rr) {
         float sq = 0.f;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) sq = fmaf(P[rr][c], P[rr][c], sq);
+        for (int c = 0; c < 4; ++c) {
+          const float pv = __fsub_rn(P[rr][c], pc[(4 * rr + c) * kThreads]);  // carry off
+          sq = fmaf(pv, pv, sq);
+        }
         te = fmaf(es[4 * rg + rr], sq, te);
       }
+      td = __fsub_rn(td, tdc);
       for (int o = 1; o < G.gp; o *= 2) {
         td += __shfl_xor_sync(0xffffffffu, td, o);
         te += __shfl_xor_sync(0xffffffffu, te, o);

@@ -25,6 +25,23 @@
 // order (out.at[seg[s]].add(row * w) for s ascending): the result does not
 // depend on the batch size or the launch shape.  An id outside [0, rows) is
 // never read: its whole bag is written as NaN.
+//
+// The backward, embedding_bag_backward_kernel, writes the table's gradient
+//
+//   d_table[r, :] = sum_{(b, s) : ids[b, s] = r} grad[b, seg[s], :] * w[b, s]
+//
+// (the rows no slot names stay as the caller zeroed them).  On the card
+// an atomic scatter would add each row's terms in whatever order its
+// threads arrive, so two runs of one step could differ in the last bits
+// and a resumed training run would not repeat the uninterrupted one.
+// Here the caller sorts the slots' flat indices by row once, stably (a
+// library sort, as set-up), and one warp sums each run of equal rows in
+// ascending slot order, the product and the add rounded separately, and
+// writes the row once: no atomics, the same order as the plain version's
+// index_add_ on the CPU, and the same bits on every call.  A pass takes 32
+// entries of the run: lane i loads entry i's gradient row times its
+// weight (all 32 rows in flight at once) into the warp's tile in shared
+// memory, then lane c adds column c's 32 products in entry order.
 #include <cstdint>
 
 #include "common.cuh"
@@ -90,6 +107,76 @@ __global__ void embedding_bag_kernel(const float* __restrict__ table, long long 
   }
 }
 
+// The backward's tile: kBwdTile entries a pass, kBwdTile columns.
+constexpr int kBwdTile = 32;
+
+__global__ void __launch_bounds__(kThreads)
+    embedding_bag_backward_kernel(const float* __restrict__ grad, int n_bags, int k, int vec,
+                                  const void* __restrict__ sorted, int keys64,
+                                  const long long* __restrict__ perm,
+                                  const float* __restrict__ w,
+                                  const long long* __restrict__ seg, int n_slots,
+                                  long long N, long long rows, float* __restrict__ d_table) {
+  __shared__ float tiles[kThreads / 32][kBwdTile][kBwdTile + 1];
+  float(*T)[kBwdTile + 1] = tiles[threadIdx.x >> 5];  // this warp's [entry][column]
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long p = warp * 32 + lane;
+  long long row = -1;
+  bool start = false;
+  if (p < N) {
+    row = slot_id(sorted, keys64, p);
+    start = (p == 0 || slot_id(sorted, keys64, p - 1) != row) && row >= 0 && row < rows;
+  }
+  unsigned starts = __ballot_sync(full, start);
+  while (starts) {
+    const int src = __ffs(starts) - 1;
+    starts &= starts - 1;
+    const long long q0 = warp * 32 + src;
+    const long long r = __shfl_sync(full, row, src);
+    // the run's end: the first entry past q0 of another row
+    long long q_end = N;
+    for (long long base = q0 + 1; base < N; base += 32) {
+      const long long q = base + lane;
+      const unsigned other = __ballot_sync(full, q >= N || slot_id(sorted, keys64, q) != r);
+      if (other) {
+        q_end = base + __ffs(other) - 1;
+        break;
+      }
+    }
+    for (int c0 = 0; c0 < k; c0 += kBwdTile) {
+      const int cw = k - c0 < kBwdTile ? k - c0 : kBwdTile;
+      float acc = 0.f;
+      for (long long t0 = q0; t0 < q_end; t0 += kBwdTile) {
+        const int cnt = q_end - t0 < kBwdTile ? (int)(q_end - t0) : kBwdTile;
+        if (lane < cnt) {  // lane i loads entry t0 + i's products, all lanes at once
+          const long long j = __ldg(perm + t0 + lane);
+          const long long b = j / n_slots;
+          const float* g = grad + (b * n_bags + __ldg(seg + (j - b * n_slots))) * k + c0;
+          const float wq = __ldg(w + j);
+          if (vec) {
+            for (int c = 0; c < cw; c += 4) {
+              const float4 x = __ldg(reinterpret_cast<const float4*>(g + c));
+              T[lane][c] = __fmul_rn(x.x, wq);
+              T[lane][c + 1] = __fmul_rn(x.y, wq);
+              T[lane][c + 2] = __fmul_rn(x.z, wq);
+              T[lane][c + 3] = __fmul_rn(x.w, wq);
+            }
+          } else {
+            for (int c = 0; c < cw; ++c) T[lane][c] = __fmul_rn(__ldg(g + c), wq);
+          }
+        }
+        __syncwarp();
+        if (lane < cw)  // column `lane` adds the entries in order
+          for (int i = 0; i < cnt; ++i) acc = __fadd_rn(acc, T[i][lane]);
+        __syncwarp();
+      }
+      if (lane < cw) d_table[r * k + c0 + lane] = acc;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -112,6 +199,30 @@ int embedding_bag(const float* table, long long rows, int k, const void* ids, in
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   embedding_bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       table, rows, k, ids, ids64, w, bag_ptr, bag_slots, B, n_slots, n_bags, vec, out);
+  return (int)cudaGetLastError();
+}
+
+// The table's gradient, d_table (rows, k), for grad (B, n_bags, k), the
+// weights w (B, n_slots) and the slot -> bag map seg (n_slots): sorted (N,
+// int32 with keys64 = 0, else int64) holds the N = B * n_slots flat slot
+// ids' rows in ascending order and perm (N) their flat indices
+// b * n_slots + s, in ascending order within a row (a stable sort).
+// d_table must arrive zeroed; only rows some slot names, within
+// [0, rows), are written.  N = 0 launches nothing.
+int embedding_bag_backward(const float* grad, int n_bags, int k, const void* sorted,
+                           int keys64, const long long* perm, const float* w,
+                           const long long* seg, int n_slots, long long N, long long rows,
+                           float* d_table, void* stream, int device) {
+  if (N < 0 || rows <= 0 || k <= 0 || n_slots <= 0 || n_bags <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (N + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int vec = k % 4 == 0 && (uintptr_t)grad % 16 == 0;
+  embedding_bag_backward_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      grad, n_bags, k, vec, sorted, keys64, perm, w, seg, n_slots, N, rows, d_table);
   return (int)cudaGetLastError();
 }
 

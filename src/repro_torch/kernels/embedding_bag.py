@@ -5,10 +5,12 @@ Counterpart of ``repro.kernels.embedding_bag``:
     out[b, bag, :] = sum_{s: seg[s] = bag} w[b, s] * table[ids[b, s], :]
 
 for arena-global ``ids (B, n_slots)`` (int32 or int64), ``weights
-(B, n_slots)`` and a static slot -> bag map ``seg``.  The kernel reads the
-map as CSR (bag -> its slots in ascending order): ``bag_map`` builds it on
-the host, and its caller keeps the result for as long as the map lives
-(``embedding.bag`` keeps one per layout and device).  Takes CUDA tensors
+(B, n_slots)`` and a static slot -> bag map ``seg``; and its backward in
+the table, ``launch_backward``, a fixed-order sum per row (no atomics).
+The forward kernel reads the map as CSR (bag -> its slots in ascending
+order): ``bag_map`` builds it on the host, and its caller keeps the
+result for as long as the map lives (``embedding.bag`` keeps one per
+layout and device).  Takes CUDA tensors
 that ``repro_torch.kernels.ops`` has already checked; callers go through
 ``ops``.
 """
@@ -53,6 +55,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("embedding_bag")
     lib.embedding_bag.argtypes = [_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]
     lib.embedding_bag.restype = _I
+    lib.embedding_bag_backward.argtypes = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _L, _L, _P, _P,
+                                           _I]
+    lib.embedding_bag_backward.restype = _I
     return lib
 
 
@@ -68,3 +73,22 @@ def launch(table, ids, weights, bags: BagMap) -> torch.Tensor:
         bags.n_bags, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(status, "embedding_bag launch")
     return out
+
+
+def launch_backward(grad, ids, weights, bags: BagMap, rows: int) -> torch.Tensor:
+    """``d_table (rows, k)`` f32 for ``grad (B, n_bags, k)`` and 2-D
+    ``ids``/``weights`` (B, n_slots): zeros, then each named row's sum of
+    ``grad[b, seg[s]] * w[b, s]`` over its slots in ascending flat order.
+    The stable sort of the slots by row is set-up for the kernel."""
+    B, n_slots = ids.shape
+    k = grad.shape[-1]
+    dev = grad.device
+    d_table = torch.zeros((rows, k), dtype=torch.float32, device=dev)
+    sorted_rows, perm = torch.sort(ids.reshape(-1), stable=True)   # keys keep ids' type
+    status = _lib().embedding_bag_backward(
+        grad.data_ptr(), bags.n_bags, k, sorted_rows.data_ptr(),
+        int(sorted_rows.dtype == torch.int64), perm.data_ptr(), weights.data_ptr(),
+        bags.segments.data_ptr(), n_slots, B * n_slots, rows, d_table.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, dev.index)
+    _build.check(status, "embedding_bag_backward launch")
+    return d_table

@@ -35,6 +35,7 @@ KERNELS = {
     "dplr_score_items": ("dplr_score_items_kernel",),
     "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
     "embedding_bag": ("embedding_bag_kernel",),
+    "embedding_bag_backward": ("embedding_bag_backward_kernel",),
     "fwfm_pairwise": ("fwfm_pairwise_kernel",),
     "flash_attention": ("flash_attention_kernel", "flash_attention_wgmma"),
 }
@@ -223,7 +224,10 @@ def embedding_bag(table, ids, weights, bags: BagMap):
     into one batch axis for the kernel.  An id outside ``[0, rows)``: the
     plain version raises, the kernel writes that bag as NaN (it never reads
     the row).  Differentiable in ``table`` and ``weights`` on both devices;
-    on the card the backward is ``ref.embedding_bag_vjp``."""
+    on the card the table's gradient is ``embedding_bag_backward`` (a
+    kernel that sums each row's terms in a fixed order, so a step's
+    gradient is the same bits on every run) and the weights' is the plain
+    gather-and-dot of ``ref.embedding_bag_vjp``."""
     if table.ndim != 2:
         raise ValueError(f"table must be (rows, k), got {tuple(table.shape)}")
     if ids.ndim < 1 or tuple(weights.shape) != tuple(ids.shape):
@@ -253,21 +257,49 @@ def _embedding_bag_launch(table, ids, weights, bags: BagMap):
     return out.view(*lead, bags.n_bags, table.shape[1])
 
 
+def embedding_bag_backward(grad, table, ids, weights, bags: BagMap):
+    """``d table`` of ``embedding_bag`` for the output gradient ``grad
+    (..., n_bags, k)``: ``d_table[r] = sum_{slots s naming r} grad[bag(s)] *
+    w_s``, zeros elsewhere, each row summed in ascending slot order (the
+    plain version's order).  On the card one kernel launch after a stable
+    sort of the slots by row; on the CPU ``ref.embedding_bag_vjp``."""
+    n_slots = ids.shape[-1]
+    _check_shape("grad", grad, (*ids.shape[:-1], bags.n_bags, table.shape[1]))
+    dev = _device(grad, table, ids, weights, bags.segments)
+    if dev.type == "cpu":
+        return ref.embedding_bag_vjp(table, ids, weights, bags.segments, grad)[0]
+    _check_for_kernel(grad=grad, weights=weights)
+    B = math.prod(ids.shape[:-1])
+    if B == 0:
+        return torch.zeros_like(table)
+    out = _bag.launch_backward(grad.view(B, bags.n_bags, table.shape[1]),
+                               ids.view(B, n_slots), weights.view(B, n_slots), bags,
+                               table.shape[0])
+    LAUNCHES["embedding_bag_backward_kernel"] += 1
+    return out
+
+
 class _EmbeddingBag(torch.autograd.Function):
-    """The kernel forward with the plain backward, for a table or weights
-    that need a gradient on the card."""
+    """The kernel forward, and for the table the backward kernel, for a
+    table or weights that need a gradient on the card."""
 
     @staticmethod
     def forward(ctx, table, ids, weights, bags):
-        ctx.save_for_backward(table, ids, weights, bags.segments)
+        ctx.save_for_backward(table, ids, weights)
+        ctx.bags = bags
         return _embedding_bag_launch(table, ids, weights, bags)
 
     @staticmethod
     def backward(ctx, grad):
-        table, ids, weights, segments = ctx.saved_tensors
-        d_table, d_weights = ref.embedding_bag_vjp(table, ids, weights, segments, grad)
-        return (d_table if ctx.needs_input_grad[0] else None, None,
-                d_weights if ctx.needs_input_grad[2] else None, None)
+        table, ids, weights = ctx.saved_tensors
+        grad = grad.contiguous()
+        d_table = d_weights = None
+        if ctx.needs_input_grad[0]:
+            d_table = embedding_bag_backward(grad, table, ids, weights, ctx.bags)
+        if ctx.needs_input_grad[2]:
+            d_weights = ref.embedding_bag_vjp(table, ids, weights, ctx.bags.segments,
+                                              grad)[1]
+        return d_table, None, d_weights, None
 
 
 def fwfm_pairwise(V, R):
@@ -324,7 +356,7 @@ def flash_attention(q, k, v, *, window: int | None = None):
     takes float32 or bfloat16 (one type for all three), ``H // KV <= 64``,
     and hd in (16, 32, 64, 128, 256) in bfloat16 or a multiple of 4 up to
     256 in float32; any S.  It has no backward: on the card, inputs that
-    need a gradient raise (training is ROADMAP queue 7)."""
+    need a gradient raise (ROADMAP: kernel 7's backward (LM training))."""
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KV, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -348,7 +380,7 @@ def flash_attention(q, k, v, *, window: int | None = None):
             raise ValueError(f"{name}: the kernel takes a contiguous, 16-byte aligned tensor")
     if _needs_grad(q, k, v):
         raise NotImplementedError("flash_attention has no backward on the card "
-                                  "(training is ROADMAP queue 7)")
+                                  "(ROADMAP: kernel 7's backward (LM training))")
     out = _flash.launch(q, k, v, window)
     LAUNCHES[_flash.kernel_name(q.dtype, hd)] += 1
     return out

@@ -5,6 +5,8 @@ corpus (or these N candidates) for this context" queries.
         --engine corpus|percall --items N --queries Q [--topk K] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.serve --tenant-demo --tenants N \
         --items N --queries Q [--fe-batch B --max-wait-ms W --inflight D --capacity C]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--ckpt-dir D] \
+        [--refresh-every N] [--refresh-demo]
 
 ``--engine corpus`` (the default) serves through ``CorpusRankingEngine``:
 the item side is precomputed once into a capacity-padded slab, and each
@@ -17,6 +19,17 @@ projects every candidate on every query.  Weights are random, from
 same latency line as ``repro.launch.serve``; the first two queries are
 dropped as warm-up.
 
+``--ckpt-dir`` serves the params of the newest checkpoint there (one that
+``repro_torch.launch.train`` or the JAX trainer wrote) and polls the
+directory every ``--refresh-every`` queries through
+``CorpusState.maybe_refresh``.  ``--refresh-demo`` (in a temporary
+directory unless ``--ckpt-dir`` is given) writes a checkpoint with the
+bias raised by 1 halfway through the queries, and asserts that the engine
+swapped it in and that each query launched the same kernels, as many
+times, after the swap as before it: the port traces nothing, so this
+takes the place of ``repro.launch.serve``'s retrace count.  It prints "refresh
+round-trip OK".
+
 ``--tenant-demo`` serves ``--tenants`` corpora (at least 2) behind one
 shared ``ScorerRuntime`` through the tenant-routed ``QueryFrontend``:
 mixed-tenant traffic with churn bursts on tenant t0, every reply checked
@@ -28,6 +41,8 @@ tenant demo, without its trace counts (nothing here is traced).
 from __future__ import annotations
 
 import argparse
+import collections
+import tempfile
 import time
 
 import numpy as np
@@ -35,11 +50,13 @@ import torch
 
 from repro_torch.configs import dplr_fwfm
 from repro_torch.data.synthetic_ctr import SyntheticCTR
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.recsys import fwfm
 from repro_torch.serving.corpus import next_pow2
 from repro_torch.serving.engine import CorpusRankingEngine, CorpusState
-from repro_torch.serving.errors import Overloaded
+from repro_torch.serving.errors import Overloaded, RefreshFailed
 from repro_torch.serving.frontend import QueryFrontend
 from repro_torch.serving.runtime import ScorerRuntime
 
@@ -182,9 +199,16 @@ def main(argv=None):
                     help="frontend max micro-batch size (power of two)")
     ap.add_argument("--inflight", type=int, default=2,
                     help="frontend in-flight dispatch window depth")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest checkpoint there, and poll it")
+    ap.add_argument("--refresh-every", type=int, default=25,
+                    help="poll --ckpt-dir for a newer step every N queries")
+    ap.add_argument("--refresh-demo", action="store_true",
+                    help="write a checkpoint with a shifted bias mid-stream and check "
+                         "that the corpus engine swaps it in")
     args = ap.parse_args(argv)
-    if (args.topk or args.tenant_demo) and args.engine != "corpus":
-        ap.error("--topk/--tenant-demo require --engine corpus")
+    if (args.topk or args.tenant_demo or args.refresh_demo) and args.engine != "corpus":
+        ap.error("--topk/--tenant-demo/--refresh-demo require --engine corpus")
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -192,6 +216,13 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     cfg = dplr_fwfm.make_smoke() if args.config == "smoke" else dplr_fwfm.make_config()
     params = fwfm.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    mgr = None
+    if args.ckpt_dir or args.refresh_demo:
+        mgr = CheckpointManager(args.ckpt_dir or tempfile.mkdtemp(prefix="serve_refresh_demo_"))
+        restored, step = mgr.restore({"params": params}, device=dev)
+        if restored is not None:
+            params = restored["params"]
+            print(f"serving checkpoint step {step}")
     data = SyntheticCTR(cfg.layout, embed_dim=4, seed=args.seed)
     if args.tenant_demo:
         return _tenant_demo(args, cfg, params, data, dev)
@@ -201,8 +232,28 @@ def main(argv=None):
         corpus = data.ranking_query(args.items, 0)
         engine = CorpusRankingEngine(cfg, corpus["item_ids"][0], corpus["item_weights"][0],
                                      capacity=next_pow2(args.items), device=dev)
-        engine.refresh(params)
+        engine.refresh(params, step=mgr.latest_step() if mgr else None)
+        refreshes, demo_pending, per_query = 0, False, []
         for s in range(args.queries):
+            if args.refresh_demo and s == args.queries // 2:
+                bumped = dict(params, bias=params["bias"] + 1.0)
+                mgr.save({"params": bumped}, step=(engine.model_step or 0) + 1, blocking=True)
+                demo_pending = True          # poll now, whatever the cadence
+            if mgr is not None and (demo_pending or (s and s % args.refresh_every == 0)):
+                try:
+                    swapped = engine.maybe_refresh(mgr, {"params": params},
+                                                   select=lambda t: t["params"])
+                except RefreshFailed as e:
+                    # a bad model push: the last-good snapshot keeps serving
+                    swapped = False
+                    print(f"query {s}: refresh REJECTED ({e}); serving step "
+                          f"{engine.model_step}")
+                if swapped:
+                    refreshes += 1
+                    demo_pending = False
+                    print(f"query {s}: refreshed to checkpoint step {engine.model_step} "
+                          f"(corpus cache rebuilt)")
+            before = collections.Counter(ops.LAUNCHES)
             q = data.context_query(s)
             ctx = torch.as_tensor(q["context_ids"], device=dev)
             ctx_w = torch.as_tensor(q["context_weights"], device=dev)
@@ -213,12 +264,21 @@ def main(argv=None):
                 out = engine.score(ctx, ctx_w)
             _sync(dev)
             lat.append((time.perf_counter() - t0) * 1e3)
+            per_query.append((refreshes, dict(ops.LAUNCHES - before)))
             if s == 0:
                 top = (out[1][0][:3] if args.topk
                        else torch.argsort(out[0], descending=True, stable=True)[:3])
                 print(f"query 0: top-3 of {args.items} candidates -> "
                       f"{top.cpu().numpy()}")
         tag = f"corpus{f', top{args.topk}' if args.topk else ''}, {dev.type}"
+        if args.refresh_demo:
+            assert refreshes >= 1, "refresh demo never saw the new checkpoint"
+            seen = {str(launched) for r, launched in per_query if r == 0}
+            after = {str(launched) for r, launched in per_query if r > 0}
+            assert len(seen) == 1 and after == seen, \
+                f"kernel launches per query changed across the refresh: {seen} -> {after}"
+            print(f"refresh round-trip OK: {refreshes} refresh(es), kernel launches per "
+                  f"query unchanged across the refresh ({seen.pop()}), no restart")
     else:
         for s in range(args.queries):
             q = {k: torch.as_tensor(v, device=dev)

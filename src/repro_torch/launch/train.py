@@ -1,0 +1,160 @@
+"""Fault-tolerant training entry point of the port.  Port of
+``repro.launch.train`` for the recsys family on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dplr-fwfm \
+        --steps 300 --batch 4096 --ckpt-dir /tmp/ckpt [--resume] [--device cuda]
+
+  * checkpoint/restart: async atomic checkpoints every --ckpt-every steps,
+    in the JAX package's format (``repro_torch.checkpoint``); on start
+    with --resume, the newest valid checkpoint is restored and the data
+    pipeline resumes at the restored step.  Batches are a pure function
+    of (seed, step), and every operation of a step, the kernels' backward
+    included, sums in a fixed order, so a resumed run repeats the
+    uninterrupted run bitwise.
+  * preemption simulation: --fail-at N hard-exits (code 42) after step N;
+    rerunning with --resume continues.
+  * straggler mitigation: bounded prefetch (``data.pipeline``).
+
+A step is ``value_and_grad(mod.loss)`` and then the optimizer (adagrad
+for recsys), as ``repro.launch.train``'s.  On the card the loss runs the
+``embedding_bag`` kernel forward and its deterministic backward kernel
+for the field lookups, and the ``fwfm_pairwise`` kernel forward for a
+full-FwFM model.  The lm family raises: its loss needs kernel 7's
+backward, which is not written yet.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from repro_torch import optim
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.registry import REGISTRY
+from repro_torch.data.pipeline import ShardedPipeline
+from repro_torch.data.synthetic_ctr import SyntheticCTR
+from repro_torch.device import resolve_device
+from repro_torch.models.recsys import fwfm
+
+_RECSYS_MODULES = {"dplr-fwfm": fwfm}
+
+
+def build_recsys_trainer(arch_name: str, cfg, batch_size: int, seed: int):
+    """(model module, ``make_batch(step) -> numpy batch``) on the JAX
+    trainer's data: ``SyntheticCTR`` with a rank-2 teacher, one batch per
+    (seed, step)."""
+    mod = _RECSYS_MODULES[arch_name]
+    data = SyntheticCTR(cfg.layout, embed_dim=min(cfg.embed_dim, 8), teacher_rank=2,
+                        seed=seed)
+
+    def make_batch(step):
+        return data.batch(batch_size, step)
+
+    return mod, make_batch
+
+
+def to_device(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def train_step(mod, cfg, optimizer, params, opt_state, batch, lr, mark=None):
+    """One step: the loss and its gradient in every parameter, then the
+    optimizer's in-place update.  Returns (loss, params, opt_state).
+    ``mark(name)``, when given, is called after "forward", "backward" and
+    "update" (a caller's timer)."""
+    on_forward = None if mark is None else (lambda: mark("forward"))
+    loss, grads = optim.value_and_grad(mod.loss, on_forward=on_forward)(params, cfg, batch)
+    if mark is not None:
+        mark("backward")
+    params, opt_state = optimizer.update(grads, opt_state, params, lr)
+    if mark is not None:
+        mark("update")
+    return loss, params, opt_state
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dplr-fwfm")
+    ap.add_argument("--config", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--optimizer", default=None, choices=[None, "adagrad", "adamw"])
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="simulate preemption: hard-exit at this step")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    spec = REGISTRY[args.arch]
+    if spec.family != "recsys":
+        raise NotImplementedError(f"{args.arch}: the {spec.family} family does not train in "
+                                  f"the port; its loss needs kernel 7's backward")
+    cfg = spec.make_smoke() if args.config == "smoke" else spec.make_config()
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    mod, make_batch = build_recsys_trainer(args.arch, cfg, args.batch, args.seed)
+    optimizer = optim.adagrad() if (args.optimizer or "adagrad") == "adagrad" else optim.adamw()
+
+    params = mod.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    opt_state = optimizer.init(params)
+    start_step = 0
+
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir, keep=3)
+        if args.resume:
+            restored, step = mgr.restore({"params": params, "opt": opt_state}, device=dev)
+            if restored is not None:
+                params, opt_state = restored["params"], restored["opt"]
+                start_step = step
+                print(f"resumed from step {step}")
+
+    pipe = ShardedPipeline(make_batch, prefetch=2).start(from_step=start_step)
+    losses = []
+    step_reached = start_step      # last step whose update actually landed
+    last_saved = start_step if start_step else None
+    t0 = time.time()
+    try:
+        for step in range(start_step, args.steps):
+            _, batch = pipe.get()
+            loss, params, opt_state = train_step(mod, cfg, optimizer, params, opt_state,
+                                                 to_device(batch, dev), args.lr)
+            losses.append(float(loss))
+            step_reached = step + 1
+            if mgr and (step + 1) % args.ckpt_every == 0:
+                mgr.save({"params": params, "opt": opt_state}, step + 1)
+                last_saved = step + 1
+            if args.fail_at is not None and step + 1 == args.fail_at:
+                print(f"[simulated preemption at step {step + 1}]", flush=True)
+                os._exit(42)
+            if not args.quiet and (step + 1) % args.log_every == 0:
+                rate = (step + 1 - start_step) / (time.time() - t0)
+                print(f"step {step+1:5d} loss {float(loss):.5f} "
+                      f"({rate:.1f} steps/s)", flush=True)
+    finally:
+        pipe.stop()
+        # save at the step the loop reached: labelling a partial run as
+        # --steps would make --resume restore past the end
+        if mgr and step_reached > start_step and step_reached != last_saved:
+            mgr.save({"params": params, "opt": opt_state}, step_reached)
+        if mgr:
+            mgr.wait()
+    if losses:
+        print(f"final loss: {losses[-1]:.5f}")
+    else:
+        print(f"no steps to run: resumed at step {start_step} of {args.steps}")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -17,8 +17,9 @@ configurations: gemma3-1b, and any other without experts.
     into the cache it is given, in place (the JAX function returns a new
     cache): a copy of a full cache each step would double its memory
 
-Not ported: experts (``n_experts > 0`` raises; ROADMAP queue 13), the
-training loss and the mesh hooks (queues 7 and 10).  The entry points run
+Not ported: experts (``n_experts > 0`` raises; ROADMAP: the MoE item), the
+training loss (ROADMAP: kernel 7's backward (LM training)) and the mesh
+hooks (ROADMAP: sharding).  The entry points run
 on the card unless the caller passes ``device="cpu"``; the parameters
 must already be there.
 """
@@ -86,7 +87,7 @@ class TransformerConfig:
 def _check_dense(cfg: TransformerConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not ported "
-                                  f"(ROADMAP queue 13)")
+                                  f"(ROADMAP: the MoE item)")
 
 
 def _shapes(cfg: TransformerConfig) -> dict:

@@ -1,6 +1,6 @@
 """CorpusState: one tenant's mutable corpus behind a ScorerRuntime.
 Port of ``repro.serving.engine`` for one device (no mesh, no fault
-injector; ``maybe_refresh`` waits for the checkpoint port).
+injector).
 
 The serving stack is three layers:
 
@@ -28,6 +28,12 @@ Mutable corpus: the slab is padded to a power-of-two ``capacity`` with a
 ``NEG_INF``; slot assignments are stable across churn and ``refresh``;
 when the free-list runs dry the slab doubles.  ``on_mutate``, when set,
 is called before any mutation or refresh (a frontend's writer barrier).
+
+Model refresh from training: ``maybe_refresh(manager, template, select)``
+polls a ``repro_torch.checkpoint.CheckpointManager`` (whose directory
+either package may have written) and installs a newer step; a corrupt
+newest step raises ``RefreshFailed`` once while the last-good snapshot
+keeps serving.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving.corpus import ItemCorpusCache, next_pow2
-from repro_torch.serving.errors import NotReady
+from repro_torch.serving.errors import NotReady, RefreshFailed
 from repro_torch.serving.runtime import ScorerRuntime
 
 
@@ -91,6 +97,8 @@ class CorpusState:
         self.model_step: int | None = None
         self.refresh_count = 0
         self.last_refresh_time: float | None = None     # time.monotonic
+        self.last_refresh_error: str | None = None
+        self._last_polled_sig: tuple | None = None
         self.on_mutate = None
 
     @property
@@ -249,6 +257,49 @@ class CorpusState:
         self.model_step = step
         self.refresh_count += 1
         self.last_refresh_time = time.monotonic()
+
+    def maybe_refresh(self, manager, template, select=lambda t: t) -> bool:
+        """Checkpoint invalidation hook: if a newer checkpoint step exists,
+        restore it onto this state's device and rebuild the slab.
+        ``template`` is the tree structure passed to ``manager.restore``;
+        ``select`` extracts the model params from the restored tree.
+
+        Returns True on a swap, False when there is nothing newer (or the
+        newest landing is a step backwards).  A newest step that fails
+        validation, with nothing newer than the installed step restorable,
+        raises ``RefreshFailed`` (its step and poll signature attached)
+        while the last-good snapshot keeps serving.  A corrupt newest step
+        with a valid intermediate one (newer than the installed step)
+        installs the intermediate, returns True and records the bad push
+        in ``last_refresh_error``.
+
+        Poison-safe: the newest step's signature (step and manifest mtime)
+        is recorded before the restore, and a poll that finds the same
+        signature again returns False at once, so a corrupt checkpoint
+        costs one restore and raises once, while a later re-save of the
+        same step (a new mtime) is still picked up."""
+        # name-only poll: no checksum pass over the retained checkpoints;
+        # restore() below validates what it loads
+        step = manager.latest_step(validate=False)
+        if step is None or step == self.model_step:
+            return False
+        sig = manager.step_signature(step)
+        if sig == self._last_polled_sig:
+            return False
+        self._last_polled_sig = sig
+        restored, rstep = manager.restore(template, device=self.device)
+        if restored is None or (self.model_step is not None and rstep is not None
+                                and rstep <= self.model_step):
+            self.last_refresh_error = (f"checkpoint step {step} failed validation; serving "
+                                       f"last-good step {self.model_step}")
+            raise RefreshFailed(self.last_refresh_error, step=step, signature=sig)
+        if rstep is not None and rstep < step:
+            self.last_refresh_error = (f"checkpoint step {step} failed validation; "
+                                       f"installed fallback step {rstep}")
+        else:
+            self.last_refresh_error = None
+        self.refresh(select(restored), step=rstep)
+        return True
 
     # -- scoring ------------------------------------------------------------
 

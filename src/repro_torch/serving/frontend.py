@@ -65,10 +65,8 @@ What it keeps from the reference:
   ``refresh``, which hold the frontend's lock across barrier and write.
 
 Left out of the port: the fault-injection hooks (``fault_injector``; the
-fault module is not ported yet), ``maybe_refresh`` (it needs the
-checkpoint port), and ``health()``'s ``kernel_degraded`` and
-``last_refresh_error`` fields (the port has no degraded kernel state and
-no checkpoint polling).  Nothing here is traced, so there is no trace
+fault module is not ported yet), and ``health()``'s ``kernel_degraded``
+field (the port has no degraded kernel state).  Nothing here is traced, so there is no trace
 count and no shape grid to warm: a kernel's first launch at a shape costs
 what every later launch costs once its library is built and loaded.
 ``warmup``/``warmup_packed`` make one dispatch at the largest bucket, so
@@ -734,6 +732,13 @@ class QueryFrontend:
         with self._lock:
             self._lane(tenant).engine.refresh(params, step=step)
 
+    def maybe_refresh(self, manager, template, select=lambda t: t, *,
+                      tenant: str | None = None) -> bool:
+        """``engine.maybe_refresh`` (checkpoint poll and swap) under the
+        frontend lock."""
+        with self._lock:
+            return self._lane(tenant).engine.maybe_refresh(manager, template, select=select)
+
     def _take(self, lane, m: int) -> list[PendingQuery]:
         out = []
         for _ in range(m):
@@ -1051,11 +1056,13 @@ class QueryFrontend:
 
     def health(self) -> dict:
         """Readiness probe (cheap).  Top level: ``ready``, ``closed``,
-        ``degraded`` (some breaker not closed), ``queue_depth``,
+        ``degraded`` (some breaker not closed, or a tenant's last checkpoint
+        poll found a bad push), ``queue_depth``,
         ``inflight_depth``, ``pump`` (running, restarts) and ``packing``
         (fused dispatches, segments, mean group).  Per tenant: breaker and
         consecutive failures, trips, weight, quota, queued, live items,
-        model step, seconds since the last refresh."""
+        model step, seconds since the last refresh, and the last
+        ``maybe_refresh`` error (None when its last swap was clean)."""
         with self._lock:
             now = time.monotonic()       # refresh stamps are time.monotonic
             lanes = {}
@@ -1073,13 +1080,15 @@ class QueryFrontend:
                     "n_items": eng.n_items,
                     "model_step": eng.model_step,
                     "refresh_age": None if rt is None else now - rt,
+                    "last_refresh_error": getattr(eng, "last_refresh_error", None),
                 }
             pump = self._pump_thread
             fused = self.stats["fused_dispatches"]
             return {
                 "ready": not self._closed,
                 "closed": self._closed,
-                "degraded": any(v["breaker"] != "closed" for v in lanes.values()),
+                "degraded": any(v["breaker"] != "closed" or v["last_refresh_error"] is not None
+                                for v in lanes.values()),
                 "queue_depth": self.queue_depth,
                 "inflight_depth": len(self._window),
                 "pump": {"running": pump is not None and pump.is_alive(),

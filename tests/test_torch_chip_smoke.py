@@ -1,5 +1,5 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
-eval, lm, timing and profile phases run at a tiny size with the plain versions (the
+eval, train, lm, timing and profile phases run at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
@@ -34,7 +34,9 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
                          (3, 4097, "random"), (3, 5, "rising"), (3, 64, "rising")),
              flash=((2, 70, 4, 1, 16, None), (2, 70, 4, 1, 16, 8)),
              flash_small=((1, 33, 2, 2, 8, None), (1, 50, 9, 1, 4, 5)),
-             lm_batch=2, lm_prompt=21, lm_cache=24, lm_steps=3)
+             lm_batch=2, lm_prompt=21, lm_cache=24, lm_steps=3,
+             train_batch=64, train_steps=4, train_save=2, train_lr=0.05, base_steps=2,
+             posthoc_rank=2, train_serve_bqs=(1, 3), truncate_bytes=1024)
 
 
 @pytest.fixture
@@ -54,8 +56,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     cpu = torch.device("cpu")
     errs = chip_smoke.kernel_checks(cpu, sz)
     assert set(errs) == {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
-                         "dplr_corpus_score_multi", "embedding_bag", "fwfm_pairwise",
-                         "flash_attention"}
+                         "dplr_corpus_score_multi", "embedding_bag",
+                         "embedding_bag_backward", "fwfm_pairwise", "flash_attention"}
     serve = chip_smoke.serving_phase(cpu, sz)
     assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
     assert "embedding_bag_kernel" in serve.launches
@@ -63,6 +65,10 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert sum(launches.values()) == 0
     launches = chip_smoke.eval_phase(cpu, sz, serve)
     assert set(launches) == {"embedding_bag_kernel", "fwfm_pairwise_kernel"}
+    assert sum(launches.values()) == 0
+    launches = chip_smoke.train_phase(cpu, sz, serve)
+    assert {"embedding_bag_kernel", "embedding_bag_backward_kernel", "fwfm_pairwise_kernel",
+            "corpus_topk_chunks", "dplr_score_items_kernel"} <= set(launches)
     assert sum(launches.values()) == 0
     launches = chip_smoke.lm_phase(cpu, sz)
     assert set(launches) == {"flash_attention_kernel", "flash_attention_wgmma"}
@@ -77,11 +83,13 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
         assert all(row["host_issue_ms"] > 0 for row in rows[name]["shapes"])
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "tenants", "eval", "lm", "timing", "profile"):
+    for phase in ("kernels", "serve", "tenants", "eval", "train", "lm", "timing", "profile"):
         assert f"phase {phase}:" in out
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
     assert "n=2 m_I=38 Bq=300" in out and "Bq=3 misaligned" in out
     assert "pruned R" in out and "m=12 misaligned" in out and "alone bitwise" in out
+    assert "bitwise run A's" in out and "raised RefreshFailed once" in out
+    assert rows["fwfm_pairwise"]["backward_plain_ms"] > 0
 
 
 def test_checks_catch_a_wrong_top_k(chip_smoke):
@@ -170,8 +178,8 @@ def test_tiles_at_the_served_shapes(chip_smoke, monkeypatch):
     of the tile that the kernels' libraries report (``dplr_score.tile``,
     ``fwfm_interaction.tile``: CUDA only, so stubbed here at the served
     shapes' 8 items and 16 examples); the CPU's plain versions have no
-    tiles (1).  Kernel 3's rho k = 128 cases report their distance from
-    an f64 plain version."""
+    tiles (1).  Kernel 3's rho k = 128 and m_I = 200 cases report their
+    distance from an f64 plain version."""
     asked = []
     monkeypatch.setattr(chip_smoke.items_kernel, "tile",
                         lambda *shape: asked.append(("items", shape)) or 8)
@@ -189,7 +197,7 @@ def test_tiles_at_the_served_shapes(chip_smoke, monkeypatch):
     _, notes = chip_smoke.items_edge_checks(cpu, sz, 0.0)
     edges = [8 * sz.items_tiles - 1, 8 * sz.items_tiles + 1]
     assert all(f"n={n} m_I={sz.m3} k={sz.k} " in notes[0] for n in edges)
-    assert notes[0].count("against f64: kernel") == 2
+    assert notes[0].count("against f64: kernel") == 3
     _, notes = chip_smoke.pair_checks(cpu, sz, torch.Generator().manual_seed(0))
     assert all(f"B={16 * sz.pair_tiles + d} m=" in notes[0] for d in (-1, 1))
 

@@ -337,6 +337,71 @@ def test_cuda_embedding_bag_matches_plain(cuda, B, slots, F, k, multi_hot):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,slots,F,k,multi_hot,dups", [
+    (4096, 82, 82, 16, False, False),   # the train batch, one slot a bag
+    (33, 30, 7, 16, True, False),       # bags of several slots
+    (512, 82, 82, 16, False, True),     # duplicate-heavy: 7 rows for 41,984 slots
+    (9, 5, 3, 6, True, True),           # k % 4 != 0
+    (64, 40, 40, 40, False, True),      # k > 32: two passes of columns
+])
+def test_cuda_embedding_bag_backward_matches_plain_and_repeats(cuda, B, slots, F, k,
+                                                               multi_hot, dups):
+    """The table's gradient: one launch, within 1e-6 * sum |w g| of
+    ``ref.embedding_bag_vjp`` on the card (rows no slot names exactly 0),
+    bitwise equal to itself on a second call and to the plain version on
+    the CPU, which sums each row in the same order."""
+    table, ids, w, seg = _bag(33, B, slots, F, k, multi_hot=multi_hot)
+    if dups:
+        ids = ids % 7
+    rng = np.random.default_rng(34)
+    grad = rng.standard_normal((B, F, k), dtype=np.float32)
+    host = [torch.from_numpy(a) for a in (table, ids, w, grad)]
+    table, ids, w, grad = (a.to(cuda) for a in host)
+    bags = ops.bag_map(seg, F, cuda)
+    ops.reset_launches()
+    got = ops.embedding_bag_backward(grad, table, ids, w, bags)
+    assert ops.LAUNCHES == {"embedding_bag_backward_kernel": 1}
+    want = ref.embedding_bag_vjp(table, ids, w, seg, grad)[0]
+    size = ref.embedding_bag_vjp(table, ids, w, seg, grad.abs())[0]
+    assert ((got - want).abs() <= 1e-6 * size).all()
+    assert torch.equal(ops.embedding_bag_backward(grad, table, ids, w, bags), got)
+    assert torch.equal(ops.embedding_bag_backward(grad, table, ids.long(), w, bags), got)
+    assert torch.equal(got.cpu(), ref.embedding_bag_vjp(host[0], host[1], host[2], seg,
+                                                        host[3])[0])
+    assert torch.equal(ops.embedding_bag_backward(grad[:0], table, ids[:0], w[:0], bags),
+                       torch.zeros_like(table))
+
+
+@pytest.mark.cuda
+def test_cuda_train_steps_repeat_bitwise_and_match_the_cpu(cuda):
+    """Ten adagrad steps of ``launch.train.train_step`` at the smoke config:
+    two runs on the card from one init end bitwise equal, and their losses
+    agree with the CPU's within 1e-5 * max(1, |loss|)."""
+    from repro_torch import optim
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.launch import train
+    from repro_torch.models.recsys import fwfm
+
+    cfg = dplr_fwfm.make_smoke()
+    mod, make_batch = train.build_recsys_trainer("dplr-fwfm", cfg, 256, seed=0)
+    init = fwfm.init(torch.Generator().manual_seed(0), cfg)
+    runs = []
+    for dev in (cuda, cuda, "cpu"):
+        opt = optim.adagrad()
+        params = {k: v.clone().to(dev) for k, v in init.items()}
+        state = opt.init(params)
+        losses = [float(train.train_step(mod, cfg, opt, params, state,
+                                         train.to_device(make_batch(s), dev), 0.1)[0])
+                  for s in range(10)]
+        runs.append((losses, params, state))
+    (la, pa, sa), (lb, pb, sb), (lc, _, _) = runs
+    assert la == lb
+    assert all(torch.equal(pa[k], pb[k]) and torch.equal(sa["acc"][k], sb["acc"][k])
+               for k in pa)
+    np.testing.assert_allclose(la, lc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,m,k", [(300, 14, 16), (4096, 82, 16), (1, 39, 16), (5, 128, 32),
                                    (7, 3, 4), (50, 82, 10), (3, 5, 1)])
 def test_cuda_fwfm_pairwise_matches_plain(cuda, B, m, k):
@@ -400,8 +465,9 @@ def test_cuda_baseline_apply_matches_the_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("interaction", ["dplr", "fwfm"])
 def test_cuda_loss_gradients_match_the_cpu(cuda, interaction):
-    """The kernels run forward on the card and the plain vjp backward:
-    ``loss.backward()`` gives every parameter the CPU's gradient."""
+    """The kernels run forward on the card, and the embedding bag's backward
+    kernel and the plain vjp of the rest backward: ``loss.backward()``
+    gives every parameter the CPU's gradient."""
     import dataclasses
 
     from repro_torch.configs import dplr_fwfm
@@ -418,7 +484,7 @@ def test_cuda_loss_gradients_match_the_cpu(cuda, interaction):
         ops.reset_launches()
         fwfm.loss(p, cfg, {k: v.to(dev) for k, v in batch.items()}).backward()
         grads.append({k: v.grad for k, v in p.items()})
-    want = {"embedding_bag_kernel": 1}
+    want = {"embedding_bag_kernel": 1, "embedding_bag_backward_kernel": 1}
     if interaction == "fwfm":
         want["fwfm_pairwise_kernel"] = 1
     assert ops.LAUNCHES == want

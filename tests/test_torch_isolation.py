@@ -74,6 +74,24 @@ toks = torch.randint(0, lcfg.vocab, (2, 9))
 lg, cache = tm.prefill(lp, lcfg, toks, 12, device="cpu")
 lg, cache = tm.decode_step(lp, lcfg, lg[:, :, :lcfg.vocab].argmax(-1), cache, 9, device="cpu")
 assert lg.shape == (2, 1, lcfg.vocab_padded) and torch.isfinite(lg[..., :lcfg.vocab]).all()
+import contextlib, io, tempfile
+import numpy as np
+from repro_torch import optim
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.dplr import posthoc_dplr
+from repro_torch.launch import train
+ckpt = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    losses = train.main(["--device", "cpu", "--steps", "4", "--batch", "32", "--ckpt-dir", ckpt,
+                         "--ckpt-every", "2", "--quiet"])
+assert len(losses) == 4 and all(np.isfinite(losses))
+st = CorpusState(cfg, q["item_ids"][0], device="cpu")
+assert st.maybe_refresh(CheckpointManager(ckpt), {"params": engine.params},
+                        select=lambda t: t["params"]) and st.model_step == 4
+R = np.ones((6, 6)) - np.eye(6)
+U, e, d = posthoc_dplr(R, 1, polish_steps=3, device="cpu")
+assert U.shape == (1, 6) and np.isfinite(d).all()
+assert optim.warmup_cosine(0.1, 2, 10)(5) > 0
 print("ok")
 """
 
@@ -92,7 +110,7 @@ def test_every_module_imports_and_serves_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
-def test_asking_for_the_card_without_one_raises(monkeypatch):
+def test_asking_for_the_card_without_one_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -111,3 +129,17 @@ def test_asking_for_the_card_without_one_raises(monkeypatch):
                  lambda: tm.init_cache(lcfg, 1, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.dplr import posthoc_dplr
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--batch", "8", "--quiet"])
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save({"bias": torch.zeros(())}, 1, blocking=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore({"bias": None})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        posthoc_dplr(np.ones((4, 4)) - np.eye(4), 1, polish_steps=1)
+    with pytest.raises(NotImplementedError, match="kernel 7's backward"):
+        train.main(["--arch", "gemma3-1b", "--device", "cpu", "--steps", "1"])

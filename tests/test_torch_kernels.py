@@ -437,12 +437,15 @@ def test_flash_attention_plain_matches_pallas_and_oracle(B, S, H, KV, hd, window
     size = ref.flash_attention_plain(q, k, v, window=window, with_size=True)[1].numpy()
     vmax = np.abs(arrays[2]).max()
     # the default query block, and one that cuts the keys' span elsewhere
-    for out in (got, ref.flash_attention_plain(q, k, v, window=window, block=48)):
+    for which, out in (("port", got),
+                       ("port block=48", ref.flash_attention_plain(q, k, v, window=window,
+                                                                   block=48))):
         out = out.float().numpy()
-        for want in (pallas, oracle):
+        for against, want in (("pallas", pallas), ("oracle", oracle)):
             want = np.asarray(want, np.float32)
             if dtype == "f32":
-                np.testing.assert_allclose(out, want, atol=1e-5, rtol=1e-5)
+                np.testing.assert_allclose(out, want, atol=1e-5, rtol=1e-5,
+                                           err_msg=f"{which} against {against}")
             else:
                 diff = np.abs(out - want)
                 assert diff.max() <= 2.0**-7 * vmax

@@ -221,10 +221,10 @@ def test_prefill_attends_through_the_kernel_entry_point(monkeypatch):
 def test_what_is_not_ported_raises():
     _, cfg = _configs("smoke", "f32")
     moe = dataclasses.replace(cfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="queue 13"):
+    with pytest.raises(NotImplementedError, match="the MoE item"):
         tm.init(torch.Generator().manual_seed(0), moe)
     params = tm.init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="queue 13"):
+    with pytest.raises(NotImplementedError, match="the MoE item"):
         tm.prefill(params, moe, np.zeros((1, 4), np.int64), 8, device=CPU)
     with pytest.raises(ValueError, match="does not fit"):
         tm.prefill(params, cfg, np.zeros((1, 9), np.int64), 8, device=CPU)
