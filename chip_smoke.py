@@ -37,7 +37,23 @@ Phases, one line each:
    requests per second both ways, and the card's idle share over packed
    waves.  The multi-tenant kernel's launches are counted over the
    timed packed waves alone.
-6. eval: the paper's comparison through ``eval.harness`` on the serve
+6. wire: the serving front door on the serve phase's engine and the
+   tenants phase's 16 states, one ``QueryFrontend(pack=True)`` behind
+   ``RpcServer`` on loopback: 1,000 Bq = 1 top-16 requests pipelined over
+   4 connections and a packed round over the tenants, every reply
+   bitwise the direct ``submit(...).result()`` of the same request (and
+   each direct reply bitwise ``engine.topk``'s row in a batch of 16);
+   typed error frames for an out-of-range context id and an expired
+   deadline; a graceful drain of queued requests; wire and direct-submit
+   latency (host clock).  Then scripted faults on the same engine
+   (dispatch, resolve and kernel faults retried bitwise, spent kernel
+   retries typed ``DispatchFailed`` with ``kernel_degraded`` False, write
+   and alloc faults changing nothing, a stalled pump restarted by the
+   watchdog, a seeded storm in which every request resolves), and the
+   Bq = 1 and packed dispatches under ``REPRO_SANITIZE=1``, whose guard
+   raises on an ``.item()`` inside it.  Kernel launches are counted over
+   the wire traffic.
+7. eval: the paper's comparison through ``eval.harness`` on the serve
    phase's data: ``evaluate_pointwise`` on 20,000 held-out rows for the
    DPLR model, the full-FwFM baseline (``make_fwfm_baseline``, random
    weights from a seed) and its matched-pruned form (249 of 3,321
@@ -47,7 +63,7 @@ Phases, one line each:
    (model, engine and frontend scores against the plain scores, top-10
    ids equal except at ties).  Kernel launches are counted over this
    phase alone.
-7. train: ``dplr-fwfm`` at full width through ``launch.train``'s
+8. train: ``dplr-fwfm`` at full width through ``launch.train``'s
    ``train_step`` and a ``ShardedPipeline``: step 1's loss and gradients
    through the kernels against the plain forward with autograd; run A, 16
    adagrad steps at B = 4,096, lr 0.05, checkpoints at steps 8 and 16
@@ -61,7 +77,7 @@ Phases, one line each:
    raising ``RefreshFailed`` once).  Step time split by CUDA events,
    checkpoint and refresh seconds, peak memory.  Kernel launches are
    counted over run A, the baseline's steps and the serving.
-8. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
+9. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
    from a seed, bf16 compute): a prefill of B = 2 prompts of 32,752
    tokens into a 32,768-slot cache through the flash-attention kernel
    (26 launches), the same prefill through the attention's plain version
@@ -70,7 +86,7 @@ Phases, one line each:
    the kernel prefill's cache, held against one pass over the same tokens
    at those positions on that cache.  Prefill seconds,
    decode ms a step (host clock, synchronized) and peak memory.
-9. timing: each kernel's median time over CUDA events, its plain
+10. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and flops over its f32 rate, or its bf16 tensor-core rate for
    flash attention); the top-K at each shape of ``topk_times`` (Bq, K and
@@ -83,7 +99,7 @@ Phases, one line each:
    ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
    mask); and each top-K shape's peak device memory (its scratch and
    outputs) beside the yardstick's.
-10. profile: with torch.profiler, the device time of a top-K call by CUDA
+11. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, the host's time to issue one (for the multi-tenant call, also
    without the wrapper's checks), and the device's idle share while the
    serving engine answers Bq = 1 queries.
@@ -148,11 +164,13 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -179,6 +197,7 @@ from repro_torch.core.interactions import dplr_pairwise, dplr_pairwise_explicit_
 from repro_torch.core.pruning import matched_param_count, prune_matched  # noqa: E402
 from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
 from repro_torch.data.synthetic_ctr import SyntheticCTR  # noqa: E402
+from repro_torch.embedding import bag as field_lookups  # noqa: E402
 from repro_torch.embedding.bag import (  # noqa: E402
     item_arena_ids,
     lookup_linear_terms,
@@ -192,11 +211,23 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
 from repro_torch.models.transformer import model as tm  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    CorpusState,
+    DeadlineExceeded,
+    DispatchFailed,
+    FaultInjector,
+    InjectedFault,
+    QueryFrontend,
+    RefreshFailed,
+    RpcClient,
+    ScorerRuntime,
+    ServingError,
+    scoring_guard,
+    serve_in_thread,
+)
 from repro_torch.serving.corpus import masked_slab_scores  # noqa: E402
-from repro_torch.serving.engine import CorpusState  # noqa: E402
-from repro_torch.serving.errors import RefreshFailed  # noqa: E402
-from repro_torch.serving.frontend import QueryFrontend  # noqa: E402
-from repro_torch.serving.runtime import ScorerRuntime  # noqa: E402
+from repro_torch.serving.engine import fused_topk  # noqa: E402
+from repro_torch.serving.rpc import encode_rank_request, frame  # noqa: E402
 
 TOL = 1e-5
 
@@ -210,6 +241,8 @@ FULL = SimpleNamespace(
     multi=(16, 4, 65_536, 16), ragged=((1100, 70_000, 20_000), 2, 1024),
     tenants=16, tenant_items=62_500, tenant_capacity=65_536, tenant_bq=4,
     waves=16, warm_waves=2, profile_waves=4,
+    # wire: Bq = 1 requests pipelined over connections, each with a window
+    wire_requests=1000, wire_conns=4, wire_window=4,
     # embedding bag: rows of the context lookup (Bq), of the slab build
     # (items), of pointwise eval; and a B whose threads end mid-block
     bag_rows=(16, 1_000_000, 4096), bag_ragged=4097,
@@ -1126,14 +1159,14 @@ def serving_phase(dev, sz):
 
 # -- phase 5: tenants ---------------------------------------------------------
 
-def tenants_phase(dev, sz, serve) -> dict:
+def tenants_phase(dev, sz, serve) -> tuple[dict, dict]:
     """16 tenants (``sz.tenants``) on one ScorerRuntime, each a disjoint
     slice of the serve phase's corpus in its own slab, with the serve
     phase's weights.  Waves of tenants x ``tenant_bq`` requests at
     K = ``topk`` go through a packed frontend (one fused launch a wave),
     then the same waves through an unpacked one on the same states.
     Returns the multi-tenant kernel's launches over the timed packed
-    waves."""
+    waves, and the tenants' states."""
     cfg, params, data = serve.engine.cfg, serve.engine.params, serve.data
     T, per, cap, bq, K = sz.tenants, sz.tenant_items, sz.tenant_capacity, sz.tenant_bq, sz.topk
     ids, w = serve.corpus["item_ids"][0], serve.corpus["item_weights"][0]
@@ -1214,10 +1247,336 @@ def tenants_phase(dev, sz, serve) -> dict:
           f"{packing['mean_group']:.2f}; {total * T * bq} replies checked against plain "
           f"({diffs} ids differ, all within the tie rule), packed = unpacked bitwise; "
           f"{share}; launches {launches}", flush=True)
+    return launches, states
+
+
+# -- phase 6: wire ------------------------------------------------------------
+
+def same_reply(got, want, what: str) -> None:
+    """One reply, ((k,) scores, (k,) slots), bitwise another of the same
+    request: a row's reply does not depend on the micro-batch it was
+    coalesced into (``ScorerRuntime._query``'s fixed blocks, and the
+    kernels' row-independent scoring)."""
+    (gv, gi), (wv, wi) = got, want
+    if not (np.array_equal(gv, wv) and np.array_equal(gi, wi)):
+        raise AssertionError(f"{what}: not bitwise the same reply")
+
+
+def wire_pipeline(port, jobs, conns: int, window: int):
+    """Send ``jobs`` ((ctx, k, tenant) each) over ``conns`` connections,
+    each keeping up to ``window`` requests in flight; returns each job's
+    reply and its latency in ms, send to reply (host clock)."""
+    replies, lat, errors = [None] * len(jobs), np.zeros(len(jobs)), []
+
+    def run(part):
+        try:
+            with RpcClient("127.0.0.1", port, timeout=120.0) as cli:
+                todo, sent = list(part), {}
+                while todo or sent:
+                    while todo and len(sent) < window:
+                        j = todo.pop(0)
+                        ctx, k, tenant = jobs[j]
+                        sent[cli.send_rank(ctx, k=k, tenant=tenant)] = (j, time.perf_counter())
+                    reply = cli.recv()
+                    j, t0 = sent.pop(reply.request_id)
+                    lat[j] = (time.perf_counter() - t0) * 1e3
+                    replies[j] = reply
+        except BaseException as e:       # noqa: BLE001 - raised on the caller's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(range(c, len(jobs), conns),))
+               for c in range(conns)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return replies, lat
+
+
+def wait_until(pred, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def wire_phase(dev, sz, serve, tenants) -> dict:
+    """The serving front door on the serve phase's engine (lane ``one``)
+    and the tenants phase's states, behind ``RpcServer`` on loopback:
+    ``wire_requests`` pipelined Bq = 1 top-K requests over ``wire_conns``
+    connections to ``one`` and a packed round over the tenants, every
+    reply against the direct ``submit(...).result()`` of the same
+    request; typed error frames; a graceful drain of queued requests;
+    scripted faults on the same engine; and the scoring dispatch under
+    ``REPRO_SANITIZE=1``.  Returns the kernel launches of the wire
+    traffic."""
+    t_phase = time.perf_counter()
+    engine, data, K = serve.engine, serve.data, sz.topk
+    n = sz.wire_requests
+    ctxs = [data.context_query(9000 + s)["context_ids"] for s in range(n)]
+    names = list(tenants)
+    fe = QueryFrontend({"one": engine, **tenants}, max_batch=sz.batch, max_k=K,
+                       max_wait=1e-3, auto_pump=False, pack=True)
+    fe.warmup(ctxs[0], tenant="one")
+    fe.warmup_packed(ctxs[0], tenant=names[0])
+
+    # direct submission, one request at a time: what the wire must answer
+    direct, lat_direct = [], np.zeros(n)
+    for s, ctx in enumerate(ctxs):
+        t0 = time.perf_counter()
+        direct.append(fe.submit(ctx, k=K, tenant="one").result())
+        lat_direct[s] = (time.perf_counter() - t0) * 1e3
+    for lo in range(0, n, sz.batch):           # each a row of engine.topk's batch
+        vals, ids = (t.cpu().numpy() for t in engine.topk(np.concatenate(ctxs[lo:lo + sz.batch]),
+                                                          K))
+        for j in range(vals.shape[0]):
+            same_reply(direct[lo + j], (vals[j], ids[j]),
+                       f"direct reply {lo + j} against engine.topk's row {j}")
+    got = tuple(torch.as_tensor(np.stack([r[i] for r in direct[:sz.batch]]), device=dev)
+                for i in (0, 1))
+    diffs = check_serving(engine, np.concatenate(ctxs[:sz.batch]), got, "wire direct replies")
+
+    ops.reset_launches()
+    server = serve_in_thread(fe)
+    try:
+        t0 = time.perf_counter()
+        replies, lat_wire = wire_pipeline(server.port, [(c, K, "one") for c in ctxs],
+                                          sz.wire_conns, sz.wire_window)
+        wire_s = time.perf_counter() - t0
+        # a packed round: every tenant's requests in one burst of frames
+        pool = [data.context_query(7000 + s)["context_ids"] for s in range(len(names) * sz.tenant_bq)]
+        jobs = [(pool[i * sz.tenant_bq + j], name) for i, name in enumerate(names)
+                for j in range(sz.tenant_bq)]
+        fused0 = fe.stats["fused_dispatches"]
+        with RpcClient("127.0.0.1", server.port, timeout=120.0) as cli:
+            cli.send_raw(b"".join(frame(encode_rank_request(i + 1, ctx, k=K, tenant=name))
+                                  for i, (ctx, name) in enumerate(jobs)))
+            packed = {}
+            while len(packed) < len(jobs):
+                r = cli.recv()
+                packed[r.request_id - 1] = r
+            launches = {g: ops.LAUNCHES[g] for gs in ops.KERNELS.values() for g in gs}
+            # typed error frames
+            bad = np.array(ctxs[0]).reshape(-1)
+            bad[0] = engine.cfg.layout.fields[0].vocab_size
+            err = cli.recv_for(cli.send_rank(bad, k=K, tenant="one")).error
+            if not (isinstance(err, ValueError) and "outside" in str(err)):
+                raise AssertionError(f"out-of-range context id: {err!r}, not a typed ValueError")
+            err = cli.recv_for(cli.send_rank(ctxs[0], k=K, tenant="one", deadline_rel=1e-9)).error
+            if not isinstance(err, DeadlineExceeded):
+                raise AssertionError(f"expired deadline: {err!r}, not DeadlineExceeded")
+        fused = fe.stats["fused_dispatches"] - fused0
+        for s, r in enumerate(replies):
+            r.raise_for_status()
+            same_reply((r.scores, r.slots), direct[s], f"wire reply {s}")
+        for i, (ctx, name) in enumerate(jobs):
+            packed[i].raise_for_status()
+            same_reply((packed[i].scores, packed[i].slots),
+                       fe.submit(ctx, k=K, tenant=name).result(), f"packed reply {i}")
+            if not tenants[name].is_live(packed[i].slots).all():
+                raise AssertionError(f"packed reply {i}: a dead slot")
+    finally:
+        server.stop(timeout=120.0)
+    stats = dict(server.stats)
+    if fused < 1:
+        raise AssertionError("the packed round went out in no fused dispatch")
+    if dev.type == "cuda":
+        for name in ("dplr_corpus_topk", "dplr_corpus_score_multi", "embedding_bag"):
+            if not all(launches[g] for g in ops.KERNELS[name][:2]):
+                raise AssertionError(f"the wire traffic launched no {name} kernel: {launches}")
+
+    # a graceful drain: requests queued (short of a batch, never aged) when
+    # the server stops are all answered
+    fe2 = QueryFrontend(engine, max_batch=sz.batch, max_k=K, max_wait=1e9, auto_pump=False)
+    server2 = serve_in_thread(fe2)
+    cli = RpcClient("127.0.0.1", server2.port, timeout=120.0)
+    try:
+        rids = [cli.send_rank(ctxs[s], k=K) for s in range(sz.batch - 1)]
+        wait_until(lambda: fe2.queue_depth == len(rids), "the drain's requests to queue")
+        server2.stop(timeout=120.0)
+        for s, rid in enumerate(rids):
+            r = cli.recv_for(rid)
+            r.raise_for_status()
+            same_reply((r.scores, r.slots), direct[s], f"drained reply {s}")
+    finally:
+        cli.close()
+    if not fe2.health()["closed"] or server2.stats["replies"] != len(rids):
+        raise AssertionError(f"the drain answered {server2.stats['replies']} of {len(rids)}")
+
+    chaos = chaos_checks(dev, sz, engine, data, ctxs, direct)
+    sanitized = sanitize_checks(dev, sz, engine, tenants, ctxs, direct, pool)
+    print(f"phase wire: RpcServer on loopback over lane 'one' (the serve phase's "
+          f"{engine.n_items}-item engine) and {len(names)} packed tenants; {n} pipelined "
+          f"Bq=1 top-{K} requests over {sz.wire_conns} connections (window "
+          f"{sz.wire_window} each) in {wire_s:.2f} s: wire latency p50 "
+          f"{np.percentile(lat_wire, 50):.3f} ms p99 {np.percentile(lat_wire, 99):.3f} ms, "
+          f"direct submit (one at a time) p50 {np.percentile(lat_direct, 50):.3f} ms p99 "
+          f"{np.percentile(lat_direct, 99):.3f} ms (host clock, {n} samples each); every "
+          f"reply bitwise the direct submit and engine.topk's batched row ({diffs} ids "
+          f"differ from plain, within the tie rule); packed round {len(jobs)} requests in {fused} fused dispatch(es); typed "
+          f"ValueError and DeadlineExceeded frames; drain answered {len(rids)} queued; "
+          f"server stats {stats}; {chaos}; {sanitized}; "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}", flush=True)
     return launches
 
 
-# -- phase 6: eval ------------------------------------------------------------
+def chaos_checks(dev, sz, engine, data, ctxs, direct) -> str:
+    """Scripted faults on the serve phase's engine through a frontend
+    (module docstring, phase 6).  Returns a summary."""
+    K = sz.topk
+    inj = FaultInjector(seed=0)
+    engine.fault_injector = inj
+    fe = QueryFrontend(engine, max_batch=sz.batch, max_k=K, max_wait=0.0, auto_pump=False,
+                       retries=2, retry_backoff=0.0, fault_injector=inj)
+    try:
+        # a dispatch fault: the same batch re-dispatches, bitwise
+        inj.arm("dispatch", count=1)
+        same_reply(fe.submit(ctxs[0], k=K).result(), direct[0], "chaos dispatch")
+        # a resolve fault: the batch is read again after a re-dispatch
+        pend = [fe.submit(ctxs[s], k=K) for s in range(3)]
+        fe.flush()
+        inj.arm("resolve", count=1)
+        for s, p in enumerate(pend):
+            same_reply(p.result(), direct[s], f"chaos resolve {s}")
+        # a kernel fault: retried through the same kernel, then typed
+        inj.arm("kernel", count=1)
+        same_reply(fe.submit(ctxs[1], k=K).result(), direct[1], "chaos kernel")
+        inj.arm("kernel", count=fe.retries + 1)
+        p = fe.submit(ctxs[1], k=K)
+        fe.drain()
+        try:
+            p.result()
+            raise AssertionError("a spent kernel retry budget did not fail")
+        except DispatchFailed as e:
+            if not (isinstance(e.__cause__, InjectedFault) and e.__cause__.site == "kernel"):
+                raise AssertionError(f"DispatchFailed without the kernel fault: {e!r}") from e
+        if engine.kernel_degraded or fe.health()["tenants"]["default"]["kernel_degraded"]:
+            raise AssertionError("kernel_degraded set: the port has no fallback")
+        retries = fe.stats["retries"]
+        # a write fault during churn: nothing moves
+        live, free = engine.valid_slots.copy(), sorted(engine._free)
+        upd = data.ranking_query(2, 77_000)
+        inj.arm("write")
+        for op in (lambda: fe.add_items(upd["item_ids"][0], upd["item_weights"][0]),
+                   lambda: fe.update_items(live[:2], upd["item_ids"][0], upd["item_weights"][0]),
+                   lambda: fe.remove_items(live[:2])):
+            try:
+                op()
+                raise AssertionError("a faulted churn write landed")
+            except InjectedFault:
+                pass
+        inj.disarm("write")
+        if not (np.array_equal(engine.valid_slots, live) and sorted(engine._free) == free):
+            raise AssertionError("a faulted churn write changed the corpus")
+        same_reply(fe.submit(ctxs[2], k=K).result(), direct[2], "after the write faults")
+        # an alloc fault: the slab's doubling is a clean no-op
+        cap = engine.capacity
+        inj.arm("alloc", count=1)
+        try:
+            engine.maybe_autoscale(engine.occupancy)
+            raise AssertionError("a faulted slab growth went through")
+        except InjectedFault:
+            pass
+        if engine.capacity != cap or engine.cache.Q_I.shape[0] != cap:
+            raise AssertionError("a faulted slab growth changed the slab")
+        # a stalled pump: the watchdog orphans it and a fresh pump dispatches
+        inj.arm("pump", count=1, delay=0.5)
+        fe.start_pump(interval=1e-3, watchdog=0.1)
+        p = fe.submit(ctxs[3], k=K)
+        wait_until(lambda: fe.stats["pump_restarts"] >= 1 and fe.queue_depth == 0,
+                   "the watchdog to restart the pump", timeout=30.0)
+        same_reply(p.result(), direct[3], "after the pump stall")
+        fe.stop_pump()
+        # a seeded storm: every request resolves, a reply or a typed error
+        inj.arm("dispatch", rate=0.3)
+        storm = []
+        for s in range(4 * sz.batch):
+            storm.append(fe.submit(ctxs[s], k=K))
+            if s % 4 == 3:
+                fe.pump()
+        fe.drain()
+        inj.clear()
+        ok = failed = 0
+        for s, p in enumerate(storm):
+            if not p.done():
+                raise AssertionError(f"storm request {s} never resolved")
+            try:
+                same_reply(p.result(), direct[s], f"storm reply {s}")
+                ok += 1
+            except ServingError:
+                failed += 1
+        if ok == 0:
+            raise AssertionError("the storm served nothing")
+    finally:
+        fe.close()
+        engine.fault_injector = None
+    return (f"chaos: dispatch, resolve and kernel faults retried ({retries} retries, replies "
+            f"bitwise), spent kernel retries DispatchFailed with kernel_degraded False, write "
+            f"and alloc faults left the corpus as it was, watchdog restarted a 0.5 s pump "
+            f"stall, storm of {len(storm)}: {ok} served / {failed} typed, 0 dropped")
+
+
+def sanitize_checks(dev, sz, engine, tenants, ctxs, direct, pool) -> str:
+    """The scoring dispatch under ``REPRO_SANITIZE=1``: on the card the
+    guard raises on a synchronising call inside it, restores the mode it
+    found, and the Bq = 1 and packed dispatches run clean in it.  Returns
+    a summary."""
+    K = sz.topk
+    before = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        mode = torch.cuda.get_sync_debug_mode() if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            x = torch.ones(1, device=dev)
+            try:
+                with scoring_guard(dev):
+                    x.item()
+                raise AssertionError("an .item() inside scoring_guard did not raise")
+            except RuntimeError:
+                pass
+            if torch.cuda.get_sync_debug_mode() != mode:
+                raise AssertionError("scoring_guard did not restore the sync-debug mode")
+        vals, ids = engine.topk(ctxs[0], K)           # inside the guard
+        same_reply((vals[0].cpu().numpy(), ids[0].cpu().numpy()), direct[0],
+                   "topk under the sanitizer")
+        states = tuple(tenants.values())
+        ctx = np.stack([np.concatenate(pool[i * sz.tenant_bq:(i + 1) * sz.tenant_bq])
+                        for i in range(len(states))])
+        pv, pi = fused_topk(states, ctx, K)
+        for i, st in enumerate(states):
+            want = st.topk(ctx[i], K)
+            same_reply((pv[i].cpu().numpy(), pi[i].cpu().numpy()),
+                       tuple(t.cpu().numpy() for t in want),
+                       f"fused_topk under the sanitizer, tenant {i}")
+        if dev.type == "cuda":
+            if torch.cuda.get_sync_debug_mode() != mode:
+                raise AssertionError("the engine's guard did not restore the sync-debug mode")
+            # the sync the guard found: unprimed, the context lookup's first
+            # call copies its static maps from pageable host memory
+            field_lookups._statics.cache_clear()
+            try:
+                engine.topk(ctxs[0], K)
+                raise AssertionError("the guard missed the lookup's first-use copy")
+            except RuntimeError:
+                pass
+            finally:
+                field_lookups.prepare_lookups(engine.cfg.layout.subset("context"),
+                                              engine.params["embedding"].device)
+    finally:
+        if before is None:
+            del os.environ["REPRO_SANITIZE"]
+        else:
+            os.environ["REPRO_SANITIZE"] = before
+    return ("sanitize: .item() in scoring_guard raises and the mode is restored; Bq=1 topk "
+            f"and a {len(tenants)}-tenant fused_topk run clean inside it; with the context "
+            "lookup's maps unprimed, its first-use copy raises inside it"
+            if dev.type == "cuda" else "sanitize: the guard is a no-op off the card")
+
+
+# -- phase 7: eval ------------------------------------------------------------
 
 def plain_logits(params, cfg, ids, w, pruned_mask=None, V=None):
     """``fwfm.apply`` in plain PyTorch (plain embedding bag and pairwise
@@ -1331,7 +1690,7 @@ def eval_phase(dev, sz, serve) -> dict:
     return launches
 
 
-# -- phase 7: train -----------------------------------------------------------
+# -- phase 8: train -----------------------------------------------------------
 
 def bce(logits, label):
     """``fwfm.loss``'s binary cross-entropy on logits, in plain PyTorch."""
@@ -1706,7 +2065,7 @@ def serve_trained(dev, sz, serve, mgr, params, step: int, workdir: Path) -> dict
         f"answers from step {step} as before"))
 
 
-# -- phase 8: lm --------------------------------------------------------------
+# -- phase 9: lm --------------------------------------------------------------
 
 LM_Q_CHUNK = 512   # the f32 reference prefill's query chunk (gqa_attention)
 
@@ -1869,7 +2228,7 @@ def lm_phase(dev, sz) -> dict:
     return launches
 
 
-# -- phase 9: timing ----------------------------------------------------------
+# -- phase 10: timing ----------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
     """``flash_attention_wgmma<256>`` from a mangled kernel name: the last
@@ -2378,9 +2737,11 @@ def main() -> None:
     errs = kernel_checks(dev, FULL)
     serve = serving_phase(dev, FULL)
     launches = dict(serve.launches)
-    tenant_launches = tenants_phase(dev, FULL, serve)
+    tenant_launches, tenants = tenants_phase(dev, FULL, serve)
     for g in ops.KERNELS["dplr_corpus_score_multi"]:
         launches[g] = tenant_launches[g]
+    for g, count in wire_phase(dev, FULL, serve, tenants).items():
+        launches[g] = launches.get(g, 0) + count
     for g, count in eval_phase(dev, FULL, serve).items():
         launches[g] = launches.get(g, 0) + count
     for g, count in train_phase(dev, FULL, serve).items():

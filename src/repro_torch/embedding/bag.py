@@ -43,6 +43,16 @@ def _statics(layout: FeatureLayout, kind: str | None, device: str) -> _Statics:
                     kops.bag_map(layout.slot_to_field, layout.n_fields, device))
 
 
+def prepare_lookups(layout: FeatureLayout, device) -> None:
+    """Copy ``layout``'s static maps to ``device`` now, unless they are
+    there already.  Otherwise the first lookup of a layout on a device
+    makes those host-to-device copies, which wait for the card: the
+    serving runtime calls this when it builds a slab, so that no scoring
+    dispatch copies (``serving.sanitize.scoring_guard`` raises on one).
+    ``device`` as the table's (``cuda:0``, not ``cuda``)."""
+    _statics(layout, None, str(torch.device(device)))
+
+
 def init_embedding_table(generator: torch.Generator, n_rows: int, dim: int, *,
                          scale: float | None = None,
                          dtype=torch.float32) -> torch.Tensor:

@@ -7,6 +7,10 @@ corpus (or these N candidates) for this context" queries.
         --items N --queries Q [--fe-batch B --max-wait-ms W --inflight D --capacity C]
     PYTHONPATH=src python -m repro_torch.launch.serve [--ckpt-dir D] \
         [--refresh-every N] [--refresh-demo]
+    PYTHONPATH=src python -m repro_torch.launch.serve --frontend [--arrival-rate R]
+    PYTHONPATH=src python -m repro_torch.launch.serve --churn-demo [--churn-ops N]
+    PYTHONPATH=src python -m repro_torch.launch.serve --chaos-demo
+    PYTHONPATH=src python -m repro_torch.launch.serve --rpc [--port P] [--tenants N]
 
 ``--engine corpus`` (the default) serves through ``CorpusRankingEngine``:
 the item side is precomputed once into a capacity-padded slab, and each
@@ -37,6 +41,29 @@ live and against its tenant's own state (and one tenant against a
 dedicated engine), then a 5x burst that admission control sheds with
 ``Overloaded``.  Prints the summary lines of ``repro.launch.serve``'s
 tenant demo, without its trace counts (nothing here is traced).
+
+``--frontend`` replays a Poisson arrival trace (``--arrival-rate``, 0:
+about twice the synchronous per-query capacity) of single requests with
+mixed K through ``QueryFrontend`` and through synchronous per-query
+calls, with an update burst every 25 requests, and prints p50/p95/p99
+latency and QPS for both.  ``--churn-demo`` interleaves ``--churn-ops``
+add/remove/update/score operations on the live engine.
+``--chaos-demo`` scripts faults through the self-healing frontend: a
+transient dispatch fault retried, an outage tripping the breaker, a
+corrupt checkpoint push rejected while the last-good model serves, a
+failed churn write, a stalled pump restarted by its watchdog, a kernel
+fault retried and then failing typed (the port has no fallback
+scorer), and a seeded storm in which every request resolves.  ``--rpc``
+serves ``--tenants`` corpora (packed into one launch a round) over the
+binary wire protocol on a loopback socket (``--port``, 0: ephemeral) and
+replays a pipelined mixed-tenant client trace.
+
+Where ``repro.launch.serve`` asserts that nothing retraced, these demos
+assert what the port can: every reply holds the live slots and is
+bitwise a lone call on its state (a reply does not depend on the
+micro-batch it was coalesced into), each query launches the same kernels
+as many times whatever the churn, and on the card ``ops.LAUNCHES`` shows
+the kernels ran.
 """
 from __future__ import annotations
 
@@ -55,10 +82,22 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.recsys import fwfm
 from repro_torch.serving.corpus import next_pow2
-from repro_torch.serving.engine import CorpusRankingEngine, CorpusState
-from repro_torch.serving.errors import Overloaded, RefreshFailed
-from repro_torch.serving.frontend import QueryFrontend
-from repro_torch.serving.runtime import ScorerRuntime
+from repro_torch.serving import (
+    CorpusRankingEngine,
+    CorpusState,
+    DeadlineExceeded,
+    Degraded,
+    DispatchFailed,
+    FaultInjector,
+    InjectedFault,
+    Overloaded,
+    QueryFrontend,
+    RefreshFailed,
+    RpcClient,
+    ScorerRuntime,
+    ServingError,
+    serve_in_thread,
+)
 
 
 def _report(tag: str, lat: np.ndarray, queries: int, items: int) -> None:
@@ -74,6 +113,399 @@ def _report(tag: str, lat: np.ndarray, queries: int, items: int) -> None:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _lone(engine, ctx, k):
+    """A lone ``engine.topk(ctx, k)`` as host arrays: ((k,), (k,))."""
+    vals, ids = engine.topk(np.asarray(ctx).reshape(1, -1), k)
+    return vals[0].cpu().numpy(), ids[0].cpu().numpy()
+
+
+def _check_reply(reply, engine, ctx, k: int, what: str) -> None:
+    """A reply holds live slots only and is bitwise a lone call on
+    ``engine``, whatever micro-batch it was coalesced into."""
+    sc, sl = reply
+    wv, wi = _lone(engine, ctx, k)
+    assert engine.is_live(sl).all(), f"{what}: a dead slot in the reply"
+    assert np.array_equal(sc, wv) and np.array_equal(sl, wi), \
+        f"{what}: reply != lone call (must be bitwise)"
+
+
+def _kernels_ran(dev, before, names, what: str) -> dict:
+    """The kernel launches since ``before`` (a copy of ``ops.LAUNCHES``);
+    on the card, raises unless each entry point in ``names`` launched."""
+    launched = dict(collections.Counter(ops.LAUNCHES) - before)
+    if dev.type == "cuda":
+        for name in names:
+            if not any(launched.get(g) for g in ops.KERNELS[name]):
+                raise AssertionError(f"{what}: no {name} kernel launched ({launched})")
+    return launched
+
+
+def _frontend_demo(args, engine, data, dev) -> None:
+    """A Poisson trace through the micro-batching frontend and through
+    synchronous per-query calls; latency percentiles and QPS of both."""
+    rng = np.random.default_rng(args.seed)
+    max_k = max(args.topk or 10, 1)
+    fe = QueryFrontend(engine, max_batch=args.fe_batch, max_k=max_k,
+                       max_wait=args.max_wait_ms * 1e-3, inflight=args.inflight)
+    ctx0 = data.context_query(0)["context_ids"]
+    fe.warmup(ctx0)
+    # synchronous per-query service time -> the automatic arrival rate
+    k_bucket = next_pow2(max_k)
+    for _ in range(3):
+        engine.topk(ctx0, k_bucket)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        engine.topk(ctx0, k_bucket)
+        _sync(dev)
+    rate = args.arrival_rate or 2.0 / ((time.perf_counter() - t0) / 10)
+
+    n = args.queries
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, n))
+    ks = rng.integers(1, max_k + 1, n)
+    ctxs = [data.context_query(s)["context_ids"] for s in range(n)]
+    churn_at = set(range(25, n, 25))
+
+    def churn(s):
+        # through the engine: its on_mutate is the frontend's writer barrier
+        upd = data.ranking_query(2, 50_000 + s)
+        engine.update_items(rng.choice(engine.valid_slots, 2, replace=False),
+                            upd["item_ids"][0], upd["item_weights"][0])
+
+    churn(-1)
+    before = collections.Counter(ops.LAUNCHES)
+    pend = []
+    t0 = time.perf_counter()
+    for s in range(n):
+        now = time.perf_counter() - t0
+        if arrivals[s] > now:
+            time.sleep(arrivals[s] - now)
+        if s in churn_at:
+            churn(s)
+        pend.append(fe.submit(ctxs[s], k=int(ks[s])))
+    fe.drain()
+    end = time.perf_counter() - t0
+    launched = _kernels_ran(dev, before, ("dplr_corpus_topk", "embedding_bag"),
+                            "frontend demo")
+    # completion minus scheduled arrival, as the synchronous loop measures
+    lat_fe = np.asarray([(p.done_time - t0 - arrivals[s]) * 1e3 for s, p in enumerate(pend)])
+    for p in pend:
+        assert engine.is_live(p.result()[1]).all(), "frontend surfaced a dead slot"
+    # requests after the last burst were scored against the final corpus
+    first = max(churn_at) + 1 if churn_at else 0
+    for s in range(first, n):
+        _check_reply(pend[s].result(), engine, ctxs[s], int(ks[s]), f"frontend request {s}")
+
+    lat_sync = np.empty(n)
+    t0 = time.perf_counter()
+    for s in range(n):
+        now = time.perf_counter() - t0
+        if arrivals[s] > now:
+            time.sleep(arrivals[s] - now)
+        if s in churn_at:
+            churn(s)
+        engine.topk(ctxs[s], int(next_pow2(int(ks[s]))))
+        _sync(dev)
+        lat_sync[s] = (time.perf_counter() - t0 - arrivals[s]) * 1e3
+    qps_sync = n / max(time.perf_counter() - t0, 1e-9)
+    fe.close()
+
+    def pct(a):
+        return "  ".join(f"p{q} {np.percentile(a, q):7.2f}" for q in (50, 95, 99))
+
+    print(f"frontend demo ({dev.type}): {n} requests, Poisson {rate:.0f} qps, K in "
+          f"1..{max_k}, bucket <= {args.fe_batch}, max-wait {args.max_wait_ms:.1f} ms, "
+          f"inflight {args.inflight}, {len(churn_at)} churn bursts")
+    print(f"  coalesced : {pct(lat_fe)} ms   {n / max(end, 1e-9):7.0f} qps   occupancy "
+          f"{fe.occupancy:.2f} ({fe.stats['dispatches']} dispatches)")
+    print(f"  sync      : {pct(lat_sync)} ms   {qps_sync:7.0f} qps")
+    print(f"  replies after the last burst bitwise lone calls, all slots live; "
+          f"launches {launched}")
+
+
+def _churn_demo(args, engine, data, dev) -> None:
+    """Interleave add/remove/update/score on the live engine: every top-K
+    holds live slots only, every score query launches the same kernels,
+    and the churned slab scores as a slab rebuilt from scratch."""
+    rng = np.random.default_rng(args.seed)
+    K = args.topk or 10
+    per_score = []
+
+    def one_score(s):
+        q = data.context_query(s)
+        ctx = torch.as_tensor(q["context_ids"], device=dev)
+        ctx_w = torch.as_tensor(q["context_weights"], device=dev)
+        before = collections.Counter(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        _, idx = engine.topk(ctx, K, ctx_w)
+        idx = idx.cpu().numpy().ravel()
+        dt = (time.perf_counter() - t0) * 1e3
+        per_score.append(str(dict(collections.Counter(ops.LAUNCHES) - before)))
+        assert engine.is_live(idx).all(), f"masked top-K surfaced a dead slot: {idx}"
+        return dt
+
+    one_score(0)
+    cap0 = engine.capacity
+    lat, counts = [], {"add": 0, "remove": 0, "update": 0, "score": 0}
+    for s in range(args.churn_ops):
+        kind = "score" if s % 2 else rng.choice(["add", "remove", "update"])
+        live = engine.valid_slots
+        if kind == "add":
+            dn = int(rng.integers(1, 9))
+            if engine.n_items + dn > engine.capacity:
+                kind = "remove"          # stay inside the slab: no mid-demo growth
+            else:
+                fresh = data.ranking_query(dn, 10_000 + s)
+                engine.add_items(fresh["item_ids"][0], fresh["item_weights"][0])
+        if kind == "remove":
+            dn = int(rng.integers(1, 9))
+            if engine.n_items - dn < max(K, args.items // 2):
+                kind = "update"          # keep enough live items for top-K
+            else:
+                engine.remove_items(rng.choice(live, dn, replace=False))
+        if kind == "update":
+            dn = int(rng.integers(1, 9))
+            fresh = data.ranking_query(dn, 20_000 + s)
+            engine.update_items(rng.choice(live, dn, replace=False), fresh["item_ids"][0],
+                                fresh["item_weights"][0])
+        if kind == "score":
+            lat.append(one_score(s))
+        counts[kind] += 1
+    assert engine.capacity == cap0, "slab doubled mid-demo"
+    assert len(set(per_score)) == 1, f"kernel launches per query changed with churn: {per_score}"
+    # the churned slab against one rebuilt from the host mirror
+    ctx = data.context_query(0)["context_ids"]
+    churned = engine.score(ctx)[0].cpu().numpy()
+    engine.refresh(engine.params, step=engine.model_step)
+    rebuilt = engine.score(ctx)[0].cpu().numpy()
+    assert np.allclose(churned, rebuilt, atol=1e-5, rtol=1e-5), \
+        "churned slab != a slab rebuilt from the same items"
+    print(f"churn demo ({dev.type}): {args.churn_ops} interleaved ops ({counts['add']} add / "
+          f"{counts['remove']} remove / {counts['update']} update / {counts['score']} score), "
+          f"{engine.n_items}/{engine.capacity} live slots at exit")
+    _report(f"churn, top{K}, {dev.type}", np.asarray(lat), counts["score"], args.items)
+    print(f"churn OK: every top-K live, kernel launches per query unchanged "
+          f"({per_score[0]}), churned slab scores as a rebuilt one (within 1e-5)")
+
+
+def _chaos_demo(args, engine, data, params, dev) -> None:
+    """A scripted fault storm through the self-healing frontend (module
+    docstring); every reply that succeeds is bitwise the fault-free one,
+    and every request resolves to a reply or a typed error."""
+    inj = FaultInjector(seed=args.seed)
+    engine.fault_injector = inj
+    k = 8
+    ctxs = [data.context_query(s)["context_ids"] for s in range(8)]
+    oracle = [_lone(engine, c, k) for c in ctxs]
+    fe = QueryFrontend(engine, max_batch=8, max_k=16, max_wait=args.max_wait_ms * 1e-3,
+                       retries=2, retry_backoff=1e-4, breaker_threshold=2,
+                       breaker_cooldown=0.05, fault_injector=inj)
+    fe.warmup(ctxs[0])
+    fe.start_pump(interval=1e-3, watchdog=0.25)
+
+    def serve(s):
+        got_v, got_i = fe.submit(ctxs[s], k=k).result()
+        assert np.array_equal(got_v, oracle[s][0]) and np.array_equal(got_i, oracle[s][1]), \
+            f"reply {s} not bitwise the fault-free one"
+
+    # 1. a transient dispatch fault: the same assembled batch re-dispatches
+    inj.arm("dispatch", count=1)
+    serve(0)
+    assert fe.stats["retries"] >= 1
+    print(f"chaos 1: transient dispatch fault retried ({fe.stats['retries']} retry), "
+          f"reply bitwise")
+
+    # 2. an outage: two spent retry budgets trip the breaker, which sheds
+    #    submits until the half-open probe succeeds
+    for i in (1, 2):
+        inj.arm("dispatch", count=fe.retries + 1)
+        try:
+            fe.submit(ctxs[i], k=k).result()
+            raise AssertionError("outage dispatch unexpectedly succeeded")
+        except DispatchFailed:
+            pass
+    try:
+        fe.submit(ctxs[3], k=k)
+        raise AssertionError("open breaker accepted a submit")
+    except Degraded:
+        print("chaos 2: breaker OPEN after 2 spent retry budgets -> fast Degraded shed")
+    time.sleep(fe.breaker_cooldown)
+    serve(3)
+    print("chaos 2: half-open probe served -> breaker CLOSED, reply bitwise")
+
+    # 3. a corrupt model push: rejected typed once while the last-good model
+    #    serves; a good push at the next step installs
+    with tempfile.TemporaryDirectory(prefix="serve_chaos_") as tmp:
+        mgr = CheckpointManager(tmp)
+        step0 = engine.model_step
+        push = (step0 or 0) + 1
+        mgr.save({"params": params}, step=push, blocking=True)
+        inj.corrupt_checkpoint(mgr.directory)
+        try:
+            fe.maybe_refresh(mgr, {"params": params}, select=lambda t: t["params"])
+            raise AssertionError("corrupt push was not rejected")
+        except RefreshFailed as e:
+            assert engine.model_step == step0
+            print(f"chaos 3: corrupt push REJECTED typed ({e}); still serving step {step0}")
+        serve(4)
+        mgr.save({"params": params}, step=push + 1, blocking=True)
+        assert fe.maybe_refresh(mgr, {"params": params}, select=lambda t: t["params"])
+    print(f"chaos 3: good push installed (step {engine.model_step}), replies bitwise")
+
+    # 4. a failed churn write: the probe fires before any state moves
+    upd = data.ranking_query(2, 70_000)
+    live = engine.valid_slots.copy()
+    inj.arm("write", count=1)
+    try:
+        fe.update_items(live[:2], upd["item_ids"][0], upd["item_weights"][0])
+        raise AssertionError("faulted churn write unexpectedly landed")
+    except InjectedFault:
+        pass
+    assert np.array_equal(engine.valid_slots, live)
+    serve(5)
+    print("chaos 4: churn write faulted -> corpus untouched, reply bitwise")
+
+    # 5. a stalled pump: the watchdog orphans it and starts a fresh one
+    inj.arm("pump", count=1, delay=0.6)
+    p = fe.submit(ctxs[6], k=k)
+    deadline = time.perf_counter() + 10.0
+    while fe.stats["pump_restarts"] < 1 and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    assert fe.stats["pump_restarts"] >= 1, "watchdog never restarted the pump"
+    got_v, got_i = p.result()
+    assert np.array_equal(got_v, oracle[6][0]) and np.array_equal(got_i, oracle[6][1])
+    print(f"chaos 5: pump stalled 0.6 s -> watchdog restarted it "
+          f"({fe.stats['pump_restarts']} restart), reply bitwise")
+
+    # 6. a kernel fault: retried through the same kernel, then typed once
+    #    the retries are spent; nothing degrades to another scorer
+    inj.arm("kernel", count=1)
+    serve(7)
+    inj.arm("kernel", count=fe.retries + 1)
+    try:
+        fe.submit(ctxs[7], k=k).result()
+        raise AssertionError("a spent kernel retry budget did not fail")
+    except DispatchFailed:
+        pass
+    assert not engine.kernel_degraded
+    assert not fe.health()["tenants"]["default"]["kernel_degraded"]
+    print("chaos 6: kernel fault retried (reply bitwise), then DispatchFailed once the "
+          "retries were spent; kernel_degraded False")
+
+    # 7. a seeded storm: every submitted request resolves
+    inj.clear()
+    inj.arm("dispatch", rate=0.2)
+    rng = np.random.default_rng(args.seed)
+    pend, shed = [], 0
+    for s in range(args.queries):
+        kq = int(next_pow2(int(rng.integers(1, 17))))
+        try:
+            pend.append(fe.submit(data.context_query(100 + s)["context_ids"], k=kq))
+        except Degraded:
+            shed += 1                    # breaker open mid-storm: a fast failure
+            time.sleep(fe.breaker_cooldown)
+    fe.drain()
+    inj.clear()
+    ok = failed = 0
+    for p in pend:
+        assert p.done(), "storm request never resolved"
+        try:
+            p.result()
+            ok += 1
+        except ServingError:
+            failed += 1
+    print(f"chaos 7: storm of {args.queries} requests at fault rate 0.2 -> {ok} served / "
+          f"{failed} typed failures / {shed} shed, 0 dropped")
+    h = fe.health()
+    assert h["ready"] and not h["closed"]
+    fe.close()
+    engine.fault_injector = None
+    print(f"chaos demo OK ({dev.type}): all recovery paths exercised")
+
+
+def _rpc_demo(args, cfg, params, data, dev) -> None:
+    """``--tenants`` corpora on one runtime, packed, behind the binary RPC
+    protocol on a loopback socket: a pipelined mixed-tenant client trace,
+    replies against direct frontend submission, typed error frames and a
+    graceful drain."""
+    rng = np.random.default_rng(args.seed)
+    T = max(args.tenants, 2)
+    runtime = ScorerRuntime(cfg, device=dev)
+    capacity = args.capacity or next_pow2(2 * args.items)
+    names = [f"t{i}" for i in range(T)]
+    states = {}
+    for i, name in enumerate(names):
+        c = data.ranking_query(args.items, 1000 + i)
+        states[name] = CorpusState(None, c["item_ids"][0], c["item_weights"][0],
+                                   capacity=capacity, runtime=runtime)
+        states[name].refresh(params, step=0)
+    max_k = max(args.topk or 10, 1)
+    # auto_pump=False: the server's event loop owns pump and resolve
+    fe = QueryFrontend(states, max_batch=args.fe_batch, max_k=max_k,
+                       max_wait=args.max_wait_ms * 1e-3, inflight=args.inflight,
+                       auto_pump=False, pack=True)
+    fe.warmup(data.context_query(0)["context_ids"], tenant="t0")
+    fe.warmup_packed(data.context_query(0)["context_ids"], tenant="t0")
+    server = serve_in_thread(fe, port=args.port)
+    print(f"rpc ({dev.type}): {T} tenants x {args.items} items (capacity {capacity}) on ONE "
+          f"ScorerRuntime, packed, listening on 127.0.0.1:{server.port}")
+
+    n = args.queries
+    ctxs = [data.context_query(s)["context_ids"] for s in range(n)]
+    ks = rng.integers(1, max_k + 1, n)
+    lanes = [names[int(rng.integers(T))] for _ in range(n)]
+    window = 16                          # pipelined frames per burst
+    lat, replies = [], {}
+    before = collections.Counter(ops.LAUNCHES)
+    try:
+        with RpcClient("127.0.0.1", server.port, timeout=60.0) as cli:
+            t_start = time.perf_counter()
+            sent = []
+            for s in range(n):
+                sent.append((s, cli.send_rank(ctxs[s], k=int(ks[s]), tenant=lanes[s]),
+                             time.perf_counter()))
+                if len(sent) >= window or s == n - 1:
+                    for si, rid, ti in sent:
+                        reply = cli.recv_for(rid)
+                        reply.raise_for_status()
+                        replies[si] = reply
+                        lat.append((time.perf_counter() - ti) * 1e3)
+                    sent = []
+            wall = time.perf_counter() - t_start
+            # typed error frames rebuild the taxonomy on the client
+            bad_k = cli.recv_for(cli.send_rank(ctxs[0], k=max_k + 90, tenant="t0"))
+            assert isinstance(bad_k.error, ValueError), bad_k.error
+            expired = cli.recv_for(cli.send_rank(ctxs[0], k=1, tenant="t0",
+                                                 deadline_rel=1e-9))
+            assert isinstance(expired.error, DeadlineExceeded), expired.error
+            assert expired.error.tenant == "t0"
+        launched = _kernels_ran(dev, before, ("dplr_corpus_score_multi", "embedding_bag"),
+                                "rpc demo")
+        # socket replies against direct submission (the server keeps pumping;
+        # a submit from here rides its ticks)
+        check = list(range(0, n, max(n // 16, 1)))
+        pend = [(s, fe.submit(ctxs[s], k=int(ks[s]), tenant=lanes[s])) for s in check]
+        for s, p in pend:
+            sc, sl = p.result()
+            assert np.array_equal(replies[s].scores, sc) and \
+                np.array_equal(replies[s].slots, sl), \
+                f"socket reply {s} != direct frontend submission"
+            _check_reply((replies[s].scores, replies[s].slots), states[lanes[s]], ctxs[s],
+                         int(ks[s]), f"socket reply {s}")
+    finally:
+        server.stop()                    # graceful drain, then loop teardown
+    st = server.stats
+    lat_a = np.asarray(lat)
+    print(f"  replies   : p50 {np.percentile(lat_a, 50):.2f}  p95 {np.percentile(lat_a, 95):.2f}"
+          f"  p99 {np.percentile(lat_a, 99):.2f} ms over the wire ({n / wall:.0f} rps "
+          f"pipelined x{window}, host clock); {len(check)} bitwise direct submission and "
+          f"lone calls")
+    print(f"  wire      : {st['requests']} requests, {st['replies']} ok, {st['errors']} typed "
+          f"error frames, {st['protocol_errors']} protocol errors; graceful drain ok; "
+          f"{fe.stats['fused_dispatches']} fused dispatches; launches {launched}")
+    fe.close()
 
 
 def _tenant_demo(args, cfg, params, data, dev) -> None:
@@ -115,21 +547,16 @@ def _tenant_demo(args, cfg, params, data, dev) -> None:
         pend.append(fe.submit(ctxs[s], k=int(ks[s]), tenant=lanes[s]))
     fe.drain()
     wall = time.perf_counter() - t0
-    # every reply live at delivery; equal to a lone call on its tenant's own
+    # every reply live at delivery; bitwise a lone call on its tenant's own
     # state for requests scored against the final corpus (the other tenants
-    # never churned, t0 after its last burst).  A lone call has Bq = 1 where
-    # the frontend batched: compare as the parity tests do.
+    # never churned, t0 after its last burst)
     checked = 0
     for s, p in enumerate(pend):
         sc, sl = p.result()
         assert states[lanes[s]].is_live(sl).all(), f"tenant {lanes[s]} reply: a dead slot"
         if lanes[s] != "t0" or s > last_churn:
-            wv, wi = states[lanes[s]].topk(np.asarray(ctxs[s]).reshape(1, -1), int(ks[s]))
-            wv, wi = wv[0].cpu().numpy(), wi[0].cpu().numpy()
-            assert np.allclose(sc, wv, atol=1e-5, rtol=1e-5), "tenant reply != lone call"
-            full = states[lanes[s]].score(np.asarray(ctxs[s]).reshape(1, -1))[0].cpu().numpy()
-            assert np.allclose(full[sl], wv, atol=1e-5, rtol=1e-5), \
-                "tenant reply ids != lone call, beyond ties"
+            _check_reply((sc, sl), states[lanes[s]], ctxs[s], int(ks[s]),
+                         f"tenant {lanes[s]} reply {s}")
             checked += 1
     # a tenant on the shared runtime against a dedicated engine: same shapes,
     # so bitwise equal
@@ -167,7 +594,8 @@ def _tenant_demo(args, cfg, params, data, dev) -> None:
           f"{len(churn_at)} t0 churn bursts")
     print(f"  warmup    : {warm_dispatches} dispatch on t0 alone, at the largest bucket")
     print(f"  replies   : p50 {np.percentile(lat, 50):.2f}  p95 {np.percentile(lat, 95):.2f} "
-          f"ms; {checked} checked (incl. vs a dedicated engine); per-tenant {per_tenant}")
+          f"ms; {checked} checked bitwise (incl. vs a dedicated engine); per-tenant "
+          f"{per_tenant}")
     print(f"  admission : 5x burst -> {accepted} accepted / {sheds} shed fast "
           f"(Overloaded), 0 deadline expiries")
 
@@ -188,10 +616,26 @@ def main(argv=None):
                     help="serve --tenants corpora on one shared ScorerRuntime through "
                          "the tenant-routed frontend")
     ap.add_argument("--tenants", type=int, default=4,
-                    help="tenant count for --tenant-demo (min 2)")
+                    help="tenant count for --tenant-demo and --rpc (min 2)")
     ap.add_argument("--capacity", type=int, default=0,
-                    help="--tenant-demo slab capacity (power of two; 0: 2x items, "
-                         "rounded up)")
+                    help="slab capacity (power of two; 0: items rounded up, 2x items "
+                         "under --churn-demo, --tenant-demo and --rpc)")
+    ap.add_argument("--frontend", action="store_true",
+                    help="a Poisson trace through the micro-batching frontend against "
+                         "synchronous per-query serving (p50/p95/p99 and QPS)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="--frontend offered load in qps (0: about 2x the synchronous "
+                         "per-query capacity)")
+    ap.add_argument("--churn-demo", action="store_true",
+                    help="interleave add/remove/update/score ops on the live corpus")
+    ap.add_argument("--churn-ops", type=int, default=1000,
+                    help="number of interleaved churn and score operations")
+    ap.add_argument("--chaos-demo", action="store_true",
+                    help="scripted faults through the self-healing frontend")
+    ap.add_argument("--rpc", action="store_true",
+                    help="serve --tenants corpora over the binary RPC protocol on a "
+                         "loopback socket and replay a pipelined client trace")
+    ap.add_argument("--port", type=int, default=0, help="--rpc listen port (0: ephemeral)")
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
                     help="frontend: max ms a queued request waits before a partial "
                          "batch dispatches")
@@ -207,8 +651,9 @@ def main(argv=None):
                     help="write a checkpoint with a shifted bias mid-stream and check "
                          "that the corpus engine swaps it in")
     args = ap.parse_args(argv)
-    if (args.topk or args.tenant_demo or args.refresh_demo) and args.engine != "corpus":
-        ap.error("--topk/--tenant-demo/--refresh-demo require --engine corpus")
+    demos = ("tenant_demo", "refresh_demo", "frontend", "churn_demo", "chaos_demo", "rpc")
+    if (args.topk or any(getattr(args, d) for d in demos)) and args.engine != "corpus":
+        ap.error("--topk and the demos require --engine corpus")
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -226,13 +671,23 @@ def main(argv=None):
     data = SyntheticCTR(cfg.layout, embed_dim=4, seed=args.seed)
     if args.tenant_demo:
         return _tenant_demo(args, cfg, params, data, dev)
+    if args.rpc:
+        return _rpc_demo(args, cfg, params, data, dev)
 
     lat = []
     if args.engine == "corpus":
         corpus = data.ranking_query(args.items, 0)
+        capacity = args.capacity or next_pow2(2 * args.items if args.churn_demo
+                                              else args.items)
         engine = CorpusRankingEngine(cfg, corpus["item_ids"][0], corpus["item_weights"][0],
-                                     capacity=next_pow2(args.items), device=dev)
+                                     capacity=capacity, device=dev)
         engine.refresh(params, step=mgr.latest_step() if mgr else None)
+        if args.chaos_demo:
+            return _chaos_demo(args, engine, data, params, dev)
+        if args.frontend:
+            return _frontend_demo(args, engine, data, dev)
+        if args.churn_demo:
+            return _churn_demo(args, engine, data, dev)
         refreshes, demo_pending, per_query = 0, False, []
         for s in range(args.queries):
             if args.refresh_demo and s == args.queries // 2:

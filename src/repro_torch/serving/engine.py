@@ -1,6 +1,5 @@
 """CorpusState: one tenant's mutable corpus behind a ScorerRuntime.
-Port of ``repro.serving.engine`` for one device (no mesh, no fault
-injector).
+Port of ``repro.serving.engine`` for one device (no mesh).
 
 The serving stack is three layers:
 
@@ -29,6 +28,23 @@ Mutable corpus: the slab is padded to a power-of-two ``capacity`` with a
 when the free-list runs dry the slab doubles.  ``on_mutate``, when set,
 is called before any mutation or refresh (a frontend's writer barrier).
 
+Faults: ``fault_injector`` (``repro_torch.serving.faults``) arms three
+sites.  ``write`` fires before the device write of ``add_items`` /
+``update_items`` / ``remove_items``, ``alloc`` before a slab doubles; a
+fired probe, like a failed write, leaves the host mirror, the free-list
+and the slab exactly as they were.  ``kernel`` fires before the scoring
+launch of ``score``, ``topk`` and ``fused_topk``.  Unlike the reference,
+the port does not degrade to another scorer when a launch fails: the
+error (an armed ``kernel`` probe's or a real one) reaches the caller,
+and a ``QueryFrontend`` re-dispatches the same batch through the same
+kernel until its retries are spent.  ``kernel_degraded`` exists, for
+``health()``, and is always False.
+
+The scoring dispatch of ``score``, ``topk`` and ``fused_topk`` runs inside
+``sanitize.scoring_guard``: under ``REPRO_SANITIZE=1`` on the card, a
+call in it that makes the host wait for the card raises.  The host to
+device copy of the contexts (``_ctx_tensors``) comes before the guard.
+
 Model refresh from training: ``maybe_refresh(manager, template, select)``
 polls a ``repro_torch.checkpoint.CheckpointManager`` (whose directory
 either package may have written) and installs a newer step; a corrupt
@@ -46,6 +62,7 @@ import torch
 from repro_torch.serving.corpus import ItemCorpusCache, next_pow2
 from repro_torch.serving.errors import NotReady, RefreshFailed
 from repro_torch.serving.runtime import ScorerRuntime
+from repro_torch.serving.sanitize import scoring_guard
 
 
 class CorpusState:
@@ -53,11 +70,13 @@ class CorpusState:
     every device computation goes through ``runtime``.
 
     ``item_ids`` / ``item_weights``: (n, n_item_slots) local item-side ids
-    and weights (numpy or tensors; weights default to ones)."""
+    and weights (numpy or tensors; weights default to ones).
+    ``fault_injector``: an optional ``FaultInjector`` for the ``write``,
+    ``alloc`` and ``kernel`` sites (settable later)."""
 
     def __init__(self, cfg, item_ids, item_weights=None, *,
                  capacity: int | None = None, device=None,
-                 runtime: ScorerRuntime | None = None):
+                 runtime: ScorerRuntime | None = None, fault_injector=None):
         if runtime is None:
             runtime = ScorerRuntime(cfg, device=device)
         else:
@@ -100,6 +119,9 @@ class CorpusState:
         self.last_refresh_error: str | None = None
         self._last_polled_sig: tuple | None = None
         self.on_mutate = None
+        self._injector = fault_injector
+        # health() reads it; the port never degrades to another scorer
+        self.kernel_degraded = False
 
     @property
     def cfg(self):
@@ -108,6 +130,19 @@ class CorpusState:
     @property
     def device(self) -> torch.device:
         return self.runtime.device
+
+    @property
+    def fault_injector(self):
+        """The attached ``FaultInjector`` (None when chaos is off)."""
+        return self._injector
+
+    @fault_injector.setter
+    def fault_injector(self, injector) -> None:
+        self._injector = injector
+
+    def _probe(self, site: str) -> None:
+        if self._injector is not None:
+            self._injector.check(site)
 
     # -- corpus introspection -----------------------------------------------
 
@@ -155,8 +190,9 @@ class CorpusState:
             self.on_mutate()
 
     def _scatter_rows(self, slots, ids, w) -> None:
-        # device first, host mirror second: a failed write leaves the host
-        # slab and liveness untouched
+        # device first, host mirror second: a failed write (or a fired
+        # 'write' probe) leaves the host slab and liveness untouched
+        self._probe("write")
         self.cache = self.runtime.write_rows(self.params, self.cache, slots, ids, w)
         self._slab_ids[slots] = ids
         self._slab_w[slots] = w
@@ -208,6 +244,7 @@ class CorpusState:
         self._begin_write()
         slots = np.asarray(indices, np.int64).reshape(-1)
         self._check_live(slots, "remove_items")
+        self._probe("write")
         self.cache = self.runtime.drop_rows(self.cache, slots)
         self._valid_np[slots] = False
         for s in slots:
@@ -222,7 +259,9 @@ class CorpusState:
 
     def _grow(self, min_extra: int) -> None:
         """Double the slab (at least) so that >= min_extra slots are free.
-        Every live slot keeps its number."""
+        Every live slot keeps its number.  A fired 'alloc' probe comes
+        before any state is touched."""
+        self._probe("alloc")
         old = self.capacity
         new = max(old * 2, next_pow2(old + min_extra))
         extra = new - old
@@ -321,7 +360,9 @@ class CorpusState:
         context slot ids; weights default to ones."""
         self._require_ready()
         ids, w = self._ctx_tensors(context_ids, context_weights)
-        return self.runtime.score(self.params, self.cache, ids, w)
+        self._probe("kernel")
+        with scoring_guard(self.device):
+            return self.runtime.score(self.params, self.cache, ids, w)
 
     def topk(self, context_ids, K: int, context_weights=None):
         """((Bq, K) scores, (Bq, K) int32 corpus slots), best first, ties to
@@ -332,7 +373,9 @@ class CorpusState:
             raise ValueError(f"topk K={K} out of range for corpus of "
                              f"{self.n_items} live items")
         ids, w = self._ctx_tensors(context_ids, context_weights)
-        return self.runtime.topk(self.params, self.cache, ids, w, K)
+        self._probe("kernel")
+        with scoring_guard(self.device):
+            return self.runtime.topk(self.params, self.cache, ids, w, K)
 
     def warmup_grid(self, context_ids, context_weights=None, *,
                     max_batch: int = 16, max_k: int = 16) -> int:
@@ -359,7 +402,9 @@ def fused_topk(states, context_ids, K: int, context_weights=None):
 
     ``states`` must share one ``ScorerRuntime`` and each be ready with
     ``K <= n_items``; ``context_ids``: (S, Bq, m_C_slots), one common Bq
-    (the frontend buckets before packing); weights default to ones."""
+    (the frontend buckets before packing); weights default to ones.  Each
+    state's ``kernel`` probe is checked before the launch; a fault fails
+    the whole pack, with no fallback."""
     states = tuple(states)
     if not states:
         raise ValueError("fused_topk needs at least one state")
@@ -378,8 +423,11 @@ def fused_topk(states, context_ids, K: int, context_weights=None):
                          f"got {tuple(ids.shape)}")
     w = (torch.ones(ids.shape, dtype=rt.wdtype, device=rt.device) if context_weights is None
          else torch.as_tensor(context_weights, dtype=rt.wdtype, device=rt.device))
-    return rt.multi_topk(tuple(st.params for st in states),
-                         tuple(st.cache for st in states), ids, w, K)
+    for st in states:
+        st._probe("kernel")
+    with scoring_guard(rt.device):
+        return rt.multi_topk(tuple(st.params for st in states),
+                             tuple(st.cache for st in states), ids, w, K)
 
 
 CorpusRankingEngine = CorpusState

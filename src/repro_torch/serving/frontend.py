@@ -64,9 +64,16 @@ What it keeps from the reference:
   the frontend's ``add_items``/``remove_items``/``update_items``/
   ``refresh``, which hold the frontend's lock across barrier and write.
 
-Left out of the port: the fault-injection hooks (``fault_injector``; the
-fault module is not ported yet), and ``health()``'s ``kernel_degraded``
-field (the port has no degraded kernel state).  Nothing here is traced, so there is no trace
+* Faults: ``fault_injector`` (``repro_torch.serving.faults``) arms the
+  ``dispatch`` probe (inside the retried call, so a fired dispatch is
+  retried like a failed launch), ``resolve`` (where a batch is read back;
+  the batch re-dispatches) and ``pump`` (in the pump thread, outside the
+  lock, so a stalled pump blocks nothing and the watchdog replaces it).
+  ``health()`` reports each lane's ``kernel_degraded``, which is always
+  False: the port re-dispatches through the same kernel and never falls
+  back to another scorer.
+
+Nothing here is traced, so there is no trace
 count and no shape grid to warm: a kernel's first launch at a shape costs
 what every later launch costs once its library is built and loaded.
 ``warmup``/``warmup_packed`` make one dispatch at the largest bucket, so
@@ -216,7 +223,7 @@ class _TenantLane:
     breaker (``closed`` -> ``open`` -> ``half_open`` -> ``closed``), the
     SWRR ``weight``/``credit`` and the optional QPS token bucket."""
 
-    __slots__ = ("name", "engine", "heap", "arrivals", "n_ctx", "stats",
+    __slots__ = ("name", "engine", "heap", "arrivals", "n_ctx", "ctx_vocab", "stats",
                  "breaker", "fails", "opened_at", "weight", "quota",
                  "tokens", "tok_t", "credit")
 
@@ -225,7 +232,11 @@ class _TenantLane:
         self.engine = engine
         self.heap: list = []                      # (deadline|inf, seq, req)
         self.arrivals: collections.deque = collections.deque()  # FIFO view
-        self.n_ctx = len(engine.cfg.layout.slots_of("context"))
+        ctx_layout = engine.cfg.layout.subset("context")
+        self.n_ctx = ctx_layout.n_slots
+        # each context slot's vocabulary size: submit refuses an id outside it
+        self.ctx_vocab = np.array([f.vocab_size for f in ctx_layout.fields],
+                                  np.int64)[ctx_layout.slot_to_field]
         self.stats = {"submitted": 0, "completed": 0, "shed": 0,
                       "failed": 0, "trips": 0, "quota_deferred": 0}
         self.breaker = "closed"                   # closed|open|half_open
@@ -255,7 +266,8 @@ class QueryFrontend:
     by default).  ``pressure_depth`` / ``pressure_k``: the K clamp (off by
     default).  ``autoscale_high``: slab occupancy mark (off by default).
     ``pack``: fused multi-tenant dispatch (off by default), at most
-    ``MAX_SEGMENTS`` tenants a launch.
+    ``MAX_SEGMENTS`` tenants a launch.  ``fault_injector``: the
+    ``dispatch``/``resolve``/``pump`` probes (None: off).
     """
 
     def __init__(self, engines, *, max_batch: int = 16, max_k: int = 16,
@@ -269,7 +281,7 @@ class QueryFrontend:
                  pressure_depth: int | None = None,
                  pressure_k: int | None = None,
                  autoscale_high: float | None = None,
-                 pack: bool = False):
+                 pack: bool = False, fault_injector=None):
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, got {max_batch}")
         if max_k < 1:
@@ -304,6 +316,7 @@ class QueryFrontend:
         self.pressure_depth = pressure_depth
         self.pressure_k = pressure_k
         self.autoscale_high = autoscale_high
+        self._injector = fault_injector
         self._rng = np.random.default_rng(0)     # retry jitter (seeded)
         self._closed = False
         self._lanes: dict[str, _TenantLane] = {}
@@ -416,7 +429,10 @@ class QueryFrontend:
         time after which the request fails rather than being served late.
         ``tenant``: its lane (optional with one tenant).  Non-blocking;
         raises ``Overloaded`` when admission sheds, ``Degraded`` while the
-        tenant's breaker is open, ``Unservable`` after ``close()``."""
+        tenant's breaker is open, ``Unservable`` after ``close()``, and
+        ``ValueError`` for a malformed request, including a context id
+        outside its field's vocabulary (unlike the reference, which takes
+        it: on the card the lookup would read outside the arena)."""
         with self._lock:
             if self._closed:
                 raise Unservable("frontend is closed", tenant=tenant)
@@ -425,6 +441,10 @@ class QueryFrontend:
             if ctx.shape[0] != lane.n_ctx:
                 raise ValueError(f"context has {ctx.shape[0]} slots, "
                                  f"layout expects {lane.n_ctx}")
+            bad = np.flatnonzero((ctx < 0) | (ctx >= lane.ctx_vocab))
+            if bad.size:
+                raise ValueError(f"context id {ctx[bad[0]]} at slot {bad[0]} outside "
+                                 f"[0, {lane.ctx_vocab[bad[0]]})")
             w = (np.ones(ctx.shape, np.float32) if context_weights is None
                  else np.asarray(context_weights, np.float32).reshape(-1))
             if w.shape != ctx.shape:
@@ -520,10 +540,16 @@ class QueryFrontend:
                     # and wait() releases it for the pause
                     self._retry_wait.wait(timeout=pause)
 
+    def _probe(self, site: str) -> None:
+        if self._injector is not None:
+            self._injector.check(site)
+
     def _launch(self, lane, ctx, w, k_pad):
         """Dispatch one assembled micro-batch of one tenant, with retries."""
-        return self._with_retries(lambda: lane.engine.topk(ctx, k_pad, w),
-                                  f"tenant {lane.name!r}: micro-batch dispatch",
+        def dispatch():
+            self._probe("dispatch")
+            return lane.engine.topk(ctx, k_pad, w)
+        return self._with_retries(dispatch, f"tenant {lane.name!r}: micro-batch dispatch",
                                   lane.name)
 
     # -- batching policy ----------------------------------------------------
@@ -869,10 +895,13 @@ class QueryFrontend:
         states = tuple([lane.engine for lane, _ in live_pairs]
                        + [live_pairs[-1][0].engine] * s_pad)
         names = tuple(lane.name for lane, _ in live_pairs)
+
+        def dispatch():
+            self._probe("dispatch")
+            return _PackedLaunch(*fused_topk(states, ctx, k_pad, w))
         try:
-            launch = self._with_retries(
-                lambda: _PackedLaunch(*fused_topk(states, ctx, k_pad, w)),
-                f"fused dispatch for tenants {names}", names[0])
+            launch = self._with_retries(dispatch, f"fused dispatch for tenants {names}",
+                                        names[0])
         except DispatchFailed as e:
             self._fail_all(live_pairs, e, now)
             return
@@ -893,6 +922,7 @@ class QueryFrontend:
         t_read = self.clock()
         lane = self._lanes.get(fl.tenant)
         try:
+            self._probe("resolve")
             if fl.launch is not None:
                 # a packed batch: the first member pays the one blocking
                 # read of the shared launch, the rest slice its host copy
@@ -1034,6 +1064,9 @@ class QueryFrontend:
                     return               # stopped, or the watchdog moved on
             self._pump_beat = time.monotonic()
             try:
+                # outside the lock: a stalled pump must not block submits,
+                # nor the watchdog that is about to replace it
+                self._probe("pump")
                 self.pump()
             except Exception as e:       # noqa: BLE001 - a lost tick, counted
                 self.stats["pump_errors"] += 1
@@ -1061,8 +1094,10 @@ class QueryFrontend:
         ``inflight_depth``, ``pump`` (running, restarts) and ``packing``
         (fused dispatches, segments, mean group).  Per tenant: breaker and
         consecutive failures, trips, weight, quota, queued, live items,
-        model step, seconds since the last refresh, and the last
-        ``maybe_refresh`` error (None when its last swap was clean)."""
+        model step, seconds since the last refresh, the last
+        ``maybe_refresh`` error (None when its last swap was clean), and
+        ``kernel_degraded`` (always False in the port: a failed launch is
+        retried through the same kernel, never replaced)."""
         with self._lock:
             now = time.monotonic()       # refresh stamps are time.monotonic
             lanes = {}
@@ -1081,6 +1116,7 @@ class QueryFrontend:
                     "model_step": eng.model_step,
                     "refresh_age": None if rt is None else now - rt,
                     "last_refresh_error": getattr(eng, "last_refresh_error", None),
+                    "kernel_degraded": bool(getattr(eng, "kernel_degraded", False)),
                 }
             pump = self._pump_thread
             fused = self.stats["fused_dispatches"]

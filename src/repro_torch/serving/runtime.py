@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import ranking as rk
 from repro_torch.core.dplr import DPLRParams
 from repro_torch.device import resolve_device
+from repro_torch.embedding.bag import prepare_lookups
 from repro_torch.kernels import ops as kops
 from repro_torch.models.recsys.fwfm import context_inputs
 from repro_torch.serving.corpus import (
@@ -37,6 +38,11 @@ from repro_torch.serving.corpus import (
     item_addend,
     next_pow2,
 )
+
+
+# Rows of the query side computed together (``ScorerRuntime._query``); the
+# frontend's largest default micro-batch and the kernels' query group.
+QUERY_BLOCK = 16
 
 
 class ScorerRuntime:
@@ -52,6 +58,9 @@ class ScorerRuntime:
         self.wdtype = cfg.dtype
 
     def build(self, params, slab_ids, slab_w, valid) -> ItemCorpusCache:
+        # the context lookup's static maps go to the device here, before
+        # any scoring dispatch: a copy inside one would wait for the card
+        prepare_lookups(self.cfg.layout.subset("context"), params["embedding"].device)
         return build_corpus_cache(params, self.cfg, slab_ids, slab_w, valid=valid)
 
     def rows(self, params, ids, w):
@@ -68,9 +77,28 @@ class ScorerRuntime:
         """The kernels' query side: P_C (Bq, rho, k) and the per-query
         addend a_C = bias + lin_C + s_C / 2 (Bq,).  The one place that
         forms a_C, so a tenant's rows of a packed launch round exactly as
-        its own ``topk`` does."""
-        P_C, s_C, lin_C = self.context(params, ctx_ids, ctx_w)
-        return P_C, (params["bias"] + lin_C + 0.5 * s_C).contiguous()
+        its own ``topk`` does.
+
+        Computed in blocks of exactly ``QUERY_BLOCK`` rows, the last padded
+        with copies of the batch's first row: cuBLAS and the reductions
+        choose their algorithm, and with it the order of a sum, by the
+        shape, so a row computed in a batch of 4 and alone differed in its
+        last bits (on the card at full width).  In fixed blocks a row's
+        bits do not depend on the batch it came in, and with the kernels'
+        row-independent scoring neither does a reply: the frontend's
+        micro-batching is invisible in the results."""
+        Bq = ctx_ids.shape[0]
+        pad = -Bq % QUERY_BLOCK
+        if pad:
+            ctx_ids = torch.cat([ctx_ids, ctx_ids[:1].expand(pad, -1)])
+            ctx_w = torch.cat([ctx_w, ctx_w[:1].expand(pad, -1)])
+        blocks = []
+        for lo in range(0, Bq + pad, QUERY_BLOCK):
+            P_C, s_C, lin_C = self.context(params, ctx_ids[lo:lo + QUERY_BLOCK],
+                                           ctx_w[lo:lo + QUERY_BLOCK])
+            blocks.append((P_C, params["bias"] + lin_C + 0.5 * s_C))
+        P_C, a_C = blocks[0] if len(blocks) == 1 else map(torch.cat, zip(*blocks))
+        return P_C[:Bq].contiguous(), a_C[:Bq].contiguous()
 
     def _kernel_score(self, params, cache, ctx_ids, ctx_w, K=None):
         P_C, a_C = self._query(params, ctx_ids, ctx_w)

@@ -1,5 +1,5 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
-eval, train, lm, timing and profile phases run at a tiny size with the plain versions (the
+wire, eval, train, lm, timing and profile phases run at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
@@ -24,6 +24,7 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              multi=(4, 2, 2048, 16), ragged=((300, 1000, 700), 2, 256),
              tenants=4, tenant_items=700, tenant_capacity=1024, tenant_bq=4,
              waves=3, warm_waves=1, profile_waves=1,
+             wire_requests=40, wire_conns=2, wire_window=3,
              bag_rows=(3, 500, 64), bag_ragged=33, pairs=((64, 12), (300, 12), (1, 39)),
              pair_small_b=5, pair_tiles=2, items_tiles=3, items_many=300,
              eval_n=600, eval_batch=256, parity=(3, 64), pruned_q=(2, 16),
@@ -61,7 +62,9 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     serve = chip_smoke.serving_phase(cpu, sz)
     assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
     assert "embedding_bag_kernel" in serve.launches
-    launches = chip_smoke.tenants_phase(cpu, sz, serve)
+    launches, tenants = chip_smoke.tenants_phase(cpu, sz, serve)
+    assert sum(launches.values()) == 0
+    launches = chip_smoke.wire_phase(cpu, sz, serve, tenants)
     assert sum(launches.values()) == 0
     launches = chip_smoke.eval_phase(cpu, sz, serve)
     assert set(launches) == {"embedding_bag_kernel", "fwfm_pairwise_kernel"}

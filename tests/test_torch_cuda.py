@@ -623,3 +623,85 @@ def test_cuda_prefill_and_decode_match_the_cpu(cuda):
                                    rtol=2e-4, atol=2e-4)
         assert cache_ratio(cache_g, cache_c) <= 1.0, t
     assert ops.LAUNCHES == {"flash_attention_kernel": cfg.n_layers}   # decode launches none
+
+
+@pytest.mark.cuda
+def test_cuda_scoring_guard_raises_on_a_sync_and_restores_the_mode(cuda, monkeypatch):
+    from repro_torch.serving import scoring_guard
+
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    mode = torch.cuda.get_sync_debug_mode()
+    x = torch.ones(3, device=cuda)
+    with pytest.raises(RuntimeError):
+        with scoring_guard(cuda):
+            x.sum().item()                     # waits for the card: refused
+    assert torch.cuda.get_sync_debug_mode() == mode
+    with scoring_guard(cuda):
+        y = x * 2                              # stays on the card: fine
+    assert y.sum().item() == 6.0
+
+
+@pytest.mark.cuda
+def test_cuda_topk_and_fused_topk_run_clean_inside_the_guard(cuda, monkeypatch):
+    """The Bq = 1 and batched ``topk`` and a packed ``fused_topk`` on fresh
+    states, under ``REPRO_SANITIZE=1``: no synchronising call in the
+    dispatch (the context lookup's static maps went to the card at
+    ``refresh``), and the replies equal the unguarded ones bitwise."""
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.embedding import bag
+    from repro_torch.models.recsys import fwfm
+    from repro_torch.serving import CorpusState, ScorerRuntime
+    from repro_torch.serving.engine import fused_topk
+
+    cfg = dplr_fwfm.make_smoke()
+    data = SyntheticCTR(cfg.layout, embed_dim=4, seed=0)
+    params = fwfm.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    bag._statics.cache_clear()                 # nothing primed before the states
+    rt = ScorerRuntime(cfg, device=cuda)
+    states = []
+    for i in range(3):
+        q = data.ranking_query(300, i)
+        states.append(CorpusState(None, q["item_ids"][0], q["item_weights"][0], runtime=rt))
+        states[-1].refresh(params)
+    ctx = np.concatenate([data.context_query(s)["context_ids"] for s in range(4)])
+    stacked = np.stack([ctx] * 3)
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    mode = torch.cuda.get_sync_debug_mode()
+    guarded = [states[0].topk(ctx[:1], 16), states[0].topk(ctx, 16),
+               fused_topk(states, stacked, 16)]
+    assert torch.cuda.get_sync_debug_mode() == mode
+    monkeypatch.delenv("REPRO_SANITIZE")
+    plain = [states[0].topk(ctx[:1], 16), states[0].topk(ctx, 16),
+             fused_topk(states, stacked, 16)]
+    for got, want in zip(guarded, plain):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_guard_catches_the_lookups_first_use_copy(cuda, monkeypatch):
+    """The sync the guard found on the dispatch path: a context lookup's
+    first call on a layout copies the layout's static maps from pageable
+    host memory, which waits for the card.  ``refresh`` primes them
+    (``prepare_lookups``); unprimed, the guarded dispatch raises."""
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.embedding import bag
+    from repro_torch.models.recsys import fwfm
+    from repro_torch.serving import CorpusState
+
+    cfg = dplr_fwfm.make_smoke()
+    data = SyntheticCTR(cfg.layout, embed_dim=4, seed=0)
+    q = data.ranking_query(300, 0)
+    st = CorpusState(cfg, q["item_ids"][0], q["item_weights"][0], device=cuda)
+    st.refresh(fwfm.init(torch.Generator(device=cuda).manual_seed(0), cfg))
+    ctx = data.context_query(0)["context_ids"]
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    st.topk(ctx, 8)                            # primed at refresh: clean
+    bag._statics.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            st.topk(ctx, 8)
+    finally:
+        bag.prepare_lookups(cfg.layout.subset("context"), st.params["embedding"].device)
+    st.topk(ctx, 8)

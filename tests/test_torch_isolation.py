@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no JAX
-and nothing of the JAX package, every module imports with JAX blocked, and
-asking for the card where there is none raises."""
+and nothing of the JAX package, every module imports (and serves, trains,
+and answers over the RPC server under an injected fault) with JAX blocked,
+and asking for the card where there is none raises."""
 import os
 import re
 import subprocess
@@ -55,6 +56,15 @@ fe.pump()
 fe.drain()
 assert fe.stats["fused_dispatches"] == 1
 assert all((p.result()[1] == ids.numpy()[0]).all() for p in pend)
+from repro_torch.serving import FaultInjector, RpcClient, serve_in_thread
+inj = FaultInjector(seed=0)
+fe = QueryFrontend(states, max_batch=1, max_k=5, auto_pump=False, fault_injector=inj)
+server = serve_in_thread(fe)
+inj.arm("dispatch", count=1)
+with RpcClient("127.0.0.1", server.port, timeout=30.0) as cli:
+    sc, sl = cli.rank(q["context_ids"], k=5, tenant="a")
+server.stop(timeout=30.0)
+assert (sl == ids.numpy()[0]).all() and inj.fired("dispatch") == 1
 import dataclasses
 from repro_torch.core.pruning import prune_matched
 from repro_torch.eval import harness
