@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one CUDA card,
-at the full ``dplr-fwfm`` width, and hold every kernel against its plain
-version.
+at the full ``dplr-fwfm`` width (and the training and ranking of the
+other recsys models and the LM's serving at theirs), and hold every
+kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -77,7 +78,19 @@ Phases, one line each:
    raising ``RefreshFailed`` once).  Step time split by CUDA events,
    checkpoint and refresh seconds, peak memory.  Kernel launches are
    counted over run A, the baseline's steps and the serving.
-9. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
+9. models: the rest of the recsys family, ``wide-deep``, ``autoint``,
+   ``bst`` and ``mind`` at ``make_config()`` (no cut; random weights from
+   a seed), one at a time, each freed before the next: step 1's loss and
+   gradients through the kernels against the plain path (plain bags,
+   autograd); two runs of 4 adagrad steps at B = 4,096, lr 0.05 on the JAX
+   trainer's batches (made in a process of their own from the start of
+   the script), bitwise equal (losses, and an int64 sum of each leaf's f32
+   bits for params and accumulator); ``rank_items`` at 1 x 512 (MIND also
+   at 1 x 1,000,000) against the plain path and against ``apply`` on the
+   same (context, item) rows, and its median latency over 50 queries.
+   Step time split by CUDA events, peak memory per arch.  Launches of
+   kernels 5 and 5' are counted over the steps and the timed queries.
+10. lm: gemma3-1b at full width (26 layers, d = 1152, random f32 weights
    from a seed, bf16 compute): a prefill of B = 2 prompts of 32,752
    tokens into a 32,768-slot cache through the flash-attention kernel
    (26 launches), the same prefill through the attention's plain version
@@ -86,7 +99,7 @@ Phases, one line each:
    the kernel prefill's cache, held against one pass over the same tokens
    at those positions on that cache.  Prefill seconds,
    decode ms a step (host clock, synchronized) and peak memory.
-10. timing: each kernel's median time over CUDA events, its plain
+11. timing: each kernel's median time over CUDA events, its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and flops over its f32 rate, or its bf16 tensor-core rate for
    flash attention); the top-K at each shape of ``topk_times`` (Bq, K and
@@ -99,7 +112,7 @@ Phases, one line each:
    ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
    mask); and each top-K shape's peak device memory (its scratch and
    outputs) beside the yardstick's.
-11. profile: with torch.profiler, the device time of a top-K call by CUDA
+12. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, the host's time to issue one (for the multi-tenant call, also
    without the wrapper's checks), and the device's idle share while the
    serving engine answers Bq = 1 queries.
@@ -128,7 +141,11 @@ vjp per table element.  Training: step 1's loss within ``1e-5 max(1,
 summed magnitude, every other gradient within ``1e-5`` of its tensor's
 largest entry; the kernel path's losses within ``1e-4 max(1, |loss|)`` of
 the plain path's over the run; ``posthoc_dplr``'s error on the card
-within 1% of the CPU's.  Top-K ids must equal the plain stable
+within 1% of the CPU's.  The models phase holds step 1 by the same rule
+(an arena row's size: the summed ``|w| |dL/d bag|`` of the slots naming
+it), ``rank_items`` within ``1e-5 max(1, |s|)`` of the plain path and
+within ``1e-4 + 1e-4 |s|`` of ``apply`` on the same rows (the JAX
+package's ``tests/test_ranking.py`` bound).  Top-K ids must equal the plain stable
 top-K's, except where the plain scores tie within that tolerance; planted
 exact ties must go to the lower slot.  Row [s] of the multi-tenant kernel
 must equal the single-tenant top-K kernel on segment s bitwise, and a
@@ -160,9 +177,12 @@ rounding of each term (``2^-8 size``, ``size`` the logit's summed
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
+import multiprocessing
 import math
 import os
 import re
@@ -185,6 +205,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import optim  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import dplr_fwfm, gemma3_1b  # noqa: E402
+from repro_torch.configs.registry import REGISTRY  # noqa: E402
 from repro_torch.core import ranking as rk  # noqa: E402
 from repro_torch.core.dplr import (  # noqa: E402
     DPLRParams,
@@ -196,7 +217,7 @@ from repro_torch.core.fields import FeatureLayout  # noqa: E402
 from repro_torch.core.interactions import dplr_pairwise, dplr_pairwise_explicit_d  # noqa: E402
 from repro_torch.core.pruning import matched_param_count, prune_matched  # noqa: E402
 from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
-from repro_torch.data.synthetic_ctr import SyntheticCTR  # noqa: E402
+from repro_torch.data.synthetic_ctr import SyntheticCTR, sample_ids  # noqa: E402
 from repro_torch.embedding import bag as field_lookups  # noqa: E402
 from repro_torch.embedding.bag import (  # noqa: E402
     item_arena_ids,
@@ -277,6 +298,13 @@ FULL = SimpleNamespace(
     # the bytes a corrupt copy of the newest checkpoint keeps
     train_batch=4096, train_steps=16, train_save=8, train_lr=0.05, base_steps=4,
     posthoc_rank=3, train_serve_bqs=(1, 16), truncate_bytes=64 << 20,
+    # models: the rest of the recsys family at make_config(), 4 adagrad steps
+    # a run at the JAX trainer's batch and lr, rank_items at serve_p99 (and
+    # MIND's retrieval_cand), queries a shape, apply's rows a chunk
+    models=("wide-deep", "autoint", "bst", "mind"), model_make="make_config",
+    model_batch=4096, model_steps=4, model_lr=0.05, model_queries=50,
+    model_ranks={"wide-deep": (512,), "autoint": (512,), "bst": (512,),
+                 "mind": (512, 1_000_000)}, model_apply_chunk=65_536,
 )
 
 BUILD = Path(__file__).resolve().parent / "build"
@@ -2065,7 +2093,299 @@ def serve_trained(dev, sz, serve, mgr, params, step: int, workdir: Path) -> dict
         f"answers from step {step} as before"))
 
 
-# -- phase 9: lm --------------------------------------------------------------
+# -- phase 9: models ----------------------------------------------------------
+
+def models_data(archs, make: str, batch: int, steps: int, seed: int = 0) -> dict:
+    """The JAX trainer's batches of steps 0 .. ``steps - 1`` for each arch
+    (``launch.train.build_recsys_trainer`` on ``REGISTRY[arch].<make>()``),
+    as numpy.  Their labels come from ``SyntheticCTR``'s teacher, whose
+    table at full width is ~2.3e9 normal draws over Wide&Deep, AutoInt and
+    BST, so ``main`` runs this in a process of its own from the start of
+    the script, beside the earlier phases."""
+    out = {}
+    for arch in archs:
+        cfg = getattr(REGISTRY[arch], make)()
+        _, make_batch = train.build_recsys_trainer(arch, cfg, batch, seed)
+        out[arch] = [make_batch(s) for s in range(steps)]
+    return out
+
+
+def rank_queries(arch: str, cfg, n: int, count: int, seed: int = 0) -> list:
+    """``count`` queries of ``n`` candidates, as numpy, shaped as
+    ``src/repro/launch/steps.py`` shapes them: a context and candidates of
+    Zipf ids (``sample_ids``, ``SyntheticCTR``'s draws); BST adds a
+    behaviour history of uniform item ids, its length uniform in [1, L]
+    (the rest masked), and has no item weights; MIND has a history and
+    candidates only, one candidate set (the first query's) for every
+    history."""
+    rng = np.random.default_rng((seed, 5))
+    lay = cfg.layout
+    item_vocab = lay.fields[-1].vocab_size
+    ctx_slots, item_slots = lay.slots_of("context"), lay.slots_of("item")
+    shared = None
+    out = []
+    for _ in range(count):
+        q = {}
+        if arch in ("bst", "mind"):
+            L = cfg.seq_len
+            q["hist_ids"] = rng.integers(0, item_vocab, (1, L)).astype(np.int32)
+            q["hist_mask"] = (np.arange(L) < rng.integers(1, L + 1)).astype(np.float32)[None]
+        if arch == "mind":
+            if shared is None:
+                shared = rng.integers(0, item_vocab, (1, n, 1)).astype(np.int32)
+            q["item_ids"] = shared
+        else:
+            ctx = sample_ids(lay, rng, 1)[:, ctx_slots]
+            items = sample_ids(lay, rng, n)[None][..., item_slots]
+            q.update(context_ids=ctx, context_weights=np.ones(ctx.shape, np.float32),
+                     item_ids=items)
+            if arch != "bst":
+                q["item_weights"] = np.ones(items.shape, np.float32)
+        out.append(q)
+    return out
+
+
+def pointwise_rows(arch: str, q: dict) -> dict:
+    """The (context, item) rows of a query on the device, as ``apply``
+    takes them (the reference's identity, ``tests/test_ranking.py``)."""
+    n = q["item_ids"].shape[1]
+    rows = {}
+    if arch in ("bst", "mind"):
+        rows.update(hist_ids=q["hist_ids"].expand(n, -1),
+                    hist_mask=q["hist_mask"].expand(n, -1))
+    if arch == "mind":
+        rows["target_id"] = q["item_ids"][0, :, 0]
+        return rows
+    ids = torch.cat([q["context_ids"].expand(n, -1), q["item_ids"][0]], dim=-1)
+    rows.update(ids=ids, weights=torch.ones(ids.shape, device=ids.device))
+    return rows
+
+
+@contextlib.contextmanager
+def plain_bags(calls: list | None = None):
+    """Inside, every ``ops.embedding_bag`` call (the field lookups and the
+    history, target, negative and candidate gathers) runs its plain
+    version, and appends ``(ids, weights, segments, out)`` to ``calls``
+    when given.  Raises if a kernel launched inside."""
+    kernel, before = ops.embedding_bag, dict(ops.LAUNCHES)
+
+    def plain(table, ids, weights, bags):
+        out = ref.embedding_bag_ref(table, ids, weights, bags.segments, bags.n_bags)
+        if calls is not None:
+            calls.append((ids, weights, bags.segments, out))
+        return out
+
+    ops.embedding_bag = plain
+    try:
+        yield
+    finally:
+        ops.embedding_bag = kernel
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("the plain path launched a kernel")
+
+
+def flat_items(tree, prefix=""):
+    """(path, leaf) of nested dicts, in ``tree_leaves``' (sorted) order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from flat_items(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", tree[k]
+
+
+def rebuild(tree, leaves):
+    """``tree``'s nested dicts with ``leaves`` in ``flat_items`` order."""
+    return {k: rebuild(tree[k], leaves) if isinstance(tree[k], dict) else next(leaves)
+            for k in sorted(tree)}
+
+
+def leaf_blocks(t, block: int = 1 << 26) -> list:
+    flat = t.reshape(-1)
+    return [flat[i:i + block] for i in range(0, flat.numel(), block)]
+
+
+def bit_sums(tree) -> list:
+    """An int64 sum of each leaf's f32 bits (sorted key order), block by
+    block, so that no leaf-sized temporary is made."""
+    return [sum(int(b.view(torch.int32).sum(dtype=torch.int64)) for b in leaf_blocks(leaf))
+            for _, leaf in flat_items(tree)]
+
+
+def named_rows(g, rows, what: str):
+    """``g``'s rows ``rows``; raises if any other row of ``g`` is nonzero.
+    Zeroes those rows of ``g``: a gradient that the caller drops."""
+    picked = g.index_select(0, rows)
+    g.index_fill_(0, rows, 0)
+    if any(int(torch.count_nonzero(b)) for b in leaf_blocks(g)):
+        raise AssertionError(f"{what}: a row no slot names has a gradient")
+    return picked
+
+
+def model_grad_checks(mod, cfg, params, batch, what: str) -> str:
+    """Step 1's loss and gradients through the kernels against the plain
+    path (plain bags, autograd), by the train phase's rule: the loss within
+    ``TOL * max(1, |loss|)``; each arena row that a lookup or gather names
+    within ``TOL * size``, ``size`` its terms' summed magnitude (``sum |w_s|
+    |dL/d bag(s)|`` over the slots naming it, from the plain path), every
+    other row exactly 0 on both; every other leaf within ``TOL *
+    max|plain|``.  The plain path runs first and its table gradient is cut
+    to the named rows before the kernel path runs, so that one arena-sized
+    gradient is alive at a time."""
+    names, leaves = zip(*flat_items(params))
+    live = [p.detach().requires_grad_() for p in leaves]
+    tree = rebuild(params, iter(live))
+    calls = []
+    with plain_bags(calls), torch.enable_grad():
+        plain_loss = mod.loss(tree, cfg, batch)
+        got = torch.autograd.grad(plain_loss, live + [c[3] for c in calls], allow_unused=True)
+    plain_loss = plain_loss.detach()
+    del live, tree
+    want = {n: (torch.zeros_like(p) if g is None else g)
+            for n, p, g in zip(names, leaves, got)}
+    k = params["embedding"].shape[1]
+    rows, inv = torch.unique(torch.cat([c[0].reshape(-1).long() for c in calls]),
+                             return_inverse=True)
+    terms = torch.cat([
+        (w.abs()[..., None] * (torch.zeros_like(out) if dV is None else dV.abs())
+         .index_select(-2, seg)).reshape(-1, k)
+        for (_, w, seg, out), dV in zip(calls, got[len(leaves):])])
+    size = torch.zeros((rows.numel(), k), device=terms.device).index_add_(0, inv, terms)
+    del calls, got, terms
+    want_rows = named_rows(want.pop("embedding"), rows, f"{what} plain path")
+    loss, grads = optim.value_and_grad(mod.loss)(params, cfg, batch)
+    check_close(loss, plain_loss, f"{what} step-1 loss")
+    grads = dict(flat_items(grads))
+    diff = (named_rows(grads.pop("embedding"), rows, what) - want_rows).abs()
+    if (diff > TOL * size).any():
+        raise AssertionError(f"{what}: d_embedding off, max |diff| {float(diff.max()):.3g}")
+    worst = 0.0
+    for name, g in grads.items():
+        err, scale = float((g - want[name]).abs().max()), float(want[name].abs().max())
+        if not err <= TOL * scale or not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: d_{name} off by {err:.3g} (max |d_{name}| "
+                                 f"{scale:.3g})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return (f"step 1 against the plain path: loss {float(loss):.6f} (plain "
+            f"{float(plain_loss):.6f}), d_embedding on {rows.numel()} named rows max |diff| "
+            f"{float(diff.max()):.3g}, {len(grads)} other leaves max |diff| / max|g| "
+            f"{worst:.3g}")
+
+
+def rank_checks(dev, sz, arch, mod, cfg, params, n: int) -> tuple[dict, str]:
+    """``rank_items`` on ``sz.model_queries`` queries of ``n`` candidates:
+    the first against the plain path (``TOL * max(1, |s|)``) and against
+    ``apply`` on the same (context, item) rows, in chunks of
+    ``sz.model_apply_chunk`` rows (rtol = atol = 1e-4, the reference's
+    ``tests/test_ranking.py``); then each timed (host clock ending in a
+    synchronise), the launches counted over these alone."""
+    queries = [train.to_device(q, dev) for q in rank_queries(arch, cfg, n, sz.model_queries)]
+    with torch.no_grad():
+        got = mod.rank_items(params, cfg, queries[0])
+        with plain_bags():
+            plain = mod.rank_items(params, cfg, queries[0])
+        if got.shape != (1, n):
+            raise AssertionError(f"{arch} rank_items: shape {tuple(got.shape)}")
+        err = check_close(got, plain, f"{arch} rank_items n={n} against plain")
+        rows = pointwise_rows(arch, queries[0])
+        step = sz.model_apply_chunk
+        point = torch.cat([mod.apply(params, cfg, {k: v[i:i + step] for k, v in rows.items()})
+                           for i in range(0, n, step)])
+        gap = (got[0] - point).abs()
+        if not torch.isfinite(got).all() or (gap > 1e-4 + 1e-4 * point.abs()).any():
+            raise AssertionError(f"{arch} rank_items n={n} leaves apply by "
+                                 f"{float(gap.max()):.3g}")
+        ops.reset_launches()
+        lat = []
+        for q in queries:
+            t0 = time.perf_counter()
+            mod.rank_items(params, cfg, q)
+            _sync(dev)
+            lat.append((time.perf_counter() - t0) * 1e3)
+    return launches_of(("embedding_bag",)), (
+        f"rank_items at 1 x {n}: median {np.median(lat):.3f} ms over {len(lat)} queries "
+        f"(host clock, synchronized), against plain max |diff| {err:.3g}, against apply on "
+        f"the same rows max |diff| {float(gap.max()):.3g}")
+
+
+def model_run(dev, sz, arch: str, batches: list) -> dict:
+    """One architecture at ``REGISTRY[arch].<sz.model_make>()``: step 1
+    against the plain path, two runs of ``len(batches)`` adagrad steps from
+    one seed bitwise equal (losses, and bit sums of params and
+    accumulator), then ``rank_items`` at each n of ``sz.model_ranks[arch]``
+    on the second run's params.  Returns its launches and its note."""
+    cfg = getattr(REGISTRY[arch], sz.model_make)()
+    mod = train.recsys_module(arch)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    init = lambda: mod.init(torch.Generator(device=dev).manual_seed(0), cfg)  # noqa: E731
+    t_arch = time.perf_counter()
+    params = init()
+    arena = tuple(params["embedding"].shape)
+    n_params = sum(t.numel() for _, t in flat_items(params))
+    notes = [model_grad_checks(mod, cfg, params, train.to_device(batches[0], dev), arch)]
+    optimizer = optim.adagrad()
+    timer = StepTimer(dev)
+    launches = collections.Counter()
+    runs = []
+    for run in range(2):
+        if run:
+            params = init()
+        state = optimizer.init(params)
+        ops.reset_launches()
+        # the pipeline makes a batch or two past the last step: served and dropped
+        losses, _ = run_steps(mod, cfg, optimizer, params, state,
+                              lambda s: batches[s % len(batches)], 0, len(batches),
+                              sz.model_lr, dev, timer=None if run else timer)
+        launches.update(launches_of(TRAIN_KERNELS))
+        runs.append((torch.stack(losses), bit_sums({"params": params, "opt": state})))
+        del state
+        if not run:
+            del params
+    (la, fa), (lb, fb) = runs
+    if not (torch.equal(la, lb) and fa == fb):
+        raise AssertionError(f"{arch}: two runs of {len(batches)} steps from one seed differ")
+    split = timer.medians()
+    for n in sz.model_ranks[arch]:
+        ranked, note = rank_checks(dev, sz, arch, mod, cfg, params, n)
+        launches.update(ranked)
+        notes.append(note)
+    if dev.type == "cuda" and not all(launches[g] for name in TRAIN_KERNELS
+                                      for g in ops.KERNELS[name]):
+        raise AssertionError(f"{arch}: a kernel was not launched: {dict(launches)}")
+    del params
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
+            else "not measured")
+    B = len(next(iter(batches[0].values())))
+    return dict(launches=launches, note=(
+        f"{arch}: {arena[0]} x {arena[1]} arena, {n_params} params; {notes[0]}; two runs of "
+        f"{len(batches)} adagrad steps at B={B} lr={sz.model_lr} bitwise equal (losses "
+        f"{float(la[0]):.5f} -> {float(la[-1]):.5f}, bit sums of params and accumulator); "
+        f"median step {split['step']:.3f} ms (forward {split['forward']:.3f}, backward "
+        f"{split['backward']:.3f}, update {split['update']:.3f}; "
+        f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}); {'; '.join(notes[1:])}; "
+        f"peak memory {peak}; {time.perf_counter() - t_arch:.1f} s; launches {dict(launches)}"))
+
+
+def models_phase(dev, sz, batches: dict) -> dict:
+    """Wide&Deep, AutoInt, BST and MIND, one at a time, each freed before
+    the next (``model_run``), on the batches of ``models_data``.  Returns
+    the launches of kernels 5 and 5' over their steps and timed queries."""
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    notes = []
+    for arch in sz.models:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out = model_run(dev, sz, arch, batches[arch])
+        launches.update(out["launches"])
+        notes.append(out["note"])
+    print(f"phase models: {' | '.join(notes)}; wall {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {dict(launches)}", flush=True)
+    return dict(launches)
+
+
+# -- phase 10: lm --------------------------------------------------------------
 
 LM_Q_CHUNK = 512   # the f32 reference prefill's query chunk (gqa_attention)
 
@@ -2228,7 +2548,7 @@ def lm_phase(dev, sz) -> dict:
     return launches
 
 
-# -- phase 10: timing ----------------------------------------------------------
+# -- phase 11: timing ----------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
     """``flash_attention_wgmma<256>`` from a mangled kernel name: the last
@@ -2718,7 +3038,20 @@ def main() -> None:
     print(f"phase card: {kind}; peaks {peaks[0] / 1e12:g} TB/s, {peaks[1] / 1e12:g} "
           f"TFLOP/s f32, {peaks[2] / 1e12:g} TFLOP/s bf16 tensor cores (dense); TF32 off",
           flush=True)
+    # the models phase's batches are made on the host beside the build and
+    # the phases before it, in a process of their own
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        model_batches = pool.submit(models_data, FULL.models, FULL.model_make,
+                                    FULL.model_batch, FULL.model_steps)
+        kernels = run_phases(dev, peaks, model_batches)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
 
+
+def run_phases(dev, peaks, model_batches) -> list:
+    """Every phase after the card's; returns the ``kernels`` line's rows."""
     t0 = time.perf_counter()
     built = _build.build_all()
     logs = []
@@ -2746,6 +3079,8 @@ def main() -> None:
         launches[g] = launches.get(g, 0) + count
     for g, count in train_phase(dev, FULL, serve).items():
         launches[g] = launches.get(g, 0) + count
+    for g, count in models_phase(dev, FULL, model_batches.result()).items():
+        launches[g] = launches.get(g, 0) + count
     launches.update(lm_phase(dev, FULL))
     rows = timing_phase(dev, FULL, peaks)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)
@@ -2758,9 +3093,7 @@ def main() -> None:
                             launches=sum(launches[g] for g in cuda_kernels),
                             cuda_launches={g: launches[g] for g in cuda_kernels},
                             max_abs_err=errs[name], **row))
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}))
+    return kernels
 
 
 if __name__ == "__main__":

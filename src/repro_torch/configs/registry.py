@@ -1,15 +1,17 @@
 """Architecture registry of the port.  Port of ``repro.configs.registry``,
-holding the entries the port can build: ``dplr-fwfm`` (recsys; trains
-and serves) and ``gemma3-1b`` (lm; serves, and its training raises until
-kernel 7 has a backward).  The JAX package registers each architecture
-in its config module; here the two entries are made below, so that the
-config modules stay free of the registry."""
+holding the entries the port can build: the recsys family ``dplr-fwfm``,
+``wide-deep``, ``autoint``, ``bst`` and ``mind`` (all train; all rank
+per call, ``dplr-fwfm`` also through the corpus engine) and ``gemma3-1b``
+(lm; serves, and its training raises until kernel 7 has a backward).
+The JAX package registers each architecture in its config module; here
+the entries are made below, so that the config modules stay free of the
+registry."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.configs import dplr_fwfm, gemma3_1b
+from repro_torch.configs import autoint, bst, dplr_fwfm, gemma3_1b, mind, wide_deep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +82,8 @@ register(ArchSpec(
     shapes=RECSYS_SHAPES,
     notes="the paper's own model; 'fwfm'/'fm' interactions are the baselines",
 ))
+
+for _name, _module in (("wide-deep", wide_deep), ("autoint", autoint), ("bst", bst),
+                       ("mind", mind)):
+    register(ArchSpec(name=_name, family="recsys", make_config=_module.make_config,
+                      make_smoke=_module.make_smoke, shapes=RECSYS_SHAPES))

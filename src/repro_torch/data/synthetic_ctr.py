@@ -24,6 +24,18 @@ import numpy as np
 from repro_torch.core.fields import FeatureLayout
 
 
+def sample_ids(layout: FeatureLayout, rng, batch: int, zipf_alpha: float = 1.3) -> np.ndarray:
+    """(batch, n_slots) int32 local ids, Zipf(``zipf_alpha``) per slot folded
+    into its field's vocabulary: ``SyntheticCTR``'s draws, which need no
+    teacher (so a caller can make queries without building one)."""
+    cols = []
+    for f in layout.fields:
+        for _ in range(f.multiplicity):
+            raw = rng.zipf(zipf_alpha, batch)
+            cols.append((raw - 1) % f.vocab_size)
+    return np.stack(cols, axis=1).astype(np.int32)
+
+
 @dataclasses.dataclass
 class SyntheticCTR:
     layout: FeatureLayout
@@ -61,14 +73,6 @@ class SyntheticCTR:
         # per-field Zipf id distribution (resampled into [0, vocab))
         self._rng = rng
 
-    def _sample_ids(self, rng, batch: int) -> np.ndarray:
-        cols = []
-        for f in self.layout.fields:
-            for _ in range(f.multiplicity):
-                raw = rng.zipf(self.zipf_alpha, batch)
-                cols.append((raw - 1) % f.vocab_size)
-        return np.stack(cols, axis=1).astype(np.int32)
-
     def logits(self, ids: np.ndarray, weights: np.ndarray) -> np.ndarray:
         """Teacher score for encoded rows (numpy reference)."""
         offs = self.layout.slot_offsets
@@ -85,7 +89,7 @@ class SyntheticCTR:
     def batch(self, batch_size: int, seed: int) -> dict:
         """Deterministic batch keyed by seed (host-shardable, replayable)."""
         rng = np.random.default_rng((self.seed, seed))
-        ids = self._sample_ids(rng, batch_size)
+        ids = sample_ids(self.layout, rng, batch_size, self.zipf_alpha)
         weights = np.ones_like(ids, np.float32)
         z = self.logits(ids, weights) / self.temperature
         p = 1.0 / (1.0 + np.exp(-z))
@@ -97,7 +101,7 @@ class SyntheticCTR:
         workload, where the item side is the engine's static corpus."""
         rng = np.random.default_rng((self.seed, 7, seed))
         ctx_slots = self.layout.slots_of("context")
-        ctx_ids = self._sample_ids(rng, 1)[:, ctx_slots]
+        ctx_ids = sample_ids(self.layout, rng, 1, self.zipf_alpha)[:, ctx_slots]
         return {
             "context_ids": ctx_ids,
             "context_weights": np.ones_like(ctx_ids, np.float32),
@@ -108,7 +112,7 @@ class SyntheticCTR:
         rng = np.random.default_rng((self.seed, 7, seed))
         ctx_slots = self.layout.slots_of("context")
         item_slots = self.layout.slots_of("item")
-        ids = self._sample_ids(rng, n_items)
+        ids = sample_ids(self.layout, rng, n_items, self.zipf_alpha)
         ctx_ids = ids[:1, ctx_slots]
         item_ids = ids[None, :, item_slots]
         return {

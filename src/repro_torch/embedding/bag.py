@@ -99,6 +99,24 @@ def lookup_item_embeddings(table, layout: FeatureLayout, ids, weights):
     return _lookup(table, _statics(layout, "item", str(table.device)), ids, weights)
 
 
+@functools.lru_cache(maxsize=None)
+def _one_slot(device: str) -> kops.BagMap:
+    return kops.bag_map(np.zeros(1, np.int64), 1, device)
+
+
+def gather_rows(table, ids):
+    """``(..., k)`` rows ``table[ids]`` for arena-global ``ids (...)``: the
+    JAX models' ``jnp.take(table, ids, axis=0)`` for a behaviour history,
+    a target or sampled negatives.  One ``kops.embedding_bag`` call with
+    one slot a bag and weight 1, which is bitwise the row; on the card its
+    gradient in the table is the backward kernel's fixed-order sum, so a
+    training step repeats bitwise (``index_put_`` with accumulation does
+    not promise an order there)."""
+    ids = ids[..., None].contiguous()
+    ones = torch.ones(ids.shape, dtype=table.dtype, device=table.device)
+    return kops.embedding_bag(table, ids, ones, _one_slot(str(table.device)))[..., 0, :]
+
+
 def lookup_linear_terms(table, layout: FeatureLayout, ids, weights):
     """(batch...,) first-order term <b, x> of the FM/FwFM model."""
     tab = table.reshape(-1)

@@ -3,6 +3,8 @@ corpus (or these N candidates) for this context" queries.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config full \
         --engine corpus|percall --items N --queries Q [--topk K] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch wide-deep|autoint \
+        [--engine percall] --items N --queries Q
     PYTHONPATH=src python -m repro_torch.launch.serve --tenant-demo --tenants N \
         --items N --queries Q [--fe-batch B --max-wait-ms W --inflight D --capacity C]
     PYTHONPATH=src python -m repro_torch.launch.serve [--ckpt-dir D] \
@@ -58,6 +60,14 @@ serves ``--tenants`` corpora (packed into one launch a round) over the
 binary wire protocol on a loopback socket (``--port``, 0: ephemeral) and
 replays a pipelined mixed-tenant client trace.
 
+``--arch`` (default ``dplr-fwfm``) picks the registry's recsys model.
+The corpus engine and the demos need ``dplr-fwfm``; ``wide-deep`` and
+``autoint`` rank per call (``--engine percall``, their default) through
+their ``rank_items``, as ``repro.launch.serve`` does.  ``bst`` and
+``mind`` raise ``ValueError``: their ``rank_items`` reads the user's
+behaviour history, and the driver's queries carry none (the JAX driver
+fails on the same query with ``KeyError: 'hist_ids'``).
+
 Where ``repro.launch.serve`` asserts that nothing retraced, these demos
 assert what the port can: every reply holds the live slots and is
 bitwise a lone call on its state (a reply does not depend on the
@@ -75,12 +85,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import dplr_fwfm
+from repro_torch.configs.registry import REGISTRY
 from repro_torch.data.synthetic_ctr import SyntheticCTR
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.recsys import fwfm
+from repro_torch.launch.train import recsys_module
 from repro_torch.serving.corpus import next_pow2
 from repro_torch.serving import (
     CorpusRankingEngine,
@@ -602,10 +612,13 @@ def _tenant_demo(args, cfg, params, data, dev) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="dplr-fwfm",
+                    choices=sorted(n for n, s in REGISTRY.items() if s.family == "recsys"))
     ap.add_argument("--config", default="smoke", choices=["smoke", "full"])
-    ap.add_argument("--engine", default="corpus", choices=["corpus", "percall"],
-                    help="corpus = precomputed item slab; percall = Algorithm 1 "
-                         "per query")
+    ap.add_argument("--engine", default=None, choices=["corpus", "percall"],
+                    help="corpus = precomputed item slab (dplr-fwfm, the default "
+                         "there); percall = the model's rank_items per query (the "
+                         "default for the other archs)")
     ap.add_argument("--items", type=int, default=512)
     ap.add_argument("--queries", type=int, default=100)
     ap.add_argument("--topk", type=int, default=0,
@@ -651,6 +664,15 @@ def main(argv=None):
                     help="write a checkpoint with a shifted bias mid-stream and check "
                          "that the corpus engine swaps it in")
     args = ap.parse_args(argv)
+    if args.arch in ("bst", "mind"):
+        raise ValueError(f"--arch {args.arch}: its rank_items needs the user's behaviour "
+                         f"history (query keys 'hist_ids', 'hist_mask'), and this driver's "
+                         f"queries (SyntheticCTR.ranking_query) carry none; the JAX serve "
+                         f"driver fails on the same query with KeyError: 'hist_ids'")
+    is_dplr = args.arch == "dplr-fwfm"
+    args.engine = args.engine or ("corpus" if is_dplr else "percall")
+    if args.engine == "corpus" and not is_dplr:
+        ap.error("--engine corpus requires a dplr model (--arch dplr-fwfm)")
     demos = ("tenant_demo", "refresh_demo", "frontend", "churn_demo", "chaos_demo", "rpc")
     if (args.topk or any(getattr(args, d) for d in demos)) and args.engine != "corpus":
         ap.error("--topk and the demos require --engine corpus")
@@ -659,8 +681,10 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    cfg = dplr_fwfm.make_smoke() if args.config == "smoke" else dplr_fwfm.make_config()
-    params = fwfm.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
+    spec = REGISTRY[args.arch]
+    cfg = spec.make_smoke() if args.config == "smoke" else spec.make_config()
+    mod = recsys_module(args.arch)
+    params = mod.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     mgr = None
     if args.ckpt_dir or args.refresh_demo:
         mgr = CheckpointManager(args.ckpt_dir or tempfile.mkdtemp(prefix="serve_refresh_demo_"))
@@ -739,13 +763,13 @@ def main(argv=None):
             q = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.ranking_query(args.items, s).items()}
             t0 = time.perf_counter()
-            scores = fwfm.rank_items(params, cfg, q)
+            scores = mod.rank_items(params, cfg, q)
             _sync(dev)
             lat.append((time.perf_counter() - t0) * 1e3)
             if s == 0:
                 top = torch.argsort(scores[0], descending=True, stable=True)[:3]
                 print(f"query 0: top-3 of {args.items} candidates -> {top.cpu().numpy()}")
-        tag = f"percall, {dev.type}"
+        tag = f"percall, {args.arch}, {dev.type}"
     _report(tag, np.asarray(lat[2:]), args.queries, args.items)
 
 

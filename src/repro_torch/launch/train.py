@@ -16,11 +16,13 @@
   * straggler mitigation: bounded prefetch (``data.pipeline``).
 
 A step is ``value_and_grad(mod.loss)`` and then the optimizer (adagrad
-for recsys), as ``repro.launch.train``'s.  On the card the loss runs the
-``embedding_bag`` kernel forward and its deterministic backward kernel
-for the field lookups, and the ``fwfm_pairwise`` kernel forward for a
-full-FwFM model.  The lm family raises: its loss needs kernel 7's
-backward, which is not written yet.
+for recsys), as ``repro.launch.train``'s, for every recsys architecture
+of the registry (``dplr-fwfm``, ``wide-deep``, ``autoint``, ``bst``,
+``mind``).  On the card the loss runs the ``embedding_bag`` kernel
+forward and its deterministic backward kernel for the field lookups and
+the history, target and negative gathers, and the ``fwfm_pairwise``
+kernel forward for a full-FwFM model.  The lm family raises: its loss
+needs kernel 7's backward, which is not written yet.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import optim
@@ -36,21 +39,51 @@ from repro_torch.configs.registry import REGISTRY
 from repro_torch.data.pipeline import ShardedPipeline
 from repro_torch.data.synthetic_ctr import SyntheticCTR
 from repro_torch.device import resolve_device
-from repro_torch.models.recsys import fwfm
+from repro_torch.models.recsys import autoint, bst, fwfm, mind, wide_deep
 
-_RECSYS_MODULES = {"dplr-fwfm": fwfm}
+_RECSYS_MODULES = {"dplr-fwfm": fwfm, "wide-deep": wide_deep, "autoint": autoint,
+                   "bst": bst, "mind": mind}
+
+
+def recsys_module(name: str):
+    """The model module of a recsys architecture of the registry."""
+    return _RECSYS_MODULES[name]
+
+
+def _histories(cfg, batch_size: int, seed: int, step: int, targets: bool) -> dict:
+    """The JAX trainer's behaviour histories for BST and MIND, and MIND's
+    targets and negatives: uniform item ids from
+    ``default_rng((seed, 3, step))``, drawn in its order."""
+    rng = np.random.default_rng((seed, 3, step))
+    item_vocab = cfg.layout.fields[-1].vocab_size
+    out = {
+        "hist_ids": rng.integers(0, item_vocab, (batch_size, cfg.seq_len)).astype(np.int32),
+        "hist_mask": np.ones((batch_size, cfg.seq_len), np.float32),
+    }
+    if targets:
+        out["target_id"] = rng.integers(0, item_vocab, batch_size).astype(np.int32)
+        out["neg_ids"] = rng.integers(0, item_vocab, (batch_size, cfg.n_neg)).astype(np.int32)
+    return out
 
 
 def build_recsys_trainer(arch_name: str, cfg, batch_size: int, seed: int):
     """(model module, ``make_batch(step) -> numpy batch``) on the JAX
-    trainer's data: ``SyntheticCTR`` with a rank-2 teacher, one batch per
-    (seed, step)."""
+    trainer's data, one batch per (seed, step): ``SyntheticCTR`` rows with
+    a rank-2 teacher, plus the histories of ``_histories`` for ``bst``;
+    for ``mind`` the histories, targets and negatives alone (the JAX
+    trainer builds a ``SyntheticCTR`` for it too and never reads it; at
+    full width that is ~4e8 normal draws, so none is built here)."""
     mod = _RECSYS_MODULES[arch_name]
+    if arch_name == "mind":
+        return mod, lambda step: _histories(cfg, batch_size, seed, step, targets=True)
     data = SyntheticCTR(cfg.layout, embed_dim=min(cfg.embed_dim, 8), teacher_rank=2,
                         seed=seed)
 
     def make_batch(step):
-        return data.batch(batch_size, step)
+        b = data.batch(batch_size, step)
+        if arch_name == "bst":
+            b.update(_histories(cfg, batch_size, seed, step, targets=False))
+        return b
 
     return mod, make_batch
 

@@ -43,6 +43,7 @@ from repro_torch.embedding.bag import (
     padded_rows,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.models.layers import logistic_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,14 +113,9 @@ def apply(params: dict, cfg: FwFMConfig, batch: dict,
 
 def loss(params: dict, cfg: FwFMConfig, batch: dict) -> torch.Tensor:
     logits = apply(params, cfg, batch)
-    y = batch["label"].to(logits.dtype)
     if cfg.task == "ctr":
-        # numerically stable binary cross-entropy on logits
-        per = (torch.clamp(logits, min=0) - logits * y
-               + torch.log1p(torch.exp(-torch.abs(logits))))
-    else:
-        per = (logits - y) ** 2
-    return per.mean()
+        return logistic_loss(logits, batch["label"])
+    return ((logits - batch["label"].to(logits.dtype)) ** 2).mean()
 
 
 def _check_context_first(layout: FeatureLayout) -> None:

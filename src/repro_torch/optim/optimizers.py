@@ -15,12 +15,22 @@ formula and its order of operations, so the two packages agree to the
 last bits or nearly: ``acc + g*g``, then ``p - (lr*g) / (sqrt(acc) + eps)``.
 ``torch.optim`` is not used: its Adagrad places ``eps`` and the initial
 accumulator differently.
+
+Each update runs over a leaf in blocks of at most ``BLOCK`` elements
+(``_blocks``), so that its temporaries (``g * g``, ``lr * g``,
+``sqrt(acc)``, ...) never take the size of a whole leaf: a full-width
+Wide&Deep arena is 16.3 GB, and two such temporaries beside the params,
+the accumulator and the gradient would not fit on an 80 GB card.  The
+operations are elementwise, so the result is bitwise the whole-leaf form.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+
+BLOCK = 1 << 26      # elements of a leaf updated at once (256 MiB of f32)
 
 
 class Optimizer(NamedTuple):
@@ -58,6 +68,29 @@ def apply_weight_decay(params, updates, weight_decay: float, lr):
     return tree_map(lambda u, p: u + weight_decay * lr * p, updates, params)
 
 
+def _blocks(*leaves):
+    """Matching flat views, at most ``BLOCK`` elements each, of tensors of
+    one shape (the whole tensors when they are no larger): an in-place
+    update of a view writes its leaf.  A larger leaf must be contiguous
+    (``view`` raises otherwise), as params, states and the lookups'
+    gradients are."""
+    n = leaves[0].numel()
+    if n <= BLOCK:
+        yield leaves
+        return
+    flat = [t.view(-1) for t in leaves]
+    for i in range(0, n, BLOCK):
+        yield [f[i:i + BLOCK] for f in flat]
+
+
+def _blockwise(fn):
+    """``fn`` over the matching blocks of its leaves."""
+    def run(*leaves):
+        for parts in _blocks(*leaves):
+            fn(*parts)
+    return run
+
+
 def _device(params) -> torch.device:
     leaves = tree_leaves(params)
     return leaves[0].device if leaves else torch.device("cpu")
@@ -72,10 +105,15 @@ def sgd(momentum: float = 0.0) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params, lr):
         if momentum == 0.0:
-            tree_map(lambda p, g: p.sub_(lr * g), params, grads)
+            tree_map(_blockwise(lambda p, g: p.sub_(lr * g)), params, grads)
             return params, state
-        tree_map(lambda m, g: m.mul_(momentum).add_(g), state["mom"], grads)
-        tree_map(lambda p, m: p.sub_(lr * m), params, state["mom"])
+
+        @_blockwise
+        def upd(p, m, g):
+            m.mul_(momentum).add_(g)
+            p.sub_(lr * m)
+
+        tree_map(upd, params, state["mom"], grads)
         return params, state
 
     return Optimizer(init, update)
@@ -96,18 +134,19 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             grads, _ = clip_by_global_norm(grads, clip_norm)
         state["t"].add_(1)
         t = state["t"].float()
-        tree_map(lambda m, g: m.mul_(b1).add_((1 - b1) * g), state["m"], grads)
-        tree_map(lambda v, g: v.mul_(b2).add_((1 - b2) * g * g), state["v"], grads)
         bc1 = 1 - b1 ** t
         bc2 = 1 - b2 ** t
 
-        def upd(p, m, v):
+        @_blockwise
+        def upd(p, m, v, g):
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
             step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if weight_decay:
                 step = step + weight_decay * p
             p.sub_(lr * step)
 
-        tree_map(upd, params, state["m"], state["v"])
+        tree_map(upd, params, state["m"], state["v"], grads)
         return params, state
 
     return Optimizer(init, update)
@@ -122,6 +161,7 @@ def adagrad(eps: float = 1e-10, init_acc: float = 0.1) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params, lr):
+        @_blockwise
         def upd(p, g, a):
             a.add_(g * g)
             p.sub_((lr * g).div_(torch.sqrt(a).add_(eps)))

@@ -153,3 +153,48 @@ def test_killed_run_resumes_bitwise(tmp_path):
     b = _train(tmp_path / "b", "--resume")
     assert b.returncode == 0 and "resumed from step" in b.stdout, b.stderr
     _same_npz(_npz(tmp_path / "a", 20), _npz(tmp_path / "b", 20))
+
+
+@pytest.mark.parametrize("arch", ["wide-deep", "mind"])
+def test_nested_model_checkpoints_cross_between_the_packages(tmp_path, arch):
+    """A smoke Wide&Deep (``deep/layer_i/{w,b}``) and a MIND (``b_init``),
+    each with its adagrad state after one update: the JAX manager's
+    checkpoint restored by the port's, and the port's (from its own
+    params and state) by the JAX one's, leaf for leaf, bitwise."""
+    from repro.configs import REGISTRY as JREGISTRY
+    from repro.models.recsys import mind as jmind
+    from repro.models.recsys import wide_deep as jwide_deep
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.launch.train import recsys_module
+
+    jmod = {"wide-deep": jwide_deep, "mind": jmind}[arch]
+    jparams = jmod.init(jax.random.PRNGKey(3), JREGISTRY[arch].make_smoke())
+    jopt = joptim.adagrad()
+    grads = jax.tree.map(lambda p: jnp.full_like(p, 0.25), jparams)
+    jparams, jstate = jopt.update(grads, jopt.init(jparams), jparams, 0.1)
+    jtree = {"params": jparams, "opt": jstate}
+    JManager(str(tmp_path / "jax")).save(jtree, 3, blocking=True)
+
+    mod, cfg = recsys_module(arch), REGISTRY[arch].make_smoke()
+    params = mod.init(torch.Generator().manual_seed(0), cfg)
+    template = {"params": params, "opt": optim.adagrad().init(params)}
+    restored, step = CheckpointManager(str(tmp_path / "jax")).restore(template, device="cpu")
+    assert step == 3
+    want = dict(_flat(jax.tree.map(np.asarray, jtree)))
+    got = dict(_flat(restored))
+    assert sorted(got) == sorted(want)
+    assert {"wide-deep": "params/deep/layer_0/w", "mind": "params/b_init"}[arch] in want
+    assert {"wide-deep": "opt/acc/deep/layer_0/w", "mind": "opt/acc/b_init"}[arch] in want
+    for k, v in want.items():
+        assert got[k].numpy().dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+
+    ours = {"params": params, "opt": template["opt"]}
+    CheckpointManager(str(tmp_path / "port")).save(ours, 5, blocking=True)
+    back, step = JManager(str(tmp_path / "port")).restore(jtree)
+    assert step == 5
+    mine = dict(_flat(ours))
+    for path, leaf in jax.tree_util.tree_flatten_with_path(back)[0]:
+        key = "/".join(p.key for p in path)
+        np.testing.assert_array_equal(np.asarray(leaf), mine[key].numpy(), err_msg=key)
+    assert len(jax.tree_util.tree_leaves(back)) == len(mine)

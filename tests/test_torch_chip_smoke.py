@@ -1,5 +1,6 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
-wire, eval, train, lm, timing and profile phases run at a tiny size with the plain versions (the
+wire, eval, train, models, lm, timing and profile phases run at a tiny
+size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
@@ -37,7 +38,11 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              flash_small=((1, 33, 2, 2, 8, None), (1, 50, 9, 1, 4, 5)),
              lm_batch=2, lm_prompt=21, lm_cache=24, lm_steps=3,
              train_batch=64, train_steps=4, train_save=2, train_lr=0.05, base_steps=2,
-             posthoc_rank=2, train_serve_bqs=(1, 3), truncate_bytes=1024)
+             posthoc_rank=2, train_serve_bqs=(1, 3), truncate_bytes=1024,
+             models=("wide-deep", "autoint", "bst", "mind"), model_make="make_smoke",
+             model_batch=64, model_steps=2, model_lr=0.05, model_queries=3,
+             model_ranks={"wide-deep": (40,), "autoint": (40,), "bst": (40,),
+                          "mind": (40, 300)}, model_apply_chunk=128)
 
 
 @pytest.fixture
@@ -73,6 +78,10 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert {"embedding_bag_kernel", "embedding_bag_backward_kernel", "fwfm_pairwise_kernel",
             "corpus_topk_chunks", "dplr_score_items_kernel"} <= set(launches)
     assert sum(launches.values()) == 0
+    batches = chip_smoke.models_data(sz.models, sz.model_make, sz.model_batch,
+                                     sz.model_steps)
+    launches = chip_smoke.models_phase(cpu, sz, batches)
+    assert launches == {"embedding_bag_kernel": 0, "embedding_bag_backward_kernel": 0}
     launches = chip_smoke.lm_phase(cpu, sz)
     assert set(launches) == {"flash_attention_kernel", "flash_attention_wgmma"}
     assert sum(launches.values()) == 0
@@ -86,12 +95,15 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
         assert all(row["host_issue_ms"] > 0 for row in rows[name]["shapes"])
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "tenants", "eval", "train", "lm", "timing", "profile"):
+    for phase in ("kernels", "serve", "tenants", "eval", "train", "models", "lm", "timing",
+                  "profile"):
         assert f"phase {phase}:" in out
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
     assert "n=2 m_I=38 Bq=300" in out and "Bq=3 misaligned" in out
     assert "pruned R" in out and "m=12 misaligned" in out and "alone bitwise" in out
     assert "bitwise run A's" in out and "raised RefreshFailed once" in out
+    assert out.count("adagrad steps at B=64 lr=0.05 bitwise equal") == 4
+    assert "rank_items at 1 x 300" in out
     assert rows["fwfm_pairwise"]["backward_plain_ms"] > 0
 
 

@@ -115,3 +115,32 @@ def test_gradient_accumulation_matches_the_full_batch_and_jax():
         _close(grads[k].numpy(), full[k].numpy())
         _close(grads[k].numpy(), jg[k])
     assert all(torch.equal(tparams[k], torch.from_numpy(params[k])) for k in params)
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_blocked_update_is_bitwise_the_whole_leaf_update(name, monkeypatch):
+    """A leaf larger than one block (``BLOCK`` cut to 4,096 elements, the
+    leaf 12,345 x 7, not a multiple of it) updated block by block: params
+    and state bitwise the whole-leaf update's, over 3 updates."""
+    from repro_torch.optim import optimizers
+
+    make, lr = OPTIMIZERS[name]
+    rng = np.random.default_rng(4)
+    params = {"embedding": rng.standard_normal((12_345, 7)).astype(np.float32),
+              "bias": np.asarray(0.3, np.float32)}
+    grads = [{k: np.asarray(rng.standard_normal(np.shape(v)) * 0.5, np.float32)
+              for k, v in params.items()} for _ in range(3)]
+    runs = []
+    for block in (1 << 26, 4096):
+        monkeypatch.setattr(optimizers, "BLOCK", block)
+        opt = make(optim)
+        tp = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+        ts = opt.init(tp)
+        for g in grads:
+            tp, ts = opt.update({k: torch.from_numpy(v) for k, v in g.items()}, ts, tp, lr)
+        runs.append(dict(_leaves({"params": tp, "state": ts})))
+    assert params["embedding"].size > 3 * 4096
+    whole, blocked = runs
+    assert sorted(whole) == sorted(blocked)
+    for key in whole:
+        assert torch.equal(whole[key], blocked[key]), key
