@@ -10,8 +10,9 @@ Phases, one line each:
 
 1. card: the ``nvidia-smi`` name and power limit; TF32 off.
 2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc (sm_90a);
-   fails if a kernel of ``dplr_corpus_score.cu``, ``dplr_score.cu`` or
-   ``fwfm_interaction.cu``, or ``flash_attention_wgmma``, spills registers.
+   fails if a kernel of ``dplr_corpus_score.cu``, ``dplr_score.cu``,
+   ``embedding_bag.cu`` or ``fwfm_interaction.cu``, or
+   ``flash_attention_wgmma``, spills registers.
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the shapes the serving and eval paths give it, plus ragged,
    all-dead and multi-hot edges; every top-K call also by C1 (below),
@@ -22,13 +23,30 @@ Phases, one line each:
    itself on a second call; kernel 6 with a
    general and a pruned R, m in (1, 2, 128) by k in (1, 3, 32), B at edges
    of its tile, a misaligned V, and a ragged slice of the full batch
-   bitwise equal to the full call's rows.
+   bitwise equal to the full call's rows.  In bf16: kernels 1-4 on a bf16
+   slab or V_I, each call bitwise the float32 kernels' call on the upcast
+   inputs, at the served shapes and the edges above (ragged, a dead tile,
+   K past 4,096, K = n, kernel 3's misaligned V_I, here 2 bytes off, and
+   k = 12), every top-K by C1; ``acc_dtype='bfloat16'`` on bf16 and f32
+   slabs against its plain version; kernel 5 on a bf16 table, bitwise on
+   one-hot layouts (and a misaligned table), within its bound multi-hot.
 4. serve: the full config (82 fields, k = 16, rho = 3, random weights from
    a seed) serving a 1,000,000-item corpus from a 2^20-slot slab: top-K
    and score queries, churn, a model refresh, and Algorithm 1 per call,
    each held against the plain path (whose field lookups are the plain
    embedding bag, so no check runs a kernel), and one top-65,536 query.  The launches of each CUDA
    kernel are counted over this phase alone.
+4b. serve-bf16: the same config, corpus and weights (cast to bf16, as
+   ``launch/serve.py --bf16`` casts them) served from a bf16 slab: top-K
+   and score queries at Bq = 1 and 16, one top-65,536, churn, a refresh
+   from a float32 checkpoint through ``maybe_refresh``, one packed wave of
+   16 tenants and Algorithm 1 per call, each held against the plain path;
+   the Bq = 1 top-16 median beside the float32 engine's on the same
+   corpus, and how many of its top-16 ids the bf16 engine keeps.  Every
+   bf16 kernel must launch over the phase and no float32 instantiation of
+   kernels 1-5 may; a Bq = 1 top-K call must hold less memory than half a
+   float32 copy of the slab.  The bf16 rows of the ``kernels`` line count
+   their launches over this phase.
 5. tenants: the same config and weights serving 16 tenants on one
    ScorerRuntime, each 62,500 items of the serve phase's corpus in a
    65,536-slot slab, through ``QueryFrontend(pack=True)`` (one fused
@@ -99,7 +117,9 @@ Phases, one line each:
    the kernel prefill's cache, held against one pass over the same tokens
    at those positions on that cache.  Prefill seconds,
    decode ms a step (host clock, synchronized) and peak memory.
-11. timing: each kernel's median time over CUDA events, its plain
+11. timing: each kernel's median time over CUDA events (the bf16
+   instantiations of kernels 1-5 beside their float32 rows, on the same
+   inputs in bf16, and the ``acc_dtype='bfloat16'`` mode), its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and flops over its f32 rate, or its bf16 tensor-core rate for
    flash attention); the top-K at each shape of ``topk_times`` (Bq, K and
@@ -147,7 +167,24 @@ it), ``rank_items`` within ``1e-5 max(1, |s|)`` of the plain path and
 within ``1e-4 + 1e-4 |s|`` of ``apply`` on the same rows (the JAX
 package's ``tests/test_ranking.py`` bound).  Top-K ids must equal the plain stable
 top-K's, except where the plain scores tie within that tolerance; planted
-exact ties must go to the lower slot.  Row [s] of the multi-tenant kernel
+exact ties must go to the lower slot.
+
+bf16: kernels 1-4 on bf16 inputs with ``acc_dtype='float32'`` must be
+bitwise their float32 launch on the upcast inputs (the upcast is exact and
+the arithmetic after it the same), so C1 and the float32 tolerances above
+carry over.  ``acc_dtype='bfloat16'`` rounds each square, each e_r and the
+sum to bf16: within ``2^-8 * term + 1e-5 * max(1, size)`` of its plain
+version (``term`` = sum_r |e_r| ||P_C + Q_I||^2: two sums of the same
+exact products in other orders may round to neighbouring bf16 values, half
+a term's ulp apart; the reference's 5e-2 holds only at test sizes, where a
+term is small).  Kernel 5 in bf16 rounds each product and add to bf16:
+bitwise the plain version on one-hot layouts; on a bag of m slots bitwise
+``ref.embedding_bag_in_order`` (its own order) and within ``2^-7 (m - 1)
+sum |w row|`` of the plain version, whose atomics add in another order
+(each add rounds by at most 2^-8, bf16's unit roundoff, of the sum so
+far).  The serve-bf16 phase's answers against
+the plain path are held by the float32 rules: its query side is computed
+by the same code in both, so only the scorer's order differs.  Row [s] of the multi-tenant kernel
 must equal the single-tenant top-K kernel on segment s bitwise, and a
 packed reply the unpacked one.
 
@@ -228,6 +265,7 @@ from repro_torch.eval import harness  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
+from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
@@ -346,6 +384,10 @@ KERNEL_ROWS = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:124"),
 }
+# the bf16 instantiations replace the same TPU kernels, which take bf16 too
+KERNEL_ROWS.update({f"{name}_bf16": KERNEL_ROWS[name] for name in (
+    "dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items", "dplr_corpus_score_multi",
+    "embedding_bag")})
 
 
 # -- checks -----------------------------------------------------------------
@@ -590,10 +632,17 @@ def kernel_checks(dev, sz) -> dict:
     notes += more
     errs["flash_attention"], more = flash_checks(dev, sz, gen)
     notes += more
+    bf16_corpus_checks(dev, sz, errs, notes)
+    bf16_multi_checks(dev, sz, errs, notes)
+    bf16_items_checks(dev, sz, errs, notes)
+    bf16_bag_checks(dev, sz, errs, notes)
     print(f"phase kernels: all within {TOL:g} x max(1, |s|) (embedding_bag: bitwise on "
-          f"one-hot layouts, 1e-6 x sum |w row| on multi-hot; flash_attention: "
+          f"one-hot layouts, 1e-6 x sum |w row| on multi-hot, in bf16 2^-7 (m - 1) "
+          f"sum |w row| for a bag of m slots; flash_attention: "
           f"{FLASH_TOL[torch.float32]:g} max|v| in f32, 2^-7 max|v| and per element "
-          f"2^-7 (|o| + sum p|v|/l) + 1e-5 max|v| in bf16); max |diff| "
+          f"2^-7 (|o| + sum p|v|/l) + 1e-5 max|v| in bf16; kernels 1-4 on bf16 inputs "
+          f"bitwise their f32 launch on the upcast inputs, acc_dtype='bfloat16' within "
+          f"{BF16_ACC_ULP:g} x term + {TOL:g} x max(1, size)); max |diff| "
           + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + "; " + ", ".join(notes), flush=True)
     return errs
@@ -1020,6 +1069,267 @@ def flash_checks(dev, sz, gen) -> tuple[float, list]:
     return err, ["flash_attention max |diff| " + ", ".join(notes)]
 
 
+# -- phase 3, bf16: kernels 1-5 on a bf16 slab, V_I or table -----------------
+
+# One rounding of the rank-space sum to bf16, relative: acc_dtype='bfloat16'
+# rounds the sum of its exact products once, and two sums of them in other
+# orders may round to neighbouring bf16 values, half a score's term apart.
+BF16_ACC_ULP = 2.0**-8
+
+
+def to_bf16(*tensors):
+    return tuple(t.to(torch.bfloat16) for t in tensors)
+
+
+def same_bits(got, want, what: str) -> None:
+    """``got`` bit for bit ``want``: float32 scores compared as int32 (so
+    -0.0 differs from 0.0), ids as they are; tuples entry by entry."""
+    if isinstance(got, tuple):
+        for j, (g, w) in enumerate(zip(got, want)):
+            same_bits(g, w, f"{what} [{j}]")
+        return
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
+                             f"{tuple(want.shape)}")
+    view = (lambda t: t.contiguous().view(torch.int32)) if got.dtype == torch.float32 \
+        else (lambda t: t)
+    if not torch.equal(view(got), view(want)):
+        raise AssertionError(f"{what}: not bitwise the float32 kernels' call on the upcast "
+                             f"inputs")
+
+
+def bf16_corpus_checks(dev, sz, errs: dict, notes: list) -> None:
+    """Kernels 1 and 2 on a bf16 slab (``Q_I``, ``a_I``, and ``e``, ``P_C``,
+    ``a_C`` in bf16 too, which the wrapper upcasts): every call bitwise the
+    float32 kernels' call on the upcast tensors, every top-K by C1 against
+    the bf16 kernel 1's scores, and against the plain version within
+    ``check_close``: at the served shapes (``sz.n``, each Bq of ``sz.bqs``,
+    each K of ``sz.ks`` and ``sz.big_ks``, planted ties and a dead chunk),
+    the n = ``edge_n`` edge with a dead tile, and K = n (``sz.large``).  Then
+    ``acc_dtype='bfloat16'`` on the bf16 slab and on its float32 copy,
+    within ``BF16_ACC_ULP * term + TOL * max(1, size)`` of its plain version
+    (``term``: sum_r |e_r| ||P_C + Q_I||^2), its top-K by C1.  Their own
+    generator, so that the other kernels' inputs stay as they were."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bq_max = max(sz.bqs)
+    Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, sz.n, sz.live, bq_max, sz.rho, sz.k, gen)
+    plant(Q, a_I, valid)
+    Q16, a16, e16, P16, ac16 = to_bf16(Q, a_I, e, P_C, a_C)
+    del Q, a_I
+    Qu, au, eu, Pu, acu = (t.float() for t in (Q16, a16, e16, P16, ac16))
+    for Bq in sz.bqs:
+        b16 = (Q16, a16, e16, P16[:Bq], ac16[:Bq], valid)
+        up = (Qu, au, eu, Pu[:Bq], acu[:Bq], valid)
+        got = ops.dplr_corpus_score(*b16)
+        _sync(dev)
+        same_bits(got, ops.dplr_corpus_score(*up), f"bf16 full Bq={Bq}")
+        full = ref.dplr_corpus_score_ref(*b16)
+        errs["dplr_corpus_score_bf16"] = max(errs["dplr_corpus_score_bf16"],
+                                             check_close(got, full, f"bf16 full Bq={Bq}"))
+        order = ranked(got)
+        for K in sz.ks + sz.big_ks:
+            what = f"bf16 topk Bq={Bq} K={K}"
+            vals, ids = topk_exact(b16, K, what, order, index_offset=3, index_stride=4)
+            same_bits((vals, ids), ops.dplr_corpus_score(*up, topk=K, index_offset=3,
+                                                         index_stride=4), what)
+            errs["dplr_corpus_topk_bf16"] = max(errs["dplr_corpus_topk_bf16"], check_topk(
+                vals, ids, full, K, what, offset=3, stride=4)[0])
+        del got, full, order
+
+    # acc_dtype='bfloat16' at Bq = bq_max, on the bf16 slab and its f32 copy
+    P = Pu[:, None] + Qu[None]
+    term = torch.einsum("qnrk,r->qn", P * P, eu.abs())
+    del P
+    size = acu.abs()[:, None] + au.abs()[None] + 0.5 * term
+    bound = BF16_ACC_ULP * term + TOL * torch.clamp(size, min=1.0)
+    del size, term
+    worst = []
+    for slab, args in (("bf16", (Q16, a16, e16, P16, ac16, valid)),
+                       ("f32", (Qu, au, eu, Pu, acu, valid))):
+        got = ops.dplr_corpus_score(*args, acc_dtype="bfloat16")
+        want = ref.dplr_corpus_score_ref(*args, acc_dtype="bfloat16")
+        _sync(dev)
+        ratio = float(((got - want).abs() / bound).max())
+        if not torch.isfinite(got).all() or ratio > 1.0:
+            raise AssertionError(f"acc_dtype='bfloat16' on a {slab} slab: {ratio:.3f} of the "
+                                 f"bound {BF16_ACC_ULP:g} x term + {TOL:g} x max(1, size)")
+        order = ranked(got)
+        for K in (16, 4097):
+            topk_exact(args, K, f"acc bf16 {slab} slab topk K={K}", order, acc_dtype="bfloat16")
+        worst.append(f"{slab} slab max |diff| {float((got - want).abs().max()):.3g} "
+                     f"({ratio:.3f} of the bound)")
+        del got, want, order
+    del bound, Qu, Q16
+    notes.append("bf16 slab: kernels 1-2 bitwise the f32 launch on the upcast inputs at "
+                 f"Bq={list(sz.bqs)} K={list(sz.ks + sz.big_ks)} (C1 each); "
+                 "acc_dtype='bfloat16' within one bf16 rounding of the term: "
+                 + ", ".join(worst) + ", top-K by C1")
+
+    # edge: n = edge_n (ragged last tile), one 128-slot tile all dead; K = n
+    Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, sz.edge_n, sz.edge_n, 3, sz.rho, sz.k, gen)
+    valid[128:256] = False
+    b16 = (*to_bf16(Q, a_I, e, P_C, a_C), valid)
+    up = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in b16)
+    got = ops.dplr_corpus_score(*b16)
+    same_bits(got, ops.dplr_corpus_score(*up), "bf16 full edge")
+    same_bits(topk_exact(b16, 7, "bf16 topk edge", got), ops.dplr_corpus_score(*up, topk=7),
+              "bf16 topk edge")
+    if sz.large is not None:
+        n_l, bq_l = sz.large
+        Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, n_l, n_l * 6 // 7, bq_l, sz.rho, sz.k,
+                                                   gen)
+        b16 = (*to_bf16(Q, a_I, e, P_C, a_C), valid)
+        up = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in b16)
+        same_bits(topk_exact(b16, n_l, f"bf16 topk K=n={n_l}", ops.dplr_corpus_score(*b16)),
+                  ops.dplr_corpus_score(*up, topk=n_l), f"bf16 topk K=n={n_l}")
+    notes.append(f"bf16 edge n={sz.edge_n} (a dead tile) and K=n bitwise, by C1")
+
+
+def bf16_multi_checks(dev, sz, errs: dict, notes: list) -> None:
+    """Kernel 4 on bf16 slabs: bitwise its float32 launch on the upcast
+    slabs, each row by C1 against the bf16 kernel 1 on its segment and
+    against the plain version; S equal segments with planted ties, then the
+    ragged masked case; with ``acc_dtype='bfloat16'`` (equal case) each row
+    bitwise the single-segment kernel's."""
+    S, Bq, n_s, K = sz.multi
+    ns, Bq2, K2 = sz.ragged
+    gen = torch.Generator(device=dev).manual_seed(11)
+    stack = lambda ps: ((tuple(p[0] for p in ps), tuple(p[1] for p in ps),  # noqa: E731
+                         tuple(p[5] for p in ps))
+                        + tuple(torch.stack([p[j] for p in ps]) for j in (2, 3, 4)))
+    for case, (ns_, Bq_, K_) in (("equal", ((n_s,) * S, Bq, K)), ("ragged", (ns, Bq2, K2))):
+        parts, _ = multi_inputs(dev, ns_, ns_, Bq_, sz.rho, sz.k, gen)
+        for s, p in enumerate(parts):
+            if case == "equal":
+                plant(p[0], p[1], p[5])
+            else:
+                p[5].copy_(torch.rand(ns_[s], generator=gen, device=dev) > (0.6 if s == 0
+                                                                            else 0.25))
+        p16 = [(*to_bf16(*p[:5]), p[5]) for p in parts]
+        pup = [tuple(t.float() if t.dtype == torch.bfloat16 else t for t in p) for p in p16]
+        del parts
+        vals, ids = ops.dplr_corpus_score_multi(*stack(p16), topk=K_)
+        _sync(dev)
+        same_bits((vals, ids), ops.dplr_corpus_score_multi(*stack(pup), topk=K_),
+                  f"bf16 multi {case}")
+        for s, p in enumerate(p16):
+            check_exact(vals[s], ids[s], ops.dplr_corpus_score(*p), K_,
+                        f"bf16 multi {case} segment {s}")
+            errs["dplr_corpus_score_multi_bf16"] = max(
+                errs["dplr_corpus_score_multi_bf16"],
+                check_topk(vals[s], ids[s], ref.dplr_corpus_score_ref(*p), K_,
+                           f"bf16 multi {case} segment {s}")[0])
+        if case == "equal":
+            vals, ids = ops.dplr_corpus_score_multi(*stack(p16), topk=K_, acc_dtype="bfloat16")
+            for s, p in enumerate(p16):
+                same_bits((vals[s], ids[s]), ops.dplr_corpus_score(*p, topk=K_,
+                                                                   acc_dtype="bfloat16"),
+                          f"acc bf16 multi segment {s}")
+        del p16, pup
+    notes.append(f"bf16 multi S={S} Bq={Bq} K={K} and ragged: bitwise the f32 launch on the "
+                 f"upcast slabs, rows by C1; acc bf16 rows bitwise the single segment's")
+
+
+def bf16_items_checks(dev, sz, errs: dict, notes: list) -> None:
+    """Kernel 3 on a bf16 V_I (and bf16 small operands, which the wrapper
+    upcasts): bitwise the float32 kernel's call on the upcast tensors, and
+    within ``check_close`` of the plain version (size-scaled at rho k = 128
+    and m_I = 200), at the served shapes (``sz.n3``, each Bq of
+    ``sz.bq3s``), n one past a multiple of the tile, k = 12 (rows not whole
+    16-byte pieces: the plain-load branch), a V_I 2 bytes off a 4-byte
+    boundary, m_I = 200 (two chunks of fields) and rho k = 128; rows of a
+    batched call bitwise the per-query call."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tile = items_tile(dev, sz.m3, sz.rho, sz.k)
+    cases = ([(sz.n3, b, sz.m3, sz.rho, sz.k, False) for b in sz.bq3s]
+             + [(tile * sz.items_tiles + 1, 2, sz.m3, sz.rho, sz.k, False),
+                (sz.edge_n, 2, sz.m3, sz.rho, 12, False),
+                (sz.edge_n, 3, sz.m3, sz.rho, sz.k, True),
+                (sz.edge_n, 2, 200, sz.rho, sz.k, False), (sz.edge_n, 2, sz.m3, 8, 16, False)])
+    done = []
+    for n, Bq, mI, rho, k, mis in cases:
+        what = f"bf16 score_items n={n} m_I={mI} k={k} rho={rho} Bq={Bq}" + (
+            " misaligned by 2 bytes" if mis else "")
+        b16 = list(to_bf16(*items_inputs(n, Bq, mI, rho, k, gen)))
+        if mis:
+            flat = torch.empty(b16[0].numel() + 1, dtype=torch.bfloat16, device=dev)
+            b16[0] = flat[1:].view(b16[0].shape).copy_(b16[0])
+        up = [t.float() for t in b16]
+        got = ops.dplr_score_items(*b16)
+        _sync(dev)
+        same_bits(got, ops.dplr_score_items(*up), what)
+        large = rho * k == 128 or mI == 200
+        errs["dplr_score_items_bf16"] = max(errs["dplr_score_items_bf16"], check_close(
+            got, ref.dplr_score_items_ref(*up), what, items_size(up) if large else None))
+        V, U, e3, d, PC, sC = b16
+        for q in (0, Bq - 1):
+            check_same(got[q], ops.dplr_score_items(V[q], U, e3, d, PC[q], sC[q]),
+                       f"{what}: row {q} against the per-query call")
+        done.append(what[len("bf16 score_items "):])
+        del b16, up, got, V
+    notes.append("bf16 dplr_score_items bitwise the f32 launch on the upcast inputs: "
+                 + ", ".join(done))
+
+
+def bag_adds(bags, dev) -> torch.Tensor:
+    """(n_bags, 1): each bag's slots less one, the adds a bag's sum rounds."""
+    counts = torch.bincount(bags.segments, minlength=bags.n_bags)
+    return torch.clamp(counts - 1, min=0).to(device=dev, dtype=torch.float32)[:, None]
+
+
+def bf16_bag_checks(dev, sz, errs: dict, notes: list) -> None:
+    """Kernel 5 on a bf16 table with bf16 weights, bf16 bags: on the lookup
+    path's layouts (context, corpus, pointwise, a ragged B, and the context
+    lookup on a table 2 bytes off a 16-byte boundary) bitwise the plain
+    version; on the multi-hot layout bitwise ``ref.embedding_bag_in_order``
+    (the kernel's order and roundings) and within ``2^-7 (m - 1) sum |w
+    row|`` of the plain version for a bag of m slots (each of its m - 1 adds
+    rounds to bf16, by at most 2^-8 of the sum so far, and the plain
+    version's atomics add in another order)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cfg = sz.make_config()
+    lay, k = cfg.layout, cfg.embed_dim
+    table = (torch.randn((padded_rows(lay.total_vocab), k), generator=gen, device=dev)
+             / k**0.5).to(torch.bfloat16)
+    flat = torch.empty(table.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(table.shape).copy_(table)
+    Bq, items, rows_ = sz.bag_rows
+    cases = (("context", lay, "context", Bq, table), ("corpus", lay, "item", items, table),
+             ("pointwise", lay, None, rows_, table), ("ragged", lay, None, sz.bag_ragged, table),
+             ("context misaligned", lay, "context", Bq, shifted),
+             ("multi-hot", multi_hot(lay), None, rows_, table))
+    done = []
+    for name, layout, kind, B, tab in cases:
+        ids, w, bags = bag_case(layout, kind, B, gen)
+        w = w.to(torch.bfloat16)
+        got = ops.embedding_bag(tab, ids, w, bags)
+        want = ref.embedding_bag_ref(tab, ids, w, bags.segments, bags.n_bags)
+        _sync(dev)
+        what = f"bf16 embedding_bag {name} B={B} slots={ids.shape[1]}"
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"{what}: bags in {got.dtype}")
+        if layout.n_slots == layout.n_fields:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: not bitwise equal to the plain version")
+        else:
+            if not torch.equal(got, ref.embedding_bag_in_order(tab, ids, w, bags.segments,
+                                                               bags.n_bags)):
+                raise AssertionError(f"{what}: not bitwise the plain version in the kernel's "
+                                     f"order")
+            size = ref.embedding_bag_ref(tab.float().abs(), ids, w.float(), bags.segments,
+                                         bags.n_bags)
+            bad = (got.float() - want.float()).abs() > 2.0**-7 * bag_adds(bags, dev) * size
+            if bad.any() or not torch.isfinite(got).all():
+                raise AssertionError(f"{what}: {int(bad.sum())} values off")
+        errs["embedding_bag_bf16"] = max(errs["embedding_bag_bf16"],
+                                         float((got.float() - want.float()).abs().max()))
+        done.append(f"{name} {tuple(ids.shape)}")
+        del got, want, ids, w
+    notes.append("bf16 embedding_bag " + ", ".join(done) + ": one-hot bitwise, multi-hot "
+                 "bitwise in the kernel's order and within 2^-7 (m - 1) sum |w row| of "
+                 "index_add_'s")
+
+
 # -- phase 4: the serving path ------------------------------------------------
 
 def plain_fields(table, layout: FeatureLayout, ids, w, item: bool = False):
@@ -1183,6 +1493,211 @@ def serving_phase(dev, sz):
           f"launches {launches}", flush=True)
     return SimpleNamespace(launches=launches, engine=engine, ctxs=ctxs, corpus=corpus,
                            data=data)
+
+
+# -- phase 4b: the serving path in bf16 -----------------------------------------
+
+# The entry points the serve-bf16 phase drives, their bf16 instantiations;
+# and the float32 instantiations of kernels 1-5, which it must not launch.
+SERVE_BF16_KERNELS = ("dplr_corpus_score_bf16", "dplr_corpus_topk_bf16",
+                      "dplr_score_items_bf16", "dplr_corpus_score_multi_bf16",
+                      "embedding_bag_bf16")
+F32_ONLY = ("corpus_score_full", "corpus_topk_chunks", "corpus_multi_topk_chunks",
+            "dplr_score_items_kernel", "embedding_bag_kernel")
+
+
+def plain_slab_scores(engine, ids):
+    """Plain scores of ``engine``'s slab (bf16 in the serve-bf16 phase,
+    upcast by the plain version) for contexts ``ids``, and the summed size
+    of their terms.  The query side is the engine's own ``_query`` with the
+    plain bag in its lookups, which on these one-hot layouts is bitwise the
+    kernel's (the kernel phase holds it so), so only the scorer differs."""
+    c, p = engine.cache, engine.params
+    ctx = torch.as_tensor(ids, device=engine.device)
+    with plain_bags():
+        P_C, a_C = engine.runtime._query(p, ctx, torch.ones(ctx.shape, device=engine.device))
+    full = ref.dplr_corpus_score_ref(c.Q_I, c.a_I, p["e"], P_C, a_C, c.valid)
+    P = P_C[:, None] + c.Q_I.float()[None]
+    size = (a_C.abs()[:, None] + c.a_I.float().abs()[None]
+            + 0.5 * torch.einsum("qnrk,r->qn", P * P, p["e"].float().abs()))
+    return full, size
+
+
+def check_slab_serving(engine, ids, got, what: str) -> int:
+    """``check_serving`` for an engine whose slab may be bf16: its scores or
+    top-K against ``plain_slab_scores`` within ``TOL * max(1, size)``; a
+    top-K's ids live.  Returns the positions whose id differs."""
+    full, size = plain_slab_scores(engine, ids)
+    if isinstance(got, torch.Tensor):
+        check_close(got, full, what, size=size)
+        return 0
+    vals, ids_ = got
+    if not engine.is_live(ids_.cpu().numpy()).all():
+        raise AssertionError(f"{what}: a dead slot was returned")
+    return check_topk(vals, ids_, full, vals.shape[1], what, size=size)[1]
+
+
+def serve_bf16_phase(dev, sz, serve) -> dict:
+    """The full config served in bf16, as ``launch/serve.py --bf16`` serves
+    it: the serve phase's weights (after its refresh) with their float32
+    leaves cast to bf16 (``to_serving_dtype``), its 1,000,000-item corpus in
+    a 2^20-slot bf16 slab.  Top-K and score queries at Bq = 1 and 16, one
+    top-``big_topk``, churn, a refresh from a float32 checkpoint through
+    ``maybe_refresh``, one packed wave of ``sz.tenants`` tenants and
+    Algorithm 1 per call, each held against the plain path
+    (``check_slab_serving``, ``plain_rank_items``).  The launches of each
+    CUDA kernel are counted over the phase: every bf16 kernel must launch,
+    no float32 instantiation of kernels 1-5 may, and one Bq = 1 top-K call
+    must hold less device memory than half a float32 copy of the slab (no
+    slab is cast before a launch).  Beside the answers, the float32
+    engine's top-K on the same corpus: how many of its ids the bf16 one
+    keeps (quality, not a check)."""
+    cfg, K = serve.engine.cfg, sz.topk
+    p16 = serve_driver.to_serving_dtype(serve.engine.params, True)
+    data, corpus, ctxs = serve.data, serve.corpus, serve.ctxs
+    ids, w = corpus["item_ids"][0], corpus["item_weights"][0]
+    batch = np.concatenate((ctxs * sz.batch)[:sz.batch])
+    n_add, n_remove, n_update = sz.churn
+    added = data.ranking_query(n_add, 11)["item_ids"][0]
+    updated = data.ranking_query(n_update, 12)["item_ids"][0]
+    percall = {k_: torch.as_tensor(v, device=dev)
+               for k_, v in data.ranking_query(sz.percall_n, 13).items()}
+    t_phase = time.perf_counter()
+
+    # the float32 engine on the same corpus and weights, for the overlap
+    engine32 = CorpusState(cfg, ids, w, capacity=sz.capacity, device=dev)
+    engine32.refresh(serve.engine.params)
+    f32_answers = [engine32.topk(ctx, K) for ctx in ctxs]
+    lat32 = []
+    for ctx in ctxs:
+        t0 = time.perf_counter()
+        engine32.topk(ctx, K)
+        _sync(dev)
+        lat32.append((time.perf_counter() - t0) * 1e3)
+    del engine32
+
+    ops.reset_launches()
+    engine = CorpusState(cfg, ids, w, capacity=sz.capacity, device=dev)
+    t0 = time.perf_counter()
+    engine.refresh(p16)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    c = engine.cache
+    if not all(t.dtype == torch.bfloat16 for t in (c.Q_I, c.t_I, c.lin_I, c.a_I)):
+        raise AssertionError("serve-bf16: the slab is not bf16")
+    lat, answers = [], []
+    for ctx in ctxs:
+        t0 = time.perf_counter()
+        answers.append(engine.topk(ctx, K))
+        _sync(dev)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    diffs = sum(check_slab_serving(engine, ctx, got, "bf16 serve topk")
+                for ctx, got in zip(ctxs, answers))
+    if any(v.dtype != torch.float32 for v, _ in answers):
+        raise AssertionError("serve-bf16: top-K values not float32")
+    check_exact(*answers[0], engine.score(ctxs[0]), K, "bf16 serve topk, C1")
+    diffs += check_slab_serving(engine, batch, engine.topk(batch, K), "bf16 serve topk batch")
+    check_slab_serving(engine, ctxs[0], engine.score(ctxs[0]), "bf16 serve score")
+    check_slab_serving(engine, ctxs[0], engine.topk(ctxs[0], sz.big_topk),
+                       f"bf16 serve top-{sz.big_topk}")
+    peak = peak_mib(dev, lambda: engine.topk(ctxs[0], K))
+    slab32 = engine.capacity * sz.rho * sz.k * 4 / 2**20
+    if peak is not None and peak >= slab32 / 2:
+        raise AssertionError(f"serve-bf16: a Bq=1 top-{K} call held {peak:.1f} MiB, as much as "
+                             f"a float32 copy of the slab ({slab32:.0f} MiB)")
+    kept = [len(set(a[1][0].tolist()) & set(b[1][0].tolist()))
+            for a, b in zip(answers, f32_answers)]
+    gap = max(float((a[0] - b[0]).abs().max()) for a, b in zip(answers, f32_answers))
+
+    slots = engine.add_items(added)
+    if not engine.is_live(slots).all():
+        raise AssertionError("serve-bf16: added items not live")
+    live = engine.valid_slots
+    engine.remove_items(live[:: len(live) // n_remove][:n_remove])
+    kept_slots = engine.valid_slots
+    engine.update_items(kept_slots[1:: len(kept_slots) // n_update][:n_update], updated)
+    diffs += check_slab_serving(engine, batch, engine.topk(batch, K), "bf16 churn topk")
+
+    # a refresh from a float32 checkpoint, cast to bf16 by maybe_refresh's select
+    BUILD.mkdir(parents=True, exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_bf16_", dir=BUILD))
+    try:
+        mgr = CheckpointManager(str(workdir))
+        bumped = dict(p16, bias=p16["bias"] + 1.0)
+        on_disk = serve_driver.to_checkpoint_dtype(bumped)
+        t0 = time.perf_counter()
+        mgr.save({"params": on_disk}, step=1, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        swapped = engine.maybe_refresh(
+            mgr, {"params": dict.fromkeys(on_disk)},
+            select=lambda t: serve_driver.to_serving_dtype(t["params"], True))
+        _sync(dev)
+        refresh_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if not swapped or engine.model_step != 1 or not all(
+            engine.params[k_].dtype == torch.bfloat16 and torch.equal(engine.params[k_], v)
+            for k_, v in bumped.items()):
+        raise AssertionError("serve-bf16: maybe_refresh did not install the bf16 weights")
+    diffs += check_slab_serving(engine, batch, engine.topk(batch, K), "bf16 refreshed topk")
+
+    # one packed wave: tenants x tenant_bq requests, one fused launch
+    T, per, cap, bq = sz.tenants, sz.tenant_items, sz.tenant_capacity, sz.tenant_bq
+    runtime = ScorerRuntime(cfg, device=dev)
+    states = {}
+    for i in range(T):
+        st = CorpusState(None, ids[i * per:(i + 1) * per], w[i * per:(i + 1) * per],
+                         capacity=cap, runtime=runtime)
+        st.refresh(engine.params)
+        states[f"t{i}"] = st
+    pool = [data.context_query(7000 + s)["context_ids"] for s in range(T * bq)]
+    fe = QueryFrontend(states, max_batch=bq, max_k=K, auto_pump=False, pack=True)
+    pend = [fe.submit(pool[i * bq + j], k=K, tenant=name)
+            for i, name in enumerate(states) for j in range(bq)]
+    fe.pump()
+    fe.resolve()
+    got = [p.result() for p in pend]
+    fused = fe.health()["packing"]["fused_dispatches"]
+    fe.close()
+    if fused < 1:
+        raise AssertionError("serve-bf16: the wave did not pack")
+    for i, (name, st) in enumerate(states.items()):
+        rows = got[i * bq:(i + 1) * bq]
+        ctx = np.concatenate(pool[i * bq:(i + 1) * bq])
+        vals, ids_ = st.topk(ctx, K)
+        if not (np.array_equal(np.stack([v for v, _ in rows]), vals.cpu().numpy())
+                and np.array_equal(np.stack([i_ for _, i_ in rows]), ids_.cpu().numpy())):
+            raise AssertionError(f"serve-bf16: tenant {name}'s packed replies != its own topk")
+        diffs += check_slab_serving(st, ctx, (vals, ids_), f"bf16 packed wave {name}")
+    del states, runtime
+
+    got = fwfm.rank_items(engine.params, cfg, percall)
+    _sync(dev)
+    want, size = plain_rank_items(engine.params, cfg, percall)
+    check_close(got, want, "bf16 percall rank_items", size=size)
+
+    launches = {g: ops.LAUNCHES[g] for name in SERVE_BF16_KERNELS for g in ops.KERNELS[name]}
+    f32 = {g: ops.LAUNCHES[g] for g in F32_ONLY}
+    if dev.type == "cuda" and (not all(launches.values()) or any(f32.values())):
+        raise AssertionError(f"serve-bf16: a bf16 kernel not launched, or a float32 one "
+                             f"launched: {launches}, {f32}")
+    print(f"phase serve-bf16: {cfg.layout.n_fields} fields k={cfg.embed_dim} rho={cfg.rank}, "
+          f"bf16 weights, {sz.items} items in a {sz.capacity}-slot bf16 slab "
+          f"({engine.capacity * (sz.rho * sz.k * 2 + 2 + 1) / 1e6:.1f} MB: Q_I, a_I, valid); "
+          f"slab build {build_s:.2f} s; {len(lat)} top-{K} queries at Bq=1 median "
+          f"{np.median(lat):.3f} ms bf16, {np.median(lat32):.3f} ms f32 on the same corpus "
+          f"(host clock, synchronized); peak memory of a Bq=1 top-{K} call {_mib(peak)} "
+          f"(a float32 copy of the slab: {slab32:.0f} MiB); bf16 top-{K} keeps "
+          f"{np.mean(kept):.2f} of the f32 engine's {K} ids on average (min {min(kept)}), "
+          f"values within {gap:.3g} of its; {diffs} top-K ids differ from plain, all within "
+          f"the tie rule; one top-{sz.big_topk}; churn +{n_add} -{n_remove} ~{n_update}; "
+          f"a float32 checkpoint saved in {save_s:.2f} s, installed as bf16 by maybe_refresh "
+          f"in {refresh_s:.2f} s; one packed wave of {T} tenants x {bq} ({fused} fused "
+          f"dispatch), replies bitwise each tenant's own top-K; percall n={sz.percall_n} "
+          f"agrees; no float32 kernel 1-5 launched {f32}; wall "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}", flush=True)
+    return launches
 
 
 # -- phase 5: tenants ---------------------------------------------------------
@@ -2603,7 +3118,8 @@ def ptxas_report(log: str) -> list:
 
 # The build fails if any kernel of these sources, or any kernel whose name
 # starts with one of these, spills registers.
-NO_SPILL_SOURCES = ("dplr_corpus_score", "dplr_score", "fwfm_interaction")
+NO_SPILL_SOURCES = ("dplr_corpus_score", "dplr_score", "embedding_bag",
+                    "fwfm_interaction")
 NO_SPILL_KERNELS = ("flash_attention_wgmma",)
 
 
@@ -2705,7 +3221,51 @@ def timing_phase(dev, sz, peaks) -> dict:
             rows["dplr_corpus_topk"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                             yardstick_ms=yard)
     rows["dplr_corpus_topk"]["shapes"] = shapes
-    del Q, rising
+    del rising
+
+    # the same slab in bf16 (Q_I and a_I; e, P_C, a_C stay f32): 2 rho k + 2
+    # bytes an item and the mask's 1, the same arithmetic
+    Q16, a16 = Q.to(torch.bfloat16), a_I.to(torch.bfloat16)
+    del Q
+    in16 = live * (rk_ * 2 + 2) + n + (rho + Bq * (rk_ + 1)) * 4
+    for Bq_t in (Bq, 1):
+        args = (Q16, a16, e, P_C[:Bq_t].contiguous(), a_C[:Bq_t].contiguous(), valid)
+        ms = device_ms(lambda: ops.dplr_corpus_score(*args))
+        plain = device_ms(lambda: ref.dplr_corpus_score_ref(*args), 3, 2)
+        bnd, by = bound_ms(in16 + Bq_t * n * 4, Bq_t * score_flops, peaks)
+        extra.append(f"dplr_corpus_score bf16 n={n} Bq={Bq_t}: {ms:.4f} ms, plain {plain:.4f} "
+                     f"ms, bound {bnd:.4f} ms ({by})")
+        if Bq_t == Bq:
+            rows["dplr_corpus_score_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                                  bound_by=by)
+        acc = device_ms(lambda: ops.dplr_corpus_score(*args, acc_dtype="bfloat16"))
+        extra.append(f"dplr_corpus_score bf16 acc_dtype='bfloat16' n={n} Bq={Bq_t}: {acc:.4f} ms")
+    shapes = []
+    for Bq_t, K, order in sz.topk_times[:3]:
+        args = (Q16, a16, e, P_C[:Bq_t].contiguous(), a_C[:Bq_t].contiguous(), valid)
+        ms = device_ms(lambda: ops.dplr_corpus_score(*args, topk=K))
+        plain = device_ms(lambda: ref.dplr_corpus_topk_ref(*args[:5], K, args[5]), 3, 2)
+        yard = device_ms(lambda: torch.topk(ops.dplr_corpus_score(*args), K))
+        bnd, by = bound_ms(in16 + Bq_t * K * 8, Bq_t * score_flops, peaks)
+        shapes.append(dict(Bq=Bq_t, K=K, order=order, ms=ms, plain_ms=plain, yardstick_ms=yard,
+                           bound_ms=bnd))
+        extra.append(f"dplr_corpus_topk bf16 n={n} Bq={Bq_t} K={K} {order}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, kernel 1 + torch.topk {yard:.4f} ms, bound {bnd:.4f} ms "
+                     f"({by})")
+        if (Bq_t, K, order) == sz.topk_times[0]:
+            rows["dplr_corpus_topk_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                                 bound_by=by, yardstick_ms=yard)
+            acc = device_ms(lambda: ops.dplr_corpus_score(*args, topk=K, acc_dtype="bfloat16"))
+            extra.append(f"dplr_corpus_topk bf16 acc_dtype='bfloat16' n={n} Bq={Bq_t} K={K}: "
+                         f"{acc:.4f} ms")
+    rows["dplr_corpus_topk_bf16"]["shapes"] = shapes
+    # the runtime's upcast of a bf16 query side at Bq = 1, once a call
+    pc16, ac16 = P_C[:1].to(torch.bfloat16), a_C[:1].to(torch.bfloat16)
+    cast = device_ms(lambda: (pc16.to(torch.float32).contiguous(), ac16.to(torch.float32)))
+    extra.append(f"the bf16 query side's upcast at Bq=1 (P_C (1, {rho}, {k}), a_C (1,)): "
+                 f"{cast:.4f} ms")
+    rows["dplr_corpus_topk_bf16"]["query_upcast_ms"] = cast
+    del Q16, a16
 
     m, n3 = sz.m3, sz.n3
     shapes = []
@@ -2728,6 +3288,17 @@ def timing_phase(dev, sz, peaks) -> dict:
                      f"{host:.4f} ms), plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         if Bq3 == max(sz.bq3s):
             rows["dplr_score_items"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        # the same V_I in bf16: half its bytes, the same arithmetic
+        V16 = V.to(torch.bfloat16)
+        ms16 = device_ms(lambda: ops.dplr_score_items(V16, U, e3, d, PC, sC))
+        plain16 = device_ms(lambda: ref.dplr_score_items_ref(V16, U, e3, d, PC, sC), 3, 2)
+        bnd16, by16 = bound_ms(nbytes - Bq3 * n3 * m * k * 2, flops, peaks)
+        extra.append(f"dplr_score_items bf16 n={n3} m_I={m} Bq={Bq3}: {ms16:.4f} ms, plain "
+                     f"{plain16:.4f} ms, bound {bnd16:.4f} ms ({by16})")
+        if Bq3 == max(sz.bq3s):
+            rows["dplr_score_items_bf16"] = dict(ms=ms16, plain_ms=plain16, bound_ms=bnd16,
+                                                 bound_by=by16)
+        del V16
     rows["dplr_score_items"]["shapes"] = shapes
     del V
 
@@ -2751,13 +3322,23 @@ def timing_phase(dev, sz, peaks) -> dict:
     rows["dplr_corpus_score_multi"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                            single_calls_ms=single, yardstick_ms=yard,
                                            peak_mib=peak)
-    del parts, args
+    args16 = (tuple(q.to(torch.bfloat16) for q in args[0]),
+              tuple(a.to(torch.bfloat16) for a in args[1]), *args[2:])
+    ms = device_ms(lambda: ops.dplr_corpus_score_multi(*args16, topk=K))
+    plain = device_ms(lambda: ref.dplr_corpus_multi_topk_ref(*args16, K), 3, 2)
+    bnd, by = bound_ms(nbytes - S * live_s * (rk_ + 1) * 2, flops, peaks)
+    extra.append(f"dplr_corpus_score_multi bf16 S={S} n_s={n_s} ({live_s} live) Bq={Bq4} "
+                 f"K={K}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+    rows["dplr_corpus_score_multi_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                                bound_by=by)
+    del parts, args, args16
 
     # embedding_bag at the lookup path's shapes; library: F.embedding_bag
     # with one slot a bag (every bag of the dplr-fwfm layout holds one)
     cfg = sz.make_config()
     lay, ek = cfg.layout, cfg.embed_dim
     table = torch.randn((padded_rows(lay.total_vocab), ek), generator=gen, device=dev)
+    table16 = table.to(torch.bfloat16)
     Bq_b, items, pw_rows = sz.bag_rows
     for label, kind, B in (("context", "context", Bq_b), ("corpus", "item", items),
                            ("pointwise", None, pw_rows)):
@@ -2776,9 +3357,23 @@ def timing_phase(dev, sz, peaks) -> dict:
         if label == "corpus":
             rows["embedding_bag"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                          library_ms=lib)
-        del ids, w, lib_ids, lib_w
+        # in bf16: 2k bytes a row and 2 a weight; library F.embedding_bag in bf16
+        w16, lib_w16 = w.to(torch.bfloat16), lib_w.to(torch.bfloat16)
+        ms = device_ms(lambda: ops.embedding_bag(table16, ids, w16, bags))
+        plain = device_ms(lambda: ref.embedding_bag_ref(table16, ids, w16, bags.segments, nb),
+                          3, 2)
+        lib = device_ms(lambda: F.embedding_bag(lib_ids, table16, per_sample_weights=lib_w16,
+                                                mode="sum"))
+        bnd, by = bound_ms(slots * (ek * 2 + 6) + B * nb * ek * 2, 2 * slots * ek, peaks)
+        extra.append(f"embedding_bag bf16 {label} {tuple(ids.shape)}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, F.embedding_bag bf16 {lib:.4f} ms, bound {bnd:.4f} ms "
+                     f"({by})")
+        if label == "corpus":
+            rows["embedding_bag_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                              library_ms=lib)
+        del ids, w, lib_ids, lib_w, w16, lib_w16
     rows["embedding_bag_backward"] = bag_backward_timing(sz, peaks, gen, table, extra)
-    del table
+    del table, table16
 
     # fwfm_pairwise; library: one einsum with TF32 off.  The Gram is
     # symmetric, so the function needs its m (m + 1) / 2 distinct dot
@@ -3070,6 +3665,8 @@ def run_phases(dev, peaks, model_batches) -> list:
     errs = kernel_checks(dev, FULL)
     serve = serving_phase(dev, FULL)
     launches = dict(serve.launches)
+    # the bf16 rows' launches: the serve-bf16 phase's alone
+    launches_bf16 = serve_bf16_phase(dev, FULL, serve)
     tenant_launches, tenants = tenants_phase(dev, FULL, serve)
     for g in ops.KERNELS["dplr_corpus_score_multi"]:
         launches[g] = tenant_launches[g]
@@ -3089,9 +3686,10 @@ def run_phases(dev, peaks, model_batches) -> list:
         source, replaces = KERNEL_ROWS[name]
         row = dict(rows[name])
         row.setdefault("library_ms", None)
+        counts = launches_bf16 if name.endswith("_bf16") else launches
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=sum(launches[g] for g in cuda_kernels),
-                            cuda_launches={g: launches[g] for g in cuda_kernels},
+                            launches=sum(counts[g] for g in cuda_kernels),
+                            cuda_launches={g: counts[g] for g in cuda_kernels},
                             max_abs_err=errs[name], **row))
     return kernels
 

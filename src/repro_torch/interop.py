@@ -17,13 +17,21 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def params_from_numpy(tree: dict, device=None) -> dict:
+def params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """``{name: array or subtree}`` -> the same tree of tensors on
-    ``device`` (default cuda)."""
+    ``device`` (default cuda), with ``dtype`` (``torch.bfloat16``: the
+    serving type) given to the float32 leaves; other leaves keep theirs.
+    numpy has no bf16, so a bf16 tree travels as float32 and is cast on
+    each side: JAX and torch both round to nearest even, so the two
+    packages hold the same bits."""
     dev = resolve_device(device)
-    return {name: params_from_numpy(value, dev) if isinstance(value, dict)
-            else torch.as_tensor(np.array(value), device=dev)
-            for name, value in tree.items()}
+
+    def leaf(value):
+        t = torch.as_tensor(np.array(value), device=dev)
+        return t.to(dtype) if dtype is not None and t.dtype == torch.float32 else t
+
+    return {name: params_from_numpy(value, dev, dtype) if isinstance(value, dict)
+            else leaf(value) for name, value in tree.items()}
 
 
 def params_to_numpy(params: dict) -> dict:

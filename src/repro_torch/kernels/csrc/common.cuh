@@ -2,6 +2,7 @@
 // and the launchers' shared-memory and grid set-up.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -24,14 +25,40 @@ constexpr int kMaxRK = 128;
 // differs across the 32 lanes of a warp (no bank conflicts).
 __host__ __device__ inline int padded_stride(int width) { return width | 1; }
 
-// Copy rows [row0, row0 + rows) of a row-major (n, width) float array into
-// shared memory with row stride `stride`, the whole block cooperating so
-// that neighbouring threads read neighbouring addresses.  Rows at or past n
-// are zero-filled.  Each thread issues kStageBatch independent loads before
-// it stores any of them, so that many loads are in flight per thread: a
-// load-then-store loop would wait out the device memory latency once per
-// element.  Rows of a multiple of 4 floats from a 16-byte aligned base are
-// read 16 bytes a load, others 4.
+// The element types of a slab (and of the item kernel's V_I and the bag's
+// table): float, or __nv_bfloat16, read as stored and upcast to f32 (exact)
+// where a thread reads a value.  Codes of the C entry points' `dtype`.
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// x rounded to the nearest bf16 (ties to even), as f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Words of shared memory a staged row of `width` elements of T takes (odd,
+// as padded_stride), and that stride in elements.  For float, padded_stride.
+template <class T>
+__host__ __device__ inline int row_words(int width) {
+  return padded_stride((width * (int)sizeof(T) + 3) / 4);
+}
+template <class T>
+__host__ __device__ inline int row_stride(int width) {
+  return row_words<T>(width) * 4 / (int)sizeof(T);
+}
+
+// Copy rows [row0, row0 + rows) of a row-major (n, width) array of T into
+// shared memory with row stride `stride` elements, the whole block
+// cooperating so that neighbouring threads read neighbouring addresses.
+// Rows at or past n are zero-filled.  Each thread issues kStageBatch
+// independent loads before it stores any of them, so that many loads are
+// in flight per thread: a load-then-store loop would wait out the device
+// memory latency once per element.  Rows of a whole number of 16-byte
+// pieces from a 16-byte aligned base are read 16 bytes a load (4 floats or
+// 8 bf16), others one element a load.
 constexpr int kStageBatch = 8;
 
 __device__ inline void put_words(float* d, float v) { d[0] = v; }
@@ -41,12 +68,21 @@ __device__ inline void put_words(float* d, float4 v) {
   d[2] = v.z;
   d[3] = v.w;
 }
+__device__ inline void put_words(__nv_bfloat16* d, __nv_bfloat16 v) { d[0] = v; }
+// 8 bf16 to a 4-byte aligned place (an odd word stride leaves rows only that)
+__device__ inline void put_words(__nv_bfloat16* d, uint4 v) {
+  unsigned* w = reinterpret_cast<unsigned*>(d);
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
 
-template <class V>
-__device__ inline void stage_rows_as(const float* __restrict__ src, long long row0, int rows,
+template <class V, class T>
+__device__ inline void stage_rows_as(const T* __restrict__ src, long long row0, int rows,
                                      long long n, int width, int stride,
-                                     float* __restrict__ dst) {
-  constexpr int kW = sizeof(V) / sizeof(float);
+                                     T* __restrict__ dst) {
+  constexpr int kW = sizeof(V) / sizeof(T);
   const int wv = width / kW;
   const int total = rows * wv;
   const long long left = n - row0;
@@ -76,6 +112,15 @@ __device__ inline void stage_rows(const float* __restrict__ src, long long row0,
     stage_rows_as<float>(src, row0, rows, n, width, stride, dst);
 }
 
+__device__ inline void stage_rows(const __nv_bfloat16* __restrict__ src, long long row0,
+                                  int rows, long long n, int width, int stride,
+                                  __nv_bfloat16* __restrict__ dst) {
+  if (width % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0)
+    stage_rows_as<uint4>(src, row0, rows, n, width, stride, dst);
+  else
+    stage_rows_as<__nv_bfloat16>(src, row0, rows, n, width, stride, dst);
+}
+
 // Loads a row of G floats from shared memory, 16 bytes at a time where G
 // allows (the row 16-byte aligned for G >= 4, 8-byte for G = 2).
 template <int G>
@@ -99,40 +144,65 @@ __device__ inline void load_row(const float* src, float* dst) {
   }
 }
 
+// Accumulation modes of the rank-space reduction (the reference's
+// acc_dtype): kAccF32 sums each query's squares in f32; kAccBF16 rounds
+// each square p^2 and each e_r to bf16, sums their products (exact in f32)
+// in f32 in the same fixed order, and rounds the sum once to bf16.
+constexpr int kAccF32 = 0;
+constexpr int kAccBF16 = 1;
+
 // One slot's masked-before scores against G queries,
 //   s[j] = (a_C[j] + a_I) + 0.5 * sum_r e_r ||P_C[j, r] + Q_I[r]||^2,
 // the one scorer of every kernel that scores a slot (the full scores and
-// both top-K modes), so that all of them round a score the same way: per
-// query, the squares of row r summed in order by fused multiply-adds, the
-// rows weighted in order, and the final multiply-add written out.  `q`: the
-// slot's rho * k row; `pcT`: the queries' P_C transposed, pcT[c * G + j] =
-// P_C[j].flat[c], so that one load reads entry c of several queries and the
-// slot's row is read once for all G.
-template <int G>
-__device__ inline void slot_score(float ai, const float* q, const float* pcT, const float* ac,
+// both top-K modes), so that all of them round a score the same way.  In
+// kAccF32 mode, per query, the squares of row r summed in order by fused
+// multiply-adds, the rows weighted in order, and the final multiply-add
+// written out; the slot's row (T: float or bf16) is upcast as it is read,
+// so a bf16 slab scores bitwise as its upcast f32 copy.  In kAccBF16 mode,
+// as the enum says, then the same final multiply-add.  `q`: the slot's
+// rho * k row; `pcT`: the queries' P_C transposed, pcT[c * G + j] =
+// P_C[j].flat[c], so that one load reads entry c of several queries and
+// the slot's row is read once for all G.
+template <int G, class T, int Acc>
+__device__ inline void slot_score(float ai, const T* q, const float* pcT, const float* ac,
                                   const float* e, int rho, int k, float* s) {
   float acc[G];
 #pragma unroll
   for (int j = 0; j < G; ++j) acc[j] = 0.f;
   for (int r = 0; r < rho; ++r) {
-    float part[G];
+    if constexpr (Acc == kAccF32) {
+      float part[G];
 #pragma unroll
-    for (int j = 0; j < G; ++j) part[j] = 0.f;
-    for (int c = r * k; c < (r + 1) * k; ++c) {
-      const float qv = q[c];
-      float pc[G];
-      load_row<G>(pcT + c * G, pc);
+      for (int j = 0; j < G; ++j) part[j] = 0.f;
+      for (int c = r * k; c < (r + 1) * k; ++c) {
+        const float qv = to_f32(q[c]);
+        float pc[G];
+        load_row<G>(pcT + c * G, pc);
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const float p = pc[j] + qv;
-        part[j] = fmaf(p, p, part[j]);
+        for (int j = 0; j < G; ++j) {
+          const float p = pc[j] + qv;
+          part[j] = fmaf(p, p, part[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) acc[j] = fmaf(e[r], part[j], acc[j]);
+    } else {
+      const float er = round_bf16(e[r]);
+      for (int c = r * k; c < (r + 1) * k; ++c) {
+        const float qv = to_f32(q[c]);
+        float pc[G];
+        load_row<G>(pcT + c * G, pc);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float p = pc[j] + qv;
+          acc[j] = fmaf(round_bf16(__fmul_rn(p, p)), er, acc[j]);
+        }
       }
     }
-#pragma unroll
-    for (int j = 0; j < G; ++j) acc[j] = fmaf(e[r], part[j], acc[j]);
   }
 #pragma unroll
-  for (int j = 0; j < G; ++j) s[j] = fmaf(0.5f, acc[j], ac[j] + ai);
+  for (int j = 0; j < G; ++j)
+    s[j] = fmaf(0.5f, Acc == kAccF32 ? acc[j] : round_bf16(acc[j]), ac[j] + ai);
 }
 
 // The top-K order: a higher value first, and among equal values the lower

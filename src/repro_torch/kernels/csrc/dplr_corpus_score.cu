@@ -12,9 +12,19 @@
 // What bounds it on an H100: memory.  Each item costs rho*k*4 bytes of Q_I
 // (192 B at rho = 3, k = 16) plus 5 bytes of a_I and valid, against
 // 3 * rho * k flops per query, so below Bq of about 60 the pass over Q_I
-// is the floor; the full mode adds Bq * n * 4 bytes of output.  What keeps a
-// kernel off that floor is the work per byte it adds on the way: shared-
-// memory loads in the scorer, and in the top-K modes the selection.
+// is the floor; the full mode adds Bq * n * 4 bytes of output.  A bf16 slab
+// (Q_I and a_I in bf16, the serving checkpoint's type) halves it: 96 + 2 + 1
+// bytes an item.  What keeps a kernel off that floor is the work per byte
+// it adds on the way: shared-memory loads in the scorer, and in the top-K
+// modes the selection.
+//
+// Types: every kernel that reads the slab is instantiated for a float and a
+// bf16 slab (Q_I and a_I one type, read as stored; e, P_C and a_C are f32,
+// upcast by the caller, as they do not grow with n) and for the two
+// accumulation modes of the reference's acc_dtype (common.cuh slot_score).
+// A bf16 slab with f32 accumulation scores bitwise as its upcast f32 copy:
+// the upcast is exact and the arithmetic after it is the same.  Scores are
+// f32 in every instantiation, so the merge and sort kernels are shared.
 //
 // What the design does about it:
 //  * One scorer (common.cuh slot_score<G>) for every mode: a thread scores
@@ -24,9 +34,10 @@
 //    one order, so the top-K modes return kernel 1's scores bitwise.  All
 //    arithmetic is f32 in the direct form, not the GEMM expansion
 //    ||P_C||^2 + 2<P_C, Q_I> + ||Q_I||^2, whose rounding differs.
-//  * Q_I is copied tile by tile into shared memory (common.cuh stage_rows,
-//    16 bytes a load where the rows allow), with an odd row stride so that
-//    each thread then reads its own slot's row without bank conflicts.
+//  * Q_I is copied tile by tile into shared memory as stored (common.cuh
+//    stage_rows, 16 bytes a load where the rows allow), with an odd row
+//    stride in words so that each thread then reads its own slot's row
+//    without bank conflicts, upcasting a bf16 entry as it reads it.
 //  * Full mode: a block of 128 threads holds up to 16 queries' P_C and one
 //    slot per thread, and writes out[q, i] with consecutive threads on
 //    consecutive i.
@@ -110,33 +121,34 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline long long n_chunks_of(long long n) { return (n + kChunk - 1) / kChunk; }
 
 // Shared-memory layout (in words) of the full mode for G queries: P_C
-// transposed first (16-byte aligned), then e, a_C and the Q_I tile.
+// transposed first (16-byte aligned), then e, a_C and the Q_I tile, rows of
+// `rkw` words (repro::row_words of the slab's type).
 struct FullSmem {
   int pcT, es, ac, qs, words;
-  __host__ __device__ FullSmem(int G, int rho, int k) {
+  __host__ __device__ FullSmem(int G, int rho, int k, int rkw) {
     const int RK = rho * k;
     pcT = 0;
     es = pcT + RK * G;
     ac = es + round4(rho);
     qs = ac + round4(G);
-    words = qs + kFullTile * repro::padded_stride(RK);
+    words = qs + kFullTile * rkw;
   }
 };
 
-template <int G>
+template <int G, class T, int Acc>
 __global__ void __launch_bounds__(kFullTile)
-corpus_score_full(const float* __restrict__ Q, const float* __restrict__ aI,
+corpus_score_full(const T* __restrict__ Q, const T* __restrict__ aI,
                   const unsigned char* __restrict__ valid, const float* __restrict__ e,
                   const float* __restrict__ PC, const float* __restrict__ aC, long long n,
                   int Bq, int rho, int k, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int RK = rho * k;
-  const int RKP = repro::padded_stride(RK);
-  const FullSmem lay(G, rho, k);
+  const int RKP = repro::row_stride<T>(RK);
+  const FullSmem lay(G, rho, k, repro::row_words<T>(RK));
   float* pcT = smem + lay.pcT;
   float* es = smem + lay.es;
   float* ac = smem + lay.ac;
-  float* qs = smem + lay.qs;
+  T* qs = reinterpret_cast<T*>(smem + lay.qs);
 
   const long long row0 = (long long)blockIdx.x * kFullTile;
   const int q0 = blockIdx.y * G;
@@ -154,7 +166,8 @@ corpus_score_full(const float* __restrict__ Q, const float* __restrict__ aI,
   if (i >= n) return;
   float s[G];
   if (valid == nullptr || valid[i] != 0) {
-    repro::slot_score<G>(aI[i], qs + threadIdx.x * RKP, pcT, ac, es, rho, k, s);
+    repro::slot_score<G, T, Acc>(repro::to_f32(aI[i]), qs + threadIdx.x * RKP, pcT, ac, es,
+                                 rho, k, s);
   } else {
 #pragma unroll
     for (int j = 0; j < G; ++j) s[j] = kNegInf;
@@ -166,18 +179,19 @@ corpus_score_full(const float* __restrict__ Q, const float* __restrict__ aI,
 
 // Shared-memory layout (in words) of a stage-1 block for G query rows:
 // P_C transposed (16-byte aligned), e, a_C, the G rows' chunk scores (odd
-// row stride), and a work area: the Q_I tile while scoring, then the rows'
-// first-digit bins, two 16-bit counts a word (odd row stride).
+// row stride), and a work area: the Q_I tile while scoring (rows of `rkw`
+// words), then the rows' first-digit bins, two 16-bit counts a word (odd
+// row stride).
 struct ChunkSmem {
   int pcT, es, ac, sc, work, words;
-  __host__ __device__ ChunkSmem(int G, int rho, int k) {
+  __host__ __device__ ChunkSmem(int G, int rho, int k, int rkw) {
     const int RK = rho * k;
     pcT = 0;
     es = pcT + RK * G;
     ac = es + round4(rho);
     sc = ac + round4(G);
     work = sc + G * kScoreStride;
-    words = work + imax(kTopkThreads * repro::padded_stride(RK), G * kPackedStride);
+    words = work + imax(kTopkThreads * rkw, G * kPackedStride);
   }
 };
 
@@ -189,8 +203,8 @@ struct ChunkSmem {
 // hist1[j * kHistBins ...].  Slots past the slab's end score -inf, below
 // every slot.  Shared by the single-slab and the multi-tenant kernels, so
 // that both score identically.
-template <int G>
-__device__ void chunk_scores(const float* __restrict__ Q, const float* __restrict__ aI,
+template <int G, class T, int Acc>
+__device__ void chunk_scores(const T* __restrict__ Q, const T* __restrict__ aI,
                              const unsigned char* __restrict__ valid, long long n,
                              const float* __restrict__ e, const float* __restrict__ PC,
                              const float* __restrict__ aC, int nq, int rho, int k,
@@ -198,13 +212,14 @@ __device__ void chunk_scores(const float* __restrict__ Q, const float* __restric
                              unsigned* __restrict__ hist1) {
   extern __shared__ __align__(16) float smem[];
   const int RK = rho * k;
-  const int RKP = repro::padded_stride(RK);
-  const ChunkSmem lay(G, rho, k);
+  const int RKP = repro::row_stride<T>(RK);
+  const ChunkSmem lay(G, rho, k, repro::row_words<T>(RK));
   float* pcT = smem + lay.pcT;
   float* es = smem + lay.es;
   float* ac = smem + lay.ac;
   float* sc = smem + lay.sc;
   float* work = smem + lay.work;
+  T* tile = reinterpret_cast<T*>(work);
   const int tid = threadIdx.x;
 
   const long long base = chunk * kChunk;
@@ -216,12 +231,13 @@ __device__ void chunk_scores(const float* __restrict__ Q, const float* __restric
   for (int t = tid; t < G; t += kTopkThreads) ac[t] = t < nq ? aC[t] : 0.f;
   for (int off = 0; off < kChunk; off += kTopkThreads) {
     __syncthreads();                // the previous tile is consumed
-    repro::stage_rows(Q, base + off, kTopkThreads, n, RK, RKP, work);
+    repro::stage_rows(Q, base + off, kTopkThreads, n, RK, RKP, tile);
     __syncthreads();
     const long long i = base + off + tid;
     float s[G];
     if (i < n && (valid == nullptr || valid[i] != 0)) {
-      repro::slot_score<G>(aI[i], work + tid * RKP, pcT, ac, es, rho, k, s);
+      repro::slot_score<G, T, Acc>(repro::to_f32(aI[i]), tile + tid * RKP, pcT, ac, es, rho, k,
+                                   s);
     } else {
 #pragma unroll
       for (int j = 0; j < G; ++j) s[j] = i < n ? kNegInf : -CUDART_INF_F;
@@ -255,23 +271,25 @@ __device__ void chunk_scores(const float* __restrict__ Q, const float* __restric
 }
 
 // Stage 1 of the single-slab top-K: block (chunk, group of G rows).
-template <int G>
+template <int G, class T, int Acc>
 __global__ void __launch_bounds__(kTopkThreads, 2)
-corpus_topk_chunks(const float* __restrict__ Q, const float* __restrict__ aI,
+corpus_topk_chunks(const T* __restrict__ Q, const T* __restrict__ aI,
                    const unsigned char* __restrict__ valid, const float* __restrict__ e,
                    const float* __restrict__ PC, const float* __restrict__ aC, long long n,
                    int Bq, int rho, int k, float* cand_v, long long stride, unsigned* hist1) {
   const int q0 = blockIdx.y * G;
   const long long RK = (long long)rho * k;
-  chunk_scores<G>(Q, aI, valid, n, e, PC + q0 * RK, aC + q0, min(G, Bq - q0), rho, k,
-                  blockIdx.x, cand_v + q0 * stride, stride, hist1 + (long long)q0 * kHistBins);
+  chunk_scores<G, T, Acc>(Q, aI, valid, n, e, PC + q0 * RK, aC + q0, min(G, Bq - q0), rho, k,
+                          blockIdx.x, cand_v + q0 * stride, stride,
+                          hist1 + (long long)q0 * kHistBins);
 }
 
 // The S slabs of a multi-tenant launch, by value in the kernel's parameters
-// (S <= kMaxSegments; 2 KB of the 4 KB a launch may pass).
+// (S <= kMaxSegments; 2 KB of the 4 KB a launch may pass).  Q and aI are of
+// the launch's one slab type, which the kernel's T names.
 struct Segments {
-  const float* Q[kMaxSegments];
-  const float* aI[kMaxSegments];
+  const void* Q[kMaxSegments];
+  const void* aI[kMaxSegments];
   const unsigned char* valid[kMaxSegments];   // nullptr: every slot live
   long long n[kMaxSegments];
 };
@@ -279,7 +297,7 @@ struct Segments {
 // Stage 1 of the multi-tenant top-K: block (chunk, segment s and group of
 // G of its Bq rows), rows s * Bq + q.  A chunk past the end of a shorter
 // segment has nothing to do (the merge reads that segment's chunks alone).
-template <int G>
+template <int G, class T, int Acc>
 __global__ void __launch_bounds__(kTopkThreads, 2)
 corpus_multi_topk_chunks(const __grid_constant__ Segments segs, const float* __restrict__ e,
                          const float* __restrict__ PC, const float* __restrict__ aC, int Bq,
@@ -292,9 +310,10 @@ corpus_multi_topk_chunks(const __grid_constant__ Segments segs, const float* __r
   if (chunk * kChunk >= n) return;
   const long long row0 = (long long)s * Bq + q0;
   const long long RK = (long long)rho * k;
-  chunk_scores<G>(segs.Q[s], segs.aI[s], segs.valid[s], n, e + (long long)s * rho,
-                  PC + row0 * RK, aC + row0, min(G, Bq - q0), rho, k, chunk,
-                  cand_v + row0 * stride, stride, hist1 + row0 * kHistBins);
+  chunk_scores<G, T, Acc>(static_cast<const T*>(segs.Q[s]), static_cast<const T*>(segs.aI[s]),
+                          segs.valid[s], n, e + (long long)s * rho, PC + row0 * RK, aC + row0,
+                          min(G, Bq - q0), rho, k, chunk, cand_v + row0 * stride, stride,
+                          hist1 + row0 * kHistBins);
 }
 
 // The merge's device memory for one row: its candidates, its digit bins
@@ -749,17 +768,37 @@ cudaError_t allow_smem_once(size_t bytes, int device) {
   return err;
 }
 
-// Calls f(std::integral_constant<int, G>()) for G in {1, 2, 4, 8, 16}: the
-// kernels are instantiated for those query-group sizes.
+template <class T>
+struct TypeTag {
+  using type = T;
+};
+
+// Calls f(std::integral_constant<int, G>(), TypeTag<T>(),
+// std::integral_constant<int, Acc>()) for G in {1, 2, 4, 8, 16}, the slab
+// type T of `dtype` (repro::kF32: float, repro::kBF16: __nv_bfloat16) and
+// the accumulation mode `acc`: the kernels are instantiated for each.
 template <class F>
-cudaError_t with_group(int G, F f) {
+cudaError_t with_variant(int G, int dtype, int acc, F f) {
+  const auto by_acc = [&](auto g, auto t) -> cudaError_t {
+    if (acc == repro::kAccBF16) return f(g, t, std::integral_constant<int, repro::kAccBF16>());
+    return f(g, t, std::integral_constant<int, repro::kAccF32>());
+  };
+  const auto by_type = [&](auto g) -> cudaError_t {
+    if (dtype == repro::kBF16) return by_acc(g, TypeTag<__nv_bfloat16>());
+    return by_acc(g, TypeTag<float>());
+  };
   switch (G) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 2: return f(std::integral_constant<int, 2>());
-    case 4: return f(std::integral_constant<int, 4>());
-    case 8: return f(std::integral_constant<int, 8>());
-    default: return f(std::integral_constant<int, 16>());
+    case 1: return by_type(std::integral_constant<int, 1>());
+    case 2: return by_type(std::integral_constant<int, 2>());
+    case 4: return by_type(std::integral_constant<int, 4>());
+    case 8: return by_type(std::integral_constant<int, 8>());
+    default: return by_type(std::integral_constant<int, 16>());
   }
+}
+
+bool variant_ok(int dtype, int acc) {
+  return (dtype == repro::kF32 || dtype == repro::kBF16) &&
+         (acc == repro::kAccF32 || acc == repro::kAccBF16);
 }
 
 // For K > kMaxBlockK, after the merge wrote each row's K winners to the
@@ -810,23 +849,30 @@ bool topk_fits(long long rows, long long groups_y, long long m, int K) {
 
 extern "C" {
 
-int dplr_corpus_score_full(const float* Q, const float* aI, const unsigned char* valid,
+// Q (n, rho, k) and aI (n): the slab, float (dtype = 0) or bf16 (dtype = 1);
+// acc: 0 sums in f32, 1 as the reference's acc_dtype='bfloat16'.
+int dplr_corpus_score_full(const void* Q, const void* aI, const unsigned char* valid,
                            const float* e, const float* PC, const float* aC, long long n,
-                           int Bq, int rho, int k, float* out, void* stream, int device) {
-  if (n <= 0 || Bq <= 0 || rho * k > kMaxRK) return (int)cudaErrorInvalidValue;
+                           int Bq, int rho, int k, int dtype, int acc, float* out,
+                           void* stream, int device) {
+  if (n <= 0 || Bq <= 0 || rho * k > kMaxRK || !variant_ok(dtype, acc))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int G = group_size(Bq);
   const long long groups = (Bq + G - 1) / G;
   if (groups > kMaxGrid) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)FullSmem(G, rho, k).words * sizeof(float);
   const dim3 grid((unsigned)((n + kFullTile - 1) / kFullTile), (unsigned)groups);
-  err = with_group(G, [&](auto g) {
-    constexpr int kG = decltype(g)::value;
-    cudaError_t e2 = allow_smem_once<corpus_score_full<kG>>(smem, device);
+  err = with_variant(G, dtype, acc, [&](auto g, auto t, auto a) {
+    constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
+    using T = typename decltype(t)::type;
+    const size_t smem =
+        (size_t)FullSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
+    cudaError_t e2 = allow_smem_once<corpus_score_full<kG, T, kA>>(smem, device);
     if (e2 != cudaSuccess) return e2;
-    corpus_score_full<kG><<<grid, kFullTile, smem, (cudaStream_t)stream>>>(
-        Q, aI, valid, e, PC, aC, n, Bq, rho, k, out);
+    corpus_score_full<kG, T, kA><<<grid, kFullTile, smem, (cudaStream_t)stream>>>(
+        static_cast<const T*>(Q), static_cast<const T*>(aI), valid, e, PC, aC, n, Bq, rho, k,
+        out);
     return cudaGetLastError();
   });
   return (int)err;
@@ -841,13 +887,14 @@ long long dplr_corpus_topk_scratch(long long n, long long rows, int K) {
 // Writes the launches it made to launched[0] (corpus_topk_chunks: 1),
 // launched[1] (topk_merge: 1), launched[2] (topk_sort_tiles: 1 for K >
 // 4096, else 0) and launched[3] (topk_sort_merge: one per round of runs).
-int dplr_corpus_topk(const float* Q, const float* aI, const unsigned char* valid,
+int dplr_corpus_topk(const void* Q, const void* aI, const unsigned char* valid,
                      const float* e, const float* PC, const float* aC, long long n, int Bq,
-                     int rho, int k, int K, long long index_offset, long long index_stride,
-                     unsigned* scratch, float* out_v, int* out_i, int* launched, void* stream,
-                     int device) {
+                     int rho, int k, int dtype, int acc, int K, long long index_offset,
+                     long long index_stride, unsigned* scratch, float* out_v, int* out_i,
+                     int* launched, void* stream, int device) {
   launched[0] = launched[1] = launched[2] = launched[3] = 0;
-  if (n <= 0 || Bq <= 0 || K <= 0 || K > n || n > INT_MAX || rho * k > kMaxRK)
+  if (n <= 0 || Bq <= 0 || K <= 0 || K > n || n > INT_MAX || rho * k > kMaxRK ||
+      !variant_ok(dtype, acc))
     return (int)cudaErrorInvalidValue;
   const int G = group_size(Bq);
   const long long n_chunks = n_chunks_of(n), m = n_chunks * kChunk, groups = (Bq + G - 1) / G;
@@ -860,15 +907,17 @@ int dplr_corpus_topk(const float* Q, const float* aI, const unsigned char* valid
                         (size_t)Bq * (kHistBins + kHist2Bins + 2) * sizeof(unsigned), s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem1 = (size_t)ChunkSmem(G, rho, k).words * sizeof(float);
-  err = with_group(G, [&](auto g) {
-    constexpr int kG = decltype(g)::value;
-    cudaError_t e2 = allow_smem_once<corpus_topk_chunks<kG>>(smem1, device);
+  err = with_variant(G, dtype, acc, [&](auto g, auto t, auto a) {
+    constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
+    using T = typename decltype(t)::type;
+    const size_t smem1 =
+        (size_t)ChunkSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
+    cudaError_t e2 = allow_smem_once<corpus_topk_chunks<kG, T, kA>>(smem1, device);
     if (e2 != cudaSuccess) return e2;
-    corpus_topk_chunks<kG><<<dim3((unsigned)n_chunks, (unsigned)groups), kTopkThreads, smem1,
-                             s>>>(
-        Q, aI, valid, e, PC, aC, n, Bq, rho, k, reinterpret_cast<float*>(scratch + sc.cand_v),
-        m, scratch + sc.counters);
+    corpus_topk_chunks<kG, T, kA><<<dim3((unsigned)n_chunks, (unsigned)groups), kTopkThreads,
+                                    smem1, s>>>(
+        static_cast<const T*>(Q), static_cast<const T*>(aI), valid, e, PC, aC, n, Bq, rho, k,
+        reinterpret_cast<float*>(scratch + sc.cand_v), m, scratch + sc.counters);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return (int)err;
@@ -890,19 +939,21 @@ int dplr_corpus_topk(const float* Q, const float* aI, const unsigned char* valid
 
 // The masked top-K of S segments in one launch: row s * Bq + q of the
 // (S * Bq, K) outputs is query q of segment s against segment s's slab
-// (Q[s] (n[s], rho, k), aI[s], valid[s] or nullptr) with eigenvalues
-// e[s * rho ...], ids segment-local and relabeled.  Scratch: as many words
+// (Q[s] (n[s], rho, k), aI[s], valid[s] or nullptr; every segment's Q and
+// aI of the one type `dtype`) with eigenvalues e[s * rho ...], ids
+// segment-local and relabeled.  Scratch: as many words
 // as dplr_corpus_topk_scratch(max n, S * Bq, K) gives.  Writes the launches
 // it made to launched[0] (corpus_multi_topk_chunks), launched[1]
 // (multi_topk_merge), and launched[2] and [3] as dplr_corpus_topk does.
-int dplr_corpus_multi_topk(int S, const float* const* Q, const float* const* aI,
+int dplr_corpus_multi_topk(int S, const void* const* Q, const void* const* aI,
                            const unsigned char* const* valid, const long long* n,
                            const float* e, const float* PC, const float* aC, int Bq,
-                           int rho, int k, int K, long long index_offset,
+                           int rho, int k, int dtype, int acc, int K, long long index_offset,
                            long long index_stride, unsigned* scratch, float* out_v,
                            int* out_i, int* launched, void* stream, int device) {
   launched[0] = launched[1] = launched[2] = launched[3] = 0;
-  if (S <= 0 || S > kMaxSegments || Bq <= 0 || K <= 0 || rho * k > kMaxRK)
+  if (S <= 0 || S > kMaxSegments || Bq <= 0 || K <= 0 || rho * k > kMaxRK ||
+      !variant_ok(dtype, acc))
     return (int)cudaErrorInvalidValue;
   Segments segs;
   long long n_max = 0;
@@ -927,13 +978,15 @@ int dplr_corpus_multi_topk(int S, const float* const* Q, const float* const* aI,
                         (size_t)rows * (kHistBins + kHist2Bins + 2) * sizeof(unsigned), s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem1 = (size_t)ChunkSmem(G, rho, k).words * sizeof(float);
-  err = with_group(G, [&](auto g) {
-    constexpr int kG = decltype(g)::value;
-    cudaError_t e2 = allow_smem_once<corpus_multi_topk_chunks<kG>>(smem1, device);
+  err = with_variant(G, dtype, acc, [&](auto g, auto t, auto a) {
+    constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
+    using T = typename decltype(t)::type;
+    const size_t smem1 =
+        (size_t)ChunkSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
+    cudaError_t e2 = allow_smem_once<corpus_multi_topk_chunks<kG, T, kA>>(smem1, device);
     if (e2 != cudaSuccess) return e2;
-    corpus_multi_topk_chunks<kG><<<dim3((unsigned)n_chunks, (unsigned)(S * groups)),
-                                   kTopkThreads, smem1, s>>>(
+    corpus_multi_topk_chunks<kG, T, kA><<<dim3((unsigned)n_chunks, (unsigned)(S * groups)),
+                                          kTopkThreads, smem1, s>>>(
         segs, e, PC, aC, Bq, rho, k, reinterpret_cast<float*>(scratch + sc.cand_v), m,
         scratch + sc.counters);
     return cudaGetLastError();

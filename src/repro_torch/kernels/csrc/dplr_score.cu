@@ -10,8 +10,15 @@
 // the per-query kernel.
 //
 // What bounds it on an H100: memory.  Each (query, item) reads m_I * k * 4
-// bytes of V_I (2432 B at m_I = 38, k = 16) for about (2 + 2 rho) * m_I * k
-// flops, well under the card's f32 rate per byte.
+// bytes of V_I (2432 B at m_I = 38, k = 16; half that in bf16) for about
+// (2 + 2 rho) * m_I * k flops, well under the card's f32 rate per byte.
+//
+// Types: V_I is float or bf16 (the serving checkpoint's type), read as
+// stored into shared memory and upcast in registers; the small operands
+// (U_I, e, d_I, P_C, s_C) arrive in f32, upcast by the caller.  After the
+// upcast, which is exact, the arithmetic is the float kernel's, so a bf16
+// V_I scores bitwise as its upcast f32 copy (the Pallas kernel squares a
+// bf16 V in bf16; here every product is f32).
 //
 // What the design does about it.  A block, one warp, walks tiles of T items
 // of one query ((query, tile) pairs flattened, a grid of at most one wave
@@ -22,9 +29,12 @@
 // while the other loads.  Items sit in padded slots, stride congruent to kp mod 32 floats
 // (kp = k rounded up to 4): an item row is 608 floats at m_I = 38, k = 16,
 // a multiple of 32, so unpadded rows would put every item's field on the
-// same banks.  Where V_I is not 16-byte aligned or k % 4 != 0, the threads
-// stage each tile with plain loads into the same layout (k padded with
-// zeros), in the same kernel.  Items whose m_I k floats exceed a stage go
+// same banks (in bf16, a slot stride congruent to kp mod 64 elements does
+// the same for the 8-byte reads of 4 columns).  Where V_I is not 16-byte
+// aligned or a field row is not a whole number of 16-byte pieces (k % 4 != 0
+// in f32, k % 8 != 0 in bf16), the threads stage each tile with plain loads
+// of one element into the same layout (k padded with zeros), in the same
+// kernel: a bf16 view 2 bytes off any 4-byte boundary takes that path.  Items whose m_I k floats exceed a stage go
 // through in chunks of fields, P carried across them in registers.
 //
 // g threads share an item, each owning a 4-row by 4-column block of P in
@@ -60,7 +70,7 @@ using repro::kMaxRK;
 
 constexpr int kThreads = 32;   // one warp a block
 constexpr int kStages = 2;
-constexpr int kStageFloats = 24576;  // 96 KB a stage at most
+constexpr int kStageBytes = 98304;   // 96 KB a stage at most
 constexpr int kUFloats = 8192;       // U_I's chunk, 32 KB at most
 constexpr int kFieldBlock = 8;       // fields a partial sum spans past kOneBlockFields
 constexpr int kOneBlockFields = 48;  // up to this m_I, one block of all fields
@@ -76,19 +86,21 @@ __device__ inline void kahan_add(float& sum, float& carry, float x) {
   sum = t;
 }
 
-// Floats from one item's slot to the next: at least `width`, congruent to
-// kp mod 32.
-__host__ __device__ inline int slot_stride(int width, int kp) {
-  return width + ((kp - width) % 32 + 32) % 32;
+// Elements from one item's slot to the next: at least `width`, congruent
+// to kp mod `banks` (the elements of T in 32 banks of 4 bytes).
+__host__ __device__ inline int slot_stride(int width, int kp, int banks) {
+  return width + ((kp - width) % banks + banks) % banks;
 }
 
-// How (m_I, rho, k) maps onto the block: lanes an item (g used of gp),
-// items a tile (T), fields a chunk (FC) and the slot stride (S).
+// How (m_I, rho, k) maps onto the block for V_I of `elem` bytes an entry:
+// lanes an item (g used of gp), items a tile (T), fields a chunk (FC) and
+// the slot stride in elements (S).  All but FC and S are the same for both
+// types, and the arithmetic depends on none of them.
 struct Geometry {
   int kp, kq, rhop, g, gp, T, FC, S, FB;
 };
 
-__host__ __device__ inline Geometry geometry(int mI, int rho, int k) {
+__host__ __device__ inline Geometry geometry(int mI, int rho, int k, int elem) {
   Geometry G;
   G.kp = round4(k);
   G.kq = G.kp / 4;
@@ -97,33 +109,51 @@ __host__ __device__ inline Geometry geometry(int mI, int rho, int k) {
   G.gp = 1;
   while (G.gp < G.g) G.gp *= 2;
   G.T = kThreads / G.gp;
-  int fc = (kStageFloats / G.T - 32) / G.kp;
+  const int banks = 128 / elem;
+  int fc = (kStageBytes / elem / G.T - banks) / G.kp;
   const int fu = kUFloats / (G.rhop + 1);
   fc = fc < fu ? fc : fu;
   fc = fc < mI ? fc : mI;
   G.FC = fc > 1 ? fc : 1;
-  G.S = slot_stride(G.FC * G.kp, G.kp);
+  G.S = slot_stride(G.FC * G.kp, G.kp, banks);
   G.FB = mI <= kOneBlockFields ? (mI > 1 ? mI : 1) : kFieldBlock;
   return G;
 }
 
-__host__ __device__ inline size_t smem_bytes(const Geometry& G) {
-  return 16 + ((size_t)kStages * G.T * G.S + (size_t)G.FC * (G.rhop + 1) + G.rhop +
-               16 * kThreads) *
-                  sizeof(float);
+// Bytes of the stages, rounded up to 16 (the floats after them are read 16
+// bytes at a time).
+__host__ __device__ inline size_t stage_bytes(const Geometry& G, int elem) {
+  return ((size_t)kStages * G.T * G.S * elem + 15) & ~(size_t)15;
 }
 
+__host__ __device__ inline size_t smem_bytes(const Geometry& G, int elem) {
+  return 16 + stage_bytes(G, elem) +
+         ((size_t)G.FC * (G.rhop + 1) + G.rhop + 16 * kThreads) * sizeof(float);
+}
+
+// 4 consecutive entries of a staged row as f32 (16 bytes of floats, or 8 of
+// bf16, the row 8-byte aligned).
+__device__ inline float4 load4(const float* x) { return *reinterpret_cast<const float4*>(x); }
+__device__ inline float4 load4(const __nv_bfloat16* x) {
+  const uint2 w = *reinterpret_cast<const uint2*>(x);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    dplr_score_items_kernel(const float* __restrict__ V, const float* __restrict__ U,
+    dplr_score_items_kernel(const T* __restrict__ V, const float* __restrict__ U,
                             const float* __restrict__ e, const float* __restrict__ d,
                             const float* __restrict__ PC, const float* __restrict__ sC,
                             long long n, int Bq, int mI, int rho, int k, int bulk,
                             float* __restrict__ out) {
-  const Geometry G = geometry(mI, rho, k);
+  const Geometry G = geometry(mI, rho, k, sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw);
-  float* stages = reinterpret_cast<float*>(smem_raw + 16);  // kStages * T * S
-  float* us = stages + kStages * G.T * G.S;                  // FC * rhop: us[f * rhop + r]
+  T* stages = reinterpret_cast<T*>(smem_raw + 16);           // kStages * T * S
+  float* us = reinterpret_cast<float*>(smem_raw + 16 + stage_bytes(G, sizeof(T)));
+                                                             // FC * rhop: us[f * rhop + r]
   float* ds = us + G.FC * G.rhop;                            // FC
   float* es = ds + G.FC;                                     // rhop
   float* pc = es + G.rhop + threadIdx.x;  // this thread's carries of P, stride kThreads
@@ -150,11 +180,11 @@ __global__ void __launch_bounds__(kThreads)
     long long first;
     const int nv = unit_items(unit_tile(v), &first);
     int f0;
-    const uint32_t bytes = (uint32_t)(unit_fields(v, &f0) * k) * 4u;
+    const uint32_t bytes = (uint32_t)(unit_fields(v, &f0) * k) * (uint32_t)sizeof(T);
     const uint32_t bar = hopper::smem_addr(&full[s]);
     if (threadIdx.x == 0) hopper::mbar_expect_tx(bar, bytes * nv);
     __syncwarp();
-    float* dst = stages + s * G.T * G.S;
+    T* dst = stages + s * G.T * G.S;
     for (int it = threadIdx.x; it < nv; it += kThreads)
       hopper::bulk_load(hopper::smem_addr(dst + it * G.S), V + ((first + it) * mI + f0) * k,
                         bytes, bar);
@@ -211,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
       load_u(f0, fc);
       __syncthreads();
     }
-    float* X = stages + s * G.T * G.S;
+    T* X = stages + s * G.T * G.S;
     if (bulk) {
       hopper::mbar_wait(hopper::smem_addr(&full[s]), (uint32_t)(v / kStages) & 1);
     } else {
@@ -220,13 +250,13 @@ __global__ void __launch_bounds__(kThreads)
       const int per = fc * G.kp;
       for (int t = threadIdx.x; t < items * per; t += kThreads) {
         const int b = t / per, r = t - b * per, f = r / G.kp, c = r - f * G.kp;
-        X[b * G.S + r] = c < k ? __ldg(V + ((first + b) * mI + f0 + f) * k + c) : 0.f;
+        X[b * G.S + r] = c < k ? __ldg(V + ((first + b) * mI + f0 + f) * k + c) : T{};
       }
       __syncthreads();
     }
 
     if (active) {
-      const float* x = X + it * G.S + 4 * cq;
+      const T* x = X + it * G.S + 4 * cq;
       const float* u = us + 4 * rg;
       // the chunk's fields, cut where a block of G.FB item fields ends
       for (int fb = 0; fb < fc;) {
@@ -234,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
         const int fe = gend - f0 < fc ? gend - f0 : fc;
 #pragma unroll 4
         for (int f = fb; f < fe; ++f) {
-          const float4 xv = *reinterpret_cast<const float4*>(x + f * G.kp);
+          const float4 xv = load4(x + f * G.kp);
           const float4 uv = *reinterpret_cast<const float4*>(u + f * G.rhop);
           const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
           const float ur[4] = {uv.x, uv.y, uv.z, uv.w};
@@ -289,37 +319,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <class T>
+cudaError_t launch_items(const T* V, const float* U, const float* e, const float* d,
+                         const float* PC, const float* sC, long long n, int Bq, int mI,
+                         int rho, int k, float* out, cudaStream_t stream, int device) {
+  const Geometry G = geometry(mI, rho, k, sizeof(T));
+  const size_t smem = smem_bytes(G, sizeof(T));
+  cudaError_t err = repro::allow_smem(dplr_score_items_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  long long most = 0;
+  err = repro::one_wave(dplr_score_items_kernel<T>, kThreads, smem, device, &most);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (n + G.T - 1) / G.T * Bq;
+  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
+  // bulk copies move whole 16-byte pieces between 16-byte aligned places
+  const int bulk = k % (16 / (int)sizeof(T)) == 0 && (uintptr_t)V % 16 == 0;
+  dplr_score_items_kernel<T><<<grid, kThreads, smem, stream>>>(V, U, e, d, PC, sC, n, Bq, mI,
+                                                                rho, k, bulk, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int dplr_score_items(const float* V, const float* U, const float* e, const float* d,
+// V: (Bq, n, m_I, k) float (dtype = 0) or bf16 (dtype = 1); the rest f32.
+int dplr_score_items(const void* V, int dtype, const float* U, const float* e, const float* d,
                      const float* PC, const float* sC, long long n, int Bq, int mI, int rho,
                      int k, float* out, void* stream, int device) {
-  if (n <= 0 || Bq <= 0 || mI < 0 || rho <= 0 || k <= 0 || rho * k > kMaxRK)
+  if (n <= 0 || Bq <= 0 || mI < 0 || rho <= 0 || k <= 0 || rho * k > kMaxRK ||
+      (dtype != repro::kF32 && dtype != repro::kBF16))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Geometry G = geometry(mI, rho, k);
-  const size_t smem = smem_bytes(G);
-  err = repro::allow_smem(dplr_score_items_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  long long most = 0;
-  err = repro::one_wave(dplr_score_items_kernel, kThreads, smem, device, &most);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (n + G.T - 1) / G.T * Bq;
-  const unsigned grid = (unsigned)(tiles < most ? tiles : most);
-  const int bulk = k % 4 == 0 && (uintptr_t)V % 16 == 0;
-  dplr_score_items_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      V, U, e, d, PC, sC, n, Bq, mI, rho, k, bulk, out);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == repro::kBF16)
+    return (int)launch_items(static_cast<const __nv_bfloat16*>(V), U, e, d, PC, sC, n, Bq, mI,
+                             rho, k, out, s, device);
+  return (int)launch_items(static_cast<const float*>(V), U, e, d, PC, sC, n, Bq, mI, rho, k,
+                           out, s, device);
 }
 
-// Items a tile holds at (m_I, rho, k), as the launch above cuts them; 0
-// where the launch refuses the shape.
+// Items a tile holds at (m_I, rho, k), as the launch above cuts them (the
+// same for both types); 0 where the launch refuses the shape.
 int dplr_score_items_tile(int mI, int rho, int k) {
   if (mI < 0 || rho <= 0 || k <= 0 || rho * k > kMaxRK) return 0;
-  return geometry(mI, rho, k).T;
+  return geometry(mI, rho, k, sizeof(float)).T;
 }
 
 }  // extern "C"

@@ -3,28 +3,34 @@
 //   out[b, bag, :] = sum_{s : seg[s] = bag} (w[b, s] * table[ids[b, s], :])
 //
 // for arena-global ids (B, n_slots), weights (B, n_slots) and a static
-// slot -> bag map, out (B, n_bags, k), all f32.
+// slot -> bag map, out (B, n_bags, k): all f32, or table, weights and out
+// all bf16 (the serving checkpoint's type).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/embedding_bag.py,
 // embedding_bag() (_make_kernel), which DMAs one table row per slot of an
 // example and adds it into the example's bag in VMEM.
 //
 // What bounds it on an H100: memory.  Per slot it reads one k-float row
-// (64 B at k = 16) at a data-dependent address, 8 B of id and weight, and
-// writes its bag's row once; two flops per element.
+// (64 B at k = 16; 32 B in bf16) at a data-dependent address, 8 B of id
+// and weight (6 in bf16), and writes its bag's row once; two flops per
+// element.
 //
 // What the design does about it: one thread owns one (example, bag, lane)
-// where a lane is 4 floats (one 16-byte load) when k % 4 == 0, else one
-// float, so the 4 threads of a k = 16 bag read their row as one 64-byte
-// piece and neighbouring threads write neighbouring output words.  The
+// where a lane is 16 bytes of the row (4 floats or 8 bf16, one load) when
+// the row is a whole number of 16-byte pieces from an aligned table, else
+// one element, so the 4 threads of a k = 16 f32 bag (2 in bf16) read their
+// row as one piece and neighbouring threads write neighbouring output
+// words.  The
 // map arrives as CSR (bag -> its slots in ascending slot order, built once
 // on the host), so a thread walks only its own bag's slots and writes its
 // output once: no atomics, no zero-fill pass, no scratch.  Each bag is
 // summed from 0 in ascending slot order with the product and the add
 // rounded separately (no fused multiply-add), which is the Pallas kernel's
 // order (out.at[seg[s]].add(row * w) for s ascending): the result does not
-// depend on the batch size or the launch shape.  An id outside [0, rows) is
-// never read: its whole bag is written as NaN.
+// depend on the batch size or the launch shape.  In bf16 each product and
+// each add is rounded to bf16 (computed in f32, then rounded, as PyTorch's
+// and XLA's bf16 arithmetic does), the weight arriving in bf16.  An id
+// outside [0, rows) is never read: its whole bag is written as NaN.
 //
 // The backward, embedding_bag_backward_kernel, writes the table's gradient
 //
@@ -55,17 +61,56 @@ __device__ inline long long slot_id(const void* ids, int ids64, long long at) {
                : (long long)__ldg(static_cast<const int*>(ids) + at);
 }
 
-__device__ inline float bag_add(float acc, float x, float w) {
+// acc + x * w with the product and the add each rounded to T.
+__device__ inline float bag_add(float acc, float x, float w, float) {
   return __fadd_rn(acc, __fmul_rn(x, w));
 }
+__device__ inline float bag_add(float acc, float x, float w, __nv_bfloat16) {
+  return repro::round_bf16(__fadd_rn(acc, repro::round_bf16(__fmul_rn(x, w))));
+}
 
-__global__ void embedding_bag_kernel(const float* __restrict__ table, long long rows, int k,
+// A lane's 16 bytes of a row as f32, and its output written back as T.
+__device__ inline void load_lane(const float* src, float* x) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ inline void load_lane(const __nv_bfloat16* src, float* x) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+  const unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&words[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ inline void store_lane(float* dst, const float* acc) {
+  *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+}
+__device__ inline void store_lane(__nv_bfloat16* dst, const float* acc) {
+  unsigned words[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
+    words[i] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
+}
+__device__ inline void store_one(float* dst, float x) { dst[0] = x; }
+__device__ inline void store_one(__nv_bfloat16* dst, float x) { dst[0] = __float2bfloat16_rn(x); }
+
+template <class T>
+__global__ void embedding_bag_kernel(const T* __restrict__ table, long long rows, int k,
                                      const void* __restrict__ ids, int ids64,
-                                     const float* __restrict__ w,
+                                     const T* __restrict__ w,
                                      const int* __restrict__ bag_ptr,
                                      const int* __restrict__ bag_slots, long long B,
                                      int n_slots, int n_bags, int vec,
-                                     float* __restrict__ out) {
+                                     T* __restrict__ out) {
+  constexpr int kLane = 16 / sizeof(T);   // elements of a 16-byte lane
   const int lanes = k / vec;
   const long long per_example = (long long)n_bags * lanes;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -76,7 +121,9 @@ __global__ void embedding_bag_kernel(const float* __restrict__ table, long long 
   const int col = (r - bag * lanes) * vec;
   const long long base = b * n_slots;
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[kLane];
+#pragma unroll
+  for (int j = 0; j < kLane; ++j) acc[j] = 0.f;
   bool bad = false;
   const int end = __ldg(bag_ptr + bag + 1);
   for (int p = __ldg(bag_ptr + bag); p < end; ++p) {
@@ -86,24 +133,26 @@ __global__ void embedding_bag_kernel(const float* __restrict__ table, long long 
       bad = true;
       break;
     }
-    const float ws = __ldg(w + base + s);
-    const float* row = table + id * k + col;
-    if (vec == 4) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(row));
-      acc[0] = bag_add(acc[0], x.x, ws);
-      acc[1] = bag_add(acc[1], x.y, ws);
-      acc[2] = bag_add(acc[2], x.z, ws);
-      acc[3] = bag_add(acc[3], x.w, ws);
+    const float ws = repro::to_f32(__ldg(w + base + s));
+    const T* row = table + id * k + col;
+    if (vec == kLane) {
+      float x[kLane];
+      load_lane(row, x);
+#pragma unroll
+      for (int j = 0; j < kLane; ++j) acc[j] = bag_add(acc[j], x[j], ws, T());
     } else {
-      acc[0] = bag_add(acc[0], __ldg(row), ws);
+      acc[0] = bag_add(acc[0], repro::to_f32(__ldg(row)), ws, T());
     }
   }
-  if (bad) acc[0] = acc[1] = acc[2] = acc[3] = CUDART_NAN_F;
-  float* dst = out + (b * n_bags + bag) * k + col;
-  if (vec == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  if (bad) {
+#pragma unroll
+    for (int j = 0; j < kLane; ++j) acc[j] = CUDART_NAN_F;
+  }
+  T* dst = out + (b * n_bags + bag) * k + col;
+  if (vec == kLane) {
+    store_lane(dst, acc);
   } else {
-    dst[0] = acc[0];
+    store_one(dst, acc[0]);
   }
 }
 
@@ -182,23 +231,33 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // ids: int32 (ids64 = 0) or int64 (ids64 = 1), (B, n_slots) row-major.
+// table, w and out: float (dtype = 0) or bf16 (dtype = 1), one type.
 // bag_ptr (n_bags + 1) and bag_slots (n_slots): the CSR of the slot -> bag
 // map.  B = 0 launches nothing.
-int embedding_bag(const float* table, long long rows, int k, const void* ids, int ids64,
-                  const float* w, const int* bag_ptr, const int* bag_slots, long long B,
-                  int n_slots, int n_bags, float* out, void* stream, int device) {
-  if (B < 0 || rows <= 0 || k <= 0 || n_slots <= 0 || n_bags <= 0)
+int embedding_bag(const void* table, int dtype, long long rows, int k, const void* ids,
+                  int ids64, const void* w, const int* bag_ptr, const int* bag_slots,
+                  long long B, int n_slots, int n_bags, void* out, void* stream, int device) {
+  if (B < 0 || rows <= 0 || k <= 0 || n_slots <= 0 || n_bags <= 0 ||
+      (dtype != repro::kF32 && dtype != repro::kBF16))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const bool aligned = ((uintptr_t)table % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  const int vec = (k % 4 == 0 && aligned) ? 4 : 1;
+  const int lane = dtype == repro::kBF16 ? 8 : 4;
+  const int vec = (k % lane == 0 && aligned) ? lane : 1;
   const long long threads = B * n_bags * (long long)(k / vec);
   const long long blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  embedding_bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      table, rows, k, ids, ids64, w, bag_ptr, bag_slots, B, n_slots, n_bags, vec, out);
+  if (dtype == repro::kBF16)
+    embedding_bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const __nv_bfloat16*>(table), rows, k, ids, ids64,
+        static_cast<const __nv_bfloat16*>(w), bag_ptr, bag_slots, B, n_slots, n_bags, vec,
+        static_cast<__nv_bfloat16*>(out));
+  else
+    embedding_bag_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        static_cast<const float*>(table), rows, k, ids, ids64, static_cast<const float*>(w),
+        bag_ptr, bag_slots, B, n_slots, n_bags, vec, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

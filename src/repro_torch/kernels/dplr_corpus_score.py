@@ -8,8 +8,10 @@ DPLR-FwFM scores of a query batch against the item slab,
 with dead slots pinned to exactly ``NEG_INF``, either as the full
 ``(Bq, n)`` matrix or reduced to a top-K per query (ties to the lowest
 slot), and the top-K of S tenants' slabs in one launch, for any
-``0 < K <= n``.  The kernels' design is described at the top of the
-``.cu`` file.
+``0 < K <= n``.  The slab (``Q_I`` and ``a_I``) is float32 or bfloat16,
+read as stored; ``e``, ``P_C`` and ``a_C`` arrive in float32; ``acc``
+picks the accumulation of the reference's ``acc_dtype``.  The kernels'
+design is described at the top of the ``.cu`` file.
 
 These functions take CUDA tensors that ``repro_torch.kernels.ops`` has
 already checked, launch on the current stream and allocate their outputs
@@ -35,18 +37,23 @@ MAX_SEGMENTS = 64
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# The C entry points' codes: the slab's type, and the accumulation mode
+# (the reference's acc_dtype names).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ACC_CODES = {"float32": 0, "bfloat16": 1}
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("dplr_corpus_score")
-    lib.dplr_corpus_score_full.argtypes = [_P] * 6 + [_L, _I, _I, _I, _P, _P, _I]
+    lib.dplr_corpus_score_full.argtypes = [_P] * 6 + [_L, _I, _I, _I, _I, _I, _P, _P, _I]
     lib.dplr_corpus_score_full.restype = _I
     lib.dplr_corpus_topk_scratch.argtypes = [_L, _L, _I]
     lib.dplr_corpus_topk_scratch.restype = _L
-    lib.dplr_corpus_topk.argtypes = ([_P] * 6 + [_L, _I, _I, _I, _I, _L, _L]
+    lib.dplr_corpus_topk.argtypes = ([_P] * 6 + [_L, _I, _I, _I, _I, _I, _I, _L, _L]
                                      + [_P] * 5 + [_I])
     lib.dplr_corpus_topk.restype = _I
-    lib.dplr_corpus_multi_topk.argtypes = ([_I] + [_P] * 7 + [_I, _I, _I, _I, _L, _L]
+    lib.dplr_corpus_multi_topk.argtypes = ([_I] + [_P] * 7 + [_I] * 6 + [_L, _L]
                                            + [_P] * 5 + [_I])
     lib.dplr_corpus_multi_topk.restype = _I
     return lib
@@ -65,7 +72,7 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch_full(Q_I, a_I, e, P_C, a_C, valid) -> torch.Tensor:
+def launch_full(Q_I, a_I, e, P_C, a_C, valid, acc: str = "float32") -> torch.Tensor:
     """``(Bq, n)`` f32 scores."""
     n, rho, k = Q_I.shape
     Bq = P_C.shape[0]
@@ -73,7 +80,8 @@ def launch_full(Q_I, a_I, e, P_C, a_C, valid) -> torch.Tensor:
     out = torch.empty((Bq, n), dtype=torch.float32, device=dev)
     status = _lib().dplr_corpus_score_full(
         _ptr(Q_I), _ptr(a_I), _ptr(valid), _ptr(e), _ptr(P_C), _ptr(a_C),
-        n, Bq, rho, k, _ptr(out), _stream(dev), dev.index)
+        n, Bq, rho, k, DTYPE_CODES[Q_I.dtype], ACC_CODES[acc], _ptr(out), _stream(dev),
+        dev.index)
     _build.check(status, "dplr_corpus_score_full launch")
     return out
 
@@ -84,7 +92,8 @@ def _topk_launches(stage1: str, merge: str, launched) -> dict:
 
 
 def launch_topk(Q_I, a_I, e, P_C, a_C, valid, K: int, index_offset: int,
-                index_stride: int) -> tuple[torch.Tensor, torch.Tensor, dict]:
+                index_stride: int, acc: str = "float32"
+                ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """``(Bq, K) f32 scores, (Bq, K) int32 ids`` best first, and the
     launches made: ``corpus_topk_chunks`` and ``topk_merge`` once each,
     and for K > 4096 ``topk_sort_tiles`` once and ``topk_sort_merge``
@@ -99,7 +108,7 @@ def launch_topk(Q_I, a_I, e, P_C, a_C, valid, K: int, index_offset: int,
     launched = (ctypes.c_int * 4)()
     status = lib.dplr_corpus_topk(
         _ptr(Q_I), _ptr(a_I), _ptr(valid), _ptr(e), _ptr(P_C), _ptr(a_C),
-        n, Bq, rho, k, K, index_offset, index_stride,
+        n, Bq, rho, k, DTYPE_CODES[Q_I.dtype], ACC_CODES[acc], K, index_offset, index_stride,
         _ptr(scratch), _ptr(vals), _ptr(ids),
         ctypes.addressof(launched), _stream(dev), dev.index)
     _build.check(status, "dplr_corpus_topk launch")
@@ -107,13 +116,13 @@ def launch_topk(Q_I, a_I, e, P_C, a_C, valid, K: int, index_offset: int,
 
 
 def launch_multi_topk(Q_parts, a_parts, valid_parts, e, P_C, a_C, K: int,
-                      index_offset: int, index_stride: int
+                      index_offset: int, index_stride: int, acc: str = "float32"
                       ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """``(S, Bq, K) f32 scores, (S, Bq, K) int32 segment-local ids`` best
     first, and the launches made: ``corpus_multi_topk_chunks`` and
     ``multi_topk_merge`` once each, and for K > 4096 the sort kernels as
-    in ``launch_topk``.  The segments' slabs are passed by pointer (a table
-    in the launch's parameters), never copied."""
+    in ``launch_topk``.  The segments' slabs, all of one type, are passed
+    by pointer (a table in the launch's parameters), never copied."""
     S = len(Q_parts)
     _, rho, k = Q_parts[0].shape
     Bq = P_C.shape[1]
@@ -127,7 +136,8 @@ def launch_multi_topk(Q_parts, a_parts, valid_parts, e, P_C, a_C, K: int,
     launched = (ctypes.c_int * 4)()
     status = lib.dplr_corpus_multi_topk(
         S, ptrs(Q_parts), ptrs(a_parts), ptrs(valid_parts), n,
-        _ptr(e), _ptr(P_C), _ptr(a_C), Bq, rho, k, K, index_offset, index_stride,
+        _ptr(e), _ptr(P_C), _ptr(a_C), Bq, rho, k, DTYPE_CODES[Q_parts[0].dtype],
+        ACC_CODES[acc], K, index_offset, index_stride,
         _ptr(scratch), _ptr(vals), _ptr(ids),
         ctypes.addressof(launched), _stream(dev), dev.index)
     _build.check(status, "dplr_corpus_multi_topk launch")

@@ -5,8 +5,10 @@ Counterpart of ``repro.kernels.embedding_bag``:
     out[b, bag, :] = sum_{s: seg[s] = bag} w[b, s] * table[ids[b, s], :]
 
 for arena-global ``ids (B, n_slots)`` (int32 or int64), ``weights
-(B, n_slots)`` and a static slot -> bag map ``seg``; and its backward in
-the table, ``launch_backward``, a fixed-order sum per row (no atomics).
+(B, n_slots)`` and a static slot -> bag map ``seg``, the table, weights and
+bags all float32 or all bfloat16 (each product and add rounded to the
+type); and its backward in the table, ``launch_backward``, float32, a
+fixed-order sum per row (no atomics).
 The forward kernel reads the map as CSR (bag -> its slots in ascending
 order): ``bag_map`` builds it on the host, and its caller keeps the
 result for as long as the map lives (``embedding.bag`` keeps one per
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.dplr_corpus_score import DTYPE_CODES
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -53,7 +56,7 @@ def bag_map(segment_ids, n_bags: int, device) -> BagMap:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("embedding_bag")
-    lib.embedding_bag.argtypes = [_P, _L, _I, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]
+    lib.embedding_bag.argtypes = [_P, _I, _L, _I, _P, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]
     lib.embedding_bag.restype = _I
     lib.embedding_bag_backward.argtypes = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _L, _L, _P, _P,
                                            _I]
@@ -62,13 +65,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def launch(table, ids, weights, bags: BagMap) -> torch.Tensor:
-    """``(B, n_bags, k)`` f32 bags for 2-D ``ids``/``weights`` (B, n_slots)."""
+    """``(B, n_bags, k)`` bags in the table's type for 2-D ``ids``/``weights``
+    (B, n_slots)."""
     B, n_slots = ids.shape
     rows, k = table.shape
     dev = table.device
-    out = torch.empty((B, bags.n_bags, k), dtype=torch.float32, device=dev)
+    out = torch.empty((B, bags.n_bags, k), dtype=table.dtype, device=dev)
     status = _lib().embedding_bag(
-        table.data_ptr(), rows, k, ids.data_ptr(), int(ids.dtype == torch.int64),
+        table.data_ptr(), DTYPE_CODES[table.dtype], rows, k, ids.data_ptr(), int(ids.dtype == torch.int64),
         weights.data_ptr(), bags.bag_ptr.data_ptr(), bags.bag_slots.data_ptr(), B, n_slots,
         bags.n_bags, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(status, "embedding_bag launch")

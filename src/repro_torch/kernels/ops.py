@@ -6,13 +6,27 @@ launches the hand-written CUDA kernel, or raises (wrong dtype, layout or
 shape, a failed build or launch).  There is no fallback from the kernel
 to the plain version.  Any other device raises.
 
+Types: kernels 1-4 take a float32 or bfloat16 slab (``Q_I`` and ``a_I``
+of one type; kernel 3's ``V_I``) and kernel 5 a float32 or bfloat16 table
+(weights of the table's type), as the reference's kernels do.  The small
+operands that do not grow with n (``e``, ``P_C``, ``a_C``; ``U_I``,
+``d_I``, ``s_C``) are upcast to float32 before a launch; a slab or table is
+never cast: a bf16 one launches the bf16 kernel.  Scores are float32 on
+both devices.  The plain versions upcast bf16 on entry, so a bf16 call on
+the CPU is the float32 call on the upcast tensors, as it is bitwise on the
+card with ``acc_dtype='float32'``.  Other types raise.
+
 ``LAUNCHES`` counts launches of each CUDA kernel (``__global__``
 function) by its name, and only those: a run reads it to show that its
-path went through the kernels.  ``KERNELS`` names the CUDA kernels behind
-each entry point; a top-K call launches stage 1 and the merge once each,
-and for K > 4096 the two sort kernels (listed under
-``dplr_corpus_topk``, which the multi-tenant entry shares), so its
-launches are not its calls.
+path went through the kernels.  A kernel instantiated for a bf16 slab,
+``V_I`` or table counts under its name with ``_bf16`` appended, and one
+that accumulates as ``acc_dtype='bfloat16'`` with ``_accbf16`` after that.
+``KERNELS`` names the CUDA kernels behind each entry point, the bf16 ones
+under the entry point's name with ``_bf16`` (the ``acc_dtype='bfloat16'``
+ones, off the serving path, are in no entry); a top-K call launches stage
+1 and the merge once each, and for K > 4096 the two sort kernels (listed
+under ``dplr_corpus_topk``, which the multi-tenant entry shares; both
+types share them), so its launches are not its calls.
 """
 from __future__ import annotations
 
@@ -38,8 +52,19 @@ KERNELS = {
     "embedding_bag_backward": ("embedding_bag_backward_kernel",),
     "fwfm_pairwise": ("fwfm_pairwise_kernel",),
     "flash_attention": ("flash_attention_kernel", "flash_attention_wgmma"),
+    "dplr_corpus_score_bf16": ("corpus_score_full_bf16",),
+    "dplr_corpus_topk_bf16": ("corpus_topk_chunks_bf16", "topk_merge", "topk_sort_tiles",
+                              "topk_sort_merge"),
+    "dplr_score_items_bf16": ("dplr_score_items_kernel_bf16",),
+    "dplr_corpus_score_multi_bf16": ("corpus_multi_topk_chunks_bf16", "multi_topk_merge"),
+    "embedding_bag_bf16": ("embedding_bag_kernel_bf16",),
 }
 LAUNCHES: collections.Counter = collections.Counter()
+
+# The types a slab, V_I or bag table may have on the card, and the
+# reference's acc_dtype values.
+SLAB_DTYPES = (torch.float32, torch.bfloat16)
+ACC_DTYPES = ("float32", "bfloat16")
 
 
 def reset_launches() -> None:
@@ -65,19 +90,52 @@ def _check_shape(name: str, t, shape: tuple, index: int | None = None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
-def _check_for_kernel(index: int | None = None, **tensors) -> None:
-    """The CUDA kernels take f32 (``valid``: bool) contiguous tensors;
-    ``index`` as in ``_check_shape``."""
+def _check_for_kernel(index: int | None = None, dtypes=(torch.float32,), **tensors) -> None:
+    """The CUDA kernels take contiguous tensors of one of ``dtypes``
+    (``valid``: bool); ``index`` as in ``_check_shape``."""
     for name, t in tensors.items():
         if t is None:
             continue
-        want = torch.bool if name.startswith("valid") else torch.float32
-        if t.dtype != want or not t.is_contiguous():
+        want = (torch.bool,) if name.startswith("valid") else dtypes
+        if t.dtype not in want or not t.is_contiguous():
             if index is not None:
                 name = f"{name}{index}"
-            if t.dtype != want:
-                raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {want}")
+            if t.dtype not in want:
+                raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes "
+                                f"{' or '.join(map(str, want))}")
             raise ValueError(f"{name}: the kernel takes a contiguous tensor")
+
+
+def _small_f32(**tensors) -> list:
+    """The operands that do not grow with n, float32 or bfloat16, as the
+    contiguous float32 the kernels read: no copy of a contiguous float32
+    one."""
+    for name, t in tensors.items():
+        if t.dtype not in SLAB_DTYPES:
+            raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 or bfloat16")
+    return [t.to(torch.float32).contiguous() for t in tensors.values()]
+
+
+def _check_acc(acc_dtype: str) -> None:
+    if acc_dtype not in ACC_DTYPES:
+        raise ValueError(f"acc_dtype={acc_dtype!r}: the kernels accumulate in "
+                         f"{' or '.join(ACC_DTYPES)}")
+
+
+def launch_name(kernel: str, dtype: torch.dtype, acc_dtype: str = "float32") -> str:
+    """The ``LAUNCHES`` name of ``kernel`` instantiated for a slab (V_I,
+    table) of ``dtype`` accumulating as ``acc_dtype``."""
+    return (kernel + ("_bf16" if dtype == torch.bfloat16 else "")
+            + ("_accbf16" if acc_dtype == "bfloat16" else ""))
+
+
+def _count(launched: dict, dtype: torch.dtype, acc_dtype: str) -> None:
+    """Add a top-K call's launches: its stage 1 under the instantiation's
+    name, the shared merge and sort kernels under their own."""
+    for name, count in launched.items():
+        if name.endswith("_chunks"):
+            name = launch_name(name, dtype, acc_dtype)
+        LAUNCHES[name] += count
 
 
 def _check_corpus_limits(rk: int) -> None:
@@ -88,13 +146,18 @@ def _check_corpus_limits(rk: int) -> None:
 
 
 def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = None,
-                      index_offset: int = 0, index_stride: int = 1):
+                      index_offset: int = 0, index_stride: int = 1,
+                      acc_dtype: str = "float32"):
     """Masked corpus-cached scores: ``(Bq, n)``, or with ``topk=K`` the
     ``((Bq, K) scores, (Bq, K) int32 ids)`` best first, ties to the lowest
-    slot, local slot ``i`` labeled ``index_offset + index_stride * i``.
+    slot, local slot ``i`` labeled ``index_offset + index_stride * i``;
+    scores float32.
 
     ``Q_I (n, rho, k)``, ``a_I (n,)``, ``e (rho,)``, ``P_C (Bq, rho, k)``,
-    ``a_C (Bq,)``, ``valid (n,)`` bool or None (all live)."""
+    ``a_C (Bq,)``, ``valid (n,)`` bool or None (all live).  ``acc_dtype``:
+    ``'float32'`` (the reference's default when nothing is tuned) or
+    ``'bfloat16'`` (each square and e_r rounded to bf16, their products
+    summed in f32, the sum rounded to bf16)."""
     if Q_I.ndim != 3:
         raise ValueError(f"Q_I must be (n, rho, k), got {tuple(Q_I.shape)}")
     n, rho, k = Q_I.shape
@@ -106,26 +169,30 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
     _check_shape("valid", valid, (n,))
     if topk is not None and not 0 < topk <= n:
         raise ValueError(f"topk={topk} out of range for n={n}")
+    _check_acc(acc_dtype)
     dev = _device(Q_I, a_I, e, P_C, a_C, valid)
     if dev.type == "cpu":
         if topk is None:
-            return ref.dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid)
+            return ref.dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid, acc_dtype)
         return ref.dplr_corpus_topk_ref(Q_I, a_I, e, P_C, a_C, topk, valid,
-                                         index_offset, index_stride)
+                                         index_offset, index_stride, acc_dtype)
     _check_corpus_limits(rho * k)
-    _check_for_kernel(Q_I=Q_I, a_I=a_I, e=e, P_C=P_C, a_C=a_C, valid=valid)
+    _check_for_kernel(dtypes=SLAB_DTYPES, Q_I=Q_I, valid=valid)
+    _check_for_kernel(dtypes=(Q_I.dtype,), a_I=a_I)
+    e, P_C, a_C = _small_f32(e=e, P_C=P_C, a_C=a_C)
     if topk is None:
-        out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid)
-        LAUNCHES["corpus_score_full"] += 1
+        out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid, acc_dtype)
+        LAUNCHES[launch_name("corpus_score_full", Q_I.dtype, acc_dtype)] += 1
         return out
     vals, ids, launched = _corpus.launch_topk(Q_I, a_I, e, P_C, a_C, valid, topk,
-                                              int(index_offset), int(index_stride))
-    LAUNCHES.update(launched)
+                                              int(index_offset), int(index_stride), acc_dtype)
+    _count(launched, Q_I.dtype, acc_dtype)
     return vals, ids
 
 
 def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk: int,
-                            index_offset: int = 0, index_stride: int = 1):
+                            index_offset: int = 0, index_stride: int = 1,
+                            acc_dtype: str = "float32"):
     """S tenants' masked top-K in one call: ``((S, Bq, K) scores, (S, Bq, K)
     int32 ids)``, row ``[s]`` equal to ``dplr_corpus_score(..., topk=K)``
     on segment ``s`` alone (its slab, ``e[s]``, ``P_C[s]``, ``a_C[s]``);
@@ -134,7 +201,9 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     ``Q_parts``: S tensors ``(n_s, rho, k)``; ``a_parts``: S ``(n_s,)``;
     ``valid_parts``: S ``(n_s,)`` bool (or None entries), or None (all
     live); ``e (S, rho)``, ``P_C (S, Bq, rho, k)``, ``a_C (S, Bq)``.
-    Segments may differ in length; K is bounded by the smallest."""
+    Segments may differ in length; K is bounded by the smallest.  On the
+    card every segment's slab is of one type (float32 or bfloat16);
+    ``acc_dtype`` as in ``dplr_corpus_score``."""
     S = len(Q_parts)
     if S == 0:
         raise ValueError("dplr_corpus_score_multi needs >= 1 segment")
@@ -160,27 +229,35 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     n_min = min(q.shape[0] for q in Q_parts)
     if not 0 < topk <= n_min:
         raise ValueError(f"topk={topk} out of range for smallest segment n={n_min}")
+    _check_acc(acc_dtype)
     dev = _device(e, P_C, a_C, *Q_parts, *a_parts, *valid_parts)
     if dev.type == "cpu":
         return ref.dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C,
-                                              topk, index_offset, index_stride)
+                                              topk, index_offset, index_stride, acc_dtype)
     if S > _corpus.MAX_SEGMENTS:
         raise ValueError(f"{S} segments > {_corpus.MAX_SEGMENTS}, the kernel's limit")
     _check_corpus_limits(rho * k)
-    _check_for_kernel(e=e, P_C=P_C, a_C=a_C)
+    slab = Q_parts[0].dtype
+    _check_for_kernel(0, dtypes=SLAB_DTYPES, Q_I=Q_parts[0])
     for s in range(S):
-        _check_for_kernel(s, Q_I=Q_parts[s], a_I=a_parts[s], valid=valid_parts[s])
+        if Q_parts[s].dtype != slab or a_parts[s].dtype != slab:
+            raise TypeError(f"segment {s}: Q_I {Q_parts[s].dtype}, a_I {a_parts[s].dtype}; "
+                            f"one launch takes one slab type ({slab}), not mixed types")
+        _check_for_kernel(s, dtypes=(slab,), Q_I=Q_parts[s], a_I=a_parts[s],
+                          valid=valid_parts[s])
+    e, P_C, a_C = _small_f32(e=e, P_C=P_C, a_C=a_C)
     vals, ids, launched = _corpus.launch_multi_topk(
         Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, int(index_offset),
-        int(index_stride))
-    LAUNCHES.update(launched)
+        int(index_stride), acc_dtype)
+    _count(launched, slab, acc_dtype)
     return vals, ids
 
 
 def dplr_score_items(V_I, U_I, e, d_I, P_C, s_C):
-    """Algorithm 1's item scores.  Per query: ``V_I (n, m_I, k)``,
+    """Algorithm 1's item scores, float32.  Per query: ``V_I (n, m_I, k)``,
     ``P_C (rho, k)``, ``s_C ()`` -> ``(n,)``; batched: ``V_I (Bq, n, m_I, k)``,
-    ``P_C (Bq, rho, k)``, ``s_C (Bq,)`` -> ``(Bq, n)`` in one launch."""
+    ``P_C (Bq, rho, k)``, ``s_C (Bq,)`` -> ``(Bq, n)`` in one launch.  On the
+    card ``V_I`` is float32 or bfloat16, read as stored."""
     batched = V_I.ndim == 4
     if not batched:
         if V_I.ndim != 3:
@@ -199,9 +276,10 @@ def dplr_score_items(V_I, U_I, e, d_I, P_C, s_C):
         out = ref.dplr_score_items_ref(V_I, U_I, e, d_I, P_C, s_C)
     else:
         _check_corpus_limits(rho * k)
-        _check_for_kernel(V_I=V_I, U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
+        _check_for_kernel(dtypes=SLAB_DTYPES, V_I=V_I)
+        U_I, e, d_I, P_C, s_C = _small_f32(U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
         out = _dplr.launch(V_I, U_I, e, d_I, P_C, s_C)
-        LAUNCHES["dplr_score_items_kernel"] += 1
+        LAUNCHES[launch_name("dplr_score_items_kernel", V_I.dtype)] += 1
     return out if batched else out[0]
 
 
@@ -215,7 +293,9 @@ def _needs_grad(*tensors) -> bool:
 
 def embedding_bag(table, ids, weights, bags: BagMap):
     """Weighted bags ``(..., n_bags, k)`` in the table's dtype:
-    ``out[..., b, :] = sum_{s: seg[s] = b} w[..., s] * table[ids[..., s]]``.
+    ``out[..., b, :] = sum_{s: seg[s] = b} w[..., s] * table[ids[..., s]]``,
+    each product and add rounded to that type.  The kernel takes a float32
+    or bfloat16 table with weights of its type; its backward, float32 only.
 
     ``table (rows, k)``; ``ids (..., n_slots)`` arena-global rows, int32 or
     int64 (the kernel reads either, so no copy changes their type);
@@ -239,10 +319,14 @@ def embedding_bag(table, ids, weights, bags: BagMap):
     dev = _device(table, ids, weights, bags.segments)
     if dev.type == "cpu":
         return ref.embedding_bag_ref(table, ids, weights, bags.segments, bags.n_bags)
-    _check_for_kernel(table=table, weights=weights)
+    _check_for_kernel(dtypes=SLAB_DTYPES, table=table)
+    _check_for_kernel(dtypes=(table.dtype,), weights=weights)
     if ids.dtype not in (torch.int32, torch.int64) or not ids.is_contiguous():
         raise TypeError(f"ids: the kernel takes contiguous int32 or int64, got {ids.dtype}")
     if _needs_grad(table, weights):
+        if table.dtype != torch.float32:
+            raise TypeError(f"table: dtype {table.dtype} with a gradient; the backward "
+                            f"kernel takes float32 (training is float32)")
         return _EmbeddingBag.apply(table, ids, weights, bags)
     return _embedding_bag_launch(table, ids, weights, bags)
 
@@ -253,7 +337,7 @@ def _embedding_bag_launch(table, ids, weights, bags: BagMap):
     if B == 0:
         return table.new_zeros((*lead, bags.n_bags, table.shape[1]))
     out = _bag.launch(table, ids.view(B, n_slots), weights.view(B, n_slots), bags)
-    LAUNCHES["embedding_bag_kernel"] += 1
+    LAUNCHES[launch_name("embedding_bag_kernel", table.dtype)] += 1
     return out.view(*lead, bags.n_bags, table.shape[1])
 
 

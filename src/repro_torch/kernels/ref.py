@@ -5,6 +5,10 @@ package's ``ORACLES`` map (``repro.kernels.ref``).
 hold them against the JAX oracles and Pallas kernels, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  Nothing on the serving
 path calls them on the card.
+
+The scorers upcast bf16 operands to float32 on entry, as the JAX
+package's kernel wrappers do, so a bf16 call is the float32 call on the
+upcast tensors; the embedding bag computes in its table's type.
 """
 from __future__ import annotations
 
@@ -14,20 +18,37 @@ import torch
 from repro_torch.kernels.dplr_corpus_score import NEG_INF
 
 
+def _f32(*tensors):
+    return tuple(t.to(torch.float32) for t in tensors)
+
+
+def round_bf16(x):
+    """``x`` rounded to the nearest bf16 (ties to even), as float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def dplr_score_items_ref(V_I, U_I, e, d_I, P_C, s_C):
-    """Algorithm 1 per item, ``(..., n)``: ``V_I (..., n, m_I, k)``,
+    """Algorithm 1 per item, ``(..., n)`` float32: ``V_I (..., n, m_I, k)``,
     ``P_C (..., rho, k)``, ``s_C (...)``."""
+    V_I, U_I, e, d_I, P_C, s_C = _f32(V_I, U_I, e, d_I, P_C, s_C)
     P = P_C[..., None, :, :] + torch.einsum("rm,...nmk->...nrk", U_I, V_I)
     term_e = torch.einsum("...nrk,r->...n", P * P, e)
     term_d = torch.einsum("...nmk,m->...n", V_I * V_I, d_I)
     return 0.5 * (s_C[..., None] + term_d + term_e)
 
 
-def dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid=None):
-    """``(Bq, n)`` corpus-cached scores ``a_C + a_I + 0.5 e.||P_C + Q_I||^2``,
-    dead slots (``valid[i] == False``) pinned to ``NEG_INF``."""
+def dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid=None, acc_dtype="float32"):
+    """``(Bq, n)`` float32 corpus-cached scores ``a_C + a_I + 0.5
+    e.||P_C + Q_I||^2``, dead slots (``valid[i] == False``) pinned to
+    ``NEG_INF``.  ``acc_dtype='bfloat16'``: each square and each ``e_r``
+    rounded to bf16, their products summed in float32, the sum rounded to
+    bf16 (the reference's ``_einsum_acc``, rounded as the kernel rounds)."""
+    Q_I, a_I, e, P_C, a_C = _f32(Q_I, a_I, e, P_C, a_C)
     P = P_C[:, None] + Q_I[None]
-    term_e = torch.einsum("qnrk,r->qn", P * P, e)
+    if acc_dtype == "bfloat16":
+        term_e = round_bf16(torch.einsum("qnrk,r->qn", round_bf16(P * P), round_bf16(e)))
+    else:
+        term_e = torch.einsum("qnrk,r->qn", P * P, e)
     s = a_C[:, None] + a_I[None, :] + 0.5 * term_e
     if valid is not None:
         s = torch.where(valid[None, :], s, torch.full_like(s, NEG_INF))
@@ -43,16 +64,16 @@ def topk_stable(scores, K: int):
 
 
 def dplr_corpus_topk_ref(Q_I, a_I, e, P_C, a_C, topk, valid=None,
-                         index_offset=0, index_stride=1):
+                         index_offset=0, index_stride=1, acc_dtype="float32"):
     """``((Bq, K) scores, (Bq, K) int32 ids)``; local row ``i`` is labeled
     ``index_offset + index_stride * i``."""
     vals, idx = topk_stable(dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C,
-                                                  valid), topk)
+                                                  valid, acc_dtype), topk)
     return vals, (index_offset + index_stride * idx).to(torch.int32)
 
 
 def dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk,
-                               index_offset=0, index_stride=1):
+                               index_offset=0, index_stride=1, acc_dtype="float32"):
     """``((S, Bq, K) scores, (S, Bq, K) int32 ids)``: S single-segment
     top-K passes stacked, segment ``s`` scored against its own slab with
     its own eigenvalues ``e[s]``, ids segment-local before the relabel."""
@@ -60,15 +81,16 @@ def dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk,
         valid_parts = (None,) * len(Q_parts)
     vals, ids = zip(*(
         dplr_corpus_topk_ref(Q_parts[s], a_parts[s], e[s], P_C[s], a_C[s], topk,
-                             valid_parts[s], index_offset, index_stride)
+                             valid_parts[s], index_offset, index_stride, acc_dtype)
         for s in range(len(Q_parts))))
     return torch.stack(vals), torch.stack(ids)
 
 
 def embedding_bag_ref(table, ids, weights, segment_ids, n_bags: int):
-    """``(..., n_bags, k)``: ``out[..., b, :] = sum_{s: seg[s] = b} w_s *
-    table[id_s]`` for arena-global ``ids (..., n_slots)``, the weights cast
-    to the table dtype before the product.  An id outside ``[0, rows)``
+    """``(..., n_bags, k)`` in the table's dtype: ``out[..., b, :] =
+    sum_{s: seg[s] = b} w_s * table[id_s]`` for arena-global ``ids (...,
+    n_slots)``, the weights cast to the table dtype before the product, each
+    product and add in that dtype.  An id outside ``[0, rows)``
     raises ``IndexError`` (indexing alone would wrap a negative one)."""
     if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= table.shape[0]):
         raise IndexError(f"embedding ids must lie in [0, {table.shape[0]})")
@@ -77,6 +99,28 @@ def embedding_bag_ref(table, ids, weights, segment_ids, n_bags: int):
     out = torch.zeros((*ids.shape[:-1], n_bags, table.shape[-1]),
                       dtype=flat.dtype, device=flat.device)
     return out.index_add_(out.ndim - 2, _segments(segment_ids, table.device), weighted)
+
+
+def embedding_bag_in_order(table, ids, weights, segment_ids, n_bags: int):
+    """``embedding_bag_ref`` summed as the kernel sums: each bag from zero,
+    its slots in ascending order, each product and add rounded to the
+    table's dtype (one slot of every bag at a time).  Bitwise the kernel
+    on any layout; ``index_add_`` promises no order on the card."""
+    seg = np.asarray(_segments(segment_ids, "cpu"))
+    rank = np.zeros(seg.size, np.int64)            # a slot's place in its bag
+    seen: dict = {}
+    for s, b in enumerate(seg):
+        rank[s] = seen.get(b, 0)
+        seen[b] = rank[s] + 1
+    rows = table[ids.long()]                                   # (..., n_slots, k)
+    w = weights.to(table.dtype)
+    out = torch.zeros((*ids.shape[:-1], n_bags, table.shape[-1]), dtype=table.dtype,
+                      device=table.device)
+    for j in range(int(rank.max()) + 1 if seg.size else 0):
+        slots = torch.as_tensor(np.flatnonzero(rank == j), device=table.device)
+        bags = torch.as_tensor(seg[rank == j], device=table.device)
+        out[..., bags, :] = out[..., bags, :] + rows[..., slots, :] * w[..., slots, None]
+    return out
 
 
 def _segments(segment_ids, device) -> torch.Tensor:

@@ -32,7 +32,7 @@ What it keeps from the reference:
   bucket, burst ``max_batch``) that only the scheduler honours.
 * Packing (``pack=True``): when a turn picks a lane, further turns go
   to other eligible lanes with the same pack key (runtime, context
-  width), up to the kernel's ``MAX_SEGMENTS``, and the group runs as one
+  width, slab type), up to the kernel's ``MAX_SEGMENTS``, and the group runs as one
   ``engine.fused_topk`` launch.  Unlike the reference, the key leaves out
   the slab capacity: the kernel reads each tenant's slab where it lies,
   whatever its length, so tenants of different capacities (or one that
@@ -598,11 +598,12 @@ class QueryFrontend:
 
     def _pack_key(self, lane):
         """Lanes with equal keys may share one ``fused_topk`` launch: same
-        runtime, same context width.  None: not ready."""
+        runtime, same context width, same slab type (one launch reads one
+        type).  None: not ready."""
         eng = lane.engine
         if getattr(eng, "cache", None) is None:
             return None
-        return (id(eng.runtime), lane.n_ctx)
+        return (id(eng.runtime), lane.n_ctx, eng.cache.Q_I.dtype)
 
     @property
     def pack_max(self) -> int:

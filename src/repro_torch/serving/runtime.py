@@ -19,6 +19,14 @@ it holds no corpus.  Scoring goes through ``kernels.ops``
 one launch): the CUDA kernel for a slab on the card, its plain version
 for a slab on the CPU.  Calls return as soon as the work is queued on the
 device; reading a result waits for it.
+
+Types: the slab takes the params' type.  Params in bf16 (the serving
+checkpoint's type) build a bf16 slab (``Q_I``, ``t_I``, ``lin_I``,
+``a_I``), which the bf16 kernels read as stored; the query side (``P_C``,
+``a_C``) is computed in the params' type and upcast to float32 once a
+call.  Scores are float32 on both devices (the JAX package's jnp engine
+returns bf16 there; its kernel path, float32).  Context weights take
+``cfg.dtype``.
 """
 from __future__ import annotations
 
@@ -74,10 +82,11 @@ class ScorerRuntime:
         return ctx.P_C.contiguous(), ctx.s_C, lin_C
 
     def _query(self, params, ctx_ids, ctx_w):
-        """The kernels' query side: P_C (Bq, rho, k) and the per-query
-        addend a_C = bias + lin_C + s_C / 2 (Bq,).  The one place that
-        forms a_C, so a tenant's rows of a packed launch round exactly as
-        its own ``topk`` does.
+        """The kernels' query side in float32: P_C (Bq, rho, k) and the
+        per-query addend a_C = bias + lin_C + s_C / 2 (Bq,), computed in the
+        params' type and upcast once.  The one place that forms a_C, so a
+        tenant's rows of a packed launch round exactly as its own ``topk``
+        does.
 
         Computed in blocks of exactly ``QUERY_BLOCK`` rows, the last padded
         with copies of the batch's first row: cuBLAS and the reductions
@@ -98,7 +107,8 @@ class ScorerRuntime:
                                            ctx_w[lo:lo + QUERY_BLOCK])
             blocks.append((P_C, params["bias"] + lin_C + 0.5 * s_C))
         P_C, a_C = blocks[0] if len(blocks) == 1 else map(torch.cat, zip(*blocks))
-        return P_C[:Bq].contiguous(), a_C[:Bq].contiguous()
+        return (P_C[:Bq].to(torch.float32).contiguous(),
+                a_C[:Bq].to(torch.float32).contiguous())
 
     def _kernel_score(self, params, cache, ctx_ids, ctx_w, K=None):
         P_C, a_C = self._query(params, ctx_ids, ctx_w)
@@ -119,7 +129,8 @@ class ScorerRuntime:
         (S, Bq, K) int32 slots)``, row ``[s]`` equal to ``topk`` on tenant
         ``s`` alone.  ``ctx_ids``/``ctx_w``: (S, Bq, m_C_slots).  Each
         tenant's query side is computed with its own params, one call per
-        tenant, by the same ``_query`` as ``topk``."""
+        tenant, by the same ``_query`` as ``topk``.  The slabs must share
+        one type (a frontend packs only such tenants)."""
         pcs, acs = zip(*(self._query(params, ctx_ids[s], ctx_w[s])
                          for s, params in enumerate(params_parts)))
         return kops.dplr_corpus_score_multi(

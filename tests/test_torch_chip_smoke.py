@@ -1,5 +1,5 @@
-"""``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, tenants,
-wire, eval, train, models, lm, timing and profile phases run at a tiny
+"""``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, serve-bf16,
+tenants, wire, eval, train, models, lm, timing and profile phases run at a tiny
 size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
@@ -61,12 +61,17 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
         **SMALL)
     cpu = torch.device("cpu")
     errs = chip_smoke.kernel_checks(cpu, sz)
-    assert set(errs) == {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
-                         "dplr_corpus_score_multi", "embedding_bag",
-                         "embedding_bag_backward", "fwfm_pairwise", "flash_attention"}
+    bf16 = {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
+            "dplr_corpus_score_multi", "embedding_bag"}
+    assert set(errs) == bf16 | {f"{name}_bf16" for name in bf16} | {
+        "embedding_bag_backward", "fwfm_pairwise", "flash_attention"}
     serve = chip_smoke.serving_phase(cpu, sz)
     assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
     assert "embedding_bag_kernel" in serve.launches
+    launches = chip_smoke.serve_bf16_phase(cpu, sz, serve)
+    assert sum(launches.values()) == 0
+    assert {"embedding_bag_kernel_bf16", "corpus_topk_chunks_bf16",
+            "dplr_score_items_kernel_bf16", "corpus_multi_topk_chunks_bf16"} <= set(launches)
     launches, tenants = chip_smoke.tenants_phase(cpu, sz, serve)
     assert sum(launches.values()) == 0
     launches = chip_smoke.wire_phase(cpu, sz, serve, tenants)
@@ -95,8 +100,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
         assert all(row["host_issue_ms"] > 0 for row in rows[name]["shapes"])
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "tenants", "eval", "train", "models", "lm", "timing",
-                  "profile"):
+    for phase in ("kernels", "serve", "serve-bf16", "tenants", "eval", "train", "models", "lm",
+                  "timing", "profile"):
         assert f"phase {phase}:" in out
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
     assert "n=2 m_I=38 Bq=300" in out and "Bq=3 misaligned" in out
@@ -104,6 +109,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert "bitwise run A's" in out and "raised RefreshFailed once" in out
     assert out.count("adagrad steps at B=64 lr=0.05 bitwise equal") == 4
     assert "rank_items at 1 x 300" in out
+    assert "bf16 slab: kernels 1-2 bitwise" in out and "installed as bf16 by maybe_refresh" in out
+    assert "dplr_score_items bf16 n=512" in out and "embedding_bag bf16 corpus" in out
     assert rows["fwfm_pairwise"]["backward_plain_ms"] > 0
 
 
@@ -170,22 +177,23 @@ def _ptxas_log(mangled: str, spill: int) -> str:
 
 
 def test_build_gate_refuses_a_spill_in_the_gated_sources(chip_smoke):
-    """Every kernel of the corpus, item-scoring and FwFM sources and
-    ``flash_attention_wgmma``: a spill there fails the build phase; a spill
-    elsewhere is reported, not refused."""
+    """Every kernel of the corpus, item-scoring, embedding-bag and FwFM
+    sources and ``flash_attention_wgmma``: a spill there fails the build
+    phase; a spill elsewhere is reported, not refused."""
     anon = "_ZN12_GLOBAL__N_1"
     for stem, name in (("fwfm_interaction", "fwfm_pairwise_kernel"),
                        ("dplr_score", "dplr_score_items_kernel"),
-                       ("dplr_corpus_score", "topk_merge")):
+                       ("dplr_corpus_score", "topk_merge"),
+                       ("embedding_bag", "embedding_bag_backward_kernel")):
         mangled = f"{anon}{len(name)}{name}EPKfS1_xiiiiPf"
         assert [fn["kernel"] for fn in chip_smoke.spilled(stem, _ptxas_log(mangled, 8))] == [name]
         assert chip_smoke.spilled(stem, _ptxas_log(mangled, 0)) == []
     wgmma = f"{anon}21flash_attention_wgmmaILi256EEEvPK13__nv_bfloat16"
     assert [fn["kernel"] for fn in chip_smoke.spilled("flash_attention", _ptxas_log(wgmma, 4))
             ] == ["flash_attention_wgmma<256>"]
-    for stem, name in (("flash_attention", "flash_attention_kernel"),
-                       ("embedding_bag", "embedding_bag_kernel")):
-        assert chip_smoke.spilled(stem, _ptxas_log(f"{anon}{len(name)}{name}Ev", 48)) == []
+    name = "flash_attention_kernel"
+    assert chip_smoke.spilled("flash_attention", _ptxas_log(f"{anon}{len(name)}{name}Ev", 48)
+                              ) == []
 
 
 def test_tiles_at_the_served_shapes(chip_smoke, monkeypatch):

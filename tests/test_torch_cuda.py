@@ -787,3 +787,220 @@ def test_cuda_guard_catches_the_lookups_first_use_copy(cuda, monkeypatch):
     finally:
         bag.prepare_lookups(cfg.layout.subset("context"), st.params["embedding"].device)
     st.topk(ctx, 8)
+
+
+# -- bf16: kernels 1-5 on a bf16 slab, V_I or table ----------------------------
+
+def _bits_equal(a, b) -> bool:
+    """float32 tensors equal bit for bit (so -0.0 differs from 0.0)."""
+    return (a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+def _bf16_and_upcast(arrays, cuda):
+    """``arrays`` as bf16 tensors on the card (bool ones as they are), and
+    those bf16 values upcast to float32."""
+    b16 = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
+    b16 = tuple(t.to(torch.bfloat16) if t.dtype == torch.float32 else t for t in b16)
+    return b16, tuple(t.float() if t.dtype == torch.bfloat16 else t for t in b16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,Bq,K,rho,k", [(1000, 3, 7, 3, 16), (70_000, 16, 16, 3, 16),
+                                          (70_000, 1, 4097, 3, 16), (5000, 2, 5000, 3, 16),
+                                          (1000, 5, 9, 1, 3), (3000, 2, 16, 8, 16)])
+def test_cuda_bf16_corpus_kernels_are_bitwise_their_f32_launch_on_upcast_inputs(cuda, n, Bq,
+                                                                                K, rho, k):
+    """A bf16 slab (and bf16 e, P_C, a_C, upcast by the wrapper) scores
+    bitwise as the float32 kernels score the upcast tensors, full and top-K
+    (K past 4096, K = n, relabeled; rho k = 3, whose rows are no whole
+    16-byte piece, and 128), and the top-K is kernel 1's scores sorted
+    (C1).  The bf16 instantiations launch, under their own names."""
+    b16, up = _bf16_and_upcast(corpus_inputs(40, n, rho, k, Bq), cuda)
+    ops.reset_launches()
+    full = ops.dplr_corpus_score(*b16)
+    vals, ids = ops.dplr_corpus_score(*b16, topk=K, index_offset=3, index_stride=2)
+    assert ops.LAUNCHES["corpus_score_full_bf16"] == ops.LAUNCHES["corpus_topk_chunks_bf16"] == 1
+    assert ops.LAUNCHES["corpus_score_full"] == ops.LAUNCHES["corpus_topk_chunks"] == 0
+    assert _bits_equal(full, ops.dplr_corpus_score(*up))
+    want_v, want_i = ops.dplr_corpus_score(*up, topk=K, index_offset=3, index_stride=2)
+    assert _bits_equal(vals, want_v) and torch.equal(ids, want_i)
+    sv, si = ref.topk_stable(full, K)
+    assert _bits_equal(vals, sv) and torch.equal(ids, (3 + 2 * si).to(torch.int32))
+    assert_scores(full, ref.dplr_corpus_score_ref(*b16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab", [torch.float32, torch.bfloat16])
+def test_cuda_bf16_accumulation_is_within_one_bf16_rounding_of_plain(cuda, slab):
+    """``acc_dtype='bfloat16'`` against its plain version: within half a
+    bf16 ulp of the rank-space term, 2^-8 sum_r |e_r| ||P_C + Q_I||^2, plus
+    the float32 bound (the two sum the exact products in other orders, so
+    their sums may round to neighbouring bf16 values); its top-K is its
+    own kernel 1 sorted (C1)."""
+    arrays = corpus_inputs(41, 30_000, 3, 16, 5)
+    Q, a_I, e, P_C, a_C, valid = (torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                                  for a in arrays)
+    Q, a_I = Q.to(slab), a_I.to(slab)
+    args = (Q, a_I, e, P_C, a_C, valid)
+    ops.reset_launches()
+    got = ops.dplr_corpus_score(*args, acc_dtype="bfloat16")
+    name = "corpus_score_full" + ("_bf16" if slab == torch.bfloat16 else "") + "_accbf16"
+    assert ops.LAUNCHES[name] == 1
+    want = ref.dplr_corpus_score_ref(*args, acc_dtype="bfloat16")
+    P = P_C[:, None] + Q.float()[None]
+    term = torch.einsum("qnrk,r->qn", P * P, e.abs())
+    size = a_C.abs()[:, None] + a_I.float().abs()[None] + 0.5 * term
+    bound = 2.0**-8 * term + 1e-5 * torch.clamp(size, min=1.0)
+    assert ((got - want).abs() <= bound).all(), float(((got - want).abs() / bound).max())
+    for K in (16, 4097):
+        vals, ids = ops.dplr_corpus_score(*args, topk=K, acc_dtype="bfloat16")
+        sv, si = ref.topk_stable(got, K)
+        assert _bits_equal(vals, sv) and torch.equal(ids, si.to(torch.int32))
+    with pytest.raises(ValueError, match="acc_dtype"):
+        ops.dplr_corpus_score(*args, acc_dtype="float16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_dtype", ["float32", "bfloat16"])
+def test_cuda_bf16_multi_kernel_is_bitwise_its_f32_launch_and_refuses_mixed_types(cuda,
+                                                                                  acc_dtype):
+    """Kernel 4 on bf16 slabs: bitwise its float32 launch on the upcast
+    slabs (f32 accumulation), each row bitwise the single-tenant kernel on
+    its segment in either mode; segments of two types raise."""
+    parts = [_bf16_and_upcast(p, cuda) for p in _segments((1100, 70_000, 5000), 2)]
+    stack = lambda ps: ((tuple(p[0] for p in ps), tuple(p[1] for p in ps),  # noqa: E731
+                         tuple(p[5] for p in ps))
+                        + tuple(torch.stack([p[j] for p in ps]) for j in (2, 3, 4)))
+    b16, up = stack([p[0] for p in parts]), stack([p[1] for p in parts])
+    ops.reset_launches()
+    vals, ids = ops.dplr_corpus_score_multi(*b16, topk=1024, acc_dtype=acc_dtype)
+    assert ops.LAUNCHES[ops.launch_name("corpus_multi_topk_chunks", torch.bfloat16,
+                                        acc_dtype)] == 1
+    if acc_dtype == "float32":
+        want_v, want_i = ops.dplr_corpus_score_multi(*up, topk=1024)
+        assert _bits_equal(vals, want_v) and torch.equal(ids, want_i)
+    for s, (p, _) in enumerate(parts):
+        one_v, one_i = ops.dplr_corpus_score(*p, topk=1024, acc_dtype=acc_dtype)
+        assert _bits_equal(vals[s], one_v) and torch.equal(ids[s], one_i), s
+    mixed = ((up[0][0],) + b16[0][1:], (up[1][0],) + b16[1][1:]) + b16[2:]
+    with pytest.raises(TypeError, match="mixed"):
+        ops.dplr_corpus_score_multi(*mixed, topk=16)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_score_items_is_bitwise_its_f32_launch_on_upcast_inputs(cuda):
+    """Kernel 3 on a bf16 V_I (bf16 small operands, upcast by the wrapper)
+    scores bitwise as the float32 kernel scores the upcast tensors: the
+    serving shape through the bulk copies, n past a tile edge, k % 8 != 0
+    (12, and odd 3) and a V_I 2 bytes off a 4-byte boundary through the
+    plain loads, m_I = 200 in two chunks of fields, rho k = 128; every row
+    of a batched call bitwise the per-query call."""
+    rng = np.random.default_rng(42)
+    t = dplr_score.tile(38, 3, 16)
+    for i, (Bq, n, mI, k, rho, mis) in enumerate([
+            (3, 1000, 38, 16, 3, False), (2, 4 * t + 1, 38, 16, 3, False),
+            (2, 300, 38, 12, 3, False), (2, 299, 13, 3, 3, False), (3, 1000, 38, 16, 3, True),
+            (2, 100, 200, 16, 3, False), (2, 300, 38, 16, 8, False)]):
+        args = _items_inputs(rng, Bq, n, mI, k, rho, cuda)
+        b16 = [a.to(torch.bfloat16) for a in args]
+        if mis:                                    # 2 bytes past a 16-byte boundary
+            flat = torch.empty(b16[0].numel() + 1, dtype=torch.bfloat16, device=cuda)
+            b16[0] = flat[1:].view(b16[0].shape).copy_(b16[0])
+        up = [a.float() for a in b16]
+        ops.reset_launches()
+        got = ops.dplr_score_items(*b16)
+        assert ops.LAUNCHES == {"dplr_score_items_kernel_bf16": 1}, i
+        assert _bits_equal(got, ops.dplr_score_items(*up)), i
+        _assert_items_close(got, up)
+        V, U, e, d, PC, sC = b16
+        for q in range(Bq):
+            assert torch.equal(ops.dplr_score_items(V[q], U, e, d, PC[q], sC[q]), got[q]), i
+    with pytest.raises(TypeError, match="dtype"):
+        ops.dplr_score_items(up[0], up[1].half(), *up[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,slots,F,k,multi_hot,misaligned", [
+    (4097, 82, 82, 16, False, False),   # one slot a bag: 8 bf16 (16 bytes) a thread
+    (16, 44, 44, 16, False, True),      # a table 2 bytes off: one element a thread
+    (33, 30, 7, 16, True, False),       # bags of several slots
+    (9, 5, 5, 12, False, False),        # k % 8 != 0
+    (9, 5, 3, 6, True, False),
+])
+def test_cuda_bf16_embedding_bag_matches_plain(cuda, B, slots, F, k, multi_hot, misaligned):
+    """Kernel 5 on a bf16 table and bf16 weights returns bf16 bags: bitwise
+    the plain version one slot a bag; on bags of m slots bitwise the plain
+    version summed in the kernel's order, and within 2^-7 (m - 1) sum |w
+    row| of ``embedding_bag_ref`` (each of the m - 1 adds rounds by at most
+    2^-8 of the sum so far, and its atomics add in another order).  A bf16 table that needs a
+    gradient raises: the backward kernel is float32."""
+    table, ids, w, seg = _bag(43, B, slots, F, k, multi_hot=multi_hot)
+    table = torch.from_numpy(table).to(cuda).to(torch.bfloat16)
+    if misaligned:
+        flat = torch.empty(table.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        table = flat[1:].view(table.shape).copy_(table)
+    ids = torch.from_numpy(ids).to(cuda)
+    w = torch.from_numpy(w).to(cuda).to(torch.bfloat16)
+    bags = ops.bag_map(seg, F, cuda)
+    ops.reset_launches()
+    got = ops.embedding_bag(table, ids, w, bags)
+    assert ops.LAUNCHES == {"embedding_bag_kernel_bf16": 1} and got.dtype == torch.bfloat16
+    want = ref.embedding_bag_ref(table, ids, w, seg, F)
+    if not multi_hot:
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(got, ref.embedding_bag_in_order(table, ids, w, seg, F))
+        size = ref.embedding_bag_ref(table.float().abs(), ids, w.float(), seg, F)
+        adds = torch.as_tensor(np.maximum(np.bincount(seg, minlength=F) - 1, 0),
+                               dtype=torch.float32, device=cuda)[:, None]
+        assert ((got.float() - want.float()).abs() <= 2.0**-7 * adds * size).all()
+    with pytest.raises(TypeError, match="dtype"):
+        ops.embedding_bag(table, ids, w.float(), bags)
+    with pytest.raises(TypeError, match="float32"):
+        ops.embedding_bag(table.detach().requires_grad_(), ids, w, bags)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_engine_and_rank_items_run_the_bf16_kernels(cuda):
+    """bf16 params on the card: the slab is bf16, scores and top-K values
+    float32, and the lookups, the slab's top-K and scores and Algorithm 1
+    run the bf16 kernels alone; the answers agree with the CPU's plain path
+    on the same bf16 params within the reference's bf16 tolerance (rtol
+    2e-2, atol 1e-1), top-K ids equal except near ties."""
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.models.recsys import fwfm
+    from repro_torch.serving import CorpusState
+
+    cfg = dplr_fwfm.make_smoke()
+    data = SyntheticCTR(cfg.layout, embed_dim=4, seed=0)
+    p32 = fwfm.init(torch.Generator(device=cuda).manual_seed(0), cfg)
+    p16 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    q = data.ranking_query(500, 0)
+    ctx = np.concatenate([data.context_query(s)["context_ids"] for s in range(4)])
+    out = {}
+    for dev, params in ((cuda, p16), (torch.device("cpu"), {k: v.cpu() for k, v in p16.items()})):
+        st = CorpusState(cfg, q["item_ids"][0], q["item_weights"][0], device=dev)
+        st.refresh(params)
+        assert st.cache.Q_I.dtype == st.cache.a_I.dtype == torch.bfloat16
+        ops.reset_launches()
+        scores, (vals, ids) = st.score(ctx), st.topk(ctx, 16)
+        rq = {k: torch.as_tensor(v, device=dev) for k, v in data.ranking_query(300, 1).items()}
+        items = fwfm.rank_items(params, cfg, rq)
+        assert scores.dtype == vals.dtype == items.dtype == torch.float32
+        out[dev.type] = (scores.cpu(), vals.cpu(), ids.cpu(), items.cpu(), dict(ops.LAUNCHES))
+    launched = {g for g, c in out["cuda"][4].items() if c}
+    assert launched >= {"embedding_bag_kernel_bf16", "corpus_score_full_bf16",
+                        "corpus_topk_chunks_bf16", "topk_merge", "dplr_score_items_kernel_bf16"}
+    assert not launched & {"embedding_bag_kernel", "corpus_score_full", "corpus_topk_chunks",
+                           "dplr_score_items_kernel"}
+    tol = dict(rtol=2e-2, atol=1e-1)
+    for got, want in zip(out["cuda"][:4], out["cpu"][:4]):
+        if got.dtype == torch.float32:
+            np.testing.assert_allclose(to_np(got), to_np(want), **tol)
+    full = to_np(out["cpu"][0])
+    for row, (g, w_) in enumerate(zip(to_np(out["cuda"][2]), to_np(out["cpu"][2]))):
+        for j in np.flatnonzero(g != w_):
+            assert abs(full[row, g[j]] - full[row, w_[j]]) <= tol["atol"] + tol["rtol"] * abs(
+                full[row, w_[j]]), (row, j)
