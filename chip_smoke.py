@@ -132,7 +132,32 @@ Phases, one line each:
    ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
    mask); and each top-K shape's peak device memory (its scratch and
    outputs) beside the yardstick's.
-12. profile: with torch.profiler, the device time of a top-K call by CUDA
+12. autotune: ``kernels/autotune.py`` sweeps the corpus kernels' geometry
+   (``autotune.DEFAULT_CANDIDATES``: stage 1's chunk, threads, query group
+   and the merge's part) at the served cells, on the serve phase's slab
+   and queries: n = 2^20 at Bq = 1 and 16 in float32, the same slab in bf16
+   at Bq = 1 with both accumulators, and the 16 tenants' 65,536-slot slabs
+   at Bq = 4 through the multi-tenant launch a packed wave makes (winners
+   apply only to launches like the ones they were timed on:
+   ``blocks.launch_class``), all at K = 16.  Every
+   float32 candidate must be bitwise the default geometry's output, which
+   holds C1; every bf16-accumulation candidate passes the tuner's gate or
+   is recorded and never crowned; a candidate past the card's shared
+   memory is recorded as not launchable; one past a small n shows as a
+   clamp event.  After registration a ``block_n=None`` call is bitwise the
+   explicit winner's, and the served engine's top-K and a packed wave are
+   bitwise their untuned selves.  One line a cell: the default's and the
+   winner's ms (device time a call: ``autotune._time_call`` queues the
+   timed calls behind a device-side sleep, so no host time is in it), the
+   speedup and the fraction of the bound; then kernels 1, 2 and 4 and
+   their bf16 rows at the timing phase's shapes, default and tuned
+   (registry) geometry, timed side by side the same way: a row whose
+   tuned time is past its default's is flagged, and past 1.10 times it
+   fails.  Then the registry's bounds: a Bq = 1 record leaves a Bq = 16
+   call at the default geometry, and a record past the card's shared
+   memory is halved visibly until it launches, both bitwise the default.
+   The registry is cleared after, so the profile runs untuned.
+13. profile: with torch.profiler, the device time of a top-K call by CUDA
    kernel, the host's time to issue one (for the multi-tenant call, also
    without the wrapper's checks), and the device's idle share while the
    serving engine answers Bq = 1 queries.
@@ -262,7 +287,7 @@ from repro_torch.embedding.bag import (  # noqa: E402
     padded_rows,
 )
 from repro_torch.eval import harness  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, autotune, blocks, ops, ref  # noqa: E402
 from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
@@ -317,6 +342,10 @@ FULL = SimpleNamespace(
     # top-K past the old 4,096 limit, the adversarial orders (n, live, Bq,
     # Ks) and K = n (n, Bq), all held by C1
     big_ks=(4097, 65_536), adv=(1 << 20, 1_000_000, 16, (16, 1024, 4096, 4097, 65_536)),
+    # autotune: the sweep, timed calls a candidate, (Bq, slab dtype) of the
+    # serve phase's slab to sweep, and the tenants' Bq
+    tune_candidates=autotune.DEFAULT_CANDIDATES, tune_repeats=20,
+    tune_cells=((1, "float32"), (16, "float32"), (1, "bfloat16")),
     large=(70_000, 2),
     # timed top-K shapes (Bq, K, order of the scores); the first is the row's
     topk_times=((16, 16, "random"), (1, 16, "random"), (16, 1024, "random"),
@@ -347,15 +376,11 @@ FULL = SimpleNamespace(
 
 BUILD = Path(__file__).resolve().parent / "build"
 
-# NVIDIA data-sheet peaks: (device memory bytes/s, f32 flop/s outside the
-# tensor cores, dense bf16 tensor-core flop/s), by the card name torch
-# reports.
-PEAKS = (
-    ("H200", 4.8e12, 67e12, 989e12),
-    ("H100 PCIe", 2.0e12, 51e12, 756e12),
-    ("H100 NVL", 3.9e12, 60e12, 835e12),
-    ("H100", 3.35e12, 67e12, 989e12),    # SXM
-)
+# NVIDIA data-sheet peaks, by the card name torch reports: (device memory
+# bytes/s, f32 flop/s outside the tensor cores, dense bf16 tensor-core
+# flop/s).  One table with the autotuner's roofline (autotune.HW_PROFILES).
+PEAKS = tuple((name, p["hbm_bw"], p["f32_flops"], p["bf16_flops"])
+              for name, p in autotune.HW_PROFILES.items() if name != "cpu")
 
 # The entry points the serve phase drives; the tenants phase drives
 # dplr_corpus_score_multi, the eval phase embedding_bag and fwfm_pairwise.
@@ -1081,12 +1106,14 @@ def to_bf16(*tensors):
     return tuple(t.to(torch.bfloat16) for t in tensors)
 
 
-def same_bits(got, want, what: str) -> None:
-    """``got`` bit for bit ``want``: float32 scores compared as int32 (so
-    -0.0 differs from 0.0), ids as they are; tuples entry by entry."""
+def same_bits(got, want, what: str,
+              against: str = "the float32 kernels' call on the upcast inputs") -> None:
+    """``got`` bit for bit ``want`` (``against`` names it): float32 scores
+    compared as int32 (so -0.0 differs from 0.0), ids as they are; tuples
+    entry by entry."""
     if isinstance(got, tuple):
         for j, (g, w) in enumerate(zip(got, want)):
-            same_bits(g, w, f"{what} [{j}]")
+            same_bits(g, w, f"{what} [{j}]", against)
         return
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} "
@@ -1094,8 +1121,7 @@ def same_bits(got, want, what: str) -> None:
     view = (lambda t: t.contiguous().view(torch.int32)) if got.dtype == torch.float32 \
         else (lambda t: t)
     if not torch.equal(view(got), view(want)):
-        raise AssertionError(f"{what}: not bitwise the float32 kernels' call on the upcast "
-                             f"inputs")
+        raise AssertionError(f"{what}: not bitwise {against}")
 
 
 def bf16_corpus_checks(dev, sz, errs: dict, notes: list) -> None:
@@ -3488,6 +3514,232 @@ def flash_timing(sz, peaks, gen, extra) -> dict:
     return out
 
 
+# -- phase 12: autotune ---------------------------------------------------------
+
+def corpus_bound(n, live, Bq, K, rho, k, itemsize, peaks, segments=1) -> tuple[float, str]:
+    """The timing phase's bound of a corpus call on ``segments`` slabs of
+    n slots, ``live`` of them live in each (on average): each live slot's
+    row and a_I read once (``itemsize`` bytes an entry) and the mask; the
+    query side; the (Bq, K) top-K or (K None) the (Bq, n) scores written;
+    the live slots' scoring flops."""
+    rk_ = rho * k
+    nbytes = (live * (rk_ + 1) * itemsize + n + (rho + Bq * (rk_ + 1)) * 4
+              + (Bq * n * 4 if K is None else Bq * K * 8))
+    return bound_ms(segments * nbytes, segments * Bq * live * (3 * rk_ + 2 * rho + 3), peaks)
+
+
+def tune_cell(dev, sz, peaks, inputs, K: int, what: str,
+              segments: int = 1) -> autotune.TunedTile:
+    """Sweep one cell on ``inputs`` (``segments > 1``: a packed wave's
+    ``dplr_corpus_score_multi`` inputs) and hold the sweep to the phase's
+    checks (module docstring); prints the cell's line."""
+    if segments == 1:
+        Q, a, e, P, aC, valid = inputs
+        slabs = ((Q, a, e, P, aC, valid),)
+        call = lambda asked: ops._corpus_score(*inputs, K, 0, 1, asked)  # noqa: E731
+        public = lambda: ops.dplr_corpus_score(*inputs, topk=K)  # noqa: E731
+        Bq = P.shape[0]
+    else:
+        Qs, As, Vs, e, P, aC = inputs
+        slabs = tuple(zip(Qs, As, e, P, aC, Vs))
+        call = lambda asked: ops._corpus_score_multi(*inputs, K, 0, 1, asked)  # noqa: E731
+        public = lambda: ops.dplr_corpus_score_multi(*inputs, topk=K)  # noqa: E731
+        Bq = P.shape[1]
+    Q, valid = slabs[0][0], slabs[0][5]
+    n, rho, k = Q.shape
+    dtype = blocks.dtype_name(Q.dtype)
+    tuned = autotune.tune_corpus_score(n, rho, k, Bq, K, dtype=dtype, inputs=inputs,
+                                       candidates=sz.tune_candidates, repeats=sz.tune_repeats,
+                                       device=dev, segments=segments)
+    swept = tuned.swept
+    bad = [r for r in swept if r.fits and not r.parity_ok and r.acc_dtype == "float32"]
+    if bad:
+        raise AssertionError(f"autotune {what}: {len(bad)} f32 candidates failed their gate, "
+                             f"first {bad[0]}")
+    # every f32 candidate is bitwise the default's, which is kernel 1's sorted
+    vals, ids = call(blocks.default_tile(Bq, K))
+    for s, (q, a, e_s, p, ac, v) in enumerate(slabs):
+        check_exact(vals.reshape(-1, Bq, K)[s], ids.reshape(-1, Bq, K)[s],
+                    ops.dplr_corpus_score(q, a, e_s, p, ac, v, acc_dtype="float32"), K,
+                    f"autotune {what} default geometry, slab {s}")
+    # after registration, block_n=None is the winner's geometry, bitwise
+    win = next(r for r in swept if r.parity_ok and r.us == tuned.us)
+    same_bits(public(), call(win.effective), f"autotune {what}: a block_n=None call",
+              "the explicit winner's call")
+    unfit = sum(not r.fits for r in swept)
+    if dev.type == "cuda" and Bq >= blocks.CORPUS_MAX_GROUP and not unfit:
+        raise AssertionError(f"autotune {what}: no candidate past the card's shared memory")
+    failed_bf16 = sum(r.fits and not r.parity_ok for r in swept)
+    clamps = sum(len(r.clamps) for r in swept)
+    live = sum(int(v.sum()) for *_, v in slabs)
+    bnd, by = corpus_bound(n, live / segments, Bq, K, rho, k, Q.element_size(), peaks,
+                           segments)
+    print(f"phase autotune: {what} {segments} x n={n} ({live} live) Bq={Bq} K={K} {dtype} "
+          f"slab: {len(swept)} swept ({unfit} past the card's shared memory, {failed_bf16} bf16 "
+          f"failed their gate, {clamps} clamp events); default {tuned.default_us / 1e3:.4f} ms, "
+          f"winner {tuned.us / 1e3:.4f} ms {win.effective._asdict()}, speedup "
+          f"{tuned.speedup:.3f}, bound {bnd:.4f} ms ({by}), {bnd / (tuned.us / 1e3):.3f} of "
+          f"the bound, roofline_frac {tuned.roofline_frac:.3f}", flush=True)
+    return tuned
+
+
+# a row's tuned time past this multiple of its default's fails the phase:
+# a winner applies only to launches like the ones it was timed on
+TUNED_SLOWER = 1.10
+
+
+def tuned_rows(dev, sz, peaks, rows: dict) -> list:
+    """Kernels 1, 2 and 4 and their bf16 rows at the timing phase's shapes,
+    the default geometry and the registry's (``block_n=None``) timed side by
+    side on the same inputs, as the tuner times a candidate (device time,
+    the calls queued behind a device-side sleep); float32 results bitwise
+    equal.  A row whose tuned time is past its default's is flagged, and
+    on the card past ``TUNED_SLOWER`` times it fails (a CPU time is noise).
+    Adds ``tuned_ms``,
+    ``tuned_default_ms`` and ``tuned_tile`` to the rows."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, rho, k, Bq = sz.n, sz.rho, sz.k, max(sz.bqs)
+    Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, n, sz.live, Bq, rho, k, gen)
+    K = sz.topk_times[0][1]
+    S, Bq4, n_s, K4 = sz.multi
+    _, margs = multi_inputs(dev, (n_s,) * S, (sz.tenant_items,) * S, Bq4, rho, k, gen)
+    to16 = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    margs16 = (tuple(map(to16, margs[0])), tuple(map(to16, margs[1])), *margs[2:])
+    slabs = {"": (Q, a_I), "_bf16": (to16(Q), to16(a_I))}
+    lines = []
+    for suffix, (q, a) in slabs.items():
+        m = margs16 if suffix else margs
+        cases = {   # name: (call at a geometry, n, Bq, K, segments)
+            "dplr_corpus_score": (lambda t: ops._corpus_score(q, a, e, P_C, a_C, valid, None, 0,
+                                                              1, t), n, Bq, None, 1),
+            "dplr_corpus_topk": (lambda t: ops._corpus_score(q, a, e, P_C, a_C, valid, K, 0, 1,
+                                                             t), n, Bq, K, 1),
+            "dplr_corpus_score_multi": (lambda t: ops._corpus_score_multi(*m, K4, 0, 1, t), n_s,
+                                        Bq4, K4, S),
+        }
+        for name, (fn, n_, bq_, k_, segs) in cases.items():
+            dtype = "bfloat16" if suffix else "float32"
+            tile = blocks.resolve_tile(n_, rho, k, bq_, k_, dtype, dev.type, segments=segs)
+            default = blocks.default_tile(bq_, k_)
+            blocks.drain_clamp_events()
+            tuned = lambda: fn(blocks.Tile(None, None))  # noqa: E731
+            if tile.acc_dtype == "float32":
+                same_bits(tuned(), fn(default), f"autotune {name}{suffix} tuned",
+                          "the default geometry's call")
+            ms_default = autotune._time_call(lambda: fn(default), sz.tune_repeats, dev) / 1e3
+            ms_tuned = autotune._time_call(tuned, sz.tune_repeats, dev) / 1e3
+            row = rows[name + suffix]
+            row.update(tuned_ms=ms_tuned, tuned_default_ms=ms_default, tuned_tile=tile._asdict())
+            flag = ""
+            if ms_tuned > ms_default:
+                flag = f" (SLOWER than the default, {ms_tuned / ms_default:.3f}x)"
+            lines.append(f"{name}{suffix} n={n_} Bq={bq_} K={k_} x{segs}: default "
+                         f"{ms_default:.4f} ms, tuned {ms_tuned:.4f} ms {tile._asdict()}{flag}")
+            if dev.type == "cuda" and ms_tuned > TUNED_SLOWER * ms_default:
+                raise AssertionError(f"autotune: {lines[-1]}, past {TUNED_SLOWER}x")
+    return lines
+
+
+def registry_bounds(dev, sz, serve) -> str:
+    """No record makes a call unlaunchable or carries a geometry to a query
+    group it was not timed at: on the serve engine's slab, a Bq = 1 record
+    of chunk 4,096 leaves a Bq = 16 call at the default geometry, and an
+    exact Bq = 16 record of chunk 32,768 at group 16 (past the card's
+    shared memory) is halved, visibly, until it launches; both bitwise the
+    default's answer."""
+    engine, K = serve.engine, sz.topk
+    cache, e = engine.cache, engine.params["e"].float()
+    n, rho, k = cache.Q_I.shape
+    ctx = np.concatenate([serve.data.context_query(7100 + j)["context_ids"] for j in range(16)])
+    ids, w = engine._ctx_tensors(ctx, None)
+    P, aC = engine.runtime._query(engine.params, ids, w)
+    args = (cache.Q_I, cache.a_I, e, P, aC, cache.valid)
+    want = ops._corpus_score(*args, K, 0, 1, blocks.default_tile(16, K))
+    cell = lambda bq: blocks.tile_cell(n, rho, k, bq, K, "float32", dev.type)  # noqa: E731
+    blocks.register_tuned_tile(cell(1), 4096)
+    if blocks.resolve_tile(n, rho, k, 16, K, "float32", dev.type) != blocks.default_tile(16, K):
+        raise AssertionError("autotune: a Bq=1 record's geometry reached a Bq=16 call")
+    same_bits(ops.dplr_corpus_score(*args, topk=K), want,
+              "autotune: Bq=16 beside a Bq=1 chunk-4096 record", "the default geometry's")
+    blocks.register_tuned_tile(cell(16), blocks.MAX_BLOCK_N, group=16)
+    blocks.drain_clamp_events()
+    got = ops.dplr_corpus_score(*args, topk=K)
+    halved = blocks.drain_clamp_events()
+    if not halved or halved[0]["requested"] != blocks.MAX_BLOCK_N:
+        raise AssertionError(f"autotune: a chunk-{blocks.MAX_BLOCK_N} record left no clamp "
+                             f"event: {halved}")
+    same_bits(got, want, f"autotune: Bq=16 at an exact chunk-{blocks.MAX_BLOCK_N} record",
+              "the default geometry's")
+    blocks.clear_tuned_tiles()
+    return (f"a Bq=1 chunk-4096 record left Bq=16 at the default; an exact chunk-"
+            f"{blocks.MAX_BLOCK_N} record halved to {halved[-1]['effective']} "
+            f"({len(halved)} clamp events); both bitwise the default")
+
+
+def autotune_phase(dev, sz, peaks, serve, tenants, rows: dict) -> None:
+    """Phase 12 (module docstring).  ``serve``: the serving phase's result;
+    ``tenants``: the tenants phase's states; ``rows``: the timing phase's,
+    which gain the tuned times."""
+    t0 = time.perf_counter()
+    engine, K = serve.engine, sz.topk
+    params, cache = engine.params, engine.cache
+    data = serve.data
+    ctx = np.concatenate([data.context_query(7000 + j)["context_ids"]
+                          for j in range(max(bq for bq, _ in sz.tune_cells))])
+    wave = np.stack([np.concatenate([data.context_query(8000 + 4 * s + j)["context_ids"]
+                                     for j in range(sz.tenant_bq)])
+                     for s in range(len(tenants))])
+    # the served answers before any tuning: the engine at Bq = 1 and 16,
+    # and one packed wave of the tenants
+    states = list(tenants.values())
+    before = [engine.topk(ctx[:bq], K) for bq, _ in sz.tune_cells[:2]]
+    before.append(fused_topk(states, wave, K))
+    e = params["e"].float()
+
+    def query(state, rows_):
+        ids, w = state._ctx_tensors(rows_, None)
+        return state.runtime._query(state.params, ids, w)
+
+    tuned = []
+    for bq, dtype in sz.tune_cells:
+        slab = getattr(torch, dtype)
+        inputs = (cache.Q_I.to(slab), cache.a_I.to(slab), e, *query(engine, ctx[:bq]),
+                  cache.valid)
+        tuned.append(tune_cell(dev, sz, peaks, inputs, K, "served"))
+    # the tenants' cell on the launch a packed wave makes: every tenant's
+    # slab, the wave's queries
+    parts = [query(st, wave[s]) for s, st in enumerate(states)]
+    inputs = (tuple(st.cache.Q_I for st in states), tuple(st.cache.a_I for st in states),
+              tuple(st.cache.valid for st in states),
+              torch.stack([st.params["e"].float() for st in states]),
+              torch.stack([p for p, _ in parts]), torch.stack([a for _, a in parts]))
+    tuned.append(tune_cell(dev, sz, peaks, inputs, K, "tenants' packed wave", len(states)))
+
+    # a candidate past a small n clamps visibly
+    small = autotune.tune_corpus_score(sz.edge_n, sz.rho, sz.k, 2, K, candidates=(4096,),
+                                       repeats=2, register=False, device=dev)
+    over = [r for r in small.swept if r.block_n == 4096]
+    if not all(any(ev["requested"] == 4096 and ev["effective"] == sz.edge_n for ev in r.clamps)
+               for r in over) or not over:
+        raise AssertionError(f"autotune: the 4096-slot candidate at n={sz.edge_n} left no "
+                             f"clamp event: {over}")
+    # the served answers after tuning: bitwise the untuned ones (f32)
+    after = [engine.topk(ctx[:bq], K) for bq, _ in sz.tune_cells[:2]]
+    after.append(fused_topk(states, wave, K))
+    same_bits(tuple(after), tuple(before), "autotune: the served top-K after tuning",
+              "its answer before tuning")
+    lines = tuned_rows(dev, sz, peaks, rows)
+    autotune.clear_results()
+    blocks.clear_tuned_tiles()
+    bounds = registry_bounds(dev, sz, serve)
+    blocks.drain_clamp_events()
+    print(f"phase autotune: {len(tuned)} cells tuned in {time.perf_counter() - t0:.1f} s; the "
+          f"served engine's top-K at Bq=1 and 16 and a packed wave of {len(states)} tenants "
+          f"bitwise their untuned answers; a 4096-slot candidate at n={sz.edge_n} clamped "
+          f"visibly; {bounds}; rows at the timing phase's shapes: " + "; ".join(lines)
+          + "; registry cleared", flush=True)
+
+
 def _device_times(prof) -> dict:
     """{kernel name: (device ms, calls)} of the CUDA kernels a profiler saw."""
     out = {}
@@ -3576,7 +3828,9 @@ def profile_phase(dev, sz, engine, ctxs) -> None:
     host = host_issue_ms(dev, lambda: ops.dplr_corpus_score_multi(*margs, topk=K4))
     # the same launches without the wrapper's checks: the difference is the
     # wrapper's own host time (uncounted launches, outside the counted run)
-    bare = (host_issue_ms(dev, lambda: launchers.launch_multi_topk(*margs, K4, 0, 1))
+    tile = blocks.default_tile(Bq4, K4)          # the geometry the wrapper resolves
+    bare = (host_issue_ms(dev, lambda: launchers.launch_multi_topk(*margs, K4, 0, 1,
+                                                                   "float32", tile))
             if dev.type == "cuda" else None)
     bare = "not measured (no card)" if bare is None else f"{bare:.4f} ms"
     parts.append(f"multi S={S} Bq={Bq4} K={K4}, per call: host issue {host:.4f} ms "
@@ -3680,6 +3934,7 @@ def run_phases(dev, peaks, model_batches) -> list:
         launches[g] = launches.get(g, 0) + count
     launches.update(lm_phase(dev, FULL))
     rows = timing_phase(dev, FULL, peaks)
+    autotune_phase(dev, FULL, peaks, serve, tenants, rows)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)
     kernels = []
     for name, cuda_kernels in ops.KERNELS.items():

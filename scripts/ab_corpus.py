@@ -1,0 +1,159 @@
+"""A/B of the corpus kernels (1, 2 and 4) at their default geometry between
+this checkout and another, on one CUDA card.
+
+    mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
+    python3 scripts/ab_corpus.py --other build/parent [--rounds 1]
+
+Each round runs the other checkout, this one, this one, the other, each in
+a process of its own that builds that checkout's corpus kernels (into its
+own ``build/``) and times, through its ``repro_torch.kernels.ops`` with
+nothing tuned, the shapes of ``chip_smoke.py``'s timing rows: n = 2^20
+slots, 1,000,000 live, rho = 3, k = 16, the top-K at K = 16 and Bq = 16
+and 1, the full scores at Bq = 16, f32 and bf16 slabs; and the packed
+wave, 16 slabs of 65,536 slots (62,500 live) at Bq = 4.  Three numbers a
+call, in ms:
+
+  * ``b2b``: chip_smoke's ``device_ms``, the median of 5 batches of 10
+    back-to-back calls between CUDA events; when the host takes longer to
+    issue a call than the card to run it, this is host time;
+  * ``device``: the same calls queued behind a device-side sleep, so the
+    card runs them back to back whatever the host's pace: device time;
+  * ``host``: the host's time to issue one call, the mean over 20.
+
+Prints one JSON line a process and, last, the mean of each number over
+each checkout's processes.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _device_ms(fn, batches=5, per_batch=10) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_batch):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / per_batch)
+    return sorted(times)[len(times) // 2]
+
+
+def _queued_ms(fn, repeats=20) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000 * repeats
+    while True:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(repeats):
+            fn()
+        queued = not start.query()          # the sleep outlasted the host's queueing
+        stop.record()
+        stop.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / repeats
+        cycles *= 4
+
+
+def _host_ms(fn, reps=20) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return host
+
+
+def measure(checkout: Path) -> dict:
+    """The calls' three times in ``checkout``'s code, built from its own
+    sources."""
+    sys.path.insert(0, str(checkout / "src"))
+    import torch
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def slab(n, live, Bq):
+        Q = torch.randn((n, 3, 16), generator=gen, device=dev) * 0.5
+        a = torch.randn((n,), generator=gen, device=dev)
+        e = torch.rand((3,), generator=gen, device=dev) + 0.5
+        P = torch.randn((Bq, 3, 16), generator=gen, device=dev) * 0.5
+        aC = torch.randn((Bq,), generator=gen, device=dev)
+        return Q, a, e, P, aC, torch.arange(n, device=dev) < live
+
+    Q, a, e, P, aC, valid = slab(1 << 20, 1_000_000, 16)
+    parts = [slab(65_536, 62_500, 4) for _ in range(16)]
+    multi = (tuple(p[0] for p in parts), tuple(p[1] for p in parts),
+             tuple(p[5] for p in parts), *(torch.stack([p[j] for p in parts]) for j in (2, 3, 4)))
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, a_ = Q.to(dtype), a.to(dtype)
+        m = (tuple(x.to(dtype) for x in multi[0]), tuple(x.to(dtype) for x in multi[1]),
+             *multi[2:])
+        calls = {
+            f"{name} topk Bq=16": lambda: ops.dplr_corpus_score(q, a_, e, P, aC, valid, topk=16),
+            f"{name} topk Bq=1": lambda: ops.dplr_corpus_score(q, a_, e, P[:1], aC[:1], valid,
+                                                               topk=16),
+            f"{name} full Bq=16": lambda: ops.dplr_corpus_score(q, a_, e, P, aC, valid),
+            f"{name} multi 16 x Bq=4": lambda: ops.dplr_corpus_score_multi(*m, topk=16),
+        }
+        for label, fn in calls.items():
+            out[label] = {"b2b": _device_ms(fn), "device": _queued_ms(fn), "host": _host_ms(fn)}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, help="the checkout to compare this one with")
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure is not None:
+        print(json.dumps(measure(args.measure)), flush=True)
+        return
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("ab_corpus: this comparison needs a CUDA card")
+    if args.other is None or not (args.other / "src" / "repro_torch").is_dir():
+        sys.exit("ab_corpus: --other must name a checkout with src/repro_torch")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    sides = {"other": args.other.resolve(), "this": ROOT}
+    runs: dict[str, list] = {"other": [], "this": []}
+    for r in range(args.rounds):
+        for side in ("other", "this", "this", "other"):
+            res = subprocess.run([sys.executable, __file__, "--measure", str(sides[side])],
+                                 capture_output=True, text=True, check=True, timeout=900,
+                                 cwd=sides[side])
+            got = json.loads(res.stdout.strip().splitlines()[-1])
+            runs[side].append(got)
+            print(json.dumps({"round": r, "side": side, "times": got}), flush=True)
+    mean = {side: {label: {k: sum(run[label][k] for run in got) / len(got)
+                           for k in ("b2b", "device", "host")}
+                   for label in got[0]}
+            for side, got in runs.items()}
+    print(json.dumps({"mean": mean}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

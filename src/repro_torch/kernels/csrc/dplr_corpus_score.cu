@@ -38,9 +38,9 @@
 //    stage_rows, 16 bytes a load where the rows allow), with an odd row
 //    stride in words so that each thread then reads its own slot's row
 //    without bank conflicts, upcasting a bf16 entry as it reads it.
-//  * Full mode: a block of 128 threads holds up to 16 queries' P_C and one
-//    slot per thread, and writes out[q, i] with consecutive threads on
-//    consecutive i.
+//  * Full mode: a block of 128 threads holds up to 16 queries' P_C and
+//    scores block_n slots (128 by default), one slot per thread a tile, and
+//    writes out[q, i] with consecutive threads on consecutive i.
 //  * Top-K modes: a CUDA grid has no order, so the TPU kernel's running
 //    top-K, carried across a sequential grid, does not carry over; a full
 //    sort of every chunk (the previous design) cost ~59x the bound; a
@@ -48,7 +48,8 @@
 //    exact select of each (row, chunk) in shared memory, tried first, cost
 //    as much as the scoring at Bq = 16.  Instead, an exact radix select
 //    over the whole row, in two launches (K <= 4096; sorts follow past it):
-//    - Stage 1, block (chunk of 512 slots, group of up to 16 query rows):
+//    - Stage 1, block (chunk of 512 slots, group of up to 16 query rows;
+//      256 threads, one slot each a tile):
 //      Q_I, a_I and valid are read once per group of 16 rows, so once a
 //      call for Bq <= 16.  The block writes its rows' scores (a slot's at
 //      its own position) and adds their first digits (the top 11 bits of
@@ -86,6 +87,22 @@
 //    single-slab mode; a row's merge reads its own segment's scores.  The
 //    top-K order is a total order, so row [s] is bitwise the single-slab
 //    top-K of segment s.
+//
+// Geometry.  The numbers above are defaults, not constants: the slots a
+// full-mode block scores, the query group G (both modes), and in the top-K
+// modes the chunk, stage 1's threads and the merge's part are launch
+// parameters of the C entry points (the port's kernels/blocks.py names the
+// defaults and resolves a call's geometry; kernels/autotune.py sweeps it).
+// Only G sizes a register array, so only G is a template parameter (60
+// instantiations: G in {1, 2, 4, 8, 16} x slab type x accumulation mode x
+// three kernels); the chunk and the threads set loop bounds and the
+// dynamic shared memory.  Stage 1's body is compiled twice: once with the
+// default chunk and threads as constants, which a launch at the default
+// takes (the general body, at the default's geometry, took 7-14% longer
+// at Bq = 16 on an H100), and once with them read at run time.  Per query
+// a slot's score is the same operations in the same order whatever the
+// geometry, and the selection is a function of the keys alone, so every
+// geometry returns the same bits.
 #include "common.cuh"
 
 #include <cstdint>
@@ -97,18 +114,27 @@ namespace {
 using repro::kMaxRK;
 using repro::kNegInf;
 
-constexpr int kFullTile = 128;       // slots per full-mode block, one per thread
-constexpr int kTopkThreads = 256;    // stage-1 threads: one slot each per tile
-constexpr int kChunk = 512;          // slots a stage-1 block scores and selects from
-constexpr int kMaxGroup = 16;        // query rows a stage-1 block scores at once
+constexpr int kFullThreads = 128;    // full-mode threads: one slot each a tile
+constexpr int kFullBlockN = 128;     // default slots a full-mode block scores
+constexpr int kTopkThreads = 256;    // default and most stage-1 threads (its launch
+                                     // bound): one slot each a tile
+constexpr int kChunk = 512;          // default slots a stage-1 block scores and selects from
+// Stage-1 blocks of kTopkThreads an SM the launch bounds ask for at a query
+// group of G: three up to 4 rows (80 registers a thread, as the bodies had
+// before the geometry was a launch parameter; ptxas gave the multi-tenant
+// kernel 105 without it, two blocks an SM, 11% slower at 16 x 65,536),
+// two past that.
+template <int G>
+constexpr int kStage1Blocks = G <= 4 ? 3 : 2;
+constexpr int kMaxChunk = 32768;     // the most: a chunk's bin counts are 16-bit
+constexpr int kMaxGroup = 16;        // query rows a block scores at once, at most
 constexpr int kHistBits = 11;        // key bits of the merge's first digit
 constexpr int kHistBins = 1 << kHistBits;
 constexpr int kHist2Bits = 12;       // and of its second, the bits below the first
 constexpr int kHist2Bins = 1 << kHist2Bits;
-constexpr int kScoreStride = kChunk + 1;        // a row of chunk scores in shared memory
 constexpr int kPackedStride = kHistBins / 2 + 1;  // a row's first-digit bins, two a word
 constexpr int kMergeThreads = 1024;
-constexpr int kPart = 16384;         // candidates one merge block filters
+constexpr int kPart = 16384;         // default candidates one merge block filters
 constexpr int kMaxBlockK = 4096;     // largest K the merge's last block sorts
 constexpr int kSortTile = 16384;     // entries one topk_sort_tiles block sorts
 constexpr int kSortThreads = 1024;
@@ -118,7 +144,9 @@ constexpr int kMaxGrid = 65535;      // grid.y and grid.z limit
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline long long n_chunks_of(long long n) { return (n + kChunk - 1) / kChunk; }
+__host__ __device__ inline long long n_chunks_of(long long n, int chunk) {
+  return (n + chunk - 1) / chunk;
+}
 
 // Shared-memory layout (in words) of the full mode for G queries: P_C
 // transposed first (16-byte aligned), then e, a_C and the Q_I tile, rows of
@@ -131,16 +159,18 @@ struct FullSmem {
     es = pcT + RK * G;
     ac = es + round4(rho);
     qs = ac + round4(G);
-    words = qs + kFullTile * rkw;
+    words = qs + kFullThreads * rkw;
   }
 };
 
+// Block (slots [blockIdx.x * block_n, ...), group of G queries): the slots
+// in tiles of kFullThreads, each tile staged and scored in turn.
 template <int G, class T, int Acc>
-__global__ void __launch_bounds__(kFullTile)
+__global__ void __launch_bounds__(kFullThreads)
 corpus_score_full(const T* __restrict__ Q, const T* __restrict__ aI,
                   const unsigned char* __restrict__ valid, const float* __restrict__ e,
                   const float* __restrict__ PC, const float* __restrict__ aC, long long n,
-                  int Bq, int rho, int k, float* __restrict__ out) {
+                  int Bq, int rho, int k, long long block_n, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
   const int RK = rho * k;
   const int RKP = repro::row_stride<T>(RK);
@@ -150,7 +180,8 @@ corpus_score_full(const T* __restrict__ Q, const T* __restrict__ aI,
   float* ac = smem + lay.ac;
   T* qs = reinterpret_cast<T*>(smem + lay.qs);
 
-  const long long row0 = (long long)blockIdx.x * kFullTile;
+  const long long first = (long long)blockIdx.x * block_n;
+  const long long end = first + block_n < n ? first + block_n : n;
   const int q0 = blockIdx.y * G;
   const int nq = min(G, Bq - q0);
   for (int t = threadIdx.x; t < RK * G; t += blockDim.x) {
@@ -159,61 +190,72 @@ corpus_score_full(const T* __restrict__ Q, const T* __restrict__ aI,
   }
   for (int t = threadIdx.x; t < rho; t += blockDim.x) es[t] = e[t];
   for (int t = threadIdx.x; t < G; t += blockDim.x) ac[t] = t < nq ? aC[q0 + t] : 0.f;
-  repro::stage_rows(Q, row0, kFullTile, n, RK, RKP, qs);
-  __syncthreads();
-
-  const long long i = row0 + threadIdx.x;
-  if (i >= n) return;
-  float s[G];
-  if (valid == nullptr || valid[i] != 0) {
-    repro::slot_score<G, T, Acc>(repro::to_f32(aI[i]), qs + threadIdx.x * RKP, pcT, ac, es,
-                                 rho, k, s);
-  } else {
+  for (long long row0 = first; row0 < end; row0 += kFullThreads) {
+    __syncthreads();                // the previous tile is consumed
+    repro::stage_rows(Q, row0, (int)(end - row0 < kFullThreads ? end - row0 : kFullThreads), n,
+                      RK, RKP, qs);
+    __syncthreads();
+    const long long i = row0 + threadIdx.x;
+    if (i >= end) continue;
+    float s[G];
+    if (valid == nullptr || valid[i] != 0) {
+      repro::slot_score<G, T, Acc>(repro::to_f32(aI[i]), qs + threadIdx.x * RKP, pcT, ac, es,
+                                   rho, k, s);
+    } else {
 #pragma unroll
-    for (int j = 0; j < G; ++j) s[j] = kNegInf;
+      for (int j = 0; j < G; ++j) s[j] = kNegInf;
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (j < nq) out[(long long)(q0 + j) * n + i] = s[j];
   }
-#pragma unroll
-  for (int j = 0; j < G; ++j)
-    if (j < nq) out[(long long)(q0 + j) * n + i] = s[j];
 }
 
-// Shared-memory layout (in words) of a stage-1 block for G query rows:
-// P_C transposed (16-byte aligned), e, a_C, the G rows' chunk scores (odd
-// row stride), and a work area: the Q_I tile while scoring (rows of `rkw`
+// Shared-memory layout (in words) of a stage-1 block of `threads` threads
+// for G query rows and a chunk of `chunk` slots: P_C transposed (16-byte
+// aligned), e, a_C, the G rows' chunk scores (odd row stride chunk + 1),
+// and a work area: the Q_I tile while scoring (`threads` rows of `rkw`
 // words), then the rows' first-digit bins, two 16-bit counts a word (odd
 // row stride).
 struct ChunkSmem {
   int pcT, es, ac, sc, work, words;
-  __host__ __device__ ChunkSmem(int G, int rho, int k, int rkw) {
+  __host__ __device__ ChunkSmem(int G, int rho, int k, int rkw, int chunk, int threads) {
     const int RK = rho * k;
     pcT = 0;
     es = pcT + RK * G;
     ac = es + round4(rho);
     sc = ac + round4(G);
-    work = sc + G * kScoreStride;
-    words = work + imax(kTopkThreads * rkw, G * kPackedStride);
+    work = sc + G * (chunk + 1);
+    words = work + imax(threads * rkw, G * kPackedStride);
   }
 };
 
-// Stage 1 of the top-K modes, one block: score slots [chunk * kChunk,
-// (chunk + 1) * kChunk) of one slab against nq <= G query rows (P_C rows
-// `PC`, a_C `aC`), write the scores to cand_v[j * stride + chunk * kChunk
-// ...] (a slot's candidate is at its own position) and add their first
-// digits (top kHistBits bits of the order key) to the rows' bins
+// Stage 1 of the top-K modes, one block of blockDim.x threads: score slots
+// [chunk * len, (chunk + 1) * len) of one slab against nq <= G query rows
+// (P_C rows `PC`, a_C `aC`), write the scores to cand_v[j * stride + chunk
+// * len ...] (a slot's candidate is at its own position) and add their
+// first digits (top kHistBits bits of the order key) to the rows' bins
 // hist1[j * kHistBins ...].  Slots past the slab's end score -inf, below
 // every slot.  Shared by the single-slab and the multi-tenant kernels, so
 // that both score identically.
-template <int G, class T, int Acc>
-__device__ void chunk_scores(const T* __restrict__ Q, const T* __restrict__ aI,
-                             const unsigned char* __restrict__ valid, long long n,
-                             const float* __restrict__ e, const float* __restrict__ PC,
-                             const float* __restrict__ aC, int nq, int rho, int k,
-                             long long chunk, float* __restrict__ cand_v, long long stride,
-                             unsigned* __restrict__ hist1) {
+//
+// chunk_scores_as: the body, with the chunk `len` and the block's threads
+// compile-time constants kLen and kThreads where those are not 0.  Each
+// thread reads its slot's a_I and liveness before the tile's barrier, so
+// that their latency overlaps the staging of Q_I.
+template <int G, class T, int Acc, int kLen, int kThreads>
+__device__ __forceinline__ void chunk_scores_as(
+    const T* __restrict__ Q, const T* __restrict__ aI, const unsigned char* __restrict__ valid,
+    long long n, const float* __restrict__ e, const float* __restrict__ PC,
+    const float* __restrict__ aC, int nq, int rho, int k, long long chunk, int len_arg,
+    float* __restrict__ cand_v, long long stride, unsigned* __restrict__ hist1) {
   extern __shared__ __align__(16) float smem[];
   const int RK = rho * k;
   const int RKP = repro::row_stride<T>(RK);
-  const ChunkSmem lay(G, rho, k, repro::row_words<T>(RK));
+  const int len = kLen ? kLen : len_arg;
+  const int threads = kThreads ? kThreads : blockDim.x;
+  const int sstride = len + 1;      // a row of chunk scores in shared memory
+  const ChunkSmem lay(G, rho, k, repro::row_words<T>(RK), len, threads);
   float* pcT = smem + lay.pcT;
   float* es = smem + lay.es;
   float* ac = smem + lay.ac;
@@ -222,29 +264,33 @@ __device__ void chunk_scores(const T* __restrict__ Q, const T* __restrict__ aI,
   T* tile = reinterpret_cast<T*>(work);
   const int tid = threadIdx.x;
 
-  const long long base = chunk * kChunk;
-  for (int t = tid; t < RK * G; t += kTopkThreads) {
+  const long long base = chunk * len;
+  for (int t = tid; t < RK * G; t += threads) {
     const int c = t / G, j = t % G;
     pcT[t] = j < nq ? PC[(long long)j * RK + c] : 0.f;
   }
-  for (int t = tid; t < rho; t += kTopkThreads) es[t] = e[t];
-  for (int t = tid; t < G; t += kTopkThreads) ac[t] = t < nq ? aC[t] : 0.f;
-  for (int off = 0; off < kChunk; off += kTopkThreads) {
-    __syncthreads();                // the previous tile is consumed
-    repro::stage_rows(Q, base + off, kTopkThreads, n, RK, RKP, tile);
-    __syncthreads();
+  for (int t = tid; t < rho; t += threads) es[t] = e[t];
+  for (int t = tid; t < G; t += threads) ac[t] = t < nq ? aC[t] : 0.f;
+  for (int off = 0; off < len; off += threads) {
     const long long i = base + off + tid;
+    const bool mine = off + tid < len;
+    const bool live = mine && i < n && (valid == nullptr || valid[i] != 0);
+    const float ai = live ? repro::to_f32(aI[i]) : 0.f;
+    __syncthreads();                // the previous tile is consumed
+    repro::stage_rows(Q, base + off, len - off < threads ? len - off : threads, n, RK, RKP,
+                      tile);
+    __syncthreads();
+    if (!mine) continue;
     float s[G];
-    if (i < n && (valid == nullptr || valid[i] != 0)) {
-      repro::slot_score<G, T, Acc>(repro::to_f32(aI[i]), tile + tid * RKP, pcT, ac, es, rho, k,
-                                   s);
+    if (live) {
+      repro::slot_score<G, T, Acc>(ai, tile + tid * RKP, pcT, ac, es, rho, k, s);
     } else {
 #pragma unroll
       for (int j = 0; j < G; ++j) s[j] = i < n ? kNegInf : -CUDART_INF_F;
     }
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      sc[j * kScoreStride + off + tid] = s[j];
+      sc[j * sstride + off + tid] = s[j];
       if (j < nq) cand_v[(long long)j * stride + base + off + tid] = s[j];
     }
   }
@@ -253,15 +299,15 @@ __device__ void chunk_scores(const T* __restrict__ Q, const T* __restrict__ aI,
   // different bins of a dense region)
   unsigned* bins = reinterpret_cast<unsigned*>(work);
   __syncthreads();                  // the tile is consumed
-  for (int t = tid; t < nq * kPackedStride; t += kTopkThreads) bins[t] = 0;
+  for (int t = tid; t < nq * kPackedStride; t += threads) bins[t] = 0;
   __syncthreads();
-  for (int t = tid; t < nq * kChunk; t += kTopkThreads) {
+  for (int t = tid; t < nq * len; t += threads) {
     const int j = t % nq, i = t / nq;
-    const unsigned b = repro::order_key(sc[j * kScoreStride + i]) >> (32 - kHistBits);
+    const unsigned b = repro::order_key(sc[j * sstride + i]) >> (32 - kHistBits);
     atomicAdd(&bins[j * kPackedStride + (b >> 1)], b & 1u ? 0x10000u : 1u);
   }
   __syncthreads();
-  for (int t = tid; t < nq * (kHistBins / 2); t += kTopkThreads) {
+  for (int t = tid; t < nq * (kHistBins / 2); t += threads) {
     const int j = t / (kHistBins / 2), w = t % (kHistBins / 2);
     const unsigned c = bins[j * kPackedStride + w];
     unsigned* h = hist1 + (long long)j * kHistBins + 2 * w;
@@ -270,17 +316,36 @@ __device__ void chunk_scores(const T* __restrict__ Q, const T* __restrict__ aI,
   }
 }
 
-// Stage 1 of the single-slab top-K: block (chunk, group of G rows).
+// The default geometry takes the body compiled for it (file header).
 template <int G, class T, int Acc>
-__global__ void __launch_bounds__(kTopkThreads, 2)
+__device__ void chunk_scores(const T* __restrict__ Q, const T* __restrict__ aI,
+                             const unsigned char* __restrict__ valid, long long n,
+                             const float* __restrict__ e, const float* __restrict__ PC,
+                             const float* __restrict__ aC, int nq, int rho, int k,
+                             long long chunk, int len, float* __restrict__ cand_v,
+                             long long stride, unsigned* __restrict__ hist1) {
+  if (len == kChunk && blockDim.x == kTopkThreads)
+    chunk_scores_as<G, T, Acc, kChunk, kTopkThreads>(Q, aI, valid, n, e, PC, aC, nq, rho, k,
+                                                     chunk, len, cand_v, stride, hist1);
+  else
+    chunk_scores_as<G, T, Acc, 0, 0>(Q, aI, valid, n, e, PC, aC, nq, rho, k, chunk, len, cand_v,
+                                     stride, hist1);
+}
+
+// Stage 1 of the single-slab top-K: block (chunk of `len` slots, group of G
+// rows) of up to kTopkThreads threads.  (A bound of 512 threads let ptxas
+// cap some instantiations at 64 registers, and they spilled.)
+template <int G, class T, int Acc>
+__global__ void __launch_bounds__(kTopkThreads, kStage1Blocks<G>)
 corpus_topk_chunks(const T* __restrict__ Q, const T* __restrict__ aI,
                    const unsigned char* __restrict__ valid, const float* __restrict__ e,
                    const float* __restrict__ PC, const float* __restrict__ aC, long long n,
-                   int Bq, int rho, int k, float* cand_v, long long stride, unsigned* hist1) {
+                   int Bq, int rho, int k, int len, float* cand_v, long long stride,
+                   unsigned* hist1) {
   const int q0 = blockIdx.y * G;
   const long long RK = (long long)rho * k;
   chunk_scores<G, T, Acc>(Q, aI, valid, n, e, PC + q0 * RK, aC + q0, min(G, Bq - q0), rho, k,
-                          blockIdx.x, cand_v + q0 * stride, stride,
+                          blockIdx.x, len, cand_v + q0 * stride, stride,
                           hist1 + (long long)q0 * kHistBins);
 }
 
@@ -298,21 +363,22 @@ struct Segments {
 // G of its Bq rows), rows s * Bq + q.  A chunk past the end of a shorter
 // segment has nothing to do (the merge reads that segment's chunks alone).
 template <int G, class T, int Acc>
-__global__ void __launch_bounds__(kTopkThreads, 2)
+__global__ void __launch_bounds__(kTopkThreads, kStage1Blocks<G>)
 corpus_multi_topk_chunks(const __grid_constant__ Segments segs, const float* __restrict__ e,
                          const float* __restrict__ PC, const float* __restrict__ aC, int Bq,
-                         int rho, int k, float* cand_v, long long stride, unsigned* hist1) {
+                         int rho, int k, int len, float* cand_v, long long stride,
+                         unsigned* hist1) {
   const int groups = (Bq + G - 1) / G;
   const int s = blockIdx.y / groups;
   const int q0 = (blockIdx.y % groups) * G;
   const long long chunk = blockIdx.x;
   const long long n = segs.n[s];
-  if (chunk * kChunk >= n) return;
+  if (chunk * len >= n) return;
   const long long row0 = (long long)s * Bq + q0;
   const long long RK = (long long)rho * k;
   chunk_scores<G, T, Acc>(static_cast<const T*>(segs.Q[s]), static_cast<const T*>(segs.aI[s]),
                           segs.valid[s], n, e + (long long)s * rho, PC + row0 * RK, aC + row0,
-                          min(G, Bq - q0), rho, k, chunk, cand_v + row0 * stride, stride,
+                          min(G, Bq - q0), rho, k, chunk, len, cand_v + row0 * stride, stride,
                           hist1 + row0 * kHistBins);
 }
 
@@ -454,14 +520,14 @@ __device__ __forceinline__ void pick_winners(const float* src_v, const int* src_
       to_v, to_i, count);
 }
 
-// Merge block (row, part): keep the part's scores whose first digit is at
+// Merge block (row, part of `part_len` scores): keep the part's scores whose first digit is at
 // or above b1, the bin of the row's K-th largest score, and count the second
 // digits of those on b1.  The row's last block then finds b2, the second
 // digit's bin of the K-th, keeps the kept scores at or above (b1, b2), picks
 // the K winners among those exactly, and, for K <= kMaxBlockK, sorts them
 // and writes the row relabeled (else writes them for the sort kernels).
-__device__ void merge_row(const MergeRow& r, int part, int K, long long index_offset,
-                          long long index_stride) {
+__device__ void merge_row(const MergeRow& r, int part, int part_len, int K,
+                          long long index_offset, long long index_stride) {
   extern __shared__ __align__(16) float smem[];
   unsigned* hist = reinterpret_cast<unsigned*>(smem);    // kSelectBins
   unsigned* h2 = hist + repro::kSelectBins;               // kHist2Bins
@@ -471,7 +537,7 @@ __device__ void merge_row(const MergeRow& r, int part, int K, long long index_of
   unsigned* misc = warp_base + kMergeThreads / 32;        // 4
   float* sv = smem + kMergeHead;                          // 2 next_pow2(K) when sorting
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int parts = (int)((r.m + kPart - 1) / kPart);
+  const int parts = (int)((r.m + part_len - 1) / part_len);
   if (part >= parts) return;
 
   const uint2 c1 = crossing<kHistBins>(r.hist1, (unsigned)K, cross, warp_sums);
@@ -483,8 +549,8 @@ __device__ void merge_row(const MergeRow& r, int part, int K, long long index_of
   // part with none skips the second read)
   for (int b = tid; b < kHist2Bins; b += kMergeThreads) h2[b] = 0;
   __syncthreads();
-  const long long lo = (long long)part * kPart;
-  const long long hi = lo + kPart < r.m ? lo + kPart : r.m;
+  const long long lo = (long long)part * part_len;
+  const long long hi = lo + part_len < r.m ? lo + part_len : r.m;
   unsigned mine = 0;
   for (long long i = lo + tid; i < hi; i += kMergeThreads) {
     const unsigned key = repro::order_key(r.cand_v[i]);
@@ -653,22 +719,22 @@ __device__ MergeRow merge_args(unsigned* w, const Scratch& sc, long long row, lo
 // The merge of the single-slab top-K: block (row, part); every row has m
 // candidates.
 __global__ void __launch_bounds__(kMergeThreads)
-topk_merge(unsigned* scratch, Scratch sc, long long rows, long long m, int K, float* out_v,
-           int* out_i, long long index_offset, long long index_stride) {
-  merge_row(merge_args(scratch, sc, blockIdx.x, rows, m, m, K, out_v, out_i), blockIdx.y, K,
-            index_offset, index_stride);
+topk_merge(unsigned* scratch, Scratch sc, long long rows, long long m, int part_len, int K,
+           float* out_v, int* out_i, long long index_offset, long long index_stride) {
+  merge_row(merge_args(scratch, sc, blockIdx.x, rows, m, m, K, out_v, out_i), blockIdx.y,
+            part_len, K, index_offset, index_stride);
 }
 
 // The merge of the multi-tenant top-K: row s * Bq + q has segment s's
-// scores, in rows of `stride` (the longest segment's chunks).
+// scores, in rows of `stride` (the longest segment's chunks of `len`).
 __global__ void __launch_bounds__(kMergeThreads)
 multi_topk_merge(unsigned* scratch, Scratch sc, const __grid_constant__ Segments segs,
-                 long long rows, int Bq, long long stride, int K, float* out_v, int* out_i,
-                 long long index_offset, long long index_stride) {
+                 long long rows, int Bq, long long stride, int len, int part_len, int K,
+                 float* out_v, int* out_i, long long index_offset, long long index_stride) {
   const long long n = segs.n[blockIdx.x / Bq];
-  merge_row(merge_args(scratch, sc, blockIdx.x, rows, stride, n_chunks_of(n) * kChunk, K,
+  merge_row(merge_args(scratch, sc, blockIdx.x, rows, stride, n_chunks_of(n, len) * len, K,
                        out_v, out_i),
-            blockIdx.y, K, index_offset, index_stride);
+            blockIdx.y, part_len, K, index_offset, index_stride);
 }
 
 // Writes an ordered entry: the final row relabeled, or a sort buffer.
@@ -747,8 +813,32 @@ int next_pow2(long long x) {
   return p;
 }
 
-// Query rows a stage-1 or full-mode block scores at once.
+// The default query group: the rows a stage-1 or full-mode block scores at
+// once (kernels/blocks.py group_size).
 int group_size(int Bq) { return Bq >= kMaxGroup ? kMaxGroup : next_pow2(Bq); }
+
+// A launch's geometry: the query group G, and in the top-K modes stage 1's
+// threads, its chunk of slots and the merge's part (kernels/blocks.py Tile).
+struct Geometry {
+  int group, threads, chunk, part;
+};
+
+bool group_ok(int G) { return G == 1 || G == 2 || G == 4 || G == 8 || G == 16; }
+
+bool topk_geometry_ok(const Geometry& g) {
+  return group_ok(g.group) && g.threads >= 32 && g.threads <= kTopkThreads &&
+         g.threads % 32 == 0 && g.chunk >= 1 && g.chunk <= kMaxChunk && g.part >= 1;
+}
+
+// Dynamic shared memory of stage 1 (for the slab type `dtype`), or of the
+// full mode with topk = false.
+size_t stage_smem(bool topk, const Geometry& g, int rho, int k, int dtype) {
+  const int rkw = dtype == repro::kBF16 ? repro::row_words<__nv_bfloat16>(rho * k)
+                                        : repro::row_words<float>(rho * k);
+  const int words = topk ? ChunkSmem(g.group, rho, k, rkw, g.chunk, g.threads).words
+                         : FullSmem(g.group, rho, k, rkw).words;
+  return (size_t)words * sizeof(float);
+}
 
 
 // repro::allow_smem for `Kernel` on `device`, once per size: the attribute
@@ -792,7 +882,8 @@ cudaError_t with_variant(int G, int dtype, int acc, F f) {
     case 2: return by_type(std::integral_constant<int, 2>());
     case 4: return by_type(std::integral_constant<int, 4>());
     case 8: return by_type(std::integral_constant<int, 8>());
-    default: return by_type(std::integral_constant<int, 16>());
+    case 16: return by_type(std::integral_constant<int, 16>());
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -839,8 +930,8 @@ cudaError_t sort_rows(unsigned* scratch, const Scratch& sc, long long rows, int 
 }
 
 // Shared checks of both top-K entry points: grid limits of the launches.
-bool topk_fits(long long rows, long long groups_y, long long m, int K) {
-  const long long parts = (m + kPart - 1) / kPart;
+bool topk_fits(long long rows, long long groups_y, long long m, int K, int part) {
+  const long long parts = (m + part - 1) / part;
   return groups_y <= kMaxGrid && parts <= kMaxGrid && rows <= INT_MAX &&
          m < INT_MAX && (K <= kMaxBlockK || (K + kRoundThreads - 1) / kRoundThreads <= kMaxGrid);
 }
@@ -849,20 +940,59 @@ bool topk_fits(long long rows, long long groups_y, long long m, int K) {
 
 extern "C" {
 
+// The default geometry and the limits of the launch parameters, for the
+// port's kernels/blocks.py to check its named defaults against: out[0] the
+// slots a full-mode block scores, [1] its threads, [2] the chunk, [3]
+// stage 1's threads, [4] the largest query group, [5] the merge's part,
+// [6] the largest chunk, [7] the most stage-1 threads (the default).
+void dplr_corpus_geometry_defaults(long long* out) {
+  out[0] = kFullBlockN;
+  out[1] = kFullThreads;
+  out[2] = kChunk;
+  out[3] = kTopkThreads;
+  out[4] = kMaxGroup;
+  out[5] = kPart;
+  out[6] = kMaxChunk;
+  out[7] = kTopkThreads;
+}
+
+// Whether a geometry fits `device`'s opt-in shared memory a block: the
+// full mode's (topk = 0; threads, chunk and part unused) or stage 1's and
+// the merge's for K (topk = 1), at rho, k and the slab type `dtype`.
+// Returns 1 if it fits, 0 if it does not, and the negated cudaError_t of a
+// failed query or an invalid geometry.
+int dplr_corpus_geometry_fits(int topk, int group, int threads, int chunk, int part, int rho,
+                              int k, int dtype, int K, int device) {
+  const Geometry g{group, threads, chunk, part};
+  if (rho * k > kMaxRK || rho <= 0 || k <= 0 || !(topk ? topk_geometry_ok(g) : group_ok(group)) ||
+      (dtype != repro::kF32 && dtype != repro::kBF16))
+    return -(int)cudaErrorInvalidValue;
+  int optin = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return -(int)err;
+  size_t need = stage_smem(topk != 0, g, rho, k, dtype);
+  if (topk && merge_smem(K) > need) need = merge_smem(K);
+  return need <= (size_t)optin ? 1 : 0;
+}
+
 // Q (n, rho, k) and aI (n): the slab, float (dtype = 0) or bf16 (dtype = 1);
-// acc: 0 sums in f32, 1 as the reference's acc_dtype='bfloat16'.
+// acc: 0 sums in f32, 1 as the reference's acc_dtype='bfloat16'.  group:
+// the query rows a block scores (1, 2, 4, 8 or 16); block_n: the slots a
+// block scores, in tiles of 128 threads.
 int dplr_corpus_score_full(const void* Q, const void* aI, const unsigned char* valid,
                            const float* e, const float* PC, const float* aC, long long n,
-                           int Bq, int rho, int k, int dtype, int acc, float* out,
-                           void* stream, int device) {
-  if (n <= 0 || Bq <= 0 || rho * k > kMaxRK || !variant_ok(dtype, acc))
+                           int Bq, int rho, int k, int dtype, int acc, int group,
+                           long long block_n, float* out, void* stream, int device) {
+  if (n <= 0 || Bq <= 0 || rho * k > kMaxRK || !variant_ok(dtype, acc) || !group_ok(group) ||
+      block_n <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const int G = group_size(Bq);
-  const long long groups = (Bq + G - 1) / G;
-  if (groups > kMaxGrid) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + kFullTile - 1) / kFullTile), (unsigned)groups);
+  const int G = group;
+  const long long groups = (Bq + G - 1) / G, blocks = (n + block_n - 1) / block_n;
+  if (groups > kMaxGrid || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)groups);
   err = with_variant(G, dtype, acc, [&](auto g, auto t, auto a) {
     constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
     using T = typename decltype(t)::type;
@@ -870,35 +1000,41 @@ int dplr_corpus_score_full(const void* Q, const void* aI, const unsigned char* v
         (size_t)FullSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
     cudaError_t e2 = allow_smem_once<corpus_score_full<kG, T, kA>>(smem, device);
     if (e2 != cudaSuccess) return e2;
-    corpus_score_full<kG, T, kA><<<grid, kFullTile, smem, (cudaStream_t)stream>>>(
+    corpus_score_full<kG, T, kA><<<grid, kFullThreads, smem, (cudaStream_t)stream>>>(
         static_cast<const T*>(Q), static_cast<const T*>(aI), valid, e, PC, aC, n, Bq, rho, k,
-        out);
+        block_n, out);
     return cudaGetLastError();
   });
   return (int)err;
 }
 
 // Scratch words (4 bytes each) dplr_corpus_topk needs for Bq rows, or
-// dplr_corpus_multi_topk for S * Bq rows with n the longest segment.
-long long dplr_corpus_topk_scratch(long long n, long long rows, int K) {
-  return Scratch(rows, n_chunks_of(n) * kChunk, K).words;
+// dplr_corpus_multi_topk for S * Bq rows with n the longest segment, at a
+// chunk of `chunk` slots (the rows' length is n rounded up to chunks).
+long long dplr_corpus_topk_scratch(long long n, long long rows, int K, int chunk) {
+  if (chunk < 1 || chunk > kMaxChunk) return -1;
+  return Scratch(rows, n_chunks_of(n, chunk) * chunk, K).words;
 }
 
 // Writes the launches it made to launched[0] (corpus_topk_chunks: 1),
 // launched[1] (topk_merge: 1), launched[2] (topk_sort_tiles: 1 for K >
 // 4096, else 0) and launched[3] (topk_sort_merge: one per round of runs).
+// group, threads, chunk, part: the geometry (Geometry).
 int dplr_corpus_topk(const void* Q, const void* aI, const unsigned char* valid,
                      const float* e, const float* PC, const float* aC, long long n, int Bq,
-                     int rho, int k, int dtype, int acc, int K, long long index_offset,
-                     long long index_stride, unsigned* scratch, float* out_v, int* out_i,
-                     int* launched, void* stream, int device) {
+                     int rho, int k, int dtype, int acc, int group, int threads, int chunk,
+                     int part, int K, long long index_offset, long long index_stride,
+                     unsigned* scratch, float* out_v, int* out_i, int* launched, void* stream,
+                     int device) {
   launched[0] = launched[1] = launched[2] = launched[3] = 0;
+  const Geometry geo{group, threads, chunk, part};
   if (n <= 0 || Bq <= 0 || K <= 0 || K > n || n > INT_MAX || rho * k > kMaxRK ||
-      !variant_ok(dtype, acc))
+      !variant_ok(dtype, acc) || !topk_geometry_ok(geo))
     return (int)cudaErrorInvalidValue;
-  const int G = group_size(Bq);
-  const long long n_chunks = n_chunks_of(n), m = n_chunks * kChunk, groups = (Bq + G - 1) / G;
-  if (!topk_fits(Bq, groups, m, K)) return (int)cudaErrorInvalidValue;
+  const int G = group;
+  const long long n_chunks = n_chunks_of(n, chunk), m = n_chunks * chunk,
+                  groups = (Bq + G - 1) / G;
+  if (!topk_fits(Bq, groups, m, K, part)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -911,13 +1047,14 @@ int dplr_corpus_topk(const void* Q, const void* aI, const unsigned char* valid,
     constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
     using T = typename decltype(t)::type;
     const size_t smem1 =
-        (size_t)ChunkSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
+        (size_t)ChunkSmem(kG, rho, k, repro::row_words<T>(rho * k), chunk, threads).words *
+        sizeof(float);
     cudaError_t e2 = allow_smem_once<corpus_topk_chunks<kG, T, kA>>(smem1, device);
     if (e2 != cudaSuccess) return e2;
-    corpus_topk_chunks<kG, T, kA><<<dim3((unsigned)n_chunks, (unsigned)groups), kTopkThreads,
-                                    smem1, s>>>(
+    corpus_topk_chunks<kG, T, kA><<<dim3((unsigned)n_chunks, (unsigned)groups), threads, smem1,
+                                    s>>>(
         static_cast<const T*>(Q), static_cast<const T*>(aI), valid, e, PC, aC, n, Bq, rho, k,
-        reinterpret_cast<float*>(scratch + sc.cand_v), m, scratch + sc.counters);
+        chunk, reinterpret_cast<float*>(scratch + sc.cand_v), m, scratch + sc.counters);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return (int)err;
@@ -926,9 +1063,8 @@ int dplr_corpus_topk(const void* Q, const void* aI, const unsigned char* valid,
   const size_t smem2 = merge_smem(K);
   err = allow_smem_once<topk_merge>(smem2, device);
   if (err != cudaSuccess) return (int)err;
-  topk_merge<<<dim3((unsigned)Bq, (unsigned)((m + kPart - 1) / kPart)), kMergeThreads, smem2,
-               s>>>(scratch, sc, Bq, m, K, out_v, out_i, index_offset,
-                    index_stride);
+  topk_merge<<<dim3((unsigned)Bq, (unsigned)((m + part - 1) / part)), kMergeThreads, smem2,
+               s>>>(scratch, sc, Bq, m, part, K, out_v, out_i, index_offset, index_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   launched[1] = 1;
@@ -941,19 +1077,22 @@ int dplr_corpus_topk(const void* Q, const void* aI, const unsigned char* valid,
 // (S * Bq, K) outputs is query q of segment s against segment s's slab
 // (Q[s] (n[s], rho, k), aI[s], valid[s] or nullptr; every segment's Q and
 // aI of the one type `dtype`) with eigenvalues e[s * rho ...], ids
-// segment-local and relabeled.  Scratch: as many words
-// as dplr_corpus_topk_scratch(max n, S * Bq, K) gives.  Writes the launches
-// it made to launched[0] (corpus_multi_topk_chunks), launched[1]
-// (multi_topk_merge), and launched[2] and [3] as dplr_corpus_topk does.
+// segment-local and relabeled.  Scratch: as many words as
+// dplr_corpus_topk_scratch(max n, S * Bq, K, chunk) gives.  Writes the
+// launches it made to launched[0] (corpus_multi_topk_chunks), launched[1]
+// (multi_topk_merge), and launched[2] and [3] as dplr_corpus_topk does;
+// the geometry as there.
 int dplr_corpus_multi_topk(int S, const void* const* Q, const void* const* aI,
                            const unsigned char* const* valid, const long long* n,
                            const float* e, const float* PC, const float* aC, int Bq,
-                           int rho, int k, int dtype, int acc, int K, long long index_offset,
+                           int rho, int k, int dtype, int acc, int group, int threads,
+                           int chunk, int part, int K, long long index_offset,
                            long long index_stride, unsigned* scratch, float* out_v,
                            int* out_i, int* launched, void* stream, int device) {
   launched[0] = launched[1] = launched[2] = launched[3] = 0;
+  const Geometry geo{group, threads, chunk, part};
   if (S <= 0 || S > kMaxSegments || Bq <= 0 || K <= 0 || rho * k > kMaxRK ||
-      !variant_ok(dtype, acc))
+      !variant_ok(dtype, acc) || !topk_geometry_ok(geo))
     return (int)cudaErrorInvalidValue;
   Segments segs;
   long long n_max = 0;
@@ -966,10 +1105,10 @@ int dplr_corpus_multi_topk(int S, const void* const* Q, const void* const* aI,
     if (in && (n[j] < K || n[j] > INT_MAX)) return (int)cudaErrorInvalidValue;
     if (in && n[j] > n_max) n_max = n[j];
   }
-  const int G = group_size(Bq);
+  const int G = group;
   const long long rows = (long long)S * Bq, groups = (Bq + G - 1) / G;
-  const long long n_chunks = n_chunks_of(n_max), m = n_chunks * kChunk;
-  if (!topk_fits(rows, S * groups, m, K)) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = n_chunks_of(n_max, chunk), m = n_chunks * chunk;
+  if (!topk_fits(rows, S * groups, m, K, part)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -982,12 +1121,13 @@ int dplr_corpus_multi_topk(int S, const void* const* Q, const void* const* aI,
     constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
     using T = typename decltype(t)::type;
     const size_t smem1 =
-        (size_t)ChunkSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
+        (size_t)ChunkSmem(kG, rho, k, repro::row_words<T>(rho * k), chunk, threads).words *
+        sizeof(float);
     cudaError_t e2 = allow_smem_once<corpus_multi_topk_chunks<kG, T, kA>>(smem1, device);
     if (e2 != cudaSuccess) return e2;
     corpus_multi_topk_chunks<kG, T, kA><<<dim3((unsigned)n_chunks, (unsigned)(S * groups)),
-                                          kTopkThreads, smem1, s>>>(
-        segs, e, PC, aC, Bq, rho, k, reinterpret_cast<float*>(scratch + sc.cand_v), m,
+                                          threads, smem1, s>>>(
+        segs, e, PC, aC, Bq, rho, k, chunk, reinterpret_cast<float*>(scratch + sc.cand_v), m,
         scratch + sc.counters);
     return cudaGetLastError();
   });
@@ -997,8 +1137,8 @@ int dplr_corpus_multi_topk(int S, const void* const* Q, const void* const* aI,
   const size_t smem2 = merge_smem(K);
   err = allow_smem_once<multi_topk_merge>(smem2, device);
   if (err != cudaSuccess) return (int)err;
-  multi_topk_merge<<<dim3((unsigned)rows, (unsigned)((m + kPart - 1) / kPart)), kMergeThreads,
-                     smem2, s>>>(scratch, sc, segs, rows, Bq, m, K, out_v, out_i,
+  multi_topk_merge<<<dim3((unsigned)rows, (unsigned)((m + part - 1) / part)), kMergeThreads,
+                     smem2, s>>>(scratch, sc, segs, rows, Bq, m, chunk, part, K, out_v, out_i,
                                  index_offset, index_stride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

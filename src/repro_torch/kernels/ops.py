@@ -16,6 +16,18 @@ both devices.  The plain versions upcast bf16 on entry, so a bf16 call on
 the CPU is the float32 call on the upcast tensors, as it is bitwise on the
 card with ``acc_dtype='float32'``.  Other types raise.
 
+Geometry: a corpus call (kernels 1, 2 and 4) that leaves ``block_n`` or
+``acc_dtype`` ``None`` resolves it, and the rest of its launch geometry,
+through the tuned-tile registry (``blocks.resolve_tile``: an argument
+given wins, then the exact tuned cell, then the newest winner of the
+shape family, the geometry only from a winner timed on launches like
+this one), as the reference's ``ops`` resolves ``block_n`` and
+``acc_dtype``.  With nothing registered every call
+launches the kernels' default geometry with ``'float32'``.  On the CPU
+the plain versions have no tiles: the geometry is validated and clamped
+(so clamp events are the card's) but cannot change a result, and a
+resolved ``acc_dtype`` applies.
+
 ``LAUNCHES`` counts launches of each CUDA kernel (``__global__``
 function) by its name, and only those: a run reads it to show that its
 path went through the kernels.  A kernel instantiated for a bf16 slab,
@@ -31,10 +43,12 @@ types share them), so its launches are not its calls.
 from __future__ import annotations
 
 import collections
+import functools
 import math
 
 import torch
 
+from repro_torch.kernels import blocks
 from repro_torch.kernels import dplr_corpus_score as _corpus
 from repro_torch.kernels import dplr_score as _dplr
 from repro_torch.kernels import embedding_bag as _bag
@@ -64,7 +78,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 # The types a slab, V_I or bag table may have on the card, and the
 # reference's acc_dtype values.
 SLAB_DTYPES = (torch.float32, torch.bfloat16)
-ACC_DTYPES = ("float32", "bfloat16")
+ACC_DTYPES = blocks.ACC_DTYPES
 
 
 def reset_launches() -> None:
@@ -116,12 +130,6 @@ def _small_f32(**tensors) -> list:
     return [t.to(torch.float32).contiguous() for t in tensors.values()]
 
 
-def _check_acc(acc_dtype: str) -> None:
-    if acc_dtype not in ACC_DTYPES:
-        raise ValueError(f"acc_dtype={acc_dtype!r}: the kernels accumulate in "
-                         f"{' or '.join(ACC_DTYPES)}")
-
-
 def launch_name(kernel: str, dtype: torch.dtype, acc_dtype: str = "float32") -> str:
     """The ``LAUNCHES`` name of ``kernel`` instantiated for a slab (V_I,
     table) of ``dtype`` accumulating as ``acc_dtype``."""
@@ -145,9 +153,27 @@ def _check_corpus_limits(rk: int) -> None:
         raise ValueError(f"rho * k = {rk} > {_corpus.MAX_RK}, the kernel's limit")
 
 
+def _resolve_tile(n, rho, k, Bq, K, dtype, device, asked: blocks.Tile,
+                  segments: int = 1) -> blocks.Tile:
+    """The call's geometry (``blocks.resolve_tile``), keyed by the slab's
+    type and the device type; on the card a registered geometry must fit
+    the device's shared memory."""
+    fits = None
+    if device.type == "cuda":
+        fits = lambda tile: _fits(tile, K, rho, k, dtype, device.index or 0)  # noqa: E731
+    return blocks.resolve_tile(n, rho, k, Bq, K, blocks.dtype_name(dtype), device.type,
+                               **asked._asdict(), segments=segments, fits=fits)
+
+
+@functools.lru_cache(maxsize=1024)
+def _fits(tile, K, rho, k, dtype, index) -> bool:
+    return _corpus.geometry_fits(tile, K is not None, rho, k, dtype, K,
+                                 torch.device("cuda", index))
+
+
 def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = None,
-                      index_offset: int = 0, index_stride: int = 1,
-                      acc_dtype: str = "float32"):
+                      block_n: int | None = None, index_offset: int = 0,
+                      index_stride: int = 1, acc_dtype: str | None = None):
     """Masked corpus-cached scores: ``(Bq, n)``, or with ``topk=K`` the
     ``((Bq, K) scores, (Bq, K) int32 ids)`` best first, ties to the lowest
     slot, local slot ``i`` labeled ``index_offset + index_stride * i``;
@@ -155,9 +181,20 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
 
     ``Q_I (n, rho, k)``, ``a_I (n,)``, ``e (rho,)``, ``P_C (Bq, rho, k)``,
     ``a_C (Bq,)``, ``valid (n,)`` bool or None (all live).  ``acc_dtype``:
-    ``'float32'`` (the reference's default when nothing is tuned) or
-    ``'bfloat16'`` (each square and e_r rounded to bf16, their products
-    summed in f32, the sum rounded to bf16)."""
+    ``'float32'`` (the default when nothing is tuned) or ``'bfloat16'``
+    (each square and e_r rounded to bf16, their products summed in f32, the
+    sum rounded to bf16).  ``block_n``: the slots a block scores; it and
+    ``acc_dtype``, each ``None``, resolve through the registry with the
+    rest of the geometry (module docstring)."""
+    return _corpus_score(Q_I, a_I, e, P_C, a_C, valid, topk, index_offset, index_stride,
+                         blocks.Tile(block_n, acc_dtype))
+
+
+def _corpus_score(Q_I, a_I, e, P_C, a_C, valid, topk, index_offset, index_stride,
+                  asked: blocks.Tile):
+    """``dplr_corpus_score`` at the geometry ``asked`` (a ``blocks.Tile``,
+    each ``None`` field resolved): the autotuner's entry, which launches
+    whole candidate geometries."""
     if Q_I.ndim != 3:
         raise ValueError(f"Q_I must be (n, rho, k), got {tuple(Q_I.shape)}")
     n, rho, k = Q_I.shape
@@ -169,8 +206,9 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
     _check_shape("valid", valid, (n,))
     if topk is not None and not 0 < topk <= n:
         raise ValueError(f"topk={topk} out of range for n={n}")
-    _check_acc(acc_dtype)
     dev = _device(Q_I, a_I, e, P_C, a_C, valid)
+    tile = _resolve_tile(n, rho, k, Bq, topk, Q_I.dtype, dev, asked)
+    acc_dtype = tile.acc_dtype
     if dev.type == "cpu":
         if topk is None:
             return ref.dplr_corpus_score_ref(Q_I, a_I, e, P_C, a_C, valid, acc_dtype)
@@ -181,18 +219,19 @@ def dplr_corpus_score(Q_I, a_I, e, P_C, a_C, valid=None, *, topk: int | None = N
     _check_for_kernel(dtypes=(Q_I.dtype,), a_I=a_I)
     e, P_C, a_C = _small_f32(e=e, P_C=P_C, a_C=a_C)
     if topk is None:
-        out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid, acc_dtype)
+        out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid, acc_dtype, tile)
         LAUNCHES[launch_name("corpus_score_full", Q_I.dtype, acc_dtype)] += 1
         return out
     vals, ids, launched = _corpus.launch_topk(Q_I, a_I, e, P_C, a_C, valid, topk,
-                                              int(index_offset), int(index_stride), acc_dtype)
+                                              int(index_offset), int(index_stride), acc_dtype,
+                                              tile)
     _count(launched, Q_I.dtype, acc_dtype)
     return vals, ids
 
 
 def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk: int,
-                            index_offset: int = 0, index_stride: int = 1,
-                            acc_dtype: str = "float32"):
+                            block_n: int | None = None, index_offset: int = 0,
+                            index_stride: int = 1, acc_dtype: str | None = None):
     """S tenants' masked top-K in one call: ``((S, Bq, K) scores, (S, Bq, K)
     int32 ids)``, row ``[s]`` equal to ``dplr_corpus_score(..., topk=K)``
     on segment ``s`` alone (its slab, ``e[s]``, ``P_C[s]``, ``a_C[s]``);
@@ -203,7 +242,18 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     live); ``e (S, rho)``, ``P_C (S, Bq, rho, k)``, ``a_C (S, Bq)``.
     Segments may differ in length; K is bounded by the smallest.  On the
     card every segment's slab is of one type (float32 or bfloat16);
-    ``acc_dtype`` as in ``dplr_corpus_score``."""
+    ``block_n`` and ``acc_dtype`` as in ``dplr_corpus_score``, resolved for
+    the largest segment's cell with ``Bq = P_C.shape[1]`` (its tiles
+    dominate the launch), as the reference resolves them; the geometry
+    from a winner timed on as many segments (``blocks.launch_class``)."""
+    return _corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, index_offset,
+                               index_stride, blocks.Tile(block_n, acc_dtype))
+
+
+def _corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, index_offset,
+                        index_stride, asked: blocks.Tile):
+    """``dplr_corpus_score_multi`` at the geometry ``asked``, as
+    ``_corpus_score``."""
     S = len(Q_parts)
     if S == 0:
         raise ValueError("dplr_corpus_score_multi needs >= 1 segment")
@@ -229,8 +279,10 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     n_min = min(q.shape[0] for q in Q_parts)
     if not 0 < topk <= n_min:
         raise ValueError(f"topk={topk} out of range for smallest segment n={n_min}")
-    _check_acc(acc_dtype)
     dev = _device(e, P_C, a_C, *Q_parts, *a_parts, *valid_parts)
+    n_max = max(q.shape[0] for q in Q_parts)
+    tile = _resolve_tile(n_max, rho, k, Bq, topk, Q_parts[0].dtype, dev, asked, segments=S)
+    acc_dtype = tile.acc_dtype
     if dev.type == "cpu":
         return ref.dplr_corpus_multi_topk_ref(Q_parts, a_parts, valid_parts, e, P_C, a_C,
                                               topk, index_offset, index_stride, acc_dtype)
@@ -248,7 +300,7 @@ def dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, *, topk:
     e, P_C, a_C = _small_f32(e=e, P_C=P_C, a_C=a_C)
     vals, ids, launched = _corpus.launch_multi_topk(
         Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, int(index_offset),
-        int(index_stride), acc_dtype)
+        int(index_stride), acc_dtype, tile)
     _count(launched, slab, acc_dtype)
     return vals, ids
 

@@ -72,13 +72,14 @@ class CorpusState:
     ``item_ids`` / ``item_weights``: (n, n_item_slots) local item-side ids
     and weights (numpy or tensors; weights default to ones).
     ``fault_injector``: an optional ``FaultInjector`` for the ``write``,
-    ``alloc`` and ``kernel`` sites (settable later)."""
+    ``alloc`` and ``kernel`` sites (settable later).  ``block_n``: as
+    ``ScorerRuntime``'s, for the runtime this state builds."""
 
     def __init__(self, cfg, item_ids, item_weights=None, *,
-                 capacity: int | None = None, device=None,
+                 capacity: int | None = None, device=None, block_n: int | None = None,
                  runtime: ScorerRuntime | None = None, fault_injector=None):
         if runtime is None:
-            runtime = ScorerRuntime(cfg, device=device)
+            runtime = ScorerRuntime(cfg, device=device, block_n=block_n)
         else:
             if cfg is not None and cfg is not runtime.cfg:
                 raise ValueError("CorpusState(cfg=..., runtime=...): the runtime was "
@@ -86,6 +87,10 @@ class CorpusState:
                                  "(or cfg=None)")
             if device is not None and torch.device(device) != runtime.device:
                 raise ValueError("CorpusState(device=..., runtime=...): device is a "
+                                 "runtime property; build the ScorerRuntime with it "
+                                 "instead")
+            if block_n is not None and block_n != runtime.block_n:
+                raise ValueError("CorpusState(block_n=..., runtime=...): block_n is a "
                                  "runtime property; build the ScorerRuntime with it "
                                  "instead")
         self.runtime = runtime

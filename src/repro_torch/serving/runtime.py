@@ -56,14 +56,20 @@ QUERY_BLOCK = 16
 class ScorerRuntime:
     """Corpus-independent scoring for one ``FwFMConfig`` (``interaction
     == 'dplr'``) on one device (``cuda`` unless ``device`` says otherwise).
-    ``cfg.dtype`` is the serving dtype: context weights take it."""
+    ``cfg.dtype`` is the serving dtype: context weights take it.
+    ``block_n``: the corpus kernels' slots a block scores, passed to every
+    corpus call; ``None`` (default) resolves through the tuned-tile
+    registry per shape cell (``kernels.blocks``), as does ``acc_dtype``,
+    which the runtime leaves to it.  With nothing tuned the kernels'
+    default geometry, bitwise on the card whatever the geometry."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, *, device=None, block_n: int | None = None):
         if cfg.interaction != "dplr":
             raise ValueError("ScorerRuntime requires interaction='dplr'")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.wdtype = cfg.dtype
+        self.block_n = block_n
 
     def build(self, params, slab_ids, slab_w, valid) -> ItemCorpusCache:
         # the context lookup's static maps go to the device here, before
@@ -113,7 +119,7 @@ class ScorerRuntime:
     def _kernel_score(self, params, cache, ctx_ids, ctx_w, K=None):
         P_C, a_C = self._query(params, ctx_ids, ctx_w)
         return kops.dplr_corpus_score(cache.Q_I, cache.a_I, params["e"], P_C, a_C,
-                                      valid=cache.valid, topk=K)
+                                      valid=cache.valid, topk=K, block_n=self.block_n)
 
     def score(self, params, cache, ctx_ids, ctx_w) -> torch.Tensor:
         """(Bq, capacity) masked scores; dead slots exactly NEG_INF."""
@@ -136,7 +142,7 @@ class ScorerRuntime:
         return kops.dplr_corpus_score_multi(
             tuple(c.Q_I for c in cache_parts), tuple(c.a_I for c in cache_parts),
             tuple(c.valid for c in cache_parts), torch.stack([p["e"] for p in params_parts]),
-            torch.stack(pcs), torch.stack(acs), topk=K)
+            torch.stack(pcs), torch.stack(acs), topk=K, block_n=self.block_n)
 
     def write_rows(self, params, cache, slots, ids, w) -> ItemCorpusCache:
         """Compute the rows of Δn (slot -> item) writes, scatter them into

@@ -137,12 +137,22 @@ def test_bf16_calls_are_the_f32_calls_on_upcast_inputs():
 
 @pytest.mark.parametrize("acc_dtype", ["float16", "f32", "bf16", None])
 def test_acc_dtype_other_values_raise(acc_dtype):
+    """Names other than the reference's two raise.  ``None`` is not such a
+    name: as in the reference's ``ops`` it resolves through the tuned-tile
+    registry, to ``'float32'`` when nothing is tuned."""
     _, args = _both_bf16(corpus_inputs(64, 64, 3, 8, 2))
+    multi = ((args[0],), (args[1],), None, args[2][None], args[3][None], args[4][None])
+    if acc_dtype is None:
+        assert torch.equal(ops.dplr_corpus_score(*args, acc_dtype=None),
+                           ops.dplr_corpus_score(*args, acc_dtype="float32"))
+        for got, want in zip(ops.dplr_corpus_score_multi(*multi, topk=4, acc_dtype=None),
+                             ops.dplr_corpus_score_multi(*multi, topk=4, acc_dtype="float32")):
+            assert torch.equal(got, want)
+        return
     with pytest.raises(ValueError, match="acc_dtype"):
         ops.dplr_corpus_score(*args, acc_dtype=acc_dtype)
     with pytest.raises(ValueError, match="acc_dtype"):
-        ops.dplr_corpus_score_multi((args[0],), (args[1],), None, args[2][None], args[3][None],
-                                    args[4][None], topk=4, acc_dtype=acc_dtype)
+        ops.dplr_corpus_score_multi(*multi, topk=4, acc_dtype=acc_dtype)
 
 
 def test_score_items_plain_bf16_matches_pallas():

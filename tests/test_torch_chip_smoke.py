@@ -1,6 +1,6 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, serve-bf16,
-tenants, wire, eval, train, models, lm, timing and profile phases run at a tiny
-size with the plain versions (the
+tenants, wire, eval, train, models, lm, timing, autotune and profile phases run
+at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
@@ -31,6 +31,9 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              eval_n=600, eval_batch=256, parity=(3, 64), pruned_q=(2, 16),
              big_ks=(4097, 6500), adv=(8192, 6000, 3, (16, 1024, 4097)), large=(7000, 2),
              big_topk=2000,
+             tune_candidates=(256, {"block_n": 1024, "threads": 128, "group": 4, "part": 4096},
+                              {"block_n": 8192, "group": 16}),
+             tune_repeats=2, tune_cells=((1, "float32"), (3, "float32"), (1, "bfloat16")),
              topk_times=((3, 5, "random"), (1, 5, "random"), (3, 64, "random"),
                          (1, 64, "random"), (1, 300, "random"), (3, 300, "random"),
                          (3, 4097, "random"), (3, 5, "rising"), (3, 64, "rising")),
@@ -98,10 +101,16 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert rows["flash_attention"]["windowed"]["bound_ms"] > 0
     for name in ("dplr_score_items", "fwfm_pairwise"):
         assert all(row["host_issue_ms"] > 0 for row in rows[name]["shapes"])
+    chip_smoke.autotune_phase(cpu, sz, (3.35e12, 67e12, 989e12), serve, tenants, rows)
+    for name in ("dplr_corpus_score", "dplr_corpus_topk", "dplr_corpus_score_multi"):
+        for suffix in ("", "_bf16"):
+            assert rows[name + suffix]["tuned_ms"] > 0 and rows[name + suffix]["tuned_tile"]
+    from repro_torch.kernels import blocks
+    assert blocks._TUNED_TILES == {}        # the registry is cleared after the phase
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
     for phase in ("kernels", "serve", "serve-bf16", "tenants", "eval", "train", "models", "lm",
-                  "timing", "profile"):
+                  "timing", "autotune", "profile"):
         assert f"phase {phase}:" in out
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
     assert "n=2 m_I=38 Bq=300" in out and "Bq=3 misaligned" in out
@@ -112,6 +121,9 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert "bf16 slab: kernels 1-2 bitwise" in out and "installed as bf16 by maybe_refresh" in out
     assert "dplr_score_items bf16 n=512" in out and "embedding_bag bf16 corpus" in out
     assert rows["fwfm_pairwise"]["backward_plain_ms"] > 0
+    assert out.count("phase autotune: served") == 3 and "phase autotune: tenants" in out
+    assert "bitwise their untuned answers" in out and "clamped visibly" in out
+    assert "a Bq=1 chunk-4096 record left Bq=16 at the default" in out
 
 
 def test_checks_catch_a_wrong_top_k(chip_smoke):

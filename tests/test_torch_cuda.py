@@ -12,7 +12,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import dplr_score, fwfm_interaction, ops, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    autotune, blocks, dplr_score, fwfm_interaction, ops, ref)
+from repro_torch.kernels import dplr_corpus_score as corpus_lib  # noqa: E402
 from repro_torch.kernels.dplr_corpus_score import (  # noqa: E402
     MAX_RK, MAX_SEGMENTS, NEG_INF)
 
@@ -1004,3 +1006,151 @@ def test_cuda_bf16_engine_and_rank_items_run_the_bf16_kernels(cuda):
         for j in np.flatnonzero(g != w_):
             assert abs(full[row, g[j]] - full[row, w_[j]]) <= tol["atol"] + tol["rtol"] * abs(
                 full[row, w_[j]]), (row, j)
+
+
+# -- the corpus kernels' geometry (kernels/blocks.py, kernels/autotune.py) --
+
+@pytest.mark.cuda
+def test_cuda_named_geometry_is_the_librarys_and_fits_are_reported(cuda):
+    """``blocks`` names the library's own defaults and limits, and the
+    library's fit query refuses stage-1 shared memory past the card's."""
+    assert corpus_lib.geometry_defaults() == dict(
+        full_block_n=blocks.CORPUS_FULL_BLOCK_N, full_threads=blocks.CORPUS_FULL_THREADS,
+        chunk=blocks.CORPUS_CHUNK, threads=blocks.CORPUS_THREADS,
+        max_group=blocks.CORPUS_MAX_GROUP, part=blocks.CORPUS_PART,
+        max_chunk=blocks.MAX_BLOCK_N, max_threads=blocks.MAX_THREADS)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert corpus_lib.geometry_fits(blocks.default_tile(16, 16), True, 3, 16, dtype, 16,
+                                        cuda)
+        assert corpus_lib.geometry_fits(blocks.default_tile(16, None), False, 3, 16, dtype,
+                                        None, cuda)
+        big = blocks.Tile(8192, "float32", 16, 256, blocks.CORPUS_PART)
+        assert not corpus_lib.geometry_fits(big, True, 3, 16, dtype, 16, cuda)
+    with pytest.raises(ValueError, match="refuse"):
+        corpus_lib.geometry_fits(blocks.Tile(512, "float32", 3, 256, 16384), True, 3, 16,
+                                 torch.float32, 16, cuda)
+
+
+def _swept(n, Bq, K, rho, k, dtype, cuda):
+    """The default sweep's geometries that fit the card at this cell."""
+    out = []
+    for geo in autotune.DEFAULT_CANDIDATES:
+        tile = blocks.resolve_tile(n, rho, k, Bq, K, blocks.dtype_name(dtype), "cuda", **geo)
+        if corpus_lib.geometry_fits(tile, True, rho, k, dtype, K, cuda):
+            out.append(geo)
+    blocks.drain_clamp_events()
+    return out
+
+
+def _slab(args, dtype):
+    return (args[0].to(dtype), args[1].to(dtype), *args[2:])
+
+
+GEOMETRY_CASES = {
+    "ragged n": (70_001, 5, 16),
+    "all-dead tile": (9000, 3, 64),
+    "K past 4096": (70_000, 2, 5000),
+    "K = n": (3000, 2, 3000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
+def test_cuda_every_swept_geometry_is_bitwise_the_default(cuda, case, dtype):
+    """Every geometry of the default sweep that fits (chunk, stage-1
+    threads, query group, merge part; in the full mode the slots a block
+    and the group) returns the default geometry's bits, which are kernel
+    1's scores sorted (C1), f32 and bf16 slabs."""
+    n, Bq, K = GEOMETRY_CASES[case]
+    arrays = list(corpus_inputs(31, n, 3, 16, Bq))
+    if case == "all-dead tile":
+        arrays[5][4096:8192] = False
+    args = _slab(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays),
+                 dtype)
+    full = ops.dplr_corpus_score(*args)
+    want_v, want_i = ops.dplr_corpus_score(*args, topk=K)
+    sv, si = ref.topk_stable(full, K)
+    assert _bits_equal(want_v, sv) and torch.equal(want_i, si.to(torch.int32))
+    swept = _swept(n, Bq, K, 3, 16, dtype, cuda)
+    assert len(swept) > len(autotune.DEFAULT_CANDIDATES) // 2
+    for geo in swept:
+        vals, ids = ops._corpus_score(*args, K, 0, 1, blocks.Tile(**geo))
+        assert _bits_equal(vals, want_v) and torch.equal(ids, want_i), geo
+        got = ops._corpus_score(*args, None, 0, 1, blocks.Tile(geo["block_n"],
+                                                                group=geo["group"]))
+        assert _bits_equal(got, full), geo
+    blocks.drain_clamp_events()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_every_swept_geometry_is_bitwise_the_default_multi(cuda, dtype):
+    """A multi-tenant launch whose segments are all smaller than the
+    larger chunks: every geometry that fits returns the default's bits,
+    row [s] bitwise the single-segment call."""
+    ns, Bq, K = (300, 700, 1500), 2, 7
+    parts = [_slab(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in p), dtype)
+             for p in _segments(ns, Bq)]
+    Q_parts, a_parts, valid_parts = (tuple(p[j] for p in parts) for j in (0, 1, 5))
+    e, P_C, a_C = (torch.stack([p[j] for p in parts]) for j in (2, 3, 4))
+    want_v, want_i = ops.dplr_corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C,
+                                                 topk=K)
+    for s, p in enumerate(parts):
+        one_v, one_i = ops.dplr_corpus_score(*p[:5], valid=p[5], topk=K)
+        assert _bits_equal(want_v[s], one_v) and torch.equal(want_i[s], one_i), s
+    swept = _swept(max(ns), Bq, K, 3, 16, dtype, cuda)
+    assert any(geo["block_n"] > max(ns) for geo in swept)
+    for geo in swept:
+        vals, ids = ops._corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, K, 0,
+                                            1, blocks.Tile(**geo))
+        assert _bits_equal(vals, want_v) and torch.equal(ids, want_i), geo
+    blocks.drain_clamp_events()
+
+
+@pytest.mark.cuda
+def test_cuda_no_record_makes_a_call_unlaunchable(cuda):
+    """A Bq = 1 record of chunk 4,096 leaves a Bq = 16 top-K on the same
+    slab at the default geometry (its query group was never timed), and an
+    exact Bq = 16 record of chunk 32,768 at group 16, past the card's
+    shared memory, is halved visibly until it launches: both bitwise the
+    default's answer."""
+    n, Bq, K = 70_000, 16, 16
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                 for a in corpus_inputs(37, n, 3, 16, Bq))
+    want = ops.dplr_corpus_score(*args, topk=K)
+    cell = lambda bq: blocks.tile_cell(n, 3, 16, bq, K, "float32", "cuda")  # noqa: E731
+    try:
+        blocks.register_tuned_tile(cell(1), 4096)
+        assert blocks.resolve_tile(n, 3, 16, Bq, K, "float32", "cuda") == blocks.default_tile(
+            Bq, K)
+        got = ops.dplr_corpus_score(*args, topk=K)
+        assert _bits_equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        blocks.register_tuned_tile(cell(Bq), blocks.MAX_BLOCK_N, group=16)
+        blocks.drain_clamp_events()
+        got = ops.dplr_corpus_score(*args, topk=K)
+        halved = blocks.drain_clamp_events()
+        assert halved[0] == {"requested": blocks.MAX_BLOCK_N,
+                             "effective": blocks.MAX_BLOCK_N // 2, "n": n}
+        last = blocks.Tile(halved[-1]["effective"], "float32", 16, blocks.CORPUS_THREADS,
+                           blocks.CORPUS_PART)
+        assert corpus_lib.geometry_fits(last, True, 3, 16, torch.float32, K, cuda)
+        assert _bits_equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    finally:
+        blocks.clear_tuned_tiles()
+        blocks.drain_clamp_events()
+
+
+@pytest.mark.cuda
+def test_cuda_tuner_times_the_device_not_the_host(cuda):
+    """``autotune._time_call`` times a call's device work even when the host
+    takes longer to issue it than the card to run it (2 ms of host time a
+    call, a few microseconds of device time): the calls wait behind a
+    device-side sleep, lengthened until the host has queued them all."""
+    import time
+
+    def slow_host():
+        time.sleep(0.002)
+        torch.cuda._sleep(1000)
+    us = autotune._time_call(slow_host, 8, cuda)
+    assert 0 < us < 500, us
