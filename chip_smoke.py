@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving and training paths on one CUDA card,
 at the full ``dplr-fwfm`` width (and the training and ranking of the
-other recsys models and the LM's serving at theirs), and hold every
-kernel against its plain version.
+other recsys models, the LMs' serving and training and PNA's training at
+theirs), and hold every kernel against its plain version.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,11 @@ Phases, one line each:
    K past 4,096, K = n, kernel 3's misaligned V_I, here 2 bytes off, and
    k = 12), every top-K by C1; ``acc_dtype='bfloat16'`` on bf16 and f32
    slabs against its plain version; kernel 5 on a bf16 table, bitwise on
-   one-hot layouts (and a misaligned table), within its bound multi-hot.
+   one-hot layouts (and a misaligned table), within its bound multi-hot;
+   kernel 6 on a bf16 V at B = 262,144 and a ragged B (with a bf16 R,
+   2 bytes off and at k = 12 too), bitwise its f32 launch on the upcast V.
+   Kernel 7 also at starcoder2-7b's and yi-9b's heads (1 x 4,096, hd 128,
+   36 and 32 query heads over 4 kv heads).
 4. serve: the full config (82 fields, k = 16, rho = 3, random weights from
    a seed) serving a 1,000,000-item corpus from a 2^20-slot slab: top-K
    and score queries, churn, a model refresh, and Algorithm 1 per call,
@@ -80,8 +84,11 @@ Phases, one line each:
    ``model_scores(pruned=)`` against ``apply(pruned_mask=)``; and
    ``serving_parity`` for the DPLR model at 16 queries x 16,384 items
    (model, engine and frontend scores against the plain scores, top-10
-   ids equal except at ties).  Kernel launches are counted over this
-   phase alone.
+   ids equal except at ties); then the full-FwFM baseline cast to bf16
+   through ``evaluate_pointwise`` and ``score_split``, its logits against
+   the plain path, only the bf16 kernels 5 and 6 launched.  Kernel
+   launches are counted over this phase alone (the bf16 case's into the
+   bf16 rows).
 8. train: ``dplr-fwfm`` at full width through ``launch.train``'s
    ``train_step`` and a ``ShardedPipeline``: step 1's loss and gradients
    through the kernels against the plain forward with autograd; run A, 16
@@ -118,7 +125,7 @@ Phases, one line each:
    at those positions on that cache.  Prefill seconds,
    decode ms a step (host clock, synchronized) and peak memory.
 11. timing: each kernel's median time over CUDA events (the bf16
-   instantiations of kernels 1-5 beside their float32 rows, on the same
+   instantiations of kernels 1-6 beside their float32 rows, on the same
    inputs in bf16, and the ``acc_dtype='bfloat16'`` mode), its plain
    version's, and the bound (the larger of bytes over the card's memory
    rate and flops over its f32 rate, or its bf16 tensor-core rate for
@@ -190,7 +197,12 @@ within 1% of the CPU's.  The models phase holds step 1 by the same rule
 (an arena row's size: the summed ``|w| |dL/d bag|`` of the slots naming
 it), ``rank_items`` within ``1e-5 max(1, |s|)`` of the plain path and
 within ``1e-4 + 1e-4 |s|`` of ``apply`` on the same rows (the JAX
-package's ``tests/test_ranking.py`` bound).  Top-K ids must equal the plain stable
+package's ``tests/test_ranking.py`` bound).  The lm-train phase: step 1's
+loss within ``1e-5 max(1, |loss|)`` of the plain bf16 path without
+checkpointing and ``2^-7 max(1, |loss|)`` of the f32 one.  The gnn phase:
+step 1's loss within ``1e-4 max(1, |loss|)`` of the CPU's plus twice the
+CPU's own spread under a one-ulp change of the node features (the std
+aggregator's cancellation, ``gnn_phase``).  Top-K ids must equal the plain stable
 top-K's, except where the plain scores tie within that tolerance; planted
 exact ties must go to the lower slot.
 
@@ -266,7 +278,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import optim  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import dplr_fwfm, gemma3_1b  # noqa: E402
+from repro_torch.configs import dplr_fwfm, gemma3_1b, starcoder2_7b, yi_9b  # noqa: E402
+from repro_torch.configs import pna as pna_cfg  # noqa: E402
 from repro_torch.configs.registry import REGISTRY  # noqa: E402
 from repro_torch.core import ranking as rk  # noqa: E402
 from repro_torch.core.dplr import (  # noqa: E402
@@ -292,6 +305,7 @@ from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.models.gnn import pna, sampler  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
 from repro_torch.models.transformer import model as tm  # noqa: E402
@@ -357,8 +371,27 @@ FULL = SimpleNamespace(
     flash=((2, 32_752, 4, 1, 256, None), (2, 32_752, 4, 1, 256, 1024)),
     flash_small=((1, 1000, 4, 1, 256, 64), (2, 777, 8, 8, 64, None),
                  (1, 300, 36, 4, 128, 100), (3, 1001, 8, 2, 128, None)),
+    # starcoder2-7b's (9 query heads a kv head) and yi-9b's (8) heads at the
+    # lm phase's prompt
+    flash_heads=((1, 4096, 36, 4, 128, None), (1, 4096, 32, 4, 128, None)),
+    # kernel 6 on a bf16 V: the full batch, and a ragged B past a multiple
+    # of the tile, bitwise its f32 launch on the upcast V
+    pair_bf16=((262_144, 82), (16 * 4096 + 5, 82)),
     make_lm=gemma3_1b.make_config, lm_batch=2, lm_prompt=32_752, lm_cache=32_768,
     lm_steps=16,
+    # the dense LM configs at full width: a prompt of B = 1 x 4,096 tokens
+    # (prefill_32k's 32 x 32,768 cut), 8 greedy decode steps
+    lm_models=(starcoder2_7b.make_config, yi_9b.make_config), lm_model_prompt=4096,
+    lm_model_steps=8,
+    # lm-train: gemma3-1b at train_4k's seq, B cut from 256 to 4, adamw at
+    # the JAX trainer's lr; the resume check at the full widths with 2 layers
+    lm_train_batch=4, lm_train_seq=4096, lm_train_steps=4, lm_train_lr=0.05,
+    lm_resume_layers=2, lm_resume_steps=4, lm_resume_save=2,
+    # gnn: PNA at make_config() widths on the shapes below (ogb_products
+    # waits for sharding), adamw steps at the JAX example's lr
+    gnn_shapes=("minibatch_lg", "molecule", "full_graph_sm"), gnn_steps=8, gnn_lr=1e-3,
+    gnn_make=pna_cfg.make_config, gnn_graph=(232_965, 492), gnn_minibatch=(1024, (15, 10)),
+    gnn_seed=0,
     # training: adagrad steps at the JAX trainer's batch and lr, a checkpoint
     # every train_save steps; the full-FwFM baseline's steps and its
     # post-hoc DPLR rank; the Bq of the queries served from the checkpoint;
@@ -412,7 +445,7 @@ KERNEL_ROWS = {
 # the bf16 instantiations replace the same TPU kernels, which take bf16 too
 KERNEL_ROWS.update({f"{name}_bf16": KERNEL_ROWS[name] for name in (
     "dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items", "dplr_corpus_score_multi",
-    "embedding_bag")})
+    "embedding_bag", "fwfm_pairwise")})
 
 
 # -- checks -----------------------------------------------------------------
@@ -661,12 +694,13 @@ def kernel_checks(dev, sz) -> dict:
     bf16_multi_checks(dev, sz, errs, notes)
     bf16_items_checks(dev, sz, errs, notes)
     bf16_bag_checks(dev, sz, errs, notes)
+    bf16_pair_checks(dev, sz, errs, notes)
     print(f"phase kernels: all within {TOL:g} x max(1, |s|) (embedding_bag: bitwise on "
           f"one-hot layouts, 1e-6 x sum |w row| on multi-hot, in bf16 2^-7 (m - 1) "
           f"sum |w row| for a bag of m slots; flash_attention: "
           f"{FLASH_TOL[torch.float32]:g} max|v| in f32, 2^-7 max|v| and per element "
-          f"2^-7 (|o| + sum p|v|/l) + 1e-5 max|v| in bf16; kernels 1-4 on bf16 inputs "
-          f"bitwise their f32 launch on the upcast inputs, acc_dtype='bfloat16' within "
+          f"2^-7 (|o| + sum p|v|/l) + 1e-5 max|v| in bf16; kernels 1-4 and 6 on bf16 "
+          f"inputs bitwise their f32 launch on the upcast inputs, acc_dtype='bfloat16' within "
           f"{BF16_ACC_ULP:g} x term + {TOL:g} x max(1, size)); max |diff| "
           + ", ".join(f"{k}={v:.3g}" for k, v in errs.items())
           + "; " + ", ".join(notes), flush=True)
@@ -1071,11 +1105,13 @@ def flash_ratio(got, want, size, v) -> float:
 
 def flash_checks(dev, sz, gen) -> tuple[float, list]:
     """The flash-attention kernel against its plain version at gemma3-1b's
-    global and windowed layers and at ragged small shapes, in f32 and
-    bf16, within ``flash_ratio``'s bounds.  Returns the largest |diff| of
+    global and windowed layers, at ragged small shapes and at
+    starcoder2-7b's and yi-9b's heads (``sz.flash_heads``: hd 128, 9 and 8
+    query heads a kv head), in f32 and bf16, within ``flash_ratio``'s
+    bounds (the gemma3 check's).  Returns the largest |diff| of
     the bf16 cases (the model's type) and notes."""
     err, notes = 0.0, []
-    for B, S, H, KV, hd, window in sz.flash + sz.flash_small:
+    for B, S, H, KV, hd, window in sz.flash + sz.flash_small + sz.flash_heads:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = flash_inputs(B, S, H, KV, hd, dtype, gen)
             got = ops.flash_attention(q, k, v, window=window)
@@ -1295,6 +1331,44 @@ def bf16_items_checks(dev, sz, errs: dict, notes: list) -> None:
         del b16, up, got, V
     notes.append("bf16 dplr_score_items bitwise the f32 launch on the upcast inputs: "
                  + ", ".join(done))
+
+
+def bf16_pair_checks(dev, sz, errs: dict, notes: list) -> None:
+    """Kernel 6 on a bf16 V (``fwfm_pairwise_kernel_bf16``): bitwise its f32
+    launch on the upcast V at ``sz.pair_bf16`` (the full batch and a
+    ragged B), with a bf16 R upcast first, on a V 2 bytes past a 16-byte
+    boundary and at k = 12 (the element-by-element fill); and within the
+    f32 bound of its plain version (which upcasts on entry)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    err, what = 0.0, []
+    for B, m in sz.pair_bf16:
+        V, R = pair_inputs(B, m, sz.k, gen)
+        V16 = V.to(torch.bfloat16)
+        del V
+        before = ops.LAUNCHES["fwfm_pairwise_kernel_bf16"]
+        got = ops.fwfm_pairwise(V16, R)
+        if dev.type == "cuda" and ops.LAUNCHES["fwfm_pairwise_kernel_bf16"] != before + 1:
+            raise AssertionError("fwfm_pairwise on a bf16 V did not launch its bf16 kernel")
+        same_bits(got, ops.fwfm_pairwise(V16.float(), R), f"fwfm_pairwise bf16 B={B} m={m}")
+        same_bits(ops.fwfm_pairwise(V16, R.to(torch.bfloat16)),
+                  ops.fwfm_pairwise(V16.float(), R.to(torch.bfloat16).float()),
+                  f"fwfm_pairwise bf16 B={B} m={m}, bf16 R")
+        err = max(err, check_close(got, ref.fwfm_pairwise_ref(V16, R),
+                                   f"fwfm_pairwise bf16 B={B} m={m} vs plain",
+                                   size=pair_size(V16.float(), R)))
+        what.append(f"B={B} m={m}")
+        del V16, got
+    b_eval, m = sz.pairs[0]
+    for k, off in ((sz.k, 1), (12, 0)):
+        flat = torch.randn(b_eval * m * k + off, generator=gen, device=dev).to(torch.bfloat16)
+        V16 = flat[off:].view(b_eval, m, k)
+        R = torch.randn((m, m), generator=gen, device=dev) * 0.1
+        same_bits(ops.fwfm_pairwise(V16, R), ops.fwfm_pairwise(V16.float(), R),
+                  f"fwfm_pairwise bf16 B={b_eval} m={m} k={k} offset {off}")
+        what.append(f"B={b_eval} m={m} k={k}" + (" misaligned" if off else ""))
+    errs["fwfm_pairwise_bf16"] = err
+    notes.append("fwfm_pairwise bf16 V bitwise its f32 launch on the upcast V at "
+                 + ", ".join(what))
 
 
 def bag_adds(bags, dev) -> torch.Tensor:
@@ -2183,8 +2257,9 @@ def eval_phase(dev, sz, serve) -> dict:
     matched-pruned FwFM, each model's logits against the plain path; the
     pruned model's Algorithm 1 against its pointwise scores; and
     ``serving_parity`` (model, engine, frontend) for DPLR against the
-    plain scores.  Returns the launches of each CUDA kernel over the
-    phase."""
+    plain scores; then the full-FwFM baseline cast to bf16 (``eval_bf16_case``).
+    Returns the launches of each CUDA kernel over the phase (the bf16
+    case's bf16 kernels over that case)."""
     cfg, params, data = serve.engine.cfg, serve.engine.params, serve.data
     t0 = time.perf_counter()
     split = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(sz.eval_n, 10**6).items()}
@@ -2246,6 +2321,9 @@ def eval_phase(dev, sz, serve) -> dict:
     launches = {g: ops.LAUNCHES[g] for name in EVAL_KERNELS for g in ops.KERNELS[name]}
     if dev.type == "cuda" and not all(launches.values()):
         raise AssertionError(f"a kernel was not launched on the eval path: {launches}")
+    bf16_part, bf16_launches = eval_bf16_case(dev, sz, data, split, fcfg, fparams)
+    launches.update(bf16_launches)
+    parts.append(bf16_part)
     model = rep_["paths"]["model"]
     print(f"phase eval: wall {time.perf_counter() - t0:.1f} s, of it host data {host_s:.1f} s; "
           f"evaluate_pointwise on {sz.eval_n} rows, "
@@ -2257,6 +2335,39 @@ def eval_phase(dev, sz, serve) -> dict:
           f"top-10 ids differing from plain (all within the tie rule) {diffs}; "
           f"launches {launches}", flush=True)
     return launches
+
+
+def eval_bf16_case(dev, sz, data, split, fcfg, fparams) -> tuple[str, dict]:
+    """The full-FwFM baseline cast to bf16 (weights and ``cfg.dtype``, as
+    ``serve --bf16`` casts a model) through ``harness.evaluate_pointwise``
+    and ``score_split``, as the JAX harness evaluates a bf16 model: on the
+    card only the bf16 instantiations of kernels 5 and 6 may launch, and
+    kernel 6's must.  Logits against the plain path on the same bf16
+    weights (plain bags in bf16, the plain pairwise term on the upcast V),
+    within ``TOL * max(1, size)``.  Returns (the line's part, the bf16
+    kernels' launches over the case)."""
+    cfg16 = dataclasses.replace(fcfg, dtype=torch.bfloat16)
+    p16 = {k: v.to(torch.bfloat16) for k, v in fparams.items()}
+    ops.reset_launches()
+    res = harness.evaluate_pointwise(p16, cfg16, data, n=sz.eval_n, batch_size=sz.eval_batch)
+    _, logits = harness.score_split(p16, cfg16, data, n=sz.eval_n, batch_size=sz.eval_batch)
+    seen = {g: c for g, c in ops.LAUNCHES.items() if c}
+    allowed = {"fwfm_pairwise_kernel_bf16", "embedding_bag_kernel_bf16"}
+    if dev.type == "cuda" and (not seen.get("fwfm_pairwise_kernel_bf16") or set(seen) - allowed):
+        raise AssertionError(f"the bf16 full-FwFM eval launched {seen}: only {sorted(allowed)} "
+                             f"may launch, and fwfm_pairwise_kernel_bf16 must")
+    launches = {g: ops.LAUNCHES[g] for g in sorted(allowed)}
+    w16 = split["weights"].to(torch.bfloat16)
+    V = plain_fields(p16["embedding"], cfg16.layout, split["ids"], w16)
+    want = plain_logits(p16, cfg16, split["ids"], w16, V=V)
+    R = fwfm.field_matrix(p16, cfg16).float()
+    size = (p16["bias"].float().abs() + lookup_linear_terms(
+        p16["linear"].float().abs(), cfg16.layout, split["ids"], w16.float().abs())
+        + pair_size(V.float(), R))
+    err = check_close(torch.as_tensor(logits, device=dev), want, "eval fwfm bf16 logits",
+                      size=size)
+    return (f"fwfm in bf16: AUC {res['auc']:.4f}, log-loss {res['logloss']:.4f} (logits max "
+            f"|diff| {err:.3g} from plain; launches {launches})"), launches
 
 
 # -- phase 8: train -----------------------------------------------------------
@@ -2994,19 +3105,40 @@ def cache_diff(cache, want, S: int) -> float:
 
 
 def lm_phase(dev, sz) -> dict:
-    """gemma3-1b (``sz.make_lm``) at full width, random f32 weights from
-    seed 0, bf16 compute: the kernel prefill, the plain bf16 and f32
-    prefills (the f32 one through ``gqa_attention``), and greedy decode
-    from the kernel prefill's cache against one pass over the decoded
-    positions (``plain_extend``).  Returns the launches of kernel 7's CUDA
-    kernels over the kernel prefill, by name."""
-    cfg = sz.make_lm()
+    """gemma3-1b (``sz.make_lm``) at full width, then starcoder2-7b and
+    yi-9b (``sz.lm_models``) at full width, one at a time, each freed
+    before the next: ``lm_model_run``.  Returns the launches of kernel 7's
+    CUDA kernels over the kernel prefills, by name."""
+    launches = lm_model_run(dev, sz.make_lm(), sz.lm_batch, sz.lm_prompt, sz.lm_cache,
+                            sz.lm_steps)
+    for make in sz.lm_models:
+        S = sz.lm_model_prompt
+        more = lm_model_run(dev, make(), 1, S, S + sz.lm_model_steps, sz.lm_model_steps)
+        for g, n in more.items():
+            launches[g] += n
+        gc.collect()
+    return launches
+
+
+def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int) -> dict:
+    """One LM at its widths, random f32 weights from seed 0 (their count
+    held to ``cfg.n_params()``), bf16 compute: the kernel prefill of B
+    random prompts of S tokens into an S_max-slot cache, the plain bf16 and
+    f32 prefills (the f32 one through ``gqa_attention``), and ``n_steps``
+    greedy decode steps from the kernel prefill's cache against one pass
+    over the decoded positions (``plain_extend``).  Returns the launches of
+    kernel 7's CUDA kernels over the kernel prefill, by name."""
     f32_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    B, S, S_max, n_steps = sz.lm_batch, sz.lm_prompt, sz.lm_cache, sz.lm_steps
     V = cfg.vocab
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    t_init = time.perf_counter()
     params = tm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    count = sum(t.numel() for t in optim.optimizers.tree_leaves(params))
+    if count != cfg.n_params():
+        raise AssertionError(f"lm {cfg.name}: {count} parameters, n_params() says "
+                             f"{cfg.n_params()}")
+    init_s = time.perf_counter() - t_init
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, V, (B, S), generator=gen, device=dev)
 
@@ -3060,7 +3192,7 @@ def lm_phase(dev, sz) -> dict:
     h, cparams = plain_extend(params, cfg, torch.cat(fed, 1), cache, S)
     del cache
     want = tm._logits(cparams, cfg, h)[..., :V]
-    emb = cparams["embed"][:V].float().abs()
+    emb = (cparams["embed"] if cfg.tie_embeddings else cparams["lm_head"].T)[:V].float().abs()
     size = tm._rms(h, cparams["final_ln"]).float().abs() @ emb.T
     bound = 3e-3 + 3e-2 * want.float().abs()
     diff = (got.float() - want.float()).abs()
@@ -3072,8 +3204,9 @@ def lm_phase(dev, sz) -> dict:
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
             else "not measured")
     print(f"phase lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
-          f"KV={cfg.n_kv_heads} hd={cfg.hd} vocab={V}, {cfg.n_params()} parameters (f32, "
-          f"seed 0), bf16 compute; B={B} prompts of {S} tokens into {S_max} slots; "
+          f"KV={cfg.n_kv_heads} hd={cfg.hd} vocab={V}, {count} parameters (f32, seed 0; "
+          f"= n_params(); made in {init_s:.1f} s), bf16 compute; B={B} prompts of {S} "
+          f"tokens into {S_max} slots; "
           f"prefill {prefill_s:.3f} s through the kernel ({launches}, one a layer), "
           f"{plain_s:.3f} s through the plain attention (host clock, synchronized); max |diff| "
           f"from the plain f32 prefill: last logits {errs['logits']:.4g} (plain path "
@@ -3086,7 +3219,272 @@ def lm_phase(dev, sz) -> dict:
           f"max |diff| / (3e-3 + 3e-2 |x|) {ratio:.3f} <= 1 (with 2^-8 size added, size up "
           f"to {float(size.max()):.3g}: {size_ratio:.3f}); peak "
           f"memory {peak}", flush=True)
+    del params, cparams, emb, size, h, want, got, logits, plain_logits, f32_logits
     return launches
+
+
+# -- phase 10b: gnn -----------------------------------------------------------
+
+def gnn_batches(sz, name: str, cfg, steps: int):
+    """``steps`` numpy batches of one PNA shape (``pna_cfg.SHAPES``) at its
+    source's sizes, from ``sz.gnn_seed``; and a note.  ``minibatch_lg``: a
+    ``random_graph`` of ``sz.gnn_graph`` (nodes, average degree), d_feat
+    602, sampled ``sz.gnn_minibatch`` (seeds a step, fanout: 1,024 and
+    (15, 10), the shape's) at a time; ``molecule``:
+    128 graphs of 30 nodes and 64 random edges each (block-diagonal, graph
+    task); ``full_graph_sm``: 2,708 nodes and 10,556 uniform random edges,
+    d_feat 1,433, the same full batch every step."""
+    dims = {s.name: s.dims for s in pna_cfg.SHAPES}[name]
+    rng = np.random.default_rng(sz.gnn_seed)
+    if name == "minibatch_lg":
+        n, deg = sz.gnn_graph
+        t0 = time.perf_counter()
+        g = sampler.random_graph(rng, n, deg, cfg.d_feat, cfg.n_classes)
+        made = time.perf_counter() - t0
+        seeds, fan = sz.gnn_minibatch
+        out = [sampler.sample_subgraph(g, rng.integers(0, n, seeds), fan, rng)
+               for _ in range(steps)]
+        cap = sampler.subgraph_shapes(seeds, fan, cfg.d_feat)
+        note = (f"random_graph of {n} nodes, {int(g.indptr[-1])} edges (average degree "
+                f"{deg}; made in {made:.1f} s), {seeds} seeds a step, fanout "
+                f"{fan}: {cap[0]} nodes and {cap[1]} edge slots a step, "
+                f"{int(out[0]['edge_mask'].sum())} live in step 1")
+        return out, note
+    if name == "molecule":
+        G, npg, epg = dims["n_graphs"], dims["nodes_per_graph"], dims["edges_per_graph"]
+        out = []
+        for _ in range(steps):
+            off = np.repeat(np.arange(G) * npg, epg)
+            out.append({
+                "node_feat": rng.standard_normal((G * npg, cfg.d_feat), dtype=np.float32),
+                "edge_src": (rng.integers(0, npg, G * epg) + off).astype(np.int32),
+                "edge_dst": (rng.integers(0, npg, G * epg) + off).astype(np.int32),
+                "graph_ids": np.repeat(np.arange(G), npg).astype(np.int32),
+                "n_graphs": G,
+                "labels": rng.integers(0, cfg.n_classes, G).astype(np.int32)})
+        return out, f"{G} graphs x {npg} nodes x {epg} edges, graph task"
+    n, E = dims["n_nodes"], dims["n_edges"]
+    one = {"node_feat": rng.standard_normal((n, cfg.d_feat), dtype=np.float32),
+           "edge_src": rng.integers(0, n, E).astype(np.int32),
+           "edge_dst": rng.integers(0, n, E).astype(np.int32),
+           "labels": rng.integers(0, cfg.n_classes, n).astype(np.int32)}
+    return [one] * steps, f"{n} nodes, {E} edges, full batch"
+
+
+def tree_to(tree: dict, dev) -> dict:
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def gnn_phase(dev, sz) -> str:
+    """PNA (``sz.gnn_make()``: d_hidden 75, 4 layers, 4 aggregators x 3
+    scalers) at each shape of ``sz.gnn_shapes`` (``shape_config``), random
+    weights from seed 0: step 1's loss on the card against the port's CPU
+    loss on the same weights and batch, then ``sz.gnn_steps`` adamw steps
+    at ``sz.gnn_lr`` on the card, every loss finite, step time (CUDA
+    events) and peak memory.  The step-1 bound: ``1e-4 max(1, |loss|)``
+    plus twice the CPU's own spread (its loss with the node features one
+    ulp up): the card's ``index_add_`` adds with atomics in any order and
+    its matmuls round otherwise, and the std aggregator's ``E[m^2] -
+    E[m]^2`` magnifies a last-bit difference where a node takes several
+    identical messages (the sampler draws with replacement).  No kernel of
+    the repo is on this path (none in the reference): none may launch."""
+    base = sz.gnn_make()
+    shapes = {s.name: s for s in pna_cfg.SHAPES}
+    opt = optim.adamw()
+    grad_fn = optim.value_and_grad(pna.loss)
+    parts = []
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    for name in sz.gnn_shapes:
+        cfg = pna_cfg.shape_config(base, shapes[name])
+        t0 = time.perf_counter()
+        batches, note = gnn_batches(sz, name, cfg, sz.gnn_steps)
+        host_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        params = pna.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        cpu_params = tree_to(params, "cpu")
+        first = train.to_device(batches[0], "cpu")
+        with torch.no_grad():
+            want = float(pna.loss(cpu_params, cfg, first))
+            feat = first["node_feat"]
+            nudged = dict(first, node_feat=torch.nextafter(feat, torch.full_like(feat, np.inf)))
+            spread = abs(float(pna.loss(cpu_params, cfg, nudged)) - want)
+        del cpu_params, first, nudged, feat
+        state = opt.init(params)
+        losses, ms = [], []
+        for batch in batches:
+            batch = train.to_device(batch, dev)
+            start = time.perf_counter()
+            if dev.type == "cuda":
+                t_a, t_b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                t_a.record()
+            loss, grads = grad_fn(params, cfg, batch)
+            params, state = opt.update(grads, state, params, sz.gnn_lr)
+            if dev.type == "cuda":
+                t_b.record()
+                t_b.synchronize()
+                ms.append(t_a.elapsed_time(t_b))
+            else:
+                ms.append((time.perf_counter() - start) * 1e3)
+            losses.append(float(loss))
+        got = losses[0]
+        bound = 1e-4 * max(1.0, abs(want)) + 2 * spread
+        if not np.isfinite(losses).all() or abs(got - want) > bound:
+            raise AssertionError(f"gnn {name}: losses {losses}; step 1 {got:.6g} against the "
+                                 f"CPU's {want:.6g} (bound {bound:.3g})")
+        peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+                if dev.type == "cuda" else "not measured")
+        parts.append(f"{name} (d_feat {cfg.d_feat}, {cfg.n_classes} classes, task {cfg.task}; "
+                     f"{note}; host data {host_s:.1f} s): step 1 loss {got:.6f}, the CPU's "
+                     f"{want:.6f} (|diff| {abs(got - want):.3g} <= {bound:.3g}, CPU spread "
+                     f"{spread:.3g}); {sz.gnn_steps} adamw steps lr={sz.gnn_lr}, losses "
+                     f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; median step "
+                     f"{float(np.median(ms)):.3f} ms ({'CUDA events' if dev.type == 'cuda' else 'host clock'}); "
+                     f"peak memory {peak}")
+        del params, state, grads, batches, batch
+        gc.collect()
+    launched = sum(ops.LAUNCHES.values())
+    if launched:
+        raise AssertionError(f"gnn: the path launched kernels of the repo: {dict(ops.LAUNCHES)}")
+    print(f"phase gnn: PNA d_hidden={base.d_hidden} {base.n_layers} layers, 4 aggregators x 3 "
+          f"scalers, random f32 weights (seed 0); " + "; ".join(parts)
+          + f"; no kernel of the repo launched (none on this path); ogb_products waits for "
+          f"sharding; wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return "gnn"
+
+
+# -- phase 10c: lm-train --------------------------------------------------------
+
+def skeleton(tree: dict) -> dict:
+    """The tree's keys with None leaves (a restore template)."""
+    return {k: skeleton(v) if isinstance(v, dict) else None for k, v in tree.items()}
+
+
+def lm_steps(mod, cfg, opt, params, state, make_batch, start, stop, lr, dev, timer=None,
+             mgr=None, save_at=None):
+    """Adamw steps ``start + 1 .. stop`` of the LM trainer (``train_step``,
+    under ``train.deterministic()`` as the lm module asks), a checkpoint
+    after step ``save_at`` into ``mgr``.
+    Returns the losses (0-d tensors)."""
+    losses = []
+    for step in range(start, stop):
+        batch = train.to_device(make_batch(step), dev)
+        if timer is not None:
+            timer.begin()
+        loss, params, state = train.train_step(mod, cfg, opt, params, state, batch, lr,
+                                               mark=timer and timer.mark)
+        losses.append(loss)
+        if mgr is not None and step + 1 == save_at:
+            mgr.save({"params": params, "opt": state}, step + 1, blocking=True)
+    return losses
+
+
+def lm_train_phase(dev, sz) -> str:
+    """gemma3-1b (``sz.make_lm()``, full width, random f32 weights from seed
+    0, bf16 compute, remat, 512-query attention chunks and 512-position loss
+    chunks) through ``launch.train``'s LM trainer: ``sz.lm_train_steps``
+    adamw steps at B = ``sz.lm_train_batch`` x ``sz.lm_train_seq`` zipf
+    tokens (the JAX trainer's draws), lr ``sz.lm_train_lr``, each step
+    under ``train.deterministic()``.  Step 1's loss against two plain-path
+    losses on the same weights, without checkpointing: in bf16 within
+    ``1e-5 max(1, |loss|)`` (the same operations), in f32 compute within
+    ``2^-7 max(1, |loss|)`` (bf16 rounds every activation, by at most 2^-8
+    each; the loss is a mean over all positions).  Every loss finite; no
+    kernel of the repo launches (the loss attends through the plain
+    ``gqa_attention``, as the JAX loss does).  Then the resume check at the
+    full widths with ``sz.lm_resume_layers`` layers: run A
+    ``sz.lm_resume_steps`` steps with a checkpoint at
+    ``sz.lm_resume_save``, run B restored from it to the end, bitwise run A
+    (losses, params, adamw state)."""
+    cfg = sz.make_lm()
+    B, S, n_steps, lr = sz.lm_train_batch, sz.lm_train_seq, sz.lm_train_steps, sz.lm_train_lr
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mod, make_batch = train.build_lm_trainer(cfg.name, cfg, B, S, 0, dev)
+    opt = optim.adamw()
+    params = mod.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in optim.optimizers.tree_leaves(params))
+    first = train.to_device(make_batch(0), dev)
+    ops.reset_launches()
+    with torch.no_grad():
+        plain16 = float(tm.lm_loss(params, dataclasses.replace(cfg, remat=False), first,
+                                   device=dev))
+        plain32 = float(tm.lm_loss(params, dataclasses.replace(
+            cfg, remat=False, compute_dtype=torch.float32), first, device=dev))
+    state = opt.init(params)
+    timer = StepTimer(dev)
+    t0 = time.perf_counter()
+    losses = [float(x) for x in lm_steps(mod, cfg, opt, params, state, make_batch, 0, n_steps,
+                                         lr, dev, timer)]
+    run_s = time.perf_counter() - t0
+    split = timer.medians()
+    launched = sum(ops.LAUNCHES.values())
+    got = losses[0]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"lm-train: losses {losses}")
+    if abs(got - plain16) > 1e-5 * max(1.0, abs(plain16)):
+        raise AssertionError(f"lm-train: step 1 loss {got:.7g} against the plain bf16 path's "
+                             f"{plain16:.7g}")
+    if abs(got - plain32) > 2.0**-7 * max(1.0, abs(plain32)):
+        raise AssertionError(f"lm-train: step 1 loss {got:.7g} against the f32 path's "
+                             f"{plain32:.7g}")
+    if launched:
+        raise AssertionError(f"lm-train: the loss launched kernels: {dict(ops.LAUNCHES)}")
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
+            else "not measured")
+    del params, state, first
+    gc.collect()
+
+    # resume: run A saves at step `save`, run B restores it and runs to the end
+    rcfg = dataclasses.replace(cfg, n_layers=sz.lm_resume_layers)
+    rmod, rbatch = train.build_lm_trainer(cfg.name, rcfg, B, S, 0, dev)
+    steps, save = sz.lm_resume_steps, sz.lm_resume_save
+    BUILD.mkdir(parents=True, exist_ok=True)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_", dir=BUILD))
+    try:
+        mgr = CheckpointManager(str(workdir / "run_a"), keep=2)
+        pa = rmod.init(torch.Generator(device=dev).manual_seed(0), rcfg)
+        sa = opt.init(pa)
+        ckpt_bytes = sum(t.numel() * t.element_size()
+                         for t in optim.optimizers.tree_leaves({"params": pa, "opt": sa}))
+        t0 = time.perf_counter()
+        la = lm_steps(rmod, rcfg, opt, pa, sa, rbatch, 0, steps, lr, dev, mgr=mgr, save_at=save)
+        run_a_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(skeleton({"params": pa, "opt": sa}), step=save, device=dev)
+        restore_s = time.perf_counter() - t0
+        if step != save:
+            raise AssertionError(f"lm-train: restored step {step}, not {save}")
+        lb = lm_steps(rmod, rcfg, opt, restored["params"], restored["opt"], rbatch, save,
+                      steps, lr, dev)
+        if not (torch.equal(torch.stack(lb), torch.stack(la[save:]))
+                and same_tree(restored, {"params": pa, "opt": sa})):
+            raise AssertionError("lm-train: run B (resumed) is not bitwise run A")
+        del pa, sa, restored
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    line = (f"phase lm-train: {cfg.name} {cfg.n_layers} layers d={cfg.d_model}, {n_params} "
+            f"parameters (f32, seed 0; n_params() {cfg.n_params()}), bf16 compute, remat, "
+            f"q_chunk {cfg.q_chunk}, loss_chunk {cfg.loss_chunk}; {n_steps} adamw steps at "
+            f"B={B} x {S} zipf tokens (train_4k's batch 256 cut to {B}), lr={lr}, under "
+            f"deterministic algorithms, in {run_s:.1f} s: losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
+            + f"; step 1 against the plain paths without checkpointing: bf16 {plain16:.7f} "
+            f"(|diff| {abs(got - plain16):.3g} <= 1e-5 max(1, |loss|)), f32 compute "
+            f"{plain32:.7f} (|diff| {abs(got - plain32):.3g} <= 2^-7 max(1, |loss|)); median "
+            f"step {split['step']:.1f} ms (forward {split['forward']:.1f}, backward "
+            f"{split['backward']:.1f}, adamw {split['update']:.1f}; "
+            f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}); no kernel of the repo "
+            f"launched; peak memory {peak}; resume at {sz.lm_resume_layers} layers: "
+            f"checkpoint of {ckpt_bytes / 1e9:.3f} GB at step {save}, run A {steps} steps in "
+            f"{run_a_s:.1f} s, restore {restore_s:.2f} s, run B from step {save}: losses and "
+            f"step {steps}'s params and adamw state bitwise run A's; wall "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    print(line, flush=True)
+    return "lm-train"
 
 
 # -- phase 11: timing ----------------------------------------------------------
@@ -3430,6 +3828,25 @@ def timing_phase(dev, sz, peaks) -> dict:
     extra.append(f"fwfm_pairwise backward (plain vjp) B={sz.train_batch} m={sz.pairs[0][1]} "
                  f"k={k}: {bwd:.4f} ms")
     del V, g
+    # kernel 6 on a bf16 V at the full batch; library: the einsum on the
+    # upcast V (the upcast inside the timed call)
+    B, m = max(sz.pairs)
+    V, R = pair_inputs(B, m, k, gen)
+    V16 = V.to(torch.bfloat16)
+    del V
+    ms = device_ms(lambda: ops.fwfm_pairwise(V16, R))
+    plain = device_ms(lambda: ref.fwfm_pairwise_ref(V16, R), 3, 2)
+    lib = device_ms(lambda: torch.einsum("bik,bjk,ij->b", V16.float(), V16.float(), R))
+    # bf16 products summed in f32, as the reference's dot_general with
+    # preferred_element_type f32: the bf16 tensor-core rate
+    bnd, by = bound_ms(B * m * k * 2 + (m * m + B) * 4, B * m * (m + 1) * (k + 1), peaks,
+                       tensor=True)
+    rows["fwfm_pairwise_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                      library_ms=lib, f32_ms=rows["fwfm_pairwise"]["ms"])
+    extra.append(f"fwfm_pairwise bf16 V B={B} m={m} k={k}: {ms:.4f} ms (f32 "
+                 f"{rows['fwfm_pairwise']['ms']:.4f}), plain {plain:.4f} ms, einsum on the "
+                 f"upcast V {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    del V16
     rows["flash_attention"] = flash_timing(sz, peaks, gen, extra)
     print("phase timing: " + "; ".join(extra), flush=True)
     return rows
@@ -3926,13 +4343,17 @@ def run_phases(dev, peaks, model_batches) -> list:
         launches[g] = tenant_launches[g]
     for g, count in wire_phase(dev, FULL, serve, tenants).items():
         launches[g] = launches.get(g, 0) + count
+    # the eval phase's bf16 case adds to the bf16 rows (kernel 6's only path)
     for g, count in eval_phase(dev, FULL, serve).items():
-        launches[g] = launches.get(g, 0) + count
+        into = launches_bf16 if g.endswith("_bf16") else launches
+        into[g] = into.get(g, 0) + count
     for g, count in train_phase(dev, FULL, serve).items():
         launches[g] = launches.get(g, 0) + count
     for g, count in models_phase(dev, FULL, model_batches.result()).items():
         launches[g] = launches.get(g, 0) + count
     launches.update(lm_phase(dev, FULL))
+    lm_train_phase(dev, FULL)
+    gnn_phase(dev, FULL)
     rows = timing_phase(dev, FULL, peaks)
     autotune_phase(dev, FULL, peaks, serve, tenants, rows)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)

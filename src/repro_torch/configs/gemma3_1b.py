@@ -14,6 +14,7 @@ def make_config() -> TransformerConfig:
         d_ff=6912, vocab=262144, head_dim=256,
         mlp_type="geglu", rope_theta=1e6, tie_embeddings=True,
         layer_pattern=(LOCAL_WINDOW,) * 5 + (None,),
+        remat=True, q_chunk=512,
     )
 
 
@@ -23,5 +24,5 @@ def make_smoke() -> TransformerConfig:
         n_layers=8, d_model=48, n_heads=4, n_kv_heads=1,
         d_ff=96, vocab=256, head_dim=16,
         mlp_type="geglu", tie_embeddings=True,
-        layer_pattern=(8,) * 5 + (None,),
+        layer_pattern=(8,) * 5 + (None,), remat=False, q_chunk=8,
     )

@@ -1,42 +1,29 @@
 """Architecture registry of the port.  Port of ``repro.configs.registry``,
 holding the entries the port can build: the recsys family ``dplr-fwfm``,
-``wide-deep``, ``autoint``, ``bst`` and ``mind`` (all train; all rank
-per call, ``dplr-fwfm`` also through the corpus engine) and ``gemma3-1b``
-(lm; serves, and its training raises until kernel 7 has a backward).
-The JAX package registers each architecture in its config module; here
-the entries are made below, so that the config modules stay free of the
-registry."""
+``wide-deep``, ``autoint``, ``bst`` and ``mind`` (all train through
+``launch.train``; all rank per call, ``dplr-fwfm`` also through the corpus
+engine); the dense lm family ``gemma3-1b``, ``starcoder2-7b`` and
+``yi-9b`` (train through ``launch.train``, serve through ``model.prefill``
+and ``decode_step``); and the gnn family ``pna`` (trains through
+``examples.gnn_train``).  The JAX package registers each architecture in
+its config module; here the entries are made below, so that the config
+modules stay free of the registry (their shapes are ``spec.ShapeSpec``)."""
 from __future__ import annotations
 
-import dataclasses
-from typing import Any, Callable
+from repro_torch.configs import (
+    autoint,
+    bst,
+    dplr_fwfm,
+    gemma3_1b,
+    mind,
+    pna,
+    starcoder2_7b,
+    wide_deep,
+    yi_9b,
+)
+from repro_torch.configs.spec import ArchSpec, ShapeSpec
 
-from repro_torch.configs import autoint, bst, dplr_fwfm, gemma3_1b, mind, wide_deep
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeSpec:
-    """One (input-shape) cell for an architecture.
-
-    kind:
-      lm:     train | prefill | decode
-      recsys: train | rank | pointwise
-    """
-
-    name: str
-    kind: str
-    dims: dict
-    skip: str | None = None      # reason when the cell is N/A for this arch
-
-
-@dataclasses.dataclass(frozen=True)
-class ArchSpec:
-    name: str
-    family: str                   # lm | recsys
-    make_config: Callable[[], Any]
-    make_smoke: Callable[[], Any]
-    shapes: tuple[ShapeSpec, ...]
-    notes: str = ""
+__all__ = ["REGISTRY", "ArchSpec", "ShapeSpec", "get", "lm_shapes", "register"]
 
 
 REGISTRY: dict[str, ArchSpec] = {}
@@ -73,7 +60,27 @@ register(ArchSpec(
     name="gemma3-1b", family="lm",
     make_config=gemma3_1b.make_config, make_smoke=gemma3_1b.make_smoke,
     shapes=lm_shapes(None),
-    notes="dense; serving only in the port (training needs kernel 7's backward)",
+    notes="dense; trains through the plain attention, serves through kernel 7",
+))
+
+register(ArchSpec(
+    name="starcoder2-7b", family="lm",
+    make_config=starcoder2_7b.make_config, make_smoke=starcoder2_7b.make_smoke,
+    shapes=lm_shapes(long_ctx_skip="pure full-attention arch (no sub-quadratic "
+                                   "mechanism) — skip per assignment note"),
+))
+
+register(ArchSpec(
+    name="yi-9b", family="lm",
+    make_config=yi_9b.make_config, make_smoke=yi_9b.make_smoke,
+    shapes=lm_shapes(long_ctx_skip="pure full-attention arch — skip per "
+                                   "assignment note"),
+))
+
+register(ArchSpec(
+    name="pna", family="gnn",
+    make_config=pna.make_config, make_smoke=pna.make_smoke,
+    shapes=pna.SHAPES,
 ))
 
 register(ArchSpec(

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.fwfm_interaction``: per example,
 
     out[b] = 0.5 * sum_ij <v_i, v_j> R_ij
 
-for ``V (B, m, k)`` and ``R (m, m)``, f32.  The O(m^2 k) term whose
+for ``V (B, m, k)`` float32 or bfloat16 (read as stored, upcast to f32 in
+the kernel) and ``R (m, m)`` float32; ``out`` float32.  The O(m^2 k) term whose
 removal is the paper's contribution: the full-FwFM and pruned-FwFM
 baselines score through it.  Takes CUDA tensors that
 ``repro_torch.kernels.ops`` has already checked; callers go through ``ops``.
@@ -28,21 +29,25 @@ MAX_K = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# The C entry point's codes for V's type (repro::kF32, repro::kBF16).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("fwfm_interaction")
-    lib.fwfm_pairwise.argtypes = [_P, _P, _L, _I, _I, _P, _P, _I]
+    lib.fwfm_pairwise.argtypes = [_P, _I, _P, _L, _I, _I, _P, _P, _I]
     lib.fwfm_pairwise.restype = _I
-    lib.fwfm_pairwise_tile.argtypes = [_I, _I]
+    lib.fwfm_pairwise_tile.argtypes = [_I, _I, _I]
     lib.fwfm_pairwise_tile.restype = _I
     return lib
 
 
-def tile(m: int, k: int) -> int:
-    """Examples a tile of the kernel holds at (m, k), as its launch cuts
-    them (0 where it refuses the shape).  Builds the kernel: CUDA only."""
-    return _lib().fwfm_pairwise_tile(m, k)
+def tile(m: int, k: int, dtype: torch.dtype = torch.float32) -> int:
+    """Examples a tile of the kernel holds at (m, k) for a V of ``dtype``, as
+    its launch cuts them (0 where it refuses the shape).  Builds the kernel:
+    CUDA only."""
+    return _lib().fwfm_pairwise_tile(m, k, DTYPE_CODES[dtype])
 
 
 def check_limits(m: int, k: int) -> None:
@@ -52,11 +57,12 @@ def check_limits(m: int, k: int) -> None:
 
 
 def launch(V, R) -> torch.Tensor:
-    """``(B,)`` f32."""
+    """``(B,)`` f32; ``V`` float32 or bfloat16, ``R`` float32."""
     B, m, k = V.shape
     dev = V.device
     out = torch.empty((B,), dtype=torch.float32, device=dev)
-    status = _lib().fwfm_pairwise(V.data_ptr(), R.data_ptr(), B, m, k, out.data_ptr(),
+    status = _lib().fwfm_pairwise(V.data_ptr(), DTYPE_CODES[V.dtype], R.data_ptr(), B, m, k,
+                                  out.data_ptr(),
                                   torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(status, "fwfm_pairwise launch")
     return out

@@ -7,11 +7,12 @@ shape, a failed build or launch).  There is no fallback from the kernel
 to the plain version.  Any other device raises.
 
 Types: kernels 1-4 take a float32 or bfloat16 slab (``Q_I`` and ``a_I``
-of one type; kernel 3's ``V_I``) and kernel 5 a float32 or bfloat16 table
-(weights of the table's type), as the reference's kernels do.  The small
-operands that do not grow with n (``e``, ``P_C``, ``a_C``; ``U_I``,
-``d_I``, ``s_C``) are upcast to float32 before a launch; a slab or table is
-never cast: a bf16 one launches the bf16 kernel.  Scores are float32 on
+of one type; kernel 3's ``V_I``), kernel 5 a float32 or bfloat16 table
+(weights of the table's type) and kernel 6 a float32 or bfloat16 ``V``, as
+the reference's kernels do.  The small operands that do not grow with n
+(``e``, ``P_C``, ``a_C``; ``U_I``, ``d_I``, ``s_C``; kernel 6's ``R``) are
+upcast to float32 before a launch; a slab, table or ``V`` is never cast: a
+bf16 one launches the bf16 kernel.  Scores are float32 on
 both devices.  The plain versions upcast bf16 on entry, so a bf16 call on
 the CPU is the float32 call on the upcast tensors, as it is bitwise on the
 card with ``acc_dtype='float32'``.  Other types raise.
@@ -31,7 +32,7 @@ resolved ``acc_dtype`` applies.
 ``LAUNCHES`` counts launches of each CUDA kernel (``__global__``
 function) by its name, and only those: a run reads it to show that its
 path went through the kernels.  A kernel instantiated for a bf16 slab,
-``V_I`` or table counts under its name with ``_bf16`` appended, and one
+``V_I``, table or ``V`` counts under its name with ``_bf16`` appended, and one
 that accumulates as ``acc_dtype='bfloat16'`` with ``_accbf16`` after that.
 ``KERNELS`` names the CUDA kernels behind each entry point, the bf16 ones
 under the entry point's name with ``_bf16`` (the ``acc_dtype='bfloat16'``
@@ -72,6 +73,7 @@ KERNELS = {
     "dplr_score_items_bf16": ("dplr_score_items_kernel_bf16",),
     "dplr_corpus_score_multi_bf16": ("corpus_multi_topk_chunks_bf16", "multi_topk_merge"),
     "embedding_bag_bf16": ("embedding_bag_kernel_bf16",),
+    "fwfm_pairwise_bf16": ("fwfm_pairwise_kernel_bf16",),
 }
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -439,11 +441,15 @@ class _EmbeddingBag(torch.autograd.Function):
 
 
 def fwfm_pairwise(V, R):
-    """Full FwFM pairwise term ``(...,)``: ``0.5 * sum_ij <v_i, v_j> R_ij``
-    for ``V (..., m, k)`` and ``R (m, m)``.  The kernel takes ``m <= 128``
-    and ``k <= 32`` (a CUDA tensor beyond that raises); the plain version
-    takes any.  Differentiable in ``V`` and ``R`` on both devices; on the
-    card the backward is ``ref.fwfm_pairwise_vjp``."""
+    """Full FwFM pairwise term ``(...,)`` float32: ``0.5 * sum_ij <v_i, v_j>
+    R_ij`` for ``V (..., m, k)`` and ``R (m, m)``.  The kernel takes a
+    float32 or bfloat16 ``V`` (read as stored and upcast in the kernel, so a
+    bf16 launch is bitwise the float32 launch on the upcast ``V``; the
+    plain version upcasts on entry), ``R`` upcast to float32 first,
+    ``m <= 128`` and ``k <= 32`` (a CUDA tensor beyond that raises); the
+    plain version takes any.  Differentiable in ``V`` and ``R`` on both
+    devices; on the card the backward is ``ref.fwfm_pairwise_vjp`` in
+    float32, ``d V`` cast to ``V``'s type."""
     if V.ndim < 2:
         raise ValueError(f"V must be (..., m, k), got {tuple(V.shape)}")
     m, k = V.shape[-2:]
@@ -452,7 +458,8 @@ def fwfm_pairwise(V, R):
     if dev.type == "cpu":
         return ref.fwfm_pairwise_ref(V, R)
     _fwfm.check_limits(m, k)
-    _check_for_kernel(V=V, R=R)
+    _check_for_kernel(dtypes=SLAB_DTYPES, V=V)
+    (R,) = _small_f32(R=R)
     if _needs_grad(V, R):
         return _FwFMPairwise.apply(V, R)
     return _fwfm_pairwise_launch(V, R)
@@ -462,15 +469,15 @@ def _fwfm_pairwise_launch(V, R):
     lead, (m, k) = V.shape[:-2], V.shape[-2:]
     B = math.prod(lead)
     if B == 0:
-        return V.new_zeros(lead)
+        return V.new_zeros(lead, dtype=torch.float32)
     out = _fwfm.launch(V.view(B, m, k), R)
-    LAUNCHES["fwfm_pairwise_kernel"] += 1
+    LAUNCHES[launch_name("fwfm_pairwise_kernel", V.dtype)] += 1
     return out.view(lead)
 
 
 class _FwFMPairwise(torch.autograd.Function):
-    """The kernel forward with the plain backward, for ``V`` or ``R`` that
-    need a gradient on the card."""
+    """The kernel forward with the plain backward in float32, for ``V`` or
+    ``R`` that need a gradient on the card."""
 
     @staticmethod
     def forward(ctx, V, R):
@@ -480,8 +487,8 @@ class _FwFMPairwise(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         V, R = ctx.saved_tensors
-        d_V, d_R = ref.fwfm_pairwise_vjp(V, R, grad)
-        return (d_V if ctx.needs_input_grad[0] else None,
+        d_V, d_R = ref.fwfm_pairwise_vjp(V.float(), R, grad.float())
+        return (d_V.to(V.dtype) if ctx.needs_input_grad[0] else None,
                 d_R if ctx.needs_input_grad[1] else None)
 
 
@@ -492,7 +499,9 @@ def flash_attention(q, k, v, *, window: int | None = None):
     takes float32 or bfloat16 (one type for all three), ``H // KV <= 64``,
     and hd in (16, 32, 64, 128, 256) in bfloat16 or a multiple of 4 up to
     256 in float32; any S.  It has no backward: on the card, inputs that
-    need a gradient raise (ROADMAP: kernel 7's backward (LM training))."""
+    need a gradient raise.  The LM's loss attends through the plain
+    ``attention.gqa_attention``, as the JAX loss does (ROADMAP: kernel 7's
+    backward, a speed item)."""
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KV, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -515,8 +524,9 @@ def flash_attention(q, k, v, *, window: int | None = None):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel takes a contiguous, 16-byte aligned tensor")
     if _needs_grad(q, k, v):
-        raise NotImplementedError("flash_attention has no backward on the card "
-                                  "(ROADMAP: kernel 7's backward (LM training))")
+        raise NotImplementedError("flash_attention has no backward on the card; "
+                                  "model.lm_loss trains through the plain gqa_attention "
+                                  "(ROADMAP: kernel 7's backward, a speed item)")
     out = _flash.launch(q, k, v, window)
     LAUNCHES[_flash.kernel_name(q.dtype, hd)] += 1
     return out

@@ -142,8 +142,10 @@ def embedding_bag_vjp(table, ids, weights, segment_ids, grad):
 
 
 def fwfm_pairwise_ref(V, R):
-    """``(...,)`` full FwFM term ``0.5 * sum_ij <v_i, v_j> R_ij`` for
-    ``V (..., m, k)``, ``R (m, m)``."""
+    """``(...,)`` float32 full FwFM term ``0.5 * sum_ij <v_i, v_j> R_ij``
+    for ``V (..., m, k)``, ``R (m, m)``, bf16 upcast on entry (the Pallas
+    kernel forms the Gram of any float ``V`` in f32)."""
+    V, R = (t.float() if t.dtype == torch.bfloat16 else t for t in (V, R))
     G = torch.einsum("...ik,...jk->...ij", V, V)
     return 0.5 * torch.einsum("...ij,ij->...", G, R)
 

@@ -1,5 +1,5 @@
 """Fault-tolerant training entry point of the port.  Port of
-``repro.launch.train`` for the recsys family on one device.
+``repro.launch.train`` for the recsys and lm families on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dplr-fwfm \
         --steps 300 --batch 4096 --ckpt-dir /tmp/ckpt [--resume] [--device cuda]
@@ -10,25 +10,34 @@
     pipeline resumes at the restored step.  Batches are a pure function
     of (seed, step), and every operation of a step, the kernels' backward
     included, sums in a fixed order, so a resumed run repeats the
-    uninterrupted run bitwise.
+    uninterrupted run bitwise.  The lm trainer's module asks for its step
+    to run under ``torch.use_deterministic_algorithms(True)``
+    (``deterministic``): the embedding gather's backward then sums each
+    row in a fixed order on the card instead of with atomics.
   * preemption simulation: --fail-at N hard-exits (code 42) after step N;
     rerunning with --resume continues.
   * straggler mitigation: bounded prefetch (``data.pipeline``).
 
 A step is ``value_and_grad(mod.loss)`` and then the optimizer (adagrad
-for recsys), as ``repro.launch.train``'s, for every recsys architecture
-of the registry (``dplr-fwfm``, ``wide-deep``, ``autoint``, ``bst``,
-``mind``).  On the card the loss runs the ``embedding_bag`` kernel
-forward and its deterministic backward kernel for the field lookups and
-the history, target and negative gathers, and the ``fwfm_pairwise``
-kernel forward for a full-FwFM model.  The lm family raises: its loss
-needs kernel 7's backward, which is not written yet.
+for recsys, adamw for lm), as ``repro.launch.train``'s, for every recsys
+architecture of the registry (``dplr-fwfm``, ``wide-deep``, ``autoint``,
+``bst``, ``mind``) and every lm one (``gemma3-1b``, ``starcoder2-7b``,
+``yi-9b``: ``model.lm_loss`` on zipf tokens, ``--seq`` positions).  On
+the card the recsys loss runs the ``embedding_bag`` kernel forward and
+its deterministic backward kernel for the field lookups and the history,
+target and negative gathers, and the ``fwfm_pairwise`` kernel forward for
+a full-FwFM model; the lm loss attends through the plain
+``gqa_attention``, as the JAX loss does.  The gnn family trains through
+``python -m repro_torch.examples.gnn_train``, as the JAX driver sends it
+to its ``examples/gnn_train.py``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -40,6 +49,7 @@ from repro_torch.data.pipeline import ShardedPipeline
 from repro_torch.data.synthetic_ctr import SyntheticCTR
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import autoint, bst, fwfm, mind, wide_deep
+from repro_torch.models.transformer import model as tm
 
 _RECSYS_MODULES = {"dplr-fwfm": fwfm, "wide-deep": wide_deep, "autoint": autoint,
                    "bst": bst, "mind": mind}
@@ -88,6 +98,52 @@ def build_recsys_trainer(arch_name: str, cfg, batch_size: int, seed: int):
     return mod, make_batch
 
 
+def lm_tokens(cfg, batch_size: int, seq: int, seed: int, step: int) -> dict:
+    """The JAX trainer's LM batch for one (seed, step): zipf(1.2) draws
+    from ``default_rng((seed, step))``, shifted to 0 and wrapped into the
+    vocabulary, ``tokens`` the first ``seq`` and ``labels`` the last
+    ``seq`` of each row of ``seq + 1``."""
+    rng = np.random.default_rng((seed, step))
+    toks = (rng.zipf(1.2, (batch_size, seq + 1)) - 1) % cfg.vocab
+    return {"tokens": toks[:, :-1].astype(np.int32), "labels": toks[:, 1:].astype(np.int32)}
+
+
+def build_lm_trainer(arch_name: str, cfg, batch_size: int, seq: int, seed: int, device):
+    """(model module, ``make_batch(step) -> numpy batch``) for an lm
+    architecture of the registry, as ``repro.launch.train``'s; the
+    module's ``loss`` is ``lm_loss`` on ``device``, and its
+    ``deterministic`` makes ``train_step`` run under ``deterministic()``."""
+    mod = SimpleNamespace(init=tm.init,
+                          loss=lambda p, c, b: tm.lm_loss(p, c, b, device=device),
+                          deterministic=True)
+    return mod, lambda step: lm_tokens(cfg, batch_size, seq, seed, step)
+
+
+# the cuBLAS workspace that torch's deterministic mode asks for
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the duration (an
+    operation without a deterministic implementation raises), restored
+    after.  Where ``CUBLAS_WORKSPACE_CONFIG`` is unset, it is
+    ``CUBLAS_WORKSPACE`` for the duration, as torch's check on a cuBLAS
+    call asks.  ``main`` sets it for the lm family before CUDA starts, so
+    that every cuBLAS workspace of the run has that size."""
+    was = torch.are_deterministic_algorithms_enabled()
+    unset = "CUBLAS_WORKSPACE_CONFIG" not in os.environ
+    if unset:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+        if unset:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+
+
 def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
@@ -96,12 +152,14 @@ def train_step(mod, cfg, optimizer, params, opt_state, batch, lr, mark=None):
     """One step: the loss and its gradient in every parameter, then the
     optimizer's in-place update.  Returns (loss, params, opt_state).
     ``mark(name)``, when given, is called after "forward", "backward" and
-    "update" (a caller's timer)."""
+    "update" (a caller's timer).  A module whose ``deterministic`` is
+    true (the lm trainer's) runs the step under ``deterministic()``."""
     on_forward = None if mark is None else (lambda: mark("forward"))
-    loss, grads = optim.value_and_grad(mod.loss, on_forward=on_forward)(params, cfg, batch)
-    if mark is not None:
-        mark("backward")
-    params, opt_state = optimizer.update(grads, opt_state, params, lr)
+    with deterministic() if getattr(mod, "deterministic", False) else contextlib.nullcontext():
+        loss, grads = optim.value_and_grad(mod.loss, on_forward=on_forward)(params, cfg, batch)
+        if mark is not None:
+            mark("backward")
+        params, opt_state = optimizer.update(grads, opt_state, params, lr)
     if mark is not None:
         mark("update")
     return loss, params, opt_state
@@ -113,6 +171,7 @@ def main(argv=None):
     ap.add_argument("--config", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--seq", type=int, default=128, help="LM sequence length")
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--optimizer", default=None, choices=[None, "adagrad", "adamw"])
     ap.add_argument("--ckpt-dir", default=None)
@@ -127,16 +186,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     spec = REGISTRY[args.arch]
-    if spec.family != "recsys":
-        raise NotImplementedError(f"{args.arch}: the {spec.family} family does not train in "
-                                  f"the port; its loss needs kernel 7's backward")
+    if spec.family not in ("recsys", "lm"):
+        raise SystemExit("use python -m repro_torch.examples.gnn_train for the gnn family")
     cfg = spec.make_smoke() if args.config == "smoke" else spec.make_config()
+    lm = spec.family == "lm"
+    if lm:
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    mod, make_batch = build_recsys_trainer(args.arch, cfg, args.batch, args.seed)
-    optimizer = optim.adagrad() if (args.optimizer or "adagrad") == "adagrad" else optim.adamw()
+    if lm:
+        mod, make_batch = build_lm_trainer(args.arch, cfg, args.batch, args.seq, args.seed,
+                                           dev)
+    else:
+        mod, make_batch = build_recsys_trainer(args.arch, cfg, args.batch, args.seed)
+    opt_name = args.optimizer or ("adamw" if lm else "adagrad")
+    optimizer = optim.adagrad() if opt_name == "adagrad" else optim.adamw()
 
     params = mod.init(torch.Generator(device=dev).manual_seed(args.seed), cfg)
     opt_state = optimizer.init(params)

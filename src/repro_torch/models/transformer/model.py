@@ -6,20 +6,22 @@ configurations: gemma3-1b, and any other without experts.
     parameters pass through ``interop`` unchanged
   * the layer loop runs each layer with its entry of ``layer_pattern``
     (window or None), in place of the JAX package's scan over periods
-  * entry points: ``forward`` (logits), ``prefill`` (KV cache + last
-    logits), ``decode_step`` (one token against the cache); ``trunk`` gives
-    the hidden states.  Prefill and forward attend through the
-    flash-attention kernel (``kernels.ops.flash_attention``: the kernel on
-    the card, its plain version on the CPU); decode through the plain
-    ``attention.decode_attention``, as in the JAX package
+  * entry points: ``lm_loss`` (train), ``forward`` (logits), ``prefill``
+    (KV cache + last logits), ``decode_step`` (one token against the
+    cache); ``trunk`` gives the hidden states.  Prefill and forward attend
+    through the flash-attention kernel (``kernels.ops.flash_attention``:
+    the kernel on the card, its plain version on the CPU); decode through
+    the plain ``attention.decode_attention``, as in the JAX package.
+    ``lm_loss`` attends through the plain chunked ``attention.gqa_attention``
+    (``q_chunk`` queries at a time), as the JAX loss does: the kernel has no
+    backward (ROADMAP: kernel 7's backward)
   * params are stored f32; every call casts them to ``compute_dtype``
     (bf16); KV caches are bf16.  ``decode_step`` writes the new position
     into the cache it is given, in place (the JAX function returns a new
     cache): a copy of a full cache each step would double its memory
 
-Not ported: experts (``n_experts > 0`` raises; ROADMAP: the MoE item), the
-training loss (ROADMAP: kernel 7's backward (LM training)) and the mesh
-hooks (ROADMAP: sharding).  The entry points run
+Not ported: experts (``n_experts > 0`` raises; ROADMAP: the MoE item), and
+the mesh hooks and ``micro_batches`` (ROADMAP: sharding).  The entry points run
 on the card unless the caller passes ``device="cpu"``; the parameters
 must already be there.
 """
@@ -32,6 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -56,9 +60,16 @@ class TransformerConfig:
     tie_embeddings: bool = False
     # MoE (n_experts == 0 -> dense FFN); only dense is ported
     n_experts: int = 0
-    # numerics
+    # numerics / execution
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
+    # lm_loss: checkpoint each layer (the backward recomputes it), attend
+    # q_chunk queries at a time, and take the cross-entropy over chunks of
+    # loss_chunk positions, each checkpointed, so the (B, S, vocab) f32
+    # logits never exist, forward or backward
+    remat: bool = True
+    q_chunk: int = 512
+    loss_chunk: int = 512
 
     @property
     def hd(self) -> int:
@@ -246,6 +257,55 @@ def forward(params: dict, cfg: TransformerConfig, tokens, *, device=None) -> tor
     """tokens (B, S) -> logits (B, S, vocab_padded).  Eval forward."""
     x, cparams = trunk(params, cfg, tokens, device=device)
     return _logits(cparams, cfg, x)
+
+
+def _train_layer(lp: dict, cfg: TransformerConfig, window, x, positions):
+    """One layer of ``lm_loss``: attention through the plain chunked
+    ``gqa_attention``, as the JAX package's ``_layer``."""
+    q, k, v = attention_inputs(lp, cfg, x, positions)
+    o = attn_lib.gqa_attention(q, k, v, n_kv_heads=cfg.n_kv_heads, q_positions=positions,
+                               k_positions=positions, window=window, q_chunk=cfg.q_chunk)
+    return finish_layer(lp, cfg, x, o)
+
+
+def _chunk_ce(cparams: dict, cfg: TransformerConfig, x_c, labels_c):
+    """Summed next-token cross-entropy of one chunk of positions, f32."""
+    logits = _logits(cparams, cfg, x_c).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def lm_loss(params: dict, cfg: TransformerConfig, batch: dict, *, device=None):
+    """Next-token cross-entropy, the mean over ``batch = {tokens (B, S),
+    labels (B, S)}``, f32 and differentiable in ``params``.
+
+    Each layer runs under ``torch.utils.checkpoint`` when ``cfg.remat``;
+    the unembedding and cross-entropy run over chunks of ``loss_chunk``
+    positions, each under ``torch.utils.checkpoint``, so the full (B, S,
+    vocab) f32 logits never exist (forward or backward).  Attention is the
+    plain ``gqa_attention`` (never the kernel), as in the JAX loss."""
+    _check_dense(cfg)
+    dev = _resolve(params, device)
+    cparams = cast_params(params, cfg.compute_dtype)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    x = embed(cparams, cfg, tokens)
+    pos = torch.arange(tokens.shape[1], device=dev)
+    for i in range(cfg.n_layers):
+        args = (layer_params(cparams, i), cfg, cfg.window(i), x, pos)
+        x = (checkpoint(_train_layer, *args, use_reentrant=False) if cfg.remat
+             else _train_layer(*args))
+    B, S, _ = x.shape
+    c = min(cfg.loss_chunk, S)
+    if S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of loss_chunk {c}")
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for j in range(S // c):
+        sl = slice(j * c, (j + 1) * c)
+        total = total + checkpoint(_chunk_ce, cparams, cfg, x[:, sl], labels[:, sl],
+                                   use_reentrant=False)
+    return total / (B * S)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int, dtype=torch.bfloat16,

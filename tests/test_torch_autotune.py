@@ -559,3 +559,68 @@ def test_the_ports_autotune_has_no_krn_tune_offender(tmp_path):
                        .replace("_ref,", ","))
     names = [f.name for f in kernel_contract._tune_offenders(core.SourceFile(ungated, tmp_path))]
     assert names == ["tune_corpus_score"]
+
+
+# -- bf16 accumulation at the served cell (ROADMAP §3) ---------------------------
+
+def _acc_cell(n: int, acc: str):
+    """Both packages' top-16 of the tuner's cell (rho 3, k 16, Bq 1, a bf16
+    slab, seed 0) under ``acc_dtype=acc``, each from its own ``_mk_inputs``
+    and ``ops`` (the JAX Pallas kernel in interpret mode, the port's plain
+    version on the CPU), and each one's own ``_check_parity`` verdict
+    against its own f32 oracle."""
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ref
+
+    out = {}
+    jQ, ja, je, jP, jaC, jvalid = jautotune._mk_inputs(n, 3, 16, 1, jnp.bfloat16, 0)
+    Q32, P32 = jnp.asarray(jQ, jnp.float32), jnp.asarray(jP, jnp.float32)
+    jscores = np.asarray(jref.dplr_corpus_score_ref(Q32, ja, je, P32, jaC, jvalid))
+    jrv, jri = jref.dplr_corpus_topk_ref(Q32, ja, je, P32, jaC, 16, jvalid)
+    vals, ids = jops.dplr_corpus_score(jQ, ja, je, jP, jaC, valid=jvalid, topk=16,
+                                       acc_dtype=acc, interpret=True)
+    out["jax"] = jautotune._check_parity(vals, ids, jscores, np.asarray(jrv), acc,
+                                         np.asarray(jri), 5e-2)
+    Q, a, e, P, aC, valid = autotune._mk_inputs(n, 3, 16, 1, "bfloat16", 0)
+    scores = ref.dplr_corpus_score_ref(Q, a, e, P, aC, valid)
+    rv, ri = ref.dplr_corpus_topk_ref(Q, a, e, P, aC, 16, valid)
+    vals, ids = ops.dplr_corpus_score(Q, a, e, P, aC, valid, topk=16, acc_dtype=acc)
+    out["port"] = autotune._check_parity(vals, ids, scores, rv, acc, ri, 5e-2)
+    return out
+
+
+@pytest.mark.parametrize("n", [1 << 16, 1 << 20])
+def test_bf16_accumulation_fails_the_gate_in_both_packages(n):
+    """The tuner's 5e-2 gate on the served cell at n = 65,536 and at full
+    width (2^20, the served cell): f32 accumulation passes in both packages,
+    bf16 accumulation fails in both.  A score of tens rounded to bf16 is
+    off by up to half a unit: the reference's own behaviour, not a fault of
+    the port's accumulation (ROADMAP §3)."""
+    f32 = _acc_cell(n, "float32")
+    assert f32 == {"jax": None, "port": None}
+    bf16 = _acc_cell(n, "bfloat16")
+    assert bf16["jax"] is not None and bf16["port"] is not None, bf16
+
+
+def test_bf16_accumulation_scores_match_the_reference():
+    """At n = 65,536 (rho 3, k 16, Bq 1, the tuner's seed 0), every live
+    slot's bf16-accumulated score of the port's plain version within
+    ``(2 rho + 1) 2^-8 size`` of the JAX Pallas kernel's (interpret mode),
+    ``size = 0.5 sum_r |e_r| ||P_C + Q_I,r||^2``.  The port rounds each
+    square, each e_r and the sum to bf16; the reference also rounds each
+    r's sum over k and the adds of its bf16 dot over r (XLA's
+    ``reduce_sum`` and ``dot_general`` in bf16): each rounding moves a score
+    by at most 2^-8 of ``size``."""
+    n, rho = 1 << 16, 3
+    jQ, ja, je, jP, jaC, jvalid = jautotune._mk_inputs(n, rho, 16, 1, jnp.bfloat16, 0)
+    want = np.asarray(jops.dplr_corpus_score(jQ, ja, je, jP, jaC, valid=jvalid,
+                                             acc_dtype="bfloat16", interpret=True), np.float64)
+    Q, a, e, P, aC, valid = autotune._mk_inputs(n, rho, 16, 1, "bfloat16", 0)
+    got = ops.dplr_corpus_score(Q, a, e, P, aC, valid, acc_dtype="bfloat16").double().numpy()
+    Pq = P.float()[:, None] + Q.float()[None]
+    size = 0.5 * torch.einsum("qnrk,r->qn", Pq * Pq, e.abs()).double().numpy()
+    live = valid.numpy()
+    err = np.abs(got - want)[:, live]
+    bound = (2 * rho + 1) * 2.0**-8 * size[:, live] + 1e-5
+    assert (err <= bound).all(), f"max {float((err / bound).max()):.3g} of the bound"
+    assert np.array_equal(got[:, ~live], want[:, ~live])

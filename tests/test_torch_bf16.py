@@ -371,3 +371,65 @@ def test_in_order_bag_is_the_plain_bag_on_the_cpu(dtype):
     seg = np.sort(rng.integers(0, 4, 9))
     got = ref.embedding_bag_in_order(table, ids, w, seg, 4)
     assert got.dtype == dtype and torch.equal(got, ref.embedding_bag_ref(table, ids, w, seg, 4))
+
+
+@pytest.mark.parametrize("B,m,k", [(33, 7, 4), (16, 12, 3), (5, 39, 16)])
+def test_fwfm_pairwise_plain_bf16_v_matches_pallas(B, m, k):
+    """Kernel 6's plain version on a bf16 ``V`` against the Pallas kernel in
+    interpret mode on the same bf16 ``V`` (both form the Gram in f32), within
+    the f32 parity bound; and bitwise the f32 call on the upcast ``V``, as
+    the kernel is on the card.  ``R`` in bf16 is upcast first."""
+    from repro.kernels.fwfm_interaction import fwfm_pairwise as jpair
+
+    rng = np.random.default_rng(B + m + k)
+    V = rng.standard_normal((B, m, k)).astype(np.float32)
+    R = (rng.standard_normal((m, m)) * 0.1).astype(np.float32)
+    (jV,), (tV,) = _both_bf16((V,))
+    want = np.asarray(jpair(jV, jnp.asarray(R), interpret=True))
+    got = ops.fwfm_pairwise(tV, torch.from_numpy(R))
+    assert got.dtype == torch.float32
+    assert_scores(got, want)
+    assert torch.equal(got, ops.fwfm_pairwise(tV.float(), torch.from_numpy(R)))
+    R16 = torch.from_numpy(R).to(torch.bfloat16)
+    assert torch.equal(ops.fwfm_pairwise(tV, R16), ops.fwfm_pairwise(tV.float(), R16.float()))
+
+
+def test_fwfm_pairwise_bf16_v_gradient_is_the_f32_one_cast():
+    """Differentiable in a bf16 ``V`` on the CPU: the gradient is the f32
+    plain version's, on the upcast ``V``, cast to bf16 (as the card's
+    backward computes it)."""
+    rng = np.random.default_rng(3)
+    V = torch.from_numpy(rng.standard_normal((6, 5, 4)).astype(np.float32)).to(torch.bfloat16)
+    R = torch.from_numpy(rng.standard_normal((5, 5)).astype(np.float32))
+    V16 = V.clone().requires_grad_()
+    ops.fwfm_pairwise(V16, R).sum().backward()
+    V32 = V.float().requires_grad_()
+    ops.fwfm_pairwise(V32, R).sum().backward()
+    assert V16.grad.dtype == torch.bfloat16
+    assert torch.equal(V16.grad, V32.grad.to(torch.bfloat16))
+
+
+def test_a_bf16_full_fwfm_model_evaluates_through_the_harness():
+    """``eval.harness.evaluate_pointwise`` on a bf16 full-FwFM model, as
+    the JAX harness evaluates one: finite metrics, and logits equal to the
+    f32 pairwise term on the bf16 model's own (bf16) field embeddings."""
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.embedding.bag import lookup_field_embeddings
+    from repro_torch.eval import harness
+
+    cfg = dataclasses.replace(dplr_fwfm.make_smoke(), interaction="fwfm", dtype=torch.bfloat16)
+    params = fwfm.init(torch.Generator().manual_seed(0), dataclasses.replace(cfg,
+                                                                             dtype=torch.float32))
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    data = SyntheticCTR(cfg.layout, embed_dim=8, teacher_rank=2, seed=0)
+    out = harness.evaluate_pointwise(params, cfg, data, n=512, batch_size=128)
+    assert out["n"] == 512 and all(np.isfinite(out[k]) for k in ("auc", "logloss"))
+    rows = data.batch(64, 0)
+    b = {"ids": torch.as_tensor(rows["ids"]), "weights": torch.as_tensor(
+        rows["weights"]).to(torch.bfloat16)}
+    logits = fwfm.apply(params, cfg, b)
+    V = lookup_field_embeddings(params["embedding"], cfg.layout, b["ids"], b["weights"])
+    assert V.dtype == torch.bfloat16 and logits.dtype == torch.float32
+    assert torch.equal(fwfm._pairwise(params, cfg, V, None),
+                       ops.fwfm_pairwise(V.float(), fwfm.field_matrix(params, cfg).float()))

@@ -1,6 +1,6 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, serve-bf16,
-tenants, wire, eval, train, models, lm, timing, autotune and profile phases run
-at a tiny size with the plain versions (the
+tenants, wire, eval, train, models, lm, lm-train, gnn, timing, autotune and
+profile phases run at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
 script exits non-zero and prints nothing, in the repo and alone in a
@@ -39,7 +39,14 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
                          (3, 4097, "random"), (3, 5, "rising"), (3, 64, "rising")),
              flash=((2, 70, 4, 1, 16, None), (2, 70, 4, 1, 16, 8)),
              flash_small=((1, 33, 2, 2, 8, None), (1, 50, 9, 1, 4, 5)),
+             flash_heads=((1, 40, 9, 1, 8, None), (1, 40, 8, 1, 8, None)),
+             pair_bf16=((300, 12), (37, 12)),
              lm_batch=2, lm_prompt=21, lm_cache=24, lm_steps=3,
+             lm_model_prompt=12, lm_model_steps=2,
+             lm_train_batch=2, lm_train_seq=16, lm_train_steps=2, lm_train_lr=0.05,
+             lm_resume_layers=2, lm_resume_steps=3, lm_resume_save=1,
+             gnn_shapes=("minibatch_lg", "molecule", "full_graph_sm"), gnn_steps=2,
+             gnn_lr=1e-3, gnn_graph=(2000, 10), gnn_minibatch=(16, (3, 2)), gnn_seed=0,
              train_batch=64, train_steps=4, train_save=2, train_lr=0.05, base_steps=2,
              posthoc_rank=2, train_serve_bqs=(1, 3), truncate_bytes=1024,
              models=("wide-deep", "autoint", "bst", "mind"), model_make="make_smoke",
@@ -56,18 +63,19 @@ def chip_smoke(monkeypatch):
 
 
 def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
-    from repro_torch.configs import dplr_fwfm, gemma3_1b
+    from repro_torch.configs import dplr_fwfm, gemma3_1b, pna, starcoder2_7b, yi_9b
 
     sz = SimpleNamespace(
         make_config=dplr_fwfm.make_smoke, make_lm=gemma3_1b.make_smoke,
+        lm_models=(starcoder2_7b.make_smoke, yi_9b.make_smoke), gnn_make=pna.make_smoke,
         make_fwfm=lambda: dataclasses.replace(dplr_fwfm.make_smoke(), interaction="fwfm"),
         **SMALL)
     cpu = torch.device("cpu")
     errs = chip_smoke.kernel_checks(cpu, sz)
     bf16 = {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
-            "dplr_corpus_score_multi", "embedding_bag"}
+            "dplr_corpus_score_multi", "embedding_bag", "fwfm_pairwise"}
     assert set(errs) == bf16 | {f"{name}_bf16" for name in bf16} | {
-        "embedding_bag_backward", "fwfm_pairwise", "flash_attention"}
+        "embedding_bag_backward", "flash_attention"}
     serve = chip_smoke.serving_phase(cpu, sz)
     assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
     assert "embedding_bag_kernel" in serve.launches
@@ -80,7 +88,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     launches = chip_smoke.wire_phase(cpu, sz, serve, tenants)
     assert sum(launches.values()) == 0
     launches = chip_smoke.eval_phase(cpu, sz, serve)
-    assert set(launches) == {"embedding_bag_kernel", "fwfm_pairwise_kernel"}
+    assert set(launches) == {"embedding_bag_kernel", "fwfm_pairwise_kernel",
+                             "embedding_bag_kernel_bf16", "fwfm_pairwise_kernel_bf16"}
     assert sum(launches.values()) == 0
     launches = chip_smoke.train_phase(cpu, sz, serve)
     assert {"embedding_bag_kernel", "embedding_bag_backward_kernel", "fwfm_pairwise_kernel",
@@ -93,6 +102,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     launches = chip_smoke.lm_phase(cpu, sz)
     assert set(launches) == {"flash_attention_kernel", "flash_attention_wgmma"}
     assert sum(launches.values()) == 0
+    chip_smoke.lm_train_phase(cpu, sz)
+    chip_smoke.gnn_phase(cpu, sz)
     monkeypatch.setattr(chip_smoke, "device_ms", lambda fn, *a: (fn(), 1.0)[1])
     rows = chip_smoke.timing_phase(cpu, sz, (3.35e12, 67e12, 989e12))
     assert set(rows) == set(errs)
@@ -110,8 +121,16 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
     for phase in ("kernels", "serve", "serve-bf16", "tenants", "eval", "train", "models", "lm",
-                  "timing", "autotune", "profile"):
+                  "lm-train", "gnn", "timing", "autotune", "profile"):
         assert f"phase {phase}:" in out
+    assert "fwfm_pairwise bf16 V bitwise its f32 launch" in out and "fwfm in bf16: AUC" in out
+    assert "36/4x128" not in out and "1x40x9/1x8" in out     # the head-group cases ran
+    for name in ("gemma3-1b-smoke", "starcoder2-7b-smoke", "yi-9b-smoke"):
+        assert f"phase lm: {name} " in out and "= n_params()" in out
+    assert "run B from step 1: losses and step 3's params and adamw state bitwise" in out
+    for shape in ("minibatch_lg", "molecule", "full_graph_sm"):
+        assert f"{shape} (d_feat" in out
+    assert rows["fwfm_pairwise_bf16"]["library_ms"] > 0
     assert "packed = unpacked bitwise" in out and "rows bitwise = single" in out
     assert "n=2 m_I=38 Bq=300" in out and "Bq=3 misaligned" in out
     assert "pruned R" in out and "m=12 misaligned" in out and "alone bitwise" in out

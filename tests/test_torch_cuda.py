@@ -7,6 +7,8 @@ Imports no JAX, so that it runs where the card is:
 Skips where ``torch.cuda.is_available()`` is False (the kernels are CUDA
 C++ and have no CPU mode).  Tolerance: atol = rtol = 1e-5; top-K ids equal
 except between scores tied within that."""
+import os
+
 import numpy as np
 import pytest
 
@@ -145,6 +147,9 @@ def test_cuda_tiles_at_the_served_shapes(cuda):
     assert dplr_score.tile(38, 1, 128) == 1 and dplr_score.tile(38, 9, 16) == 0
     assert fwfm_interaction.tile(82, 16) == 16 and fwfm_interaction.tile(128, 32) == 4
     assert fwfm_interaction.tile(12, 1) == 64 and fwfm_interaction.tile(129, 16) == 0
+    # a bf16 V stages in half the bytes: the same tile until shared memory binds
+    bf16 = torch.bfloat16
+    assert fwfm_interaction.tile(82, 16, bf16) == 16 and fwfm_interaction.tile(128, 32, bf16) == 8
 
 
 @pytest.mark.cuda
@@ -428,6 +433,47 @@ def test_cuda_fwfm_pairwise_matches_plain(cuda, B, m, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,m,k,offset", [(4096, 82, 16, 0), (4097, 82, 16, 0), (33, 82, 16, 1),
+                                          (5, 128, 32, 0), (300, 14, 12, 0), (7, 3, 4, 0),
+                                          (3, 5, 1, 0), (50, 82, 8, 3)])
+def test_cuda_fwfm_pairwise_bf16_v_is_bitwise_its_f32_launch(cuda, B, m, k, offset):
+    """A bf16 ``V`` launches ``fwfm_pairwise_kernel_bf16``, whose result is
+    bitwise the f32 kernel's on the upcast ``V`` (the upcast is exact and
+    the arithmetic after it the same), for bulk copies (k % 8 == 0,
+    16-byte aligned) and the element-by-element fill (k % 8 != 0, or
+    ``offset`` bf16 values past an aligned base); ``R`` in bf16 is upcast
+    first.  Rows do not depend on their batch."""
+    rng = np.random.default_rng(33)
+    flat = torch.from_numpy(rng.standard_normal(B * m * k + offset).astype(np.float32))
+    V = flat.to(cuda, torch.bfloat16)[offset:].view(B, m, k)
+    R = torch.from_numpy((rng.standard_normal((m, m)) * 0.1).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    got = ops.fwfm_pairwise(V, R)
+    assert ops.LAUNCHES == {"fwfm_pairwise_kernel_bf16": 1} and got.dtype == torch.float32
+    assert _bits_equal(got, ops.fwfm_pairwise(V.float(), R))
+    assert _bits_equal(ops.fwfm_pairwise(V, R.bfloat16()), ops.fwfm_pairwise(V.float(),
+                                                                             R.bfloat16().float()))
+    assert _bits_equal(ops.fwfm_pairwise(V[-1:].contiguous(), R), got[-1:])
+    want = ref.fwfm_pairwise_ref(V, R)
+    size = 0.5 * torch.einsum("bij,ij->b", torch.einsum("bik,bjk->bij", V.float(), V.float())
+                              .abs(), R.abs())
+    assert ((got - want).abs() <= 1e-5 * torch.clamp(size, min=1.0)).all()
+
+
+@pytest.mark.cuda
+def test_cuda_fwfm_pairwise_bf16_v_gradient_is_the_f32_one_cast(cuda):
+    rng = np.random.default_rng(34)
+    V = torch.from_numpy(rng.standard_normal((64, 82, 16)).astype(np.float32)).to(cuda)
+    R = torch.from_numpy(rng.standard_normal((82, 82)).astype(np.float32)).to(cuda)
+    V16 = V.bfloat16().requires_grad_()
+    ops.fwfm_pairwise(V16, R).sum().backward()
+    V32 = V.bfloat16().float().requires_grad_()
+    ops.fwfm_pairwise(V32, R).sum().backward()
+    assert V16.grad.dtype == torch.bfloat16
+    assert _bits_equal(V16.grad.float(), V32.grad.to(torch.bfloat16).float())
+
+
+@pytest.mark.cuda
 def test_cuda_fwfm_pairwise_takes_a_misaligned_tensor_and_raises_past_its_limits(cuda):
     rng = np.random.default_rng(32)
     flat = torch.from_numpy(rng.standard_normal(3 * 8 * 16 + 1).astype(np.float32)).to(cuda)
@@ -628,6 +674,9 @@ def _flash_check(cuda, dtype, B, S, H, KV, hd, window, k_scale=None):
     (2, 300, 4, 1, 256, 7),
     (2, 1, 4, 1, 256, None),
     (2, 1, 8, 8, 64, None),
+    # starcoder2-7b's and yi-9b's heads (9 and 8 query heads a kv head)
+    (1, 4_096, 36, 4, 128, None),
+    (1, 4_096, 32, 4, 128, None),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, S, H, KV, hd, window):
     _flash_check(cuda, dtype, B, S, H, KV, hd, window)
@@ -1154,3 +1203,83 @@ def test_cuda_tuner_times_the_device_not_the_host(cuda):
         torch.cuda._sleep(1000)
     us = autotune._time_call(slow_host, 8, cuda)
     assert 0 < us < 500, us
+
+
+@pytest.mark.cuda
+def test_cuda_pna_step_matches_the_cpu(cuda):
+    """PNA's smoke config on a sampled subgraph, node task, f32: the loss
+    and every gradient on the card against the CPU's on the same weights
+    and batch.  The card's ``index_add_`` adds with atomics and its
+    matmuls round otherwise, and the std aggregator's cancellation
+    (several identical messages into a node) magnifies a last-bit
+    difference: the loss within ``1e-5 max(1, |loss|)`` plus the CPU's own
+    spread (its loss with the node features one ulp up), each gradient leaf
+    within ``1e-4`` of its largest entry plus that spread's share."""
+    from repro_torch import optim
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.models.gnn import pna, sampler
+
+    cfg = pna_cfg.make_smoke()
+    rng = np.random.default_rng(0)
+    g = sampler.random_graph(rng, 2000, 8, cfg.d_feat, cfg.n_classes)
+    nb = sampler.sample_subgraph(g, rng.integers(0, 2000, 64), (6, 4), rng)
+    cpu = {k: torch.from_numpy(v) for k, v in nb.items()}
+    params = pna.init(torch.Generator().manual_seed(0), cfg)
+    loss_c, grads_c = optim.value_and_grad(pna.loss)(params, cfg, cpu)
+    feat = cpu["node_feat"]
+    nudged = dict(cpu, node_feat=torch.nextafter(feat, torch.full_like(feat, np.inf)))
+    spread = abs(float(pna.loss(params, cfg, nudged)) - float(loss_c))
+    gpu_params = {k: ({n: ({a: b.to(cuda) for a, b in t.items()} if isinstance(t, dict)
+                           else t.to(cuda)) for n, t in v.items()} if isinstance(v, dict)
+                      else v.to(cuda)) for k, v in params.items()}
+    loss_g, grads_g = optim.value_and_grad(pna.loss)(
+        gpu_params, cfg, {k: v.to(cuda) for k, v in cpu.items()})
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * max(1.0, abs(float(loss_c))) + 2 * spread
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", tree[k]
+
+    for (name, gc), (_, gg) in zip(leaves(grads_c), leaves(grads_g)):
+        err = float((gg.cpu() - gc).abs().max())
+        assert err <= 1e-4 * float(gc.abs().max()) + 1e-3 * spread + 1e-12, (name, err)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_loss_step_matches_the_cpu_and_repeats(cuda):
+    """gemma3-1b's smoke config in f32 compute: ``lm_loss`` and its
+    gradients on the card against the CPU (loss within ``1e-5 max(1,
+    |loss|)``, each leaf within ``1e-4`` of its largest entry), and, under
+    ``launch.train.deterministic()``, the same bits on a second call."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import model as tm
+
+    cfg = dataclasses.replace(gemma3_1b.make_smoke(), compute_dtype=torch.float32)
+    params = tm.init(torch.Generator().manual_seed(0), cfg)
+    batch = train.lm_tokens(cfg, 2, 48, 0, 0)
+    fn = optim.value_and_grad(lambda p, c, b: tm.lm_loss(p, c, b, device=p["embed"].device))
+    loss_c, grads_c = fn(params, cfg, batch)
+    gpu = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict) else v.to(cuda))
+           for k, v in params.items()}
+    with train.deterministic():
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] in (train.CUBLAS_WORKSPACE, ":16:8")
+        loss_g, grads_g = fn(gpu, cfg, batch)
+        loss_2, grads_2 = fn(gpu, cfg, batch)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * max(1.0, abs(float(loss_c)))
+    assert _bits_equal(loss_g, loss_2)
+    flat = lambda t: [(k, v) for k, v in sorted(t.items())]  # noqa: E731
+    for (name, gc), (_, gg), (_, g2) in zip(flat(grads_c), flat(grads_g), flat(grads_2)):
+        if isinstance(gc, dict):
+            for n in sorted(gc):
+                assert float((gg[n].cpu() - gc[n]).abs().max()) <= 1e-4 * float(gc[n].abs().max())
+                assert _bits_equal(gg[n], g2[n]), n
+        else:
+            assert float((gg.cpu() - gc).abs().max()) <= 1e-4 * float(gc.abs().max()), name
+            assert _bits_equal(gg, g2), name

@@ -151,5 +151,12 @@ def test_asking_for_the_card_without_one_raises(monkeypatch, tmp_path):
         mgr.restore({"bias": None})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         posthoc_dplr(np.ones((4, 4)) - np.eye(4), 1, polish_steps=1)
-    with pytest.raises(NotImplementedError, match="kernel 7's backward"):
-        train.main(["--arch", "gemma3-1b", "--device", "cpu", "--steps", "1"])
+    # the lm family trains (through the plain attention) on the card by default
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "gemma3-1b", "--steps", "1", "--batch", "1", "--seq", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.lm_loss(params, lcfg, {"tokens": toks, "labels": toks})
+    from repro_torch.examples import gnn_train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gnn_train.main(["--steps", "1"])
