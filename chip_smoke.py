@@ -20,7 +20,9 @@ Phases, one line each:
    3's batched rows bitwise equal to per-query calls, at edges of its tile,
    rho k = 128 and 3, m_I = 200, a misaligned V_I and 65,536 queries;
    kernel 5's backward at the train batch on skewed ids, bitwise equal to
-   itself on a second call; kernel 6 with a
+   itself on a second call, every unnamed row exactly 0 in a freed
+   NaN-filled allocation, and its radix sort alone bitwise
+   ``torch.sort(stable=True)``; kernel 6 with a
    general and a pruned R, m in (1, 2, 128) by k in (1, 3, 32), B at edges
    of its tile, a misaligned V, and a ragged slice of the full batch
    bitwise equal to the full call's rows.  In bf16: kernels 1-4 on a bf16
@@ -137,8 +139,10 @@ Phases, one line each:
    FwFM and flash-attention kernels, one PyTorch call that computes the
    same function (``library_ms``; for the windowed attention,
    ``F.scaled_dot_product_attention`` with the (S, S) causal-and-window
-   mask); and each top-K shape's peak device memory (its scratch and
-   outputs) beside the yardstick's.
+   mask; for the embedding bag's backward, a zeroed table and
+   ``index_add_``; for its radix sort, one stable ``torch.sort``), the
+   backward's sort and writer each alone; and each top-K shape's peak
+   device memory (its scratch and outputs) beside the yardstick's.
 12. autotune: ``kernels/autotune.py`` sweeps the corpus kernels' geometry
    (``autotune.DEFAULT_CANDIDATES``: stage 1's chunk, threads, query group
    and the merge's part) at the served cells, on the serve phase's slab
@@ -302,6 +306,7 @@ from repro_torch.embedding.bag import (  # noqa: E402
 from repro_torch.eval import harness  # noqa: E402
 from repro_torch.kernels import _build, autotune, blocks, ops, ref  # noqa: E402
 from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
+from repro_torch.kernels import embedding_bag as bag_lib  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -437,6 +442,9 @@ KERNEL_ROWS = {
     # jnp lookup; the Pallas kernel has no vjp)
     "embedding_bag_backward": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
                                "src/repro/kernels/embedding_bag.py:78"),
+    # that backward's radix sort of the slots by row, on its own
+    "bag_rows_sort": ("src/repro_torch/kernels/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag.py:78"),
     "fwfm_pairwise": ("src/repro_torch/kernels/csrc/fwfm_interaction.cu",
                       "src/repro/kernels/fwfm_interaction.py:49"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -684,7 +692,7 @@ def kernel_checks(dev, sz) -> dict:
     notes += more
     errs["embedding_bag"], more = bag_checks(dev, sz, gen)
     notes += more
-    errs["embedding_bag_backward"], more = bag_backward_checks(dev, sz)
+    errs["embedding_bag_backward"], errs["bag_rows_sort"], more = bag_backward_checks(dev, sz)
     notes += more
     errs["fwfm_pairwise"], more = pair_checks(dev, sz, gen)
     notes += more
@@ -959,18 +967,42 @@ def bag_checks(dev, sz, gen) -> tuple[float, list]:
                  "the table poisons its bag"]
 
 
-def bag_backward_checks(dev, sz) -> tuple[float, list]:
-    """The embedding bag's backward kernel (the table's gradient) against
-    ``ref.embedding_bag_vjp`` on the full arena at the train phase's batch,
-    within ``1e-6 * sum |w g|`` per element (rows no slot names: exactly
-    0), and bitwise equal to itself on a second call: skewed ids on the
-    one-hot and the multi-hot layout, and every example naming one row a
-    field.  Their own generator, so that the later kernels' inputs stay as
-    they were."""
+def poisoned(dev, shape) -> tuple[int, int] | None:
+    """Free a NaN-filled f32 tensor of ``shape``: the caching allocator
+    hands its block to the next ``torch.empty`` of that size, which the
+    backward makes first.  Its address range (None on the CPU)."""
+    if dev.type != "cuda":
+        return None
+    block = torch.full(shape, float("nan"), device=dev)
+    span = (block.data_ptr(), block.data_ptr() + block.numel() * 4)
+    del block
+    return span
+
+
+def check_poisoned(t, span, what: str) -> None:
+    """Raise unless ``t`` lies inside ``poisoned``'s range ``span``."""
+    if span is not None and not (
+            span[0] <= t.data_ptr() and t.data_ptr() + t.numel() * t.element_size() <= span[1]):
+        raise AssertionError(f"{what}: the output was not allocated in the NaN-filled block")
+
+
+def bag_backward_checks(dev, sz) -> tuple[float, float, list]:
+    """The embedding bag's backward (the table's gradient: the slots' radix
+    sort, then the writer) against ``ref.embedding_bag_vjp`` on the full
+    arena at the train phase's batch, within ``1e-6 * sum |w g|`` per
+    element, every row no slot names exactly 0, and bitwise equal to itself
+    on a second call: skewed ids on the one-hot and the multi-hot layout,
+    and every example naming one row a field.  Each call's output lands in
+    a freed NaN-filled block (checked by its address), so a row the writer
+    missed shows.  Then the sort alone on the one-hot case's skewed keys,
+    bitwise ``torch.sort(stable=True)``.  Their own generator, so that the
+    later kernels' inputs stay as they were.  Returns the backward's max
+    |diff|, the sort's (0: bitwise) and notes."""
     gen = torch.Generator(device=dev).manual_seed(9)
     cfg = sz.make_config()
     lay, k, B = cfg.layout, cfg.embed_dim, sz.train_batch
     table = torch.randn((padded_rows(lay.total_vocab), k), generator=gen, device=dev) / k**0.5
+    rows_ = table.shape[0]
     err, notes = 0.0, []
     for name, layout, same in (("one-hot", lay, False), ("multi-hot", multi_hot(lay), False),
                                ("one row a field", lay, True)):
@@ -978,25 +1010,42 @@ def bag_backward_checks(dev, sz) -> tuple[float, list]:
         if same:
             ids = ids[:1].expand_as(ids).contiguous()
         grad = torch.randn((B, bags.n_bags, k), generator=gen, device=dev)
+        what = f"embedding_bag_backward {name} B={B} slots={ids.shape[1]}"
+        span = poisoned(dev, table.shape)
         got = ops.embedding_bag_backward(grad, table, ids, w, bags)
+        check_poisoned(got, span, what)
+        span = poisoned(dev, table.shape)
         again = ops.embedding_bag_backward(grad, table, ids, w, bags)
+        check_poisoned(again, span, what)
         want = ref.embedding_bag_vjp(table, ids, w, bags.segments, grad)[0]
         size = ref.embedding_bag_vjp(table, ids, w, bags.segments, grad.abs())[0]
         _sync(dev)
-        what = f"embedding_bag_backward {name} B={B} slots={ids.shape[1]}"
         diff = (got - want).abs()
         bad = diff > 1e-6 * size
         if bad.any() or not torch.isfinite(got).all():
             raise AssertionError(f"{what}: {int(bad.sum())} values off, max |diff| "
                                  f"{float(diff.max()):.3g}")
+        named = torch.zeros(rows_, dtype=torch.bool, device=dev)
+        named[ids.reshape(-1).long()] = True
+        if (got[~named] != 0).any():
+            raise AssertionError(f"{what}: a row no slot names is not 0")
         if not torch.equal(got, again):
             raise AssertionError(f"{what}: two calls on the same input differ")
         err = max(err, float(diff.max()))
-        rows = int(torch.unique(ids).numel())
+        rows = int(named.sum())
         notes.append(f"{name} ({rows} rows named by {ids.numel()} slots)")
-        del got, again, want, size, diff, bad
-    return err, ["embedding_bag_backward " + ", ".join(notes) + ": within 1e-6 x sum |w g|, "
-                 "bitwise on repeat"]
+        if name == "one-hot":
+            keys, perm = ops.bag_rows_sort(ids, rows_)
+            want_keys, want_perm = torch.sort(ids.reshape(-1), stable=True)
+            if not (torch.equal(keys, want_keys) and torch.equal(perm, want_perm)):
+                raise AssertionError(f"bag_rows_sort {tuple(ids.shape)} skewed on {rows_} "
+                                     f"rows: not bitwise torch.sort(stable=True)")
+            del keys, perm, want_keys, want_perm
+        del got, again, want, size, diff, bad, named
+    return err, 0.0, [
+        "embedding_bag_backward " + ", ".join(notes) + ": within 1e-6 x sum |w g|, unnamed "
+        "rows exactly 0 in a NaN-filled allocation, bitwise on repeat; bag_rows_sort on the "
+        "one-hot case's keys bitwise torch.sort(stable=True)"]
 
 
 def pair_inputs(B: int, m: int, k: int, gen):
@@ -3591,6 +3640,10 @@ def peak_mib(dev, fn) -> float | None:
     return (torch.cuda.max_memory_allocated(dev) - before) / 2**20
 
 
+def _ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def _mib(x: float | None) -> str:
     return "not measured" if x is None else f"{x:.1f} MiB"
 
@@ -3796,7 +3849,8 @@ def timing_phase(dev, sz, peaks) -> dict:
             rows["embedding_bag_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                               library_ms=lib)
         del ids, w, lib_ids, lib_w, w16, lib_w16
-    rows["embedding_bag_backward"] = bag_backward_timing(sz, peaks, gen, table, extra)
+    rows["embedding_bag_backward"], rows["bag_rows_sort"] = bag_backward_timing(
+        sz, peaks, gen, table, extra)
     del table, table16
 
     # fwfm_pairwise; library: one einsum with TF32 off.  The Gram is
@@ -3852,34 +3906,52 @@ def timing_phase(dev, sz, peaks) -> dict:
     return rows
 
 
-def bag_backward_timing(sz, peaks, gen, table, extra) -> dict:
+def bag_backward_timing(sz, peaks, gen, table, extra) -> tuple[dict, dict]:
     """Kernel 5's backward at the train phase's batch (one-hot, skewed ids
-    on the full arena), the whole call: the zeroed table, the sort and the
-    kernel.  Plain: ``ref.embedding_bag_vjp``.  Library: a zeroed table and one
+    on the full arena), the whole call: the slots' radix sort and the
+    writer, each also timed alone (the writer re-run on one sort).  Plain:
+    ``ref.embedding_bag_vjp``.  Library: a zeroed table and one
     ``index_add_`` of the slots' ``g w`` rows into it (its order depends on
     the run).  Bound: read g and the ids and weights, write the whole
-    table once."""
+    table once.  Returns the backward's row and the sort's: plain
+    ``ref.bag_rows_sort``, library one stable ``torch.sort`` of the ids,
+    bound the ids read and the keys and int64 indices written."""
     cfg = sz.make_config()
     lay, k, B = cfg.layout, cfg.embed_dim, sz.train_batch
     ids, w, bags = bag_case(lay, None, B, gen, skew=True)
     g = torch.randn((B, bags.n_bags, k), generator=gen, device=table.device)
+    rows = table.shape[0]
     ms = device_ms(lambda: ops.embedding_bag_backward(g, table, ids, w, bags), 3, 5)
     plain = device_ms(lambda: ref.embedding_bag_vjp(table, ids, w, bags.segments, g), 3, 2)
     src = (g.index_select(1, bags.segments) * w[..., None]).reshape(-1, k)
     flat = ids.reshape(-1).long()
     lib = device_ms(lambda: torch.zeros_like(table).index_add_(0, flat, src), 3, 5)
-    # the call's set-up alone: the zeroed table and the sort of the slots
-    zeros = device_ms(lambda: torch.zeros_like(table), 3, 5)
-    sort = device_ms(lambda: torch.sort(ids.reshape(-1), stable=True), 3, 5)
+    del src, flat
+    # the call's parts alone: the sort, and the writer on one sort's result
+    sort = device_ms(lambda: ops.bag_rows_sort(ids, rows), 3, 5)
+    writer = None                                   # the CPU has no writer to time
+    if table.device.type == "cuda":
+        keys, perm, scratch = bag_lib.launch_sort(ids.reshape(-1), rows)
+        out = torch.empty_like(table)
+        writer = device_ms(lambda: bag_lib.launch_writer(g, keys, perm, w, bags, scratch, out),
+                           3, 5)
+        del keys, perm, scratch, out
+    sort_plain = device_ms(lambda: ref.bag_rows_sort(ids, rows), 3, 5)
+    sort_lib = device_ms(lambda: torch.sort(ids.reshape(-1), stable=True), 3, 5)
     slots = ids.numel()
     nbytes = g.numel() * 4 + slots * (4 + 4) + table.numel() * 4
     bnd, by = bound_ms(nbytes, 2 * slots * k, peaks)
-    extra.append(f"embedding_bag_backward {tuple(ids.shape)} on {table.shape[0]} rows: "
-                 f"{ms:.4f} ms (of it the zeroed table alone {zeros:.4f} ms, the sort alone "
-                 f"{sort:.4f} ms), plain {plain:.4f} ms, zeros + index_add_ {lib:.4f} ms, "
-                 f"bound {bnd:.4f} ms ({by})")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-                zeros_ms=zeros, sort_ms=sort)
+    sort_bnd, sort_by = bound_ms(slots * (4 + 4 + 8), 0, peaks)
+    extra.append(f"embedding_bag_backward {tuple(ids.shape)} on {rows} rows: {ms:.4f} ms (of "
+                 f"it the sort alone {sort:.4f} ms, the writer alone {_ms(writer)}), plain "
+                 f"{plain:.4f} ms, zeros + index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
+    extra.append(f"bag_rows_sort of {slots} skewed keys over {rows} rows: {sort:.4f} ms, plain "
+                 f"{sort_plain:.4f} ms, torch.sort(stable=True) {sort_lib:.4f} ms, bound "
+                 f"{sort_bnd:.4f} ms ({sort_by}; 2 launches)")
+    return (dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                 sort_ms=sort, writer_ms=writer),
+            dict(ms=sort, plain_ms=sort_plain, bound_ms=sort_bnd, bound_by=sort_by,
+                 library_ms=sort_lib))
 
 
 def attention_pairs(S: int, window) -> int:

@@ -39,7 +39,10 @@ under the entry point's name with ``_bf16`` (the ``acc_dtype='bfloat16'``
 ones, off the serving path, are in no entry); a top-K call launches stage
 1 and the merge once each, and for K > 4096 the two sort kernels (listed
 under ``dplr_corpus_topk``, which the multi-tenant entry shares; both
-types share them), so its launches are not its calls.
+types share them), so its launches are not its calls.  The embedding
+bag's backward launches the slots' radix sort (its own entry,
+``bag_rows_sort``: a histogram kernel and one kernel for all passes) and
+then the writer, once each a call.
 """
 from __future__ import annotations
 
@@ -64,7 +67,9 @@ KERNELS = {
     "dplr_score_items": ("dplr_score_items_kernel",),
     "dplr_corpus_score_multi": ("corpus_multi_topk_chunks", "multi_topk_merge"),
     "embedding_bag": ("embedding_bag_kernel",),
-    "embedding_bag_backward": ("embedding_bag_backward_kernel",),
+    "embedding_bag_backward": ("bag_rows_radix_histogram", "bag_rows_radix_sort",
+                               "embedding_bag_backward_kernel"),
+    "bag_rows_sort": ("bag_rows_radix_histogram", "bag_rows_radix_sort"),
     "fwfm_pairwise": ("fwfm_pairwise_kernel",),
     "flash_attention": ("flash_attention_kernel", "flash_attention_wgmma"),
     "dplr_corpus_score_bf16": ("corpus_score_full_bf16",),
@@ -399,8 +404,9 @@ def embedding_bag_backward(grad, table, ids, weights, bags: BagMap):
     """``d table`` of ``embedding_bag`` for the output gradient ``grad
     (..., n_bags, k)``: ``d_table[r] = sum_{slots s naming r} grad[bag(s)] *
     w_s``, zeros elsewhere, each row summed in ascending slot order (the
-    plain version's order).  On the card one kernel launch after a stable
-    sort of the slots by row; on the CPU ``ref.embedding_bag_vjp``."""
+    plain version's order); a slot whose id lies outside ``[0, rows)`` adds
+    to no row.  On the card the slots' radix sort by row, then one writer
+    of the whole table; on the CPU ``ref.embedding_bag_vjp``."""
     n_slots = ids.shape[-1]
     _check_shape("grad", grad, (*ids.shape[:-1], bags.n_bags, table.shape[1]))
     dev = _device(grad, table, ids, weights, bags.segments)
@@ -413,8 +419,31 @@ def embedding_bag_backward(grad, table, ids, weights, bags: BagMap):
     out = _bag.launch_backward(grad.view(B, bags.n_bags, table.shape[1]),
                                ids.view(B, n_slots), weights.view(B, n_slots), bags,
                                table.shape[0])
-    LAUNCHES["embedding_bag_backward_kernel"] += 1
+    for name in KERNELS["embedding_bag_backward"]:
+        LAUNCHES[name] += 1
     return out
+
+
+def bag_rows_sort(ids, rows: int):
+    """``(keys, perm)``: the flat slot ids (int32 or int64) with those
+    outside ``[0, rows)`` set to ``rows``, sorted stably, and their flat
+    indices, bitwise ``torch.sort(keys, stable=True)``.  The backward's
+    sort on its own.  On the card the radix sort (``rows < 2^31 - 1``,
+    fewer than 2^31 slots); on the CPU ``ref.bag_rows_sort``."""
+    dev = _device(ids)
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids: dtype {ids.dtype}, the sort takes int32 or int64")
+    if dev.type == "cpu":
+        return ref.bag_rows_sort(ids, rows)
+    if not ids.is_contiguous():
+        raise TypeError("ids: the kernel takes contiguous ids")
+    flat = ids.view(-1)
+    if flat.numel() == 0:
+        return flat.clone(), torch.empty(0, dtype=torch.int64, device=dev)
+    keys, perm, _ = _bag.launch_sort(flat, rows)
+    for name in KERNELS["bag_rows_sort"]:
+        LAUNCHES[name] += 1
+    return keys, perm
 
 
 class _EmbeddingBag(torch.autograd.Function):

@@ -132,13 +132,30 @@ def _segments(segment_ids, device) -> torch.Tensor:
 def embedding_bag_vjp(table, ids, weights, segment_ids, grad):
     """``(d table, d weights)`` of ``embedding_bag_ref`` for the output
     gradient ``grad (..., n_bags, k)``: each slot's bag gradient, times its
-    weight, added into its row; and its dot with the row."""
+    weight, added into its row; and its dot with the row.  A slot whose id
+    lies outside ``[0, rows)`` adds to no row, as in the backward kernel
+    (and in ``jax.grad`` of the reference for an id past the table), and
+    its weight's gradient is NaN, as its bag is in the forward kernel."""
     g = grad.index_select(grad.ndim - 2, _segments(segment_ids, grad.device))
     rows = ids.reshape(-1).long()
-    d_table = torch.zeros_like(table).index_add_(
-        0, rows, (g * weights[..., None].to(g.dtype)).reshape(-1, table.shape[-1]))
-    d_weights = (g * table[rows].view(g.shape)).sum(-1).to(weights.dtype)
-    return d_table, d_weights
+    n = table.shape[0]
+    src = (g * weights[..., None].to(g.dtype)).reshape(-1, table.shape[-1])
+    ok = (rows >= 0) & (rows < n)
+    d_table = torch.zeros_like(table).index_add_(0, rows[ok], src[ok])
+    d_weights = (g * table[rows.clamp(0, n - 1)].view(g.shape)).sum(-1)
+    d_weights = d_weights.masked_fill(~ok.view(d_weights.shape), float("nan"))
+    return d_table, d_weights.to(weights.dtype)
+
+
+def bag_rows_sort(ids, rows: int):
+    """``(keys, perm)`` = ``torch.sort(keys, stable=True)`` of the flat
+    ``ids`` with each id outside ``[0, rows)`` set to ``rows``: the slots
+    in row order, ascending within a row (keys in the ids' type, perm
+    int64).  The plain version of the backward's radix sort."""
+    flat = ids.reshape(-1)
+    keys = flat.masked_fill((flat < 0) | (flat >= rows), rows)
+    out = torch.sort(keys, stable=True)
+    return out.values, out.indices
 
 
 def fwfm_pairwise_ref(V, R):

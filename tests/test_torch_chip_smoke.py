@@ -75,7 +75,7 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     bf16 = {"dplr_corpus_score", "dplr_corpus_topk", "dplr_score_items",
             "dplr_corpus_score_multi", "embedding_bag", "fwfm_pairwise"}
     assert set(errs) == bf16 | {f"{name}_bf16" for name in bf16} | {
-        "embedding_bag_backward", "flash_attention"}
+        "embedding_bag_backward", "bag_rows_sort", "flash_attention"}
     serve = chip_smoke.serving_phase(cpu, sz)
     assert sum(serve.launches.values()) == 0    # the CPU runs no kernel
     assert "embedding_bag_kernel" in serve.launches
@@ -98,7 +98,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     batches = chip_smoke.models_data(sz.models, sz.model_make, sz.model_batch,
                                      sz.model_steps)
     launches = chip_smoke.models_phase(cpu, sz, batches)
-    assert launches == {"embedding_bag_kernel": 0, "embedding_bag_backward_kernel": 0}
+    assert launches == {"embedding_bag_kernel": 0, "bag_rows_radix_histogram": 0,
+                        "bag_rows_radix_sort": 0, "embedding_bag_backward_kernel": 0}
     launches = chip_smoke.lm_phase(cpu, sz)
     assert set(launches) == {"flash_attention_kernel", "flash_attention_wgmma"}
     assert sum(launches.values()) == 0

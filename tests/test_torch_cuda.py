@@ -343,6 +343,12 @@ def test_cuda_embedding_bag_matches_plain(cuda, B, slots, F, k, multi_hot):
         ops.embedding_bag(table.double(), ids, w, bags)
 
 
+# the launches of one call of the embedding bag's backward: the slots'
+# radix sort (two kernels), then the writer
+BACKWARD_LAUNCHES = {"bag_rows_radix_histogram": 1, "bag_rows_radix_sort": 1,
+                     "embedding_bag_backward_kernel": 1}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,slots,F,k,multi_hot,dups", [
     (4096, 82, 82, 16, False, False),   # the train batch, one slot a bag
@@ -353,10 +359,11 @@ def test_cuda_embedding_bag_matches_plain(cuda, B, slots, F, k, multi_hot):
 ])
 def test_cuda_embedding_bag_backward_matches_plain_and_repeats(cuda, B, slots, F, k,
                                                                multi_hot, dups):
-    """The table's gradient: one launch, within 1e-6 * sum |w g| of
-    ``ref.embedding_bag_vjp`` on the card (rows no slot names exactly 0),
-    bitwise equal to itself on a second call and to the plain version on
-    the CPU, which sums each row in the same order."""
+    """The table's gradient: one launch of each of the sort's two kernels
+    and the writer, within 1e-6 * sum |w g| of ``ref.embedding_bag_vjp``
+    on the card (rows no slot names exactly 0), bitwise equal to itself on
+    a second call and to the plain version on the CPU, which sums each row
+    in the same order."""
     table, ids, w, seg = _bag(33, B, slots, F, k, multi_hot=multi_hot)
     if dups:
         ids = ids % 7
@@ -367,7 +374,7 @@ def test_cuda_embedding_bag_backward_matches_plain_and_repeats(cuda, B, slots, F
     bags = ops.bag_map(seg, F, cuda)
     ops.reset_launches()
     got = ops.embedding_bag_backward(grad, table, ids, w, bags)
-    assert ops.LAUNCHES == {"embedding_bag_backward_kernel": 1}
+    assert ops.LAUNCHES == BACKWARD_LAUNCHES
     want = ref.embedding_bag_vjp(table, ids, w, seg, grad)[0]
     size = ref.embedding_bag_vjp(table, ids, w, seg, grad.abs())[0]
     assert ((got - want).abs() <= 1e-6 * size).all()
@@ -377,6 +384,111 @@ def test_cuda_embedding_bag_backward_matches_plain_and_repeats(cuda, B, slots, F
                                                         host[3])[0])
     assert torch.equal(ops.embedding_bag_backward(grad[:0], table, ids[:0], w[:0], bags),
                        torch.zeros_like(table))
+
+
+def _poisoned(dev, shape) -> tuple[int, int]:
+    """Free a NaN-filled f32 tensor of ``shape``: the caching allocator
+    hands its block to the next ``torch.empty`` of that size, which the
+    backward makes first.  Its address range, to check that it did."""
+    block = torch.full(shape, float("nan"), device=dev)
+    span = (block.data_ptr(), block.data_ptr() + block.numel() * 4)
+    del block
+    return span
+
+
+def _inside(t, span) -> bool:
+    return span[0] <= t.data_ptr() and t.data_ptr() + t.numel() * t.element_size() <= span[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,slots,rows,k", [
+    ("rows not a multiple of the tile", 512, 82, 70_001, 16),
+    ("first and last row", 300, 40, 70_001, 16),
+    ("one run past the staging ring", 2048, 82, 70_001, 16),
+    ("ids out of range", 400, 30, 70_001, 16),
+    ("k > 32, ragged rows", 64, 40, 9_001, 40),
+])
+def test_cuda_embedding_bag_backward_writes_every_row_once(cuda, case, B, slots, rows, k):
+    """The writer on an allocation that held NaN (checked by address): every
+    row no slot names exactly 0, the rest bitwise the CPU plain version,
+    and bitwise on a second call.  An id outside ``[0, rows)`` adds to no
+    row.  One run of 167,936 entries outlasts any stage of the writer."""
+    rng = np.random.default_rng(35)
+    ids = rng.integers(0, rows, (B, slots)).astype(np.int32)
+    if case == "first and last row":
+        ids[::3, ::2] = 0
+        ids[1::3, 1::2] = rows - 1
+    elif case == "one run past the staging ring":
+        ids[:] = rows // 2
+    elif case == "ids out of range":
+        ids[::2, ::3] = rng.integers(rows, 2 * rows, ids[::2, ::3].shape)
+        ids[1::2, 1::3] = -rng.integers(1, rows, ids[1::2, 1::3].shape)
+    table = rng.standard_normal((rows, k), dtype=np.float32)
+    w = rng.random((B, slots)).astype(np.float32) + 0.5
+    grad = rng.standard_normal((B, slots, k), dtype=np.float32)
+    seg = np.arange(slots)
+    host = [torch.from_numpy(a) for a in (table, ids, w, grad)]
+    table, ids_c, w, grad = (a.to(cuda) for a in host)
+    bags = ops.bag_map(seg, slots, cuda)
+    want = ref.embedding_bag_vjp(host[0], host[1], host[2], seg, host[3])[0]
+    named = np.zeros(rows, bool)
+    flat = host[1].numpy().reshape(-1)
+    named[flat[(flat >= 0) & (flat < rows)]] = True
+    outs = []
+    for _ in range(2):
+        span = _poisoned(cuda, (rows, k))
+        ops.reset_launches()
+        outs.append(ops.embedding_bag_backward(grad, table, ids_c, w, bags))
+        assert _inside(outs[-1], span), "the table's gradient did not land in the NaN block"
+        assert ops.LAUNCHES == BACKWARD_LAUNCHES
+    got = outs[0].cpu()
+    assert (got[torch.from_numpy(~named)] == 0).all()
+    assert torch.equal(got, want)
+    assert torch.equal(outs[1], outs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("pattern,n,rows", [
+    ("equal", 100_003, 33_040_384),
+    ("ascending", 100_003, 2**25 - 1),
+    ("descending", 335_872, 2**25 + 1),
+    ("skewed", 335_872, 33_040_384),
+    ("skewed", 4_097, 2**25 - 1),
+    ("skewed", 700_000, 33_040_384),      # more tiles than resident blocks: items of 2
+    ("uniform", 70_000, 1000),            # two passes
+    ("uniform", 1, 7),                    # one pass
+    ("out of range", 50_000, 5000),
+])
+def test_cuda_bag_rows_sort_is_torch_sort(cuda, dtype, pattern, n, rows):
+    """The radix sort, keys and indices, bitwise ``torch.sort(stable=True)``
+    of the ids with those outside ``[0, rows)`` set to ``rows``: one launch
+    of each of its kernels; N on and off its 4,096-key tile, and past a
+    tile a resident block (an item then ranks several); rows of 25 and 26
+    bits (9, 8, 8 and 9, 9, 8 bits a pass)."""
+    rng = np.random.default_rng(36)
+    if pattern == "equal":
+        ids = np.full(n, rows - 1)
+    elif pattern == "ascending":
+        ids = np.arange(n) * (rows // n)
+    elif pattern == "descending":
+        ids = (np.arange(n) * (rows // n))[::-1]
+    elif pattern == "skewed":
+        ids = (rows * rng.random(n) ** 6).astype(np.int64)
+    elif pattern == "uniform":
+        ids = rng.integers(0, rows, n)
+    else:
+        ids = rng.integers(-rows, 2 * rows, n)
+    ids = torch.from_numpy(np.ascontiguousarray(ids)).to(dtype)
+    keys = ids.masked_fill((ids < 0) | (ids >= rows), rows)
+    want_keys, want_perm = torch.sort(keys, stable=True)
+    ops.reset_launches()
+    got_keys, got_perm = ops.bag_rows_sort(ids.to(cuda).view(-1, 1), rows)
+    assert ops.LAUNCHES == {"bag_rows_radix_histogram": 1, "bag_rows_radix_sort": 1}
+    assert got_keys.dtype == dtype and got_perm.dtype == torch.int64
+    assert torch.equal(got_keys.cpu(), want_keys) and torch.equal(got_perm.cpu(), want_perm)
+    again = ops.bag_rows_sort(ids.to(cuda), rows)
+    assert torch.equal(again[0], got_keys) and torch.equal(again[1], got_perm)
 
 
 @pytest.mark.cuda
@@ -532,7 +644,7 @@ def test_cuda_loss_gradients_match_the_cpu(cuda, interaction):
         ops.reset_launches()
         fwfm.loss(p, cfg, {k: v.to(dev) for k, v in batch.items()}).backward()
         grads.append({k: v.grad for k, v in p.items()})
-    want = {"embedding_bag_kernel": 1, "embedding_bag_backward_kernel": 1}
+    want = {"embedding_bag_kernel": 1, **BACKWARD_LAUNCHES}
     if interaction == "fwfm":
         want["fwfm_pairwise_kernel"] = 1
     assert ops.LAUNCHES == want

@@ -407,12 +407,27 @@ def test_kernel_autograd_functions_pass_the_plain_vjp(monkeypatch):
 
 def _attn_inputs(seed, B, S, H, KV, hd, dtype):
     """q, k, v as numpy f32 holding values exact in ``dtype``, and as JAX
-    arrays of ``dtype``."""
+    arrays of ``dtype``.  The numpy arrays are copies: ``np.asarray`` of an
+    f32 JAX array on the CPU is a read-only view of the JAX buffer, and the
+    port's tensors made from it would share that memory with the
+    reference's runtime."""
     rng = np.random.default_rng(seed)
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     arrays = [jnp.asarray(rng.standard_normal((B, S, n, hd), dtype=np.float32), jdt)
               for n in (H, KV, KV)]
-    return [np.asarray(a, np.float32) for a in arrays], arrays
+    return [np.array(a, np.float32, copy=True) for a in arrays], arrays
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_attn_inputs_own_their_memory(dtype):
+    """The port's attention inputs never alias the JAX package's buffers:
+    writable numpy arrays at other addresses, so the two packages' calls
+    read memory that only the test owns."""
+    arrays, jarrays = _attn_inputs(11, 2, 128, 4, 1, 32, dtype)
+    for a, j in zip(arrays, jarrays):
+        assert a.flags.writeable and a.flags.owndata
+        assert a.ctypes.data != j.unsafe_buffer_pointer()
+        assert np.array_equal(a, np.asarray(j, np.float32))
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
