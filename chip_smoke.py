@@ -35,7 +35,9 @@ Phases, one line each:
    kernel 6 on a bf16 V at B = 262,144 and a ragged B (with a bf16 R,
    2 bytes off and at k = 12 too), bitwise its f32 launch on the upcast V.
    Kernel 7 also at starcoder2-7b's and yi-9b's heads (1 x 4,096, hd 128,
-   36 and 32 query heads over 4 kv heads).
+   36 and 32 query heads over 4 kv heads), granite-moe-1b-a400m's (2 x
+   32,256, hd 64, 16 over 8, full causal) and mixtral-8x7b's (1 x 8,192, hd
+   128, 32 over 8, a window of 4,096).
 4. serve: the full config (82 fields, k = 16, rho = 3, random weights from
    a seed) serving a 1,000,000-item corpus from a 2^20-slot slab: top-K
    and score queries, churn, a model refresh, and Algorithm 1 per call,
@@ -125,7 +127,22 @@ Phases, one line each:
    on the last logits and the cache; then 16 greedy ``decode_step``s from
    the kernel prefill's cache, held against one pass over the same tokens
    at those positions on that cache.  Prefill seconds,
-   decode ms a step (host clock, synchronized) and peak memory.
+   decode ms a step (host clock, synchronized) and peak memory.  Then
+   starcoder2-7b and yi-9b at full width (1 x 4,096, 8 steps), and the MoE
+   LMs: granite-moe-1b-a400m at full width and depth (2 x 32,256 into
+   32,768 slots, 16 steps) and mixtral-8x7b at full width with 4 of its 32
+   layers (1 x 8,192, 8 steps), by the same checks, each model freed before
+   the next.  An MoE model's prefill and steps run again with each layer's
+   routes recorded; the plain paths run under those routes, and the
+   (layer, token) routes their own logits would change are counted, with
+   each layer's share of dropped (token, choice) pairs.  On granite's first
+   layer, the scatter implementation and the fused combine against the
+   einsum one (``moe_impl_check``).
+10b. lm-train: gemma3-1b and granite-moe-1b-a400m at full width, 4 adamw
+   steps at 4 x 4,096 under deterministic algorithms, step 1 against the
+   plain bf16 and f32 losses (the MoE one under the bf16 loss's routes),
+   and a resumed run at 2 layers bitwise the uninterrupted one.
+10c. gnn: PNA at ``make_config()`` widths on three shapes.
 11. timing: each kernel's median time over CUDA events (the bf16
    instantiations of kernels 1-6 beside their float32 rows, on the same
    inputs in bf16, and the ``acc_dtype='bfloat16'`` mode), its plain
@@ -240,15 +257,20 @@ Flash attention, against its plain version (which rounds where the
 kernel rounds): f32 within ``1e-5 * max|v|``; bf16 within ``2^-7 * max|v|``
 and, per element, within ``2^-7 (|o| + sum_j p_j |v_j| / l) + 1e-5 max|v|``
 (one output ulp, one ulp of each p, which both round once at running
-maxima that may differ, and the f32 bound).  The lm phase's bounds: the
+maxima that may differ, and the f32 bound).  The lm phase's bounds (an
+MoE model's paths under one set of routes): the
 kernel path's largest error from an f32 prefill (through
 ``gqa_attention``), on the last logits and on the cache, at most
 ``1.25x`` the plain path's; a decode step's logit within ``3e-3 + 3e-2
 |x|`` of one pass over the decoded positions on the same cache: the
 JAX package's ``test_decode_matches_forward`` bound.  That pass attends
 through ``gqa_attention``, which rounds its scores to bf16 as decode
-does, and reads the prefill's cache as decode does; only the shapes of
-its products differ (all positions at once).  The ratio with one
+does, and reads the prefill's cache, all its slots, as decode does (an
+MoE layer routes each position's B tokens as one group, as a step does);
+only the number of query positions in its products differs (all at
+once).  A random-init MoE model is sensitive enough that a last-bit
+difference, such as a product over fewer keys, moves its logits past the
+bound (``scripts/moe_decode_sensitivity.py``).  The ratio with one
 rounding of each term (``2^-8 size``, ``size`` the logit's summed
 ``|h_d E_vd|``) added is printed too.
 """
@@ -282,7 +304,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import optim  # noqa: E402
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
-from repro_torch.configs import dplr_fwfm, gemma3_1b, starcoder2_7b, yi_9b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    dplr_fwfm,
+    gemma3_1b,
+    granite_moe_1b_a400m,
+    mixtral_8x7b,
+    starcoder2_7b,
+    yi_9b,
+)
 from repro_torch.configs import pna as pna_cfg  # noqa: E402
 from repro_torch.configs.registry import REGISTRY  # noqa: E402
 from repro_torch.core import ranking as rk  # noqa: E402
@@ -314,6 +343,7 @@ from repro_torch.models.gnn import pna, sampler  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
 from repro_torch.models.transformer import model as tm  # noqa: E402
+from repro_torch.models.transformer import moe  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     CorpusState,
     DeadlineExceeded,
@@ -333,6 +363,18 @@ from repro_torch.serving.engine import fused_topk  # noqa: E402
 from repro_torch.serving.rpc import encode_rank_request, frame  # noqa: E402
 
 TOL = 1e-5
+
+# kernel 7 at the MoE LMs' prefills (B, S, H, KV, hd, window): granite-moe-1b-a400m's
+# (hd 64, 2 query heads a kv head, full causal, 2 prompts of 32,256) and
+# mixtral-8x7b's (hd 128, 4 a kv head, a window of 4,096 on 8,192 positions)
+FLASH_MOE = ((2, 32_256, 16, 8, 64, None), (1, 8192, 32, 8, 128, 4096))
+
+
+def mixtral_cut() -> tm.TransformerConfig:
+    """mixtral-8x7b at its published widths with 4 of its 32 layers: at
+    full depth its 187 GB of f32 parameters wait for sharding."""
+    return dataclasses.replace(mixtral_8x7b.make_config(), n_layers=4)
+
 
 FULL = SimpleNamespace(
     n=1 << 20, live=1_000_000, bqs=(1, 16), ks=(1, 16, 1024), rho=3, k=16,
@@ -378,7 +420,8 @@ FULL = SimpleNamespace(
                  (1, 300, 36, 4, 128, 100), (3, 1001, 8, 2, 128, None)),
     # starcoder2-7b's (9 query heads a kv head) and yi-9b's (8) heads at the
     # lm phase's prompt
-    flash_heads=((1, 4096, 36, 4, 128, None), (1, 4096, 32, 4, 128, None)),
+    flash_heads=((1, 4096, 36, 4, 128, None), (1, 4096, 32, 4, 128, None)) + FLASH_MOE,
+    flash_moe=FLASH_MOE,
     # kernel 6 on a bf16 V: the full batch, and a ragged B past a multiple
     # of the tile, bitwise its f32 launch on the upcast V
     pair_bf16=((262_144, 82), (16 * 4096 + 5, 82)),
@@ -388,8 +431,17 @@ FULL = SimpleNamespace(
     # (prefill_32k's 32 x 32,768 cut), 8 greedy decode steps
     lm_models=(starcoder2_7b.make_config, yi_9b.make_config), lm_model_prompt=4096,
     lm_model_steps=8,
-    # lm-train: gemma3-1b at train_4k's seq, B cut from 256 to 4, adamw at
-    # the JAX trainer's lr; the resume check at the full widths with 2 layers
+    # the MoE LMs (make, B, prompt, cache slots, decode steps): granite at full
+    # width and depth, prefill_32k cut to 2 x 32,256 (63 groups of 512 a row);
+    # mixtral at full width, 4 of 32 layers, 1 x 8,192 (past its window).
+    # The MoE implementations are checked on granite's layer moe_impl_layer
+    lm_moe=((granite_moe_1b_a400m.make_config, 2, 32_256, 32_768, 16),
+            (mixtral_cut, 1, 8192, 8192 + 8, 8)),
+    moe_impl_layer=0,
+    # lm-train: gemma3-1b and granite-moe-1b-a400m at train_4k's seq, B cut
+    # from 256 to 4, adamw at the JAX trainer's lr; the resume check at the
+    # full widths with 2 layers
+    lm_train_models=(gemma3_1b.make_config, granite_moe_1b_a400m.make_config),
     lm_train_batch=4, lm_train_seq=4096, lm_train_steps=4, lm_train_lr=0.05,
     lm_resume_layers=2, lm_resume_steps=4, lm_resume_save=2,
     # gnn: PNA at make_config() widths on the shapes below (ogb_products
@@ -1154,9 +1206,10 @@ def flash_ratio(got, want, size, v) -> float:
 
 def flash_checks(dev, sz, gen) -> tuple[float, list]:
     """The flash-attention kernel against its plain version at gemma3-1b's
-    global and windowed layers, at ragged small shapes and at
-    starcoder2-7b's and yi-9b's heads (``sz.flash_heads``: hd 128, 9 and 8
-    query heads a kv head), in f32 and bf16, within ``flash_ratio``'s
+    global and windowed layers, at ragged small shapes and at the other
+    LMs' heads (``sz.flash_heads``: starcoder2-7b's and yi-9b's hd 128, 9
+    and 8 query heads a kv head; granite-moe-1b-a400m's hd 64, 2 a kv head;
+    mixtral-8x7b's hd 128, 4 a kv head, windowed), in f32 and bf16, within ``flash_ratio``'s
     bounds (the gemma3 check's).  Returns the largest |diff| of
     the bf16 cases (the model's type) and notes."""
     err, notes = 0.0, []
@@ -3120,30 +3173,6 @@ def gqa_chunked(q, k, v, pos, window):
                                    k_positions=pos, window=window, q_chunk=LM_Q_CHUNK)
 
 
-def plain_extend(params, cfg, tokens, cache, start: int):
-    """One trunk pass over ``tokens (B, n)`` at positions ``start..start+n-1``
-    against the k/v that ``cache`` holds before ``start``: the n positions'
-    hidden states (pre-final-norm) and the cast parameters.  Its attention
-    is ``attention.gqa_attention``, whose bf16 scores round as
-    ``decode_attention``'s do, and its keys go through the cache's type as
-    decode's do; what it does not share with ``tm.decode_step`` is the
-    shape of each product (n positions at once, not one)."""
-    cparams = tm.cast_params(params, cfg.compute_dtype)
-    n = tokens.shape[1]
-    x = tm.embed(cparams, cfg, tokens)
-    q_pos = torch.arange(start, start + n, device=tokens.device)
-    k_pos = torch.arange(start + n, device=tokens.device)
-    for i in range(cfg.n_layers):
-        lp = tm.layer_params(cparams, i)
-        q, k, v = tm.attention_inputs(lp, cfg, x, q_pos)
-        keys, vals = (torch.cat([cache[i, j, :, :start], new.to(cache.dtype)], 1).to(q.dtype)
-                      for j, new in ((0, k), (1, v)))
-        x = tm.finish_layer(lp, cfg, x, attention.gqa_attention(
-            q, keys, vals, n_kv_heads=cfg.n_kv_heads, q_positions=q_pos, k_positions=k_pos,
-            window=cfg.window(i)))
-    return x, cparams
-
-
 def _max_diff(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -3153,32 +3182,140 @@ def cache_diff(cache, want, S: int) -> float:
     return max(_max_diff(cache[i, :, :, :S], want[i, :, :, :S]) for i in range(cache.shape[0]))
 
 
+def stepwise_mlp(lp, cfg, h):
+    """The FFN of ``h (B, n, d)`` as n decode steps give it.  An MoE layer
+    routes a step's B tokens as one group (capacity ceil(B k cf / E)):
+    here each position's B tokens are one group, the n groups in one call.
+    A dense FFN is per token anyway."""
+    if not cfg.is_moe:
+        return tm._mlp(lp, cfg, h)
+    B, n, d = h.shape
+    step = dataclasses.replace(cfg, moe_group_size=B)
+    return tm._mlp(lp, step, h.transpose(0, 1).reshape(n * B, d)).reshape(n, B, d).transpose(0, 1)
+
+
+def plain_extend(params, cfg, tokens, cache, start: int):
+    """One trunk pass over ``tokens (B, n)`` at positions ``start..start+n-1``
+    against the k/v that ``cache`` holds before ``start``: the n positions'
+    hidden states (pre-final-norm) and the cast parameters.  Its attention
+    is ``attention.gqa_attention``, whose bf16 scores round as
+    ``decode_attention``'s do, and its keys go through the cache's type and
+    span the cache's slots as decode's do (the slots past the new positions
+    masked by position); an MoE layer groups its tokens as decode does
+    (``stepwise_mlp``).  What it does not share with ``tm.decode_step`` is
+    the number of query positions in each product (n at once, not one)."""
+    cparams = tm.cast_params(params, cfg.compute_dtype)
+    B, n = tokens.shape
+    x = tm.embed(cparams, cfg, tokens)
+    q_pos = torch.arange(start, start + n, device=tokens.device)
+    k_pos = torch.arange(cache.shape[3], device=tokens.device)
+    for i in range(cfg.n_layers):
+        lp = tm.layer_params(cparams, i)
+        q, k, v = tm.attention_inputs(lp, cfg, x, q_pos)
+        keys, vals = (torch.cat([cache[i, j, :, :start], new.to(cache.dtype),
+                                 cache[i, j, :, start + n:]], 1).to(q.dtype)
+                      for j, new in ((0, k), (1, v)))
+        o = attention.gqa_attention(q, keys, vals, n_kv_heads=cfg.n_kv_heads,
+                                    q_positions=q_pos, k_positions=k_pos, window=cfg.window(i))
+        x = x + o.reshape(B, n, cfg.n_heads * cfg.hd) @ lp["wo"]
+        x = x + stepwise_mlp(lp, cfg, tm._rms(x, lp["ln_mlp"]))
+    return x, cparams
+
+
+@contextlib.contextmanager
+def routed(force=None, keep: int | None = None):
+    """Inside, each ``moe.moe_ffn`` call (an MoE model's layers, in order)
+    appends to ``.own`` the experts (T, k) its own logits choose
+    (``moe.route``), and runs under the next entry of ``force`` when given,
+    else under its own; the input of call number ``keep`` is kept as
+    ``.input``.  A check that compares two paths of an MoE model holds them
+    under one set of routes this way, and counts where their own differ."""
+    rec = SimpleNamespace(own=[], input=None)
+    real = moe.moe_ffn
+    given = None if force is None else iter(force)
+
+    def recording(x, router_w, w_gate, w_in, w_out, cfg, experts=None):
+        mine = moe.route(x, router_w, cfg)
+        if keep == len(rec.own):
+            rec.input = x
+        rec.own.append(mine)
+        return real(x, router_w, w_gate, w_in, w_out, cfg,
+                    mine if given is None else next(given))
+
+    moe.moe_ffn = recording
+    try:
+        yield rec
+    finally:
+        moe.moe_ffn = real
+    if given is not None and next(given, None) is not None:
+        raise AssertionError("routed: more forced routes than MoE calls")
+
+
+def route_diff(a: list, b: list, mcfg) -> tuple[int, int]:
+    """(call, token) pairs whose routes differ between two lists of
+    experts (T, k): in their experts, and in experts, slots or keep (slots
+    in groups of ``min(mcfg.group_size, T)``: one changed choice moves the
+    slots of the group's later tokens in that expert)."""
+    if len(a) != len(b):
+        raise AssertionError(f"route lists of {len(a)} and {len(b)} calls")
+    n_experts = n_any = 0
+    for ea, eb in zip(a, b):
+        (sa, ka), (sb, kb) = moe.slots(ea, mcfg), moe.slots(eb, mcfg)
+        n_experts += int((ea != eb).any(1).sum())
+        n_any += int(((ea != eb) | (sa != sb) | (ka != kb)).any(1).sum())
+    return n_experts, n_any
+
+
+def _share(counts: tuple[int, int], n: int) -> str:
+    return (f"experts {counts[0]} of {n} ({counts[0] / n:.2e}), with slots and keep "
+            f"{counts[1]} ({counts[1] / n:.2e})")
+
+
+def dropped(routes: list, mcfg) -> list:
+    """Each call's share of (token, choice) pairs past capacity."""
+    return [1 - float(moe.slots(e, mcfg)[1].float().mean()) for e in routes]
+
+
 def lm_phase(dev, sz) -> dict:
     """gemma3-1b (``sz.make_lm``) at full width, then starcoder2-7b and
-    yi-9b (``sz.lm_models``) at full width, one at a time, each freed
-    before the next: ``lm_model_run``.  Returns the launches of kernel 7's
-    CUDA kernels over the kernel prefills, by name."""
+    yi-9b (``sz.lm_models``) at full width, then the MoE LMs
+    (``sz.lm_moe``: granite-moe-1b-a400m at full width and depth, mixtral-8x7b
+    at full width and 4 layers), one at a time, each freed before the next:
+    ``lm_model_run``.  Returns the launches of kernel 7's CUDA kernels over
+    the kernel prefills, by name."""
     launches = lm_model_run(dev, sz.make_lm(), sz.lm_batch, sz.lm_prompt, sz.lm_cache,
                             sz.lm_steps)
-    for make in sz.lm_models:
-        S = sz.lm_model_prompt
-        more = lm_model_run(dev, make(), 1, S, S + sz.lm_model_steps, sz.lm_model_steps)
-        for g, n in more.items():
-            launches[g] += n
+    S, n = sz.lm_model_prompt, sz.lm_model_steps
+    runs = [(make, 1, S, S + n, n, None) for make in sz.lm_models]
+    runs += [(*run, sz.moe_impl_layer if i == 0 else None) for i, run in enumerate(sz.lm_moe)]
+    for make, B, S, S_max, n_steps, impl_layer in runs:
         gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        more = lm_model_run(dev, make(), B, S, S_max, n_steps, impl_layer=impl_layer)
+        for g, count in more.items():
+            launches[g] += count
+    gc.collect()
     return launches
 
 
-def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int) -> dict:
+def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int,
+                 impl_layer: int | None = None) -> dict:
     """One LM at its widths, random f32 weights from seed 0 (their count
     held to ``cfg.n_params()``), bf16 compute: the kernel prefill of B
     random prompts of S tokens into an S_max-slot cache, the plain bf16 and
     f32 prefills (the f32 one through ``gqa_attention``), and ``n_steps``
     greedy decode steps from the kernel prefill's cache against one pass
-    over the decoded positions (``plain_extend``).  Returns the launches of
-    kernel 7's CUDA kernels over the kernel prefill, by name."""
+    over the decoded positions (``plain_extend``).  An MoE model's
+    prefill and steps run twice, timed and then with each layer's routes
+    recorded (``routed``); the plain paths run under the recorded routes,
+    and the (layer, token) routes their own logits would take instead are
+    counted.  With ``impl_layer``, that MoE layer's implementations are
+    checked on its prefill input (``moe_impl_check``).  Returns the
+    launches of kernel 7's CUDA kernels over the timed kernel prefill, by
+    name."""
     f32_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
-    V = cfg.vocab
+    V, L = cfg.vocab, cfg.n_layers
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t_init = time.perf_counter()
@@ -3197,15 +3334,24 @@ def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int) -> dict:
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     launches = {g: ops.LAUNCHES[g] for g in ops.KERNELS["flash_attention"]}
-    if dev.type == "cuda" and launches["flash_attention_wgmma"] != cfg.n_layers:
+    if dev.type == "cuda" and launches["flash_attention_wgmma"] != L:
         raise AssertionError(f"prefill launched the kernels {launches}, not "
-                             f"flash_attention_wgmma once a layer ({cfg.n_layers})")
+                             f"flash_attention_wgmma once a layer ({L})")
+    route = contextlib.nullcontext
+    krec = None
+    if cfg.is_moe:
+        del logits, cache
+        with routed(keep=impl_layer) as krec:
+            logits, cache = tm.prefill(params, cfg, tokens, S_max, device=dev)
+        route = lambda: routed(force=krec.own)                          # noqa: E731
     before = sum(ops.LAUNCHES.values())
     t0 = time.perf_counter()
-    plain_logits, plain_cache = plain_prefill(params, cfg, tokens, S_max, flash_plain)
+    with route() as prec:
+        plain_logits, plain_cache = plain_prefill(params, cfg, tokens, S_max, flash_plain)
     _sync(dev)
     plain_s = time.perf_counter() - t0
-    f32_logits, f32_cache = plain_prefill(params, f32_cfg, tokens, S_max, gqa_chunked)
+    with route() as frec:
+        f32_logits, f32_cache = plain_prefill(params, f32_cfg, tokens, S_max, gqa_chunked)
     _sync(dev)
     if sum(ops.LAUNCHES.values()) != before:
         raise AssertionError("the plain prefills launched a kernel")
@@ -3228,17 +3374,52 @@ def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int) -> dict:
     # greedy decode from the kernel prefill, against one pass over the same
     # tokens at those positions with decode's numerics
     tok = logits[:, -1, :V].argmax(-1, keepdim=True)
+    step_cache = cache.clone() if cfg.is_moe else cache    # MoE: the timed steps on a copy
     fed, steps, step_ms = [], [], []
     for i in range(n_steps):
         fed.append(tok)
         t0 = time.perf_counter()
-        lg, cache = tm.decode_step(params, cfg, tok, cache, S + i, device=dev)
+        lg, step_cache = tm.decode_step(params, cfg, tok, step_cache, S + i, device=dev)
         _sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         steps.append(lg[:, 0, :V])
         tok = lg[:, -1, :V].argmax(-1, keepdim=True)
     got = torch.stack(steps, 1)                                # (B, n_steps, V)
-    h, cparams = plain_extend(params, cfg, torch.cat(fed, 1), cache, S)
+    moe_note = ""
+    if cfg.is_moe:
+        del step_cache
+        with routed() as drec:              # the same steps again, routes recorded
+            again = [tm.decode_step(params, cfg, t, cache, S + i, device=dev)[0][:, 0, :V]
+                     for i, t in enumerate(fed)]
+        again = torch.stack(again, 1)
+        timed_same = torch.equal(again, got)
+        got = again
+        # layer l's routes over the steps, position-major as stepwise_mlp takes them
+        ext_routes = [torch.cat(drec.own[l::L]) for l in range(L)]
+        with routed(force=ext_routes) as erec:
+            h, cparams = plain_extend(params, cfg, torch.cat(fed, 1), cache, S)
+        mcfg, step_mcfg = cfg.moe_cfg, dataclasses.replace(cfg.moe_cfg, group_size=B)
+        n_pre, n_dec = L * B * S, L * B * n_steps
+        diff = {"plain": route_diff(krec.own, prec.own, mcfg),
+                "f32": route_diff(krec.own, frec.own, mcfg),
+                "decode": route_diff(ext_routes, erec.own, step_mcfg)}
+        drop_pre, drop_dec = dropped(krec.own, mcfg), dropped(ext_routes, step_mcfg)
+        moe_note = (
+            f"; MoE {cfg.n_experts} experts top-{cfg.top_k}, capacity {moe.capacity(mcfg)} "
+            f"an expert a group of {moe.group_size(mcfg, B * S)} ({moe.capacity(step_mcfg)} "
+            f"a decode step's group of {B}), {cfg.moe_impl}: the plain prefills and the "
+            f"one-pass decode check ran under the kernel path's routes; (layer, token) "
+            f"routes their own logits would change: plain bf16 {_share(diff['plain'], n_pre)}, "
+            f"f32 {_share(diff['f32'], n_pre)}, one pass over the steps "
+            f"{_share(diff['decode'], n_dec)}; dropped (token, choice) share by layer, "
+            f"prefill [" + ", ".join(f"{x:.4f}" for x in drop_pre) + "], decode steps ["
+            + ", ".join(f"{x:.3f}" for x in drop_dec) + f"]; the timed steps' logits "
+            f"{'bitwise' if timed_same else 'not bitwise'} the recorded steps'")
+        if impl_layer is not None:
+            moe_note += "; " + moe_impl_check(dev, cfg, params, krec.input, impl_layer,
+                                              krec.own[impl_layer])
+    else:
+        h, cparams = plain_extend(params, cfg, torch.cat(fed, 1), cache, S)
     del cache
     want = tm._logits(cparams, cfg, h)[..., :V]
     emb = (cparams["embed"] if cfg.tie_embeddings else cparams["lm_head"].T)[:V].float().abs()
@@ -3252,7 +3433,7 @@ def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int) -> dict:
                              f"logits beyond 3e-3 + 3e-2 |x| (max ratio {ratio:.3f})")
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB" if dev.type == "cuda"
             else "not measured")
-    print(f"phase lm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} H={cfg.n_heads} "
+    print(f"phase lm: {cfg.name} {L} layers d={cfg.d_model} H={cfg.n_heads} "
           f"KV={cfg.n_kv_heads} hd={cfg.hd} vocab={V}, {count} parameters (f32, seed 0; "
           f"= n_params(); made in {init_s:.1f} s), bf16 compute; B={B} prompts of {S} "
           f"tokens into {S_max} slots; "
@@ -3266,10 +3447,79 @@ def lm_model_run(dev, cfg, B: int, S: int, S_max: int, n_steps: int) -> dict:
           f"{np.median(step_ms):.2f} ms a step; decode logits against one pass over the "
           f"{n_steps} positions on the prefill's cache: max |diff| {float(diff.max()):.4g}, "
           f"max |diff| / (3e-3 + 3e-2 |x|) {ratio:.3f} <= 1 (with 2^-8 size added, size up "
-          f"to {float(size.max()):.3g}: {size_ratio:.3f}); peak "
+          f"to {float(size.max()):.3g}: {size_ratio:.3f}){moe_note}; peak "
           f"memory {peak}", flush=True)
     del params, cparams, emb, size, h, want, got, logits, plain_logits, f32_logits
     return launches
+
+
+# (impl, fused_combine): the MoE implementations of the reference
+MOE_IMPLS = (("einsum", False), ("scatter", False), ("einsum", True))
+
+
+def moe_impl_check(dev, cfg, params, x, layer: int, experts) -> str:
+    """MoE layer ``layer`` on its prefill input ``x`` (bf16), under the
+    prefill's routes ``experts``, through each implementation the
+    reference's ``launch/steps.py`` selects (einsum, scatter, fused
+    combine), with the layer's weights in f32 and cast to bf16.  Bounds:
+    in f32 each within ``1e-5 max |einsum|`` of the einsum output; in bf16
+    each one's largest error from the f32 einsum output at most ``top_k``
+    times the bf16 einsum's (the scatter impl rounds each of its k
+    products and k - 1 adds to bf16, where the einsum's combine rounds
+    once; the fused combine rounds the gated activations).  Also times
+    each in bf16 (``device_ms``), and the routing (router product, top-k,
+    slots) and the experts' three products alone."""
+    lp32 = {k: params["layers"][k][layer] for k in ("router", "w_gate", "w_in", "w_out")}
+    out, ms = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        lp = {k: v.to(dtype) for k, v in lp32.items()}
+        xx = x.to(dtype)
+        for impl, fused in MOE_IMPLS:
+            mcfg = dataclasses.replace(cfg.moe_cfg, impl=impl, fused_combine=fused)
+            call = lambda: moe.moe_ffn(xx, lp["router"], lp["w_gate"], lp["w_in"],  # noqa
+                                       lp["w_out"], mcfg, experts)
+            out[dtype, impl, fused] = call()
+            if dtype == torch.bfloat16:
+                ms[impl, fused] = device_ms(call, 3, 2) if dev.type == "cuda" else None
+            _sync(dev)
+    ref32 = out[torch.float32, "einsum", False].float()
+    scale = float(ref32.abs().max())
+    parts = []
+    for impl, fused in MOE_IMPLS[1:]:
+        d32 = _max_diff(out[torch.float32, impl, fused], ref32)
+        if not d32 <= 1e-5 * scale:
+            raise AssertionError(f"moe {impl} fused={fused} f32: {d32:.4g} from einsum, "
+                                 f"max |out| {scale:.4g}")
+        parts.append(f"{impl}{' fused combine' if fused else ''} f32 {d32:.3g}")
+    e16 = {key: _max_diff(out[(torch.bfloat16, *key)], ref32) for key in MOE_IMPLS}
+    for key in MOE_IMPLS[1:]:
+        if not e16[key] <= cfg.top_k * e16["einsum", False]:
+            raise AssertionError(f"moe {key} bf16: error {e16[key]:.4g} from f32 > top_k x "
+                                 f"the einsum's {e16['einsum', False]:.4g}")
+    lp = {k: v.to(torch.bfloat16) for k, v in lp32.items()}
+    x16 = x.to(torch.bfloat16)
+    mcfg = cfg.moe_cfg
+    gsz = moe.group_size(mcfg, x16.numel() // x16.shape[-1])
+    gcfg = dataclasses.replace(mcfg, group_size=gsz)
+
+    def routing():
+        e = moe.route(x16, lp["router"], mcfg)
+        return moe.slots(e, mcfg)
+
+    ex_in = torch.zeros(x16.numel() // x16.shape[-1] // gsz, cfg.n_experts, moe.capacity(gcfg),
+                        cfg.d_model, dtype=torch.bfloat16, device=x16.device)
+    experts_ffn = lambda: moe._expert_ffn(lp["w_gate"], lp["w_in"], lp["w_out"], ex_in)  # noqa
+    route_ms, expert_ms = ((device_ms(routing, 3, 2), device_ms(experts_ffn, 3, 2))
+                           if dev.type == "cuda" else (None, None))
+    del out, ref32, ex_in
+    return (f"MoE implementations on layer {layer}'s prefill input ({tuple(x.shape)}) under "
+            f"its routes, max |diff| from einsum: " + ", ".join(parts)
+            + f" (<= 1e-5 x max |out| {scale:.4g}); bf16 error from the f32 einsum: "
+            + ", ".join(f"{i}{' fused' if f else ''} {e16[i, f]:.4g}" for i, f in MOE_IMPLS)
+            + f" (each <= {cfg.top_k} x einsum's); one bf16 call: "
+            + ", ".join(f"{i}{' fused' if f else ''} {_ms(ms[i, f])}" for i, f in MOE_IMPLS)
+            + f", of it routing alone {_ms(route_ms)} and the experts' products alone "
+            f"{_ms(expert_ms)} (CUDA events, median of 3 x 2 calls)")
 
 
 # -- phase 10b: gnn -----------------------------------------------------------
@@ -3430,23 +3680,36 @@ def lm_steps(mod, cfg, opt, params, state, make_batch, start, stop, lr, dev, tim
 
 
 def lm_train_phase(dev, sz) -> str:
-    """gemma3-1b (``sz.make_lm()``, full width, random f32 weights from seed
-    0, bf16 compute, remat, 512-query attention chunks and 512-position loss
-    chunks) through ``launch.train``'s LM trainer: ``sz.lm_train_steps``
+    """Each LM of ``sz.lm_train_models`` (gemma3-1b, granite-moe-1b-a400m),
+    one at a time, each freed before the next: ``lm_train_run``."""
+    for make in sz.lm_train_models:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        lm_train_run(dev, sz, make())
+    return "lm-train"
+
+
+def lm_train_run(dev, sz, cfg) -> None:
+    """One LM (full width, random f32 weights from seed 0, bf16 compute,
+    remat, 512-query attention chunks and 512-position loss chunks) through
+    ``launch.train``'s LM trainer: ``sz.lm_train_steps``
     adamw steps at B = ``sz.lm_train_batch`` x ``sz.lm_train_seq`` zipf
     tokens (the JAX trainer's draws), lr ``sz.lm_train_lr``, each step
     under ``train.deterministic()``.  Step 1's loss against two plain-path
-    losses on the same weights, without checkpointing: in bf16 within
+    losses on the same weights, without checkpointing (under
+    ``train.deterministic()`` too): in bf16 within
     ``1e-5 max(1, |loss|)`` (the same operations), in f32 compute within
     ``2^-7 max(1, |loss|)`` (bf16 rounds every activation, by at most 2^-8
-    each; the loss is a mean over all positions).  Every loss finite; no
+    each; the loss is a mean over all positions).  An MoE model's f32 loss
+    runs under the bf16 loss's routes (``routed``), and the (layer, token)
+    routes its own logits would change are counted.  Every loss finite; no
     kernel of the repo launches (the loss attends through the plain
     ``gqa_attention``, as the JAX loss does).  Then the resume check at the
     full widths with ``sz.lm_resume_layers`` layers: run A
     ``sz.lm_resume_steps`` steps with a checkpoint at
     ``sz.lm_resume_save``, run B restored from it to the end, bitwise run A
     (losses, params, adamw state)."""
-    cfg = sz.make_lm()
     B, S, n_steps, lr = sz.lm_train_batch, sz.lm_train_seq, sz.lm_train_steps, sz.lm_train_lr
     t_phase = time.perf_counter()
     if dev.type == "cuda":
@@ -3457,11 +3720,23 @@ def lm_train_phase(dev, sz) -> str:
     n_params = sum(t.numel() for t in optim.optimizers.tree_leaves(params))
     first = train.to_device(make_batch(0), dev)
     ops.reset_launches()
-    with torch.no_grad():
-        plain16 = float(tm.lm_loss(params, dataclasses.replace(cfg, remat=False), first,
-                                   device=dev))
-        plain32 = float(tm.lm_loss(params, dataclasses.replace(
-            cfg, remat=False, compute_dtype=torch.float32), first, device=dev))
+    route_note = ""
+    with torch.no_grad(), train.deterministic():
+        with routed() if cfg.is_moe else contextlib.nullcontext() as rec16:
+            plain16 = float(tm.lm_loss(params, dataclasses.replace(cfg, remat=False), first,
+                                       device=dev))
+        with routed(force=rec16.own) if cfg.is_moe else contextlib.nullcontext() as rec32:
+            plain32 = float(tm.lm_loss(params, dataclasses.replace(
+                cfg, remat=False, compute_dtype=torch.float32), first, device=dev))
+    if cfg.is_moe:
+        mcfg = cfg.moe_cfg
+        n_routes = cfg.n_layers * B * S
+        changed = route_diff(rec16.own, rec32.own, mcfg)
+        route_note = (f"; the f32 loss under the bf16 loss's routes, (layer, token) routes "
+                      f"its own logits would change: {_share(changed, n_routes)}; dropped "
+                      f"(token, choice) share by layer ["
+                      + ", ".join(f"{x:.4f}" for x in dropped(rec16.own, mcfg)) + "]")
+        del rec16, rec32
     state = opt.init(params)
     timer = StepTimer(dev)
     t0 = time.perf_counter()
@@ -3523,7 +3798,8 @@ def lm_train_phase(dev, sz) -> str:
             + ", ".join(f"{x:.5f}" for x in losses)
             + f"; step 1 against the plain paths without checkpointing: bf16 {plain16:.7f} "
             f"(|diff| {abs(got - plain16):.3g} <= 1e-5 max(1, |loss|)), f32 compute "
-            f"{plain32:.7f} (|diff| {abs(got - plain32):.3g} <= 2^-7 max(1, |loss|)); median "
+            f"{plain32:.7f} (|diff| {abs(got - plain32):.3g} <= 2^-7 max(1, |loss|))"
+            f"{route_note}; median "
             f"step {split['step']:.1f} ms (forward {split['forward']:.1f}, backward "
             f"{split['backward']:.1f}, adamw {split['update']:.1f}; "
             f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}); no kernel of the repo "
@@ -3533,7 +3809,6 @@ def lm_train_phase(dev, sz) -> str:
             f"step {steps}'s params and adamw state bitwise run A's; wall "
             f"{time.perf_counter() - t_phase:.1f} s")
     print(line, flush=True)
-    return "lm-train"
 
 
 # -- phase 11: timing ----------------------------------------------------------
@@ -3962,16 +4237,19 @@ def attention_pairs(S: int, window) -> int:
 
 def flash_timing(sz, peaks, gen, extra) -> dict:
     """Flash attention in bf16 at the lm phase's shapes (``sz.flash``): the
-    global layer's row, with the windowed layer's beside it.  Bound: 4 hd
-    flops a (query, key) pair and head at the bf16 tensor-core rate, or
-    q, k, v and out moved once.  Library (timed only; the port never calls
-    it): ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` on the
-    global layer; on the windowed one, which it has no option for, the
-    same call with the (S, S) causal-and-window mask, on its
-    memory-efficient backend (on the card) and k, v repeated to the query
-    heads outside the timed call."""
-    out = {}
-    for B, S, H, KV, hd, window in sz.flash:
+    global layer's row, with the windowed layer's beside it, and the MoE
+    LMs' prefills (``sz.flash_moe``: granite's full causal hd 64 and
+    mixtral's windowed hd 128) under ``"moe"``.  Bound: 4 hd flops a
+    (query, key) pair and head at the bf16 tensor-core rate, or q, k, v and
+    out moved once.  Library (timed only; the port never calls it):
+    ``F.scaled_dot_product_attention(is_causal, enable_gqa)`` on a full
+    causal shape; on a windowed one, which it has no option for, the same
+    call with the (S, S) causal-and-window mask, on its memory-efficient
+    backend (on the card) and k, v repeated to the query heads outside the
+    timed call."""
+    out = {"moe": []}
+    for shape in sz.flash + sz.flash_moe:
+        B, S, H, KV, hd, window = shape
         q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, gen)
         ms = device_ms(lambda: ops.flash_attention(q, k, v, window=window))
         plain = device_ms(lambda: ref.flash_attention_plain(q, k, v, window=window), 3, 2)
@@ -3991,11 +4269,15 @@ def flash_timing(sz, peaks, gen, extra) -> dict:
         flops = 4 * hd * attention_pairs(S, window) * B * H
         bnd, by = bound_ms(B * S * (2 * H + 2 * KV) * hd * 2, flops, peaks, tensor=True)
         label = "global" if window is None else f"window {window}"
-        extra.append(f"flash_attention bf16 B={B} S={S} H={H} KV={KV} hd={hd} {label}: "
-                     f"{ms:.4f} ms, plain {plain:.4f} ms, F.scaled_dot_product_attention "
-                     f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}, {flops / 1e12:.3f} TFLOP)")
+        moe_shape = shape in sz.flash_moe
+        extra.append(f"flash_attention bf16 B={B} S={S} H={H} KV={KV} hd={hd} {label}"
+                     f"{' (MoE prefill)' if moe_shape else ''}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, bound "
+                     f"{bnd:.4f} ms ({by}, {flops / 1e12:.3f} TFLOP)")
         row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
-        if window is None:
+        if moe_shape:
+            out["moe"].append(dict(row, shape=list(shape)))
+        elif window is None:
             out.update(row)
         else:
             out["windowed"] = row

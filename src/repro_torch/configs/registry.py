@@ -2,9 +2,10 @@
 holding the entries the port can build: the recsys family ``dplr-fwfm``,
 ``wide-deep``, ``autoint``, ``bst`` and ``mind`` (all train through
 ``launch.train``; all rank per call, ``dplr-fwfm`` also through the corpus
-engine); the dense lm family ``gemma3-1b``, ``starcoder2-7b`` and
-``yi-9b`` (train through ``launch.train``, serve through ``model.prefill``
-and ``decode_step``); and the gnn family ``pna`` (trains through
+engine); the lm family, dense ``gemma3-1b``, ``starcoder2-7b`` and
+``yi-9b`` and mixture-of-experts ``granite-moe-1b-a400m`` and
+``mixtral-8x7b`` (train through ``launch.train``, serve through
+``model.prefill`` and ``decode_step``); and the gnn family ``pna`` (trains through
 ``examples.gnn_train``).  The JAX package registers each architecture in
 its config module; here the entries are made below, so that the config
 modules stay free of the registry (their shapes are ``spec.ShapeSpec``)."""
@@ -15,7 +16,9 @@ from repro_torch.configs import (
     bst,
     dplr_fwfm,
     gemma3_1b,
+    granite_moe_1b_a400m,
     mind,
+    mixtral_8x7b,
     pna,
     starcoder2_7b,
     wide_deep,
@@ -75,6 +78,20 @@ register(ArchSpec(
     make_config=yi_9b.make_config, make_smoke=yi_9b.make_smoke,
     shapes=lm_shapes(long_ctx_skip="pure full-attention arch — skip per "
                                    "assignment note"),
+))
+
+register(ArchSpec(
+    name="granite-moe-1b-a400m", family="lm",
+    make_config=granite_moe_1b_a400m.make_config,
+    make_smoke=granite_moe_1b_a400m.make_smoke,
+    shapes=lm_shapes(long_ctx_skip="pure full-attention arch — skip per "
+                                   "assignment note"),
+))
+
+register(ArchSpec(
+    name="mixtral-8x7b", family="lm",
+    make_config=mixtral_8x7b.make_config, make_smoke=mixtral_8x7b.make_smoke,
+    shapes=lm_shapes(long_ctx_skip=None),
 ))
 
 register(ArchSpec(

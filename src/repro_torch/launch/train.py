@@ -22,7 +22,10 @@ A step is ``value_and_grad(mod.loss)`` and then the optimizer (adagrad
 for recsys, adamw for lm), as ``repro.launch.train``'s, for every recsys
 architecture of the registry (``dplr-fwfm``, ``wide-deep``, ``autoint``,
 ``bst``, ``mind``) and every lm one (``gemma3-1b``, ``starcoder2-7b``,
-``yi-9b``: ``model.lm_loss`` on zipf tokens, ``--seq`` positions).  On
+``yi-9b``, and the mixture-of-experts ``granite-moe-1b-a400m`` and
+``mixtral-8x7b``: ``model.lm_loss`` on zipf tokens, ``--seq`` positions;
+an MoE model needs ``--batch`` x ``--seq`` a multiple of its
+``moe_group_size`` when it exceeds it).  On
 the card the recsys loss runs the ``embedding_bag`` kernel forward and
 its deterministic backward kernel for the field lookups and the history,
 target and negative gathers, and the ``fwfm_pairwise`` kernel forward for

@@ -1,2 +1,2 @@
-"""The decoder-only LM family (``repro.models.transformer``): dense
-configurations only (no experts)."""
+"""The decoder-only LM family (``repro.models.transformer``): dense and
+mixture-of-experts configurations."""

@@ -1,9 +1,12 @@
-"""Decoder-only LM (``repro.models.transformer.model``), dense
-configurations: gemma3-1b, and any other without experts.
+"""Decoder-only LM (``repro.models.transformer.model``): every assigned
+configuration, dense (gemma3-1b, starcoder2-7b, yi-9b) and
+mixture-of-experts (granite-moe-1b-a400m, mixtral-8x7b).
 
   * parameters are a tree ``{"embed", "layers": {name: (L, ...)}, "final_ln"}``
-    (plus ``"lm_head"`` untied), the JAX package's keys and shapes, so its
-    parameters pass through ``interop`` unchanged
+    (plus ``"lm_head"`` untied), the JAX package's keys and shapes (an MoE
+    layer's ``router`` (L, d, E) and experts ``w_gate``/``w_in`` (L, E, d,
+    f), ``w_out`` (L, E, f, d)), so its parameters pass through ``interop``
+    unchanged
   * the layer loop runs each layer with its entry of ``layer_pattern``
     (window or None), in place of the JAX package's scan over periods
   * entry points: ``lm_loss`` (train), ``forward`` (logits), ``prefill``
@@ -15,15 +18,17 @@ configurations: gemma3-1b, and any other without experts.
     ``lm_loss`` attends through the plain chunked ``attention.gqa_attention``
     (``q_chunk`` queries at a time), as the JAX loss does: the kernel has no
     backward (ROADMAP: kernel 7's backward)
+  * an MoE layer's FFN is ``moe.moe_ffn`` on the call's tokens, in groups of
+    ``min(moe_group_size, B S)`` (a decode step routes its B tokens as one
+    group); B S must be a multiple of the group, else it raises
   * params are stored f32; every call casts them to ``compute_dtype``
     (bf16); KV caches are bf16.  ``decode_step`` writes the new position
     into the cache it is given, in place (the JAX function returns a new
     cache): a copy of a full cache each step would double its memory
 
-Not ported: experts (``n_experts > 0`` raises; ROADMAP: the MoE item), and
-the mesh hooks and ``micro_batches`` (ROADMAP: sharding).  The entry points run
-on the card unless the caller passes ``device="cpu"``; the parameters
-must already be there.
+Not ported: the mesh hooks and ``micro_batches`` (ROADMAP: sharding).  The
+entry points run on the card unless the caller passes ``device="cpu"``;
+the parameters must already be there.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import attention as attn_lib
+from repro_torch.models.transformer import moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,8 +64,14 @@ class TransformerConfig:
     # (sliding-window attention) or None (full causal).
     layer_pattern: tuple[Any, ...] = (None,)
     tie_embeddings: bool = False
-    # MoE (n_experts == 0 -> dense FFN); only dense is ported
+    # MoE (n_experts == 0 -> dense FFN)
     n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 512
+    moe_impl: str = "einsum"
+    moe_fused_combine: bool = False
+    aux_loss_weight: float = 0.01
     # numerics / execution
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -86,6 +98,15 @@ class TransformerConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def moe_cfg(self) -> moe_lib.MoEConfig:
+        return moe_lib.MoEConfig(
+            n_experts=self.n_experts, top_k=self.top_k,
+            capacity_factor=self.capacity_factor,
+            group_size=self.moe_group_size, impl=self.moe_impl,
+            fused_combine=self.moe_fused_combine,
+        )
+
     def window(self, layer: int):
         """Layer ``layer``'s attention window (None: full causal)."""
         return self.layer_pattern[layer % len(self.layer_pattern)]
@@ -94,26 +115,32 @@ class TransformerConfig:
         """Total parameter count."""
         return sum(math.prod(s) for s in _shapes(self).values())
 
-
-def _check_dense(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts layers are not ported "
-                                  f"(ROADMAP: the MoE item)")
+    def n_active_params(self) -> int:
+        """Active params per token (MoE counts top_k of n_experts)."""
+        total = self.n_params()
+        if not self.is_moe:
+            return total
+        expert_block = 3 * self.d_model * self.d_ff * self.n_layers
+        return total - expert_block * self.n_experts + expert_block * self.top_k
 
 
 def _shapes(cfg: TransformerConfig) -> dict:
     """``{path: shape}`` of every parameter, paths as in the tree
     (``"layers/wq"``), in the JAX package's init order."""
-    _check_dense(cfg)
     L, d, H, KV, hd, f = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                           cfg.d_ff)
     shapes = {"layers/ln_attn": (L, d), "layers/wq": (L, d, H * hd),
               "layers/wk": (L, d, KV * hd), "layers/wv": (L, d, KV * hd),
               "layers/wo": (L, H * hd, d), "layers/ln_mlp": (L, d)}
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        shapes["layers/w_gate"] = (L, d, f)
-    shapes["layers/w_in"] = (L, d, f)
-    shapes["layers/w_out"] = (L, f, d)
+    if cfg.is_moe:
+        E = cfg.n_experts
+        shapes.update({"layers/router": (L, d, E), "layers/w_gate": (L, E, d, f),
+                       "layers/w_in": (L, E, d, f), "layers/w_out": (L, E, f, d)})
+    else:
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            shapes["layers/w_gate"] = (L, d, f)
+        shapes["layers/w_in"] = (L, d, f)
+        shapes["layers/w_out"] = (L, f, d)
     shapes["embed"] = (cfg.vocab_padded, d)
     shapes["final_ln"] = (d,)
     if not cfg.tie_embeddings:
@@ -121,10 +148,20 @@ def _shapes(cfg: TransformerConfig) -> dict:
     return shapes
 
 
+def init_scale(name: str, shape: tuple) -> float:
+    """The standard deviation ``init`` gives a leaf: 0.02 for the
+    embedding, else the JAX package's ``_init_linear`` rule, 1 / sqrt of
+    ``shape[0]`` for a 2-D map and of ``shape[1]`` otherwise (``d`` for a
+    stacked (L, d, n) map and the router, ``E`` for an expert stack (L, E,
+    ., .))."""
+    if name == "embed":
+        return 0.02
+    return float(1.0 / np.sqrt(shape[0] if len(shape) == 2 else shape[1]))
+
+
 def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
-    """Random parameters on the generator's device: norms at 1, linear
-    maps normal / sqrt(fan in) (``d`` for a stacked (L, d, n) map), the
-    embedding normal * 0.02."""
+    """Random parameters on the generator's device: norms at 1, every other
+    leaf normal times ``init_scale``."""
     dev, dt = generator.device, cfg.param_dtype
     params: dict = {"layers": {}}
     for path, shape in _shapes(cfg).items():
@@ -132,9 +169,8 @@ def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
         if name in ("ln_attn", "ln_mlp", "final_ln"):
             t = torch.ones(shape, dtype=dt, device=dev)
         else:
-            scale = 0.02 if name == "embed" else 1.0 / np.sqrt(shape[1] if len(shape) == 3
-                                                                else shape[0])
-            t = (torch.randn(shape, generator=generator, device=dev) * scale).to(dt)
+            t = (torch.randn(shape, generator=generator, device=dev)
+                 * init_scale(name, shape)).to(dt)
         if path.startswith("layers/"):
             params["layers"][name] = t
         else:
@@ -153,6 +189,9 @@ def _rms(x, scale, eps=1e-6):
 
 
 def _mlp(lp, cfg, x):
+    if cfg.is_moe:
+        return moe_lib.moe_ffn(x, lp["router"], lp["w_gate"], lp["w_in"], lp["w_out"],
+                               cfg.moe_cfg)
     if cfg.mlp_type == "swiglu":
         a = F.silu(x @ lp["w_gate"]) * (x @ lp["w_in"])
     elif cfg.mlp_type == "geglu":
@@ -242,7 +281,6 @@ def embed(cparams: dict, cfg: TransformerConfig, tokens: torch.Tensor) -> torch.
 def trunk(params: dict, cfg: TransformerConfig, tokens, *, device=None):
     """tokens (B, S) -> (final hidden states (B, S, d) pre-final-norm, the
     parameters cast to the compute dtype)."""
-    _check_dense(cfg)
     dev = _resolve(params, device)
     cparams = cast_params(params, cfg.compute_dtype)
     tokens = torch.as_tensor(tokens, device=dev)
@@ -285,7 +323,6 @@ def lm_loss(params: dict, cfg: TransformerConfig, batch: dict, *, device=None):
     positions, each under ``torch.utils.checkpoint``, so the full (B, S,
     vocab) f32 logits never exist (forward or backward).  Attention is the
     plain ``gqa_attention`` (never the kernel), as in the JAX loss."""
-    _check_dense(cfg)
     dev = _resolve(params, device)
     cparams = cast_params(params, cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
@@ -319,7 +356,6 @@ def prefill(params: dict, cfg: TransformerConfig, tokens, max_seq: int, *, devic
     """Process a prompt (any length S <= max_seq); returns (last-position
     logits (B, 1, vocab_padded), bf16 cache (L, 2, B, max_seq, KV, hd))
     holding positions 0..S-1."""
-    _check_dense(cfg)
     dev = _resolve(params, device)
     cparams = cast_params(params, cfg.compute_dtype)
     tokens = torch.as_tensor(tokens, device=dev)
@@ -341,7 +377,6 @@ def decode_step(params: dict, cfg: TransformerConfig, tokens, cache: torch.Tenso
     """One decode step.  tokens (B, 1); cache (L, 2, B, S_max, KV, hd),
     written at ``cache_index`` in place.  Returns (logits (B, 1,
     vocab_padded), the cache)."""
-    _check_dense(cfg)
     dev = _resolve(params, device)
     cparams = cast_params(params, cfg.compute_dtype)
     tokens = torch.as_tensor(tokens, device=dev)

@@ -39,10 +39,12 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
                          (3, 4097, "random"), (3, 5, "rising"), (3, 64, "rising")),
              flash=((2, 70, 4, 1, 16, None), (2, 70, 4, 1, 16, 8)),
              flash_small=((1, 33, 2, 2, 8, None), (1, 50, 9, 1, 4, 5)),
-             flash_heads=((1, 40, 9, 1, 8, None), (1, 40, 8, 1, 8, None)),
+             flash_heads=((1, 40, 9, 1, 8, None), (1, 40, 8, 1, 8, None),
+                          (2, 40, 4, 2, 8, None), (1, 48, 8, 2, 8, 16)),
+             flash_moe=((2, 40, 4, 2, 8, None), (1, 48, 8, 2, 8, 16)),
              pair_bf16=((300, 12), (37, 12)),
              lm_batch=2, lm_prompt=21, lm_cache=24, lm_steps=3,
-             lm_model_prompt=12, lm_model_steps=2,
+             lm_model_prompt=12, lm_model_steps=2, moe_impl_layer=1,
              lm_train_batch=2, lm_train_seq=16, lm_train_steps=2, lm_train_lr=0.05,
              lm_resume_layers=2, lm_resume_steps=3, lm_resume_save=1,
              gnn_shapes=("minibatch_lg", "molecule", "full_graph_sm"), gnn_steps=2,
@@ -63,11 +65,16 @@ def chip_smoke(monkeypatch):
 
 
 def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
-    from repro_torch.configs import dplr_fwfm, gemma3_1b, pna, starcoder2_7b, yi_9b
+    from repro_torch.configs import (dplr_fwfm, gemma3_1b, granite_moe_1b_a400m,
+                                     mixtral_8x7b, pna, starcoder2_7b, yi_9b)
 
     sz = SimpleNamespace(
         make_config=dplr_fwfm.make_smoke, make_lm=gemma3_1b.make_smoke,
         lm_models=(starcoder2_7b.make_smoke, yi_9b.make_smoke), gnn_make=pna.make_smoke,
+        # B S whole groups of the smoke configs' 16; mixtral's prompt past its window of 8
+        lm_moe=((granite_moe_1b_a400m.make_smoke, 2, 16, 19, 3),
+                (mixtral_8x7b.make_smoke, 1, 16, 18, 2)),
+        lm_train_models=(gemma3_1b.make_smoke, granite_moe_1b_a400m.make_smoke),
         make_fwfm=lambda: dataclasses.replace(dplr_fwfm.make_smoke(), interaction="fwfm"),
         **SMALL)
     cpu = torch.device("cpu")
@@ -126,9 +133,20 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
         assert f"phase {phase}:" in out
     assert "fwfm_pairwise bf16 V bitwise its f32 launch" in out and "fwfm in bf16: AUC" in out
     assert "36/4x128" not in out and "1x40x9/1x8" in out     # the head-group cases ran
-    for name in ("gemma3-1b-smoke", "starcoder2-7b-smoke", "yi-9b-smoke"):
+    for name in ("gemma3-1b-smoke", "starcoder2-7b-smoke", "yi-9b-smoke", "granite-moe-smoke",
+                 "mixtral-smoke"):
         assert f"phase lm: {name} " in out and "= n_params()" in out
-    assert "run B from step 1: losses and step 3's params and adamw state bitwise" in out
+    assert out.count("the plain prefills and the one-pass decode check ran under the kernel "
+                     "path's routes") == 2
+    assert out.count("MoE implementations on layer 1's prefill input ((2, 16, 32))") == 1
+    assert out.count("the timed steps' logits bitwise the recorded steps'") == 2
+    for name in ("gemma3-1b-smoke", "granite-moe-smoke"):
+        assert f"phase lm-train: {name} " in out
+    assert out.count("run B from step 1: losses and step 3's params and adamw state "
+                     "bitwise") == 2
+    assert out.count("the f32 loss under the bf16 loss's routes") == 1
+    assert [row["shape"] for row in rows["flash_attention"]["moe"]] == [
+        list(s) for s in sz.flash_moe]
     for shape in ("minibatch_lg", "molecule", "full_graph_sm"):
         assert f"{shape} (d_feat" in out
     assert rows["fwfm_pairwise_bf16"]["library_ms"] > 0

@@ -1395,3 +1395,74 @@ def test_cuda_lm_loss_step_matches_the_cpu_and_repeats(cuda):
         else:
             assert float((gg.cpu() - gc).abs().max()) <= 1e-4 * float(gc.abs().max()), name
             assert _bits_equal(gg, g2), name
+
+
+def _routes_recorded(monkeypatch):
+    """Each ``moe.moe_ffn`` call appends the experts its own logits choose."""
+    from repro_torch.models.transformer import moe
+
+    seen, real = [], moe.moe_ffn
+
+    def recording(x, router_w, w_gate, w_in, w_out, cfg, experts=None):
+        seen.append(moe.route(x, router_w, cfg).cpu())
+        return real(x, router_w, w_gate, w_in, w_out, cfg, experts)
+
+    monkeypatch.setattr(moe, "moe_ffn", recording)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b"])
+def test_cuda_moe_lm_loss_step_matches_the_cpu_and_repeats(cuda, arch, monkeypatch):
+    """An MoE LM's smoke config in f32 compute: the routes of every layer
+    equal on the card and the CPU, then ``lm_loss`` within ``1e-5 max(1,
+    |loss|)`` and each gradient within ``1e-4`` of its largest entry; under
+    ``launch.train.deterministic()`` the same bits on a second call."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs.registry import REGISTRY
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import model as tm
+
+    cfg = dataclasses.replace(REGISTRY[arch].make_smoke(), compute_dtype=torch.float32)
+    params = tm.init(torch.Generator().manual_seed(0), cfg)
+    batch = train.lm_tokens(cfg, 2, 48, 0, 0)
+    fn = optim.value_and_grad(lambda p, c, b: tm.lm_loss(p, c, b, device=p["embed"].device))
+    seen = _routes_recorded(monkeypatch)
+    loss_c, grads_c = fn(params, cfg, batch)
+    gpu = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict) else v.to(cuda))
+           for k, v in params.items()}
+    with train.deterministic():
+        loss_g, grads_g = fn(gpu, cfg, batch)
+        loss_2, grads_2 = fn(gpu, cfg, batch)
+    L = cfg.n_layers
+    assert len(seen) == 3 * L
+    assert all(torch.equal(a, b) for a, b in zip(seen[:L], seen[L:2 * L]))
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-5 * max(1.0, abs(float(loss_c)))
+    assert _bits_equal(loss_g, loss_2)
+    for name in sorted(grads_c["layers"]):
+        gc, gg = grads_c["layers"][name], grads_g["layers"][name]
+        assert float((gg.cpu() - gc).abs().max()) <= 1e-4 * float(gc.abs().max()), name
+        assert _bits_equal(gg, grads_2["layers"][name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,fused", [("einsum", False), ("scatter", False),
+                                        ("einsum", True)])
+def test_cuda_moe_ffn_matches_the_cpu(cuda, impl, fused):
+    """Each MoE implementation at granite's widths (d 1024, 32 experts top-8,
+    d_ff 512) on two groups of 512 tokens, f32, under the CPU's routes:
+    within ``1e-5 max |out|`` of the CPU's output."""
+    from repro_torch.models.transformer import moe
+
+    gen = torch.Generator().manual_seed(0)
+    d, E, f = 1024, 32, 512
+    x = torch.randn(2, 512, d, generator=gen)
+    w = [torch.randn(d, E, generator=gen) / d**0.5] + [
+        torch.randn(s, generator=gen) / E**0.5 for s in ((E, d, f), (E, d, f), (E, f, d))]
+    cfg = moe.MoEConfig(n_experts=E, top_k=8, impl=impl, fused_combine=fused)
+    experts = moe.route(x, w[0], cfg)
+    want = moe.moe_ffn(x, *w, cfg, experts)
+    got = moe.moe_ffn(x.to(cuda), *(t.to(cuda) for t in w), cfg, experts.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -219,12 +219,14 @@ def test_prefill_attends_through_the_kernel_entry_point(monkeypatch):
 
 
 def test_what_is_not_ported_raises():
+    """An MoE model's tokens that do not split into whole groups raise (the
+    reference asserts, and never pads); so does a prompt past the cache."""
     _, cfg = _configs("smoke", "f32")
-    moe = dataclasses.replace(cfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="the MoE item"):
-        tm.init(torch.Generator().manual_seed(0), moe)
-    params = tm.init(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="the MoE item"):
-        tm.prefill(params, moe, np.zeros((1, 4), np.int64), 8, device=CPU)
+    moe = dataclasses.replace(cfg, n_experts=4, top_k=2, moe_group_size=8)
+    params = tm.init(torch.Generator().manual_seed(0), moe)
+    with pytest.raises(ValueError, match="12 tokens do not split into MoE groups of 8"):
+        tm.prefill(params, moe, np.zeros((2, 6), np.int64), 8, device=CPU)
+    with pytest.raises(ValueError, match="12 tokens do not split into MoE groups of 8"):
+        tm.forward(params, moe, np.zeros((1, 12), np.int64), device=CPU)
     with pytest.raises(ValueError, match="does not fit"):
         tm.prefill(params, cfg, np.zeros((1, 9), np.int64), 8, device=CPU)
