@@ -143,6 +143,29 @@ Phases, one line each:
    plain bf16 and f32 losses (the MoE one under the bf16 loss's routes),
    and a resumed run at 2 layers bitwise the uninterrupted one.
 10c. gnn: PNA at ``make_config()`` widths on three shapes.
+10d. examples: the port's ``examples/`` on the card.  quickstart at its
+   defaults (FM, full FwFM and DPLR, 300 adagrad steps of B = 1,024 each,
+   the matched-pruned FwFM, Algorithm 1 over 1,000 candidates), then again
+   through the plain versions of kernels 3, 5 and 6: each step's loss
+   within ``1e-4 max(1, |loss|)`` of the plain run's, and on its weights
+   the eval logits and Algorithm 1's scores within ``1e-5 max(1, size)``
+   of the plain path.  train_e2e on the reference's 82-field layout (92 M
+   parameters), B = 2,048, checkpoints every 50 steps (keep 2) in a
+   temporary directory under ``build/``, cut to 50 steps, its first 25
+   through the plain path, the losses and eval logits held likewise.
+   ranking_server at its defaults and at 1,000,000 items and top-16 (path
+   1 cut to 3 queries, the tenants of paths 6-7 to 512 items): path 1's
+   first query, path 2's first context and every reply of the packed
+   tenant frontends (paths 6-7, but path 6's churned tenant) against the
+   plain path, every path's kernels through ``LAUNCHES`` (kernels 3, 5, 1
+   or 2, and 4 over paths 6-7), one top-K launch each micro-batch.
+10e. dryrun: ``launch.dryrun`` over every registry cell on ``meta`` in a
+   process of its own started with the script (one line a cell: flops,
+   bytes, peak bytes, whether it fits the card); then each cut the script
+   runs (gemma3-1b and granite-moe-1b-a400m train at 4 x 4,096, gemma3-1b
+   prefill of 2 x 32,752, PNA ``minibatch_lg``) counted on ``meta`` beside
+   4 steps of it on the card after a warm one (the median step): its
+   ``peak_bytes`` within 1.5x of ``max_memory_allocated`` either way.
 11. timing: each kernel's median time over CUDA events (the bf16
    instantiations of kernels 1-6 beside their float32 rows, on the same
    inputs in bf16, and the ``acc_dtype='bfloat16'`` mode), its plain
@@ -333,10 +356,12 @@ from repro_torch.embedding.bag import (  # noqa: E402
     padded_rows,
 )
 from repro_torch.eval import harness  # noqa: E402
-from repro_torch.kernels import _build, autotune, blocks, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, autotune, blocks, ops, ref, work  # noqa: E402
 from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
 from repro_torch.kernels import embedding_bag as bag_lib  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
+from repro_torch.examples import quickstart, ranking_server, train_e2e  # noqa: E402
+from repro_torch.launch import cost, dryrun, steps  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models.gnn import pna, sampler  # noqa: E402
@@ -358,7 +383,7 @@ from repro_torch.serving import (  # noqa: E402
     scoring_guard,
     serve_in_thread,
 )
-from repro_torch.serving.corpus import masked_slab_scores  # noqa: E402
+from repro_torch.serving.corpus import masked_slab_scores, next_pow2  # noqa: E402
 from repro_torch.serving.engine import fused_topk  # noqa: E402
 from repro_torch.serving.rpc import encode_rank_request, frame  # noqa: E402
 
@@ -462,6 +487,30 @@ FULL = SimpleNamespace(
     model_batch=4096, model_steps=4, model_lr=0.05, model_queries=50,
     model_ranks={"wide-deep": (512,), "autoint": (512,), "bst": (512,),
                  "mind": (512, 1_000_000)}, model_apply_chunk=65_536,
+    # examples: quickstart at its defaults (steps a model, Algorithm 1's
+    # model's steps) and the eval rows its logits are held on; train_e2e on
+    # the reference's layout at its batch, lr and checkpoint cadence, its 300
+    # steps cut to 50 for the script's time (a batch is ~0.23 s of host
+    # draws, its checkpoints 0.74 GB), its first e2e_plain_steps also through
+    # the plain path;
+    # ranking_server at its defaults (paths 6-7 pack tenants: kernel 4), and
+    # at the served corpus (1,000,000 items, top-16) with path 1 cut to 3
+    # queries (each draws 63 M zipf ids on the host, ~13 s) and the tenants
+    # of paths 6-7 at the default 512 items (at 1,000,000 items they would
+    # draw 5 more such corpora)
+    qs_steps=300, qs_rank_steps=100, qs_rows=20_000,
+    e2e_layout=train_e2e.make_layout, e2e_steps=50, e2e_batch=2048, e2e_ckpt_every=50,
+    e2e_plain_steps=25,
+    server_runs=([], ["--items", "1000000", "--topk", "16", "--percall-queries", "3",
+                      "--tenant-items", "512"]),
+    # dryrun: every cell (no selection), and the cuts the lm-train, lm and
+    # gnn phases run (arch, shape, dims, config), each counted on meta beside
+    # dryrun_steps steps on the card (after a warm one), timed at the median
+    dryrun_args=(), dryrun_timeout=900, dryrun_steps=4,
+    dryrun_cuts=(("gemma3-1b", "train_4k", {"batch": 4}, None),
+                 ("granite-moe-1b-a400m", "train_4k", {"batch": 4}, None),
+                 ("gemma3-1b", "prefill_32k", {"batch": 2, "seq": 32_752}, None),
+                 ("pna", "minibatch_lg", None, None)),
 )
 
 BUILD = Path(__file__).resolve().parent / "build"
@@ -3811,6 +3860,375 @@ def lm_train_run(dev, sz, cfg) -> None:
     print(line, flush=True)
 
 
+# -- phase 10d: examples -----------------------------------------------------------
+
+EXAMPLE_KERNELS = {
+    # kernel 5 in every lookup, 5' (its sort and writer) in every backward,
+    # 6 for the full and pruned FwFM, 3 for Algorithm 1
+    "quickstart": ("embedding_bag_kernel", "bag_rows_radix_sort",
+                   "embedding_bag_backward_kernel", "fwfm_pairwise_kernel",
+                   "dplr_score_items_kernel"),
+    "train_e2e": ("embedding_bag_kernel", "bag_rows_radix_sort",
+                  "embedding_bag_backward_kernel"),
+}
+# ranking_server's paths: 3 per call, 1 (--topk 0) or 2 (--topk K) for the
+# engine, 2 under churn and behind the frontend; paths 6-7 pack tenants, so
+# 4 serves their fused rounds (counted over both: a round fuses only the
+# tenants ready at once)
+SERVER_KERNELS = {
+    "percall": ("dplr_score_items_kernel", "embedding_bag_kernel"),
+    "corpus": ("embedding_bag_kernel",),
+    "churn": ("corpus_topk_chunks", "topk_merge"),
+    "frontend": ("corpus_topk_chunks", "topk_merge"),
+}
+PACKED_KERNELS = ("corpus_multi_topk_chunks", "multi_topk_merge")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside, the entry points of kernels 3, 5 and 6 run their plain
+    versions (differentiable through autograd) on any device: the plain
+    path of the examples.  Raises if a kernel launched inside."""
+    saved = {name: getattr(ops, name) for name in ("embedding_bag", "fwfm_pairwise",
+                                                    "dplr_score_items")}
+    before = dict(ops.LAUNCHES)
+    ops.embedding_bag = lambda table, ids, w, bags: ref.embedding_bag_ref(
+        table, ids, w, bags.segments, bags.n_bags)
+    ops.fwfm_pairwise = ref.fwfm_pairwise_ref
+    ops.dplr_score_items = lambda V_I, U_I, e, d_I, P_C, s_C: (
+        ref.dplr_score_items_ref(V_I, U_I, e, d_I, P_C, s_C) if V_I.ndim == 4 else
+        ref.dplr_score_items_ref(V_I[None], U_I, e, d_I, P_C[None], s_C.reshape(1))[0])
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+    if dict(ops.LAUNCHES) != before:
+        raise AssertionError("the plain path launched a kernel")
+
+
+def launched_since(before: dict) -> dict:
+    return dict(collections.Counter(ops.LAUNCHES) - collections.Counter(before))
+
+
+def require_launches(dev, launched: dict, names, what: str) -> None:
+    """On the card, raises unless each kernel of ``names`` launched."""
+    if dev.type == "cuda":
+        missing = [n for n in names if not launched.get(n)]
+        if missing:
+            raise AssertionError(f"{what}: {', '.join(missing)} never launched ({launched})")
+
+
+def check_losses(got: dict | list, want: dict | list, what: str) -> float:
+    """The kernel path's losses against the plain path's over the steps
+    both ran: within ``1e-4 max(1, |loss|)`` (the train phase's bound)."""
+    if isinstance(got, dict):
+        got, want = ([d[s] for s in sorted(d) if s in got and s in want] for d in (got, want))
+    pairs = list(zip(got, want))
+    if not pairs:
+        raise AssertionError(f"{what}: no losses to compare")
+    worst = 0.0
+    for i, (g, w) in enumerate(pairs):
+        if not (np.isfinite(g) and abs(g - w) <= 1e-4 * max(1.0, abs(w))):
+            raise AssertionError(f"{what}: step {i + 1} loss {g:.7g}, plain {w:.7g}")
+        worst = max(worst, abs(g - w))
+    return worst
+
+
+def logits_check(params, cfg, ids, w, what: str, pruned_mask=None) -> float:
+    """``fwfm.apply`` through the kernels against ``plain_apply`` on the
+    same params and rows, within ``1e-5 max(1, size)``."""
+    with torch.no_grad():
+        got = fwfm.apply(params, cfg, {"ids": ids, "weights": w}, pruned_mask=pruned_mask)
+        want, size = plain_apply(params, cfg, ids, w, pruned_mask)
+    return check_close(got, want, what, size=size)
+
+
+def quickstart_run(dev, sz) -> str:
+    """``examples/quickstart`` at ``sz.qs_steps`` (its default 300) and
+    ``sz.qs_rank_steps`` (100) through the kernels, then again through the
+    plain versions: every model's losses held step by step, and on the
+    kernel run's weights its eval logits (DPLR, full and pruned FwFM) and
+    Algorithm 1's 1,000 scores against the plain path."""
+    layout = quickstart.make_layout()
+    data = quickstart.make_data(layout)
+    before = dict(ops.LAUNCHES)
+    losses, plain = {}, {}
+    t0 = time.perf_counter()
+    out = quickstart.run(sz.qs_steps, sz.qs_rank_steps, dev, losses=losses)
+    wall = time.perf_counter() - t0
+    launched = launched_since(before)
+    require_launches(dev, launched, EXAMPLE_KERNELS["quickstart"], "quickstart")
+    with plain_kernels():
+        plain_out = quickstart.run(sz.qs_steps, sz.qs_rank_steps, dev, losses=plain)
+    worst = max(check_losses(losses[n], plain[n], f"quickstart {n}") for n in losses)
+    ev = train.to_device(data.batch(sz.qs_rows, 10**6), dev)
+    cfgs = dict(quickstart.configs(layout))
+    errs = [logits_check(out["params"][n], cfgs[n], ev["ids"], ev["weights"],
+                         f"quickstart {n} logits") for n in ("fwfm", "dplr(r=2)")]
+    R = fwfm.field_matrix(out["params"]["fwfm"], cfgs["fwfm"])
+    mask = prune_matched(R, layout.n_fields, rank=2).mask
+    errs.append(logits_check(out["params"]["fwfm"], cfgs["fwfm"], ev["ids"], ev["weights"],
+                             "quickstart pruned logits", pruned_mask=mask))
+    q = train.to_device(data.ranking_query(1000, 0), dev)
+    with torch.no_grad():
+        want, size = plain_rank_items(out["params"]["rank"], cfgs["dplr(r=2)"], q)
+    errs.append(check_close(out["scores"], want, "quickstart Algorithm 1", size=size))
+    aucs = ", ".join(f"{n} {v:.4f} (plain {plain_out['auc'][n]:.4f})"
+                     for n, v in out["auc"].items())
+    return (f"quickstart ({sz.qs_steps} steps a model, {sz.qs_rank_steps} for Algorithm 1): "
+            f"{wall:.1f} s; losses within 1e-4 max(1, |loss|) of the plain run's (max |diff| "
+            f"{worst:.3g}); AUC {aucs}; logits and Algorithm 1's scores on its weights within "
+            f"1e-5 max(1, size) of the plain path (max |diff| {max(errs):.3g}); top-5 "
+            f"{out['top5'].tolist()}; launches {launched}")
+
+
+def train_e2e_run(dev, sz) -> str:
+    """``examples/train_e2e`` on ``sz.e2e_layout()`` (the reference's 82
+    fields on the card), ``sz.e2e_steps`` steps of B = 2,048 with its
+    checkpoints in a temporary directory under ``build/`` (removed after),
+    then its first ``sz.e2e_plain_steps`` steps through the plain versions:
+    the losses held step by step, and on the trained weights the eval
+    logits against the plain path."""
+    layout = sz.e2e_layout()
+    tmp = Path(tempfile.mkdtemp(prefix="e2e_", dir=BUILD))
+    try:
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        out = train_e2e.run(layout, sz.e2e_steps, sz.e2e_batch, tmp / "a", device=dev,
+                            ckpt_every=sz.e2e_ckpt_every)
+        wall = time.perf_counter() - t0
+        launched = launched_since(before)
+        require_launches(dev, launched, EXAMPLE_KERNELS["train_e2e"], "train_e2e")
+        saved = sorted(p.name for p in (tmp / "a").glob("step_*"))
+        with plain_kernels():
+            plain = train_e2e.run(layout, sz.e2e_plain_steps, sz.e2e_batch, tmp / "p",
+                                  device=dev, ckpt_every=sz.e2e_ckpt_every)
+        worst = check_losses(out["losses"], plain["losses"], "train_e2e")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cfg = fwfm.FwFMConfig(layout=layout, embed_dim=16, interaction="dplr", rank=3)
+    ev = train.to_device(train_e2e.make_data(layout).batch(20000, 10**6), dev)
+    err = logits_check(out["params"], cfg, ev["ids"], ev["weights"], "train_e2e eval logits")
+    return (f"train_e2e ({layout.n_fields} fields, {layout.total_vocab} arena rows, "
+            f"{sz.e2e_steps} steps of B={sz.e2e_batch}): {wall:.1f} s, AUC {out['auc']:.4f}; "
+            f"checkpoints {saved} (keep 2); the first {sz.e2e_plain_steps} losses within 1e-4 "
+            f"max(1, |loss|) of the plain run's (max |diff| {worst:.3g}); eval logits within "
+            f"1e-5 max(1, size) of the plain path (max |diff| {err:.3g}); launches {launched}")
+
+
+def plain_slab(params, cfg, items: dict, ctx: dict, capacity: int, dev):
+    """The plain path's scores of one context over a corpus slab whose
+    first n slots hold ``items``' n candidates in order (as the engine and
+    ``CorpusState`` place them), ``NEG_INF`` on the empty slots, and their
+    sizes (1 there): two (1, capacity) tensors."""
+    n = items["item_ids"].shape[1]
+    q = train.to_device({**ctx, "item_ids": items["item_ids"],
+                         "item_weights": items["item_weights"]}, dev)
+    with torch.no_grad():
+        plain, size = plain_rank_items(params, cfg, q)
+    full = torch.full((1, capacity), ref.NEG_INF, device=dev)
+    full[:, :n] = plain
+    sizes = torch.ones((1, capacity), device=dev)
+    sizes[:, :n] = size
+    return full, sizes
+
+
+def check_tenant_replies(params, cfg, served: dict, what: str, dev) -> tuple[float, int]:
+    """Each reply of a packed frontend (``ranking_server``'s paths 6-7:
+    kernel 4 where tenants were fused, kernel 2 alone) held by
+    ``check_topk`` against the plain top-K of its tenant's corpus and its
+    context (weights 1, as the frontend's default), within 1e-5 max(1,
+    size); a tenant whose slab changed while it was served (``churned``)
+    is skipped.  Returns (max |diff|, replies checked)."""
+    err, checked = 0.0, 0
+    for tenant, ctx_ids, scores, slots in served["replies"]:
+        if tenant in served["churned"]:
+            continue
+        items = served["corpora"][tenant]
+        ctx = np.asarray(ctx_ids).reshape(1, -1)
+        full, sizes = plain_slab(params, cfg, items, {
+            "context_ids": ctx, "context_weights": np.ones(ctx.shape, np.float32)},
+            next_pow2(items["item_ids"].shape[1]), dev)
+        K = len(scores)
+        vals = torch.tensor(np.asarray(scores, np.float32), device=dev).reshape(1, K)
+        ids = torch.tensor(np.asarray(slots), device=dev).reshape(1, K)
+        err = max(err, check_topk(vals, ids, full, K, f"{what} tenant {tenant} top-{K}",
+                                  size=sizes)[0])
+        checked += 1
+    if not checked:
+        raise AssertionError(f"{what}: no reply to check")
+    return err, checked
+
+
+def server_run(dev, argv: list) -> str:
+    """``examples/ranking_server`` with ``argv`` (and ``--device``), random
+    weights from seed 0: its paths' kernels through ``LAUNCHES`` (kernel 4
+    in path 6, whose frontend packs), path 1's first query, path 2's first
+    context, and every reply of paths 6-7 against the plain path."""
+    cfg = ranking_server.make_config()
+    params = fwfm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    before = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    out = ranking_server.main([*argv, "--device", dev.type], params=params)
+    wall = time.perf_counter() - t0
+    total = launched_since(before)
+    args = ranking_server.parser().parse_args(argv)
+    want = dict(SERVER_KERNELS)
+    want["corpus"] += (("corpus_topk_chunks", "topk_merge") if args.topk
+                       else ("corpus_score_full",))
+    for path, names in want.items():
+        require_launches(dev, out["launches"][path], names, f"ranking_server {path}")
+    packed = collections.Counter(out["launches"]["multi_tenant"]) + collections.Counter(
+        out["launches"]["rpc"])
+    require_launches(dev, packed, PACKED_KERNELS, "ranking_server paths 6-7 (packed)")
+    q = train.to_device(out["percall"]["query"], dev)
+    with torch.no_grad():
+        want_s, size = plain_rank_items(params, cfg, q)
+    err = check_close(torch.as_tensor(out["percall"]["scores"], device=dev), want_s,
+                      "ranking_server per-call Alg. 1", size=size)
+    corpus = out["corpus"]["items"]
+    n = corpus["item_ids"].shape[1]
+    full, sizes = plain_slab(params, cfg, corpus, out["corpus"]["context"],
+                             out["corpus"]["capacity"], dev)
+    got = out["corpus"]["result"]
+    if args.topk:
+        vals, ids = (torch.as_tensor(t, device=dev) for t in got)
+        err = max(err, check_topk(vals, ids, full, args.topk, "ranking_server corpus top-K",
+                                  size=sizes)[0])
+    else:
+        err = max(err, check_close(torch.as_tensor(got, device=dev)[:, :n], full[:, :n],
+                                   "ranking_server corpus scores", size=sizes[:, :n]))
+    checked = []
+    for path in ("multi_tenant", "rpc"):
+        e, c = check_tenant_replies(params, cfg, out["tenants"][path],
+                                    f"ranking_server {path}", dev)
+        err = max(err, e)
+        checked.append(f"{c} of {path}'s {len(out['tenants'][path]['replies'])}")
+    return (f"ranking_server {' '.join(argv) or '(defaults)'}: {wall:.1f} s; per-call and "
+            f"corpus answers and the packed frontends' replies ({', '.join(checked)}; "
+            f"churned t0 not held) within 1e-5 max(1, size) of the plain path (max |diff| "
+            f"{err:.3g}); frontends {out['counts']}; launches {total}")
+
+
+def examples_phase(dev, sz) -> dict:
+    """The three examples through their ``run``/``main`` on the card
+    (``quickstart_run``, ``train_e2e_run``, ``server_run`` for each of
+    ``sz.server_runs``).  Returns the launches of each CUDA kernel over the
+    phase."""
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for line in (quickstart_run(dev, sz), train_e2e_run(dev, sz),
+                 *(server_run(dev, argv) for argv in sz.server_runs)):
+        print(f"phase examples: {line}", flush=True)
+    print(f"phase examples: wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(ops.LAUNCHES)
+
+
+# -- phase 10e: dryrun -----------------------------------------------------------------
+
+PEAK_RATIO = 1.5          # counted peak_bytes against the card's measured peak, either way
+
+
+def start_dryrun(dev, argv: list, out: Path) -> subprocess.Popen:
+    """``launch.dryrun`` over every cell in a process of its own (on
+    ``meta``: host work only, no card), started with the script so that
+    it runs beside the card's phases; ``argv`` its selection."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    card = (torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda"
+            else dryrun.H100_BYTES)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join([str(Path(__file__).resolve().parent / "src"),
+                                           os.environ.get("PYTHONPATH", "")]))
+    log = open(out / "dryrun.log", "w")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--force",
+                             "--out", str(out), "--card-bytes", str(card), *argv],
+                            stdout=log, stderr=subprocess.STDOUT, env=env)
+
+
+def measure_cell(dev, cell, steps: int) -> tuple[list, float | None]:
+    """The times (ms) of ``steps`` calls of a cell after a warm call, each
+    alone between CUDA events, and the peak of them all:
+    ``max_memory_allocated`` (host clock and None off the card).  Each
+    call's output is freed before the next, so the peak is one call's."""
+    with torch.no_grad() if cell.kind not in ("train", "graph") else contextlib.nullcontext():
+        out = cell.fn(*cell.args)
+        del out
+        _sync(dev)
+        times = []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(steps):
+            if dev.type != "cuda":
+                t0 = time.perf_counter()
+                cell.fn(*cell.args)
+                times.append((time.perf_counter() - t0) * 1e3)
+                continue
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = cell.fn(*cell.args)
+            stop.record()
+            stop.synchronize()
+            del out
+            times.append(start.elapsed_time(stop))
+        return times, (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
+
+
+def dryrun_phase(dev, sz, proc: subprocess.Popen, out: Path) -> None:
+    """The dry run's records, one line a cell (it fails on any cell that
+    did not build); then each cut of ``sz.dryrun_cuts`` that the script's
+    phases run, counted on ``meta`` beside ``sz.dryrun_steps`` steps of it
+    on the card: flops, bytes and ``peak_bytes`` beside the median step
+    and the measured peak, which must agree within ``PEAK_RATIO`` either
+    way."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=sz.dryrun_timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log = (out / "dryrun.log").read_text()
+    recs = [json.loads(p.read_text()) for p in sorted(out.glob("*.json"))]
+    for rec in recs:
+        print(f"phase dryrun: {dryrun.line(rec)}", flush=True)
+    if rc != 0 or not recs or not all(r.get("ok") for r in recs):
+        raise AssertionError(f"dryrun: exit {rc}, {len(recs)} records; {log[-2000:]}")
+    fits = sum(r["fits_one_card"] for r in recs)
+    print(f"phase dryrun: {len(recs)} cells counted on meta ({fits} fit one card of "
+          f"{recs[0]['card_bytes'] / 2**30:.1f} GiB), waited {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for arch, shape, dims, make_cfg in sz.dryrun_cuts:
+        cfg = make_cfg() if make_cfg else None
+        meta = steps.build(arch, shape, "meta", cfg=cfg, dims=dims)
+        counted = cost.analyze(meta.fn, *meta.args)
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        cell = steps.build(arch, shape, dev, cfg=cfg, dims=dims)
+        times, peak = measure_cell(dev, cell, sz.dryrun_steps)
+        del cell
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ms = float(np.median(times))
+        ratio = None if peak is None else counted["peak_bytes"] / (peak - base)
+        if ratio is not None and not 1 / PEAK_RATIO <= ratio <= PEAK_RATIO:
+            raise AssertionError(f"dryrun {arch}/{shape} {dims}: peak_bytes "
+                                 f"{counted['peak_bytes'] / 2**30:.2f} GiB against a measured "
+                                 f"{(peak - base) / 2**30:.2f} GiB ({ratio:.2f}x)")
+        measured = "not measured" if peak is None else f"{(peak - base) / 2**30:.2f} GiB"
+        print(f"phase dryrun: cut {arch}/{shape} {dims or ''}: counted {counted['flops']:.4e} "
+              f"flops, {counted['bytes']:.4e} bytes, peak_bytes "
+              f"{counted['peak_bytes'] / 2**30:.2f} GiB (counted in {counted['seconds']:.1f} s); "
+              f"{len(times)} steps on the {dev.type} after a warm one: median {ms:.1f} ms "
+              f"(each {', '.join(f'{t:.1f}' for t in times)}; "
+              f"{'CUDA events' if dev.type == 'cuda' else 'host clock'}), "
+              f"{counted['flops'] / ms / 1e9:.1f} TFLOP/s counted at the median, peak {measured}"
+              + ("" if ratio is None else f" (counted / measured {ratio:.3f})"), flush=True)
+    print(f"phase dryrun: wall {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 # -- phase 11: timing ----------------------------------------------------------
 
 def kernel_name(mangled: str) -> str:
@@ -3930,21 +4348,27 @@ def bound_ms(nbytes: float, flops: float, peaks, tensor: bool = False) -> tuple[
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def work_bound(name: str, peaks, tensor: bool = False, **dims) -> tuple[float, str]:
+    """``bound_ms`` of one call of ``name``'s kernel at ``dims``: its
+    flops and bytes from the cost model's one formula
+    (``work.kernel_work``), which a counted call reports too."""
+    flops, nbytes = work.kernel_work(name, **dims)
+    return bound_ms(nbytes, flops, peaks, tensor)
+
+
 def timing_phase(dev, sz, peaks) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     n, rho, k = sz.n, sz.rho, sz.k
-    rk_ = rho * k
     Bq = max(sz.bqs)
     Q, a_I, e, P_C, a_C, valid = corpus_inputs(dev, n, sz.live, Bq, rho, k, gen)
-    live = int(valid.sum())
-    score_flops = live * (3 * rk_ + 2 * rho + 3)          # per query, live slots only
-    in_bytes = live * (rk_ + 1) * 4 + n + (rho + Bq * (rk_ + 1)) * 4
+    live = int(valid.sum())                    # the work counts live slots only
+    slab = dict(n=n, live=live, rho=rho, k=k)
     rows, extra = {}, []
     for Bq_t in (Bq, 1):
         args = (Q, a_I, e, P_C[:Bq_t].contiguous(), a_C[:Bq_t].contiguous(), valid)
         ms = device_ms(lambda: ops.dplr_corpus_score(*args))
         plain = device_ms(lambda: ref.dplr_corpus_score_ref(*args), 3, 2)
-        bnd, by = bound_ms(in_bytes + Bq_t * n * 4, Bq_t * score_flops, peaks)
+        bnd, by = work_bound("dplr_corpus_score", peaks, Bq=Bq_t, K=None, itemsize=4, **slab)
         extra.append(f"dplr_corpus_score n={n} Bq={Bq_t}: {ms:.4f} ms, plain {plain:.4f} ms, "
                      f"bound {bnd:.4f} ms ({by})")
         if Bq_t == Bq:
@@ -3961,7 +4385,7 @@ def timing_phase(dev, sz, peaks) -> dict:
         yard = device_ms(lambda: torch.topk(ops.dplr_corpus_score(*args), K))
         peak = peak_mib(dev, lambda: ops.dplr_corpus_score(*args, topk=K))
         yard_peak = peak_mib(dev, lambda: torch.topk(ops.dplr_corpus_score(*args), K))
-        bnd, by = bound_ms(in_bytes + Bq_t * K * 8, Bq_t * score_flops, peaks)
+        bnd, by = work_bound("dplr_corpus_topk", peaks, Bq=Bq_t, K=K, itemsize=4, **slab)
         shapes.append(dict(Bq=Bq_t, K=K, order=order, ms=ms, plain_ms=plain,
                            yardstick_ms=yard, bound_ms=bnd, peak_mib=peak,
                            yardstick_peak_mib=yard_peak))
@@ -3979,12 +4403,12 @@ def timing_phase(dev, sz, peaks) -> dict:
     # bytes an item and the mask's 1, the same arithmetic
     Q16, a16 = Q.to(torch.bfloat16), a_I.to(torch.bfloat16)
     del Q
-    in16 = live * (rk_ * 2 + 2) + n + (rho + Bq * (rk_ + 1)) * 4
     for Bq_t in (Bq, 1):
         args = (Q16, a16, e, P_C[:Bq_t].contiguous(), a_C[:Bq_t].contiguous(), valid)
         ms = device_ms(lambda: ops.dplr_corpus_score(*args))
         plain = device_ms(lambda: ref.dplr_corpus_score_ref(*args), 3, 2)
-        bnd, by = bound_ms(in16 + Bq_t * n * 4, Bq_t * score_flops, peaks)
+        bnd, by = work_bound("dplr_corpus_score_bf16", peaks, Bq=Bq_t, K=None, itemsize=2,
+                             **slab)
         extra.append(f"dplr_corpus_score bf16 n={n} Bq={Bq_t}: {ms:.4f} ms, plain {plain:.4f} "
                      f"ms, bound {bnd:.4f} ms ({by})")
         if Bq_t == Bq:
@@ -3998,7 +4422,7 @@ def timing_phase(dev, sz, peaks) -> dict:
         ms = device_ms(lambda: ops.dplr_corpus_score(*args, topk=K))
         plain = device_ms(lambda: ref.dplr_corpus_topk_ref(*args[:5], K, args[5]), 3, 2)
         yard = device_ms(lambda: torch.topk(ops.dplr_corpus_score(*args), K))
-        bnd, by = bound_ms(in16 + Bq_t * K * 8, Bq_t * score_flops, peaks)
+        bnd, by = work_bound("dplr_corpus_topk_bf16", peaks, Bq=Bq_t, K=K, itemsize=2, **slab)
         shapes.append(dict(Bq=Bq_t, K=K, order=order, ms=ms, plain_ms=plain, yardstick_ms=yard,
                            bound_ms=bnd))
         extra.append(f"dplr_corpus_topk bf16 n={n} Bq={Bq_t} K={K} {order}: {ms:.4f} ms, plain "
@@ -4031,9 +4455,8 @@ def timing_phase(dev, sz, peaks) -> dict:
         ms = device_ms(lambda: ops.dplr_score_items(V, U, e3, d, PC, sC))
         host = host_issue_ms(dev, lambda: ops.dplr_score_items(V, U, e3, d, PC, sC))
         plain = device_ms(lambda: ref.dplr_score_items_ref(V, U, e3, d, PC, sC), 3, 2)
-        nbytes = (Bq3 * n3 * (m * k + 1) + rho * m + rho + m + Bq3 * (rk_ + 1)) * 4
-        flops = Bq3 * n3 * (m * k * (2 + 2 * rho) + 2 * m + rho * (2 * k + 2) + 3)
-        bnd, by = bound_ms(nbytes, flops, peaks)
+        items = dict(n=n3, Bq=Bq3, m_I=m, rho=rho, k=k)
+        bnd, by = work_bound("dplr_score_items", peaks, itemsize=4, **items)
         shapes.append(dict(n=n3, m_I=m, Bq=Bq3, ms=ms, host_issue_ms=host, plain_ms=plain,
                            bound_ms=bnd))
         extra.append(f"dplr_score_items n={n3} m_I={m} Bq={Bq3}: {ms:.4f} ms (host issue "
@@ -4044,7 +4467,7 @@ def timing_phase(dev, sz, peaks) -> dict:
         V16 = V.to(torch.bfloat16)
         ms16 = device_ms(lambda: ops.dplr_score_items(V16, U, e3, d, PC, sC))
         plain16 = device_ms(lambda: ref.dplr_score_items_ref(V16, U, e3, d, PC, sC), 3, 2)
-        bnd16, by16 = bound_ms(nbytes - Bq3 * n3 * m * k * 2, flops, peaks)
+        bnd16, by16 = work_bound("dplr_score_items_bf16", peaks, itemsize=2, **items)
         extra.append(f"dplr_score_items bf16 n={n3} m_I={m} Bq={Bq3}: {ms16:.4f} ms, plain "
                      f"{plain16:.4f} ms, bound {bnd16:.4f} ms ({by16})")
         if Bq3 == max(sz.bq3s):
@@ -4062,10 +4485,8 @@ def timing_phase(dev, sz, peaks) -> dict:
     single = device_ms(lambda: [ops.dplr_corpus_score(*p, topk=K) for p in parts])
     yard = device_ms(lambda: [torch.topk(ops.dplr_corpus_score(*p), K) for p in parts])
     peak = peak_mib(dev, lambda: ops.dplr_corpus_score_multi(*args, topk=K))
-    nbytes = (S * (live_s * (rk_ + 1) * 4 + n_s) + S * (rho + Bq4 * (rk_ + 1)) * 4
-              + S * Bq4 * K * 8)
-    flops = S * Bq4 * live_s * (3 * rk_ + 2 * rho + 3)
-    bnd, by = bound_ms(nbytes, flops, peaks)
+    segs = dict(n=n_s, live=live_s, Bq=Bq4, K=K, rho=rho, k=k, segments=S)
+    bnd, by = work_bound("dplr_corpus_score_multi", peaks, itemsize=4, **segs)
     extra.append(f"dplr_corpus_score_multi S={S} n_s={n_s} ({live_s} live) Bq={Bq4} K={K}: "
                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by}); "
                  f"{S} single-tenant dplr_corpus_score(topk={K}) calls at Bq={Bq4}: "
@@ -4078,7 +4499,7 @@ def timing_phase(dev, sz, peaks) -> dict:
               tuple(a.to(torch.bfloat16) for a in args[1]), *args[2:])
     ms = device_ms(lambda: ops.dplr_corpus_score_multi(*args16, topk=K))
     plain = device_ms(lambda: ref.dplr_corpus_multi_topk_ref(*args16, K), 3, 2)
-    bnd, by = bound_ms(nbytes - S * live_s * (rk_ + 1) * 2, flops, peaks)
+    bnd, by = work_bound("dplr_corpus_score_multi_bf16", peaks, itemsize=2, **segs)
     extra.append(f"dplr_corpus_score_multi bf16 S={S} n_s={n_s} ({live_s} live) Bq={Bq4} "
                  f"K={K}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} ms ({by})")
     rows["dplr_corpus_score_multi_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -4102,8 +4523,8 @@ def timing_phase(dev, sz, peaks) -> dict:
         lib_ids, lib_w = ids.reshape(-1, 1).long(), w.reshape(-1, 1)
         lib = device_ms(lambda: F.embedding_bag(lib_ids, table, per_sample_weights=lib_w,
                                                 mode="sum"))
-        slots = ids.numel()
-        bnd, by = bound_ms(slots * (ek * 4 + 8) + B * nb * ek * 4, 2 * slots * ek, peaks)
+        bag = dict(slots=ids.numel(), B=B, n_bags=nb, k=ek, id_size=ids.element_size())
+        bnd, by = work_bound("embedding_bag", peaks, itemsize=4, **bag)
         extra.append(f"embedding_bag {label} {tuple(ids.shape)}: {ms:.4f} ms, plain "
                      f"{plain:.4f} ms, F.embedding_bag {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
         if label == "corpus":
@@ -4116,7 +4537,7 @@ def timing_phase(dev, sz, peaks) -> dict:
                           3, 2)
         lib = device_ms(lambda: F.embedding_bag(lib_ids, table16, per_sample_weights=lib_w16,
                                                 mode="sum"))
-        bnd, by = bound_ms(slots * (ek * 2 + 6) + B * nb * ek * 2, 2 * slots * ek, peaks)
+        bnd, by = work_bound("embedding_bag_bf16", peaks, itemsize=2, **bag)
         extra.append(f"embedding_bag bf16 {label} {tuple(ids.shape)}: {ms:.4f} ms, plain "
                      f"{plain:.4f} ms, F.embedding_bag bf16 {lib:.4f} ms, bound {bnd:.4f} ms "
                      f"({by})")
@@ -4139,7 +4560,7 @@ def timing_phase(dev, sz, peaks) -> dict:
         host = host_issue_ms(dev, lambda: ops.fwfm_pairwise(V, R))
         plain = device_ms(lambda: ref.fwfm_pairwise_ref(V, R), 3, 2)
         lib = device_ms(lambda: torch.einsum("bik,bjk,ij->b", V, V, R))
-        bnd, by = bound_ms((B * m * k + m * m + B) * 4, B * m * (m + 1) * (k + 1), peaks)
+        bnd, by = work_bound("fwfm_pairwise", peaks, B=B, m=m, k=k, itemsize=4)
         shapes.append(dict(B=B, m=m, ms=ms, host_issue_ms=host, plain_ms=plain, library_ms=lib,
                            bound_ms=bnd))
         extra.append(f"fwfm_pairwise B={B} m={m} k={k}: {ms:.4f} ms (host issue {host:.4f} "
@@ -4168,8 +4589,7 @@ def timing_phase(dev, sz, peaks) -> dict:
     lib = device_ms(lambda: torch.einsum("bik,bjk,ij->b", V16.float(), V16.float(), R))
     # bf16 products summed in f32, as the reference's dot_general with
     # preferred_element_type f32: the bf16 tensor-core rate
-    bnd, by = bound_ms(B * m * k * 2 + (m * m + B) * 4, B * m * (m + 1) * (k + 1), peaks,
-                       tensor=True)
+    bnd, by = work_bound("fwfm_pairwise_bf16", peaks, tensor=True, B=B, m=m, k=k, itemsize=2)
     rows["fwfm_pairwise_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib, f32_ms=rows["fwfm_pairwise"]["ms"])
     extra.append(f"fwfm_pairwise bf16 V B={B} m={m} k={k}: {ms:.4f} ms (f32 "
@@ -4214,9 +4634,10 @@ def bag_backward_timing(sz, peaks, gen, table, extra) -> tuple[dict, dict]:
     sort_plain = device_ms(lambda: ref.bag_rows_sort(ids, rows), 3, 5)
     sort_lib = device_ms(lambda: torch.sort(ids.reshape(-1), stable=True), 3, 5)
     slots = ids.numel()
-    nbytes = g.numel() * 4 + slots * (4 + 4) + table.numel() * 4
-    bnd, by = bound_ms(nbytes, 2 * slots * k, peaks)
-    sort_bnd, sort_by = bound_ms(slots * (4 + 4 + 8), 0, peaks)
+    bnd, by = work_bound("embedding_bag_backward", peaks, slots=slots, B=B, n_bags=bags.n_bags,
+                         k=k, rows=rows, id_size=ids.element_size())
+    sort_bnd, sort_by = work_bound("bag_rows_sort", peaks, slots=slots,
+                                   id_size=ids.element_size())
     extra.append(f"embedding_bag_backward {tuple(ids.shape)} on {rows} rows: {ms:.4f} ms (of "
                  f"it the sort alone {sort:.4f} ms, the writer alone {_ms(writer)}), plain "
                  f"{plain:.4f} ms, zeros + index_add_ {lib:.4f} ms, bound {bnd:.4f} ms ({by})")
@@ -4229,10 +4650,7 @@ def bag_backward_timing(sz, peaks, gen, table, extra) -> tuple[dict, dict]:
                  library_ms=sort_lib))
 
 
-def attention_pairs(S: int, window) -> int:
-    """(query, key) pairs causal attention over S positions computes."""
-    i = np.arange(S, dtype=np.int64)
-    return int(np.minimum(i + 1, S if window is None else window).sum())
+attention_pairs = work.attention_pairs
 
 
 def flash_timing(sz, peaks, gen, extra) -> dict:
@@ -4266,8 +4684,10 @@ def flash_timing(sz, peaks, gen, extra) -> dict:
                 lib = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                        attn_mask=band), 3, 2)
             del band
-        flops = 4 * hd * attention_pairs(S, window) * B * H
-        bnd, by = bound_ms(B * S * (2 * H + 2 * KV) * hd * 2, flops, peaks, tensor=True)
+        flops = work.kernel_work("flash_attention", B=B, S=S, H=H, KV=KV, hd=hd, window=window,
+                                 itemsize=2)[0]
+        bnd, by = work_bound("flash_attention", peaks, tensor=True, B=B, S=S, H=H, KV=KV, hd=hd,
+                             window=window, itemsize=2)
         label = "global" if window is None else f"window {window}"
         moe_shape = shape in sz.flash_moe
         extra.append(f"flash_attention bf16 B={B} S={S} H={H} KV={KV} hd={hd} {label}"
@@ -4293,10 +4713,8 @@ def corpus_bound(n, live, Bq, K, rho, k, itemsize, peaks, segments=1) -> tuple[f
     row and a_I read once (``itemsize`` bytes an entry) and the mask; the
     query side; the (Bq, K) top-K or (K None) the (Bq, n) scores written;
     the live slots' scoring flops."""
-    rk_ = rho * k
-    nbytes = (live * (rk_ + 1) * itemsize + n + (rho + Bq * (rk_ + 1)) * 4
-              + (Bq * n * 4 if K is None else Bq * K * 8))
-    return bound_ms(segments * nbytes, segments * Bq * live * (3 * rk_ + 2 * rho + 3), peaks)
+    return work_bound("dplr_corpus_score_multi", peaks, n=n, live=live, Bq=Bq, K=K, rho=rho,
+                      k=k, itemsize=itemsize, segments=segments)
 
 
 def tune_cell(dev, sz, peaks, inputs, K: int, what: str,
@@ -4658,20 +5076,29 @@ def main() -> None:
     print(f"phase card: {kind}; peaks {peaks[0] / 1e12:g} TB/s, {peaks[1] / 1e12:g} "
           f"TFLOP/s f32, {peaks[2] / 1e12:g} TFLOP/s bf16 tensor cores (dense); TF32 off",
           flush=True)
-    # the models phase's batches are made on the host beside the build and
-    # the phases before it, in a process of their own
-    with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
-        model_batches = pool.submit(models_data, FULL.models, FULL.model_make,
-                                    FULL.model_batch, FULL.model_steps)
-        kernels = run_phases(dev, peaks, model_batches)
+    # the dry run counts every cell on meta, and the models phase's batches
+    # are made, on the host beside the build and the card's phases, each in
+    # a process of its own
+    dry_out = BUILD / "dryrun_torch"
+    dry = start_dryrun(dev, list(FULL.dryrun_args), dry_out)
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            model_batches = pool.submit(models_data, FULL.models, FULL.model_make,
+                                        FULL.model_batch, FULL.model_steps)
+            kernels = run_phases(dev, peaks, model_batches, (dry, dry_out))
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
-def run_phases(dev, peaks, model_batches) -> list:
-    """Every phase after the card's; returns the ``kernels`` line's rows."""
+def run_phases(dev, peaks, model_batches, dry) -> list:
+    """Every phase after the card's; returns the ``kernels`` line's rows.
+    ``dry``: the dry run's process and its records' directory."""
     t0 = time.perf_counter()
     built = _build.build_all()
     logs = []
@@ -4686,7 +5113,6 @@ def run_phases(dev, peaks, model_batches) -> list:
             raise AssertionError(f"{', '.join(fn['kernel'] for fn in bad)} spill registers")
     print(f"phase build: {time.perf_counter() - t0:.1f} s ({len(built)} sources compiled); "
           + " | ".join(logs), flush=True)
-
     errs = kernel_checks(dev, FULL)
     serve = serving_phase(dev, FULL)
     launches = dict(serve.launches)
@@ -4708,6 +5134,10 @@ def run_phases(dev, peaks, model_batches) -> list:
     launches.update(lm_phase(dev, FULL))
     lm_train_phase(dev, FULL)
     gnn_phase(dev, FULL)
+    # this slice's main path: the examples' launches, counted over their phase
+    for g, count in examples_phase(dev, FULL).items():
+        launches[g] = launches.get(g, 0) + count
+    dryrun_phase(dev, FULL, *dry)
     rows = timing_phase(dev, FULL, peaks)
     autotune_phase(dev, FULL, peaks, serve, tenants, rows)
     profile_phase(dev, FULL, serve.engine, serve.ctxs)

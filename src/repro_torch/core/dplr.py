@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import init_device, resolve_device
 
 
 class DPLRParams(NamedTuple):
@@ -35,13 +35,13 @@ class DPLRParams(NamedTuple):
 
 
 def init_dplr(generator: torch.Generator, n_fields: int, rank: int, *,
-              scale: float | None = None, dtype=torch.float32) -> DPLRParams:
+              scale: float | None = None, dtype=torch.float32, device=None) -> DPLRParams:
     """Rank-1 ``U = 1^T, e = 1`` is a plain FM (R = 11^T - I); the init
-    starts there, with small noise on every row.  Tensors are made on the
-    generator's device."""
+    starts there, with small noise on every row.  Tensors are made on
+    ``device`` (default: the generator's)."""
     if scale is None:
         scale = 1.0 / np.sqrt(n_fields)
-    dev = generator.device
+    dev = init_device(generator, device)
     U = torch.randn((rank, n_fields), generator=generator, device=dev) * scale
     if rank >= 1:
         U[0] += 1.0

@@ -12,3 +12,10 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but no CUDA device is "
                            f"available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def init_device(generator: torch.Generator, device=None) -> torch.device:
+    """The device an ``init`` makes its tensors on: ``device``, else the
+    generator's.  A CPU generator with ``device="meta"`` gives shapes and
+    types only (``torch.Generator`` cannot be made on ``meta``)."""
+    return generator.device if device is None else torch.device(device)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.fields import FeatureLayout
+from repro_torch.device import init_device
 from repro_torch.kernels import ops as kops
 
 
@@ -55,12 +56,13 @@ def prepare_lookups(layout: FeatureLayout, device) -> None:
 
 def init_embedding_table(generator: torch.Generator, n_rows: int, dim: int, *,
                          scale: float | None = None,
-                         dtype=torch.float32) -> torch.Tensor:
-    """An embedding arena on the generator's device, N(0, scale^2) with
-    default scale 1/sqrt(dim) (FM-standard)."""
+                         dtype=torch.float32, device=None) -> torch.Tensor:
+    """An embedding arena on ``device`` (default: the generator's), N(0,
+    scale^2) with default scale 1/sqrt(dim) (FM-standard)."""
     if scale is None:
         scale = 1.0 / np.sqrt(dim)
-    table = torch.randn((n_rows, dim), generator=generator, device=generator.device)
+    table = torch.randn((n_rows, dim), generator=generator,
+                        device=init_device(generator, device))
     return table.mul_(scale).to(dtype)
 
 

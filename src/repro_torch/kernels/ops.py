@@ -4,7 +4,12 @@ One scoring path per device.  For tensors on the CPU each entry point
 runs its plain PyTorch version (``kernels.ref``); for CUDA tensors it
 launches the hand-written CUDA kernel, or raises (wrong dtype, layout or
 shape, a failed build or launch).  There is no fallback from the kernel
-to the plain version.  Any other device raises.
+to the plain version.  On ``meta`` tensors it makes the card's checks,
+launches nothing and returns empty outputs of the kernel's shapes and
+types, and reports the kernel's work by formula (``work.report``, to
+the counter a running ``launch.cost.analyze`` holds), so that a count
+does not depend on the plain version's route; it counts nothing in
+``LAUNCHES``.  Any other device raises.
 
 Types: kernels 1-4 take a float32 or bfloat16 slab (``Q_I`` and ``a_I``
 of one type; kernel 3's ``V_I``), kernel 5 a float32 or bfloat16 table
@@ -59,6 +64,7 @@ from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fwfm_interaction as _fwfm
 from repro_torch.kernels import ref
+from repro_torch.kernels import work
 
 KERNELS = {
     "dplr_corpus_score": ("corpus_score_full",),
@@ -97,7 +103,7 @@ def _device(*tensors) -> torch.device:
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {dev}")
     return dev
 
@@ -225,6 +231,14 @@ def _corpus_score(Q_I, a_I, e, P_C, a_C, valid, topk, index_offset, index_stride
     _check_for_kernel(dtypes=SLAB_DTYPES, Q_I=Q_I, valid=valid)
     _check_for_kernel(dtypes=(Q_I.dtype,), a_I=a_I)
     e, P_C, a_C = _small_f32(e=e, P_C=P_C, a_C=a_C)
+    if dev.type == "meta":
+        name = "dplr_corpus_score" if topk is None else "dplr_corpus_topk"
+        work.report(launch_name(name, Q_I.dtype), n=n, live=n, Bq=Bq, K=topk, rho=rho, k=k,
+                     itemsize=Q_I.element_size(), masked=valid is not None)
+        if topk is None:
+            return Q_I.new_empty((Bq, n), dtype=torch.float32)
+        return (Q_I.new_empty((Bq, topk), dtype=torch.float32),
+                Q_I.new_empty((Bq, topk), dtype=torch.int32))
     if topk is None:
         out = _corpus.launch_full(Q_I, a_I, e, P_C, a_C, valid, acc_dtype, tile)
         LAUNCHES[launch_name("corpus_score_full", Q_I.dtype, acc_dtype)] += 1
@@ -305,6 +319,13 @@ def _corpus_score_multi(Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, index_
         _check_for_kernel(s, dtypes=(slab,), Q_I=Q_parts[s], a_I=a_parts[s],
                           valid=valid_parts[s])
     e, P_C, a_C = _small_f32(e=e, P_C=P_C, a_C=a_C)
+    if dev.type == "meta":
+        for q, v in zip(Q_parts, valid_parts):
+            n_s = q.shape[0]
+            work.report(launch_name("dplr_corpus_score_multi", slab), n=n_s, live=n_s, Bq=Bq,
+                         K=topk, rho=rho, k=k, itemsize=q.element_size(),
+                         masked=v is not None)
+        return (e.new_empty((S, Bq, topk)), e.new_empty((S, Bq, topk), dtype=torch.int32))
     vals, ids, launched = _corpus.launch_multi_topk(
         Q_parts, a_parts, valid_parts, e, P_C, a_C, topk, int(index_offset),
         int(index_stride), acc_dtype, tile)
@@ -337,8 +358,13 @@ def dplr_score_items(V_I, U_I, e, d_I, P_C, s_C):
         _check_corpus_limits(rho * k)
         _check_for_kernel(dtypes=SLAB_DTYPES, V_I=V_I)
         U_I, e, d_I, P_C, s_C = _small_f32(U_I=U_I, e=e, d_I=d_I, P_C=P_C, s_C=s_C)
-        out = _dplr.launch(V_I, U_I, e, d_I, P_C, s_C)
-        LAUNCHES[launch_name("dplr_score_items_kernel", V_I.dtype)] += 1
+        if dev.type == "meta":
+            work.report(launch_name("dplr_score_items", V_I.dtype), n=n, Bq=Bq, m_I=mI,
+                         rho=rho, k=k, itemsize=V_I.element_size())
+            out = P_C.new_empty((Bq, n))
+        else:
+            out = _dplr.launch(V_I, U_I, e, d_I, P_C, s_C)
+            LAUNCHES[launch_name("dplr_score_items_kernel", V_I.dtype)] += 1
     return out if batched else out[0]
 
 
@@ -395,6 +421,11 @@ def _embedding_bag_launch(table, ids, weights, bags: BagMap):
     B = math.prod(lead)
     if B == 0:
         return table.new_zeros((*lead, bags.n_bags, table.shape[1]))
+    if table.is_meta:
+        work.report(launch_name("embedding_bag", table.dtype), slots=ids.numel(), B=B,
+                     n_bags=bags.n_bags, k=table.shape[1], itemsize=table.element_size(),
+                     id_size=ids.element_size())
+        return table.new_empty((*lead, bags.n_bags, table.shape[1]))
     out = _bag.launch(table, ids.view(B, n_slots), weights.view(B, n_slots), bags)
     LAUNCHES[launch_name("embedding_bag_kernel", table.dtype)] += 1
     return out.view(*lead, bags.n_bags, table.shape[1])
@@ -416,6 +447,10 @@ def embedding_bag_backward(grad, table, ids, weights, bags: BagMap):
     B = math.prod(ids.shape[:-1])
     if B == 0:
         return torch.zeros_like(table)
+    if dev.type == "meta":
+        work.report("embedding_bag_backward", slots=ids.numel(), B=B, n_bags=bags.n_bags,
+                     k=table.shape[1], rows=table.shape[0], id_size=ids.element_size())
+        return torch.empty_like(table)
     out = _bag.launch_backward(grad.view(B, bags.n_bags, table.shape[1]),
                                ids.view(B, n_slots), weights.view(B, n_slots), bags,
                                table.shape[0])
@@ -440,6 +475,9 @@ def bag_rows_sort(ids, rows: int):
     flat = ids.view(-1)
     if flat.numel() == 0:
         return flat.clone(), torch.empty(0, dtype=torch.int64, device=dev)
+    if dev.type == "meta":
+        work.report("bag_rows_sort", slots=flat.numel(), id_size=ids.element_size())
+        return torch.empty_like(flat), torch.empty(flat.shape, dtype=torch.int64, device=dev)
     keys, perm, _ = _bag.launch_sort(flat, rows)
     for name in KERNELS["bag_rows_sort"]:
         LAUNCHES[name] += 1
@@ -464,8 +502,10 @@ class _EmbeddingBag(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             d_table = embedding_bag_backward(grad, table, ids, weights, ctx.bags)
         if ctx.needs_input_grad[2]:
-            d_weights = ref.embedding_bag_vjp(table, ids, weights, ctx.bags.segments,
-                                              grad)[1]
+            # the plain gather-and-dot (on meta: shapes only, its work uncounted)
+            d_weights = (torch.empty_like(weights) if weights.is_meta else
+                         ref.embedding_bag_vjp(table, ids, weights, ctx.bags.segments,
+                                               grad)[1])
         return d_table, None, d_weights, None
 
 
@@ -499,6 +539,10 @@ def _fwfm_pairwise_launch(V, R):
     B = math.prod(lead)
     if B == 0:
         return V.new_zeros(lead, dtype=torch.float32)
+    if V.is_meta:
+        work.report(launch_name("fwfm_pairwise", V.dtype), B=B, m=m, k=k,
+                     itemsize=V.element_size())
+        return V.new_empty(lead, dtype=torch.float32)
     out = _fwfm.launch(V.view(B, m, k), R)
     LAUNCHES[launch_name("fwfm_pairwise_kernel", V.dtype)] += 1
     return out.view(lead)
@@ -556,6 +600,10 @@ def flash_attention(q, k, v, *, window: int | None = None):
         raise NotImplementedError("flash_attention has no backward on the card; "
                                   "model.lm_loss trains through the plain gqa_attention "
                                   "(ROADMAP: kernel 7's backward, a speed item)")
+    if dev.type == "meta":
+        work.report("flash_attention", B=B, S=S, H=H, KV=KV, hd=hd,
+                     window=window, itemsize=q.element_size())
+        return torch.empty_like(q)
     out = _flash.launch(q, k, v, window)
     LAUNCHES[_flash.kernel_name(q.dtype, hd)] += 1
     return out

@@ -1,0 +1,331 @@
+"""Every (architecture x shape) cell of the registry as a callable and its
+arguments on one device: the one-card counterpart of
+``repro.launch.steps``, which the dry run (``launch.dryrun``), the cost
+model (``launch.cost``) and chip_smoke's dry-run phase share.
+
+    cell = steps.build("gemma3-1b", "train_4k", device="meta")
+    cost.analyze(cell.fn, *cell.args)
+
+A cell's arguments keep the reference's names, shapes and types: the
+parameter and optimizer-state trees carry the checkpoint format's keys
+(``params/...``, ``opt/acc/...``), batches the keys of
+``_recsys_train_batch``, ``_recsys_rank_query`` and ``_gnn_batch``, and
+the learning rate is a 0-d float32 tensor.  On ``device="meta"`` building
+allocates nothing: parameters come from the ``init`` functions on
+``meta`` (a CPU generator, ``device="meta"``), inputs are empty tensors.
+On a real device the parameters are random from ``seed`` and the inputs
+random within their ranges (ids below the smallest vocabulary, masks of
+ones), so that a cut can be run and measured beside its count.
+
+The families:
+  * lm: the train step (``adamw(weight_decay=0.1)`` on ``lm_loss``),
+    ``prefill`` of the shape's prompt, one ``decode_step`` into the
+    shape's cache, the serving cells on bf16 weights;
+  * recsys: the adagrad train step, ``rank_items`` (Algorithm 1) and
+    pointwise ``apply``; ``opts={"serve_bf16": True}`` serves bf16 tables;
+  * gnn: PNA's adamw train step on the shape's batch, in bf16 compute.
+
+What the reference builds on a mesh and one card has no use for waits for
+the sharding item, and each cell names it in ``notes``: shardings, the
+LM's ``micro_batches`` (``train_4k`` is one batch of 256 here), FSDP,
+PNA's ``node_constraint`` and partitioned forward, ``rank_items_mp``.  The
+opts ``moe_scatter`` and ``moe_fused`` map onto ``moe_impl="scatter"`` and
+``moe_fused_combine``; ``mp_scoring`` and ``partitioned`` raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+from typing import Callable
+
+import torch
+
+from repro_torch import optim
+from repro_torch.configs import registry as reg
+from repro_torch.configs.pna import shape_config
+from repro_torch.launch import train
+from repro_torch.models.gnn import pna
+from repro_torch.models.gnn.sampler import subgraph_shapes
+from repro_torch.models.transformer import model as tm
+
+__all__ = ["Cell", "all_cells", "build"]
+
+SHARDING = "waits for the sharding item (ROADMAP item 5)"
+
+
+@dataclasses.dataclass
+class Cell:
+    """One cell: ``fn(*args)`` is its step, ``kind`` the shape's kind,
+    ``notes`` what the one-card build leaves out."""
+
+    name: str
+    fn: Callable
+    args: tuple
+    kind: str
+    notes: tuple = ()
+
+
+class _Inputs:
+    """Input tensors on one device: empty on ``meta``, else random from a
+    seeded generator (ids uniform below ``high``, masks and weights ones,
+    features normal)."""
+
+    def __init__(self, device: torch.device, seed: int):
+        self.dev = device
+        self.gen = None if device.type == "meta" else torch.Generator(device).manual_seed(seed)
+
+    def ids(self, shape, high: int, dtype=torch.int32):
+        if self.gen is None:
+            return torch.empty(shape, dtype=dtype, device=self.dev)
+        return torch.randint(0, high, shape, generator=self.gen, device=self.dev, dtype=dtype)
+
+    def ones(self, shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=self.dev) if self.gen is None else \
+            torch.ones(shape, dtype=dtype, device=self.dev)
+
+    def normal(self, shape, dtype=torch.float32):
+        if self.gen is None:
+            return torch.empty(shape, dtype=dtype, device=self.dev)
+        return torch.randn(shape, generator=self.gen, device=self.dev).to(dtype)
+
+    def scalar(self, value, dtype=torch.float32):
+        if self.gen is None:
+            return torch.empty((), dtype=dtype, device=self.dev)
+        return torch.tensor(value, dtype=dtype, device=self.dev)
+
+
+def _params(init, cfg, device: torch.device, seed: int) -> dict:
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
+    return init(gen, cfg, device=device)
+
+
+def _cast(tree: dict, dtype) -> dict:
+    """``tree``'s float32 leaves cast to ``dtype``."""
+    return {k: _cast(v, dtype) if isinstance(v, dict) else
+            v.to(dtype) if v.dtype == torch.float32 else v for k, v in tree.items()}
+
+
+# -- lm ------------------------------------------------------------------------
+
+def build_lm(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
+    cfg = cfg or arch.make_config()
+    opts = opts or {}
+    if opts.get("moe_scatter") and cfg.is_moe:
+        cfg = dataclasses.replace(cfg, moe_impl="scatter")
+    if opts.get("moe_fused") and cfg.is_moe:
+        cfg = dataclasses.replace(cfg, moe_fused_combine=True)
+    B, S = shape.dims["batch"], shape.dims["seq"]
+    inp = _Inputs(device, seed)
+    name = f"{arch.name}/{shape.name}"
+    notes = (f"shardings: {SHARDING}",)
+
+    if shape.kind == "train":
+        optimizer = optim.adamw(weight_decay=0.1)
+        params = _params(tm.init, cfg, device, seed)
+        opt_state = optimizer.init(params)
+        mod = train.build_lm_trainer(arch.name, cfg, B, S, seed, device)[0]
+
+        def train_step(params, opt_state, batch, lr):
+            return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
+
+        batch = {"tokens": inp.ids((B, S), cfg.vocab), "labels": inp.ids((B, S), cfg.vocab)}
+        notes += (f"the reference's micro_batches and FSDP: {SHARDING}; the batch of {B} is "
+                  f"one step here",)
+        return Cell(name, train_step, (params, opt_state, batch, inp.scalar(1e-4)),
+                    shape.kind, notes)
+
+    # serving carries bf16 weights (the production serving checkpoint)
+    params = _cast(_params(tm.init, cfg, device, seed), torch.bfloat16)
+    if shape.kind == "prefill":
+        def serve_prefill(params, tokens):
+            return tm.prefill(params, cfg, tokens, S, device=device)
+
+        return Cell(name, serve_prefill, (params, inp.ids((B, S), cfg.vocab)), shape.kind,
+                    notes)
+
+    cache = inp.ones((cfg.n_layers, 2, B, S, cfg.n_kv_heads, cfg.hd), torch.bfloat16)
+
+    def serve_decode(params, cache, tokens, cache_index):
+        # a meta index has no value: write the last slot (a step's work is
+        # the same at every slot; its attention spans the whole cache)
+        index = S - 1 if cache_index.is_meta else int(cache_index)
+        return tm.decode_step(params, cfg, tokens, cache, index, device=device)
+
+    return Cell(name, serve_decode,
+                (params, cache, inp.ids((B, 1), cfg.vocab), inp.scalar(S - 1, torch.int32)),
+                shape.kind, notes)
+
+
+# -- recsys --------------------------------------------------------------------
+
+def _recsys_train_batch(arch_name, cfg, B, inp: _Inputs) -> dict:
+    lay = cfg.layout
+    item_vocab = lay.fields[-1].vocab_size
+    if arch_name == "mind":
+        return {"hist_ids": inp.ids((B, cfg.seq_len), item_vocab),
+                "hist_mask": inp.ones((B, cfg.seq_len)),
+                "target_id": inp.ids((B,), item_vocab),
+                "neg_ids": inp.ids((B, cfg.n_neg), item_vocab)}
+    vocab = min(f.vocab_size for f in lay.fields)
+    batch = {"ids": inp.ids((B, lay.n_slots), vocab),
+             "weights": inp.ones((B, lay.n_slots)),
+             "label": inp.ids((B,), 2, torch.float32)}
+    if arch_name == "bst":
+        batch["hist_ids"] = inp.ids((B, cfg.seq_len), item_vocab)
+        batch["hist_mask"] = inp.ones((B, cfg.seq_len))
+    return batch
+
+
+def _recsys_rank_query(arch_name, cfg, n_queries, n_items, inp: _Inputs) -> dict:
+    lay = cfg.layout
+    ctx, item = lay.subset("context"), lay.subset("item")
+    vocab = min(f.vocab_size for f in lay.fields)
+    item_vocab = lay.fields[-1].vocab_size
+    q = {"context_ids": inp.ids((n_queries, ctx.n_slots), vocab),
+         "context_weights": inp.ones((n_queries, ctx.n_slots)),
+         "item_ids": inp.ids((n_queries, n_items, item.n_slots), vocab),
+         "item_weights": inp.ones((n_queries, n_items, item.n_slots))}
+    if arch_name in ("bst", "mind"):
+        q["hist_ids"] = inp.ids((n_queries, cfg.seq_len), item_vocab)
+        q["hist_mask"] = inp.ones((n_queries, cfg.seq_len))
+    if arch_name == "mind":
+        q.pop("context_ids"), q.pop("context_weights")
+        q.pop("item_weights")
+    return q
+
+
+def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
+    opts = opts or {}
+    mod = train.recsys_module(arch.name)
+    cfg = cfg or arch.make_config()
+    params = _params(mod.init, cfg, device, seed)
+    inp = _Inputs(device, seed)
+    name = f"{arch.name}/{shape.name}"
+    notes = (f"shardings and the sharded lookup (take_fn): {SHARDING}",)
+    if opts.get("serve_bf16") and shape.kind in ("rank", "pointwise"):
+        params = _cast(params, torch.bfloat16)
+
+    if shape.kind == "train":
+        optimizer = optim.adagrad()
+        opt_state = optimizer.init(params)
+        batch = _recsys_train_batch(arch.name, cfg, shape.dims["batch"], inp)
+
+        def train_step(params, opt_state, batch, lr):
+            return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
+
+        return Cell(name, train_step, (params, opt_state, batch, inp.scalar(0.05)),
+                    shape.kind, notes)
+
+    if shape.kind == "pointwise":
+        batch = _recsys_train_batch(arch.name, cfg, shape.dims["batch"], inp)
+        batch.pop("label", None)
+        if arch.name == "mind":
+            batch.pop("neg_ids")
+
+        def serve_pointwise(params, batch):
+            return mod.apply(params, cfg, batch)
+
+        return Cell(name, serve_pointwise, (params, batch), shape.kind, notes)
+
+    if opts.get("mp_scoring"):
+        raise NotImplementedError(f"{name}+mp: rank_items_mp {SHARDING}")
+    query = _recsys_rank_query(arch.name, cfg, shape.dims["n_queries"],
+                               shape.dims["n_items"], inp)
+
+    def serve_rank(params, query):
+        return mod.rank_items(params, cfg, query)
+
+    return Cell(name, serve_rank, (params, query), shape.kind, notes)
+
+
+# -- gnn -----------------------------------------------------------------------
+
+def gnn_sizes(shape) -> tuple[int, int]:
+    """(nodes, edges) of a shape's batch on one card (no mesh padding)."""
+    d = shape.dims
+    if shape.name == "minibatch_lg":
+        return subgraph_shapes(d["batch_nodes"], tuple(d["fanouts"]), d["d_feat"])
+    if shape.name == "molecule":
+        return d["n_graphs"] * d["nodes_per_graph"], d["n_graphs"] * d["edges_per_graph"]
+    return d["n_nodes"], d["n_edges"]
+
+
+def _gnn_batch(shape, inp: _Inputs) -> dict:
+    d = shape.dims
+    n_nodes, n_edges = gnn_sizes(shape)
+    graph = d["task"] == "graph"
+    n_labels = d["n_graphs"] if graph else n_nodes
+    batch = {"node_feat": inp.normal((n_nodes, d["d_feat"])),
+             "edge_src": inp.ids((n_edges,), n_nodes),
+             "edge_dst": inp.ids((n_edges,), n_nodes),
+             "edge_mask": inp.ones((n_edges,)),
+             "labels": inp.ids((n_labels,), d["n_classes"]),
+             "label_mask": inp.ones((n_labels,))}
+    if graph:
+        batch["graph_ids"] = inp.ids((n_nodes,), d["n_graphs"])
+    return batch
+
+
+def build_gnn(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
+    if (opts or {}).get("partitioned"):
+        raise NotImplementedError(f"{arch.name}/{shape.name}+part: the partitioned "
+                                  f"forward {SHARDING}")
+    base = cfg or arch.make_config()
+    cfg = dataclasses.replace(shape_config(base, shape), remat=False,
+                              compute_dtype=torch.bfloat16)
+    optimizer = optim.adamw()
+    params = _params(pna.init, cfg, device, seed)
+    opt_state = optimizer.init(params)
+    inp = _Inputs(device, seed)
+    batch = _gnn_batch(shape, inp)
+    graphs = shape.dims.get("n_graphs") if shape.dims["task"] == "graph" else None
+
+    def loss(params, cfg, batch):
+        return pna.loss(params, cfg, batch if graphs is None else dict(batch, n_graphs=graphs))
+
+    mod = SimpleNamespace(loss=loss)
+
+    def train_step(params, opt_state, batch, lr):
+        return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
+
+    notes = (f"shardings and node_constraint: {SHARDING}",)
+    return Cell(f"{arch.name}/{shape.name}", train_step,
+                (params, opt_state, batch, inp.scalar(1e-3)), shape.kind, notes)
+
+
+# -- dispatch ------------------------------------------------------------------
+
+_BUILDERS = {"lm": build_lm, "recsys": build_recsys, "gnn": build_gnn}
+
+
+def build(arch_name: str, shape_name: str, device="meta", cfg=None, opts=None,
+          dims: dict | None = None, seed: int = 0) -> Cell:
+    """The cell ``arch_name/shape_name`` on ``device`` (``meta`` by
+    default: nothing allocated).  ``cfg``: a config in place of the
+    architecture's (a cut in depth); ``dims``: entries of the shape's
+    ``dims`` replaced (a cut in batch or length), named in the cell's
+    name and notes; ``seed``: the parameters' and inputs' draws on a real
+    device."""
+    arch = reg.get(arch_name)
+    shape = next(s for s in arch.shapes if s.name == shape_name)
+    if shape.skip:
+        raise ValueError(f"{arch_name}/{shape_name} is N/A: {shape.skip}")
+    if dims:
+        shape = dataclasses.replace(shape, dims={**shape.dims, **dims})
+    cell = _BUILDERS[arch.family](arch, shape, torch.device(device), cfg=cfg, opts=opts,
+                                  seed=seed)
+    if dims:
+        cut = ", ".join(f"{k}={v}" for k, v in dims.items())
+        cell.name += f" [{cut}]"
+        cell.notes += (f"cut: {cut}",)
+    return cell
+
+
+def all_cells(include_skipped: bool = False):
+    """(arch, shape name, shape) of every registry cell, skipped ones only
+    when asked."""
+    for arch in reg.REGISTRY.values():
+        for shape in arch.shapes:
+            if shape.skip and not include_skipped:
+                continue
+            yield arch.name, shape.name, shape

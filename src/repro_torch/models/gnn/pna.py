@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import init_device
 from repro_torch.models.layers import apply_mlp, glorot, init_mlp
 
 
@@ -64,22 +65,22 @@ class PNAConfig:
         return 4 * 3              # aggregators x scalers
 
 
-def init(generator: torch.Generator, cfg: PNAConfig) -> dict:
-    """Random parameters on the generator's device, in the JAX package's
-    tree: ``encoder``, ``decoder/layer_i/{w,b}``, ``layer_i/{w_pre, b_pre,
-    w_post, b_post}``."""
-    d, dev = cfg.d_hidden, generator.device
+def init(generator: torch.Generator, cfg: PNAConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's), in the
+    JAX package's tree: ``encoder``, ``decoder/layer_i/{w,b}``,
+    ``layer_i/{w_pre, b_pre, w_post, b_post}``."""
+    d, dev = cfg.d_hidden, init_device(generator, device)
     layers = {}
     for i in range(cfg.n_layers):
         layers[f"layer_{i}"] = {
-            "w_pre": glorot(generator, (2 * d, d), cfg.dtype),
+            "w_pre": glorot(generator, (2 * d, d), cfg.dtype, dev),
             "b_pre": torch.zeros((d,), dtype=cfg.dtype, device=dev),
-            "w_post": glorot(generator, ((1 + cfg.n_agg_blocks) * d, d), cfg.dtype),
+            "w_post": glorot(generator, ((1 + cfg.n_agg_blocks) * d, d), cfg.dtype, dev),
             "b_post": torch.zeros((d,), dtype=cfg.dtype, device=dev),
         }
     return {
-        "encoder": glorot(generator, (cfg.d_feat, d), cfg.dtype),
-        "decoder": init_mlp(generator, [d, d, cfg.n_classes], cfg.dtype),
+        "encoder": glorot(generator, (cfg.d_feat, d), cfg.dtype, dev),
+        "decoder": init_mlp(generator, [d, d, cfg.n_classes], cfg.dtype, dev),
         **layers,
     }
 

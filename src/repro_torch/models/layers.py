@@ -21,26 +21,31 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import init_device
 
-def glorot(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+
+def glorot(generator: torch.Generator, shape, dtype=torch.float32, device=None) -> torch.Tensor:
     fan_in, fan_out = shape[-2], shape[-1]
     scale = np.sqrt(2.0 / (fan_in + fan_out))
-    return (torch.randn(shape, generator=generator, device=generator.device) * scale).to(dtype)
+    dev = init_device(generator, device)
+    return (torch.randn(shape, generator=generator, device=dev) * scale).to(dtype)
 
 
-def he(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+def he(generator: torch.Generator, shape, dtype=torch.float32, device=None) -> torch.Tensor:
     scale = np.sqrt(2.0 / shape[-2])
-    return (torch.randn(shape, generator=generator, device=generator.device) * scale).to(dtype)
+    dev = init_device(generator, device)
+    return (torch.randn(shape, generator=generator, device=dev) * scale).to(dtype)
 
 
 # -- MLP ----------------------------------------------------------------------
 
-def init_mlp(generator: torch.Generator, dims: Sequence[int], dtype=torch.float32) -> dict:
+def init_mlp(generator: torch.Generator, dims: Sequence[int], dtype=torch.float32,
+             device=None) -> dict:
     """dims = [in, h1, ..., out]."""
-    dev = generator.device
+    dev = init_device(generator, device)
     return {
         f"layer_{i}": {
-            "w": he(generator, (dims[i], dims[i + 1]), dtype),
+            "w": he(generator, (dims[i], dims[i + 1]), dtype, dev),
             "b": torch.zeros((dims[i + 1],), dtype=dtype, device=dev),
         }
         for i in range(len(dims) - 1)
@@ -86,13 +91,13 @@ def apply_rms_norm(params: dict, x, eps: float = 1e-6):
 # -- dense multi-head attention over short sequences --------------------------
 
 def init_mha(generator: torch.Generator, d_in: int, d_head: int, n_heads: int,
-             d_out: int | None = None, dtype=torch.float32) -> dict:
+             d_out: int | None = None, dtype=torch.float32, device=None) -> dict:
     d_out = d_out or d_in
     return {
-        "wq": glorot(generator, (d_in, n_heads * d_head), dtype),
-        "wk": glorot(generator, (d_in, n_heads * d_head), dtype),
-        "wv": glorot(generator, (d_in, n_heads * d_head), dtype),
-        "wo": glorot(generator, (n_heads * d_head, d_out), dtype),
+        "wq": glorot(generator, (d_in, n_heads * d_head), dtype, device),
+        "wk": glorot(generator, (d_in, n_heads * d_head), dtype, device),
+        "wv": glorot(generator, (d_in, n_heads * d_head), dtype, device),
+        "wo": glorot(generator, (n_heads * d_head, d_out), dtype, device),
     }
 
 

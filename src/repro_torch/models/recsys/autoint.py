@@ -34,6 +34,7 @@ from repro_torch.embedding.bag import (
     lookup_linear_terms,
     padded_rows,
 )
+from repro_torch.device import init_device
 from repro_torch.models.layers import apply_mha, glorot, init_mha, logistic_loss
 
 
@@ -49,28 +50,28 @@ class AutoIntConfig:
     dtype: Any = torch.float32
 
 
-def init(generator: torch.Generator, cfg: AutoIntConfig) -> dict:
-    """Random parameters on the generator's device."""
-    dev = generator.device
+def init(generator: torch.Generator, cfg: AutoIntConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's)."""
+    dev = init_device(generator, device)
     d_head = cfg.d_attn // cfg.n_heads
     d = cfg.embed_dim
     layers = {}
     for i in range(cfg.n_attn_layers):
         d_in = d if i == 0 else cfg.d_attn
         layers[f"attn_{i}"] = init_mha(generator, d_in, d_head, cfg.n_heads,
-                                       d_out=cfg.d_attn, dtype=cfg.dtype)
-        layers[f"res_{i}"] = glorot(generator, (d_in, cfg.d_attn), cfg.dtype)
+                                       d_out=cfg.d_attn, dtype=cfg.dtype, device=dev)
+        layers[f"res_{i}"] = glorot(generator, (d_in, cfg.d_attn), cfg.dtype, dev)
     rows = padded_rows(cfg.layout.total_vocab)
     params = {
         "bias": torch.zeros((), dtype=cfg.dtype, device=dev),
         "linear": torch.zeros((rows,), dtype=cfg.dtype, device=dev),
-        "embedding": init_embedding_table(generator, rows, d, dtype=cfg.dtype),
-        "out_w": glorot(generator, (cfg.layout.n_fields * cfg.d_attn, 1), cfg.dtype),
+        "embedding": init_embedding_table(generator, rows, d, dtype=cfg.dtype, device=dev),
+        "out_w": glorot(generator, (cfg.layout.n_fields * cfg.d_attn, 1), cfg.dtype, dev),
         **layers,
     }
     if cfg.use_dplr_head:
         params["U"], params["e"] = init_dplr(generator, cfg.layout.n_fields, cfg.dplr_rank,
-                                             dtype=cfg.dtype)
+                                             dtype=cfg.dtype, device=dev)
     return params
 
 

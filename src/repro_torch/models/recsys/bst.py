@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.fields import FeatureLayout
+from repro_torch.device import init_device
 from repro_torch.embedding.bag import (
     gather_rows,
     init_embedding_table,
@@ -57,25 +58,26 @@ class BSTConfig:
         return self.seq_len + 1   # history + target item
 
 
-def init(generator: torch.Generator, cfg: BSTConfig) -> dict:
-    """Random parameters on the generator's device."""
-    dev = generator.device
+def init(generator: torch.Generator, cfg: BSTConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's)."""
+    dev = init_device(generator, device)
     d = cfg.embed_dim
     n_ctx = cfg.layout.n_context
     params = {
         "embedding": init_embedding_table(generator, padded_rows(cfg.layout.total_vocab), d,
-                                          dtype=cfg.dtype),
+                                          dtype=cfg.dtype, device=dev),
         "pos": (torch.randn((cfg.n_tokens, d), generator=generator, device=dev)
                 * 0.02).to(cfg.dtype),
         "head": init_mlp(generator, [cfg.n_tokens * d + n_ctx * d, *cfg.mlp_dims, 1],
-                         cfg.dtype),
+                         cfg.dtype, dev),
     }
     for i in range(cfg.n_blocks):
         params[f"block_{i}"] = {
             "ln1": init_layer_norm(d, cfg.dtype, dev),
-            "mha": init_mha(generator, d, d // cfg.n_heads, cfg.n_heads, dtype=cfg.dtype),
+            "mha": init_mha(generator, d, d // cfg.n_heads, cfg.n_heads, dtype=cfg.dtype,
+                            device=dev),
             "ln2": init_layer_norm(d, cfg.dtype, dev),
-            "ffn": init_mlp(generator, [d, cfg.ffn_mult * d, d], cfg.dtype),
+            "ffn": init_mlp(generator, [d, cfg.ffn_mult * d, d], cfg.dtype, dev),
         }
     return params
 

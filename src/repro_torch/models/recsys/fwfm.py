@@ -43,6 +43,7 @@ from repro_torch.embedding.bag import (
     padded_rows,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.device import init_device
 from repro_torch.models.layers import logistic_loss
 
 
@@ -60,14 +61,15 @@ class FwFMConfig:
         return self.layout.n_fields
 
 
-def init(generator: torch.Generator, cfg: FwFMConfig) -> dict:
-    """Random parameters on the generator's device."""
-    dev = generator.device
+def init(generator: torch.Generator, cfg: FwFMConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's)."""
+    dev = init_device(generator, device)
     rows = padded_rows(cfg.layout.total_vocab)
     params = {
         "bias": torch.zeros((), dtype=cfg.dtype, device=dev),
         "linear": torch.zeros((rows,), dtype=cfg.dtype, device=dev),
-        "embedding": init_embedding_table(generator, rows, cfg.embed_dim, dtype=cfg.dtype),
+        "embedding": init_embedding_table(generator, rows, cfg.embed_dim, dtype=cfg.dtype,
+                                          device=dev),
     }
     m = cfg.n_fields
     if cfg.interaction == "fwfm":
@@ -76,7 +78,8 @@ def init(generator: torch.Generator, cfg: FwFMConfig) -> dict:
         R = torch.randn((m, m), generator=generator, device=dev) * 0.1
         params["R"] = R.to(cfg.dtype)
     elif cfg.interaction == "dplr":
-        params["U"], params["e"] = init_dplr(generator, m, cfg.rank, dtype=cfg.dtype)
+        params["U"], params["e"] = init_dplr(generator, m, cfg.rank, dtype=cfg.dtype,
+                                             device=dev)
     elif cfg.interaction != "fm":
         raise ValueError(cfg.interaction)
     return params

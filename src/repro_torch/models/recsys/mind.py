@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.fields import FeatureLayout
 from repro_torch.embedding.bag import gather_rows, init_embedding_table, padded_rows
+from repro_torch.device import init_device
 from repro_torch.models.layers import glorot
 
 
@@ -42,15 +43,15 @@ class MINDConfig:
     dtype: Any = torch.float32
 
 
-def init(generator: torch.Generator, cfg: MINDConfig) -> dict:
-    """Random parameters on the generator's device."""
-    d = cfg.embed_dim
+def init(generator: torch.Generator, cfg: MINDConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's)."""
+    d, dev = cfg.embed_dim, init_device(generator, device)
     return {
         "embedding": init_embedding_table(generator, padded_rows(cfg.layout.total_vocab), d,
-                                          dtype=cfg.dtype),
-        "S": glorot(generator, (d, d), cfg.dtype),               # shared bilinear map
+                                          dtype=cfg.dtype, device=dev),
+        "S": glorot(generator, (d, d), cfg.dtype, dev),          # shared bilinear map
         "b_init": torch.randn((cfg.n_interests, cfg.seq_len), generator=generator,
-                              device=generator.device).to(cfg.dtype),
+                              device=dev).to(cfg.dtype),
     }
 
 

@@ -32,6 +32,7 @@ from repro_torch.embedding.bag import (
     lookup_linear_terms,
     padded_rows,
 )
+from repro_torch.device import init_device
 from repro_torch.models.layers import apply_mlp, init_mlp, logistic_loss
 
 
@@ -45,20 +46,21 @@ class WideDeepConfig:
     dtype: Any = torch.float32
 
 
-def init(generator: torch.Generator, cfg: WideDeepConfig) -> dict:
-    """Random parameters on the generator's device."""
-    dev = generator.device
+def init(generator: torch.Generator, cfg: WideDeepConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's)."""
+    dev = init_device(generator, device)
     d_in = cfg.layout.n_fields * cfg.embed_dim
     rows = padded_rows(cfg.layout.total_vocab)
     params = {
         "bias": torch.zeros((), dtype=cfg.dtype, device=dev),
         "wide": torch.zeros((rows,), dtype=cfg.dtype, device=dev),
-        "embedding": init_embedding_table(generator, rows, cfg.embed_dim, dtype=cfg.dtype),
-        "deep": init_mlp(generator, [d_in, *cfg.mlp_dims, 1], cfg.dtype),
+        "embedding": init_embedding_table(generator, rows, cfg.embed_dim, dtype=cfg.dtype,
+                                          device=dev),
+        "deep": init_mlp(generator, [d_in, *cfg.mlp_dims, 1], cfg.dtype, dev),
     }
     if cfg.use_dplr_head:
         params["U"], params["e"] = init_dplr(generator, cfg.layout.n_fields, cfg.dplr_rank,
-                                             dtype=cfg.dtype)
+                                             dtype=cfg.dtype, device=dev)
     return params
 
 

@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import resolve_device
+from repro_torch.device import init_device, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import attention as attn_lib
 from repro_torch.models.transformer import moe as moe_lib
@@ -159,10 +159,10 @@ def init_scale(name: str, shape: tuple) -> float:
     return float(1.0 / np.sqrt(shape[0] if len(shape) == 2 else shape[1]))
 
 
-def init(generator: torch.Generator, cfg: TransformerConfig) -> dict:
-    """Random parameters on the generator's device: norms at 1, every other
-    leaf normal times ``init_scale``."""
-    dev, dt = generator.device, cfg.param_dtype
+def init(generator: torch.Generator, cfg: TransformerConfig, device=None) -> dict:
+    """Random parameters on ``device`` (default: the generator's): norms
+    at 1, every other leaf normal times ``init_scale``."""
+    dev, dt = init_device(generator, device), cfg.param_dtype
     params: dict = {"layers": {}}
     for path, shape in _shapes(cfg).items():
         name = path.split("/")[-1]

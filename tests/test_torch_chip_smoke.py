@@ -281,3 +281,119 @@ def test_attention_pairs_counts_the_causal_and_window_spans(chip_smoke):
     # gemma3-1b's global layer at S = 32,752: ~2.2 TFLOP a sequence
     flops = 4 * 256 * 4 * chip_smoke.attention_pairs(32_752, None)
     assert 2.19e12 < flops < 2.20e12
+
+
+# the bounds of PERF.md's kernel table (ms, on an H100 SXM's rates), each at
+# the timing phase's shapes: (row, kernel, tensor rate, dims, bound)
+_FULL_SLAB = dict(n=1 << 20, live=1_000_000, rho=3, k=16)
+TIMING_BOUNDS = [
+    ("1", "dplr_corpus_score", False, dict(_FULL_SLAB, Bq=16, K=None, itemsize=4), 0.0789),
+    ("2", "dplr_corpus_topk", False, dict(_FULL_SLAB, Bq=16, K=16, itemsize=4), 0.0588),
+    ("3", "dplr_score_items", False, dict(n=65_536, Bq=4, m_I=38, rho=3, k=16, itemsize=4),
+     0.1906),
+    ("4", "dplr_corpus_score_multi", False,
+     dict(n=65_536, live=62_500, Bq=4, K=16, rho=3, k=16, segments=16, itemsize=4), 0.0588),
+    ("5", "embedding_bag", False,
+     dict(slots=38_000_000, B=1_000_000, n_bags=38, k=16, itemsize=4, id_size=4), 1.5427),
+    ("5'", "embedding_bag_backward", False,
+     dict(slots=4096 * 82, B=4096, n_bags=82, k=16, rows=None, id_size=4), 0.6384),
+    ("6", "fwfm_pairwise", False, dict(B=262_144, m=82, k=16, itemsize=4), 0.4527),
+    ("7", "flash_attention", True,
+     dict(B=2, S=32_752, H=4, KV=1, hd=256, window=None, itemsize=2), 4.4428),
+    ("7 window", "flash_attention", True,
+     dict(B=2, S=32_752, H=4, KV=1, hd=256, window=1024, itemsize=2), 0.2735),
+    ("7 granite", "flash_attention", True,
+     dict(B=2, S=32_256, H=16, KV=8, hd=64, window=None, itemsize=2), 4.3092),
+    ("7 mixtral", "flash_attention", True,
+     dict(B=1, S=8192, H=32, KV=8, hd=128, window=4096, itemsize=2), 0.4169),
+    ("1 bf16", "dplr_corpus_score_bf16", False, dict(_FULL_SLAB, Bq=16, K=None, itemsize=2),
+     0.0496),
+    ("2 bf16", "dplr_corpus_topk_bf16", False, dict(_FULL_SLAB, Bq=16, K=16, itemsize=2),
+     0.0365),
+    ("3 bf16", "dplr_score_items_bf16", False,
+     dict(n=65_536, Bq=4, m_I=38, rho=3, k=16, itemsize=2), 0.0955),
+    ("4 bf16", "dplr_corpus_score_multi_bf16", False,
+     dict(n=65_536, live=62_500, Bq=4, K=16, rho=3, k=16, segments=16, itemsize=2), 0.0296),
+    ("5 bf16", "embedding_bag_bf16", False,
+     dict(slots=38_000_000, B=1_000_000, n_bags=38, k=16, itemsize=2, id_size=4), 0.7940),
+    ("6 bf16", "fwfm_pairwise_bf16", True, dict(B=262_144, m=82, k=16, itemsize=2), 0.2057),
+]
+
+
+@pytest.mark.parametrize("row,name,tensor,dims,want", TIMING_BOUNDS,
+                         ids=[r[0] for r in TIMING_BOUNDS])
+def test_timing_bounds_come_from_the_cost_model_unchanged(chip_smoke, row, name, tensor, dims,
+                                                          want):
+    """The timing phase takes each kernel's flops and bytes from
+    ``work.kernel_work``: at the phase's shapes (the full config's slab,
+    arena and batches) and an H100 SXM's rates every bound of PERF.md's
+    table is what the phase's inline formulas gave."""
+    from repro_torch.embedding.bag import padded_rows
+
+    full = chip_smoke.FULL
+    cfg = full.make_config()
+    if name == "embedding_bag_backward":
+        dims = dict(dims, rows=padded_rows(cfg.layout.total_vocab))
+    assert len(cfg.layout.slots_of("item")) == 38 and cfg.layout.n_slots == 82
+    peaks = next(rates for key, *rates in chip_smoke.PEAKS if key == "H100")
+    assert round(chip_smoke.work_bound(name, peaks, tensor, **dims)[0], 4) == want, row
+
+
+def test_examples_and_dryrun_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, capsys):
+    """The examples phase (quickstart, train_e2e on a narrow layout, the
+    ranking server twice, the second with path 1 and the tenants cut as
+    the full run cuts them; each held against its plain path, the packed
+    frontends' replies too) and the dry run's phase (its process over the
+    pna cells, then two cuts counted on meta beside two steps on the CPU,
+    whose peak the CPU cannot measure)."""
+    from repro_torch.configs import gemma3_1b, pna
+    from repro_torch.core.fields import uniform_layout
+
+    sz = SimpleNamespace(
+        qs_steps=2, qs_rank_steps=1, qs_rows=400,
+        e2e_layout=lambda: uniform_layout(3, 4, [300, 200, 50, 40, 30, 20, 10]), e2e_steps=4,
+        e2e_batch=64, e2e_ckpt_every=2, e2e_plain_steps=2,
+        server_runs=(["--items", "256", "--queries", "6", "--churn", "2"],
+                     ["--items", "300", "--queries", "6", "--topk", "5",
+                      "--percall-queries", "3", "--tenant-items", "100"]),
+        dryrun_args=("--arch", "pna"), dryrun_timeout=600, dryrun_steps=2,
+        dryrun_cuts=(("gemma3-1b", "train_4k", {"batch": 2, "seq": 32}, gemma3_1b.make_smoke),
+                     ("pna", "molecule", None, pna.make_smoke)))
+    cpu = torch.device("cpu")
+    out_dir = chip_smoke.BUILD / "dryrun_torch_rehearsal"
+    proc = chip_smoke.start_dryrun(cpu, list(sz.dryrun_args), out_dir)
+    try:
+        launches = chip_smoke.examples_phase(cpu, sz)
+        assert sum(launches.values()) == 0                     # the CPU runs no kernel
+        chip_smoke.dryrun_phase(cpu, sz, proc, out_dir)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out = capsys.readouterr().out
+    assert "phase examples: quickstart (2 steps a model" in out
+    assert "phase examples: train_e2e (7 fields, 650 arena rows, 4 steps" in out
+    assert "['step_00000002', 'step_00000004'] (keep 2)" in out
+    assert out.count("phase examples: ranking_server --items ") == 2
+    # paths 6-7: tenants 1 and 2 of path 6 (4 of its 6 replies), all 6 of path 7
+    assert out.count("replies (4 of multi_tenant's 6, 6 of rpc's 6;") == 2
+    assert out.count("per-call Alg. 1 :") == 2 and "(6 pipelined requests" in out
+    assert out.count("phase dryrun: [ok] pna") == 4
+    assert "4 cells counted on meta (4 fit one card" not in out      # ogb_products does not
+    assert "3 fit one card" in out
+    assert out.count("phase dryrun: cut ") == 2 and "peak not measured" in out
+    assert out.count("2 steps on the cpu after a warm one: median") == 2
+
+
+def test_plain_kernels_swaps_the_entry_points_back(chip_smoke):
+    from repro_torch.kernels import ops
+
+    saved = (ops.embedding_bag, ops.fwfm_pairwise, ops.dplr_score_items)
+    with chip_smoke.plain_kernels():
+        assert ops.fwfm_pairwise is not saved[1]
+        V = torch.randn(3, 4, 2)
+        assert ops.dplr_score_items(torch.randn(5, 2, 2), torch.randn(1, 2), torch.ones(1),
+                                    torch.zeros(2), torch.randn(1, 2),
+                                    torch.tensor(0.0)).shape == (5,)
+        assert ops.fwfm_pairwise(V, torch.eye(4)).shape == (3,)
+    assert (ops.embedding_bag, ops.fwfm_pairwise, ops.dplr_score_items) == saved

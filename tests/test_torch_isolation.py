@@ -160,3 +160,53 @@ def test_asking_for_the_card_without_one_raises(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         gnn_train.main(["--steps", "1"])
+
+
+_TOOLS_BLOCKED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import contextlib, io, json, sys, tempfile
+from repro_torch.launch import cost, dryrun, steps
+cell = steps.build("granite-moe-1b-a400m", "train_4k", device="meta")
+got = cost.analyze(cell.fn, *cell.args)
+assert got["flops"] > 0 and got["peak_bytes"] > 0
+out = tempfile.mkdtemp()
+with contextlib.redirect_stdout(io.StringIO()):
+    assert dryrun.main(["--arch", "dplr-fwfm", "--shape", "serve_p99", "--out", out]) == 0
+rec = json.load(open(out + "/dplr-fwfm__serve_p99.json"))
+assert rec["ok"] and "dplr_score_items" in rec["kernels"]
+from repro_torch.examples import quickstart, ranking_server, train_e2e
+from repro_torch.core.fields import uniform_layout
+with contextlib.redirect_stdout(io.StringIO()):
+    qs = quickstart.run(1, 1, "cpu")
+    e2e = train_e2e.run(uniform_layout(2, 2, 30), 2, 16, tempfile.mkdtemp(), device="cpu",
+                        ckpt_every=1)
+    rs = ranking_server.main(["--device", "cpu", "--items", "64", "--queries", "3",
+                              "--churn", "1"])
+assert len(qs["top5"]) == 5 and sorted(e2e["losses"]) == [1, 2]
+assert rs["counts"]["submitted"] == rs["counts"]["completed"] == 9
+print("ok")
+"""
+
+
+def test_the_launch_tools_and_drivers_run_with_jax_blocked():
+    """``launch/{steps,cost,dryrun}`` count a cell on meta and write a
+    record, and the three examples run on the CPU, with JAX blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _TOOLS_BLOCKED], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("example", ["quickstart", "train_e2e", "ranking_server"])
+def test_each_driver_asks_for_the_card_by_default(example, monkeypatch):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"repro_torch.examples.{example}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--device", "cuda"])

@@ -6,6 +6,8 @@ On the CPU the entry points run their plain PyTorch versions
 card).  Inputs are made with numpy from a seed and handed to both
 packages.  Tolerance: scores within atol = rtol = 1e-5; top-K ids equal
 except between scores tied within that tolerance."""
+import types
+
 import numpy as np
 import pytest
 
@@ -149,9 +151,14 @@ def test_entry_points_reject_what_the_kernels_do_not_take():
         ops.dplr_corpus_score(*args, topk=0)
     with pytest.raises(ValueError, match="shape"):
         ops.dplr_corpus_score(args[0], args[1][:10], *args[2:])
+    # meta tensors get the kernel's output shapes (launch.cost counts them);
+    # inputs on several devices, or on a device with no kernel, raise
     meta = [t.to("meta") for t in args]
+    assert ops.dplr_corpus_score(*meta).is_meta
     with pytest.raises(ValueError, match="device"):
-        ops.dplr_corpus_score(*meta)
+        ops.dplr_corpus_score(meta[0], *args[1:])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops._device(types.SimpleNamespace(device=torch.device("xla")))
 
 
 # Past the CUDA kernels' limits (rho * k > MAX_RK, more than MAX_SEGMENTS
@@ -486,4 +493,5 @@ def test_flash_attention_rejects_bad_shapes():
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, k, window=0)
     with pytest.raises(ValueError, match="device"):
-        ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+        ops.flash_attention(q.to("meta"), k, k)
+    assert ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta")).shape == q.shape
