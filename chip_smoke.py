@@ -64,6 +64,21 @@ Phases, one line each:
    requests per second both ways, and the card's idle share over packed
    waves.  The multi-tenant kernel's launches are counted over the
    timed packed waves alone.
+5b. shard: the serve phase's corpus and weights on ``make_host_mesh(4)``,
+   four shards of 2^18 local slots sharing the card (one card each where
+   there are four), in float32 and in bf16, beside a single-device engine
+   on the same card: every slab row bitwise, the score and the top-16 at
+   Bq = 1 and 16 bitwise, then a churn (+1,000 -1,000 ~100) and a growth
+   of 60,000 items that doubles the slab, with the same slots assigned and
+   the answers bitwise again; 16 tenants of 62,500 items on one sharded
+   runtime, ``fused_topk`` bitwise 16 lone sharded calls (tenant 0 also
+   the single-device engine's); each shard's kernel 1 against its plain
+   version, its kernel 2 by C1 with its offset and stride, its kernel 4
+   row by row bitwise kernel 2; ``rank_items_mp`` over four arena blocks
+   at 1 x 512 against the plain path and ``rank_items``.  Prints the
+   sharded and single-device top-16 medians (host clock).  The sharded
+   engines' launches are counted over the phase (the bf16 half's into the
+   bf16 rows).
 6. wire: the serving front door on the serve phase's engine and the
    tenants phase's 16 states, one ``QueryFrontend(pack=True)`` behind
    ``RpcServer`` on loopback: 1,000 Bq = 1 top-16 requests pipelined over
@@ -364,6 +379,7 @@ from repro_torch.examples import quickstart, ranking_server, train_e2e  # noqa: 
 from repro_torch.launch import cost, dryrun, steps  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models.gnn import pna, sampler  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
@@ -383,7 +399,11 @@ from repro_torch.serving import (  # noqa: E402
     scoring_guard,
     serve_in_thread,
 )
-from repro_torch.serving.corpus import masked_slab_scores, next_pow2  # noqa: E402
+from repro_torch.serving.corpus import (  # noqa: E402
+    ItemCorpusCache,
+    masked_slab_scores,
+    next_pow2,
+)
 from repro_torch.serving.engine import fused_topk  # noqa: E402
 from repro_torch.serving.rpc import encode_rank_request, frame  # noqa: E402
 
@@ -411,6 +431,11 @@ FULL = SimpleNamespace(
     multi=(16, 4, 65_536, 16), ragged=((1100, 70_000, 20_000), 2, 1024),
     tenants=16, tenant_items=62_500, tenant_capacity=65_536, tenant_bq=4,
     waves=16, warm_waves=2, profile_waves=4,
+    # shard: the serve corpus on a mesh of 4 shards; the Bq of its checks and
+    # medians, timed calls a median, the churn (add, remove, update, then a
+    # growth that doubles the slab) and rank_items_mp's candidates
+    shards=4, shard_bqs=(1, 16), shard_reps=20, shard_churn=(1000, 1000, 100, 60_000),
+    mp_items=512,
     # wire: Bq = 1 requests pipelined over connections, each with a window
     wire_requests=1000, wire_conns=4, wire_window=4,
     # embedding bag: rows of the context lookup (Bq), of the slab build
@@ -2042,6 +2067,246 @@ def tenants_phase(dev, sz, serve) -> tuple[dict, dict]:
           f"({diffs} ids differ, all within the tie rule), packed = unpacked bitwise; "
           f"{share}; launches {launches}", flush=True)
     return launches, states
+
+
+# -- phase 5b: the corpus sharded over a one-process mesh ----------------------
+
+# The entry points the shard phase's sharded engines drive (their bf16
+# instantiations in its bf16 half): kernels 1, 2 and 4, and kernel 5 in each
+# shard's row build and in the context lookup.
+SHARD_KERNELS = ("dplr_corpus_score", "dplr_corpus_topk", "dplr_corpus_score_multi",
+                 "embedding_bag")
+
+
+@contextlib.contextmanager
+def counted(into: collections.Counter):
+    """Adds the kernel launches made inside the block to ``into``."""
+    before = collections.Counter(ops.LAUNCHES)
+    try:
+        yield
+    finally:
+        into.update(collections.Counter(ops.LAUNCHES) - before)
+
+
+def shard_data(sz, serve) -> SimpleNamespace:
+    """The shard phase's host data, made once for both types: the churn's
+    items (a growth past the 2^20-slot slab among them) and the query
+    contexts, all from the serve phase's generator."""
+    data = serve.data
+    n_add, n_remove, n_update, n_grow = sz.shard_churn
+    return SimpleNamespace(
+        added=data.ranking_query(n_add, 11)["item_ids"][0],
+        n_remove=n_remove,
+        updated=data.ranking_query(n_update, 12)["item_ids"][0],
+        grown=data.ranking_query(n_grow, 13)["item_ids"][0],
+        ctxs={bq: np.concatenate(serve.ctxs[:bq]) for bq in sz.shard_bqs},
+        pool=[data.context_query(7000 + s)["context_ids"]
+              for s in range(sz.tenants * sz.tenant_bq)],
+        mp=data.ranking_query(sz.mp_items, 14))
+
+
+def shard_launch_checks(dev, engine, ctx, K: int, what: str) -> float:
+    """Each shard's launches of kernels 1 and 2 against their plain
+    versions on the shard's slab, with its offset and stride: kernel 1
+    within ``TOL * max(1, size)``, kernel 2 by C1 (bitwise kernel 1's
+    scores sorted, relabeled ``s + D * row``).  Returns max |diff|."""
+    D, err = engine.n_shards, 0.0
+    params = engine.params
+    ctx = torch.as_tensor(ctx, device=dev)
+    P_C, a_C = engine.runtime._query(params, ctx, torch.ones(ctx.shape, device=dev))
+    e = params["e"].float()
+    for s, c in enumerate(engine.cache.shards):
+        scores = ops.dplr_corpus_score(c.Q_I, c.a_I, e, P_C, a_C, valid=c.valid)
+        plain = ref.dplr_corpus_score_ref(c.Q_I, c.a_I, e, P_C, a_C, c.valid)
+        P = P_C[:, None] + c.Q_I.float()[None]
+        size = (a_C.abs()[:, None] + c.a_I.float().abs()[None]
+                + 0.5 * torch.einsum("qnrk,r->qn", P * P, e.abs()))
+        del P
+        err = max(err, check_close(scores, plain, f"{what} shard {s} kernel 1", size=size))
+        topk_exact((c.Q_I, c.a_I, e, P_C, a_C, c.valid), K, f"{what} shard {s} kernel 2",
+                   scores, index_offset=s, index_stride=D)
+    return err
+
+
+def shard_multi_checks(dev, tenants: dict, ctx, K: int, what: str) -> None:
+    """Each shard's launch of kernel 4 over the tenants' slices: row [t]
+    bitwise kernel 2 on tenant t's slice with the shard's offset and
+    stride, and tenant 0's kernel 2 by C1 against kernel 1."""
+    states = list(tenants.values())
+    rt = states[0].runtime
+    D = rt.n_shards
+    ctx = torch.as_tensor(ctx, device=dev)
+    ones = torch.ones(ctx.shape, device=dev)
+    qs = [rt._query(st.params, ctx, ones) for st in states]
+    P_C, a_C = torch.stack([p for p, _ in qs]), torch.stack([a for _, a in qs])
+    e = torch.stack([st.params["e"].float() for st in states])
+    for s in range(D):
+        cs = [st.cache.shards[s] for st in states]
+        k_loc = min(K, cs[0].capacity)
+        multi = ops.dplr_corpus_score_multi(
+            tuple(c.Q_I for c in cs), tuple(c.a_I for c in cs), tuple(c.valid for c in cs),
+            e, P_C, a_C, topk=k_loc, index_offset=s, index_stride=D)
+        for t, c in enumerate(cs):
+            args = (c.Q_I, c.a_I, e[t], P_C[t], a_C[t], c.valid)
+            if t == 0:
+                single = topk_exact(args, k_loc, f"{what} shard {s} tenant 0 kernel 2",
+                                    ops.dplr_corpus_score(*args), index_offset=s,
+                                    index_stride=D)
+            else:
+                single = ops.dplr_corpus_score(*args, topk=k_loc, index_offset=s,
+                                               index_stride=D)
+            same_bits((multi[0][t], multi[1][t]), single, f"{what} shard {s} kernel 4 row {t}",
+                      "kernel 2 on that tenant's slice")
+
+
+def median_ms(dev, fn, reps: int) -> float:
+    """Median host-clock ms of ``fn()`` followed by a synchronize."""
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
+
+
+def shard_run(dev, sz, serve, data, mesh, params, tag: str, launched: collections.Counter):
+    """One type's half of the shard phase: the serve corpus in a sharded
+    and a single-device engine on the card, held bitwise to each other
+    (slabs, scores, top-K, churn with a growth, 16 packed tenants), each
+    shard's kernels against their plain versions, and the two engines'
+    top-K medians.  The sharded engines' launches go into ``launched``."""
+    cfg = serve.engine.cfg
+    K, D = sz.topk, mesh.shape["model"]
+    ids, w = serve.corpus["item_ids"][0], serve.corpus["item_weights"][0]
+    one = CorpusState(cfg, ids, w, capacity=sz.capacity, device=dev)
+    one.refresh(params)
+    with counted(launched):
+        sh = CorpusState(cfg, ids, w, capacity=sz.capacity, mesh=mesh)
+        sh.refresh(params)
+    for s, c in enumerate(sh.cache.shards):
+        for name in ItemCorpusCache._fields:
+            same_bits(getattr(c, name), getattr(one.cache, name)[s::D],
+                      f"{tag} shard {s} {name}", "the single-device slab's rows")
+
+    def same_answers(what):
+        for bq, ctx in data.ctxs.items():
+            with counted(launched):
+                got, score = sh.topk(ctx, K), sh.score(ctx)
+            same_bits(got, one.topk(ctx, K), f"{tag} {what} Bq={bq} top-{K}",
+                      "the single-device engine's")
+            same_bits(score, one.score(ctx), f"{tag} {what} Bq={bq} score",
+                      "the single-device engine's")
+            del score
+
+    same_answers("built")
+    bq = max(data.ctxs)
+    check_slab_serving(one, data.ctxs[bq], sh.topk(data.ctxs[bq], K), f"{tag} sharded top-K")
+    err = shard_launch_checks(dev, sh, data.ctxs[bq], K, tag)
+    times = {}
+    for bq, ctx in data.ctxs.items():
+        with counted(launched):
+            sharded_ms = median_ms(dev, lambda: sh.topk(ctx, K), sz.shard_reps)
+        times[bq] = (sharded_ms, median_ms(dev, lambda: one.topk(ctx, K), sz.shard_reps))
+
+    with counted(launched):
+        added = sh.add_items(data.added)
+    if not np.array_equal(added, one.add_items(data.added)):
+        raise AssertionError(f"{tag}: the engines assigned different slots")
+    live = one.valid_slots
+    gone = live[:: len(live) // data.n_remove][:data.n_remove]
+    kept = np.setdiff1d(live, gone)
+    upd = kept[1:: len(kept) // len(data.updated)][:len(data.updated)]
+    with counted(launched):
+        sh.remove_items(gone)
+        sh.update_items(upd, data.updated)
+        grown = sh.add_items(data.grown)
+    one.remove_items(gone)
+    one.update_items(upd, data.updated)
+    if not np.array_equal(grown, one.add_items(data.grown)):
+        raise AssertionError(f"{tag}: the engines assigned different slots in the growth")
+    if not (sh.capacity == one.capacity == 2 * sz.capacity
+            and np.array_equal(sh.valid_slots, one.valid_slots)):
+        raise AssertionError(f"{tag}: capacities {sh.capacity}, {one.capacity} or live slots "
+                             f"differ after the growth")
+    same_answers("churned")
+    del sh, one
+    gc.collect()
+
+    T, per, cap = sz.tenants, sz.tenant_items, sz.tenant_capacity
+    with counted(launched):
+        rt = ScorerRuntime(cfg, mesh=mesh)
+        tenants = {}
+        for i in range(T):
+            tenants[f"t{i}"] = CorpusState(None, ids[i * per:(i + 1) * per],
+                                           w[i * per:(i + 1) * per], capacity=cap, runtime=rt)
+            tenants[f"t{i}"].refresh(params)
+    ctx = np.stack([np.concatenate(data.pool[i * sz.tenant_bq:(i + 1) * sz.tenant_bq])
+                    for i in range(T)])
+    with counted(launched):
+        fused = fused_topk(tuple(tenants.values()), ctx, K)
+        lone = [st.topk(ctx[i], K) for i, st in enumerate(tenants.values())]
+    for i, got in enumerate(lone):
+        same_bits((fused[0][i], fused[1][i]), got, f"{tag} fused tenant {i}",
+                  "a lone sharded call")
+    single = CorpusState(cfg, ids[:per], w[:per], capacity=cap, device=dev)
+    single.refresh(params)
+    same_bits(lone[0], single.topk(ctx[0], K), f"{tag} tenant 0",
+              "the single-device engine's")
+    shard_multi_checks(dev, tenants, ctx[0], K, f"{tag} tenants")
+    del tenants, rt, single
+    gc.collect()
+    return times, err
+
+
+def shard_phase(dev, sz, serve) -> tuple[dict, dict]:
+    """The serve phase's corpus on ``make_host_mesh(sz.shards)``: four
+    shards of 2^18 local slots sharing the one card (one card each where
+    there are as many), in float32 and in bf16 (the serve phase's weights
+    cast as ``serve --bf16`` casts them), each held bitwise to a
+    single-device engine on the same card; ``rank_items_mp`` over four
+    arena blocks against ``rank_items``.  Returns the sharded paths'
+    launches, float32 and bf16."""
+    mesh = make_host_mesh(sz.shards, device=dev)
+    t0 = time.perf_counter()
+    data = shard_data(sz, serve)
+    host_s = time.perf_counter() - t0
+    params = serve.engine.params
+    launched = {"f32": collections.Counter(), "bf16": collections.Counter()}
+    lines = []
+    for tag, p in (("f32", params), ("bf16", serve_driver.to_serving_dtype(params, True))):
+        times, err = shard_run(dev, sz, serve, data, mesh, p, tag, launched[tag])
+        lines.append(f"{tag}: slabs, scores, top-K, churn and growth, {sz.tenants} packed tenants "
+                     f"bitwise the single-device engine; each shard's kernel 1 within "
+                     f"{err:.3g} of plain, kernels 2 and 4 by C1 and bitwise kernel 2; "
+                     f"top-{sz.topk} median ms sharded/single " + ", ".join(
+                         f"Bq={bq} {a:.3f}/{b:.3f}" for bq, (a, b) in times.items()))
+    cfg = serve.engine.cfg
+    q = train.to_device(data.mp, dev)
+    with counted(launched["f32"]):
+        got = fwfm.rank_items_mp(params, cfg, q, mesh=mesh)
+    want, size = plain_rank_items(params, cfg, q)
+    mp_err = check_close(got, want, "rank_items_mp against plain", size=size)
+    mp_err = max(mp_err, check_close(got, fwfm.rank_items(params, cfg, q),
+                                     "rank_items_mp against rank_items", size=size))
+    out = {}
+    for tag, suffix in (("f32", ""), ("bf16", "_bf16")):
+        names = [g if g.endswith("_merge") or g.startswith("topk_sort") else
+                 ops.launch_name(g, torch.bfloat16 if suffix else torch.float32)
+                 for entry in SHARD_KERNELS for g in ops.KERNELS[entry]]
+        out[tag] = {g: launched[tag][g] for g in names}
+        need = [ops.KERNELS[e][0] for e in SHARD_KERNELS] + ["topk_merge", "multi_topk_merge"]
+        need = [g if g.endswith("_merge") else g + suffix for g in need]
+        if dev.type == "cuda" and not all(launched[tag][g] for g in need):
+            raise AssertionError(f"shard {tag}: a kernel of the sharded path did not launch: "
+                                 f"{dict(launched[tag])}")
+    print(f"phase shard: {mesh.shape['model']} shards on {', '.join(map(str, mesh.devices))}, "
+          f"{sz.items} items in a {sz.capacity}-slot slab ({sz.capacity // sz.shards} a "
+          f"shard); host data {host_s:.1f} s; " + "; ".join(lines)
+          + f"; rank_items_mp over {sz.shards} arena blocks within {mp_err:.3g} of plain "
+          f"and rank_items at 1 x {sz.mp_items}; launches f32 {out['f32']}, bf16 "
+          f"{out['bf16']} (host clock, synchronized)", flush=True)
+    return out["f32"], out["bf16"]
 
 
 # -- phase 6: wire ------------------------------------------------------------
@@ -5121,6 +5386,11 @@ def run_phases(dev, peaks, model_batches, dry) -> list:
     tenant_launches, tenants = tenants_phase(dev, FULL, serve)
     for g in ops.KERNELS["dplr_corpus_score_multi"]:
         launches[g] = tenant_launches[g]
+    # this slice's main path: the sharded engines' launches, counted over
+    # their phase (the bf16 half's into the bf16 rows)
+    for into, counts in zip((launches, launches_bf16), shard_phase(dev, FULL, serve)):
+        for g, count in counts.items():
+            into[g] = into.get(g, 0) + count
     for g, count in wire_phase(dev, FULL, serve, tenants).items():
         launches[g] = launches.get(g, 0) + count
     # the eval phase's bf16 case adds to the bf16 rows (kernel 6's only path)

@@ -1,8 +1,8 @@
-"""A/B of the corpus kernels (1, 2 and 4) at their default geometry between
-this checkout and another, on one CUDA card.
+"""A/B of the corpus kernels (1, 2 and 4) at their default geometry, or of
+the slab's row build, between this checkout and another, on one CUDA card.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
-    python3 scripts/ab_corpus.py --other build/parent [--rounds 1]
+    python3 scripts/ab_corpus.py --other build/parent [--rounds 1] [--set rows]
 
 Each round runs the other checkout, this one, this one, the other, each in
 a process of its own that builds that checkout's corpus kernels (into its
@@ -19,6 +19,15 @@ call, in ms:
   * ``device``: the same calls queued behind a device-side sleep, so the
     card runs them back to back whatever the host's pace: device time;
   * ``host``: the host's time to issue one call, the mean over 20.
+
+``--set rows`` times instead, through the checkout's ``CorpusState`` at
+the serve config (``configs.dplr_fwfm.make_config()``: 82 fields, k = 16,
+rho = 3), with random weights from seed 0, float32 and bf16 (cast as
+``serve --bf16`` casts them): the slab build (``refresh``) of 1,000,000
+items in 2^20 slots, and churn writes (``update_items``) of 1, 16, 256 and
+4,096 live slots.  One number a call, ``host``: the median host-clock ms
+of the call followed by a synchronize (3 builds after one warm-up, 20
+writes after two).
 
 Prints one JSON line a process and, last, the mean of each number over
 each checkout's processes.
@@ -82,6 +91,55 @@ def _host_ms(fn, reps=20) -> float:
     return host
 
 
+def _synced_ms(fn, reps: int, warm: int) -> float:
+    import numpy as np
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat))
+
+
+def measure_rows(checkout: Path) -> dict:
+    """The slab build's and churn writes' host times in ``checkout``'s
+    code, built from its own sources."""
+    sys.path.insert(0, str(checkout / "src"))
+    import torch
+    from repro_torch.configs import dplr_fwfm
+    from repro_torch.data.synthetic_ctr import SyntheticCTR
+    from repro_torch.launch.serve import to_serving_dtype
+    from repro_torch.models.recsys import fwfm
+    from repro_torch.serving import CorpusState
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dplr_fwfm.make_config()
+    data = SyntheticCTR(cfg.layout, embed_dim=4, seed=0)
+    corpus = data.ranking_query(1_000_000, 0)
+    writes = {n: data.ranking_query(n, 1 + n)["item_ids"][0] for n in (1, 16, 256, 4096)}
+    params = fwfm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    out = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        p = to_serving_dtype(params, bf16)
+        engine = CorpusState(cfg, corpus["item_ids"][0], corpus["item_weights"][0],
+                             capacity=1 << 20, device=dev)
+        out[f"{name} slab build 1000000"] = {"host": _synced_ms(lambda: engine.refresh(p), 3, 1)}
+        live = engine.valid_slots
+        for n, ids in writes.items():
+            slots = live[:: len(live) // n][:n]
+            out[f"{name} churn write {n}"] = {
+                "host": _synced_ms(lambda: engine.update_items(slots, ids), 20, 2)}
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def measure(checkout: Path) -> dict:
     """The calls' three times in ``checkout``'s code, built from its own
     sources."""
@@ -125,10 +183,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path, help="the checkout to compare this one with")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--set", choices=["kernels", "rows"], default="kernels",
+                    help="kernels: the corpus kernels' three times; rows: the slab build's "
+                         "and churn writes' host times")
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.measure is not None:
-        print(json.dumps(measure(args.measure)), flush=True)
+        fn = measure_rows if args.set == "rows" else measure
+        print(json.dumps(fn(args.measure)), flush=True)
         return
     import torch
     if not torch.cuda.is_available():
@@ -142,14 +204,15 @@ def main() -> None:
     runs: dict[str, list] = {"other": [], "this": []}
     for r in range(args.rounds):
         for side in ("other", "this", "this", "other"):
-            res = subprocess.run([sys.executable, __file__, "--measure", str(sides[side])],
+            res = subprocess.run([sys.executable, __file__, "--set", args.set,
+                                  "--measure", str(sides[side])],
                                  capture_output=True, text=True, check=True, timeout=900,
                                  cwd=sides[side])
             got = json.loads(res.stdout.strip().splitlines()[-1])
             runs[side].append(got)
             print(json.dumps({"round": r, "side": side, "times": got}), flush=True)
     mean = {side: {label: {k: sum(run[label][k] for run in got) / len(got)
-                           for k in ("b2b", "device", "host")}
+                           for k in got[0][label]}
                    for label in got[0]}
             for side, got in runs.items()}
     print(json.dumps({"mean": mean}), flush=True)

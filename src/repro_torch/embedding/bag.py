@@ -102,8 +102,9 @@ def lookup_item_embeddings(table, layout: FeatureLayout, ids, weights):
 
 
 @functools.lru_cache(maxsize=None)
-def _one_slot(device: str) -> kops.BagMap:
-    return kops.bag_map(np.zeros(1, np.int64), 1, device)
+def one_slot_bags(n: int, device: str) -> kops.BagMap:
+    """The map of ``n`` slots, each its own bag, on ``device`` (kept)."""
+    return kops.bag_map(np.arange(n), n, device)
 
 
 def gather_rows(table, ids):
@@ -116,14 +117,20 @@ def gather_rows(table, ids):
     not promise an order there)."""
     ids = ids[..., None].contiguous()
     ones = torch.ones(ids.shape, dtype=table.dtype, device=table.device)
-    return kops.embedding_bag(table, ids, ones, _one_slot(str(table.device)))[..., 0, :]
+    return kops.embedding_bag(table, ids, ones, one_slot_bags(1, str(table.device)))[..., 0, :]
+
+
+def linear_products(table, layout: FeatureLayout, ids, weights):
+    """(batch..., n_slots) products ``w_s * b[id_s]`` of the first-order
+    term, before their sum (``lookup_linear_terms``)."""
+    tab = table.reshape(-1)
+    offsets = _statics(layout, None, str(table.device)).offsets
+    return tab[ids.long() + offsets] * weights.to(tab.dtype)
 
 
 def lookup_linear_terms(table, layout: FeatureLayout, ids, weights):
     """(batch...,) first-order term <b, x> of the FM/FwFM model."""
-    tab = table.reshape(-1)
-    offsets = _statics(layout, None, str(table.device)).offsets
-    return (tab[ids.long() + offsets] * weights.to(tab.dtype)).sum(dim=-1)
+    return linear_products(table, layout, ids, weights).sum(dim=-1)
 
 
 def padded_rows(n_rows: int, multiple: int = 2048) -> int:

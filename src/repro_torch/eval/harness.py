@@ -209,7 +209,7 @@ def ranking_metrics(scores: np.ndarray, eval_set: RankingEvalSet, *, k: int = 10
     }
 
 
-def serving_parity(params, cfg, eval_set: RankingEvalSet, *, k: int = 10,
+def serving_parity(params, cfg, eval_set: RankingEvalSet, *, k: int = 10, mesh=None,
                    use_frontend: bool = True, max_batch: int = 8) -> dict:
     """Score the eval set through every serving path and report parity.
 
@@ -219,7 +219,9 @@ def serving_parity(params, cfg, eval_set: RankingEvalSet, *, k: int = 10,
         bit_exact       {"engine": bool, "frontend": bool}
         scores          {"model": (Q, n) f32, "engine": ..., "frontend": ...}
 
-    The paths run on the parameters' device.  Unlike the JAX package's
+    The paths run on the parameters' device; with ``mesh`` the engine's
+    slab is sharded over it (``serving.sharded``; the mesh's first device
+    is the parameters').  Unlike the JAX package's
     report there is no ``retraces`` entry and no ``assert_no_retrace``:
     nothing is traced.  ``bit_exact`` is a report, not a promise: on the
     card the model path (``embedding_bag`` + ``dplr_score_items``) and the
@@ -228,8 +230,8 @@ def serving_parity(params, cfg, eval_set: RankingEvalSet, *, k: int = 10,
     reply goes through the top-K entry point, which takes any ``n`` on
     either device."""
     n = eval_set.n_items
-    engine = CorpusState(cfg, eval_set.item_ids, eval_set.item_weights,
-                         device=params["embedding"].device)
+    engine = CorpusState(cfg, eval_set.item_ids, eval_set.item_weights, mesh=mesh,
+                         device=params["embedding"].device if mesh is None else None)
     engine.refresh(params)
     frontend = None
     if use_frontend:

@@ -14,6 +14,8 @@ corpus (or these N candidates) for this context" queries.
     PYTHONPATH=src python -m repro_torch.launch.serve --chaos-demo
     PYTHONPATH=src python -m repro_torch.launch.serve --rpc [--port P] [--tenants N]
     PYTHONPATH=src python -m repro_torch.launch.serve --config full --bf16 [any of the above]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh host [any corpus loop]
+    PYTHONPATH=src python -m repro_torch.launch.serve --mp --items N
 
 ``--engine corpus`` (the default) serves through ``CorpusRankingEngine``:
 the item side is precomputed once into a capacity-padded slab, and each
@@ -72,6 +74,20 @@ kernel.  Checkpoints stay float32 on disk (npz has no bf16): a save casts
 bf16 leaves to float32, and ``maybe_refresh`` casts a restored step back to
 bf16 (``to_serving_dtype``, ``to_checkpoint_dtype``).
 
+``--mesh host`` shards the corpus slab over a one-process mesh's model
+axis (``launch.mesh.make_host_mesh``, ``serving.sharded``): D shards, D
+the count of visible devices of ``--device``'s type (1 on the CPU and on
+a one-card machine), one shard a device.  Every corpus loop composes
+with it (the main loop, ``--refresh-demo``, ``--frontend``,
+``--churn-demo``, ``--chaos-demo``, ``--tenant-demo`` and ``--rpc``,
+whose tenants then share one sharded runtime).  ``--mesh prod`` and ``prod-mp`` ask for the
+(16, 16) and (2, 16, 16) production meshes and raise ``ValueError`` where
+that many devices are not visible, as the reference fails there.
+``--mp`` ranks per call through ``fwfm.rank_items_mp`` (Algorithm 1 with
+the arena row-blocked over the mesh's model axis, each block's rows
+projected to rank rho before the partials are summed); it implies
+``--engine percall`` and needs ``dplr-fwfm``.
+
 ``--arch`` (default ``dplr-fwfm``) picks the registry's recsys model.
 The corpus engine and the demos need ``dplr-fwfm``; ``wide-deep`` and
 ``autoint`` rank per call (``--engine percall``, their default) through
@@ -102,6 +118,7 @@ from repro_torch.data.synthetic_ctr import SyntheticCTR
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.train import recsys_module
 from repro_torch.serving.corpus import next_pow2
 from repro_torch.serving import (
@@ -120,6 +137,20 @@ from repro_torch.serving import (
     ServingError,
     serve_in_thread,
 )
+
+
+def _corpus_mesh(args, dev):
+    """The mesh that carries the corpus slab (``--mesh``), or None."""
+    if args.mesh == "none":
+        return None
+    if args.mesh == "host":
+        return make_host_mesh(device=dev)
+    return make_production_mesh(multi_pod=args.mesh == "prod-mp", device=dev)
+
+
+def _sharded_capacity(capacity: int, mesh) -> int:
+    """At least one slot a shard."""
+    return capacity if mesh is None else max(capacity, mesh.shape["model"])
 
 
 def _report(tag: str, lat: np.ndarray, queries: int, items: int) -> None:
@@ -478,15 +509,15 @@ def _chaos_demo(args, engine, data, params, dev) -> None:
     print(f"chaos demo OK ({dev.type}): all recovery paths exercised")
 
 
-def _rpc_demo(args, cfg, params, data, dev) -> None:
+def _rpc_demo(args, cfg, params, data, dev, mesh) -> None:
     """``--tenants`` corpora on one runtime, packed, behind the binary RPC
     protocol on a loopback socket: a pipelined mixed-tenant client trace,
     replies against direct frontend submission, typed error frames and a
     graceful drain."""
     rng = np.random.default_rng(args.seed)
     T = max(args.tenants, 2)
-    runtime = ScorerRuntime(cfg, device=dev)
-    capacity = args.capacity or next_pow2(2 * args.items)
+    runtime = ScorerRuntime(cfg, device=None if mesh else dev, mesh=mesh)
+    capacity = _sharded_capacity(args.capacity or next_pow2(2 * args.items), mesh)
     names = [f"t{i}" for i in range(T)]
     states = {}
     for i, name in enumerate(names):
@@ -562,15 +593,15 @@ def _rpc_demo(args, cfg, params, data, dev) -> None:
     fe.close()
 
 
-def _tenant_demo(args, cfg, params, data, dev) -> None:
+def _tenant_demo(args, cfg, params, data, dev, mesh) -> None:
     """``--tenants`` corpora on one ScorerRuntime behind the frontend;
     asserts live, per-tenant replies equal to the tenant's own state,
     a shared-runtime tenant equal to a dedicated engine, and fast
     admission shedding."""
     rng = np.random.default_rng(args.seed)
     T = max(args.tenants, 2)
-    runtime = ScorerRuntime(cfg, device=dev)
-    capacity = args.capacity or next_pow2(2 * args.items)
+    runtime = ScorerRuntime(cfg, device=None if mesh else dev, mesh=mesh)
+    capacity = _sharded_capacity(args.capacity or next_pow2(2 * args.items), mesh)
     names = [f"t{i}" for i in range(T)]
     corpora = {n: data.ranking_query(args.items, 1000 + i) for i, n in enumerate(names)}
     states = {}
@@ -616,7 +647,8 @@ def _tenant_demo(args, cfg, params, data, dev) -> None:
     # so bitwise equal
     c = corpora["t1"]
     dedicated = CorpusRankingEngine(cfg, c["item_ids"][0], c["item_weights"][0],
-                                    capacity=capacity, device=dev)
+                                    capacity=capacity, device=None if mesh else dev,
+                                    mesh=mesh)
     dedicated.refresh(params, step=0)
     for s in range(0, n, max(n // 8, 1)):
         ctx = np.asarray(ctxs[s]).reshape(1, -1)
@@ -710,6 +742,13 @@ def main(argv=None):
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 serving tables: the params' float32 leaves cast to bf16 "
                          "(checkpoints stay float32 on disk)")
+    ap.add_argument("--mp", action="store_true",
+                    help="model-parallel DPLR scoring: rank_items_mp over the arena's "
+                         "row blocks (implies --engine percall)")
+    ap.add_argument("--mesh", default="none", choices=["none", "host", "prod", "prod-mp"],
+                    help="shard the corpus slab over this mesh's model axis (host = the "
+                         "visible devices; prod[-mp] = the production shapes, where that "
+                         "many devices are visible)")
     args = ap.parse_args(argv)
     if args.arch in ("bst", "mind"):
         raise ValueError(f"--arch {args.arch}: its rank_items needs the user's behaviour "
@@ -717,12 +756,15 @@ def main(argv=None):
                          f"queries (SyntheticCTR.ranking_query) carry none; the JAX serve "
                          f"driver fails on the same query with KeyError: 'hist_ids'")
     is_dplr = args.arch == "dplr-fwfm"
-    args.engine = args.engine or ("corpus" if is_dplr else "percall")
-    if args.engine == "corpus" and not is_dplr:
-        ap.error("--engine corpus requires a dplr model (--arch dplr-fwfm)")
+    args.engine = args.engine or ("corpus" if is_dplr and not args.mp else "percall")
+    if args.engine == "corpus" and (not is_dplr or args.mp):
+        ap.error("--engine corpus requires a dplr model (--arch dplr-fwfm) (and not --mp)")
+    if args.mp and not is_dplr:
+        ap.error("--mp requires a dplr model (--arch dplr-fwfm)")
     demos = ("tenant_demo", "refresh_demo", "frontend", "churn_demo", "chaos_demo", "rpc")
-    if (args.topk or any(getattr(args, d) for d in demos)) and args.engine != "corpus":
-        ap.error("--topk and the demos require --engine corpus")
+    if ((args.topk or args.mesh != "none" or any(getattr(args, d) for d in demos))
+            and args.engine != "corpus"):
+        ap.error("--topk, --mesh and the demos require --engine corpus")
 
     dev = resolve_device(args.device)
     if dev.type == "cuda":
@@ -741,18 +783,23 @@ def main(argv=None):
             print(f"serving checkpoint step {step}")
     params = to_serving_dtype(params, args.bf16)
     data = SyntheticCTR(cfg.layout, embed_dim=4, seed=args.seed)
+    mesh = _corpus_mesh(args, dev)
     if args.tenant_demo:
-        return _tenant_demo(args, cfg, params, data, dev)
+        return _tenant_demo(args, cfg, params, data, dev, mesh)
     if args.rpc:
-        return _rpc_demo(args, cfg, params, data, dev)
+        return _rpc_demo(args, cfg, params, data, dev, mesh)
 
     lat = []
     if args.engine == "corpus":
         corpus = data.ranking_query(args.items, 0)
-        capacity = args.capacity or next_pow2(2 * args.items if args.churn_demo
-                                              else args.items)
+        capacity = _sharded_capacity(args.capacity or next_pow2(
+            2 * args.items if args.churn_demo else args.items), mesh)
         engine = CorpusRankingEngine(cfg, corpus["item_ids"][0], corpus["item_weights"][0],
-                                     capacity=capacity, device=dev)
+                                     capacity=capacity, device=None if mesh else dev,
+                                     mesh=mesh)
+        if mesh is not None:
+            print(f"corpus sharded {engine.n_shards}-way: {engine.local_capacity}/"
+                  f"{engine.capacity} slots a shard on {', '.join(map(str, mesh.devices))}")
         engine.refresh(params, step=mgr.latest_step() if mgr else None)
         if args.chaos_demo:
             return _chaos_demo(args, engine, data, params, dev)
@@ -800,6 +847,7 @@ def main(argv=None):
                 print(f"query 0: top-3 of {args.items} candidates -> "
                       f"{top.cpu().numpy()}")
         tag = (f"corpus{f', top{args.topk}' if args.topk else ''}"
+               f"{f', {engine.n_shards} shards' if engine.n_shards > 1 else ''}"
                f"{', bf16' if args.bf16 else ''}, {dev.type}")
         if args.refresh_demo:
             assert refreshes >= 1, "refresh demo never saw the new checkpoint"
@@ -810,17 +858,22 @@ def main(argv=None):
             print(f"refresh round-trip OK: {refreshes} refresh(es), kernel launches per "
                   f"query unchanged across the refresh ({seen.pop()}), no restart")
     else:
+        rank = mod.rank_items
+        if args.mp:
+            mp_mesh = make_host_mesh(device=dev)
+            rank = lambda p, c, q: mod.rank_items_mp(p, c, q, mesh=mp_mesh)  # noqa: E731
         for s in range(args.queries):
             q = {k: torch.as_tensor(v, device=dev)
                  for k, v in data.ranking_query(args.items, s).items()}
             t0 = time.perf_counter()
-            scores = mod.rank_items(params, cfg, q)
+            scores = rank(params, cfg, q)
             _sync(dev)
             lat.append((time.perf_counter() - t0) * 1e3)
             if s == 0:
                 top = torch.argsort(scores[0], descending=True, stable=True)[:3]
                 print(f"query 0: top-3 of {args.items} candidates -> {top.cpu().numpy()}")
-        tag = f"percall, {args.arch}{', bf16' if args.bf16 else ''}, {dev.type}"
+        tag = (f"percall, {args.arch}{', mp' if args.mp else ''}"
+               f"{', bf16' if args.bf16 else ''}, {dev.type}")
     _report(tag, np.asarray(lat[2:]), args.queries, args.items)
 
 

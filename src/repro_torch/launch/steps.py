@@ -26,11 +26,14 @@ The families:
   * gnn: PNA's adamw train step on the shape's batch, in bf16 compute.
 
 What the reference builds on a mesh and one card has no use for waits for
-the sharding item, and each cell names it in ``notes``: shardings, the
-LM's ``micro_batches`` (``train_4k`` is one batch of 256 here), FSDP,
-PNA's ``node_constraint`` and partitioned forward, ``rank_items_mp``.  The
-opts ``moe_scatter`` and ``moe_fused`` map onto ``moe_impl="scatter"`` and
-``moe_fused_combine``; ``mp_scoring`` and ``partitioned`` raise.
+the training half of the sharding item, and each cell names it in
+``notes``: shardings and the sharded lookup, the LM's ``micro_batches``
+(``train_4k`` is one batch of 256 here), FSDP, PNA's ``node_constraint``
+and partitioned forward.  The opts ``moe_scatter`` and ``moe_fused`` map
+onto ``moe_impl="scatter"`` and ``moe_fused_combine``; ``mp_scoring``
+builds ``dplr-fwfm``'s rank cells through ``fwfm.rank_items_mp`` on a
+one-device mesh (``name+mp``), as the reference does; ``partitioned``
+raises.
 """
 from __future__ import annotations
 
@@ -44,13 +47,14 @@ from repro_torch import optim
 from repro_torch.configs import registry as reg
 from repro_torch.configs.pna import shape_config
 from repro_torch.launch import train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.gnn import pna
 from repro_torch.models.gnn.sampler import subgraph_shapes
 from repro_torch.models.transformer import model as tm
 
 __all__ = ["Cell", "all_cells", "build"]
 
-SHARDING = "waits for the sharding item (ROADMAP item 5)"
+SHARDING = "waits for the training half of the sharding item (ROADMAP item 5)"
 
 
 @dataclasses.dataclass
@@ -201,7 +205,7 @@ def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
     params = _params(mod.init, cfg, device, seed)
     inp = _Inputs(device, seed)
     name = f"{arch.name}/{shape.name}"
-    notes = (f"shardings and the sharded lookup (take_fn): {SHARDING}",)
+    notes = (f"shardings and the sharded lookup (take_fn, embedding/sharded.py): {SHARDING}",)
     if opts.get("serve_bf16") and shape.kind in ("rank", "pointwise"):
         params = _cast(params, torch.bfloat16)
 
@@ -227,10 +231,17 @@ def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
 
         return Cell(name, serve_pointwise, (params, batch), shape.kind, notes)
 
-    if opts.get("mp_scoring"):
-        raise NotImplementedError(f"{name}+mp: rank_items_mp {SHARDING}")
     query = _recsys_rank_query(arch.name, cfg, shape.dims["n_queries"],
                                shape.dims["n_items"], inp)
+    if opts.get("mp_scoring") and arch.name == "dplr-fwfm":
+        # the rank-rho projection inside each arena block's lookup: the
+        # partials summed over the model axis are (rho k + 2) floats an item
+        mesh = make_host_mesh(1, device=device)
+
+        def serve_rank_mp(params, query):
+            return mod.rank_items_mp(params, cfg, query, mesh=mesh)
+
+        return Cell(f"{name}+mp", serve_rank_mp, (params, query), shape.kind, notes)
 
     def serve_rank(params, query):
         return mod.rank_items(params, cfg, query)

@@ -8,21 +8,25 @@ with ``pairwise`` selected by ``cfg.interaction`` ("fm", "fwfm" or
 keys (``bias``, ``linear``, ``embedding``, and ``U``/``e`` or ``R``), so
 ``repro_torch.interop`` carries weights across unchanged.
 
-Two scoring entry points:
-  * ``apply``       - pointwise scoring of full rows (training / eval):
-                      the field lookup is the ``embedding_bag`` kernel,
-                      and for "fwfm" (full, or pruned by ``pruned_mask``)
-                      the pairwise term is the ``fwfm_pairwise`` kernel.
-  * ``rank_items``  - Algorithm 1: context cached once per query, then n
-                      candidates; for "dplr" the item step is the
-                      ``dplr_score_items`` kernel, one launch per batch;
-                      ``pruned=`` serves a pruned fwfm model.
+Three scoring entry points:
+  * ``apply``         - pointwise scoring of full rows (training / eval):
+                        the field lookup is the ``embedding_bag`` kernel,
+                        and for "fwfm" (full, or pruned by ``pruned_mask``)
+                        the pairwise term is the ``fwfm_pairwise`` kernel.
+  * ``rank_items``    - Algorithm 1: context cached once per query, then n
+                        candidates; for "dplr" the item step is the
+                        ``dplr_score_items`` kernel, one launch per batch;
+                        ``pruned=`` serves a pruned fwfm model.
+  * ``rank_items_mp`` - Algorithm 1 for "dplr" with the arena row-blocked
+                        over a mesh's model axis (``launch.mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import ranking as rk
@@ -40,6 +44,7 @@ from repro_torch.embedding.bag import (
     lookup_field_embeddings,
     lookup_item_embeddings,
     lookup_linear_terms,
+    one_slot_bags,
     padded_rows,
 )
 from repro_torch.kernels import ops as kops
@@ -180,3 +185,85 @@ def rank_items(params: dict, cfg: FwFMConfig, query: dict, pruned=None) -> torch
         R = field_matrix(params, cfg)
         pw = rk.fwfm_score_items(R, rk.fwfm_context_cache(R, V_C, nC), V_I, nC)
     return first_order + pw
+
+
+# ---------------------------------------------------------------------------
+# Model-parallel DPLR scoring: Proposition 1's projection is linear in the
+# field embeddings, so it distributes over the arena's row blocks,
+#
+#     P = U V = U (sum_s V_s) = sum_s (U V_s),
+#
+# and each shard projects its own rows to rank rho before the partials are
+# summed: (rho k + 2) floats an item cross shards instead of (m_I k + ...).
+# The d-term stays exact because each one-hot field's row lives on exactly
+# one shard (sum ||v_i||^2 = sum_s ||v_i^s||^2).
+# ---------------------------------------------------------------------------
+
+def _shard_rows(block, lin_block, lo: int, ids, w):
+    """This shard's part of the lookups of arena-global ``ids (..., m)``
+    (one slot a field): ``(w * row, w * b)`` for the slots whose row lies in
+    ``[lo, lo + len(block))``, zero for the others.  The rows come from the
+    embedding-bag kernel over the shard's block, foreign slots weighted
+    zero."""
+    mine = (ids >= lo) & (ids < lo + block.shape[0])
+    local = torch.where(mine, ids - lo, 0).contiguous()
+    w = w.to(block.dtype)
+    V = kops.embedding_bag(block, local, torch.where(mine, w, 0).contiguous(),
+                           one_slot_bags(ids.shape[-1], str(block.device)))
+    lin = torch.where(mine, lin_block[local.long()], 0) * w
+    return V, lin
+
+
+def rank_items_mp(params: dict, cfg: FwFMConfig, query: dict, *, mesh) -> torch.Tensor:
+    """Algorithm 1 for ``interaction == 'dplr'`` with the arena (and the
+    first-order table) row-blocked over ``mesh``'s model axis: shard s
+    reads rows ``[s R/D, (s+1) R/D)``, a contiguous view of the arena moved
+    to ``mesh.devices[s]`` (no copy where that is the arena's device).
+    Each shard projects its own rows to rank rho and forms its part of the
+    d-term and first-order scalars; the partials are summed on the mesh's
+    first device, in shard order.  ``query`` as ``rank_items``'s; returns
+    (Bq, n) scores on the first device.  Requires a one-hot layout
+    (multiplicity 1 for every field) and an arena whose rows divide by D.
+
+    The mesh has one data replica, so the items' batch dims are not split
+    (the reference's ``item_spec``)."""
+    if cfg.interaction != "dplr":
+        raise ValueError("rank_items_mp requires interaction='dplr'")
+    layout = cfg.layout
+    _check_context_first(layout)
+    if not all(f.multiplicity == 1 for f in layout.fields):
+        raise ValueError("model-parallel d-term requires one-hot fields")
+    nC = layout.n_context
+    table, lin = params["embedding"], params["linear"]
+    D = mesh.shape["model"]
+    if table.shape[0] % D:
+        raise ValueError(f"an arena of {table.shape[0]} rows does not split into {D} blocks")
+    rows_per = table.shape[0] // D
+    offsets = torch.as_tensor(np.asarray(layout.field_offsets, np.int64))
+    first = mesh.devices[0]
+    d = -torch.einsum("r,rm,rm->m", params["e"], params["U"], params["U"])
+    parts = []
+    for s, dev in enumerate(mesh.devices):
+        lo = s * rows_per
+        block = table[lo:lo + rows_per].to(dev)
+        lin_block = lin[lo:lo + rows_per].to(dev)
+        U, d_s = params["U"].to(device=dev, dtype=table.dtype), d.to(dev)
+        off = offsets.to(dev)
+        ctx_w, item_w = (query[k].to(dev) for k in ("context_weights", "item_weights"))
+        vC, linC = _shard_rows(block, lin_block, lo, query["context_ids"].to(dev) + off[:nC],
+                               ctx_w)
+        vI, linI = _shard_rows(block, lin_block, lo, query["item_ids"].to(dev) + off[nC:],
+                               item_w)
+        parts.append((
+            torch.einsum("rm,qmk->qrk", U[:, :nC], vC),
+            0.5 * torch.einsum("qmk,m->q", vC * vC, d_s[:nC]) + linC.sum(-1),
+            torch.einsum("rm,qnmk->qnrk", U[:, nC:], vI),
+            0.5 * torch.einsum("qnmk,m->qn", vI * vI, d_s[nC:]) + linI.sum(-1),
+        ))
+    # the one cross-shard traffic: rank-rho projections and two scalars
+    P_C, s_C, P_I, s_I = (functools.reduce(torch.add, (t.to(first) for t in ts))
+                          for ts in zip(*parts))
+    e = params["e"].to(device=first, dtype=table.dtype)
+    P = P_C[:, None] + P_I
+    term_e = 0.5 * torch.einsum("qnrk,r->qn", P * P, e)
+    return params["bias"].to(first) + s_C[:, None] + s_I + term_e

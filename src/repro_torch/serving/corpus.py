@@ -20,6 +20,18 @@ The cache is a capacity-padded slab: every leading axis is ``capacity``
 (a power of two), ``valid`` marks the live slots, a dead slot scores
 exactly ``NEG_INF``, and slot assignments are stable across churn and
 model refresh; the slab grows only by doubling.
+
+A row's bits depend on its item alone: ``corpus_rows`` sums in a fixed
+pairwise order with elementwise operations only, so a row computed in a churn
+write of any size, in a rebuild, or on a shard of a sharded slab is the
+same row.  (A matrix product or a reduction chooses its summation order
+by the shape of the batch it is given.)
+
+Sharded layout (``serving.sharded``): on a mesh of D shards, global slot
+``g`` is owned by shard ``g % D`` at its local row ``g // D``.  The
+physical view of a global-order array is ``physical(x, D)``, a
+``(capacity // D, D, ...)`` reshape whose ``[l, s]`` is global slot
+``l * D + s``: shard ``s``'s rows are its column ``[:, s]``.
 """
 from __future__ import annotations
 
@@ -30,8 +42,8 @@ import torch
 from repro_torch.core.dplr import DPLRParams, dplr_diagonal
 from repro_torch.embedding.bag import (
     item_arena_ids,
+    linear_products,
     lookup_item_embeddings,
-    lookup_linear_terms,
 )
 # Mask fill for dead slots: the one definition, the kernels' own.
 from repro_torch.kernels.dplr_corpus_score import NEG_INF
@@ -60,6 +72,30 @@ class ItemCorpusCache(NamedTuple):
     def capacity(self) -> int:
         return self.Q_I.shape[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The slab's type (``Q_I``'s, ``a_I``'s)."""
+        return self.Q_I.dtype
+
+
+def physical(x, D: int):
+    """The ``(capacity // D, D, ...)`` view of a global-order
+    ``(capacity, ...)`` array (numpy or torch): ``[l, s]`` is global slot
+    ``l * D + s``, shard ``s``'s local row ``l``.  A reshape, no copy."""
+    return x.reshape(x.shape[0] // D, D, *x.shape[1:])
+
+
+def pad_cache(c: ItemCorpusCache, extra: int) -> ItemCorpusCache:
+    """``c`` with ``extra`` dead zero rows appended (slab growth): every
+    existing row keeps its index."""
+    return ItemCorpusCache(
+        Q_I=torch.cat([c.Q_I, c.Q_I.new_zeros((extra, *c.Q_I.shape[1:]))]),
+        t_I=torch.cat([c.t_I, c.t_I.new_zeros(extra)]),
+        lin_I=torch.cat([c.lin_I, c.lin_I.new_zeros(extra)]),
+        valid=torch.cat([c.valid, c.valid.new_zeros(extra)]),
+        a_I=torch.cat([c.a_I, c.a_I.new_zeros(extra)]),
+    )
+
 
 def item_addend(t_I, lin_I):
     """The fused per-item scalar the kernels add, ``lin_I + 0.5 * t_I``:
@@ -68,21 +104,55 @@ def item_addend(t_I, lin_I):
     return lin_I + 0.5 * t_I
 
 
+def _tree_sum(x, dim: int):
+    """``x`` summed over ``dim`` in a fixed pairwise order: the first half
+    added elementwise to the second until one remains, an odd one out
+    added to the last sum.  Each element's bits depend on its own values
+    alone, not on the other axes' sizes (a reduction picks its order by
+    the shape it is given), and the whole sum is O(log size) launches."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        h = n // 2
+        head = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        if n % 2:
+            head.narrow(dim, h - 1, 1).add_(x.narrow(dim, n - 1, 1))
+        x = head
+    return x.squeeze(dim)
+
+
 def corpus_rows(params: dict, cfg, item_ids, item_weights):
     """(Q_I, t_I, lin_I) rows for a batch of items: the per-row math of
-    ``build_corpus_cache``, shared by the full build and churn writes so
-    a written row equals the same row of a rebuild."""
+    ``build_corpus_cache``, shared by the full build, churn writes and
+    every shard of a sharded slab.
+
+        Q_I[i, r] = sum_m U_I[r, m] V_I[i, m]
+        t_I[i]    = sum_m d_m sum_k V_I[i, m, k]^2
+        lin_I[i]  = sum_s w_s b[id_s]
+
+    each sum over one stacked product in ``_tree_sum``'s fixed order, so
+    a row's bits depend on its item alone, not on the batch it is
+    computed in, nor on the device's choice of a product's algorithm for
+    that batch's shape.  The sums run in float64 and are rounded once to
+    the params' type (the squares and the products ``w_s b[id_s]`` in
+    that type first, as ``einsum`` and ``lookup_linear_terms`` form
+    them): the row is then the rounding of its exact value in all but
+    rare cases, whatever the order, as close to the reference's
+    ``einsum`` rows as any order of float32 adds could be."""
     layout = cfg.layout
     nC = layout.n_context
+    acc = torch.float64
     p = DPLRParams(params["U"], params["e"])
-    d = dplr_diagonal(p)
+    d = dplr_diagonal(p)[nC:].to(acc)
+    U_I = p.U[:, nC:].to(acc)
     V_I = lookup_item_embeddings(params["embedding"], layout, item_ids,
                                  item_weights)                      # (n, mI, k)
-    Q_I = torch.einsum("rm,...mk->...rk", p.U[:, nC:], V_I)
-    t_I = torch.einsum("...mk,m->...", V_I * V_I, d[nC:])
-    lin_I = lookup_linear_terms(params["linear"], layout.subset("item"),
-                                item_arena_ids(layout, item_ids), item_weights)
-    return Q_I.contiguous(), t_I, lin_I
+    Q = _tree_sum(U_I[:, :, None] * V_I.to(acc)[:, None], dim=-2)    # (n, rho, k)
+    t = _tree_sum(_tree_sum((V_I * V_I).to(acc), dim=-1) * d, dim=-1)
+    lin = _tree_sum(linear_products(params["linear"], layout.subset("item"),
+                                    item_arena_ids(layout, item_ids),
+                                    item_weights).to(acc), dim=-1)
+    dt = V_I.dtype
+    return Q.to(dt).contiguous(), t.to(dt), lin.to(params["linear"].dtype)
 
 
 def masked_slab_scores(params: dict, Q_I, t_I, lin_I, valid, P_C, s_C,

@@ -1,5 +1,5 @@
 """CorpusState: one tenant's mutable corpus behind a ScorerRuntime.
-Port of ``repro.serving.engine`` for one device (no mesh).
+Port of ``repro.serving.engine``.
 
 The serving stack is three layers:
 
@@ -27,6 +27,15 @@ Mutable corpus: the slab is padded to a power-of-two ``capacity`` with a
 ``NEG_INF``; slot assignments are stable across churn and ``refresh``;
 when the free-list runs dry the slab doubles.  ``on_mutate``, when set,
 is called before any mutation or refresh (a frontend's writer barrier).
+
+Sharded slab: ``CorpusState(..., mesh=m)`` (or a runtime built with
+``mesh=m``) shards the slab over the mesh's model axis
+(``serving.sharded``): each of the D shards holds capacity/D slots, global
+slot ``g`` at shard ``g % D``'s local row ``g // D``.  Slots are handed
+out lowest free id first, as on one device, so both engines assign the
+same slots; growth appends local rows to every shard, so no slot is
+renumbered; the capacity must be a multiple of D.  Scores, top-K and
+``fused_topk`` are bitwise the single-device engine's.
 
 Faults: ``fault_injector`` (``repro_torch.serving.faults``) arms three
 sites.  ``write`` fires before the device write of ``add_items`` /
@@ -59,7 +68,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.serving.corpus import ItemCorpusCache, next_pow2
+from repro_torch.serving.corpus import ItemCorpusCache, next_pow2, pad_cache, physical
+from repro_torch.serving.sharded import ShardedCorpusCache
 from repro_torch.serving.errors import NotReady, RefreshFailed
 from repro_torch.serving.runtime import ScorerRuntime
 from repro_torch.serving.sanitize import scoring_guard
@@ -72,19 +82,22 @@ class CorpusState:
     ``item_ids`` / ``item_weights``: (n, n_item_slots) local item-side ids
     and weights (numpy or tensors; weights default to ones).
     ``fault_injector``: an optional ``FaultInjector`` for the ``write``,
-    ``alloc`` and ``kernel`` sites (settable later).  ``block_n``: as
-    ``ScorerRuntime``'s, for the runtime this state builds."""
+    ``alloc`` and ``kernel`` sites (settable later).  ``block_n`` and
+    ``mesh``: as ``ScorerRuntime``'s, for the runtime this state builds."""
 
     def __init__(self, cfg, item_ids, item_weights=None, *,
                  capacity: int | None = None, device=None, block_n: int | None = None,
-                 runtime: ScorerRuntime | None = None, fault_injector=None):
+                 runtime: ScorerRuntime | None = None, fault_injector=None, mesh=None):
         if runtime is None:
-            runtime = ScorerRuntime(cfg, device=device, block_n=block_n)
+            runtime = ScorerRuntime(cfg, device=device, block_n=block_n, mesh=mesh)
         else:
             if cfg is not None and cfg is not runtime.cfg:
                 raise ValueError("CorpusState(cfg=..., runtime=...): the runtime was "
                                  "built for a different config; pass runtime.cfg "
                                  "(or cfg=None)")
+            if mesh is not None and mesh is not runtime.mesh:
+                raise ValueError("CorpusState(mesh=..., runtime=...): mesh is a runtime "
+                                 "property; build the ScorerRuntime with it instead")
             if device is not None and torch.device(device) != runtime.device:
                 raise ValueError("CorpusState(device=..., runtime=...): device is a "
                                  "runtime property; build the ScorerRuntime with it "
@@ -94,16 +107,21 @@ class CorpusState:
                                  "runtime property; build the ScorerRuntime with it "
                                  "instead")
         self.runtime = runtime
+        self._D = runtime.n_shards
 
         ids = np.asarray(torch.as_tensor(item_ids).cpu(), np.int32)
         n0 = int(ids.shape[0])
         w = (np.ones(ids.shape, np.float32) if item_weights is None
              else np.asarray(torch.as_tensor(item_weights).cpu(), np.float32))
-        self.capacity = next_pow2(max(n0, 1)) if capacity is None else int(capacity)
+        self.capacity = (max(next_pow2(max(n0, 1)), self._D) if capacity is None
+                         else int(capacity))
         if self.capacity < n0:
             raise ValueError(f"capacity={self.capacity} < initial corpus size n={n0}")
         if self.capacity & (self.capacity - 1):
             raise ValueError(f"capacity must be a power of two, got {self.capacity}")
+        if self.capacity % self._D:
+            raise ValueError(f"capacity={self.capacity} not divisible by the {self._D}-way "
+                             f"corpus shard axis")
 
         # host-side slab: the source of truth for ids, weights and liveness,
         # mirrored on the device by the runtime's writes
@@ -113,7 +131,9 @@ class CorpusState:
         self._slab_w[:n0] = w
         self._valid_np = np.zeros(self.capacity, bool)
         self._valid_np[:n0] = True
-        # free slots as a min-heap: the lowest-numbered slot goes first
+        # free slots as a min-heap: the lowest-numbered global slot goes
+        # first, whatever the shard count (the reference's per-shard heaps
+        # hand out the same order)
         self._free = list(range(n0, self.capacity))
 
         self.params: dict | None = None
@@ -135,6 +155,24 @@ class CorpusState:
     @property
     def device(self) -> torch.device:
         return self.runtime.device
+
+    @property
+    def mesh(self):
+        return self.runtime.mesh
+
+    @property
+    def n_shards(self) -> int:
+        """Corpus shard count D (1 without a mesh)."""
+        return self._D
+
+    @property
+    def local_capacity(self) -> int:
+        """Slots a shard holds: capacity / D."""
+        return self.capacity // self._D
+
+    def shard_of(self, slots) -> np.ndarray:
+        """Owning shard of each global slot (striped: ``g % D``)."""
+        return np.asarray(slots, np.int64) % self._D
 
     @property
     def fault_injector(self):
@@ -277,14 +315,13 @@ class CorpusState:
         self._free.extend(range(old, new))
         self.capacity = new
         if self.cache is not None:
-            c = self.cache
-            self.cache = ItemCorpusCache(
-                Q_I=torch.cat([c.Q_I, c.Q_I.new_zeros((extra, *c.Q_I.shape[1:]))]),
-                t_I=torch.cat([c.t_I, c.t_I.new_zeros(extra)]),
-                lin_I=torch.cat([c.lin_I, c.lin_I.new_zeros(extra)]),
-                valid=torch.cat([c.valid, c.valid.new_zeros(extra)]),
-                a_I=torch.cat([c.a_I, c.a_I.new_zeros(extra)]),
-            )
+            if self.mesh is None:
+                self.cache = pad_cache(self.cache, extra)
+            else:
+                # striped: the new global slots [old, new) are exactly the
+                # new local rows [old/D, new/D) of every shard
+                self.cache = ShardedCorpusCache(tuple(pad_cache(c, extra // self._D)
+                                                      for c in self.cache.shards))
 
     # -- model lifecycle ----------------------------------------------------
 
@@ -294,10 +331,17 @@ class CorpusState:
         self._begin_write()
         dev = self.device
         self.params = params
-        self.cache = self.runtime.build(
-            params, torch.as_tensor(self._slab_ids, device=dev),
-            torch.as_tensor(self._slab_w, dtype=self.runtime.wdtype, device=dev),
-            torch.as_tensor(self._valid_np, device=dev))
+        if self.mesh is None:
+            self.cache = self.runtime.build(
+                params, torch.as_tensor(self._slab_ids, device=dev),
+                torch.as_tensor(self._slab_w, dtype=self.runtime.wdtype, device=dev),
+                torch.as_tensor(self._valid_np, device=dev))
+        else:
+            # each shard rebuilds its own column of the physical view
+            D = self._D
+            self.cache = self.runtime.build(params, physical(self._slab_ids, D),
+                                            physical(self._slab_w, D),
+                                            physical(self._valid_np, D))
         self.model_step = step
         self.refresh_count += 1
         self.last_refresh_time = time.monotonic()
@@ -406,10 +450,10 @@ def fused_topk(states, context_ids, K: int, context_weights=None):
     packs same-runtime tenants through (``pack=True``).
 
     ``states`` must share one ``ScorerRuntime`` and each be ready with
-    ``K <= n_items``; ``context_ids``: (S, Bq, m_C_slots), one common Bq
-    (the frontend buckets before packing); weights default to ones.  Each
-    state's ``kernel`` probe is checked before the launch; a fault fails
-    the whole pack, with no fallback."""
+    ``K <= n_items`` (on a mesh, also one capacity); ``context_ids``: (S,
+    Bq, m_C_slots), one common Bq (the frontend buckets before packing);
+    weights default to ones.  Each state's ``kernel`` probe is checked
+    before the launch; a fault fails the whole pack, with no fallback."""
     states = tuple(states)
     if not states:
         raise ValueError("fused_topk needs at least one state")
@@ -422,6 +466,9 @@ def fused_topk(states, context_ids, K: int, context_weights=None):
         if not 0 < K <= st.n_items:
             raise ValueError(f"fused_topk K={K} out of range for a corpus of "
                              f"{st.n_items} live items")
+    if rt.mesh is not None and len({st.local_capacity for st in states}) != 1:
+        raise ValueError("fused mesh top-K needs equal capacities; the frontend's pack "
+                         "key guarantees this")
     ids = torch.as_tensor(context_ids, device=rt.device)
     if ids.ndim != 3 or ids.shape[0] != len(states):
         raise ValueError(f"context_ids must stack to (S={len(states)}, Bq, m_C_slots), "

@@ -1,5 +1,5 @@
 """Tenant-routed micro-batching query frontend (the online path).  Port of
-``repro.serving.frontend`` for one device.
+``repro.serving.frontend``.
 
 A ``CorpusState`` scores a batch of query contexts for one corpus in one
 dispatch, but an online service receives queries one at a time, each
@@ -32,11 +32,13 @@ What it keeps from the reference:
   bucket, burst ``max_batch``) that only the scheduler honours.
 * Packing (``pack=True``): when a turn picks a lane, further turns go
   to other eligible lanes with the same pack key (runtime, context
-  width, slab type), up to the kernel's ``MAX_SEGMENTS``, and the group runs as one
-  ``engine.fused_topk`` launch.  Unlike the reference, the key leaves out
-  the slab capacity: the kernel reads each tenant's slab where it lies,
+  width, slab type; on a mesh, local capacity), up to the kernel's
+  ``MAX_SEGMENTS``, and the group runs as one ``engine.fused_topk``
+  launch.  Unlike the reference, the key leaves out the capacity of an
+  unsharded slab: the kernel reads each tenant's slab where it lies,
   whatever its length, so tenants of different capacities (or one that
-  ``autoscale_high`` just doubled) still pack.  The group shares one Bq
+  ``autoscale_high`` just doubled) still pack.  On a mesh it holds the
+  local capacity, as the reference's does.  The group shares one Bq
   bucket and one K bucket, and its segment count pads to a power of two
   by repeating the last tenant.  A group whose K bucket exceeds a member's
   live corpus unpacks into per-tenant dispatches.  ``_PackedLaunch``
@@ -328,6 +330,10 @@ class QueryFrontend:
         # releases the re-entrant lock at every depth for the pause, so
         # submits and pump ticks go on while a failed dispatch backs off
         self._retry_wait = threading.Condition(self._lock)
+        # batches a dispatch has taken and is retrying, by tenant: while one
+        # backs off it is in neither a lane's queue nor the window, so the
+        # blocking paths wait on ``_retry_wait`` until the count is zero
+        self._retrying: collections.Counter = collections.Counter()
         # background pump + watchdog (start_pump): the generation token
         # lets the watchdog orphan a stalled pump thread, which exits when
         # it wakes and finds its generation stale
@@ -520,25 +526,41 @@ class QueryFrontend:
             lane.breaker = "closed"
             lane.opened_at = None
 
-    def _with_retries(self, dispatch, what: str, tenant: str):
+    def _with_retries(self, dispatch, what: str, tenants: tuple):
         """Run ``dispatch()`` with up to ``retries`` re-dispatches of the
-        identical batch, backing off ``retry_backoff * 2**i`` times a
-        seeded jitter in [0.5, 1.5) between attempts; raises
-        ``DispatchFailed`` when they are spent."""
+        identical batch of ``tenants``' requests, backing off
+        ``retry_backoff * 2**i`` times a seeded jitter in [0.5, 1.5) between
+        attempts; raises ``DispatchFailed`` when they are spent.  While it
+        runs the batch counts in ``_retrying`` for each of ``tenants``; its
+        end, in success or failure, wakes the blocking paths waiting for
+        that count (``_await_retries``)."""
         attempts = self.retries + 1
-        for i in range(attempts):
-            try:
-                return dispatch()
-            except Exception as e:            # noqa: BLE001 - typed below
-                if i + 1 >= attempts:
-                    raise DispatchFailed(f"{what} failed after {attempts} attempts: {e}",
-                                         tenant=tenant, attempts=attempts) from e
-                self.stats["retries"] += 1
-                pause = self.retry_backoff * (2.0 ** i) * (0.5 + self._rng.random())
-                if pause > 0.0:
-                    # Condition.wait, not time.sleep: the lock is held here,
-                    # and wait() releases it for the pause
-                    self._retry_wait.wait(timeout=pause)
+        self._retrying.update(tenants)
+        try:
+            for i in range(attempts):
+                try:
+                    return dispatch()
+                except Exception as e:            # noqa: BLE001 - typed below
+                    if i + 1 >= attempts:
+                        raise DispatchFailed(f"{what} failed after {attempts} attempts: {e}",
+                                             tenant=tenants[0], attempts=attempts) from e
+                    self.stats["retries"] += 1
+                    pause = self.retry_backoff * (2.0 ** i) * (0.5 + self._rng.random())
+                    if pause > 0.0:
+                        # Condition.wait, not time.sleep: the lock is held
+                        # here, and wait() releases it for the pause
+                        self._retry_wait.wait(timeout=pause)
+        finally:
+            self._retrying.subtract(tenants)
+            self._retry_wait.notify_all()
+
+    def _await_retries(self, names) -> None:
+        """Wait (releasing the lock) until no dispatch of ``names``' requests
+        is retrying.  Such a batch's requests are in neither a queue nor the
+        window, so a barrier that resolved the window without waiting would
+        return with them pending.  The reference's drain does not wait."""
+        while any(self._retrying[n] > 0 for n in names):
+            self._retry_wait.wait()
 
     def _probe(self, site: str) -> None:
         if self._injector is not None:
@@ -550,7 +572,7 @@ class QueryFrontend:
             self._probe("dispatch")
             return lane.engine.topk(ctx, k_pad, w)
         return self._with_retries(dispatch, f"tenant {lane.name!r}: micro-batch dispatch",
-                                  lane.name)
+                                  (lane.name,))
 
     # -- batching policy ----------------------------------------------------
 
@@ -599,11 +621,13 @@ class QueryFrontend:
     def _pack_key(self, lane):
         """Lanes with equal keys may share one ``fused_topk`` launch: same
         runtime, same context width, same slab type (one launch reads one
-        type).  None: not ready."""
+        type), and on a mesh the same local capacity (one ``k_loc`` for
+        every segment of a shard's launch).  None: not ready."""
         eng = lane.engine
         if getattr(eng, "cache", None) is None:
             return None
-        return (id(eng.runtime), lane.n_ctx, eng.cache.Q_I.dtype)
+        local = None if eng.runtime.mesh is None else eng.local_capacity
+        return (id(eng.runtime), lane.n_ctx, eng.cache.dtype, local)
 
     @property
     def pack_max(self) -> int:
@@ -711,29 +735,33 @@ class QueryFrontend:
 
     def drain(self) -> None:
         """Flush and resolve every tenant's queued and in-flight batches
-        (blocking)."""
+        (blocking): the full-stop barrier.  When it returns, every request
+        submitted before it is done, including those of a batch that
+        another thread's dispatch was retrying."""
         with self._lock:
             for name in list(self._lanes):
                 self._drain_tenant(name)
 
     def _drain_tenant(self, name: str) -> None:
-        """The per-tenant writer barrier: dispatch this lane's queue and
-        resolve this lane's in-flight batches (blocking); other tenants'
-        queues and windows are untouched."""
+        """The per-tenant writer barrier: dispatch this lane's queue, wait
+        for its retrying dispatches, and resolve its in-flight batches
+        (blocking), until none of the three is left; other tenants' queues
+        and windows are untouched."""
         with self._lock:
             self.stats["drains"] += 1
             lane = self._lanes[name]
-            now = self.clock()
-            while lane.heap:
-                self._dispatch(lane, self._take(lane, self._batch_of(lane)), now)
-            keep = collections.deque()
-            while self._window:
-                fl = self._window.popleft()
-                if fl.tenant == name:
+            while True:
+                now = self.clock()
+                while lane.heap:
+                    self._dispatch(lane, self._take(lane, self._batch_of(lane)), now)
+                self._await_retries((name,))
+                mine = [fl for fl in self._window if fl.tenant == name]
+                if not mine and not lane.heap and not self._retrying[name]:
+                    return
+                self._window = collections.deque(fl for fl in self._window
+                                                 if fl.tenant != name)
+                for fl in mine:
                     self._resolve(fl)
-                else:
-                    keep.append(fl)
-            self._window = keep
 
     # -- writer entry points (barrier + mutation under the lock) ------------
 
@@ -902,7 +930,7 @@ class QueryFrontend:
             return _PackedLaunch(*fused_topk(states, ctx, k_pad, w))
         try:
             launch = self._with_retries(dispatch, f"fused dispatch for tenants {names}",
-                                        names[0])
+                                        names)
         except DispatchFailed as e:
             self._fail_all(live_pairs, e, now)
             return
@@ -982,6 +1010,10 @@ class QueryFrontend:
                 self.flush()
             while not req.done() and self._window:
                 self._resolve_oldest()
+            if not req.done():
+                self._await_retries((req.tenant,))
+                while not req.done() and self._window:
+                    self._resolve_oldest()
             if not req.done():
                 raise Unservable("request neither queued nor in flight",
                                  tenant=req.tenant)
@@ -1150,6 +1182,9 @@ class QueryFrontend:
             if self._closed:
                 return
             self._closed = True
+            # a batch another thread is retrying enters the window (or
+            # fails) before the window is resolved below
+            self._await_retries(tuple(self._lanes))
             now = self.clock()
             for lane in self._lanes.values():
                 while lane.heap:

@@ -1,5 +1,5 @@
 """ScorerRuntime: the corpus-independent half of the serving engine.
-Port of ``repro.serving.runtime`` for one device.
+Port of ``repro.serving.runtime``.
 
 The runtime owns everything about scoring that does not depend on which
 corpus is scored: the context cache, the dispatch to the corpus kernel,
@@ -20,6 +20,15 @@ one launch): the CUDA kernel for a slab on the card, its plain version
 for a slab on the CPU.  Calls return as soon as the work is queued on the
 device; reading a result waits for it.
 
+On a mesh (``ScorerRuntime(cfg, mesh=...)``, ``launch.mesh``) every
+tenant's slab is sharded over the mesh's model axis
+(``serving.sharded``): a cache is a ``ShardedCorpusCache``, each shard's
+rows on its own device, and the calls above keep their signatures and
+results (churn slots stay global, scores come back in global slot order,
+bitwise the single-device runtime's).  ``build`` then takes the slab in
+its physical ``(capacity/D, D, ...)`` view.  The query side runs on the
+mesh's first device, the runtime's ``device``.
+
 Types: the slab takes the params' type.  Params in bf16 (the serving
 checkpoint's type) build a bf16 slab (``Q_I``, ``t_I``, ``lin_I``,
 ``a_I``), which the bf16 kernels read as stored; the query side (``P_C``,
@@ -39,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.embedding.bag import prepare_lookups
 from repro_torch.kernels import ops as kops
 from repro_torch.models.recsys.fwfm import context_inputs
+from repro_torch.serving import sharded
 from repro_torch.serving.corpus import (
     ItemCorpusCache,
     build_corpus_cache,
@@ -55,26 +65,52 @@ QUERY_BLOCK = 16
 
 class ScorerRuntime:
     """Corpus-independent scoring for one ``FwFMConfig`` (``interaction
-    == 'dplr'``) on one device (``cuda`` unless ``device`` says otherwise).
-    ``cfg.dtype`` is the serving dtype: context weights take it.
-    ``block_n``: the corpus kernels' slots a block scores, passed to every
-    corpus call; ``None`` (default) resolves through the tuned-tile
-    registry per shape cell (``kernels.blocks``), as does ``acc_dtype``,
-    which the runtime leaves to it.  With nothing tuned the kernels'
-    default geometry, bitwise on the card whatever the geometry."""
+    == 'dplr'``) on one device (``cuda`` unless ``device`` says otherwise),
+    or on a ``mesh`` (``launch.mesh.Mesh``), whose first device is then the
+    runtime's ``device``.  ``cfg.dtype`` is the serving dtype: context
+    weights take it.  ``block_n``: the corpus kernels' slots a block
+    scores, passed to every corpus call; ``None`` (default) resolves
+    through the tuned-tile registry per shape cell (``kernels.blocks``), as
+    does ``acc_dtype``, which the runtime leaves to it.  With nothing tuned
+    the kernels' default geometry, bitwise on the card whatever the
+    geometry."""
 
-    def __init__(self, cfg, *, device=None, block_n: int | None = None):
+    def __init__(self, cfg, *, device=None, block_n: int | None = None, mesh=None):
         if cfg.interaction != "dplr":
             raise ValueError("ScorerRuntime requires interaction='dplr'")
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.wdtype = cfg.dtype
         self.block_n = block_n
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._D = 1
+            return
+        if device is not None:
+            raise ValueError("ScorerRuntime(device=..., mesh=...): the runtime's device is "
+                             "the mesh's first; pass one of them")
+        for dev in mesh.devices:
+            resolve_device(dev)
+        self.device = mesh.devices[0]
+        self._D = sharded.shard_count(mesh)
+        if self._D & (self._D - 1):
+            # a capacity is a power of two divisible by D: no valid capacity
+            raise ValueError(f"corpus shard count must be a power of two, got a "
+                             f"{self._D}-wide model axis")
 
-    def build(self, params, slab_ids, slab_w, valid) -> ItemCorpusCache:
+    @property
+    def n_shards(self) -> int:
+        """Corpus shard count D (1 without a mesh)."""
+        return self._D
+
+    def build(self, params, slab_ids, slab_w, valid):
+        """The slab's cache; on a mesh ``slab_ids``/``slab_w`` (capacity/D,
+        D, m_I_slots) and ``valid`` (capacity/D, D), the physical view."""
         # the context lookup's static maps go to the device here, before
         # any scoring dispatch: a copy inside one would wait for the card
         prepare_lookups(self.cfg.layout.subset("context"), params["embedding"].device)
+        if self.mesh is not None:
+            return sharded.build(params, self.cfg, self.mesh, slab_ids, slab_w, valid)
         return build_corpus_cache(params, self.cfg, slab_ids, slab_w, valid=valid)
 
     def rows(self, params, ids, w):
@@ -123,11 +159,17 @@ class ScorerRuntime:
 
     def score(self, params, cache, ctx_ids, ctx_w) -> torch.Tensor:
         """(Bq, capacity) masked scores; dead slots exactly NEG_INF."""
+        if self.mesh is not None:
+            return sharded.score(self.mesh, self._query, params, cache, ctx_ids, ctx_w,
+                                 block_n=self.block_n)
         return self._kernel_score(params, cache, ctx_ids, ctx_w)
 
     def topk(self, params, cache, ctx_ids, ctx_w, K: int):
         """((Bq, K) scores, (Bq, K) int32 slots), best first, ties to the
         lowest slot."""
+        if self.mesh is not None:
+            return sharded.topk(self.mesh, self._query, params, cache, ctx_ids, ctx_w, K,
+                                block_n=self.block_n)
         return self._kernel_score(params, cache, ctx_ids, ctx_w, K=K)
 
     def multi_topk(self, params_parts, cache_parts, ctx_ids, ctx_w, K: int):
@@ -136,7 +178,11 @@ class ScorerRuntime:
         ``s`` alone.  ``ctx_ids``/``ctx_w``: (S, Bq, m_C_slots).  Each
         tenant's query side is computed with its own params, one call per
         tenant, by the same ``_query`` as ``topk``.  The slabs must share
-        one type (a frontend packs only such tenants)."""
+        one type (a frontend packs only such tenants); on a mesh also one
+        local capacity."""
+        if self.mesh is not None:
+            return sharded.multi_topk(self.mesh, self._query, params_parts, cache_parts,
+                                      ctx_ids, ctx_w, K, block_n=self.block_n)
         pcs, acs = zip(*(self._query(params, ctx_ids[s], ctx_w[s])
                          for s, params in enumerate(params_parts)))
         return kops.dplr_corpus_score_multi(
@@ -149,7 +195,14 @@ class ScorerRuntime:
         the slab and mark them live.  The row computation runs on Δn
         padded to a power of two (O(log capacity) distinct shapes in all;
         the filler rows are never written).  Updates ``cache``'s tensors in
-        place, with no copy of the slab, and returns it."""
+        place, with no copy of the slab, and returns it.  On a mesh the
+        delta is grouped by owning shard first (``sharded.group_deltas``),
+        and each shard computes and writes only its own rows."""
+        if self.mesh is not None:
+            li, ids_g, w_g = sharded.group_deltas(
+                np.asarray(slots, np.int64), np.asarray(ids, np.int32),
+                np.asarray(w, np.float32), self._D, cache.local_capacity)
+            return sharded.write_grouped(params, self.cfg, self.mesh, cache, ids_g, w_g, li)
         dn = len(slots)
         pad = next_pow2(max(dn, 1)) - dn
         ids = np.asarray(ids, np.int32)
@@ -169,6 +222,8 @@ class ScorerRuntime:
 
     def drop_rows(self, cache, slots) -> ItemCorpusCache:
         """Mark slots dead, in place; no row computation."""
+        if self.mesh is not None:
+            return sharded.drop(self.mesh, cache, slots)
         idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
         cache.valid[idx] = False
         return cache

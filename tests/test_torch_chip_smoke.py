@@ -1,5 +1,5 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, serve-bf16,
-tenants, wire, eval, train, models, lm, lm-train, gnn, timing, autotune and
+tenants, shard, wire, eval, train, models, lm, lm-train, gnn, timing, autotune and
 profile phases run at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
@@ -25,6 +25,8 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              multi=(4, 2, 2048, 16), ragged=((300, 1000, 700), 2, 256),
              tenants=4, tenant_items=700, tenant_capacity=1024, tenant_bq=4,
              waves=3, warm_waves=1, profile_waves=1,
+             shards=4, shard_bqs=(1, 3), shard_reps=2, shard_churn=(20, 20, 5, 1200),
+             mp_items=40,
              wire_requests=40, wire_conns=2, wire_window=3,
              bag_rows=(3, 500, 64), bag_ragged=33, pairs=((64, 12), (300, 12), (1, 39)),
              pair_small_b=5, pair_tiles=2, items_tiles=3, items_many=300,
@@ -92,6 +94,12 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
             "dplr_score_items_kernel_bf16", "corpus_multi_topk_chunks_bf16"} <= set(launches)
     launches, tenants = chip_smoke.tenants_phase(cpu, sz, serve)
     assert sum(launches.values()) == 0
+    f32, bf16 = chip_smoke.shard_phase(cpu, sz, serve)
+    assert sum(f32.values()) == sum(bf16.values()) == 0
+    assert {"corpus_score_full", "corpus_topk_chunks", "corpus_multi_topk_chunks",
+            "embedding_bag_kernel", "topk_merge", "multi_topk_merge"} <= set(f32)
+    assert {"corpus_score_full_bf16", "corpus_topk_chunks_bf16",
+            "corpus_multi_topk_chunks_bf16", "embedding_bag_kernel_bf16"} <= set(bf16)
     launches = chip_smoke.wire_phase(cpu, sz, serve, tenants)
     assert sum(launches.values()) == 0
     launches = chip_smoke.eval_phase(cpu, sz, serve)
@@ -128,9 +136,12 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert blocks._TUNED_TILES == {}        # the registry is cleared after the phase
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "serve-bf16", "tenants", "eval", "train", "models", "lm",
-                  "lm-train", "gnn", "timing", "autotune", "profile"):
+    for phase in ("kernels", "serve", "serve-bf16", "tenants", "shard", "eval", "train",
+                  "models", "lm", "lm-train", "gnn", "timing", "autotune", "profile"):
         assert f"phase {phase}:" in out
+    assert "phase shard: 4 shards on cpu, cpu, cpu, cpu, 3000 items in a 4096-slot slab" in out
+    assert out.count("4 packed tenants bitwise the single-device engine") == 2
+    assert "rank_items_mp over 4 arena blocks" in out
     assert "fwfm_pairwise bf16 V bitwise its f32 launch" in out and "fwfm in bf16: AUC" in out
     assert "36/4x128" not in out and "1x40x9/1x8" in out     # the head-group cases ran
     for name in ("gemma3-1b-smoke", "starcoder2-7b-smoke", "yi-9b-smoke", "granite-moe-smoke",

@@ -38,6 +38,7 @@ from repro_torch.serving.errors import (  # noqa: E402
     Overloaded,
     Unservable,
 )
+from repro_torch.serving.faults import FaultInjector  # noqa: E402
 from repro_torch.serving.frontend import QueryFrontend  # noqa: E402
 from repro_torch.serving.runtime import ScorerRuntime  # noqa: E402
 
@@ -745,3 +746,46 @@ def test_close_resolves_inflight_and_fails_queued_typed():
     assert set(h["tenants"]["default"]) >= {"breaker", "queued", "n_items", "model_step",
                                             "refresh_age"}
     fe.close()                               # idempotent
+
+
+@pytest.mark.parametrize("barrier,dispatcher", [("drain", "pump"), ("drain", "thread"),
+                                                ("close", "pump"), ("close", "thread"),
+                                                ("result", "thread")])
+def test_barrier_waits_for_a_dispatch_that_is_backing_off(barrier, dispatcher):
+    """A dispatch on another thread (the pump, or a thread calling ``flush``)
+    faults once and backs off (0.1-0.3 s), which releases the lock while its
+    batch is in neither the queue nor the window; ``drain``/``close`` called
+    then from this thread return only once that batch is resolved, every
+    request done with its real reply, and ``result()`` of one of its
+    requests waits for it (rather than raising ``Unservable``).  (``close``
+    joins the pump thread before it takes the lock, so its pump case holds
+    on the parent too.)"""
+    _, _, data, engine = _engine(n=37)
+    inj = FaultInjector(seed=0)
+    fe = QueryFrontend(engine, max_batch=4, max_k=8, max_wait=0.0, auto_pump=False,
+                       retries=2, retry_backoff=0.2, fault_injector=inj)
+    inj.arm("dispatch", count=1)
+    pend = [fe.submit(_ctx(data, s), k=5) for s in range(3)]   # one batch
+    worker = None
+    try:
+        if dispatcher == "pump":
+            fe.start_pump(interval=1e-3)
+        else:
+            worker = threading.Thread(target=fe.flush)
+            worker.start()
+        deadline = time.monotonic() + 10.0
+        while inj.fired("dispatch") < 1 and time.monotonic() < deadline:
+            time.sleep(1e-3)
+        assert inj.fired("dispatch") == 1    # the dispatch is backing off
+        if barrier == "result":
+            pend[0].result()
+        else:
+            getattr(fe, barrier)()
+        assert all(p.done() for p in pend)
+    finally:
+        fe.stop_pump()
+        if worker is not None:
+            worker.join(timeout=10.0)
+    assert fe.stats["retries"] == 1 and fe.stats["failed"] == 0
+    for s, p in enumerate(pend):
+        assert_reply(p.result(), engine, _ctx(data, s), 5)

@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no JAX
 and nothing of the JAX package, every module imports (and serves, trains,
-and answers over the RPC server under an injected fault) with JAX blocked,
-and asking for the card where there is none raises."""
+serves a sharded corpus, ranks through ``rank_items_mp``, and answers over
+the RPC server under an injected fault) with JAX blocked, and asking for
+the card where there is none raises."""
 import os
 import re
 import subprocess
@@ -102,6 +103,16 @@ R = np.ones((6, 6)) - np.eye(6)
 U, e, d = posthoc_dplr(R, 1, polish_steps=3, device="cpu")
 assert U.shape == (1, 6) and np.isfinite(d).all()
 assert optim.warmup_cosine(0.1, 2, 10)(5) > 0
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.sharding import corpus_cache_specs
+sh = CorpusState(cfg, q["item_ids"][0], mesh=make_host_mesh(4, device="cpu"))
+sh.refresh(engine.params)
+svals, sids = sh.topk(q["context_ids"], 5)
+assert torch.equal(svals, vals) and torch.equal(sids, ids) and sh.n_shards == 4
+assert corpus_cache_specs(None).Q_I == (None, "model", None, None)
+qt = {k: torch.as_tensor(v) for k, v in q.items()}
+mp = fwfm.rank_items_mp(engine.params, cfg, qt, mesh=make_host_mesh(2, device="cpu"))
+assert torch.allclose(mp, fwfm.rank_items(engine.params, cfg, qt), atol=1e-5, rtol=1e-5)
 print("ok")
 """
 

@@ -73,10 +73,18 @@ def test_cell_arguments_match_the_reference(arch, shape):
 def test_cells_build_with_the_references_options():
     cfg = steps.build("mixtral-8x7b", "train_4k", opts={"moe_scatter": True, "moe_fused": True})
     assert "micro_batches" in " ".join(cfg.notes)
-    for arch, shape, opts in (("dplr-fwfm", "serve_p99", {"mp_scoring": True}),
-                              ("pna", "ogb_products", {"partitioned": True})):
-        with pytest.raises(NotImplementedError, match="sharding item"):
-            steps.build(arch, shape, opts=opts)
+    with pytest.raises(NotImplementedError, match="sharding item"):
+        steps.build("pna", "ogb_products", opts={"partitioned": True})
+    # the +mp rank cells: rank_items_mp on a one-device mesh, the reference's
+    # name and arguments; for the other recsys archs the option changes nothing
+    for shape in ("serve_p99", "retrieval_cand"):
+        mp = steps.build("dplr-fwfm", shape, opts={"mp_scoring": True})
+        want = jsteps.build("dplr-fwfm", shape, make_host_mesh(), opts={"mp_scoring": True})
+        assert mp.name == want.name == f"dplr-fwfm/{shape}+mp"
+        assert _torch_specs(mp.args) == _jax_specs(want.args)
+        assert not any("rank_items_mp" in note for note in mp.notes)
+    assert steps.build("wide-deep", "serve_p99", opts={"mp_scoring": True}).name == \
+        "wide-deep/serve_p99"
     cell = steps.build("dplr-fwfm", "serve_bulk", opts={"serve_bf16": True})
     assert cell.args[0]["embedding"].dtype == torch.bfloat16
     with pytest.raises(ValueError, match="N/A"):
@@ -380,7 +388,7 @@ def test_dryrun_writes_and_resumes_its_records(tmp_path, capsys):
 
 
 def test_dryrun_records_a_cell_that_cannot_build(tmp_path):
-    rec = dryrun.run_cell("dplr-fwfm", "serve_p99", out=tmp_path, opts={"mp_scoring": True})
+    rec = dryrun.run_cell("pna", "ogb_products", out=tmp_path, opts={"partitioned": True})
     assert not rec["ok"] and "NotImplementedError" in rec["error"]
-    assert (tmp_path / "dplr-fwfm__serve_p99+mp_scoring.json").exists()
+    assert (tmp_path / "pna__ogb_products+partitioned.json").exists()
     assert dryrun.line(rec).startswith("[FAIL]")
