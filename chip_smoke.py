@@ -318,6 +318,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import multiprocessing
@@ -365,6 +366,7 @@ from repro_torch.core.pruning import matched_param_count, prune_matched  # noqa:
 from repro_torch.data.pipeline import ShardedPipeline  # noqa: E402
 from repro_torch.data.synthetic_ctr import SyntheticCTR, sample_ids  # noqa: E402
 from repro_torch.embedding import bag as field_lookups  # noqa: E402
+from repro_torch.embedding import sharded  # noqa: E402
 from repro_torch.embedding.bag import (  # noqa: E402
     item_arena_ids,
     lookup_linear_terms,
@@ -385,6 +387,7 @@ from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
 from repro_torch.models.transformer import model as tm  # noqa: E402
 from repro_torch.models.transformer import moe  # noqa: E402
+from repro_torch.optim import compression  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     CorpusState,
     DeadlineExceeded,
@@ -417,7 +420,8 @@ FLASH_MOE = ((2, 32_256, 16, 8, 64, None), (1, 8192, 32, 8, 128, 4096))
 
 def mixtral_cut() -> tm.TransformerConfig:
     """mixtral-8x7b at its published widths with 4 of its 32 layers: at
-    full depth its 187 GB of f32 parameters wait for sharding."""
+    full depth its 187 GB of f32 parameters wait for FSDP across data
+    replicas (ROADMAP item 3c)."""
     return dataclasses.replace(mixtral_8x7b.make_config(), n_layers=4)
 
 
@@ -436,6 +440,15 @@ FULL = SimpleNamespace(
     # growth that doubles the slab) and rank_items_mp's candidates
     shards=4, shard_bqs=(1, 16), shard_reps=20, shard_churn=(1000, 1000, 100, 60_000),
     mp_items=512,
+    # shard-train: dplr-fwfm's train_batch and serve_bulk cells at their
+    # registry batches (dims None: B = 65,536 and 262,144) on the shard mesh,
+    # adagrad steps a run (and timed steps after a warm one); gemma3-1b's
+    # train_4k cut from B = 256 to 4 (its 4 micro_batches, of 1 x 4,096 each)
+    # and its timed steps; PNA's full_graph_sm+part uncut, bf16 adamw steps a
+    # run and timed; the phase's wall-clock limit
+    strain_dims=None, strain_serve_dims=None, strain_steps=4,
+    strain_lm=gemma3_1b.make_config, strain_lm_dims={"batch": 4}, strain_gnn_dims=None,
+    strain_lm_steps=2, strain_gnn_steps=8, strain_seconds=120,
     # wire: Bq = 1 requests pipelined over connections, each with a window
     wire_requests=1000, wire_conns=4, wire_window=4,
     # embedding bag: rows of the context lookup (Bq), of the slab build
@@ -494,8 +507,9 @@ FULL = SimpleNamespace(
     lm_train_models=(gemma3_1b.make_config, granite_moe_1b_a400m.make_config),
     lm_train_batch=4, lm_train_seq=4096, lm_train_steps=4, lm_train_lr=0.05,
     lm_resume_layers=2, lm_resume_steps=4, lm_resume_save=2,
-    # gnn: PNA at make_config() widths on the shapes below (ogb_products
-    # waits for sharding), adamw steps at the JAX example's lr
+    # gnn: PNA at make_config() widths on the shapes below (ogb_products does
+    # not fit one card, whole or partitioned: the dry run), adamw steps at the
+    # JAX example's lr
     gnn_shapes=("minibatch_lg", "molecule", "full_graph_sm"), gnn_steps=8, gnn_lr=1e-3,
     gnn_make=pna_cfg.make_config, gnn_graph=(232_965, 492), gnn_minibatch=(1024, (15, 10)),
     gnn_seed=0,
@@ -2309,6 +2323,448 @@ def shard_phase(dev, sz, serve) -> tuple[dict, dict]:
     return out["f32"], out["bf16"]
 
 
+# -- phase 5c: the training half of sharding on the one-process mesh ----------
+
+# The entry points the shard-train phase's sharded lookups drive: kernel 5 on
+# every arena block forward (and once over the gathered rows, into the field
+# bags), kernel 5' on every block backward.
+SHARD_TRAIN_KERNELS = ("embedding_bag", "embedding_bag_backward")
+
+
+def field_batches(cfg, B: int, n: int, dev, seed: int) -> list:
+    """``n`` train batches of ``B`` rows made on ``dev`` from ``seed``: each
+    slot's id uniform below its field's vocabulary, weights 1, labels 0 or
+    1 with probability 1/2."""
+    lay = cfg.layout
+    vocab = torch.as_tensor([lay.fields[f].vocab_size for f in lay.slot_to_field],
+                            dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(n):
+        u = torch.rand((B, lay.n_slots), generator=gen, device=dev, dtype=torch.float64)
+        ids = torch.minimum((u * vocab).floor(), vocab - 1).to(torch.int32)
+        out.append({"ids": ids, "weights": torch.ones((B, lay.n_slots), device=dev),
+                    "label": (torch.rand(B, generator=gen, device=dev) < 0.5).float()})
+    return out
+
+
+def leaf_gap(a: dict, b: dict) -> float:
+    """The largest, over the leaves of two nested dicts, of ``max|a - b|``
+    over ``max(1, max|b|)``."""
+    return max((float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+                for (_, x), (_, y) in zip(flat_items(a), flat_items(b))), default=0.0)
+
+
+def cell_ms(dev, cell, args: tuple, steps: int) -> float:
+    """``measure_cell``'s median step of ``cell`` on ``args``."""
+    return float(np.median(measure_cell(dev, dataclasses.replace(cell, args=args), steps)[0]))
+
+
+def shard_train_recsys(dev, sz, cfg, mesh, launched: collections.Counter) -> tuple[str, dict]:
+    """(a): ``dplr-fwfm/train_batch`` built on ``mesh`` (D shards), on a
+    one-shard mesh and without a mesh, from one seed: ``sz.strain_steps``
+    adagrad steps on the same batches.  Every step's loss and the
+    parameters and accumulator after it bitwise D = 1's; the loss within
+    ``1e-4 max(1, |loss|)`` of the step without ``take_fn``, and every leaf
+    of the parameters and accumulator within ``1e-5 max(1, max|leaf|)`` of
+    it (the CPU tests' bound: that path adds the first-order gradient with
+    autograd's atomics); on the card ``2 D + 1`` launches of kernels 5 and
+    5' a step (the field and first-order gathers on each block, and the
+    bags of the gathered rows).  Each cell's median step on the first batch
+    (``measure_cell``).  Then kernel 5' as the sharded backward calls it, at
+    the first batch's slots: on each block, foreign slots keyed past it,
+    into that block's rows of one NaN-filled gradient (``out=``); the
+    blocks together bitwise one launch over the whole arena, which is
+    within ``1e-6 sum |w g|`` of ``ref.embedding_bag_vjp``; each block's
+    time beside the whole launch's.  Returns a summary and the first
+    batch."""
+    D = mesh.shape["model"]
+    meshes = {D: mesh, 1: make_host_mesh(1, device=dev), "plain": None}
+    cells = {k: steps.build("dplr-fwfm", "train_batch", device=dev, cfg=cfg,
+                            dims=sz.strain_dims, mesh=m) for k, m in meshes.items()}
+    B = cells[1].args[2]["ids"].shape[0]
+    batches = field_batches(cfg, B, sz.strain_steps, dev, seed=5)
+    runs = {k: list(c.args[:2]) for k, c in cells.items()}
+    losses = {k: [] for k in cells}
+    counts = {k: collections.Counter() for k in cells}
+    plain_bitwise, gap = True, 0.0
+    for i, batch in enumerate(batches):
+        for k, cell in cells.items():
+            params, state = runs[k]
+            with counted(counts[k]):
+                loss, params, state = cell.fn(params, state, batch, cell.args[3])
+            runs[k] = [params, state]
+            losses[k].append(loss)
+        if not (torch.equal(losses[D][i], losses[1][i]) and same_tree(runs[D][0], runs[1][0])
+                and same_tree(runs[D][1], runs[1][1])):
+            raise AssertionError(f"shard-train: step {i + 1} at D={D} is not bitwise D=1's")
+        got, plain = float(losses[D][i]), float(losses["plain"][i])
+        if abs(got - plain) > 1e-4 * max(1.0, abs(plain)):
+            raise AssertionError(f"shard-train: step {i + 1}'s loss {got:.7g} leaves the step "
+                                 f"without take_fn ({plain:.7g})")
+        step_gap = max(leaf_gap(runs[D][0], runs["plain"][0]),
+                       leaf_gap(runs[D][1], runs["plain"][1]))
+        if not step_gap <= 1e-5:
+            raise AssertionError(f"shard-train: after step {i + 1} a leaf at D={D} is "
+                                 f"{step_gap:.3g} x max(1, max|leaf|) from the step without "
+                                 f"take_fn, past 1e-5")
+        gap = max(gap, step_gap)
+        plain_bitwise &= torch.equal(losses[D][i], losses["plain"][i]) and same_tree(
+            runs[D][0], runs["plain"][0])
+    launched.update(counts[D])
+    n = len(batches)
+    per_step = {k: {g: c[g] / n for g in ("embedding_bag_kernel", "embedding_bag_backward_kernel",
+                                          "bag_rows_radix_sort")} for k, c in counts.items()}
+    if dev.type == "cuda":
+        want = {D: 2 * D + 1, 1: 3, "plain": 1}
+        for k, c in per_step.items():
+            if set(c.values()) != {want[k]}:
+                raise AssertionError(f"shard-train: launches a step at {k}: {c}, want "
+                                     f"{want[k]} of kernels 5 and 5' each")
+    med = {k: cell_ms(dev, c, (*runs[k], batches[0], c.args[3]), sz.strain_steps)
+           for k, c in cells.items()}
+    table = runs[D][0]["embedding"]
+    del runs, cells
+    gc.collect()
+    offsets = torch.as_tensor(cfg.layout.slot_offsets.astype(np.int32), device=dev)
+    arena = (batches[0]["ids"] + offsets).reshape(-1)
+    rows = table.shape[0] // D
+    g = torch.randn((arena.numel(), 1, cfg.embed_dim),
+                    generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    ones = torch.ones((arena.numel(), 1), device=dev)
+    bags = field_lookups.one_slot_bags(1, str(dev))
+    out = torch.full_like(table, float("nan"))
+    blocks, shares = [], []
+    for s in range(D):
+        lo = s * rows
+        mine = (arena >= lo) & (arena < lo + rows)
+        keyed = torch.where(mine, arena - lo, rows)[:, None].contiguous()
+        shares.append(float(mine.float().mean()))
+        blocks.append(functools.partial(ops.embedding_bag_backward, g, table[lo:lo + rows],
+                                        keyed, ones, bags, out=out[lo:lo + rows]))
+    whole_ids = arena[:, None].contiguous()
+    whole_fn = functools.partial(ops.embedding_bag_backward, g, table, whole_ids, ones, bags)
+    for fn in blocks:
+        fn()
+    whole = whole_fn()
+    what = f"shard-train: kernel 5' a block at step 1's {arena.numel()} slots"
+    if not torch.equal(out, whole):
+        raise AssertionError(f"{what}: the blocks' out= rows are not one launch over the arena")
+    want = ref.embedding_bag_vjp(table, whole_ids, ones, bags.segments, g)[0]
+    diff = (whole - want).abs()
+    del want
+    size = ref.embedding_bag_vjp(table, whole_ids, ones, bags.segments, g.abs())[0]
+    bad = diff > 1e-6 * size
+    if bad.any() or not torch.isfinite(whole).all():
+        raise AssertionError(f"{what}: {int(bad.sum())} values of one launch over the arena "
+                             f"off ref.embedding_bag_vjp, max |diff| {float(diff.max()):.3g}")
+    err = float(diff.max())
+    del diff, size, bad
+    block_ms = [device_ms(fn, 3, 5) if dev.type == "cuda" else None for fn in blocks]
+    whole_ms = device_ms(whole_fn, 3, 5) if dev.type == "cuda" else None
+    if not torch.equal(out, whole):
+        raise AssertionError(f"{what}: the blocks' rows changed on repeated calls")
+    del g, out, whole, table, blocks, whole_fn
+    how = "CUDA events" if dev.type == "cuda" else "host clock"
+    line = (f"(a) dplr-fwfm/train_batch B={B}, {cfg.layout.n_fields} fields k={cfg.embed_dim} "
+            f"rho={cfg.rank}, a {padded_rows(cfg.layout.total_vocab)}-row arena in {D} blocks "
+            f"of {rows}: {n} adagrad steps at D={D} bitwise D=1 (losses, params, accumulator "
+            f"after every step; losses {float(losses[D][0]):.6f} -> {float(losses[D][-1]):.6f}), "
+            f"within 1e-4 x max(1, |loss|) of the steps without take_fn ("
+            f"{'bitwise' if plain_bitwise else 'not bitwise'}), every leaf of params and "
+            f"accumulator within {gap:.3g} x max(1, max|leaf|) of them (<= 1e-5); median step "
+            f"ms on batch 1 after a warm one ({sz.strain_steps} steps, {how}) D={D} "
+            f"{med[D]:.3f}, D=1 {med[1]:.3f}, without take_fn {med['plain']:.3f}; launches a "
+            f"step (kernel 5, 5' writer, 5' sort) D={D} {tuple(per_step[D].values())}, D=1 "
+            f"{tuple(per_step[1].values())}, without {tuple(per_step['plain'].values())}; "
+            f"kernel 5' a block at step 1's {arena.numel()} slots, foreign slots keyed out, "
+            f"into one NaN-filled gradient: the blocks bitwise one launch over the arena, "
+            f"which is within {err:.3g} of ref.embedding_bag_vjp (<= 1e-6 x sum |w g|); "
+            + ", ".join(f"block {s} {_ms(t)} ({100 * f:.1f}% of the slots its own)"
+                        for s, (t, f) in enumerate(zip(block_ms, shares)))
+            + f", the whole arena in one launch {_ms(whole_ms)}")
+    return line, batches[0]
+
+
+def shard_serve_check(dev, sz, cfg, mesh, launched: collections.Counter) -> str:
+    """(b): ``dplr-fwfm/serve_bulk``'s pointwise logits on ``mesh`` bitwise
+    a one-shard mesh's, and against the cell without a mesh."""
+    D = mesh.shape["model"]
+    build = lambda m: steps.build("dplr-fwfm", "serve_bulk", device=dev, cfg=cfg,  # noqa: E731
+                                  dims=sz.strain_serve_dims, mesh=m)
+    cell = build(mesh)
+    with counted(launched):
+        got = cell.fn(*cell.args)
+    t = cell_ms(dev, cell, cell.args, sz.strain_steps)
+    del cell
+    one = build(make_host_mesh(1, device=dev))
+    same_bits(got, one.fn(*one.args), f"serve_bulk at D={D}", "D=1's logits")
+    del one
+    plain = build(None)
+    want = plain.fn(*plain.args)
+    t_plain = cell_ms(dev, plain, plain.args, sz.strain_steps)
+    err = check_close(got, want, f"serve_bulk at D={D} against the cell without a mesh")
+    bitwise = torch.equal(got, want)
+    return (f"(b) dplr-fwfm/serve_bulk {got.shape[0]} rows: logits at D={D} bitwise D=1's, "
+            f"{'bitwise' if bitwise else f'within {err:.3g} of'} the cell without a mesh; "
+            f"median call after a warm one ({sz.strain_steps} calls) {t:.3f} ms at D={D}, "
+            f"{t_plain:.3f} ms without")
+
+
+def plain_compressed_psum(xs: list, errs: list) -> tuple:
+    """``compression.compressed_psum``'s formula stated over the stacked
+    positions, a block of rows at a time: one scale from the largest
+    ``|x + e|`` of all, each position's int8 grid, their int32 sum times
+    the scale over the count.  (mean, errors, scale)."""
+    corr = [x + e for x, e in zip(xs, errs)]
+    amax = max(float(c.abs().max()) for c in corr)
+    scale = torch.clamp(torch.tensor(amax, dtype=torch.float32, device=xs[0].device),
+                        min=1e-12) / 127.0
+    flat = [c.reshape(-1) for c in corr]
+    mean = torch.empty_like(flat[0])
+    errors = [torch.empty_like(f) for f in flat]
+    step = 1 << 24
+    for lo in range(0, flat[0].numel(), step):
+        X = torch.stack([f[lo:lo + step] for f in flat])
+        Q = torch.clamp(torch.round(X / scale), -127, 127).to(torch.int8)
+        E = X - Q.float() * scale
+        for e, row in zip(errors, E):
+            e[lo:lo + step] = row
+        mean[lo:lo + step] = Q.to(torch.int32).sum(0).float() * scale / float(len(xs))
+    return mean.view(xs[0].shape), [e.view(xs[0].shape) for e in errors], scale
+
+
+def psum_check(dev, sz, cfg, mesh, batch) -> str:
+    """(c): ``compressed_psum`` over ``D`` positions holding the gradients of
+    (a)'s first batch cut in ``D`` parts (from (a)'s initial weights,
+    through the sharded lookup), every leaf: each position's mean and
+    error bitwise ``plain_compressed_psum``; every error within ``0.51
+    scale`` (half a grid step, and a float32 rounding); the mean within
+    ``0.51 scale`` of the exact mean; and on one position, mean + error
+    bitwise the input."""
+    D = mesh.shape["model"]
+    params = fwfm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    take = sharded.make_sharded_take(mesh)
+    grad_fn = optim.value_and_grad(lambda p, c, b: fwfm.loss(p, c, b, take_fn=take))
+    q = batch["ids"].shape[0] // D
+    grads = [grad_fn(params, cfg, {k: v[s * q:(s + 1) * q] for k, v in batch.items()})[1]
+             for s in range(D)]
+    del params
+    worst, scales = 0.0, {}
+    for name in sorted(grads[0]):
+        xs = [g[name] for g in grads]
+        errs = [torch.zeros_like(x) for x in xs]
+        outs, new = compression.compressed_psum(xs, errs)
+        mean, want_err, scale = plain_compressed_psum(xs, errs)
+        for s in range(D):
+            same_bits(outs[s], mean, f"compressed_psum {name} position {s}",
+                      "the plain formula's mean")
+            same_bits(new[s], want_err[s], f"compressed_psum {name} error {s}",
+                      "the plain formula's error")
+        s_ = float(scale)
+        worst = max(worst, max(float(e.abs().max()) for e in new) / s_)
+        exact = functools.reduce(torch.add, xs) / D
+        if float((outs[0] - exact).abs().max()) > 0.51 * s_ or worst > 0.51:
+            raise AssertionError(f"compressed_psum {name}: off by more than 0.51 x scale")
+        (o1,), (e1,) = compression.compressed_psum(xs[:1], errs[:1])
+        if not torch.equal(o1 + e1, xs[0]):
+            raise AssertionError(f"compressed_psum {name}: on one position mean + error is "
+                                 f"not the input")
+        scales[name] = s_
+        del outs, new, mean, want_err, exact, o1, e1
+    del grads
+    gc.collect()
+    return (f"(c) compressed_psum over {D} positions of step 1's gradients ({q} rows each), "
+            f"every leaf: means and errors bitwise the plain formula, |x - x_hat| <= "
+            f"{worst:.3f} scale (<= 0.51), means within 0.51 scale of the exact mean, on one "
+            f"position mean + error bitwise the input; scales " + ", ".join(
+                f"{k} {v:.3g}" for k, v in scales.items()))
+
+
+# (d)'s gate on the two gradients: each leaf's largest |difference| over its
+# largest entry.  The card read 0.018 (bf16 compute, run 2 of the slice); a
+# sign flip reads 2, a zero gradient 1, a sum in place of the mean 3.
+LM_GRAD_GAP = 0.05
+
+
+def micro_batch_check(dev, sz) -> str:
+    """(d): gemma3-1b's ``train_4k`` cell cut to ``sz.strain_lm_dims``, with
+    its ``micro_batches`` microbatches and with one, from the same weights
+    and tokens.  Each cell's gradient as the cells take it
+    (``optim.gradient_accumulation`` and ``optim.value_and_grad`` of
+    ``lm_loss`` under ``train.deterministic()``): the two within
+    ``LM_GRAD_GAP`` of each leaf's largest entry.  Each cell's step: its
+    loss and the parameters after it bitwise the cells' adamw (weight decay
+    0.1, norm clip 1) applied to its gradient, so that the two steps'
+    parameters differ only as adamw of the gated gradients does; the two
+    losses within ``1e-4 max(1, |loss|)``.  Each cell's median step after a
+    warm one and its peak memory above what it found (``measure_cell``)."""
+    cfg = sz.strain_lm()
+    n = cfg.micro_batches
+    if n < 2:
+        raise AssertionError(f"shard-train: {cfg.name} has micro_batches={n}")
+    cfgs = {n: cfg, 1: dataclasses.replace(cfg, micro_batches=1)}
+    build = lambda k: steps.build("gemma3-1b", "train_4k", device=dev, cfg=cfgs[k],  # noqa: E731
+                                  dims=sz.strain_lm_dims)
+    cell = build(n)
+    params, _, batch, lr = cell.args
+    loss_fn = lambda p, b: tm.lm_loss(p, cfg, b, device=dev)  # noqa: E731
+    with train.deterministic():
+        grads = {n: optim.gradient_accumulation(loss_fn, n)(params, batch),
+                 1: optim.value_and_grad(loss_fn)(params, batch)}
+    leaves = optim.optimizers.tree_leaves
+    grad_gap = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(leaves(grads[n][1]), leaves(grads[1][1])))
+    if not grad_gap <= LM_GRAD_GAP:
+        raise AssertionError(f"shard-train: {n} microbatches' gradient {grad_gap:.3g} of a "
+                             f"leaf's largest entry from one batch's, past {LM_GRAD_GAP}")
+    opt = optim.adamw(weight_decay=0.1)
+    stepped = {}
+    with train.deterministic():
+        for k, (_, g) in grads.items():
+            p = rebuild(params, iter([x.clone() for _, x in flat_items(params)]))
+            stepped[k] = opt.update(g, opt.init(p), p, lr)[0]
+    losses = {k: v[0] for k, v in grads.items()}
+    del grads
+    gc.collect()
+    p_gap = max(float((a - b).abs().max())
+                for a, b in zip(leaves(stepped[n]), leaves(stepped[1])))
+    ms, peak = {}, {}
+    for k in (n, 1):
+        cell = cell if k == n else build(k)
+        loss, p, _ = cell.fn(*cell.args)
+        if not (torch.equal(loss, losses[k]) and same_tree(p, stepped[k])):
+            raise AssertionError(f"shard-train: the {k}-microbatch step is not adamw of its "
+                                 f"gradient, bitwise")
+        del loss, p, stepped[k]
+        gc.collect()
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        times, top = measure_cell(dev, cell, sz.strain_lm_steps)
+        ms[k], peak[k] = float(np.median(times)), None if top is None else top - base
+        del cell
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    lm, lo = float(losses[n]), float(losses[1])
+    if abs(lm - lo) > 1e-4 * max(1.0, abs(lo)):
+        raise AssertionError(f"shard-train: {n} microbatches' loss {lm:.7g} against one "
+                             f"batch's {lo:.7g}")
+    B, S = batch["tokens"].shape
+    return (f"(d) {cfg.name} train_4k at {B} x {S}: {n} microbatches of {B // n} against one "
+            f"batch from the same weights: loss {lm:.6f} against {lo:.6f}, gradients within "
+            f"{grad_gap:.3g} of each leaf's largest entry (<= {LM_GRAD_GAP}), each step's "
+            f"loss and parameters bitwise adamw of its gradient, parameters within "
+            f"{p_gap:.3g} of each other (lr {float(lr):.3g}); median step after a warm one "
+            f"({sz.strain_lm_steps} steps, {'CUDA events' if dev.type == 'cuda' else 'host clock'}) "
+            f"{ms[n]:.1f} ms against {ms[1]:.1f} ms; peak memory above what the step found "
+            f"{_mib(None if peak[n] is None else peak[n] / 2**20)} against "
+            f"{_mib(None if peak[1] is None else peak[1] / 2**20)}")
+
+
+def part_gnn_check(dev, sz, mesh) -> str:
+    """(e): PNA's ``full_graph_sm+part`` on ``mesh``: in f32 compute, the
+    partitioned loss and gradients against ``pna.loss`` on the same graph
+    and weights, on the card, within ``1e-4 max(1, |loss|)`` (each gradient
+    leaf: ``1e-4`` of its largest entry) plus twice the whole-graph path's
+    own spread when its node features move one ulp up (the gnn phase's
+    rule: ``index_add_``'s atomics add in any order on the card, and the
+    std aggregator's cancellation magnifies a last-bit difference); then
+    the bf16 cell's adamw steps on that partitioned graph, every loss
+    finite, and as many more timed after a warm one (``measure_cell``)."""
+    D = mesh.shape["model"]
+    shape = next(s for s in pna_cfg.SHAPES if s.name == "full_graph_sm")
+    if sz.strain_gnn_dims:
+        shape = dataclasses.replace(shape, dims={**shape.dims, **sz.strain_gnn_dims})
+    base = sz.gnn_make()
+    cfg32 = dataclasses.replace(pna_cfg.shape_config(base, shape), compute_dtype=torch.float32)
+    n, E = steps.gnn_sizes(shape)
+    N_p = -(-n // D) * D
+    rng = np.random.default_rng(sz.gnn_seed)
+    src = rng.integers(0, n, E).astype(np.int32)
+    dst = rng.integers(0, n, E).astype(np.int32)
+    label_mask = np.zeros(N_p, np.float32)
+    label_mask[:n] = 1
+    nodes = {"node_feat": rng.standard_normal((N_p, cfg32.d_feat), dtype=np.float32),
+             "labels": rng.integers(0, cfg32.n_classes, N_p).astype(np.int32),
+             "label_mask": label_mask}
+    part, e_loc = sampler.partition_graph(src, dst, N_p, D)
+    whole = train.to_device(dict(nodes, edge_src=src, edge_dst=dst,
+                                 edge_mask=np.ones(E, np.float32)), dev)
+    pbatch = train.to_device(dict(nodes, **part), dev)
+    params = pna.init(torch.Generator(device=dev).manual_seed(0), cfg32)
+    grad_whole = optim.value_and_grad(pna.loss)
+    want, gw = grad_whole(params, cfg32, whole)
+    feat = whole["node_feat"]
+    nudged = dict(whole, node_feat=torch.nextafter(feat, torch.full_like(feat, np.inf)))
+    wn, gn = grad_whole(params, cfg32, nudged)
+    got, gg = optim.value_and_grad(
+        lambda p, c, b: pna.loss_partitioned(p, c, b, mesh=mesh))(params, cfg32, pbatch)
+    spread = abs(float(wn) - float(want))
+    bound = 1e-4 * max(1.0, abs(float(want))) + 2 * spread
+    if abs(float(got) - float(want)) > bound:
+        raise AssertionError(f"shard-train: partitioned PNA loss {float(got):.7g} against "
+                             f"{float(want):.7g} (bound {bound:.3g})")
+    leaves = optim.optimizers.tree_leaves
+    worst = 0.0
+    for a, b, c in zip(leaves(gg), leaves(gw), leaves(gn)):
+        err = float((a - b).abs().max())
+        lim = 1e-4 * float(b.abs().max()) + 2 * float((c - b).abs().max())
+        if not err <= lim + 1e-30:
+            raise AssertionError(f"shard-train: partitioned PNA gradient off by {err:.3g} "
+                                 f"(bound {lim:.3g})")
+        worst = max(worst, err / max(float(b.abs().max()), 1e-30))
+    cell = steps.build("pna", "full_graph_sm", device=dev, cfg=base, dims=sz.strain_gnn_dims,
+                       opts={"partitioned": True}, mesh=mesh)
+    p16, s16, _, lr = cell.args
+    losses = []
+    for _ in range(sz.strain_gnn_steps):
+        loss, p16, s16 = cell.fn(p16, s16, pbatch, lr)
+        losses.append(float(loss))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"shard-train: partitioned PNA bf16 losses {losses}")
+    ms = cell_ms(dev, cell, (p16, s16, pbatch, lr), sz.strain_gnn_steps)
+    return (f"(e) {cell.name} at D={D}: {n} nodes, {E} edges, {e_loc} edge slots a shard; "
+            f"f32 loss {float(got):.6f} against the whole graph's {float(want):.6f} "
+            f"(|diff| {abs(float(got) - float(want)):.3g} <= {bound:.3g}, spread "
+            f"{spread:.3g}), gradients within {worst:.3g} of each leaf's largest entry and "
+            f"their bounds; bf16: {len(losses)} adamw steps, losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, then {sz.strain_gnn_steps} more after a warm one: median step "
+            f"{ms:.3f} ms")
+
+
+def shard_train_phase(dev, sz) -> dict:
+    """The training half of sharding on ``make_host_mesh(sz.shards)`` (four
+    shards sharing the one card): (a)-(e) above.  Returns the launches of
+    kernels 5 and 5' in (a)'s sharded steps and (b)'s sharded call."""
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(sz.shards, device=dev)
+    cfg = sz.make_config()
+    launched = collections.Counter()
+    lines = []
+    line, first = shard_train_recsys(dev, sz, cfg, mesh, launched)
+    lines.append(line)
+    gc.collect()
+    lines.append(shard_serve_check(dev, sz, cfg, mesh, launched))
+    gc.collect()
+    lines.append(psum_check(dev, sz, cfg, mesh, first))
+    del first
+    gc.collect()
+    lines.append(micro_batch_check(dev, sz))
+    gc.collect()
+    lines.append(part_gnn_check(dev, sz, mesh))
+    gc.collect()
+    out = {g: launched[g] for entry in SHARD_TRAIN_KERNELS for g in ops.KERNELS[entry]}
+    if dev.type == "cuda" and not all(out.values()):
+        raise AssertionError(f"shard-train: a kernel of the sharded lookup did not launch: {out}")
+    wall = time.perf_counter() - t_phase
+    if dev.type == "cuda" and wall > sz.strain_seconds:
+        raise AssertionError(f"shard-train: {wall:.1f} s, past {sz.strain_seconds} s")
+    print(f"phase shard-train: {sz.shards} shards on {', '.join(map(str, mesh.devices))}; "
+          + "; ".join(lines) + f"; launches {out}; wall {wall:.1f} s", flush=True)
+    return out
+
+
 # -- phase 6: wire ------------------------------------------------------------
 
 def same_reply(got, want, what: str) -> None:
@@ -3962,8 +4418,9 @@ def gnn_phase(dev, sz) -> str:
         raise AssertionError(f"gnn: the path launched kernels of the repo: {dict(ops.LAUNCHES)}")
     print(f"phase gnn: PNA d_hidden={base.d_hidden} {base.n_layers} layers, 4 aggregators x 3 "
           f"scalers, random f32 weights (seed 0); " + "; ".join(parts)
-          + f"; no kernel of the repo launched (none on this path); ogb_products waits for "
-          f"sharding; wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+          + f"; no kernel of the repo launched (none on this path); ogb_products does not "
+          f"fit one card, whole or partitioned; wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return "gnn"
 
 
@@ -5391,6 +5848,9 @@ def run_phases(dev, peaks, model_batches, dry) -> list:
     for into, counts in zip((launches, launches_bf16), shard_phase(dev, FULL, serve)):
         for g, count in counts.items():
             into[g] = into.get(g, 0) + count
+    # this slice's main path: the sharded lookup's launches in its training phase
+    for g, count in shard_train_phase(dev, FULL).items():
+        launches[g] = launches.get(g, 0) + count
     for g, count in wire_phase(dev, FULL, serve, tenants).items():
         launches[g] = launches.get(g, 0) + count
     # the eval phase's bf16 case adds to the bf16 rows (kernel 6's only path)

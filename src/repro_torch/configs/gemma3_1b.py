@@ -14,7 +14,7 @@ def make_config() -> TransformerConfig:
         d_ff=6912, vocab=262144, head_dim=256,
         mlp_type="geglu", rope_theta=1e6, tie_embeddings=True,
         layer_pattern=(LOCAL_WINDOW,) * 5 + (None,),
-        remat=True, q_chunk=512,
+        remat=True, q_chunk=512, micro_batches=4,
     )
 
 

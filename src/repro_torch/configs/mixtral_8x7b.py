@@ -2,8 +2,8 @@
 32L, d_model=4096, 32H (GQA kv=8, head_dim=128), d_ff=14336 per expert,
 vocab=32000, 8 experts top-2 (SwiGLU), sliding-window attention (W=4096).
 SWA is sub-quadratic: long_500k runs.  46,702,792,704 parameters (187 GB
-in f32: one 80 GB card holds it only with its depth cut).  The
-reference's ``micro_batches`` and ``fsdp`` wait for sharding."""
+in f32: one 80 GB card holds it only with its depth cut; its full depth
+waits for FSDP across data replicas, ROADMAP item 3c)."""
 from repro_torch.models.transformer.model import TransformerConfig
 
 SLIDING_WINDOW = 4096
@@ -17,7 +17,7 @@ def make_config() -> TransformerConfig:
         mlp_type="swiglu", rope_theta=1e6,
         n_experts=8, top_k=2, capacity_factor=1.25, moe_group_size=512,
         layer_pattern=(SLIDING_WINDOW,),
-        remat=True, q_chunk=512,
+        remat=True, q_chunk=512, micro_batches=16, fsdp=True,
     )
 
 

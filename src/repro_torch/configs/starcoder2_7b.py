@@ -13,6 +13,7 @@ def make_config() -> TransformerConfig:
         d_ff=18432, vocab=49152, head_dim=128,
         mlp_type="gelu", rope_theta=1e5,
         layer_pattern=(None,), remat=True, q_chunk=512,
+        micro_batches=16,
     )
 
 

@@ -12,6 +12,7 @@ def make_config() -> TransformerConfig:
         d_ff=11008, vocab=64000, head_dim=128,
         mlp_type="swiglu", rope_theta=1e4,
         layer_pattern=(None,), remat=True, q_chunk=512,
+        micro_batches=8, fsdp=True,
     )
 
 

@@ -10,6 +10,13 @@ kernel for a table on the card, its plain version for one on the CPU.
 A layout's static arrays (slot offsets, the slot -> field map and its
 CSR for the kernel) are made and copied to the device once per (layout,
 device) and kept (``_statics``), not on every lookup.
+
+Every lookup takes ``take_fn(table, ids) -> rows``, as the reference's
+do: the gather of arena rows for a table that is not whole on one device
+(``embedding.sharded.make_sharded_take``: the arena row-blocked over a
+mesh).  With one, a lookup gathers its rows through it and sums them
+into bags by kernel 5 over the gathered rows (one row each slot, in slot
+order); without one (the default) the one kernel call above does both.
 """
 from __future__ import annotations
 
@@ -67,11 +74,14 @@ def init_embedding_table(generator: torch.Generator, n_rows: int, dim: int, *,
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
-                  segment_ids: np.ndarray, n_bags: int) -> torch.Tensor:
+                  segment_ids: np.ndarray, n_bags: int, take_fn=None) -> torch.Tensor:
     """``out[..., b, :] = sum_{s: seg[s] = b} w_s * table[id_s]`` for
     arena-global ``ids (..., n_slots)``; weights are cast to the table
     dtype before the product.  Copies the map to the table's device on
     every call: the lookups below use the copy that ``_statics`` keeps."""
+    if take_fn is not None:
+        rows = take_fn(table, ids)
+        return bag_rows(rows, weights, kops.bag_map(segment_ids, n_bags, rows.device))
     return _bag(table, ids, weights, kops.bag_map(segment_ids, n_bags, table.device))
 
 
@@ -80,13 +90,27 @@ def _bag(table, ids, weights, bags: kops.BagMap):
     return kops.embedding_bag(table, ids.contiguous(), w, bags)
 
 
-def _lookup(table, st: _Statics, ids, weights):
-    return _bag(table, ids + st.offsets, weights, st.bags)
+def bag_rows(rows, weights, bags: kops.BagMap):
+    """``(..., n_bags, k)`` bags of gathered ``rows (..., n_slots, k)``:
+    ``sum_{s: seg[s] = b} w_s * rows[..., s, :]``, kernel 5 over the rows
+    as a table of their own (slot ``s`` of row ``i`` of the batch names its
+    row ``i * n_slots + s``), differentiable in ``rows``."""
+    n_slots, k = rows.shape[-2:]
+    flat = rows.reshape(-1, k)
+    dtype = torch.int32 if flat.shape[0] < 2**31 else torch.int64
+    ids = torch.arange(flat.shape[0], dtype=dtype, device=rows.device)
+    return _bag(flat, ids.view(*rows.shape[:-1]), weights, bags)
 
 
-def lookup_field_embeddings(table, layout: FeatureLayout, ids, weights):
+def _lookup(table, st: _Statics, ids, weights, take_fn=None):
+    if take_fn is None:
+        return _bag(table, ids + st.offsets, weights, st.bags)
+    return bag_rows(take_fn(table, ids + st.offsets), weights, st.bags)
+
+
+def lookup_field_embeddings(table, layout: FeatureLayout, ids, weights, take_fn=None):
     """(batch..., n_fields, k) field embedding matrix V from local ids."""
-    return _lookup(table, _statics(layout, None, str(table.device)), ids, weights)
+    return _lookup(table, _statics(layout, None, str(table.device)), ids, weights, take_fn)
 
 
 def item_arena_ids(layout: FeatureLayout, ids):
@@ -95,10 +119,10 @@ def item_arena_ids(layout: FeatureLayout, ids):
     return ids + layout.subset("context").total_vocab
 
 
-def lookup_item_embeddings(table, layout: FeatureLayout, ids, weights):
+def lookup_item_embeddings(table, layout: FeatureLayout, ids, weights, take_fn=None):
     """(..., m_item, k) item-field embedding matrix V_I from local item ids
     (``layout`` is the full context + item layout)."""
-    return _lookup(table, _statics(layout, "item", str(table.device)), ids, weights)
+    return _lookup(table, _statics(layout, "item", str(table.device)), ids, weights, take_fn)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,17 +144,19 @@ def gather_rows(table, ids):
     return kops.embedding_bag(table, ids, ones, one_slot_bags(1, str(table.device)))[..., 0, :]
 
 
-def linear_products(table, layout: FeatureLayout, ids, weights):
+def linear_products(table, layout: FeatureLayout, ids, weights, take_fn=None):
     """(batch..., n_slots) products ``w_s * b[id_s]`` of the first-order
     term, before their sum (``lookup_linear_terms``)."""
     tab = table.reshape(-1)
     offsets = _statics(layout, None, str(table.device)).offsets
+    if take_fn is not None:
+        return take_fn(tab.reshape(-1, 1), ids + offsets)[..., 0] * weights.to(tab.dtype)
     return tab[ids.long() + offsets] * weights.to(tab.dtype)
 
 
-def lookup_linear_terms(table, layout: FeatureLayout, ids, weights):
+def lookup_linear_terms(table, layout: FeatureLayout, ids, weights, take_fn=None):
     """(batch...,) first-order term <b, x> of the FM/FwFM model."""
-    return linear_products(table, layout, ids, weights).sum(dim=-1)
+    return linear_products(table, layout, ids, weights, take_fn).sum(dim=-1)
 
 
 def padded_rows(n_rows: int, multiple: int = 2048) -> int:

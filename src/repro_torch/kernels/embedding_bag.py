@@ -128,14 +128,15 @@ def launch_writer(grad, keys, perm, weights, bags: BagMap, scratch, out) -> torc
     return out
 
 
-def launch_backward(grad, ids, weights, bags: BagMap, rows: int) -> torch.Tensor:
+def launch_backward(grad, ids, weights, bags: BagMap, rows: int, out=None) -> torch.Tensor:
     """``d_table (rows, k)`` f32 for ``grad (B, n_bags, k)`` and 2-D
     ``ids``/``weights`` (B, n_slots), B >= 1: each named row's sum of
     ``grad[b, seg[s]] * w[b, s]`` over its slots in ascending flat order,
-    zeros elsewhere.  ``d_table`` is allocated empty first (so a block the
-    caller freed just before, of its size, is the one it gets), then the
-    slots are sorted by row (``launch_sort``) and the writer fills it
-    (``launch_writer``)."""
-    d_table = torch.empty((rows, grad.shape[-1]), dtype=torch.float32, device=grad.device)
+    zeros elsewhere.  ``d_table`` is ``out`` where given (contiguous f32),
+    else allocated empty first (so a block the caller freed just before, of
+    its size, is the one it gets), then the slots are sorted by row
+    (``launch_sort``) and the writer fills it (``launch_writer``)."""
+    d_table = out if out is not None else torch.empty(
+        (rows, grad.shape[-1]), dtype=torch.float32, device=grad.device)
     keys, perm, scratch = launch_sort(ids.reshape(-1), rows)
     return launch_writer(grad, keys, perm, weights, bags, scratch, d_table)

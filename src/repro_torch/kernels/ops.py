@@ -431,29 +431,36 @@ def _embedding_bag_launch(table, ids, weights, bags: BagMap):
     return out.view(*lead, bags.n_bags, table.shape[1])
 
 
-def embedding_bag_backward(grad, table, ids, weights, bags: BagMap):
+def embedding_bag_backward(grad, table, ids, weights, bags: BagMap, out=None):
     """``d table`` of ``embedding_bag`` for the output gradient ``grad
     (..., n_bags, k)``: ``d_table[r] = sum_{slots s naming r} grad[bag(s)] *
     w_s``, zeros elsewhere, each row summed in ascending slot order (the
     plain version's order); a slot whose id lies outside ``[0, rows)`` adds
     to no row.  On the card the slots' radix sort by row, then one writer
-    of the whole table; on the CPU ``ref.embedding_bag_vjp``."""
+    of the whole table; on the CPU ``ref.embedding_bag_vjp``.  ``out``: a
+    contiguous float32 tensor of the table's shape on its device (a block
+    of a larger gradient, say) that the writer fills, every element once,
+    and that is returned; by default a new one."""
     n_slots = ids.shape[-1]
     _check_shape("grad", grad, (*ids.shape[:-1], bags.n_bags, table.shape[1]))
-    dev = _device(grad, table, ids, weights, bags.segments)
+    dev = _device(grad, table, ids, weights, bags.segments, out)
+    if out is not None:
+        _check_shape("out", out, tuple(table.shape))
+        _check_for_kernel(out=out)
     if dev.type == "cpu":
-        return ref.embedding_bag_vjp(table, ids, weights, bags.segments, grad)[0]
+        d_table = ref.embedding_bag_vjp(table, ids, weights, bags.segments, grad)[0]
+        return d_table if out is None else out.copy_(d_table)
     _check_for_kernel(grad=grad, weights=weights)
     B = math.prod(ids.shape[:-1])
     if B == 0:
-        return torch.zeros_like(table)
+        return torch.zeros_like(table) if out is None else out.zero_()
     if dev.type == "meta":
         work.report("embedding_bag_backward", slots=ids.numel(), B=B, n_bags=bags.n_bags,
                      k=table.shape[1], rows=table.shape[0], id_size=ids.element_size())
-        return torch.empty_like(table)
+        return torch.empty_like(table) if out is None else out
     out = _bag.launch_backward(grad.view(B, bags.n_bags, table.shape[1]),
                                ids.view(B, n_slots), weights.view(B, n_slots), bags,
-                               table.shape[0])
+                               table.shape[0], out)
     for name in KERNELS["embedding_bag_backward"]:
         LAUNCHES[name] += 1
     return out

@@ -36,7 +36,8 @@ allocating), and returns:
                      kernel this count is the higher.  ``flops`` and
                      ``bytes`` include it.
   * ``collective_bytes`` - None: one card has no collectives (the
-                     sharding item adds them).
+                     one-process mesh moves tensors between its shards'
+                     devices, uncounted; on one card there are none).
   * ``seconds``    - the host time the count took.
 """
 from __future__ import annotations

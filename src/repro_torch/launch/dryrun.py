@@ -17,11 +17,12 @@ kernel's counted work, the seconds the count took, the cell's ``notes``,
 and whether it fits one card: ``peak_bytes`` against the card's memory
 (``--card-bytes``; default the first card's ``total_memory`` where one
 is present, else 80 GB, an H100's, and the record says which).  A cell
-that cannot build records why.  ``--mesh`` has no counterpart: the
-reference's 16 x 16 and 2 x 16 x 16 pod meshes (``launch/mesh.py``)
-have no one-card meaning, and the sharding item's ``torch.distributed``
-mesh is their counterpart.  Prints one ``[ok]`` or ``[FAIL]`` line a cell
-and the number of failures; exits 1 if any.
+that cannot build records why.  ``--opt partitioned`` counts PNA's
+node-task shapes as ``+part`` cells.  ``--mesh`` has no counterpart: the
+reference's 16 x 16 and 2 x 16 x 16 pod meshes (``launch/mesh.py``) need
+256 and 512 devices (ROADMAP item 3c), and a cell counted on ``meta`` is
+one device's work.  Prints one ``[ok]`` or ``[FAIL]`` line a cell and
+the number of failures; exits 1 if any.
 """
 from __future__ import annotations
 

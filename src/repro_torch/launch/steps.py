@@ -5,6 +5,7 @@ model (``launch.cost``) and chip_smoke's dry-run phase share.
 
     cell = steps.build("gemma3-1b", "train_4k", device="meta")
     cost.analyze(cell.fn, *cell.args)
+    cell = steps.build("dplr-fwfm", "train_batch", device="cuda", mesh=make_host_mesh(4))
 
 A cell's arguments keep the reference's names, shapes and types: the
 parameter and optimizer-state trees carry the checkpoint format's keys
@@ -18,26 +19,38 @@ random within their ranges (ids below the smallest vocabulary, masks of
 ones), so that a cut can be run and measured beside its count.
 
 The families:
-  * lm: the train step (``adamw(weight_decay=0.1)`` on ``lm_loss``),
+  * lm: the train step (``adamw(weight_decay=0.1)`` on ``lm_loss``, over
+    ``n_micro = min(cfg.micro_batches, max(B // dp, 1))`` microbatches
+    through ``optim.gradient_accumulation`` where that is more than one,
+    under ``train.deterministic()`` as a one-batch LM step runs),
     ``prefill`` of the shape's prompt, one ``decode_step`` into the
     shape's cache, the serving cells on bf16 weights;
   * recsys: the adagrad train step, ``rank_items`` (Algorithm 1) and
     pointwise ``apply``; ``opts={"serve_bf16": True}`` serves bf16 tables;
-  * gnn: PNA's adamw train step on the shape's batch, in bf16 compute.
+  * gnn: PNA's adamw train step on the shape's batch, in bf16 compute;
+    ``opts={"partitioned": True}`` builds a node-task shape's
+    ``name+part`` cell, ``pna.loss_partitioned`` on a
+    destination-partitioned batch (25% slack over an even split of the
+    edges, as the reference sizes it).
 
-What the reference builds on a mesh and one card has no use for waits for
-the training half of the sharding item, and each cell names it in
-``notes``: shardings and the sharded lookup, the LM's ``micro_batches``
-(``train_4k`` is one batch of 256 here), FSDP, PNA's ``node_constraint``
-and partitioned forward.  The opts ``moe_scatter`` and ``moe_fused`` map
-onto ``moe_impl="scatter"`` and ``moe_fused_combine``; ``mp_scoring``
-builds ``dplr-fwfm``'s rank cells through ``fwfm.rank_items_mp`` on a
-one-device mesh (``name+mp``), as the reference does; ``partitioned``
-raises.
+``mesh`` (``launch.mesh.Mesh``): the cells as the reference builds them
+on a mesh, on the port's one-process mesh.  The recsys cells gather their
+arena rows through ``make_auto_take(mesh)`` (the arena row-blocked over
+the ``model`` axis, ``embedding.sharded``), the GNN batch pads its nodes
+and edges to a multiple of the mesh's size, and ``cell.specs`` holds the
+rules the reference would shard by (``sharding.rules``, ``auto_batch_specs``)
+as data: one data replica splits no batch.  Without a mesh every cell is
+one device's; ``dp`` is then 1 and ``partitioned`` and ``mp_scoring`` use
+a one-shard mesh.  Each cell's ``notes`` name what still waits: FSDP across
+data replicas and the production meshes (``SHARDING``).  The opts
+``moe_scatter`` and ``moe_fused`` map onto ``moe_impl="scatter"`` and
+``moe_fused_combine``; ``mp_scoring`` builds ``dplr-fwfm``'s rank cells
+through ``fwfm.rank_items_mp`` (``name+mp``), as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from types import SimpleNamespace
 from typing import Callable
 
@@ -46,27 +59,69 @@ import torch
 from repro_torch import optim
 from repro_torch.configs import registry as reg
 from repro_torch.configs.pna import shape_config
+from repro_torch.embedding.sharded import make_sharded_take
 from repro_torch.launch import train
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.gnn import pna
 from repro_torch.models.gnn.sampler import subgraph_shapes
 from repro_torch.models.transformer import model as tm
+from repro_torch.sharding import rules
 
-__all__ = ["Cell", "all_cells", "build"]
+__all__ = ["Cell", "all_cells", "auto_batch_specs", "auto_leaf_spec", "build",
+           "make_auto_take"]
 
-SHARDING = "waits for the training half of the sharding item (ROADMAP item 5)"
+SHARDING = ("FSDP across data replicas and the production meshes wait for more than one "
+            "data replica (ROADMAP item 3c)")
 
 
 @dataclasses.dataclass
 class Cell:
     """One cell: ``fn(*args)`` is its step, ``kind`` the shape's kind,
-    ``notes`` what the one-card build leaves out."""
+    ``notes`` what the one-card build leaves out, ``specs`` the rules of
+    its parameters and inputs on a mesh (empty without one)."""
 
     name: str
     fn: Callable
     args: tuple
     kind: str
     notes: tuple = ()
+    specs: dict = dataclasses.field(default_factory=dict)
+
+
+def _dp_size(mesh) -> int:
+    return 1 if mesh is None else math.prod(mesh.shape[a] for a in rules.dp_axes(mesh))
+
+
+def auto_leaf_spec(shape, mesh, min_shard: int = 1024) -> tuple:
+    """The reference's rule for an input of ``shape``: its largest dim that
+    the data extent divides and that is at least ``min_shard`` splits over
+    the data axes; the others are not split."""
+    n_dp = _dp_size(mesh)
+    best, best_dim = None, min_shard - 1
+    for i, d in enumerate(shape):
+        if d >= max(min_shard, n_dp) and d % n_dp == 0 and d > best_dim:
+            best, best_dim = i, d
+    spec = [None] * len(shape)
+    if best is not None:
+        spec[best] = rules.dp_axes(mesh)
+    return rules._spec(*spec)
+
+
+def auto_batch_specs(batch: dict, mesh) -> dict:
+    """``auto_leaf_spec`` of every tensor of ``batch``."""
+    return {k: auto_leaf_spec(tuple(v.shape), mesh) for k, v in batch.items()}
+
+
+def make_auto_take(mesh):
+    """``take_fn`` for an arena row-blocked over ``mesh``'s model axis
+    (``embedding.sharded.make_sharded_take``), the ids' rule from
+    ``auto_leaf_spec`` of their shape."""
+
+    def take_fn(table, ids):
+        spec = auto_leaf_spec(tuple(ids.shape), mesh)
+        return make_sharded_take(mesh, {ids.ndim: spec})(table, ids)
+
+    return take_fn
 
 
 class _Inputs:
@@ -111,7 +166,7 @@ def _cast(tree: dict, dtype) -> dict:
 
 # -- lm ------------------------------------------------------------------------
 
-def build_lm(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
+def build_lm(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cell:
     cfg = cfg or arch.make_config()
     opts = opts or {}
     if opts.get("moe_scatter") and cfg.is_moe:
@@ -122,21 +177,34 @@ def build_lm(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
     inp = _Inputs(device, seed)
     name = f"{arch.name}/{shape.name}"
     notes = (f"shardings: {SHARDING}",)
+    specs = {} if mesh is None else {"params": rules.lm_param_specs(cfg, mesh)}
 
     if shape.kind == "train":
         optimizer = optim.adamw(weight_decay=0.1)
         params = _params(tm.init, cfg, device, seed)
         opt_state = optimizer.init(params)
         mod = train.build_lm_trainer(arch.name, cfg, B, S, seed, device)[0]
+        # microbatches that each still divide the data extent, as the reference caps them
+        n_micro = min(cfg.micro_batches, max(B // _dp_size(mesh), 1))
 
-        def train_step(params, opt_state, batch, lr):
-            return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
+        if n_micro > 1:
+            grad_fn = optim.gradient_accumulation(lambda p, b: mod.loss(p, cfg, b), n_micro)
+
+            def train_step(params, opt_state, batch, lr):
+                with train.deterministic():
+                    loss, grads = grad_fn(params, batch)
+                    params, opt_state = optimizer.update(grads, opt_state, params, lr)
+                return loss, params, opt_state
+        else:
+            def train_step(params, opt_state, batch, lr):
+                return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
 
         batch = {"tokens": inp.ids((B, S), cfg.vocab), "labels": inp.ids((B, S), cfg.vocab)}
-        notes += (f"the reference's micro_batches and FSDP: {SHARDING}; the batch of {B} is "
-                  f"one step here",)
+        notes += (f"{n_micro} microbatch{'es' if n_micro > 1 else ''} of {B // n_micro} "
+                  f"(micro_batches={cfg.micro_batches}); fsdp={cfg.fsdp} changes no "
+                  f"computation with one data replica",)
         return Cell(name, train_step, (params, opt_state, batch, inp.scalar(1e-4)),
-                    shape.kind, notes)
+                    shape.kind, notes, specs)
 
     # serving carries bf16 weights (the production serving checkpoint)
     params = _cast(_params(tm.init, cfg, device, seed), torch.bfloat16)
@@ -145,7 +213,7 @@ def build_lm(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
             return tm.prefill(params, cfg, tokens, S, device=device)
 
         return Cell(name, serve_prefill, (params, inp.ids((B, S), cfg.vocab)), shape.kind,
-                    notes)
+                    notes, specs)
 
     cache = inp.ones((cfg.n_layers, 2, B, S, cfg.n_kv_heads, cfg.hd), torch.bfloat16)
 
@@ -157,7 +225,7 @@ def build_lm(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
 
     return Cell(name, serve_decode,
                 (params, cache, inp.ids((B, 1), cfg.vocab), inp.scalar(S - 1, torch.int32)),
-                shape.kind, notes)
+                shape.kind, notes, specs)
 
 
 # -- recsys --------------------------------------------------------------------
@@ -198,55 +266,68 @@ def _recsys_rank_query(arch_name, cfg, n_queries, n_items, inp: _Inputs) -> dict
     return q
 
 
-def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
+def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cell:
     opts = opts or {}
     mod = train.recsys_module(arch.name)
     cfg = cfg or arch.make_config()
     params = _params(mod.init, cfg, device, seed)
     inp = _Inputs(device, seed)
     name = f"{arch.name}/{shape.name}"
-    notes = (f"shardings and the sharded lookup (take_fn, embedding/sharded.py): {SHARDING}",)
+    notes = (f"shardings: {SHARDING}",)
     if opts.get("serve_bf16") and shape.kind in ("rank", "pointwise"):
         params = _cast(params, torch.bfloat16)
+    # on a mesh every arena gather is the row-blocked lookup; without one, today's
+    take = {} if mesh is None else {"take_fn": make_auto_take(mesh)}
+    specs = {} if mesh is None else {"params": rules.recsys_param_specs(params, mesh)}
 
     if shape.kind == "train":
         optimizer = optim.adagrad()
         opt_state = optimizer.init(params)
         batch = _recsys_train_batch(arch.name, cfg, shape.dims["batch"], inp)
+        step_mod = mod if not take else SimpleNamespace(
+            loss=lambda p, c, b: mod.loss(p, c, b, **take))
 
         def train_step(params, opt_state, batch, lr):
-            return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
+            return train.train_step(step_mod, cfg, optimizer, params, opt_state, batch, lr)
 
+        if mesh is not None:
+            specs["batch"] = auto_batch_specs(batch, mesh)
         return Cell(name, train_step, (params, opt_state, batch, inp.scalar(0.05)),
-                    shape.kind, notes)
+                    shape.kind, notes, specs)
 
     if shape.kind == "pointwise":
         batch = _recsys_train_batch(arch.name, cfg, shape.dims["batch"], inp)
         batch.pop("label", None)
         if arch.name == "mind":
             batch.pop("neg_ids")
+        # MIND's apply takes no take_fn, in the reference either
+        apply_take = {} if arch.name == "mind" else take
 
         def serve_pointwise(params, batch):
-            return mod.apply(params, cfg, batch)
+            return mod.apply(params, cfg, batch, **apply_take)
 
-        return Cell(name, serve_pointwise, (params, batch), shape.kind, notes)
+        if mesh is not None:
+            specs["batch"] = auto_batch_specs(batch, mesh)
+        return Cell(name, serve_pointwise, (params, batch), shape.kind, notes, specs)
 
     query = _recsys_rank_query(arch.name, cfg, shape.dims["n_queries"],
                                shape.dims["n_items"], inp)
+    if mesh is not None:
+        specs["batch"] = auto_batch_specs(query, mesh)
     if opts.get("mp_scoring") and arch.name == "dplr-fwfm":
         # the rank-rho projection inside each arena block's lookup: the
         # partials summed over the model axis are (rho k + 2) floats an item
-        mesh = make_host_mesh(1, device=device)
+        mp_mesh = mesh or make_host_mesh(1, device=device)
 
         def serve_rank_mp(params, query):
-            return mod.rank_items_mp(params, cfg, query, mesh=mesh)
+            return mod.rank_items_mp(params, cfg, query, mesh=mp_mesh)
 
-        return Cell(f"{name}+mp", serve_rank_mp, (params, query), shape.kind, notes)
+        return Cell(f"{name}+mp", serve_rank_mp, (params, query), shape.kind, notes, specs)
 
     def serve_rank(params, query):
-        return mod.rank_items(params, cfg, query)
+        return mod.rank_items(params, cfg, query, **take)
 
-    return Cell(name, serve_rank, (params, query), shape.kind, notes)
+    return Cell(name, serve_rank, (params, query), shape.kind, notes, specs)
 
 
 # -- gnn -----------------------------------------------------------------------
@@ -261,47 +342,87 @@ def gnn_sizes(shape) -> tuple[int, int]:
     return d["n_nodes"], d["n_edges"]
 
 
-def _gnn_batch(shape, inp: _Inputs) -> dict:
+def _pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+def _gnn_batch(shape, inp: _Inputs, total: int = 1) -> dict:
+    """The shape's batch, nodes and edges padded to a multiple of ``total``
+    (a mesh's size): padded edges masked, padded nodes unlabelled."""
     d = shape.dims
     n_nodes, n_edges = gnn_sizes(shape)
+    n_nodes_p, n_edges_p = _pad_to(n_nodes, total), _pad_to(n_edges, total)
     graph = d["task"] == "graph"
-    n_labels = d["n_graphs"] if graph else n_nodes
-    batch = {"node_feat": inp.normal((n_nodes, d["d_feat"])),
-             "edge_src": inp.ids((n_edges,), n_nodes),
-             "edge_dst": inp.ids((n_edges,), n_nodes),
-             "edge_mask": inp.ones((n_edges,)),
+    n_labels = d["n_graphs"] if graph else n_nodes_p
+    batch = {"node_feat": inp.normal((n_nodes_p, d["d_feat"])),
+             "edge_src": inp.ids((n_edges_p,), n_nodes),
+             "edge_dst": inp.ids((n_edges_p,), n_nodes),
+             "edge_mask": inp.ones((n_edges_p,)),
              "labels": inp.ids((n_labels,), d["n_classes"]),
              "label_mask": inp.ones((n_labels,))}
     if graph:
-        batch["graph_ids"] = inp.ids((n_nodes,), d["n_graphs"])
+        batch["graph_ids"] = inp.ids((n_nodes_p,), d["n_graphs"])
+    if inp.gen is not None:
+        batch["edge_mask"][n_edges:] = 0
+        if not graph:
+            batch["label_mask"][n_nodes:] = 0
     return batch
 
 
-def build_gnn(arch, shape, device, cfg=None, opts=None, seed=0) -> Cell:
-    if (opts or {}).get("partitioned"):
-        raise NotImplementedError(f"{arch.name}/{shape.name}+part: the partitioned "
-                                  f"forward {SHARDING}")
+def _part_batch(shape, inp: _Inputs, total: int) -> dict:
+    """A destination-partitioned node-task batch over ``total`` shards:
+    ``e_loc`` edges a shard, 25% over an even split (the reference's
+    slack for skew), each pointing into its shard's nodes."""
+    d = shape.dims
+    n_nodes, n_edges = gnn_sizes(shape)
+    n_nodes_p, n_edges_p = _pad_to(n_nodes, total), _pad_to(n_edges, total)
+    e_loc = -(-int(n_edges_p * 1.25) // total)
+    return {"node_feat": inp.normal((n_nodes_p, d["d_feat"])),
+            "src_global": inp.ids((total * e_loc,), n_nodes),
+            "dst_local": inp.ids((total * e_loc,), n_nodes_p // total),
+            "edge_mask": inp.ones((total * e_loc,)),
+            "labels": inp.ids((n_nodes_p,), d["n_classes"]),
+            "label_mask": inp.ones((n_nodes_p,))}
+
+
+def build_gnn(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cell:
     base = cfg or arch.make_config()
+    # node_constraint stays None: the one-process mesh keeps each tensor whole
     cfg = dataclasses.replace(shape_config(base, shape), remat=False,
                               compute_dtype=torch.bfloat16)
     optimizer = optim.adamw()
     params = _params(pna.init, cfg, device, seed)
     opt_state = optimizer.init(params)
     inp = _Inputs(device, seed)
-    batch = _gnn_batch(shape, inp)
-    graphs = shape.dims.get("n_graphs") if shape.dims["task"] == "graph" else None
+    total = 1 if mesh is None else math.prod(mesh.shape.values())
+    notes = (f"shardings: {SHARDING}",)
+    specs = {} if mesh is None else {"params": rules.gnn_param_specs(params, mesh)}
 
-    def loss(params, cfg, batch):
-        return pna.loss(params, cfg, batch if graphs is None else dict(batch, n_graphs=graphs))
+    if (opts or {}).get("partitioned") and shape.dims["task"] == "node":
+        part_mesh = mesh or make_host_mesh(1, device=device)
+        axes = tuple(part_mesh.axis_names)
+        batch = _part_batch(shape, inp, math.prod(part_mesh.shape.values()))
 
+        def loss(params, cfg, batch):
+            return pna.loss_partitioned(params, cfg, batch, mesh=part_mesh, axes=axes)
+
+        name = f"{arch.name}/{shape.name}+part"
+    else:
+        batch = _gnn_batch(shape, inp, total)
+        graphs = shape.dims.get("n_graphs") if shape.dims["task"] == "graph" else None
+
+        def loss(params, cfg, batch):
+            return pna.loss(params, cfg,
+                            batch if graphs is None else dict(batch, n_graphs=graphs))
+
+        name = f"{arch.name}/{shape.name}"
     mod = SimpleNamespace(loss=loss)
 
     def train_step(params, opt_state, batch, lr):
         return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
 
-    notes = (f"shardings and node_constraint: {SHARDING}",)
-    return Cell(f"{arch.name}/{shape.name}", train_step,
-                (params, opt_state, batch, inp.scalar(1e-3)), shape.kind, notes)
+    return Cell(name, train_step, (params, opt_state, batch, inp.scalar(1e-3)), shape.kind,
+                notes, specs)
 
 
 # -- dispatch ------------------------------------------------------------------
@@ -310,13 +431,14 @@ _BUILDERS = {"lm": build_lm, "recsys": build_recsys, "gnn": build_gnn}
 
 
 def build(arch_name: str, shape_name: str, device="meta", cfg=None, opts=None,
-          dims: dict | None = None, seed: int = 0) -> Cell:
+          dims: dict | None = None, seed: int = 0, mesh=None) -> Cell:
     """The cell ``arch_name/shape_name`` on ``device`` (``meta`` by
     default: nothing allocated).  ``cfg``: a config in place of the
     architecture's (a cut in depth); ``dims``: entries of the shape's
     ``dims`` replaced (a cut in batch or length), named in the cell's
     name and notes; ``seed``: the parameters' and inputs' draws on a real
-    device."""
+    device; ``mesh``: the one-process mesh the cell runs on (module
+    docstring), whose first device should be ``device``."""
     arch = reg.get(arch_name)
     shape = next(s for s in arch.shapes if s.name == shape_name)
     if shape.skip:
@@ -324,7 +446,7 @@ def build(arch_name: str, shape_name: str, device="meta", cfg=None, opts=None,
     if dims:
         shape = dataclasses.replace(shape, dims={**shape.dims, **dims})
     cell = _BUILDERS[arch.family](arch, shape, torch.device(device), cfg=cfg, opts=opts,
-                                  seed=seed)
+                                  seed=seed, mesh=mesh)
     if dims:
         cut = ", ".join(f"{k}={v}" for k, v in dims.items())
         cell.name += f" [{cut}]"

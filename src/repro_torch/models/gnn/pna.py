@@ -29,13 +29,25 @@ the parameters' device:
 Padding convention: padded edges point at node 0 with edge_mask 0; padded
 nodes have label_mask 0.
 
-Not ported: ``forward_partitioned``/``loss_partitioned`` and the config's
-``node_constraint`` (ROADMAP: sharding).  ``remat`` checkpoints each
-layer through ``torch.utils.checkpoint``.
+``remat`` checkpoints each layer through ``torch.utils.checkpoint``;
+``node_constraint`` is applied to the node states at the layer
+boundaries, as in the JAX package (which passes a sharding constraint
+there).
+
+``forward_partitioned``/``loss_partitioned`` run PNA over a
+destination-partitioned graph (``sampler.partition_graph``) on a
+one-process mesh (``launch.mesh``): shard s owns a contiguous block of
+nodes and the edges that point into it, and works on ``mesh.devices[s]``.
+Every scatter is then local to its shard; each layer's one cross-shard
+step is the all-gather of the node states (their concatenation, moved to
+each shard's device), and the scalers' mean log-degree is the sum of the
+shards' partial sums over the global node count.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any
 
 import torch
@@ -57,6 +69,9 @@ class PNAConfig:
     # checkpoint each PNA layer: the backward recomputes a layer's
     # internals instead of keeping its (E, d) and (N, d) buffers alive
     remat: bool = False
+    # node_constraint(h) -> h: applied to the (N, ...) node states at the
+    # layer boundaries (the JAX package's sharding-constraint hook)
+    node_constraint: Any = None
     # activation dtype (params and the loss stay f32)
     compute_dtype: Any = torch.float32
 
@@ -148,12 +163,15 @@ def forward(params: dict, cfg: PNAConfig, batch: dict) -> torch.Tensor:
     edge_mask = batch.get("edge_mask")
     if edge_mask is None:
         edge_mask = torch.ones(src.shape, dtype=torch.float32, device=src.device)
+    constrain = cfg.node_constraint or (lambda x: x)
+    h = constrain(h)
     for i in range(cfg.n_layers):
         lp = params[f"layer_{i}"]
         if cfg.remat and torch.is_grad_enabled():
             h = checkpoint(_pna_layer, lp, cfg, h, src, dst, edge_mask, use_reentrant=False)
         else:
             h = _pna_layer(lp, cfg, h, src, dst, edge_mask)
+        h = constrain(h)
     if cfg.task == "graph":
         n_graphs = int(batch["n_graphs"])
         gid = batch["graph_ids"].long()
@@ -168,7 +186,10 @@ def forward(params: dict, cfg: PNAConfig, batch: dict) -> torch.Tensor:
 
 def loss(params: dict, cfg: PNAConfig, batch: dict) -> torch.Tensor:
     """Masked mean cross-entropy over the labelled nodes (or graphs), f32."""
-    logits = forward(params, cfg, batch).float()
+    return _cross_entropy(forward(params, cfg, batch).float(), batch)
+
+
+def _cross_entropy(logits, batch: dict) -> torch.Tensor:
     labels = batch["labels"].long()
     mask = batch.get("label_mask")
     if mask is None:
@@ -177,3 +198,82 @@ def loss(params: dict, cfg: PNAConfig, batch: dict) -> torch.Tensor:
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     per = (logz - gold) * mask
     return per.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+# -- destination-partitioned message passing -----------------------------------
+
+def forward_partitioned(params: dict, cfg: PNAConfig, batch: dict, *, mesh,
+                        axes: tuple = ("data", "model")) -> torch.Tensor:
+    """Node logits ``(N_p, n_classes)`` on ``mesh.devices[0]`` for a
+    destination-partitioned graph over ``mesh``'s D shards (node task).
+
+    batch: ``node_feat (N_p, F)``, ``src_global``/``dst_local``/``edge_mask``
+    ``(D * e_loc,)`` laid out shard-major by ``sampler.partition_graph``
+    (shard s's edges point into its nodes ``[s N_p/D, (s+1) N_p/D)``,
+    ``dst_local`` counted from the block's first node), ``labels`` and
+    ``label_mask``.  ``axes``: the mesh axes the nodes split over (the
+    reference's), whose sizes multiply to D.  Each layer, shard s gathers
+    its edges' sources from the concatenated node states of all shards on
+    its device, sums its messages into its own nodes, and takes the global
+    mean log-degree from the shards' partial sums (added in shard order on
+    the first device)."""
+    D = math.prod(mesh.shape[a] for a in axes)
+    devs = mesh.devices
+    if D != len(devs):
+        raise ValueError(f"axes {axes} hold {D} positions, the mesh places {len(devs)}")
+    N = batch["node_feat"].shape[0]
+    E = batch["src_global"].shape[0]
+    if N % D or E % D:
+        raise ValueError(f"{N} nodes and {E} edges do not split into {D} shards")
+    n_loc, e_loc = N // D, E // D
+    cdt, first = cfg.compute_dtype, devs[0]
+    enc = params["encoder"]
+    hs, edges = [], []
+    for s, dev in enumerate(devs):
+        part = slice(s * e_loc, (s + 1) * e_loc)
+        edges.append((batch["src_global"][part].to(dev).long(),
+                      batch["dst_local"][part].to(dev).long(),
+                      batch["edge_mask"][part].to(dev)))
+        hs.append(batch["node_feat"][s * n_loc:(s + 1) * n_loc].to(dev).to(cdt)
+                  @ enc.to(device=dev, dtype=cdt))
+    for i in range(cfg.n_layers):
+        lps = [{k: p.to(device=dev, dtype=cdt) for k, p in params[f"layer_{i}"].items()}
+               for dev in devs]
+        msgs = []
+        for s, dev in enumerate(devs):
+            src, dst, emask = edges[s]
+            h_full = torch.cat([h.to(dev) for h in hs])            # the all-gather
+            h_s, h_d = h_full[src], hs[s][dst]                       # dst is local by layout
+            lp = lps[s]
+            m = F.relu(torch.cat([h_s, h_d], -1) @ lp["w_pre"] + lp["b_pre"])
+            msgs.append(_segment_agg(m, dst, n_loc, emask))
+        logds = [torch.log1p(deg) for _, deg in msgs]
+        # the mean log-degree over the global graph: the shards' partial sums
+        # (in float32, as the reference divides by its float32 node count)
+        dsum = functools.reduce(torch.add, (ld.sum().to(first) for ld in logds))
+        delta = torch.clamp_min(dsum.float() / N, 1e-2)
+        new = []
+        for s, dev in enumerate(devs):
+            (agg, _), logd, lp = msgs[s], logds[s], lps[s]
+            dl = delta.to(dev)
+            floor = torch.tensor(1e-2, dtype=logd.dtype, device=dev)
+            amp = (logd.float() / dl)[:, None]
+            att = (dl / torch.maximum(logd, floor).float())[:, None]
+            scaled = torch.cat([agg, agg * amp.to(agg.dtype), agg * att.to(agg.dtype)], dim=-1)
+            out = torch.cat([hs[s], scaled.to(cdt)], -1) @ lp["w_post"] + lp["b_post"]
+            new.append(hs[s] + F.relu(out))
+        hs = new
+    logits = []
+    for h, dev in zip(hs, devs):
+        dec = {name: {k: p.to(device=dev, dtype=cdt) for k, p in layer.items()}
+               for name, layer in params["decoder"].items()}
+        logits.append(apply_mlp(dec, h).to(first))
+    return torch.cat(logits)
+
+
+def loss_partitioned(params: dict, cfg: PNAConfig, batch: dict, *, mesh,
+                     axes: tuple = ("data", "model")) -> torch.Tensor:
+    """``loss`` over a destination-partitioned graph (``forward_partitioned``)."""
+    logits = forward_partitioned(params, cfg, batch, mesh=mesh, axes=axes).float()
+    return _cross_entropy(logits, {k: batch[k].to(logits.device) for k in
+                                   ("labels", "label_mask") if k in batch})

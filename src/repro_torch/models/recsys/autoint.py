@@ -88,22 +88,22 @@ def _logit(params: dict, cfg: AutoIntConfig, V):
     return (h.reshape(*h.shape[:-2], -1) @ params["out_w"])[..., 0]
 
 
-def apply(params: dict, cfg: AutoIntConfig, batch: dict):
+def apply(params: dict, cfg: AutoIntConfig, batch: dict, take_fn=None):
     ids, w = batch["ids"], batch["weights"]
-    V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w)
+    V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w, take_fn=take_fn)
     logit = _logit(params, cfg, V)
-    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w)
+    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w, take_fn=take_fn)
     out = params["bias"] + lin + logit
     if cfg.use_dplr_head:
         out = out + dplr_pairwise(V, DPLRParams(params["U"], params["e"]))
     return out
 
 
-def loss(params: dict, cfg: AutoIntConfig, batch: dict):
-    return logistic_loss(apply(params, cfg, batch), batch["label"])
+def loss(params: dict, cfg: AutoIntConfig, batch: dict, take_fn=None):
+    return logistic_loss(apply(params, cfg, batch, take_fn=take_fn), batch["label"])
 
 
-def rank_items(params: dict, cfg: AutoIntConfig, query: dict):
+def rank_items(params: dict, cfg: AutoIntConfig, query: dict, take_fn=None):
     """Candidate scoring.  Field self-attention must see the joint
     (context + item) field set, so, unlike DPLR-FwFM, the full O(m^2)
     interaction re-runs per candidate; only the embedding gathers of the
@@ -113,17 +113,17 @@ def rank_items(params: dict, cfg: AutoIntConfig, query: dict):
     layout = cfg.layout
     ctx_layout = layout.subset("context")
     V_C = lookup_field_embeddings(params["embedding"], ctx_layout, query["context_ids"],
-                                  query["context_weights"])
+                                  query["context_weights"], take_fn=take_fn)
     V_I = lookup_item_embeddings(params["embedding"], layout, query["item_ids"],
-                                 query["item_weights"])
+                                 query["item_weights"], take_fn=take_fn)
     V_Cb = V_C[..., None, :, :].expand(*V_I.shape[:-2], ctx_layout.n_fields, cfg.embed_dim)
     V = torch.cat([V_Cb, V_I], dim=-2)
     logit = _logit(params, cfg, V)
     lin_c = lookup_linear_terms(params["linear"], ctx_layout, query["context_ids"],
-                                query["context_weights"])
+                                query["context_weights"], take_fn=take_fn)
     lin_i = lookup_linear_terms(params["linear"], layout.subset("item"),
                                 item_arena_ids(layout, query["item_ids"]),
-                                query["item_weights"])
+                                query["item_weights"], take_fn=take_fn)
     out = params["bias"] + lin_c[..., None] + lin_i + logit
     if cfg.use_dplr_head:
         out = out + dplr_pairwise(V, DPLRParams(params["U"], params["e"]))

@@ -86,12 +86,14 @@ def _item_arena_offset(cfg: BSTConfig) -> int:
     return int(cfg.layout.field_offsets[cfg.layout.n_context])
 
 
-def _encode_sequence(params: dict, cfg: BSTConfig, hist_ids, hist_mask, target_ids):
+def _encode_sequence(params: dict, cfg: BSTConfig, hist_ids, hist_mask, target_ids,
+                     take_fn=None):
     """(batch..., L) history + (batch...,) target -> (batch..., L+1, d)."""
     table = params["embedding"]
+    take = take_fn or gather_rows
     off = _item_arena_offset(cfg)
-    hist_e = gather_rows(table, hist_ids + off)
-    tgt_e = gather_rows(table, target_ids + off)
+    hist_e = take(table, hist_ids + off)
+    tgt_e = take(table, target_ids + off)
     seq = torch.cat([hist_e, tgt_e[..., None, :]], dim=-2) + params["pos"]
     mask1d = torch.cat([hist_mask, hist_mask.new_ones((*hist_mask.shape[:-1], 1))], dim=-1)
     attn_mask = mask1d[..., None, :] * mask1d[..., :, None]
@@ -105,23 +107,25 @@ def _encode_sequence(params: dict, cfg: BSTConfig, hist_ids, hist_mask, target_i
     return h * mask1d[..., None]
 
 
-def apply(params: dict, cfg: BSTConfig, batch: dict):
+def apply(params: dict, cfg: BSTConfig, batch: dict, take_fn=None):
     """batch: ids/weights (context + item slots), hist_ids, hist_mask."""
     layout = cfg.layout
-    V = lookup_field_embeddings(params["embedding"], layout, batch["ids"], batch["weights"])
+    V = lookup_field_embeddings(params["embedding"], layout, batch["ids"], batch["weights"],
+                                take_fn=take_fn)
     n_ctx = layout.n_context
     target_ids = batch["ids"][..., layout.n_slots - 1]   # single item slot (last)
-    h = _encode_sequence(params, cfg, batch["hist_ids"], batch["hist_mask"], target_ids)
+    h = _encode_sequence(params, cfg, batch["hist_ids"], batch["hist_mask"], target_ids,
+                         take_fn=take_fn)
     feats = torch.cat([h.reshape(*h.shape[:-2], -1),
                        V[..., :n_ctx, :].reshape(*V.shape[:-2], -1)], dim=-1)
     return apply_mlp(params["head"], feats, activation=F.leaky_relu)[..., 0]
 
 
-def loss(params: dict, cfg: BSTConfig, batch: dict):
-    return logistic_loss(apply(params, cfg, batch), batch["label"])
+def loss(params: dict, cfg: BSTConfig, batch: dict, take_fn=None):
+    return logistic_loss(apply(params, cfg, batch, take_fn=take_fn), batch["label"])
 
 
-def rank_items(params: dict, cfg: BSTConfig, query: dict):
+def rank_items(params: dict, cfg: BSTConfig, query: dict, take_fn=None):
     """Score n candidate items: the target item sits INSIDE the transformer
     sequence, so the whole encoder re-runs per candidate (cost profile:
     O(n * L^2 d), the expensive end of the serving spectrum).
@@ -132,12 +136,13 @@ def rank_items(params: dict, cfg: BSTConfig, query: dict):
     layout = cfg.layout
     ctx_layout = layout.subset("context")
     V_C = lookup_field_embeddings(params["embedding"], ctx_layout, query["context_ids"],
-                                  query["context_weights"])
+                                  query["context_weights"], take_fn=take_fn)
     n = query["item_ids"].shape[-2]
     lead = query["hist_ids"].shape[:-1]
     hist_ids = query["hist_ids"][..., None, :].expand(*lead, n, cfg.seq_len)
     hist_mask = query["hist_mask"][..., None, :].expand(*lead, n, cfg.seq_len)
-    h = _encode_sequence(params, cfg, hist_ids, hist_mask, query["item_ids"][..., 0])
+    h = _encode_sequence(params, cfg, hist_ids, hist_mask, query["item_ids"][..., 0],
+                         take_fn=take_fn)
     ctx_flat = V_C.reshape(*V_C.shape[:-2], -1)
     ctx_flat = ctx_flat[..., None, :].expand(*h.shape[:-3], n, ctx_flat.shape[-1])
     feats = torch.cat([h.reshape(*h.shape[:-2], -1), ctx_flat], dim=-1)

@@ -44,9 +44,9 @@ from repro_torch.embedding.bag import (
     lookup_field_embeddings,
     lookup_item_embeddings,
     lookup_linear_terms,
-    one_slot_bags,
     padded_rows,
 )
+from repro_torch.embedding.sharded import block_rows, shard_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.device import init_device
 from repro_torch.models.layers import logistic_loss
@@ -110,17 +110,19 @@ def _pairwise(params: dict, cfg: FwFMConfig, V: torch.Tensor,
 
 
 def apply(params: dict, cfg: FwFMConfig, batch: dict,
-          pruned_mask: torch.Tensor | None = None) -> torch.Tensor:
+          pruned_mask: torch.Tensor | None = None, take_fn=None) -> torch.Tensor:
     """Pointwise logits/scores for full rows: batch = {ids, weights};
-    ``pruned_mask`` (m, m) scores a pruned fwfm model."""
+    ``pruned_mask`` (m, m) scores a pruned fwfm model; ``take_fn(table,
+    ids)`` gathers the arena rows (``embedding.sharded.make_sharded_take``:
+    a row-blocked arena)."""
     ids, w = batch["ids"], batch["weights"]
-    V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w)
-    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w)
+    V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w, take_fn=take_fn)
+    lin = lookup_linear_terms(params["linear"], cfg.layout, ids, w, take_fn=take_fn)
     return params["bias"] + lin + _pairwise(params, cfg, V, pruned_mask)
 
 
-def loss(params: dict, cfg: FwFMConfig, batch: dict) -> torch.Tensor:
-    logits = apply(params, cfg, batch)
+def loss(params: dict, cfg: FwFMConfig, batch: dict, take_fn=None) -> torch.Tensor:
+    logits = apply(params, cfg, batch, take_fn=take_fn)
     if cfg.task == "ctr":
         return logistic_loss(logits, batch["label"])
     return ((logits - batch["label"].to(logits.dtype)) ** 2).mean()
@@ -133,16 +135,18 @@ def _check_context_first(layout: FeatureLayout) -> None:
         raise ValueError("rank_items requires context fields before item fields")
 
 
-def context_inputs(params: dict, cfg: FwFMConfig, ctx_ids, ctx_w):
+def context_inputs(params: dict, cfg: FwFMConfig, ctx_ids, ctx_w, take_fn=None):
     """(V_C, lin_C): the context-side lookups shared by ``rank_items`` and
     the corpus serving engine."""
     ctx_layout = cfg.layout.subset("context")
-    V_C = lookup_field_embeddings(params["embedding"], ctx_layout, ctx_ids, ctx_w)
-    lin_C = lookup_linear_terms(params["linear"], ctx_layout, ctx_ids, ctx_w)
+    V_C = lookup_field_embeddings(params["embedding"], ctx_layout, ctx_ids, ctx_w,
+                                  take_fn=take_fn)
+    lin_C = lookup_linear_terms(params["linear"], ctx_layout, ctx_ids, ctx_w, take_fn=take_fn)
     return V_C, lin_C
 
 
-def rank_items(params: dict, cfg: FwFMConfig, query: dict, pruned=None) -> torch.Tensor:
+def rank_items(params: dict, cfg: FwFMConfig, query: dict, pruned=None,
+               take_fn=None) -> torch.Tensor:
     """Score n items for each query context.  Shapes:
 
         query = {
@@ -154,16 +158,16 @@ def rank_items(params: dict, cfg: FwFMConfig, query: dict, pruned=None) -> torch
 
     Returns (Bq, n) scores; the context-only work is O(1) per query.
     ``pruned`` is an optional ``repro_torch.core.pruning.PrunedR`` for
-    serving a pruned fwfm model."""
+    serving a pruned fwfm model; ``take_fn`` as ``apply``'s."""
     layout = cfg.layout
     _check_context_first(layout)
     V_C, lin_C = context_inputs(params, cfg, query["context_ids"],
-                                query["context_weights"])
+                                query["context_weights"], take_fn=take_fn)
     V_I = lookup_item_embeddings(params["embedding"], layout, query["item_ids"],
-                                 query["item_weights"])
+                                 query["item_weights"], take_fn=take_fn)
     lin_I = lookup_linear_terms(params["linear"], layout.subset("item"),
                                 item_arena_ids(layout, query["item_ids"]),
-                                query["item_weights"])
+                                query["item_weights"], take_fn=take_fn)
     first_order = params["bias"] + lin_C[..., None] + lin_I
 
     nC = layout.n_context
@@ -199,21 +203,6 @@ def rank_items(params: dict, cfg: FwFMConfig, query: dict, pruned=None) -> torch
 # one shard (sum ||v_i||^2 = sum_s ||v_i^s||^2).
 # ---------------------------------------------------------------------------
 
-def _shard_rows(block, lin_block, lo: int, ids, w):
-    """This shard's part of the lookups of arena-global ``ids (..., m)``
-    (one slot a field): ``(w * row, w * b)`` for the slots whose row lies in
-    ``[lo, lo + len(block))``, zero for the others.  The rows come from the
-    embedding-bag kernel over the shard's block, foreign slots weighted
-    zero."""
-    mine = (ids >= lo) & (ids < lo + block.shape[0])
-    local = torch.where(mine, ids - lo, 0).contiguous()
-    w = w.to(block.dtype)
-    V = kops.embedding_bag(block, local, torch.where(mine, w, 0).contiguous(),
-                           one_slot_bags(ids.shape[-1], str(block.device)))
-    lin = torch.where(mine, lin_block[local.long()], 0) * w
-    return V, lin
-
-
 def rank_items_mp(params: dict, cfg: FwFMConfig, query: dict, *, mesh) -> torch.Tensor:
     """Algorithm 1 for ``interaction == 'dplr'`` with the arena (and the
     first-order table) row-blocked over ``mesh``'s model axis: shard s
@@ -235,10 +224,7 @@ def rank_items_mp(params: dict, cfg: FwFMConfig, query: dict, *, mesh) -> torch.
         raise ValueError("model-parallel d-term requires one-hot fields")
     nC = layout.n_context
     table, lin = params["embedding"], params["linear"]
-    D = mesh.shape["model"]
-    if table.shape[0] % D:
-        raise ValueError(f"an arena of {table.shape[0]} rows does not split into {D} blocks")
-    rows_per = table.shape[0] // D
+    rows_per = block_rows(table, mesh.shape["model"])
     offsets = torch.as_tensor(np.asarray(layout.field_offsets, np.int64))
     first = mesh.devices[0]
     d = -torch.einsum("r,rm,rm->m", params["e"], params["U"], params["U"])
@@ -250,9 +236,9 @@ def rank_items_mp(params: dict, cfg: FwFMConfig, query: dict, *, mesh) -> torch.
         U, d_s = params["U"].to(device=dev, dtype=table.dtype), d.to(dev)
         off = offsets.to(dev)
         ctx_w, item_w = (query[k].to(dev) for k in ("context_weights", "item_weights"))
-        vC, linC = _shard_rows(block, lin_block, lo, query["context_ids"].to(dev) + off[:nC],
+        vC, linC = shard_rows(block, lin_block, lo, query["context_ids"].to(dev) + off[:nC],
                                ctx_w)
-        vI, linI = _shard_rows(block, lin_block, lo, query["item_ids"].to(dev) + off[nC:],
+        vI, linI = shard_rows(block, lin_block, lo, query["item_ids"].to(dev) + off[nC:],
                                item_w)
         parts.append((
             torch.einsum("rm,qmk->qrk", U[:, :nC], vC),

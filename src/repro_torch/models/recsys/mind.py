@@ -16,7 +16,9 @@ as ``stop_gradient`` gives in the JAX model.  Label-aware attention is what
 the JAX code computes, ``softmax(label_pow * dots)``.
 
 Every history, target, negative and candidate gather is ``gather_rows``
-(the ``embedding_bag`` kernel on the card, one slot a bag).
+(the ``embedding_bag`` kernel on the card, one slot a bag), or the
+``take_fn`` that ``loss`` and ``rank_items`` take, as the JAX model's do
+(``apply`` takes none there either).
 """
 from __future__ import annotations
 
@@ -64,9 +66,10 @@ def _squash(v):
     return (n2 / (1.0 + n2)) * v * torch.rsqrt(n2 + 1e-9)
 
 
-def user_interests(params: dict, cfg: MINDConfig, hist_ids, hist_mask):
+def user_interests(params: dict, cfg: MINDConfig, hist_ids, hist_mask, take_fn=None):
     """(batch..., L) -> (batch..., K, d) interest capsules via B2I routing."""
-    e = gather_rows(params["embedding"], hist_ids + _item_arena_offset(cfg))   # (..., L, d)
+    take = take_fn or gather_rows
+    e = take(params["embedding"], hist_ids + _item_arena_offset(cfg))         # (..., L, d)
     low = (e @ params["S"]) * hist_mask[..., None]                           # S e_i
     b = params["b_init"].detach()                                            # (K, L), frozen
     b = b.expand(*low.shape[:-2], cfg.n_interests, cfg.seq_len)
@@ -85,17 +88,19 @@ def label_aware_user_vec(cfg: MINDConfig, interests, target_e):
     return torch.einsum("...k,...kd->...d", attn, interests)
 
 
-def loss(params: dict, cfg: MINDConfig, batch: dict):
+def loss(params: dict, cfg: MINDConfig, batch: dict, take_fn=None):
     """Sampled softmax over {target} + n_neg sampled item ids.
 
     batch: hist_ids (B, L), hist_mask (B, L), target_id (B,),
            neg_ids (B, n_neg).
     """
     off = _item_arena_offset(cfg)
-    interests = user_interests(params, cfg, batch["hist_ids"], batch["hist_mask"])
-    tgt_e = gather_rows(params["embedding"], batch["target_id"] + off)
+    take = take_fn or gather_rows
+    interests = user_interests(params, cfg, batch["hist_ids"], batch["hist_mask"],
+                               take_fn=take_fn)
+    tgt_e = take(params["embedding"], batch["target_id"] + off)
     user = label_aware_user_vec(cfg, interests, tgt_e)
-    neg_e = gather_rows(params["embedding"], batch["neg_ids"] + off)
+    neg_e = take(params["embedding"], batch["neg_ids"] + off)
     pos_logit = (user * tgt_e).sum(dim=-1, keepdim=True)
     neg_logit = torch.einsum("...d,...nd->...n", user, neg_e)
     logits = torch.cat([pos_logit, neg_logit], dim=-1)
@@ -109,15 +114,16 @@ def apply(params: dict, cfg: MINDConfig, batch: dict):
     return torch.einsum("...kd,...d->...k", interests, tgt_e).amax(dim=-1)
 
 
-def rank_items(params: dict, cfg: MINDConfig, query: dict):
+def rank_items(params: dict, cfg: MINDConfig, query: dict, take_fn=None):
     """Retrieval scoring: max over interests of <interest, item>.
 
     query: hist_ids (Bq, L), hist_mask (Bq, L), item_ids (Bq, n, 1).
     The interest extraction runs ONCE per query; per-candidate cost is a
     K x d dot, a batched (n, d) @ (d, K) product -> max over K.
     """
-    interests = user_interests(params, cfg, query["hist_ids"], query["hist_mask"])
-    item_e = gather_rows(params["embedding"],
-                         query["item_ids"][..., 0] + _item_arena_offset(cfg))
+    interests = user_interests(params, cfg, query["hist_ids"], query["hist_mask"],
+                               take_fn=take_fn)
+    item_e = (take_fn or gather_rows)(params["embedding"],
+                                      query["item_ids"][..., 0] + _item_arena_offset(cfg))
     scores = torch.einsum("...nd,...kd->...nk", item_e, interests)
     return scores.amax(dim=-1)

@@ -64,10 +64,10 @@ def init(generator: torch.Generator, cfg: WideDeepConfig, device=None) -> dict:
     return params
 
 
-def apply(params: dict, cfg: WideDeepConfig, batch: dict):
+def apply(params: dict, cfg: WideDeepConfig, batch: dict, take_fn=None):
     ids, w = batch["ids"], batch["weights"]
-    V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w)
-    wide = lookup_linear_terms(params["wide"], cfg.layout, ids, w)
+    V = lookup_field_embeddings(params["embedding"], cfg.layout, ids, w, take_fn=take_fn)
+    wide = lookup_linear_terms(params["wide"], cfg.layout, ids, w, take_fn=take_fn)
     deep = apply_mlp(params["deep"], V.reshape(*V.shape[:-2], -1))[..., 0]
     out = params["bias"] + wide + deep
     if cfg.use_dplr_head:
@@ -75,11 +75,11 @@ def apply(params: dict, cfg: WideDeepConfig, batch: dict):
     return out
 
 
-def loss(params: dict, cfg: WideDeepConfig, batch: dict):
-    return logistic_loss(apply(params, cfg, batch), batch["label"])
+def loss(params: dict, cfg: WideDeepConfig, batch: dict, take_fn=None):
+    return logistic_loss(apply(params, cfg, batch, take_fn=take_fn), batch["label"])
 
 
-def rank_items(params: dict, cfg: WideDeepConfig, query: dict):
+def rank_items(params: dict, cfg: WideDeepConfig, query: dict, take_fn=None):
     """Candidate scoring: context embeddings gathered once, MLP per item.
 
     Unlike the FwFM family there is no factorization that removes the
@@ -91,16 +91,16 @@ def rank_items(params: dict, cfg: WideDeepConfig, query: dict):
     layout = cfg.layout
     ctx_layout = layout.subset("context")
     V_C = lookup_field_embeddings(params["embedding"], ctx_layout, query["context_ids"],
-                                  query["context_weights"])
+                                  query["context_weights"], take_fn=take_fn)
     V_I = lookup_item_embeddings(params["embedding"], layout, query["item_ids"],
-                                 query["item_weights"])
+                                 query["item_weights"], take_fn=take_fn)
     V_Cb = V_C[..., None, :, :].expand(*V_I.shape[:-2], ctx_layout.n_fields, cfg.embed_dim)
     V = torch.cat([V_Cb, V_I], dim=-2)
     wide_c = lookup_linear_terms(params["wide"], ctx_layout, query["context_ids"],
-                                 query["context_weights"])
+                                 query["context_weights"], take_fn=take_fn)
     wide_i = lookup_linear_terms(params["wide"], layout.subset("item"),
                                  item_arena_ids(layout, query["item_ids"]),
-                                 query["item_weights"])
+                                 query["item_weights"], take_fn=take_fn)
     deep = apply_mlp(params["deep"], V.reshape(*V.shape[:-2], -1))[..., 0]
     out = params["bias"] + wide_c[..., None] + wide_i + deep
     if cfg.use_dplr_head:

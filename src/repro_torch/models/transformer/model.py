@@ -26,9 +26,12 @@ mixture-of-experts (granite-moe-1b-a400m, mixtral-8x7b).
     into the cache it is given, in place (the JAX function returns a new
     cache): a copy of a full cache each step would double its memory
 
-Not ported: the mesh hooks and ``micro_batches`` (ROADMAP: sharding).  The
-entry points run on the card unless the caller passes ``device="cpu"``;
-the parameters must already be there.
+Not ported: the mesh hooks (``act_constraint``, ``act_gather``,
+``kv_constraint``), sharding constraints that one device has no use for.
+``micro_batches`` and ``fsdp`` are the reference's fields, read by
+``launch.steps`` and ``sharding.rules``.  The entry points run on the card
+unless the caller passes ``device="cpu"``; the parameters must already be
+there.
 """
 from __future__ import annotations
 
@@ -82,6 +85,13 @@ class TransformerConfig:
     remat: bool = True
     q_chunk: int = 512
     loss_chunk: int = 512
+    # gradient-accumulation microbatches of a train cell (1 = the full
+    # batch at once; ``launch.steps`` runs ``optim.gradient_accumulation``)
+    micro_batches: int = 1
+    # FSDP: every large weight also split over the ``data`` axis
+    # (``sharding.rules.lm_param_specs``); with the one-process mesh's one
+    # data replica it changes no computation
+    fsdp: bool = False
 
     @property
     def hd(self) -> int:

@@ -1,8 +1,8 @@
-"""Optimizers, schedules and gradient accumulation.  Port of
-``repro.optim``, with the same exports except ``int8_compress`` and
-``int8_decompress``: that compression is for the data-parallel gradient
-all-reduce, which waits for the sharding item of ROADMAP queue 1."""
+"""Optimizers, schedules, gradient accumulation and the int8 gradient
+compression.  Port of ``repro.optim``, with the same exports (and
+``value_and_grad``, the port's ``jax.value_and_grad``)."""
 from repro_torch.optim.accumulate import gradient_accumulation, value_and_grad  # noqa: F401
+from repro_torch.optim.compression import int8_compress, int8_decompress  # noqa: F401
 from repro_torch.optim.optimizers import (  # noqa: F401
     Optimizer,
     adagrad,

@@ -27,6 +27,10 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              waves=3, warm_waves=1, profile_waves=1,
              shards=4, shard_bqs=(1, 3), shard_reps=2, shard_churn=(20, 20, 5, 1200),
              mp_items=40,
+             strain_dims={"batch": 64}, strain_serve_dims={"batch": 128}, strain_steps=2,
+             strain_lm_dims={"batch": 4, "seq": 16}, strain_lm_steps=2,
+             strain_gnn_dims={"n_nodes": 64, "n_edges": 256, "d_feat": 12, "n_classes": 5},
+             strain_gnn_steps=2, strain_seconds=120,
              wire_requests=40, wire_conns=2, wire_window=3,
              bag_rows=(3, 500, 64), bag_ragged=33, pairs=((64, 12), (300, 12), (1, 39)),
              pair_small_b=5, pair_tiles=2, items_tiles=3, items_many=300,
@@ -78,6 +82,8 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
                 (mixtral_8x7b.make_smoke, 1, 16, 18, 2)),
         lm_train_models=(gemma3_1b.make_smoke, granite_moe_1b_a400m.make_smoke),
         make_fwfm=lambda: dataclasses.replace(dplr_fwfm.make_smoke(), interaction="fwfm"),
+        # gemma3-1b's smoke widths with its full config's 4 microbatches
+        strain_lm=lambda: dataclasses.replace(gemma3_1b.make_smoke(), micro_batches=4),
         **SMALL)
     cpu = torch.device("cpu")
     errs = chip_smoke.kernel_checks(cpu, sz)
@@ -100,6 +106,10 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
             "embedding_bag_kernel", "topk_merge", "multi_topk_merge"} <= set(f32)
     assert {"corpus_score_full_bf16", "corpus_topk_chunks_bf16",
             "corpus_multi_topk_chunks_bf16", "embedding_bag_kernel_bf16"} <= set(bf16)
+    launches = chip_smoke.shard_train_phase(cpu, sz)
+    assert set(launches) == {"embedding_bag_kernel", "bag_rows_radix_histogram",
+                             "bag_rows_radix_sort", "embedding_bag_backward_kernel"}
+    assert sum(launches.values()) == 0
     launches = chip_smoke.wire_phase(cpu, sz, serve, tenants)
     assert sum(launches.values()) == 0
     launches = chip_smoke.eval_phase(cpu, sz, serve)
@@ -136,7 +146,14 @@ def test_phases_run_on_the_cpu_at_a_tiny_size(chip_smoke, monkeypatch, capsys):
     assert blocks._TUNED_TILES == {}        # the registry is cleared after the phase
     chip_smoke.profile_phase(cpu, sz, serve.engine, serve.ctxs)
     out = capsys.readouterr().out
-    for phase in ("kernels", "serve", "serve-bf16", "tenants", "shard", "eval", "train",
+    assert "2 adagrad steps at D=4 bitwise D=1" in out and "logits at D=4 bitwise D=1's" in out
+    assert "means and errors bitwise the plain formula" in out
+    assert "4 microbatches of 1 against one batch" in out and "pna/full_graph_sm+part [" in out
+    assert "the blocks bitwise one launch over the arena" in out
+    assert "every leaf of params and accumulator within" in out
+    assert "each step's loss and parameters bitwise adamw of its gradient" in out
+    for phase in ("kernels", "serve", "serve-bf16", "tenants", "shard", "shard-train", "eval",
+                  "train",
                   "models", "lm", "lm-train", "gnn", "timing", "autotune", "profile"):
         assert f"phase {phase}:" in out
     assert "phase shard: 4 shards on cpu, cpu, cpu, cpu, 3000 items in a 4096-slot slab" in out

@@ -1,8 +1,10 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no JAX
 and nothing of the JAX package, every module imports (and serves, trains,
-serves a sharded corpus, ranks through ``rank_items_mp``, and answers over
-the RPC server under an injected fault) with JAX blocked, and asking for
-the card where there is none raises."""
+serves a sharded corpus, ranks through ``rank_items_mp``, trains through
+the row-blocked lookup of ``embedding.sharded``, reduces through
+``optim.compression``, and answers over the RPC server under an injected
+fault) with JAX blocked, and asking for the card where there is none
+raises."""
 import os
 import re
 import subprocess
@@ -113,6 +115,24 @@ assert corpus_cache_specs(None).Q_I == (None, "model", None, None)
 qt = {k: torch.as_tensor(v) for k, v in q.items()}
 mp = fwfm.rank_items_mp(engine.params, cfg, qt, mesh=make_host_mesh(2, device="cpu"))
 assert torch.allclose(mp, fwfm.rank_items(engine.params, cfg, qt), atol=1e-5, rtol=1e-5)
+from repro_torch.embedding.sharded import make_sharded_take, sharded_lookup_field_embeddings
+from repro_torch.optim.compression import compressed_psum
+from repro_torch.launch import steps
+tb = {k: torch.as_tensor(v) for k, v in data.batch(32, 0).items()}
+take = make_sharded_take(make_host_mesh(4, device="cpu"))
+l4, g4 = optim.value_and_grad(lambda p, c, b: fwfm.loss(p, c, b, take_fn=take))(
+    engine.params, cfg, tb)
+l1, g1 = optim.value_and_grad(fwfm.loss)(engine.params, cfg, tb)
+assert torch.allclose(l4, l1, atol=1e-6) and torch.allclose(g4["embedding"], g1["embedding"],
+                                                             atol=1e-6)
+V = sharded_lookup_field_embeddings(engine.params["embedding"], cfg.layout, tb["ids"],
+                                    tb["weights"], mesh=make_host_mesh(2, device="cpu"))
+assert V.shape == (32, cfg.layout.n_fields, cfg.embed_dim)
+outs, errs = compressed_psum([g1["embedding"]] * 2, [torch.zeros_like(g1["embedding"])] * 2)
+assert torch.allclose(outs[0] + errs[0], g1["embedding"], atol=1e-6)
+cell = steps.build("dplr-fwfm", "train_batch", device="cpu", cfg=cfg, dims={"batch": 16},
+                   mesh=make_host_mesh(4, device="cpu"))
+assert torch.isfinite(cell.fn(*cell.args)[0])
 print("ok")
 """
 

@@ -59,22 +59,29 @@ def test_all_cells_are_the_references():
 @pytest.mark.parametrize("arch,shape", CELLS)
 def test_cell_arguments_match_the_reference(arch, shape):
     """Names, shapes and types of every argument leaf; building on meta
-    allocates nothing.  No argument is left out for the sharding item:
-    what waits for it (shardings, micro-batches, FSDP, the GNN's node
-    constraint) is in the cell's notes, not in its arguments."""
+    allocates nothing.  No argument is left out for what waits for more
+    than one data replica (FSDP across replicas, the production meshes):
+    that is in the cell's notes, under its ROADMAP item, not in its
+    arguments."""
     want = _jax_specs(jsteps.build(arch, shape, make_host_mesh()).args)
     cell = steps.build(arch, shape, device="meta")
     assert _torch_specs(cell.args) == want
     assert all(t.is_meta for t in jax.tree_util.tree_leaves(
         cell.args, is_leaf=lambda x: isinstance(x, torch.Tensor)))
-    assert any("sharding item" in note for note in cell.notes)
+    assert any("ROADMAP item 3c" in note for note in cell.notes)
 
 
 def test_cells_build_with_the_references_options():
     cfg = steps.build("mixtral-8x7b", "train_4k", opts={"moe_scatter": True, "moe_fused": True})
-    assert "micro_batches" in " ".join(cfg.notes)
-    with pytest.raises(NotImplementedError, match="sharding item"):
-        steps.build("pna", "ogb_products", opts={"partitioned": True})
+    notes = " ".join(cfg.notes)
+    # the reference's n_micro = min(micro_batches, B // dp): 16 of 16 rows each
+    assert "16 microbatches of 16 (micro_batches=16)" in notes
+    assert "fsdp=True changes no computation with one data replica" in notes
+    # the +part cell: the reference's name and arguments, on one shard
+    part = steps.build("pna", "ogb_products", opts={"partitioned": True})
+    jpart = jsteps.build("pna", "ogb_products", make_host_mesh(), opts={"partitioned": True})
+    assert part.name == jpart.name == "pna/ogb_products+part"
+    assert _torch_specs(part.args) == _jax_specs(jpart.args)
     # the +mp rank cells: rank_items_mp on a one-device mesh, the reference's
     # name and arguments; for the other recsys archs the option changes nothing
     for shape in ("serve_p99", "retrieval_cand"):
@@ -388,7 +395,8 @@ def test_dryrun_writes_and_resumes_its_records(tmp_path, capsys):
 
 
 def test_dryrun_records_a_cell_that_cannot_build(tmp_path):
-    rec = dryrun.run_cell("pna", "ogb_products", out=tmp_path, opts={"partitioned": True})
-    assert not rec["ok"] and "NotImplementedError" in rec["error"]
-    assert (tmp_path / "pna__ogb_products+partitioned.json").exists()
+    # a skipped cell (yi-9b's long_500k: full attention) cannot build
+    rec = dryrun.run_cell("yi-9b", "long_500k", out=tmp_path, opts={"partitioned": True})
+    assert not rec["ok"] and "ValueError" in rec["error"] and "N/A" in rec["error"]
+    assert (tmp_path / "yi-9b__long_500k+partitioned.json").exists()
     assert dryrun.line(rec).startswith("[FAIL]")
