@@ -17,6 +17,11 @@ Phases, one line each:
    at the shapes the serving and eval paths give it, plus ragged,
    all-dead and multi-hot edges; every top-K call also by C1 (below),
    with K past 4,096, K = n and adversarial orders of the scores; kernel
+   1 at its edges (``FULL_EDGES``: one slot, a tile +- 1, one to three
+   query groups, rho k = 3 and 128, k = 12, dead tiles, slabs 2 and 4
+   bytes off a 16-byte boundary), every run at every query group bitwise
+   the default geometry, and kernel 2 at K = n = 65,536 (Bq = 17) bitwise
+   kernel 1's scores sorted, f32 and bf16; kernel
    3's batched rows bitwise equal to per-query calls, at edges of its tile,
    rho k = 128 and 3, m_I = 200, a misaligned V_I and 65,536 queries;
    kernel 5's backward at the train batch on skewed ids, bitwise equal to
@@ -377,6 +382,7 @@ from repro_torch.kernels import _build, autotune, blocks, ops, ref, work  # noqa
 from repro_torch.kernels import dplr_score as items_kernel  # noqa: E402
 from repro_torch.kernels import embedding_bag as bag_lib  # noqa: E402
 from repro_torch.kernels import fwfm_interaction as pair_kernel  # noqa: E402
+from repro_torch.kernels.dplr_corpus_score import NEG_INF  # noqa: E402
 from repro_torch.examples import quickstart, ranking_server, train_e2e  # noqa: E402
 from repro_torch.launch import cost, dryrun, steps  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
@@ -466,6 +472,9 @@ FULL = SimpleNamespace(
     # top-K past the old 4,096 limit, the adversarial orders (n, live, Bq,
     # Ks) and K = n (n, Bq), all held by C1
     big_ks=(4097, 65_536), adv=(1 << 20, 1_000_000, 16, (16, 1024, 4096, 4097, 65_536)),
+    # kernel 1's edges: the runs swept at every query group, and the (n, Bq)
+    # of kernel 2 at K = n held to kernel 1's scores sorted
+    full_runs=(1, 7, 255, 256, 257, 1000, 4096, 32_768), full_c1=(65_536, 17),
     # autotune: the sweep, timed calls a candidate, (Bq, slab dtype) of the
     # serve phase's slab to sweep, and the tenants' Bq
     tune_candidates=autotune.DEFAULT_CANDIDATES, tune_repeats=20,
@@ -816,11 +825,115 @@ def corpus_checks(dev, sz, gen, errs: dict, notes: list) -> None:
         notes.append(f"K=n={n_l} Bq={bq_l}")
 
 
+# kernel 1's edge shapes (n, Bq, rho, k): one slot; a 256-row tile - 1 and
+# + 1; 3 tiles + 5; one, two and three query groups; rho k = 3 (12-byte
+# rows: element copies, rows read an element at a time); rho k = 128 (fewer
+# rows a stage) at groups of 2 and 16; k = 12 (wide rows in f32, not in
+# bf16); and a served-width slab with dead tiles, misaligned copies of it
+# and acc_dtype='bfloat16'
+FULL_EDGES = ((1, 1, 3, 16), (255, 3, 3, 16), (257, 5, 3, 16), (773, 16, 3, 16),
+              (3000, 17, 3, 16), (3000, 33, 3, 16), (1000, 4, 1, 3), (1000, 2, 4, 32),
+              (1000, 16, 8, 16), (2000, 5, 3, 12), (5000, 16, 3, 16))
+
+
+def full_edge_inputs(dev, n, Bq, rho, k, gen):
+    """``corpus_inputs`` with every 10th slot dead (from slot 5), and for n
+    past two 256-slot tiles a whole tile dead (slots 256-511) and a dead
+    span across a tile boundary (1000-1299)."""
+    args = list(corpus_inputs(dev, n, n, Bq, rho, k, gen))
+    valid = args[5]
+    valid[5::10] = False
+    if n > 512:
+        valid[256:512] = False
+        valid[1000:1300] = False
+    return tuple(args)
+
+
+def off_by(t, elems: int):
+    """A copy of ``t`` starting ``elems`` elements past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    return flat[elems:].view(t.shape).copy_(t)
+
+
+def full_checks(dev, sz, errs: dict, notes: list) -> None:
+    """Kernel 1 at its edges (``FULL_EDGES``): every float32 call within
+    ``check_close`` of its plain version and each dead slot exactly
+    ``NEG_INF``; every bf16-slab call bitwise the float32 call on the upcast
+    slab (``acc_dtype='bfloat16'`` too, and within one bf16 rounding of the
+    term of its plain version); the served-width slab also 4 bytes (f32)
+    and 2 bytes (bf16) past a 16-byte boundary, bitwise the aligned call;
+    at two ragged edges, every run of ``sz.full_runs`` at every query group
+    bitwise the default geometry.  Then C1 turned around at ``sz.full_c1``
+    (n, Bq): kernel 2 at K = n, each row bitwise kernel 1's scores sorted,
+    f32 and bf16.  Its own generator."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    seen = []
+    for n, Bq, rho, k in FULL_EDGES:
+        Q, a_I, e, P_C, a_C, valid = full_edge_inputs(dev, n, Bq, rho, k, gen)
+        args = (Q, a_I, e, P_C, a_C, valid)
+        what = f"full n={n} Bq={Bq} rho={rho} k={k}"
+        got = ops.dplr_corpus_score(*args)
+        _sync(dev)
+        errs["dplr_corpus_score"] = max(errs["dplr_corpus_score"], check_close(
+            got, ref.dplr_corpus_score_ref(*args), what))
+        if not (got[:, ~valid] == NEG_INF).all():
+            raise AssertionError(f"{what}: a dead slot's score is not {NEG_INF}")
+        b16 = (*to_bf16(Q, a_I), e, P_C, a_C, valid)
+        up = (b16[0].float(), b16[1].float(), *args[2:])
+        got16 = ops.dplr_corpus_score(*b16)
+        same_bits(got16, ops.dplr_corpus_score(*up), f"bf16 {what}")
+        errs["dplr_corpus_score_bf16"] = max(errs["dplr_corpus_score_bf16"], check_close(
+            got16, ref.dplr_corpus_score_ref(*b16), f"bf16 {what}"))
+        if n in (773, 3000) and Bq in (16, 33):       # every geometry at two edges
+            for dtype_args, want in ((args, got), (b16, got16)):
+                for run in sz.full_runs:
+                    for G in blocks.GROUPS[:blocks.GROUPS.index(blocks.group_size(Bq)) + 1]:
+                        same_bits(ops._corpus_score(*dtype_args, None, 0, 1,
+                                                    blocks.Tile(run, group=G)),
+                                  want, f"{what} {dtype_args[0].dtype} run={run} group={G}",
+                                  "the default geometry's call")
+            blocks.drain_clamp_events()
+        if n == 5000:                                 # misaligned slabs; bf16 accumulation
+            same_bits(ops.dplr_corpus_score(off_by(Q, 1), *args[1:]), got,
+                      f"{what} 4 bytes off", "the aligned call")
+            same_bits(ops.dplr_corpus_score(off_by(b16[0], 1), *b16[1:]), got16,
+                      f"bf16 {what} 2 bytes off", "the aligned call")
+            for slab, inputs in (("bf16", b16), ("f32", up)):
+                acc = ops.dplr_corpus_score(*inputs, acc_dtype="bfloat16")
+                if slab == "bf16":
+                    same_bits(acc, ops.dplr_corpus_score(*up, acc_dtype="bfloat16"),
+                              f"{what} acc_dtype='bfloat16' bf16 slab")
+                want = ref.dplr_corpus_score_ref(*inputs, acc_dtype="bfloat16")
+                P = P_C[:, None] + inputs[0].float()[None]
+                term = torch.einsum("qnrk,r->qn", P * P, e.abs())
+                size = a_C.abs()[:, None] + inputs[1].float().abs()[None] + 0.5 * term
+                bound = BF16_ACC_ULP * term + TOL * torch.clamp(size, min=1.0)
+                if not (((acc - want).abs() <= bound) | ~valid[None]).all() or not (
+                        acc[:, ~valid] == NEG_INF).all():
+                    raise AssertionError(f"{what} acc_dtype='bfloat16' on a {slab} slab: past "
+                                         f"{BF16_ACC_ULP:g} x term + {TOL:g} x max(1, size)")
+        seen.append(f"{n}x{Bq}/{rho}x{k}")
+    n, Bq = sz.full_c1
+    Q, a_I, e, P_C, a_C, valid = full_edge_inputs(dev, n, Bq, 3, 16, gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (Q.to(dtype), a_I.to(dtype), e, P_C, a_C, valid)
+        scores = ops.dplr_corpus_score(*args)
+        vals, ids = ops.dplr_corpus_score(*args, topk=n)
+        _sync(dev)
+        check_exact(vals, ids, scores, n, f"kernel 2 at K=n={n} Bq={Bq} {dtype}")
+    notes.append(f"kernel 1 edges {', '.join(seen)} (n x Bq / rho x k): within the f32 rule of "
+                 f"plain, bf16 slabs bitwise the upcast f32 call, 2 and 4 bytes off bitwise, "
+                 f"acc_dtype='bfloat16' bitwise across slab types; runs {list(sz.full_runs)} "
+                 f"at every group bitwise the default; kernel 2 at K=n={n} Bq={Bq} bitwise "
+                 f"kernel 1 sorted, f32 and bf16")
+
+
 def kernel_checks(dev, sz) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {name: 0.0 for name in ops.KERNELS}
     notes = []
     corpus_checks(dev, sz, gen, errs, notes)
+    full_checks(dev, sz, errs, notes)
 
     for n3, Bq in [(sz.n3, b) for b in sz.bq3s] + [(sz.edge_n, 2)]:
         args = items_inputs(n3, Bq, sz.m3, sz.rho, sz.k, gen)
@@ -5095,6 +5208,8 @@ def timing_phase(dev, sz, peaks) -> dict:
                      f"bound {bnd:.4f} ms ({by})")
         if Bq_t == Bq:
             rows["dplr_corpus_score"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        else:
+            rows["dplr_corpus_score"]["bq1"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd)
     # the top-K at each timed shape (Bq, K, order of the scores), beside the
     # yardstick kernel 1 + torch.topk (two calls; the port never makes them)
     rising = a_I + 1e-3 * torch.arange(n, device=dev, dtype=torch.float32)
@@ -5136,7 +5251,11 @@ def timing_phase(dev, sz, peaks) -> dict:
         if Bq_t == Bq:
             rows["dplr_corpus_score_bf16"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                                   bound_by=by)
+        else:
+            rows["dplr_corpus_score_bf16"]["bq1"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd)
         acc = device_ms(lambda: ops.dplr_corpus_score(*args, acc_dtype="bfloat16"))
+        row = rows["dplr_corpus_score_bf16"]
+        (row if Bq_t == Bq else row["bq1"])["acc_bf16_ms"] = acc
         extra.append(f"dplr_corpus_score bf16 acc_dtype='bfloat16' n={n} Bq={Bq_t}: {acc:.4f} ms")
     shapes = []
     for Bq_t, K, order in sz.topk_times[:3]:

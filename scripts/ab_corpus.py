@@ -9,9 +9,10 @@ a process of its own that builds that checkout's corpus kernels (into its
 own ``build/``) and times, through its ``repro_torch.kernels.ops`` with
 nothing tuned, the shapes of ``chip_smoke.py``'s timing rows: n = 2^20
 slots, 1,000,000 live, rho = 3, k = 16, the top-K at K = 16 and Bq = 16
-and 1, the full scores at Bq = 16, f32 and bf16 slabs; and the packed
-wave, 16 slabs of 65,536 slots (62,500 live) at Bq = 4.  Three numbers a
-call, in ms:
+and 1, the full scores (kernel 1) at Bq = 16 and 1 (and both with
+``acc_dtype='bfloat16'``), f32 and bf16 slabs; and the packed wave, 16
+slabs of 65,536 slots (62,500 live) at Bq = 4.  Three numbers a call, in
+ms:
 
   * ``b2b``: chip_smoke's ``device_ms``, the median of 5 batches of 10
     back-to-back calls between CUDA events; when the host takes longer to
@@ -19,6 +20,12 @@ call, in ms:
   * ``device``: the same calls queued behind a device-side sleep, so the
     card runs them back to back whatever the host's pace: device time;
   * ``host``: the host's time to issue one call, the mean over 20.
+
+Each full-score call also gives the sha256 of its (Bq, n) output's bytes
+(the inputs come from one seed on the card, so both checkouts score the
+same inputs), and the last line says, per call, whether every process of
+both checkouts gave the same digest: whether the two kernels agree bit for
+bit.
 
 ``--set rows`` times instead, through the checkout's ``CorpusState`` at
 the serve config (``configs.dplr_fwfm.make_config()``: 82 fields, k = 16,
@@ -29,12 +36,13 @@ items in 2^20 slots, and churn writes (``update_items``) of 1, 16, 256 and
 of the call followed by a synchronize (3 builds after one warm-up, 20
 writes after two).
 
-Prints one JSON line a process and, last, the mean of each number over
-each checkout's processes.
+Prints one JSON line a process, then the mean of each number over each
+checkout's processes, and last the digests' agreement.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -172,10 +180,18 @@ def measure(checkout: Path) -> dict:
             f"{name} topk Bq=1": lambda: ops.dplr_corpus_score(q, a_, e, P[:1], aC[:1], valid,
                                                                topk=16),
             f"{name} full Bq=16": lambda: ops.dplr_corpus_score(q, a_, e, P, aC, valid),
+            f"{name} full Bq=1": lambda: ops.dplr_corpus_score(q, a_, e, P[:1], aC[:1], valid),
+            f"{name} full Bq=16 acc bf16": lambda: ops.dplr_corpus_score(
+                q, a_, e, P, aC, valid, acc_dtype="bfloat16"),
+            f"{name} full Bq=1 acc bf16": lambda: ops.dplr_corpus_score(
+                q, a_, e, P[:1], aC[:1], valid, acc_dtype="bfloat16"),
             f"{name} multi 16 x Bq=4": lambda: ops.dplr_corpus_score_multi(*m, topk=16),
         }
         for label, fn in calls.items():
             out[label] = {"b2b": _device_ms(fn), "device": _queued_ms(fn), "host": _host_ms(fn)}
+            if " full " in label:
+                got = fn().contiguous().view(torch.int32).cpu().numpy()
+                out[label]["sha256"] = hashlib.sha256(got.tobytes()).hexdigest()
     return out
 
 
@@ -212,10 +228,14 @@ def main() -> None:
             runs[side].append(got)
             print(json.dumps({"round": r, "side": side, "times": got}), flush=True)
     mean = {side: {label: {k: sum(run[label][k] for run in got) / len(got)
-                           for k in got[0][label]}
+                           for k in got[0][label] if k != "sha256"}
                    for label in got[0]}
             for side, got in runs.items()}
     print(json.dumps({"mean": mean}), flush=True)
+    digests = {label: {run[label]["sha256"] for got in runs.values() for run in got}
+               for label in runs["this"][0] if "sha256" in runs["this"][0][label]}
+    print(json.dumps({"bitwise": {label: len(d) == 1 for label, d in digests.items()}}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -14,17 +14,20 @@ constant here.  The reference's ``BlockSpec`` helpers (``grid_1d``,
 
 A launch's geometry is a ``Tile``:
 
-  * ``block_n``: the slots a block scores.  Kernel 1 (full mode): the
-    slots one block of 128 threads scores, a tile of 128 at a time
-    (default 128).  Kernels 2 and 4 (top-K modes): stage 1's chunk, the
-    slots a block scores and counts into the merge's histogram (default
-    512).  So the reference's keyword keeps its meaning;
+  * ``block_n``: the slots a block scores at a time.  Kernel 1 (full
+    mode, one wave of persistent blocks): the run, the consecutive slots
+    a block claims at a time, streamed through its ring in tiles of at
+    most 256 rows (default 256, one tile).  Kernels 2 and 4 (top-K
+    modes): stage 1's chunk, the slots a block scores and counts into the
+    merge's histogram (default 512).  So the reference's keyword keeps
+    its meaning;
   * ``acc_dtype``: the reference's accumulation mode;
   * ``group``: the query rows a block scores at once (1, 2, 4, 8 or 16;
     default ``group_size(Bq)``), the one template parameter;
   * ``threads``: stage 1's threads a block (top-K modes; default and
     most 256, its launch bound).
-    The full mode's threads are fixed, so no winner ever sets them;
+    The full mode's threads are fixed (128 scoring threads and one
+    producer warp), so no winner ever sets them;
   * ``part``: the scores one merge block filters (top-K modes; default
     16,384).
 
@@ -65,8 +68,8 @@ from typing import NamedTuple
 # kChunk, kTopkThreads, kMaxGroup, kPart) and the limits of its launch
 # parameters (kMaxChunk: a chunk's histogram counts are 16-bit; stage 1's
 # launch bound is its default threads).
-CORPUS_FULL_BLOCK_N = 128   # slots a full-mode block scores (kernel 1)
-CORPUS_FULL_THREADS = 128   # and its threads, one slot each a tile; fixed
+CORPUS_FULL_BLOCK_N = 256   # slots a full-mode block claims at a time (kernel 1)
+CORPUS_FULL_THREADS = 128   # and its scoring threads, two slots each a tile; fixed
 CORPUS_CHUNK = 512          # slots a stage-1 block scores (kernels 2, 4)
 CORPUS_THREADS = 256        # stage 1's threads, one slot each a tile
 CORPUS_MAX_GROUP = 16       # query rows a block scores at once, at most

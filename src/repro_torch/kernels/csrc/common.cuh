@@ -50,6 +50,17 @@ __host__ __device__ inline int row_stride(int width) {
   return row_words<T>(width) * 4 / (int)sizeof(T);
 }
 
+// Words a staged row of `width` elements of T takes when a thread reads its
+// row 16 bytes at a time (width * sizeof(T) a multiple of 16): an odd
+// number of 16-byte pieces.  A 16-byte load is served 8 lanes at a time,
+// and rows an odd number of pieces apart start those 8 lanes on 8
+// different groups of 4 banks (no bank conflicts); every row starts
+// 16-byte aligned, as a bulk copy's destination must.
+template <class T>
+__host__ __device__ inline int wide_row_words(int width) {
+  return 4 * ((width * (int)sizeof(T) / 16) | 1);
+}
+
 // Copy rows [row0, row0 + rows) of a row-major (n, width) array of T into
 // shared memory with row stride `stride` elements, the whole block
 // cooperating so that neighbouring threads read neighbouring addresses.
@@ -203,6 +214,82 @@ __device__ inline void slot_score(float ai, const T* q, const float* pcT, const 
 #pragma unroll
   for (int j = 0; j < G; ++j)
     s[j] = fmaf(0.5f, Acc == kAccF32 ? acc[j] : round_bf16(acc[j]), ac[j] + ai);
+}
+
+// 16 bytes of a staged row as f32 values in order: 4 floats, or 8 bf16
+// upcast (exact, as to_f32).
+__device__ __forceinline__ void load_piece(const float* src, float* x) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load_piece(const __nv_bfloat16* src, float* x) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// slot_score for NS slots at once, each slot's row q[s] read 16 bytes at a
+// time (rows 16-byte aligned, k a multiple of 16 / sizeof(T)), each load of
+// the queries' P_C serving all NS slots.  Per slot and query the
+// operations are slot_score's, in its order, so a slot scores the same bits
+// either way: s[t][j] is slot_score(ai[t], q[t], ...)'s s[j].
+template <int G, class T, int Acc, int NS>
+__device__ __forceinline__ void slot_scores_wide(const float* ai, const T* const* q,
+                                                 const float* pcT, const float* ac,
+                                                 const float* e, int rho, int k,
+                                                 float (*s)[G]) {
+  constexpr int E = 16 / (int)sizeof(T);
+  float acc[NS][G];
+#pragma unroll
+  for (int t = 0; t < NS; ++t)
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[t][j] = 0.f;
+  for (int r = 0; r < rho; ++r) {
+    float part[NS][G];
+#pragma unroll
+    for (int t = 0; t < NS; ++t)
+#pragma unroll
+      for (int j = 0; j < G; ++j) part[t][j] = 0.f;
+    const float er = Acc == kAccF32 ? 0.f : round_bf16(e[r]);
+    for (int c0 = r * k; c0 < (r + 1) * k; c0 += E) {
+      float x[NS][E];
+#pragma unroll
+      for (int t = 0; t < NS; ++t) load_piece(q[t] + c0, x[t]);
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        float pc[G];
+        load_row<G>(pcT + (c0 + u) * G, pc);
+#pragma unroll
+        for (int t = 0; t < NS; ++t)
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const float p = pc[j] + x[t][u];
+            if constexpr (Acc == kAccF32)
+              part[t][j] = fmaf(p, p, part[t][j]);
+            else
+              acc[t][j] = fmaf(round_bf16(__fmul_rn(p, p)), er, acc[t][j]);
+          }
+      }
+    }
+    if constexpr (Acc == kAccF32) {
+#pragma unroll
+      for (int t = 0; t < NS; ++t)
+#pragma unroll
+        for (int j = 0; j < G; ++j) acc[t][j] = fmaf(e[r], part[t][j], acc[t][j]);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < NS; ++t)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      s[t][j] = fmaf(0.5f, Acc == kAccF32 ? acc[t][j] : round_bf16(acc[t][j]), ac[j] + ai[t]);
 }
 
 // The top-K order: a higher value first, and among equal values the lower

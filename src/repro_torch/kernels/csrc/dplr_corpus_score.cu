@@ -31,16 +31,49 @@
 //    its slot against G <= 16 queries at once, reading the slot's row once
 //    and the queries' P_C transposed, 4 queries to a 16-byte broadcast
 //    load; per query the operations are those of the plain direct form, in
-//    one order, so the top-K modes return kernel 1's scores bitwise.  All
-//    arithmetic is f32 in the direct form, not the GEMM expansion
-//    ||P_C||^2 + 2<P_C, Q_I> + ||Q_I||^2, whose rounding differs.
-//  * Q_I is copied tile by tile into shared memory as stored (common.cuh
+//    one order, so the top-K modes return kernel 1's scores bitwise (kernel
+//    1 scores two slots at once through slot_scores_wide, the same
+//    operations a slot).  All arithmetic is f32 in the direct form, not the
+//    GEMM expansion ||P_C||^2 + 2<P_C, Q_I> + ||Q_I||^2, whose rounding
+//    differs.
+//  * Top-K modes: Q_I is copied tile by tile into shared memory as stored (common.cuh
 //    stage_rows, 16 bytes a load where the rows allow), with an odd row
 //    stride in words so that each thread then reads its own slot's row
 //    without bank conflicts, upcasting a bf16 entry as it reads it.
-//  * Full mode: a block of 128 threads holds up to 16 queries' P_C and
-//    scores block_n slots (128 by default), one slot per thread a tile, and
-//    writes out[q, i] with consecutive threads on consecutive i.
+//  * Full mode (kernel 1): the bytes (the slab once, the (Bq, n) output)
+//    and the scorer's instructions (at Bq = 16 an add and an FMA per query
+//    and element) take about as long each, so the copies have to stream
+//    while the CUDA cores score.  One wave of persistent blocks, each 4
+//    scoring warps and one producer warp, two blocks an SM (f32: 110 KB of
+//    shared memory each).  A block claims runs of block_n slots (256 by
+//    default) of one query group in turn, and loads that group's P_C, e and
+//    a_C once, not once a tile.  The producer reads a tile's valid bytes a
+//    tile ahead and, for each 32 rows with a live slot, issues one TMA box
+//    load of a rank-2 tensor map over Q_I (a tile with no live slot copies
+//    nothing: the dead tail costs its mask bytes) into a ring of 2 stages
+//    of 256 rows, completing on the stage's mbarrier.  The box is wider than
+//    rho k: its columns past the row load as zeros, so the rows land an odd
+//    number of 16-byte pieces apart (common.cuh wide_row_words: 208 bytes in
+//    f32, 112 in bf16 at rho k = 48), where 16-byte loads meet no bank
+//    conflict.  Rows that are no whole number of 16-byte pieces a k-row
+//    (k % 4 in f32, k % 8 in bf16), or a slab not 16-byte aligned, take the
+//    same kernel's element copies of the live rows (4-byte cp.async in f32,
+//    loads and stores in bf16); the former into row_words rows read an
+//    element at a time (slot_score).  A scoring thread scores rows t and t
+//    + 128 of a stage at once (slot_scores_wide: each P_C load serves both
+//    slots, a slot's row read 16 bytes at a time; per slot slot_score's
+//    operations, so the same bits), reading a_I and valid a tile ahead; its
+//    warp frees the stage, then writes out[q, i] with streaming stores
+//    (st.global.cs), consecutive lanes on consecutive i.  No block-wide
+//    barrier after the set-up.  What chose this, on an NVIDIA H100 80GB
+//    HBM3 at 700 W (scripts/sweep_full_kernel.py, scripts/ab_corpus.py):
+//    one bulk copy a row (192 bytes) was bound by the copies' rate, ~1.6
+//    TB/s at Bq = 1; one thread a slot, 8 scoring warps a block, 4 stages,
+//    3 or 4 slots a thread (212-255 registers) or 3 blocks an SM were each
+//    as fast or slower; the scoring alone (no copies) takes 0.086 ms at Bq =
+//    16 at 1980 MHz, about 2.5 instructions a cycle, the loads and stores
+//    alone 0.096 ms in f32 (the card's read rate, as torch.sum's, ~2.8
+//    TB/s), 0.067 in bf16 (PERF.md).
 //  * Top-K modes: a CUDA grid has no order, so the TPU kernel's running
 //    top-K, carried across a sequential grid, does not carry over; a full
 //    sort of every chunk (the previous design) cost ~59x the bound; a
@@ -88,8 +121,8 @@
 //    top-K order is a total order, so row [s] is bitwise the single-slab
 //    top-K of segment s.
 //
-// Geometry.  The numbers above are defaults, not constants: the slots a
-// full-mode block scores, the query group G (both modes), and in the top-K
+// Geometry.  The numbers above are defaults, not constants: the full
+// mode's run, the query group G (both modes), and in the top-K
 // modes the chunk, stage 1's threads and the merge's part are launch
 // parameters of the C entry points (the port's kernels/blocks.py names the
 // defaults and resolves a call's geometry; kernels/autotune.py sweeps it).
@@ -104,9 +137,12 @@
 // geometry, and the selection is a function of the keys alone, so every
 // geometry returns the same bits.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #include <cstdint>
+#include <map>
 #include <mutex>
+#include <tuple>
 #include <type_traits>
 
 namespace {
@@ -114,8 +150,16 @@ namespace {
 using repro::kMaxRK;
 using repro::kNegInf;
 
-constexpr int kFullThreads = 128;    // full-mode threads: one slot each a tile
-constexpr int kFullBlockN = 128;     // default slots a full-mode block scores
+constexpr int kFullThreads = 128;    // full-mode scoring threads (4 warps), and one
+constexpr int kFullWarps = kFullThreads / 32;  // producer warp besides
+constexpr int kFullBlock = kFullThreads + 32;
+constexpr int kFullSlots = 2;        // slots a scoring thread scores at once
+constexpr int kFullTile = kFullThreads * kFullSlots;  // most rows a stage holds
+constexpr int kFullBox = 32;         // rows a copy moves (a stage: whole boxes)
+constexpr int kFullBlockN = kFullTile;  // default run: slots a block claims at a time
+constexpr int kFullStages = 2;       // stages of the ring
+constexpr int kFullBlocks = 2;       // blocks an SM: the launch bound, and so
+constexpr int kFullSmem = 233472 / kFullBlocks - 1024;  // the shared memory a block
 constexpr int kTopkThreads = 256;    // default and most stage-1 threads (its launch
                                      // bound): one slot each a tile
 constexpr int kChunk = 512;          // default slots a stage-1 block scores and selects from
@@ -148,66 +192,288 @@ __host__ __device__ inline long long n_chunks_of(long long n, int chunk) {
   return (n + chunk - 1) / chunk;
 }
 
-// Shared-memory layout (in words) of the full mode for G queries: P_C
-// transposed first (16-byte aligned), then e, a_C and the Q_I tile, rows of
-// `rkw` words (repro::row_words of the slab's type).
+// Shared-memory layout (in words) of a full-mode block for G queries: the
+// ring's mbarriers (full[s], then empty[s]: 2 kFullStages, 8 bytes each), P_C
+// transposed (16-byte aligned), e, a_C, then kFullStages stages of `tile`
+// rows of `rw` words each (rw is repro::wide_row_words of the slab's type
+// where rows are read 16 bytes at a time, else row_words), from the first
+// 128-byte boundary at or past word `stages` (a TMA box's destination; 32
+// words of slack hold the padding).
 struct FullSmem {
-  int pcT, es, ac, qs, words;
-  __host__ __device__ FullSmem(int G, int rho, int k, int rkw) {
-    const int RK = rho * k;
-    pcT = 0;
-    es = pcT + RK * G;
+  int pcT, es, ac, stages, words;
+  __host__ __device__ FullSmem(int G, int rho, int k, int rw, int tile) {
+    pcT = 4 * kFullStages;
+    es = pcT + rho * k * G;
     ac = es + round4(rho);
-    qs = ac + round4(G);
-    words = qs + kFullThreads * rkw;
+    stages = round4(ac + round4(G));
+    words = stages + 32 + kFullStages * tile * rw;
   }
 };
 
-// Block (slots [blockIdx.x * block_n, ...), group of G queries): the slots
-// in tiles of kFullThreads, each tile staged and scored in turn.
+// Whether a slab of T at k is staged wide: each k-row (so each rho k row)
+// a whole number of 16-byte pieces, which the scorer reads 16 bytes at a
+// time.  Else its rows take row_words, read an element at a time.
+template <class T>
+__host__ __device__ inline bool full_wide(int k) {
+  return k * (int)sizeof(T) % 16 == 0;
+}
+
+template <class T>
+__host__ __device__ inline int full_row_words(int rho, int k) {
+  return full_wide<T>(k) ? repro::wide_row_words<T>(rho * k) : repro::row_words<T>(rho * k);
+}
+
+// Rows a stage holds for a run of `run` slots, whole boxes of kFullBox:
+// kFullTile, fewer where the run is shorter or two stages of rows of `rw`
+// words would pass kFullSmem.
+inline int full_tile(int G, int rho, int k, int rw, long long run) {
+  const long long fit = ((long long)kFullSmem / 4 - FullSmem(G, rho, k, rw, 0).words) /
+                        ((long long)kFullStages * rw) / kFullBox * kFullBox;
+  long long t = kFullTile;
+  const long long need = (run + kFullBox - 1) / kFullBox * kFullBox;
+  if (need < t) t = need;
+  if (fit < t) t = fit;
+  return t < kFullBox ? kFullBox : (int)t;
+}
+
+// The tiles a full-mode block walks.  Work item w is run w % runs (slots
+// [run * (w % runs), ...), at most `run` of them) of query group w / runs;
+// block b takes items b, b + gridDim.x, ..., each in tiles of `tile` rows.
+struct FullWalk {
+  long long n, run, runs, items;
+  int tile;
+};
+
+struct FullCursor {
+  long long w, row0, end;     // the item, the tile's first slot, the run's end
+  int group;
+  bool live;                  // false past the block's last item
+  __device__ void begin(long long item, const FullWalk& p) {
+    w = item;
+    live = w < p.items;
+    if (!live) return;
+    group = (int)(w / p.runs);
+    row0 = (w % p.runs) * p.run;
+    end = row0 + p.run < p.n ? row0 + p.run : p.n;
+  }
+  __device__ void next(const FullWalk& p) {
+    row0 += p.tile;
+    if (row0 >= end) begin(w + gridDim.x, p);
+  }
+  __device__ int rows(const FullWalk& p) const {
+    return (int)(end - row0 < p.tile ? end - row0 : p.tile);
+  }
+};
+
+// Kernel 1, persistent: one wave of blocks of kFullThreads scoring threads
+// and one producer warp.  The producer streams each tile's Q_I rows into a
+// ring of kFullStages stages (where `bulk`, one TMA box of `map` for each
+// kFullBox rows with a live slot, its rows padded to the stage's stride by
+// the box's zeros past rho k; else the live rows element by element: 4-byte
+// cp.async copies for f32, loads and stores for bf16), completing on the
+// stage's "full" mbarrier; a tile with no live slot copies nothing.
+// Scoring thread t scores the tile's rows t and t + kFullThreads against
+// the block's query group (P_C transposed in shared memory, loaded again
+// only when the group changes), through slot_scores_wide where rows are
+// wide, else slot_score; its warp then arrives on the stage's "empty"
+// mbarrier, which the producer waits for before it refills the stage, and
+// writes out[q, i] with streaming stores (-1e30 for a dead slot).  a_I and
+// valid of a thread's slots are loaded a tile ahead.
 template <int G, class T, int Acc>
-__global__ void __launch_bounds__(kFullThreads)
+__global__ void __launch_bounds__(kFullBlock, kFullBlocks)
 corpus_score_full(const T* __restrict__ Q, const T* __restrict__ aI,
                   const unsigned char* __restrict__ valid, const float* __restrict__ e,
                   const float* __restrict__ PC, const float* __restrict__ aC, long long n,
-                  int Bq, int rho, int k, long long block_n, float* __restrict__ out) {
+                  int Bq, int rho, int k, long long run, int tile, int bulk,
+                  const __grid_constant__ CUtensorMap map, float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // kFullStages: the rows landed
+  uint64_t* empty = full + kFullStages;                 // kFullStages: the slots scored
   const int RK = rho * k;
-  const int RKP = repro::row_stride<T>(RK);
-  const FullSmem lay(G, rho, k, repro::row_words<T>(RK));
+  const bool wide = full_wide<T>(k);
+  const int rw = full_row_words<T>(rho, k);
+  const int re = rw * 4 / (int)sizeof(T);               // a staged row's stride in elements
+  const FullSmem lay(G, rho, k, rw, tile);
   float* pcT = smem + lay.pcT;
   float* es = smem + lay.es;
   float* ac = smem + lay.ac;
-  T* qs = reinterpret_cast<T*>(smem + lay.qs);
+  const uint32_t at = hopper::smem_addr(smem + lay.stages);
+  T* stages = reinterpret_cast<T*>(reinterpret_cast<char*>(smem + lay.stages) +
+                                   ((128 - at % 128) % 128));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long runs = (n + run - 1) / run;
+  const FullWalk p{n, run, runs, runs * ((Bq + G - 1) / G), tile};
 
-  const long long first = (long long)blockIdx.x * block_n;
-  const long long end = first + block_n < n ? first + block_n : n;
-  const int q0 = blockIdx.y * G;
-  const int nq = min(G, Bq - q0);
-  for (int t = threadIdx.x; t < RK * G; t += blockDim.x) {
-    const int c = t / G, j = t % G;
-    pcT[t] = j < nq ? PC[(long long)(q0 + j) * RK + c] : 0.f;
-  }
-  for (int t = threadIdx.x; t < rho; t += blockDim.x) es[t] = e[t];
-  for (int t = threadIdx.x; t < G; t += blockDim.x) ac[t] = t < nq ? aC[q0 + t] : 0.f;
-  for (long long row0 = first; row0 < end; row0 += kFullThreads) {
-    __syncthreads();                // the previous tile is consumed
-    repro::stage_rows(Q, row0, (int)(end - row0 < kFullThreads ? end - row0 : kFullThreads), n,
-                      RK, RKP, qs);
-    __syncthreads();
-    const long long i = row0 + threadIdx.x;
-    if (i >= end) continue;
-    float s[G];
-    if (valid == nullptr || valid[i] != 0) {
-      repro::slot_score<G, T, Acc>(repro::to_f32(aI[i]), qs + threadIdx.x * RKP, pcT, ac, es,
-                                   rho, k, s);
-    } else {
-#pragma unroll
-      for (int j = 0; j < G; ++j) s[j] = kNegInf;
+  const auto load_queries = [&](int group) {
+    const int q0 = group * G, nq = min(G, Bq - q0);
+    for (int t = threadIdx.x; t < RK * G; t += kFullThreads) {
+      const int c = t / G, j = t % G;
+      pcT[t] = j < nq ? PC[(long long)(q0 + j) * RK + c] : 0.f;
     }
+    for (int t = threadIdx.x; t < rho; t += kFullThreads) es[t] = e[t];
+    for (int t = threadIdx.x; t < G; t += kFullThreads) ac[t] = t < nq ? aC[q0 + t] : 0.f;
+  };
+  FullCursor cur;
+  cur.begin(blockIdx.x, p);
+  if (warp == kFullWarps) {
+    if (lane == 0) {
+      for (int s = 0; s < kFullStages; ++s) {
+        hopper::mbar_init(hopper::smem_addr(&full[s]), bulk ? 1 : 32);
+        hopper::mbar_init(hopper::smem_addr(&empty[s]), kFullWarps);
+      }
+      hopper::mbar_init_fence();
+    }
+  } else {
+    load_queries(cur.group);
+  }
+  __syncthreads();  // the barriers and the first group's queries are ready
+
+  if (warp == kFullWarps) {
+    // The producer.  Lane l reads the liveness of rows l, l + 32, ... of a
+    // tile (a tile ahead), then copies the live ones.
+    constexpr int kPer = kFullTile / 32;
+    static_assert(kFullBox == 32, "a box is the 32 rows one ballot covers");
+    const uint32_t box_bytes = (uint32_t)(kFullBox * rw * 4);
+    if (bulk) hopper::prefetch_tensor_map(&map);
+    const auto load_valid = [&](const FullCursor& c, unsigned char* v) {
+      const int rows = c.rows(p);
 #pragma unroll
-    for (int j = 0; j < G; ++j)
-      if (j < nq) out[(long long)(q0 + j) * n + i] = s[j];
+      for (int b = 0; b < kPer; ++b) {
+        const int r = 32 * b + lane;
+        v[b] = r >= rows ? 0 : valid == nullptr ? 1 : __ldg(valid + c.row0 + r);
+      }
+    };
+    unsigned char v[kPer];
+    load_valid(cur, v);
+    for (long long u = 0; cur.live; ++u) {
+      const int s = (int)(u % kFullStages);
+      if (u >= kFullStages)
+        hopper::mbar_wait(hopper::smem_addr(&empty[s]), (uint32_t)(u / kFullStages - 1) & 1);
+      FullCursor nxt = cur;
+      nxt.next(p);
+      unsigned char vn[kPer] = {};
+      if (nxt.live) load_valid(nxt, vn);
+      const uint32_t bar = hopper::smem_addr(&full[s]);
+      T* dst = stages + (long long)s * tile * re;
+      const T* src = Q + cur.row0 * RK;
+      unsigned live[kPer];
+      uint32_t boxes = 0;
+#pragma unroll
+      for (int b = 0; b < kPer; ++b) {
+        live[b] = __ballot_sync(0xffffffffu, v[b] != 0);
+        boxes += live[b] != 0;
+      }
+      if (bulk) {
+        if (lane == 0) {
+          hopper::mbar_expect_tx(bar, boxes * box_bytes);
+#pragma unroll
+          for (int b = 0; b < kPer; ++b)
+            if (live[b])
+              hopper::tma_load_2d(hopper::smem_addr(dst + kFullBox * b * re), &map, bar, 0,
+                                  (int)(cur.row0 + kFullBox * b));
+        }
+      } else {
+        // each live row's elements by the whole warp; the lane arrives once
+        // its copies have landed (cp.async) or its stores are done
+#pragma unroll
+        for (int b = 0; b < kPer; ++b) {
+          for (unsigned m = live[b]; m; m &= m - 1) {
+            const int r = 32 * b + __ffs(m) - 1;
+            for (int c = lane; c < RK; c += 32) {
+              if constexpr (sizeof(T) == 4)
+                hopper::cp_async_4(hopper::smem_addr(dst + r * re + c),
+                                   src + (long long)r * RK + c, 4u);
+              else
+                dst[r * re + c] = src[(long long)r * RK + c];
+            }
+          }
+        }
+        if constexpr (sizeof(T) == 4)
+          hopper::cp_async_arrive(bar);
+        else
+          hopper::mbar_arrive(bar);
+      }
+      cur = nxt;
+#pragma unroll
+      for (int b = 0; b < kPer; ++b) v[b] = vn[b];
+    }
+    return;
+  }
+
+  // The scoring threads: rows t and t + kFullThreads of each tile.  A slot's
+  // a_I and valid byte are loaded a tile ahead and read a tile later.
+  const int t = threadIdx.x;
+  const auto load_slots = [&](const FullCursor& c, T* a, unsigned char* v) {
+    const int rows = c.rows(p);
+#pragma unroll
+    for (int h = 0; h < kFullSlots; ++h) {
+      const int r = t + h * kFullThreads;
+      const long long i = c.row0 + r;
+      a[h] = r < rows ? __ldg(aI + i) : T{};
+      v[h] = r >= rows ? 0 : valid == nullptr ? 1 : __ldg(valid + i);
+    }
+  };
+  T a[kFullSlots];
+  unsigned char v[kFullSlots];
+  load_slots(cur, a, v);
+  int group = cur.group;
+  for (long long u = 0; cur.live; ++u) {
+    FullCursor nxt = cur;
+    nxt.next(p);
+    T an[kFullSlots] = {};
+    unsigned char vn[kFullSlots] = {};
+    if (nxt.live) load_slots(nxt, an, vn);
+    if (cur.group != group) {      // the scoring warps reload the queries
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kFullThreads) : "memory");
+      group = cur.group;
+      load_queries(group);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kFullThreads) : "memory");
+    }
+    const int s = (int)(u % kFullStages);
+    hopper::mbar_wait(hopper::smem_addr(&full[s]), (uint32_t)(u / kFullStages) & 1);
+    const int rows = cur.rows(p);
+    const int q0 = group * G, nq = min(G, Bq - q0);
+    bool in[kFullSlots], live[kFullSlots];
+    float ai[kFullSlots];
+    const T* q[kFullSlots];
+    const T* stage = stages + (long long)s * tile * re;
+#pragma unroll
+    for (int h = 0; h < kFullSlots; ++h) {
+      const int r = t + h * kFullThreads;
+      in[h] = r < rows;
+      live[h] = v[h] != 0;
+      ai[h] = repro::to_f32(a[h]);
+      q[h] = stage + (in[h] ? r : 0) * re;   // a row of the stage, read or not
+    }
+    float sc[kFullSlots][G];
+    bool any = false;
+#pragma unroll
+    for (int h = 0; h < kFullSlots; ++h) any = any || live[h];
+    if (__any_sync(0xffffffffu, any)) {
+      if (wide) {
+        repro::slot_scores_wide<G, T, Acc, kFullSlots>(ai, q, pcT, ac, es, rho, k, sc);
+      } else {
+#pragma unroll
+        for (int h = 0; h < kFullSlots; ++h)
+          repro::slot_score<G, T, Acc>(ai[h], q[h], pcT, ac, es, rho, k, sc[h]);
+      }
+    }
+    __syncwarp();     // the warp has read the stage: free it before the stores
+    if (lane == 0) hopper::mbar_arrive(hopper::smem_addr(&empty[s]));
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (j >= nq) break;
+      float* o = out + (long long)(q0 + j) * n + cur.row0 + t;
+#pragma unroll
+      for (int h = 0; h < kFullSlots; ++h)
+        if (in[h]) __stcs(o + h * kFullThreads, live[h] ? sc[h][j] : kNegInf);
+    }
+    cur = nxt;
+#pragma unroll
+    for (int h = 0; h < kFullSlots; ++h) {
+      a[h] = an[h];
+      v[h] = vn[h];
+    }
   }
 }
 
@@ -831,15 +1097,18 @@ bool topk_geometry_ok(const Geometry& g) {
 }
 
 // Dynamic shared memory of stage 1 (for the slab type `dtype`), or of the
-// full mode with topk = false.
+// full mode (topk = false; g.chunk: its run).
 size_t stage_smem(bool topk, const Geometry& g, int rho, int k, int dtype) {
-  const int rkw = dtype == repro::kBF16 ? repro::row_words<__nv_bfloat16>(rho * k)
-                                        : repro::row_words<float>(rho * k);
-  const int words = topk ? ChunkSmem(g.group, rho, k, rkw, g.chunk, g.threads).words
-                         : FullSmem(g.group, rho, k, rkw).words;
-  return (size_t)words * sizeof(float);
+  const bool bf16 = dtype == repro::kBF16;
+  if (!topk) {
+    const int rw = bf16 ? full_row_words<__nv_bfloat16>(rho, k) : full_row_words<float>(rho, k);
+    const int tile = full_tile(g.group, rho, k, rw, g.chunk);
+    return (size_t)FullSmem(g.group, rho, k, rw, tile).words * sizeof(float);
+  }
+  const int rkw = bf16 ? repro::row_words<__nv_bfloat16>(rho * k)
+                       : repro::row_words<float>(rho * k);
+  return (size_t)ChunkSmem(g.group, rho, k, rkw, g.chunk, g.threads).words * sizeof(float);
 }
-
 
 // repro::allow_smem for `Kernel` on `device`, once per size: the attribute
 // is a driver call that every top-K call would otherwise pay.  The lock
@@ -856,6 +1125,33 @@ cudaError_t allow_smem_once(size_t bytes, int device) {
   const cudaError_t err = repro::allow_smem(Kernel, bytes);
   if (err == cudaSuccess) allowed[device] = bytes;
   return err;
+}
+
+// The tensor map of kernel 1's copies over a slab of T at `base` (n rows of
+// rho k), with boxes of box0 x kFullBox: encoded once per (base, n, rho k,
+// box0) and kept, since the encode, a driver call, would otherwise cost
+// every call host time (a served slab keeps its address).  The map holds
+// nothing but those values, so a slab freed and made again at the same
+// address and shape has the same map.
+template <class T>
+cudaError_t slab_map(const void* base, long long n, int rk, int box0, CUtensorMap* map) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, long long, int, int>, CUtensorMap> known;
+  const auto key = std::make_tuple(base, n, rk, box0);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *map = it->second;
+    return cudaSuccess;
+  }
+  const cudaError_t err = hopper::encode_2d(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      base, (uint64_t)rk, (uint64_t)n, (uint64_t)rk * sizeof(T), (uint32_t)box0,
+      (uint32_t)kFullBox);
+  if (err != cudaSuccess) return err;
+  if (known.size() >= 256) known.clear();
+  known.emplace(key, *map);
+  return cudaSuccess;
 }
 
 template <class T>
@@ -942,7 +1238,8 @@ extern "C" {
 
 // The default geometry and the limits of the launch parameters, for the
 // port's kernels/blocks.py to check its named defaults against: out[0] the
-// slots a full-mode block scores, [1] its threads, [2] the chunk, [3]
+// full mode's run (slots a block claims at a time), [1] its scoring threads
+// (beside one producer warp), [2] the chunk, [3]
 // stage 1's threads, [4] the largest query group, [5] the merge's part,
 // [6] the largest chunk, [7] the most stage-1 threads (the default).
 void dplr_corpus_geometry_defaults(long long* out) {
@@ -957,14 +1254,15 @@ void dplr_corpus_geometry_defaults(long long* out) {
 }
 
 // Whether a geometry fits `device`'s opt-in shared memory a block: the
-// full mode's (topk = 0; threads, chunk and part unused) or stage 1's and
+// full mode's (topk = 0; chunk its run; threads and part unused) or stage 1's and
 // the merge's for K (topk = 1), at rho, k and the slab type `dtype`.
 // Returns 1 if it fits, 0 if it does not, and the negated cudaError_t of a
 // failed query or an invalid geometry.
 int dplr_corpus_geometry_fits(int topk, int group, int threads, int chunk, int part, int rho,
                               int k, int dtype, int K, int device) {
   const Geometry g{group, threads, chunk, part};
-  if (rho * k > kMaxRK || rho <= 0 || k <= 0 || !(topk ? topk_geometry_ok(g) : group_ok(group)) ||
+  if (rho * k > kMaxRK || rho <= 0 || k <= 0 ||
+      !(topk ? topk_geometry_ok(g) : group_ok(group) && chunk >= 1) ||
       (dtype != repro::kF32 && dtype != repro::kBF16))
     return -(int)cudaErrorInvalidValue;
   int optin = 0;
@@ -978,31 +1276,44 @@ int dplr_corpus_geometry_fits(int topk, int group, int threads, int chunk, int p
 
 // Q (n, rho, k) and aI (n): the slab, float (dtype = 0) or bf16 (dtype = 1);
 // acc: 0 sums in f32, 1 as the reference's acc_dtype='bfloat16'.  group:
-// the query rows a block scores (1, 2, 4, 8 or 16); block_n: the slots a
-// block scores, in tiles of 128 threads.
+// the query rows a block scores at once (1, 2, 4, 8 or 16); block_n: the
+// run, the slots a block claims at a time (in tiles of at most kFullTile
+// rows).  One wave of persistent blocks.
 int dplr_corpus_score_full(const void* Q, const void* aI, const unsigned char* valid,
                            const float* e, const float* PC, const float* aC, long long n,
                            int Bq, int rho, int k, int dtype, int acc, int group,
                            long long block_n, float* out, void* stream, int device) {
-  if (n <= 0 || Bq <= 0 || rho * k > kMaxRK || !variant_ok(dtype, acc) || !group_ok(group) ||
-      block_n <= 0)
+  if (n <= 0 || Bq <= 0 || rho <= 0 || k <= 0 || rho * k > kMaxRK || !variant_ok(dtype, acc) ||
+      !group_ok(group) || block_n <= 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int G = group;
-  const long long groups = (Bq + G - 1) / G, blocks = (n + block_n - 1) / block_n;
-  if (groups > kMaxGrid || blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)groups);
+  const long long items = (n + block_n - 1) / block_n * ((Bq + G - 1) / G);
   err = with_variant(G, dtype, acc, [&](auto g, auto t, auto a) {
     constexpr int kG = decltype(g)::value, kA = decltype(a)::value;
     using T = typename decltype(t)::type;
-    const size_t smem =
-        (size_t)FullSmem(kG, rho, k, repro::row_words<T>(rho * k)).words * sizeof(float);
+    // a tensor map takes a 16-byte aligned base, rows a whole number of
+    // 16-byte pieces apart and row coordinates below 2^31
+    const int bulk =
+        full_wide<T>(k) && reinterpret_cast<uintptr_t>(Q) % 16 == 0 && n <= INT_MAX;
+    const int rw = full_row_words<T>(rho, k);
+    const int tile = full_tile(kG, rho, k, rw, block_n);
+    const size_t smem = (size_t)FullSmem(kG, rho, k, rw, tile).words * sizeof(float);
+    CUtensorMap map{};
+    if (bulk) {
+      const cudaError_t e1 = slab_map<T>(Q, n, rho * k, rw * 4 / (int)sizeof(T), &map);
+      if (e1 != cudaSuccess) return e1;
+    }
     cudaError_t e2 = allow_smem_once<corpus_score_full<kG, T, kA>>(smem, device);
     if (e2 != cudaSuccess) return e2;
-    corpus_score_full<kG, T, kA><<<grid, kFullThreads, smem, (cudaStream_t)stream>>>(
+    long long most = 0;
+    e2 = repro::one_wave(corpus_score_full<kG, T, kA>, kFullBlock, smem, device, &most);
+    if (e2 != cudaSuccess) return e2;
+    corpus_score_full<kG, T, kA><<<(unsigned)(items < most ? items : most), kFullBlock, smem,
+                                   (cudaStream_t)stream>>>(
         static_cast<const T*>(Q), static_cast<const T*>(aI), valid, e, PC, aC, n, Bq, rho, k,
-        block_n, out);
+        block_n, tile, bulk, map, out);
     return cudaGetLastError();
   });
   return (int)err;

@@ -57,6 +57,26 @@ inline cudaError_t encode_bf16_4d(CUtensorMap* map, const void* base, const uint
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A rank-2 tensor map without swizzle: dim0 elements of `type` a row
+// (contiguous), dim1 rows `stride1` bytes apart, boxes of box0 x box1
+// elements, laid out densely in shared memory.  Elements outside the tensor
+// load as zeros, past dim0 in a row too: a box0 past dim0 pads each row.
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             uint64_t dim0, uint64_t dim1, uint64_t stride1, uint32_t box0,
+                             uint32_t box1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t gdim[2] = {dim0, dim1};
+  const cuuint64_t gstride[1] = {stride1};
+  const cuuint32_t box[2] = {box0, box1};
+  const cuuint32_t estride[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), gdim, gstride, box, estride,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // ----------------------------------------------------------- device ----
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -107,6 +127,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One TMA box load of a rank-2 tensor map into shared memory at `dst`
+// (128-byte aligned), completing on `bar` (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 

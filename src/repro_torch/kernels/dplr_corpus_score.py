@@ -103,8 +103,9 @@ def _stream(device: torch.device) -> int:
 
 
 def launch_full(Q_I, a_I, e, P_C, a_C, valid, acc: str, tile) -> torch.Tensor:
-    """``(Bq, n)`` f32 scores; ``tile.group`` queries and ``tile.block_n``
-    slots a block."""
+    """``(Bq, n)`` f32 scores; ``tile.group`` queries a block at once, and
+    ``tile.block_n`` consecutive slots (the run) a block claims at a time
+    (one wave of persistent blocks)."""
     n, rho, k = Q_I.shape
     Bq = P_C.shape[0]
     dev = Q_I.device

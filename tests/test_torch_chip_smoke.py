@@ -36,6 +36,7 @@ SMALL = dict(n=8192, live=6000, bqs=(1, 3), ks=(1, 5, 64), rho=3, k=16, n3=512, 
              pair_small_b=5, pair_tiles=2, items_tiles=3, items_many=300,
              eval_n=600, eval_batch=256, parity=(3, 64), pruned_q=(2, 16),
              big_ks=(4097, 6500), adv=(8192, 6000, 3, (16, 1024, 4097)), large=(7000, 2),
+             full_runs=(1, 257, 4096), full_c1=(2000, 17),
              big_topk=2000,
              tune_candidates=(256, {"block_n": 1024, "threads": 128, "group": 4, "part": 4096},
                               {"block_n": 8192, "group": 16}),
@@ -316,6 +317,7 @@ def test_attention_pairs_counts_the_causal_and_window_spans(chip_smoke):
 _FULL_SLAB = dict(n=1 << 20, live=1_000_000, rho=3, k=16)
 TIMING_BOUNDS = [
     ("1", "dplr_corpus_score", False, dict(_FULL_SLAB, Bq=16, K=None, itemsize=4), 0.0789),
+    ("1 Bq=1", "dplr_corpus_score", False, dict(_FULL_SLAB, Bq=1, K=None, itemsize=4), 0.0601),
     ("2", "dplr_corpus_topk", False, dict(_FULL_SLAB, Bq=16, K=16, itemsize=4), 0.0588),
     ("3", "dplr_score_items", False, dict(n=65_536, Bq=4, m_I=38, rho=3, k=16, itemsize=4),
      0.1906),
@@ -336,6 +338,8 @@ TIMING_BOUNDS = [
      dict(B=1, S=8192, H=32, KV=8, hd=128, window=4096, itemsize=2), 0.4169),
     ("1 bf16", "dplr_corpus_score_bf16", False, dict(_FULL_SLAB, Bq=16, K=None, itemsize=2),
      0.0496),
+    ("1 bf16 Bq=1", "dplr_corpus_score_bf16", False,
+     dict(_FULL_SLAB, Bq=1, K=None, itemsize=2), 0.0308),
     ("2 bf16", "dplr_corpus_topk_bf16", False, dict(_FULL_SLAB, Bq=16, K=16, itemsize=2),
      0.0365),
     ("3 bf16", "dplr_score_items_bf16", False,
@@ -425,3 +429,45 @@ def test_plain_kernels_swaps_the_entry_points_back(chip_smoke):
                                     torch.tensor(0.0)).shape == (5,)
         assert ops.fwfm_pairwise(V, torch.eye(4)).shape == (3,)
     assert (ops.embedding_bag, ops.fwfm_pairwise, ops.dplr_score_items) == saved
+
+
+def test_kernel_1_edge_checks_run_on_the_plain_versions(chip_smoke):
+    """Kernel 1's edge checks (``full_checks``) pass the CPU's plain
+    versions at every edge shape, with kernel 2 at K = n."""
+    errs = {"dplr_corpus_score": 0.0, "dplr_corpus_score_bf16": 0.0}
+    notes = []
+    chip_smoke.full_checks(torch.device("cpu"), SimpleNamespace(**SMALL), errs, notes)
+    assert "kernel 2 at K=n=2000 Bq=17 bitwise kernel 1 sorted" in notes[0]
+    assert all(f"{n}x{Bq}/{rho}x{k}" in notes[0] for n, Bq, rho, k in chip_smoke.FULL_EDGES)
+
+
+@pytest.mark.parametrize("where,match", [
+    ("every full call", "C1"),
+    ("bf16 slab", "not bitwise the float32"),
+    ("another run", "not bitwise the default geometry"),
+])
+def test_kernel_1_edge_checks_reject_one_ulp(chip_smoke, monkeypatch, where, match):
+    """One score one ulp off in kernel 1's output fails ``full_checks``:
+    in every full-mode call (kernel 2 at K = n is then not kernel 1
+    sorted), in the bf16 slab's calls alone (not the upcast f32 call), or
+    in every call at a run the caller asked for (not the default's)."""
+    from repro_torch.kernels import ops
+
+    real = ops._corpus_score
+
+    def bumped(Q_I, a_I, e, P_C, a_C, valid, topk, index_offset, index_stride, asked):
+        out = real(Q_I, a_I, e, P_C, a_C, valid, topk, index_offset, index_stride, asked)
+        hit = topk is None and {"every full call": True,
+                                "bf16 slab": Q_I.dtype == torch.bfloat16,
+                                "another run": asked.block_n is not None}[where]
+        if hit:
+            i = int(valid.nonzero()[0, 0])          # a live slot's score
+            out = out.clone()
+            out[0, i] = torch.nextafter(out[0, i], torch.tensor(float("inf")))
+        return out
+
+    monkeypatch.setattr(ops, "_corpus_score", bumped)
+    monkeypatch.setattr(chip_smoke, "FULL_EDGES", ((1, 1, 3, 16), (773, 16, 3, 16)))
+    errs = {"dplr_corpus_score": 0.0, "dplr_corpus_score_bf16": 0.0}
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.full_checks(torch.device("cpu"), SimpleNamespace(**SMALL), errs, [])

@@ -1169,6 +1169,86 @@ def test_cuda_bf16_engine_and_rank_items_run_the_bf16_kernels(cuda):
                 full[row, w_[j]]), (row, j)
 
 
+# -- kernel 1 (the persistent ring) at its edges -----------------------------
+
+# (n, Bq, rho, k): one slot; a 256-row tile - 1 and + 1; 3 tiles + 5; one,
+# two and three query groups; rho k = 3 (element copies, rows read an
+# element at a time); rho k = 128 (fewer rows a stage); k = 12 (wide rows
+# in f32, not in bf16)
+FULL_EDGES = [(1, 1, 3, 16), (255, 3, 3, 16), (257, 5, 3, 16), (773, 16, 3, 16),
+              (3000, 17, 3, 16), (3000, 33, 3, 16), (1000, 4, 1, 3), (1000, 2, 4, 32),
+              (1000, 16, 8, 16), (2000, 5, 3, 12)]
+
+
+def _full_args(seed, n, Bq, rho, k, cuda):
+    """corpus_inputs on the card, slot 0 live, and past 512 slots a whole
+    256-slot tile dead."""
+    arrays = list(corpus_inputs(seed, n, rho, k, Bq))
+    arrays[5][0] = True
+    if n > 512:
+        arrays[5][256:512] = False
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in arrays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,Bq,rho,k", FULL_EDGES)
+def test_cuda_full_kernel_at_its_edges_matches_plain_and_its_f32_launch(cuda, n, Bq, rho, k):
+    """Kernel 1 against its plain version (atol = rtol = 1e-5), every dead
+    slot exactly NEG_INF; on a bf16 slab bitwise the f32 launch on the
+    upcast slab, and with ``acc_dtype='bfloat16'`` bitwise across the two
+    slab types."""
+    args = _full_args(50, n, Bq, rho, k, cuda)
+    got = ops.dplr_corpus_score(*args)
+    assert_scores(got, ref.dplr_corpus_score_ref(*args))
+    assert (got[:, ~args[5]] == NEG_INF).all()
+    b16, up = _slab(args, torch.bfloat16), _slab(_slab(args, torch.bfloat16), torch.float32)
+    assert _bits_equal(ops.dplr_corpus_score(*b16), ops.dplr_corpus_score(*up))
+    assert _bits_equal(ops.dplr_corpus_score(*b16, acc_dtype="bfloat16"),
+                       ops.dplr_corpus_score(*up, acc_dtype="bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_full_kernel_sorted_is_kernel_2_at_k_equals_n(cuda, dtype):
+    """C1 turned around: kernel 2 at K = n returns every row of kernel 1's
+    scores sorted, bit for bit (n = 65,536, Bq = 17: two query groups)."""
+    n, Bq = 65_536, 17
+    args = _slab(_full_args(51, n, Bq, 3, 16, cuda), dtype)
+    scores = ops.dplr_corpus_score(*args)
+    vals, ids = ops.dplr_corpus_score(*args, topk=n)
+    sv, si = ref.topk_stable(scores, n)
+    assert _bits_equal(vals, sv) and torch.equal(ids, si.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,Bq", [(773, 16), (3000, 33)])
+def test_cuda_full_kernel_every_run_and_group_is_bitwise_the_default(cuda, dtype, n, Bq):
+    """Every run (the slots a block claims at a time, 1 to past n) at every
+    query group up to the default returns the default geometry's bits."""
+    args = _slab(_full_args(52, n, Bq, 3, 16, cuda), dtype)
+    want = ops.dplr_corpus_score(*args)
+    for run in (1, 7, 255, 256, 257, 1000, 4096, blocks.MAX_BLOCK_N):
+        for G in blocks.GROUPS[:blocks.GROUPS.index(blocks.group_size(Bq)) + 1]:
+            got = ops._corpus_score(*args, None, 0, 1, blocks.Tile(run, group=G))
+            assert _bits_equal(got, want), (run, G)
+    blocks.drain_clamp_events()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,elems", [(torch.float32, 1), (torch.bfloat16, 1),
+                                         (torch.bfloat16, 3)])
+def test_cuda_full_kernel_takes_a_misaligned_slab(cuda, dtype, elems):
+    """A slab starting 4 (f32) or 2 and 6 (bf16) bytes past a 16-byte
+    boundary takes the element copies, bitwise the aligned call."""
+    args = _slab(_full_args(53, 5000, 16, 3, 16, cuda), dtype)
+    flat = torch.empty(args[0].numel() + elems, dtype=dtype, device=cuda)
+    moved = flat[elems:].view(args[0].shape).copy_(args[0])
+    assert moved.data_ptr() % 16 != 0
+    assert _bits_equal(ops.dplr_corpus_score(moved, *args[1:]),
+                       ops.dplr_corpus_score(*args))
+
+
 # -- the corpus kernels' geometry (kernels/blocks.py, kernels/autotune.py) --
 
 @pytest.mark.cuda
@@ -1220,9 +1300,9 @@ GEOMETRY_CASES = {
 @pytest.mark.parametrize("case", sorted(GEOMETRY_CASES))
 def test_cuda_every_swept_geometry_is_bitwise_the_default(cuda, case, dtype):
     """Every geometry of the default sweep that fits (chunk, stage-1
-    threads, query group, merge part; in the full mode the slots a block
-    and the group) returns the default geometry's bits, which are kernel
-    1's scores sorted (C1), f32 and bf16 slabs."""
+    threads, query group, merge part; in the full mode the run and the
+    group) returns the default geometry's bits, which are kernel 1's
+    scores sorted (C1), f32 and bf16 slabs."""
     n, Bq, K = GEOMETRY_CASES[case]
     arrays = list(corpus_inputs(31, n, 3, 16, Bq))
     if case == "all-dead tile":

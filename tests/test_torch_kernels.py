@@ -32,6 +32,18 @@ def _both(arrays):
     (64, 2, 8, 1, 32),
     (1000, 3, 16, 4, 256),      # n not a multiple of the tile
     (130, 5, 16, 2, 64),
+    # the CUDA kernel's edges: one slot; a 256-row tile - 1 and + 1; 3 tiles
+    # + 5; one, two and three query groups; rho k = 3 and 128; k = 12
+    (1, 3, 16, 1, 256),
+    (255, 3, 16, 3, 256),
+    (257, 3, 16, 5, 256),
+    (773, 3, 16, 16, 256),
+    (300, 3, 16, 17, 128),
+    (300, 3, 16, 33, 128),
+    (200, 1, 3, 4, 64),
+    (200, 4, 32, 2, 64),
+    (200, 8, 16, 16, 64),
+    (300, 3, 12, 5, 128),
 ])
 def test_corpus_score_full_matches_pallas_and_oracle(n, rho, k, Bq, block_n):
     (jQ, ja, je, jP, jac, jv), args = _both(corpus_inputs(0, n, rho, k, Bq))
