@@ -84,6 +84,28 @@ Phases, one line each:
    sharded and single-device top-16 medians (host clock).  The sharded
    engines' launches are counted over the phase (the bf16 half's into the
    bf16 rows).
+5c. shard-train: the training half of sharding on ``make_host_mesh(4)``
+   (``shard_train_phase``: the row-blocked lookup's step bitwise one
+   shard's, kernel 5' a block, ``compressed_psum``, gemma3-1b's
+   microbatches, PNA's ``+part`` cell).
+5d. data: the mesh's data axis for the recsys family, a (2, 2) mesh (two
+   data replicas of two arena blocks, all four positions on the card):
+   ``dplr-fwfm/train_batch`` at full width (B = 65,536, the 33,040,384-row
+   arena, adagrad), 4 steps beside the same steps unsharded and on
+   ``make_host_mesh(4)`` from the same weights.  Step 1's loss and every
+   gradient leaf against the unsharded step's (the loss within 1e-5 max(1,
+   |loss|), each leaf within 1e-5 of its largest entry), the arena and
+   first-order gradients per element within 1e-6 sum |w g| of the plain
+   path on the replicas' rows; every step's loss within 1e-5 max(1,
+   |loss|) of the unsharded step's from the same state, and every
+   element of the parameters and accumulator within the bound that those
+   gradient bounds give through adagrad's update of the same state; a
+   second (2, 2) run bitwise the first; the (1, 4) steps
+   bitwise the step before the data axis (``train.train_step`` with
+   ``make_auto_take``); 10 launches of kernels 5 and 5' a step.  Then
+   ``serve_bulk`` (262,144 rows) and ``retrieval_cand`` (1 x 1,000,000)
+   on (2, 2) against the unsharded cells.  Prints the median step (CUDA
+   events) of each mesh, the launches and the phase's peak memory.
 6. wire: the serving front door on the serve phase's engine and the
    tenants phase's 16 states, one ``QueryFrontend(pack=True)`` behind
    ``RpcServer`` on loopback: 1,000 Bq = 1 top-16 requests pipelined over
@@ -181,7 +203,11 @@ Phases, one line each:
    or 2, and 4 over paths 6-7), one top-K launch each micro-batch.
 10e. dryrun: ``launch.dryrun`` over every registry cell on ``meta`` in a
    process of its own started with the script (one line a cell: flops,
-   bytes, peak bytes, whether it fits the card); then each cut the script
+   bytes, peak bytes, whether it fits the card), and ``launch.dryrun
+   --mesh both`` over the five recsys architectures' 20 cells in another
+   (one line a cell and mesh: a device's peak, collective bytes and
+   whether it fits; ``dplr-fwfm/train_batch``'s bytes a device equal to
+   the partition rules' by hand, ``mesh_figures``); then each cut the script
    runs (gemma3-1b and granite-moe-1b-a400m train at 4 x 4,096, gemma3-1b
    prefill of 2 x 32,752, PNA ``minibatch_lg``) counted on ``meta`` beside
    4 steps of it on the card after a warm one (the median step): its
@@ -387,7 +413,8 @@ from repro_torch.examples import quickstart, ranking_server, train_e2e  # noqa: 
 from repro_torch.launch import cost, dryrun, steps  # noqa: E402
 from repro_torch.launch import serve as serve_driver  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_host_mesh  # noqa: E402
+from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.models.gnn import pna, sampler  # noqa: E402
 from repro_torch.models.recsys import fwfm  # noqa: E402
 from repro_torch.models.transformer import attention  # noqa: E402
@@ -455,6 +482,10 @@ FULL = SimpleNamespace(
     strain_dims=None, strain_serve_dims=None, strain_steps=4,
     strain_lm=gemma3_1b.make_config, strain_lm_dims={"batch": 4}, strain_gnn_dims=None,
     strain_lm_steps=2, strain_gnn_steps=8, strain_seconds=120,
+    # data: dplr-fwfm's train_batch, serve_bulk and retrieval_cand cells at
+    # their registry sizes (dims None: B = 65,536, 262,144 and 1 x 1,000,000) on
+    # a (2, 2) mesh, adagrad steps a run
+    data_dims=None, data_serve_dims=None, data_retrieval_dims=None, data_steps=4,
     # wire: Bq = 1 requests pipelined over connections, each with a window
     wire_requests=1000, wire_conns=4, wire_window=4,
     # embedding bag: rows of the context lookup (Bq), of the slab build
@@ -555,6 +586,9 @@ FULL = SimpleNamespace(
     # gnn phases run (arch, shape, dims, config), each counted on meta beside
     # dryrun_steps steps on the card (after a warm one), timed at the median
     dryrun_args=(), dryrun_timeout=900, dryrun_steps=4,
+    # the recsys family's cells counted a device of the production meshes
+    dryrun_mesh_args=("--mesh", "both", "--arch", "dplr-fwfm", "--arch", "wide-deep",
+                      "--arch", "autoint", "--arch", "bst", "--arch", "mind"),
     dryrun_cuts=(("gemma3-1b", "train_4k", {"batch": 4}, None),
                  ("granite-moe-1b-a400m", "train_4k", {"batch": 4}, None),
                  ("gemma3-1b", "prefill_32k", {"batch": 2, "seq": 32_752}, None),
@@ -2878,6 +2912,327 @@ def shard_train_phase(dev, sz) -> dict:
     return out
 
 
+# -- phase 5d: data -------------------------------------------------------------
+
+# the entry points the data phase's lookups drive: kernel 5 on every (replica,
+# block) and once a replica over its gathered rows, into the field bags; kernel
+# 5' on every (replica, block) and once a replica
+DATA_KERNELS = ("embedding_bag", "embedding_bag_backward")
+# an arena gradient summed in another order, per element, against the summed
+# magnitude of its terms (kernel 5''s bound in the shard-train phase)
+BAG_GRAD_TOL = 1e-6
+
+
+def two_by_two(dev) -> Mesh:
+    """A (2, 2) mesh, every position on ``dev``: two data replicas of two
+    arena blocks (the ``Mesh`` constructor, as ``jax.make_mesh`` in the
+    reference's tests)."""
+    return Mesh(("data", "model"), (2, 2), (dev,) * 4)
+
+
+def replica_arena_grads(params, cfg, rows: dict) -> tuple:
+    """One replica's gradients of the embedding and first-order tables by
+    the plain path on its ``rows`` (the plain dense part's cotangents into
+    ``ref.embedding_bag_vjp`` and an ``index_add_``), and per element the
+    summed magnitude of their terms (the bound's sum |w g|: ``dV_size``
+    through the vjp, ``|dL/dlogit| |w|`` into each slot's row)."""
+    ids, w, label = rows["ids"], rows["weights"], rows["label"]
+    table, segs = params["embedding"], cfg.layout.slot_to_field
+    off = torch.as_tensor(cfg.layout.slot_offsets.astype(np.int64), device=ids.device)
+    arena = ids.long() + off
+    V = plain_fields(table, cfg.layout, ids, w).detach().requires_grad_()
+    with torch.enable_grad():
+        logits = plain_logits(params, cfg, ids, w, V=V)
+        dV, dlogit = torch.autograd.grad(bce(logits, label), (V, logits))
+    emb = ref.embedding_bag_vjp(table, arena, w, segs, dV)[0]
+    emb_size = ref.embedding_bag_vjp(table, arena, w.abs(), segs,
+                                     dV_size(params, cfg, V.detach(), ids, w, label))[0]
+    flat = arena.reshape(-1)
+    lin = torch.zeros_like(params["linear"]).index_add_(0, flat, (dlogit[:, None] * w).reshape(-1))
+    lin_size = torch.zeros_like(params["linear"]).index_add_(
+        0, flat, (dlogit.abs()[:, None] * w.abs()).reshape(-1))
+    return emb, lin, emb_size, lin_size
+
+
+def replicas_plain_grads(params, cfg, batch, mesh, batch_specs) -> list:
+    """``replica_arena_grads`` on each data replica's rows of ``batch``,
+    their mean over the replicas taken in position order, as the mesh's
+    all-reduce takes it."""
+    total = None
+    for r in range(mesh.dp):
+        rows = {k: rules.local_block(v, batch_specs[k], mesh, mesh.replica(r).coords(0))
+                for k, v in batch.items()}
+        got = replica_arena_grads(params, cfg, rows)
+        total = list(got) if total is None else [t.add_(x) for t, x in zip(total, got)]
+        del got
+    return [t.div_(mesh.dp) for t in total]
+
+
+def data_grad_check(cfg, params, batch, mesh, batch_specs) -> str:
+    """Step 1's loss and gradients on ``mesh`` (``train.data_parallel_grads``:
+    each replica's rows, the mean over the data axis).  Against the
+    unsharded step's (``optim.value_and_grad`` of ``fwfm.loss``) from the
+    same weights: the loss within ``TOL * max(1, |loss|)``, every
+    gradient leaf within ``TOL * max|g|`` of its (the dense products may
+    round differently at another batch size on the card).  And each
+    element of the embedding and first-order tables' gradients within
+    ``BAG_GRAD_TOL`` times its terms' summed magnitude of the plain path
+    on the same replicas' rows, their mean taken in the same order
+    (``replica_arena_grads``: the same dense arithmetic, the sums in
+    another order); a row no slot names exactly 0."""
+    loss, got, _ = train.data_parallel_grads(fwfm, cfg, params, batch, mesh=mesh,
+                                             batch_specs=batch_specs)
+    want_loss, want = optim.value_and_grad(fwfm.loss)(params, cfg, batch)
+    check_close(loss, want_loss, "data: step 1's loss on the mesh")
+    parts = []
+    for name in sorted(got):
+        err, scale = (float(t) for t in ((got[name] - want[name]).abs().max(),
+                                         want[name].abs().max()))
+        if not err <= TOL * scale or not torch.isfinite(got[name]).all():
+            raise AssertionError(f"data: step 1's d_{name} on the mesh off by {err:.3g} from "
+                                 f"the unsharded step's (max |d_{name}| {scale:.3g})")
+        parts.append(f"d_{name} {err:.3g} of max {scale:.3g}")
+    del want
+    mean = replicas_plain_grads(params, cfg, batch, mesh, batch_specs)
+    worst = []
+    for name, ref_g, size in (("embedding", mean[0], mean[2]), ("linear", mean[1], mean[3])):
+        diff = (got[name] - ref_g).abs()
+        bad = diff > BAG_GRAD_TOL * size
+        if bad.any():
+            raise AssertionError(f"data: step 1's d_{name} on the mesh: {int(bad.sum())} "
+                                 f"elements past {BAG_GRAD_TOL} x sum |w g| of the plain path "
+                                 f"on the replicas' rows, max |diff| {float(diff.max()):.3g}")
+        worst.append(f"d_{name} {float(diff.max()):.3g}")
+        del diff, bad
+    return (f"against the unsharded step {', '.join(parts)}; against the plain path on the "
+            f"replicas' rows {', '.join(worst)} (<= {BAG_GRAD_TOL} x sum |w g| each element)")
+
+
+def timed(dev, fn, times: list):
+    """``fn()``, its time (CUDA events; the host clock off the card)
+    appended to ``times``."""
+    if dev.type == "cuda":
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    else:
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def timed_step(dev, cell, state: list, batch, times: list):
+    """One step of ``cell`` on ``state`` ([params, opt_state], replaced),
+    timed (``timed``)."""
+    loss, params, opt = timed(dev, lambda: cell.fn(*state, batch, cell.args[3]), times)
+    state[:] = [params, opt]
+    return loss
+
+
+def cloned(tree: dict) -> dict:
+    return {k: cloned(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+# float32's unit roundoff, and the elements a chunk of ``adagrad_gap``'s
+# float64 arithmetic
+F32_EPS = float(torch.finfo(torch.float32).eps)
+GAP_CHUNK = 1 << 24
+
+
+def adagrad_gap(g, delta, p_e, a_e, p_m, a_m, lr: float) -> tuple[float, int]:
+    """Per element, how far an adagrad update (``p_m``, ``a_m``) is from the
+    one that the gradient ``g`` gives from the same start (``p_e``,
+    ``a_e``), over the most that a gradient off by ``delta`` (a tensor of
+    ``g``'s shape, or a number) can move it: ``a += g^2`` by ``delta (2|g|
+    + delta)``, ``p -= lr g / (sqrt(a) + eps)`` by ``lr (delta / sqrt(a) +
+    |g| da / (2 a^1.5))`` at the smaller ``a`` of the two, with float32's
+    roundings of both updates beside.  Returns (the largest ratio, the
+    elements past 1), in float64 a chunk at a time."""
+    worst, bad = 0.0, 0
+    flat = [t.reshape(-1) if torch.is_tensor(t) else t for t in (g, delta, p_e, a_e, p_m, a_m)]
+    for lo in range(0, flat[0].numel(), GAP_CHUNK):
+        g_, d_, pe, ae, pm, am = (t[lo:lo + GAP_CHUNK].double() if torch.is_tensor(t) else t
+                                  for t in flat)
+        a_lo = torch.minimum(ae, am)
+        da = d_ * (2 * g_.abs() + d_) + 4 * F32_EPS * ae
+        dp = (lr * (d_ / a_lo.sqrt() + g_.abs() * da / (2 * a_lo ** 1.5))
+              + 8 * F32_EPS * lr * g_.abs() / ae.sqrt() + 2 * F32_EPS * pe.abs())
+        for diff, bound in (((am - ae).abs(), da), ((pm - pe).abs(), dp)):
+            ratio = torch.where(diff == 0, 0.0, diff / bound)
+            worst = max(worst, float(ratio.max()))
+            bad += int((ratio > 1).sum())
+    return worst, bad
+
+
+def data_train(dev, sz, cfg, launched: collections.Counter) -> str:
+    """(a): ``dplr-fwfm/train_batch`` at ``sz.data_dims`` on the (2, 2) mesh
+    beside the unsharded step and ``make_host_mesh(sz.shards)``, every cell
+    from the one seed's weights, ``sz.data_steps`` adagrad steps on the
+    same batches.  Step 1's gradients (``data_grad_check``).  Every step
+    from the (2, 2) run's state beside the unsharded step's work from a
+    copy of it (``optim.value_and_grad`` of ``fwfm.loss``, then adagrad's
+    update, fed the embedding and first-order tables' gradients of the
+    plain path on the replicas' rows, ``replicas_plain_grads``: the card
+    rounds the unsharded cotangents differently at another batch size):
+    the loss within ``TOL * max(1, |loss|)`` of the unsharded loss, and
+    every element of the updated parameters and accumulator within
+    ``adagrad_gap``'s bound of the copy's, the gradient's ``delta``
+    ``BAG_GRAD_TOL`` times the summed magnitude of the terms for those
+    two tables and ``TOL * max|g|`` for a dense leaf
+    (``data_grad_check``'s bounds).  A second (2, 2) run
+    bitwise the first (losses, parameters, accumulator); the (1, D) mesh's
+    steps bitwise the step that the cell made before the data axis
+    (``train.train_step`` with ``make_auto_take``) after every step; on
+    the card ``dp (2 D' + 1)`` launches of kernels 5 and 5' a step on a
+    mesh of dp replicas of D' blocks.  Each run's median step (its checked
+    steps, one at a time)."""
+    m22, m1d = two_by_two(dev), make_host_mesh(sz.shards, device=dev)
+    build = lambda mesh: steps.build("dplr-fwfm", "train_batch", device=dev,  # noqa: E731
+                                     cfg=cfg, dims=sz.data_dims, mesh=mesh)
+    cell = build(m22)
+    B, lr = cell.args[2]["ids"].shape[0], cell.args[3]
+    batches = field_batches(cfg, B, sz.data_steps, dev, seed=6)
+    grad_line = data_grad_check(cfg, cell.args[0], batches[0], m22, cell.specs["batch"])
+    state = list(cell.args[:2])
+    times = {k: [] for k in ("2x2", "plain", "1xD")}
+    losses, counts, worst = [], collections.Counter(), {}
+    for i, batch in enumerate(batches):
+        start = [cloned(state[0]), cloned(state[1])]
+        emb, lin, emb_size, lin_size = replicas_plain_grads(start[0], cfg, batch, m22,
+                                                            cell.specs["batch"])
+        with counted(counts):
+            loss = timed_step(dev, cell, state, batch, times["2x2"])
+
+        def unsharded():
+            plain_loss, g = optim.value_and_grad(fwfm.loss)(start[0], cfg, batch)
+            g = {**g, "embedding": emb, "linear": lin}
+            optim.adagrad().update(g, start[1], start[0], lr)
+            return plain_loss, g
+
+        want, g_e = timed(dev, unsharded, times["plain"])
+        losses.append(loss)
+        check_close(loss, want, f"data: step {i + 1}'s loss at (2, 2)")
+        deltas = {"embedding": BAG_GRAD_TOL * emb_size, "linear": BAG_GRAD_TOL * lin_size}
+        for name, g in flat_items(g_e):
+            delta = deltas.get(name, TOL * float(g.abs().max()))
+            ratio, bad = adagrad_gap(g, delta, start[0][name], start[1]["acc"][name],
+                                     state[0][name], state[1]["acc"][name], float(lr))
+            if bad:
+                raise AssertionError(f"data: after step {i + 1} {bad} elements of {name} or "
+                                     f"its accumulator at (2, 2) past the bound of the "
+                                     f"unsharded step's update (worst {ratio:.3g} x)")
+            worst[name] = max(worst.get(name, 0.0), ratio)
+        del start, emb, lin, emb_size, lin_size, g_e, deltas
+    gc.collect()
+    again = build(m22)
+    mine = list(again.args[:2])
+    for i, batch in enumerate(batches):
+        loss, *mine = again.fn(*mine, batch, again.args[3])
+        if not torch.equal(loss, losses[i]):
+            raise AssertionError(f"data: a second run's step {i + 1} loss at (2, 2) is not "
+                                 f"bitwise the first's")
+    if not (same_tree(mine[0], state[0]) and same_tree(mine[1], state[1])):
+        raise AssertionError("data: a second run at (2, 2) is not bitwise the first")
+    del again, mine, cell, state
+    gc.collect()
+    D = sz.shards
+    ours, today = build(m1d), build(m1d)
+    take = SimpleNamespace(loss=lambda p, c, b: fwfm.loss(p, c, b,
+                                                          take_fn=steps.make_auto_take(m1d)))
+    mine, theirs = list(ours.args[:2]), list(today.args[:2])
+    for i, batch in enumerate(batches):
+        loss = timed_step(dev, ours, mine, batch, times["1xD"])
+        want, *theirs = train.train_step(take, cfg, optim.adagrad(), *theirs, batch,
+                                         today.args[3])
+        if not (torch.equal(loss, want) and same_tree(mine[0], theirs[0])
+                and same_tree(mine[1], theirs[1])):
+            raise AssertionError(f"data: step {i + 1} on (1, {D}) is not bitwise the step "
+                                 f"before the data axis")
+    del ours, today, mine, theirs
+    gc.collect()
+    n = len(batches)
+    per_step = {g: counts[g] / n for entry in DATA_KERNELS for g in ops.KERNELS[entry]}
+    if dev.type == "cuda" and set(per_step.values()) != {2 * (2 * 2 + 1)}:
+        raise AssertionError(f"data: launches a step at (2, 2): {per_step}, want 10 of "
+                             f"kernels 5 and 5' each")
+    launched.update(counts)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    shown = tuple(per_step[g] for g in ("embedding_bag_kernel", "embedding_bag_backward_kernel",
+                                        "bag_rows_radix_sort"))
+    how = "CUDA events" if dev.type == "cuda" else "host clock"
+    gaps = ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+    return (f"(a) dplr-fwfm/train_batch B={B} ({B // 2} rows a replica), "
+            f"{cfg.layout.n_fields} fields k={cfg.embed_dim} rho={cfg.rank}, a "
+            f"{padded_rows(cfg.layout.total_vocab)}-row arena in 2 blocks a replica: step 1 "
+            f"on (2, 2) against the unsharded step: {grad_line}; {n} adagrad steps, losses "
+            f"{float(losses[0]):.6f} -> {float(losses[-1]):.6f} within 1e-5 x max(1, |loss|) "
+            f"of the unsharded step's from the same state, every element of params and "
+            f"accumulator within the bound of the update of the plain gradients (worst share "
+            f"of the bound: {gaps}); "
+            f"a second run at (2, 2) bitwise the first; (1, {D}) bitwise the step before the "
+            f"data axis after every step; median step ms ({n} steps, {how}) (2, 2) "
+            f"{med['2x2']:.3f}, (1, {D}) {med['1xD']:.3f}, unsharded {med['plain']:.3f}; "
+            f"launches a step at (2, 2) (kernel 5, 5' writer, 5' sort) {shown}")
+
+
+def data_serve(dev, sz, cfg, launched: collections.Counter) -> str:
+    """(b): ``dplr-fwfm/serve_bulk`` and ``retrieval_cand`` at
+    ``sz.data_serve_dims`` and ``sz.data_retrieval_dims`` on the (2, 2) mesh
+    (each replica its rows or its items) against the unsharded cell:
+    bitwise, else within ``TOL * max(1, |x|)`` (cuBLAS may round a product
+    differently at another batch size)."""
+    parts = []
+    for shape, dims in (("serve_bulk", sz.data_serve_dims),
+                        ("retrieval_cand", sz.data_retrieval_dims)):
+        cell = steps.build("dplr-fwfm", shape, device=dev, cfg=cfg, dims=dims,
+                           mesh=two_by_two(dev))
+        with torch.no_grad(), counted(launched):
+            got = cell.fn(*cell.args)
+        del cell
+        plain = steps.build("dplr-fwfm", shape, device=dev, cfg=cfg, dims=dims)
+        with torch.no_grad():
+            want = plain.fn(*plain.args)
+        del plain
+        err = check_close(got, want, f"data: {shape} at (2, 2)")
+        parts.append(f"{shape} {tuple(got.shape)} "
+                     + ("bitwise" if torch.equal(got, want) else f"within {err:.3g} of")
+                     + " the unsharded cell's")
+        del got, want
+        gc.collect()
+    return "(b) on (2, 2): " + ", ".join(parts)
+
+
+def data_phase(dev, sz) -> dict:
+    """The mesh's data axis for the recsys family, all positions of a (2, 2)
+    mesh on the one card: (a) and (b) above.  Returns the launches of every
+    kernel over the phase (kernels 5 and 5' in (a) and (b), kernel 3 in
+    ``retrieval_cand``); on the card kernels 5 and 5' must have launched."""
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        _sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = sz.make_config()
+    launched = collections.Counter()
+    lines = [data_train(dev, sz, cfg, launched)]
+    gc.collect()
+    lines.append(data_serve(dev, sz, cfg, launched))
+    lookup = {g: launched[g] for entry in DATA_KERNELS for g in ops.KERNELS[entry]}
+    if dev.type == "cuda" and not all(lookup.values()):
+        raise AssertionError(f"data: a kernel of the data-parallel lookup did not launch: "
+                             f"{lookup}")
+    out = {**lookup, **launched}
+    peak = "not measured" if dev.type != "cuda" else \
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+    print(f"phase data: (2, 2) mesh, 4 positions on {dev}; " + "; ".join(lines)
+          + f"; launches over the phase {out}; peak memory {peak} (max_memory_allocated); "
+          f"wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 # -- phase 6: wire ------------------------------------------------------------
 
 def same_reply(got, want, what: str) -> None:
@@ -5010,16 +5365,11 @@ def measure_cell(dev, cell, steps: int) -> tuple[list, float | None]:
         return times, (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
 
 
-def dryrun_phase(dev, sz, proc: subprocess.Popen, out: Path) -> None:
-    """The dry run's records, one line a cell (it fails on any cell that
-    did not build); then each cut of ``sz.dryrun_cuts`` that the script's
-    phases run, counted on ``meta`` beside ``sz.dryrun_steps`` steps of it
-    on the card: flops, bytes and ``peak_bytes`` beside the median step
-    and the measured peak, which must agree within ``PEAK_RATIO`` either
-    way."""
-    t0 = time.perf_counter()
+def dryrun_records(proc: subprocess.Popen, out: Path, timeout: float) -> list:
+    """The records of a dry run's process, one line printed a record; fails
+    unless it exited 0 and every record is ``ok``."""
     try:
-        rc = proc.wait(timeout=sz.dryrun_timeout)
+        rc = proc.wait(timeout=timeout)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -5030,10 +5380,69 @@ def dryrun_phase(dev, sz, proc: subprocess.Popen, out: Path) -> None:
         print(f"phase dryrun: {dryrun.line(rec)}", flush=True)
     if rc != 0 or not recs or not all(r.get("ok") for r in recs):
         raise AssertionError(f"dryrun: exit {rc}, {len(recs)} records; {log[-2000:]}")
+    return recs
+
+
+def mesh_figures(cfg, mesh_name: str) -> dict:
+    """``dplr-fwfm/train_batch``'s bytes a device of a production mesh, from
+    the partition rules by hand: the arena (rows x k) and the first-order
+    table split by rows over the 16 model positions, bias, U (rho x m) and
+    e (rho) whole; adagrad's accumulator alike; the batch's rows (65,536
+    in the registry) over the 16 or 32 data replicas (ids and weights a
+    slot, a label), and the learning rate."""
+    rows, D = padded_rows(cfg.layout.total_vocab), 16
+    params = rows // D * cfg.embed_dim * 4 + rows // D * 4 + 4 + cfg.rank * (
+        cfg.layout.n_fields + 1) * 4
+    shape = next(s for s in REGISTRY["dplr-fwfm"].shapes if s.name == "train_batch")
+    B = shape.dims["batch"] // (32 if mesh_name == "multi" else 16)
+    return {"param_bytes": params, "opt_state_bytes": params,
+            "input_bytes": B * cfg.layout.n_slots * 8 + B * 4 + 4,
+            "n_devices": 512 if mesh_name == "multi" else 256}
+
+
+def dryrun_mesh_check(recs: list, want_cells: int) -> None:
+    """The production-mesh dry run: ``want_cells`` records, each a device's
+    ``peak``, ``coll`` and ``fits`` (one line a cell, with its mesh); the
+    ``dplr-fwfm/train_batch`` records' bytes a device equal to
+    ``mesh_figures``."""
+    if len(recs) != want_cells:
+        raise AssertionError(f"dryrun --mesh: {len(recs)} records, want {want_cells}")
+    cfg = dplr_fwfm.make_config()
+    for rec in recs:
+        if (rec["arch"], rec["shape"]) != ("dplr-fwfm", "train_batch"):
+            continue
+        got = {k: rec[k] for k in ("param_bytes", "opt_state_bytes", "input_bytes",
+                                   "n_devices")}
+        want = mesh_figures(cfg, rec["mesh"])
+        if got != want:
+            raise AssertionError(f"dryrun --mesh {rec['mesh']}: dplr-fwfm/train_batch a "
+                                 f"device {got}, the rules give {want}")
+    fits = sum(r["fits_one_card"] for r in recs)
+    print(f"phase dryrun: {len(recs)} recsys cells counted a device of the production meshes "
+          f"on meta ({fits} fit one card); dplr-fwfm/train_batch's bytes a device equal the "
+          f"rules' on both meshes", flush=True)
+
+
+def dryrun_phase(dev, sz, proc: subprocess.Popen, out: Path, mesh_proc=None,
+                 mesh_out: Path | None = None) -> None:
+    """The dry run's records, one line a cell (it fails on any cell that
+    did not build); the production-mesh dry run's (``dryrun_mesh_check``)
+    where its process is given; then each cut of ``sz.dryrun_cuts`` that
+    the script's phases run, counted on ``meta`` beside
+    ``sz.dryrun_steps`` steps of it on the card: flops, bytes and
+    ``peak_bytes`` beside the median step and the measured peak, which
+    must agree within ``PEAK_RATIO`` either way."""
+    t0 = time.perf_counter()
+    recs = dryrun_records(proc, out, sz.dryrun_timeout)
     fits = sum(r["fits_one_card"] for r in recs)
     print(f"phase dryrun: {len(recs)} cells counted on meta ({fits} fit one card of "
           f"{recs[0]['card_bytes'] / 2**30:.1f} GiB), waited {time.perf_counter() - t0:.1f} s",
           flush=True)
+    if mesh_proc is not None:
+        args = list(sz.dryrun_mesh_args)
+        archs = {args[i + 1] for i, a in enumerate(args) if a == "--arch"}
+        cells = sum(a in archs for a, _, _ in steps.all_cells())
+        dryrun_mesh_check(dryrun_records(mesh_proc, mesh_out, sz.dryrun_timeout), 2 * cells)
     for arch, shape, dims, make_cfg in sz.dryrun_cuts:
         cfg = make_cfg() if make_cfg else None
         meta = steps.build(arch, shape, "meta", cfg=cfg, dims=dims)
@@ -5920,18 +6329,20 @@ def main() -> None:
     # the dry run counts every cell on meta, and the models phase's batches
     # are made, on the host beside the build and the card's phases, each in
     # a process of its own
-    dry_out = BUILD / "dryrun_torch"
+    dry_out, mesh_out = BUILD / "dryrun_torch", BUILD / "dryrun_torch_mesh"
     dry = start_dryrun(dev, list(FULL.dryrun_args), dry_out)
+    dry_mesh = start_dryrun(dev, list(FULL.dryrun_mesh_args), mesh_out)
     try:
         with concurrent.futures.ProcessPoolExecutor(
                 1, mp_context=multiprocessing.get_context("spawn")) as pool:
             model_batches = pool.submit(models_data, FULL.models, FULL.model_make,
                                         FULL.model_batch, FULL.model_steps)
-            kernels = run_phases(dev, peaks, model_batches, (dry, dry_out))
+            kernels = run_phases(dev, peaks, model_batches, (dry, dry_out, dry_mesh, mesh_out))
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
+        for proc in (dry, dry_mesh):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -5939,7 +6350,8 @@ def main() -> None:
 
 def run_phases(dev, peaks, model_batches, dry) -> list:
     """Every phase after the card's; returns the ``kernels`` line's rows.
-    ``dry``: the dry run's process and its records' directory."""
+    ``dry``: the dry run's process and its records' directory, then the
+    production-mesh dry run's."""
     t0 = time.perf_counter()
     built = _build.build_all()
     logs = []
@@ -5969,6 +6381,9 @@ def run_phases(dev, peaks, model_batches, dry) -> list:
             into[g] = into.get(g, 0) + count
     # this slice's main path: the sharded lookup's launches in its training phase
     for g, count in shard_train_phase(dev, FULL).items():
+        launches[g] = launches.get(g, 0) + count
+    # and on the mesh's data axis
+    for g, count in data_phase(dev, FULL).items():
         launches[g] = launches.get(g, 0) + count
     for g, count in wire_phase(dev, FULL, serve, tenants).items():
         launches[g] = launches.get(g, 0) + count

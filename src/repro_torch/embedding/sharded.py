@@ -2,39 +2,46 @@
 ``repro.embedding.sharded``.
 
 The arena is split by rows over a mesh's ``model`` axis
-(``sharding.rules.recsys_param_specs``: ``("model", None)``): shard ``s``
-owns rows ``[s R/D, (s+1) R/D)``.  One process drives the mesh
+(``sharding.rules.recsys_param_specs``: ``("model", None)``): the position
+at model coordinate ``s`` owns rows ``[s R/D, (s+1) R/D)``, and every data
+replica holds the same blocks.  One process drives the mesh
 (``launch.mesh``), as the reference's ``shard_map`` is driven from one:
-shard ``s`` works on ``mesh.devices[s]``, on a contiguous view of its rows
-moved there (no copy where that is the arena's own device; four shards on
-one H100 all share ``cuda:0``).  Each shard runs the embedding-bag kernel
-(``kops.embedding_bag``) over its block, every slot whose row another shard
-owns weighted 0, and the partials are summed on the mesh's first device in
-shard order: the reference's ``psum`` over the model axis.  A row has one
-owner, so the other shards add exact zeros.
+each position works on its own device, on a contiguous view of its rows
+moved there (no copy where that is the arena's own device; four positions
+on one H100 all share ``cuda:0``).  Each position runs the embedding-bag
+kernel (``kops.embedding_bag``) over its block, every slot whose row
+another position owns weighted 0, and the partials are all-reduced over
+the model axis in position order (``sharding.collectives``): the
+reference's ``psum``.  A row has one owner, so the other positions add
+exact zeros.
 
-The backward is the bag's backward kernel (``kops.embedding_bag_backward``)
-on each block, written into that block's rows of one gradient of the whole
-arena, every element once.  A foreign slot's id is keyed past the block
-there, so the kernel drops it: clipped to local row 0 (as the forward
-clips it, so that the kernel never writes a NaN bag), all foreign slots
-would be summed into row 0, 3/4 of the slots on one row at D = 4.  Nor
-does a shard's gradient pass through autograd's slice of the arena, which
-would build a zero gradient of the whole arena for every shard.
+The backward sends the bags' gradient from the first position (where
+the dense work runs) to each block's position, and runs the bag's
+backward kernel (``kops.embedding_bag_backward``) on each block, written
+into that block's rows of one gradient of the whole arena, every element
+once.  A foreign slot's id is keyed past the block there, so the kernel
+drops it: clipped to local row 0 (as the forward clips it, so that the
+kernel never writes a NaN bag), all foreign slots would be summed into
+row 0, 3/4 of the slots on one row at D = 4.  Nor does a block's gradient
+pass through autograd's slice of the arena, which would build a zero
+gradient of the whole arena for every block.
 
-The mesh has one data replica, so the batch dims are split over nothing:
-``spec_by_rank`` and ``data_axes`` (the reference's ``PartitionSpec``s of
-the ids over the data axes) are checked to name only axes of size 1.
+The lookup runs on one data replica's model axis (``Mesh.replica``): a
+mesh with data replicas, or a rule that splits the ids over an axis
+past 1 (``spec_by_rank``, ``data_axes``: the reference's
+``PartitionSpec``s), is refused.  The split over the data axes belongs
+to the step (``launch.train.data_parallel_step``): each replica's rows
+through its own replica's lookup, then the arena gradient's mean over
+the data axes.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from repro_torch.core.fields import FeatureLayout
 from repro_torch.embedding.bag import _statics, one_slot_bags
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import collectives, rules
 
 
 def block_rows(table: torch.Tensor, D: int) -> int:
@@ -71,32 +78,63 @@ def _check_one_replica(mesh, axes, what: str) -> None:
     for axis in axes:
         if axis is not None and mesh.shape.get(axis, 1) != 1:
             raise ValueError(f"{what} splits over {axis!r} ({mesh.shape[axis]} positions); "
-                             f"the one-process mesh has one data replica")
+                             f"the lookup runs on one data replica's model axis "
+                             f"(Mesh.replica), the step splits the batch")
 
 
 def _check_spec(mesh, spec, model_axis: str, what: str) -> None:
     """A rule for the ids (``sharding.rules``'s tuples) may name only axes of
-    size 1: the mesh has one data replica, and the model axis splits rows."""
+    size 1: the lookup runs on one data replica, and the model axis splits
+    rows."""
     for entry in spec:
-        names = entry if isinstance(entry, tuple) else (entry,)
+        names = rules.entry_axes(entry)
         if model_axis in names:
             raise ValueError(f"{what}: the ids' batch dims cannot split over {model_axis!r}")
         _check_one_replica(mesh, names, what)
 
 
 def _masked_bags(table, ids, weights, bags, mesh):
-    """``sum_s`` of shard s's kernel-5 bags over its block, foreign slots
-    weighted 0, in shard order on ``mesh.devices[0]``."""
+    """``sum_s`` of position s's kernel-5 bags over its block, foreign slots
+    weighted 0: the partials all-reduced over the model axis in position
+    order (``collectives.all_reduce``), the first position's copy."""
     D = len(mesh.devices)
     rows = block_rows(table, D)
     parts = []
     for s, dev in enumerate(mesh.devices):
-        lo = s * rows
-        mine, local = _owned(ids.to(dev), lo, rows)
-        w = torch.where(mine, weights.to(device=dev, dtype=table.dtype), 0)
-        parts.append(kops.embedding_bag(table[lo:lo + rows].to(dev), local.contiguous(),
-                                        w.contiguous(), bags(dev)).to(mesh.devices[0]))
-    return functools.reduce(torch.add, parts)
+        with collectives.at(mesh.coords(s)):
+            lo = s * rows
+            mine, local = _owned(ids.to(dev), lo, rows)
+            w = torch.where(mine, weights.to(device=dev, dtype=table.dtype), 0)
+            parts.append(kops.embedding_bag(table[lo:lo + rows].to(dev), local.contiguous(),
+                                            w.contiguous(), bags(dev)))
+    return collectives.all_reduce(parts, mesh.positions())[0]
+
+
+def _block_grads(grad, table, ids, weights, bags, mesh):
+    """The table's gradient: the bags' gradient sent from the first
+    position to each block's (``collectives.broadcast``), then kernel 5' on
+    each block, foreign slots keyed out, into that block's rows of one
+    float32 gradient of the whole arena (each position holds its block)."""
+    rows = block_rows(table, len(mesh.devices))
+    group = mesh.positions()
+    grads = collectives.broadcast(grad, group, mesh.devices)
+    with collectives.at(collectives.OFF):
+        d_table = torch.empty(table.shape, dtype=torch.float32, device=table.device)
+    collectives.hold(d_table, group, split=True)
+    for s, dev in enumerate(mesh.devices):
+        with collectives.at(group[s]):
+            lo = s * rows
+            mine, local = _owned(ids.to(dev), lo, rows)
+            keyed = torch.where(mine, local, rows).contiguous()   # a foreign slot: no row
+            block = table[lo:lo + rows]
+            out = d_table[lo:lo + rows]
+            args = (grads[s].contiguous(), block.to(dev), keyed,
+                    weights.to(device=dev, dtype=table.dtype).contiguous(), bags(dev))
+            if block.device == torch.device(dev):
+                kops.embedding_bag_backward(*args, out=out)
+            else:
+                out.copy_(kops.embedding_bag_backward(*args))
+    return d_table
 
 
 class _BlockedBags(torch.autograd.Function):
@@ -112,29 +150,16 @@ class _BlockedBags(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         table, ids, weights = ctx.saved_tensors
-        mesh = ctx.mesh
-        rows = block_rows(table, len(mesh.devices))
-        d_table = torch.empty(table.shape, dtype=torch.float32, device=table.device)
-        for s, dev in enumerate(mesh.devices):
-            lo = s * rows
-            mine, local = _owned(ids.to(dev), lo, rows)
-            keyed = torch.where(mine, local, rows).contiguous()   # a foreign slot: no row
-            block = table[lo:lo + rows]
-            out = d_table[lo:lo + rows]
-            args = (grad.to(dev).contiguous(), block.to(dev), keyed,
-                    weights.to(device=dev, dtype=table.dtype).contiguous(), ctx.bags(dev))
-            if block.device == torch.device(dev):
-                kops.embedding_bag_backward(*args, out=out)
-            else:
-                out.copy_(kops.embedding_bag_backward(*args))
-        return d_table, None, None, None, None
+        return _block_grads(grad, table, ids, weights, ctx.bags, ctx.mesh), *(None,) * 4
 
 
 def _blocked_bags(table, ids, weights, bags, mesh):
     """The sharded bags ``(..., n_bags, k)`` of arena-global ``ids (...,
-    n_slots)`` on ``mesh.devices[0]``; differentiable in ``table`` only."""
+    n_slots)`` on the mesh's first device; differentiable in ``table``
+    only."""
     if weights.requires_grad and torch.is_grad_enabled():
         raise ValueError("the sharded lookup is differentiable in the table only")
+    _check_one_replica(mesh, tuple(a for a in mesh.shape if a != "model"), "the mesh")
     if table.requires_grad and torch.is_grad_enabled():
         return _BlockedBags.apply(table, ids, weights, bags, mesh)
     return _masked_bags(table, ids, weights, bags, mesh)
@@ -144,11 +169,11 @@ def make_sharded_take(mesh, spec_by_rank: dict | None = None, model_axis: str = 
     """``take_fn(table, ids) -> rows``: ``table[ids]`` for arena-global ``ids
     (...)`` on a table row-blocked over ``mesh``'s ``model_axis`` (rows
     divisible by its size, see ``padded_rows``), as ``(..., k)`` on the
-    mesh's first device.  Each shard gathers the rows it owns through
+    mesh's first device.  Each position gathers the rows it owns through
     kernel 5, one slot a bag, and the partials are summed: bitwise
-    ``bag.gather_rows`` on the whole table.  ``spec_by_rank`` maps
-    ``ids.ndim`` to the ids' rule (how their batch dims are split): on the
-    one-process mesh a rule may name only axes of size 1.  The models'
+    ``bag.gather_rows`` on the whole table.  ``mesh``: one data replica's
+    model axis.  ``spec_by_rank`` maps ``ids.ndim`` to the ids' rule (how
+    their batch dims split): it may name only axes of size 1.  The models'
     ``take_fn``."""
     if model_axis != "model":
         raise ValueError(f"the mesh places its devices on 'model', not {model_axis!r}")
@@ -168,11 +193,11 @@ def sharded_lookup_field_embeddings(table: torch.Tensor, layout: FeatureLayout, 
                                     data_axes: tuple = ("data",)) -> torch.Tensor:
     """``(batch..., n_fields, k)`` field embeddings of local ``ids (batch...,
     n_slots)``, ``bag.lookup_field_embeddings`` on a table row-blocked over
-    ``mesh``: each shard sums the weighted rows it owns into the field bags
-    (kernel 5 over its block) and the shards' bags are summed on the first
-    device, in shard order (within rounding of the unsharded bags, which
-    add all of a bag's slots in one order).  ``data_axes``: the axes the
-    batch dims split over, each of size 1 here."""
+    ``mesh``: each position sums the weighted rows it owns into the field
+    bags (kernel 5 over its block) and the partials are summed in position
+    order (within rounding of the unsharded bags, which add all of a bag's
+    slots in one order).  ``data_axes``: the axes the batch dims split
+    over (the reference's ``P(data_axes)``), each of size 1 here."""
     if model_axis != "model":
         raise ValueError(f"the mesh places its devices on 'model', not {model_axis!r}")
     _check_one_replica(mesh, data_axes, "data_axes")

@@ -35,10 +35,29 @@ allocating), and returns:
                      and counts none of it, so where a path reaches a
                      kernel this count is the higher.  ``flops`` and
                      ``bytes`` include it.
-  * ``collective_bytes`` - None: one card has no collectives (the
-                     one-process mesh moves tensors between its shards'
-                     devices, uncounted; on one card there are none).
+  * ``collective_bytes`` - None without a mesh: one card has no
+                     collectives.
   * ``seconds``    - the host time the count took.
+
+``analyze(fn, *args, mesh=, specs=)`` counts the one-process mesh's
+program as the reference's dry run counts its per-device HLO: every
+operation is attributed to the mesh position that issued it
+(``sharding.collectives.at``, set by the mesh loops of
+``embedding.sharded`` and ``launch.train.data_parallel_step``; the
+mesh's first position where none is set), and the figures above are
+those of the first position, the busiest (it holds the dense work of
+the first data replica): ``arg_bytes`` its blocks of the arguments under
+``specs`` (``sharding.rules.local_bytes``), ``peak_bytes`` those plus the
+most its storages held at once, ``collective_bytes`` a dict of the
+reference's kinds (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+``all-to-all``, ``collective-permute``), each with ``count`` and
+``total_bytes``: the output bytes of each collective at that position
+(``sharding.collectives``).  ``n_devices`` is the mesh's size and
+``sum`` the flops, bytes, collective bytes and kernel calls of all
+positions.  On a symmetric plan the step may run the first data replica
+alone (``collectives.mirror``): the other replicas' figures are then the
+first's, and ``sum`` counts them so (``positions_counted`` says how many
+positions ran).
 """
 from __future__ import annotations
 
@@ -52,6 +71,7 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import work
+from repro_torch.sharding import collectives, rules
 
 __all__ = ["analyze"]
 
@@ -69,13 +89,35 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-class _Counter(TorchDispatchMode):
-    def __init__(self, args):
-        super().__init__()
+class _Position:
+    """One position's count."""
+
+    def __init__(self):
         self.flops = 0
         self.bytes = 0
         self.kernels: dict = collections.defaultdict(lambda: {"calls": 0, "flops": 0,
                                                                "bytes": 0})
+        self.collectives = {k: {"count": 0, "total_bytes": 0} for k in collectives.KINDS}
+        self.live = 0
+        self.peak = 0
+
+
+class _Counter(TorchDispatchMode):
+    """Counts every operation; with a ``mesh``, each at the position that
+    ``collectives.at`` names (the mesh's first where none does, none under
+    ``collectives.OFF``).  An operation that keeps the shape of an input
+    held in blocks by several positions (``collectives.hold(split=True)``:
+    a gradient of the whole arena, one block a model position) is
+    elementwise work on those blocks: it and its output are split over
+    the same positions."""
+
+    def __init__(self, args, mesh=None):
+        super().__init__()
+        self.mesh = mesh
+        self.first = None if mesh is None else mesh.coords(0)
+        self.at: dict = collections.defaultdict(_Position)
+        self.keep = None                     # the positions counted (all: None)
+        self.mirror = 1
         self._arg_storages = set()
         self.arg_bytes = 0
         for t in _tensors(args):
@@ -83,52 +125,142 @@ class _Counter(TorchDispatchMode):
             if s._cdata not in self._arg_storages:
                 self._arg_storages.add(s._cdata)
                 self.arg_bytes += s.nbytes()
-        self._live: dict = {}
-        self.live = 0
-        self.peak = 0
+        self._live: dict = {}                # storage -> {position: bytes}
+        self._split: dict = {}               # storage -> the positions holding its blocks
 
+    # -- where ---------------------------------------------------------------
+    def _where(self):
+        if self.mesh is None:
+            return None
+        pos = collectives.current()
+        return self.first if pos is None else pos
+
+    def set_mirror(self, mesh) -> None:
+        self.keep = set(mesh.positions()[:mesh.shape["model"]])
+        self.mirror = mesh.dp
+
+    def _kept(self, positions):
+        return [p for p in positions if self.keep is None or p in self.keep]
+
+    # -- hooks of kernels.work and sharding.collectives ------------------------
     def add_kernel(self, name: str, flops: int, nbytes: int) -> None:
-        row = self.kernels[name]
+        pos = self._where()
+        if pos == collectives.OFF:
+            return
+        at = self.at[pos]
+        row = at.kernels[name]
         row["calls"] += 1
         row["flops"] += flops
         row["bytes"] += nbytes
-        self.flops += flops
-        self.bytes += nbytes
+        at.flops += flops
+        at.bytes += nbytes
+
+    def add_collective(self, kind: str, position, nbytes: int) -> None:
+        if self.mesh is None or not self._kept([position]):
+            return
+        row = self.at[position].collectives[kind]
+        row["count"] += 1
+        row["total_bytes"] += nbytes
+
+    def hold(self, t: torch.Tensor, positions, split: bool) -> None:
+        if self.mesh is None:
+            return
+        key = t.untyped_storage()._cdata
+        if key in self._arg_storages:
+            return
+        if key not in self._live:
+            self._register(t.untyped_storage(), {})
+        nbytes = _nbytes(t) // (len(positions) if split else 1)
+        if split:
+            self._split[key] = tuple(positions)
+        for p in self._kept(positions):
+            owners = self._live[key]
+            owners[p] = owners.get(p, 0) + nbytes
+            self._grow(p, nbytes)
+
+    # -- storages --------------------------------------------------------------
+    def _grow(self, pos, nbytes: int) -> None:
+        at = self.at[pos]
+        at.live += nbytes
+        at.peak = max(at.peak, at.live)
 
     def _free(self, key) -> None:
-        self.live -= self._live.pop(key, 0)
+        for pos, nbytes in self._live.pop(key, {}).items():
+            self.at[pos].live -= nbytes
+        self._split.pop(key, None)
 
-    def _track(self, outs) -> None:
+    def _register(self, s, owners: dict) -> None:
+        key = s._cdata
+        self._live[key] = owners
+        weakref.finalize(s, self._free, key)
+
+    def _track(self, outs, positions, split=None) -> None:
+        """Each new storage of ``outs`` held by ``positions`` (None: by none
+        yet), whole, or in blocks of the positions ``split``."""
         for t in outs:
             s = t.untyped_storage()
             key = s._cdata
             if key in self._arg_storages or key in self._live:
                 continue
-            self._live[key] = s.nbytes()
-            self.live += self._live[key]
-            weakref.finalize(s, self._free, key)
-        self.peak = max(self.peak, self.live)
+            if positions is None:            # under collectives.OFF: held by none yet
+                self._register(s, {})
+                continue
+            share = s.nbytes() // (len(split) if split else 1)
+            self._register(s, {p: share for p in positions})
+            if split:
+                self._split[key] = split
+            for p in positions:
+                self._grow(p, share)
+
+    def _spread(self, ins, outs):
+        """The positions an operation's work is split over: those holding
+        the blocks of an input, whole, whose shape its output keeps."""
+        for t in ins:
+            s = t.untyped_storage()
+            held = self._split.get(s._cdata)
+            # the whole tensor, not one position's block of it
+            if held and _nbytes(t) == s.nbytes() and any(o.shape == t.shape for o in outs):
+                return held
+        return None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        packet = func.overloadpacket
-        if packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
+        pos = self._where()
         outs = _tensors(out)
-        if not func.is_view and packet not in _NO_TRAFFIC:
-            self.bytes += sum(map(_nbytes, _tensors((args, kwargs)))) + sum(map(_nbytes, outs))
-        self._track(outs)
+        if pos == collectives.OFF:
+            self._track(outs, None)
+            return out
+        ins = _tensors((args, kwargs))
+        packet = func.overloadpacket
+        flops = int(flop_registry[packet](*args, **kwargs, out_val=out)) \
+            if packet in flop_registry else 0
+        nbytes = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs)) \
+            if not func.is_view and packet not in _NO_TRAFFIC else 0
+        spread = self._spread(ins, outs) if self.mesh is not None else None
+        positions = self._kept(spread) if spread else [pos]
+        for p in positions:
+            at = self.at[p]
+            at.flops += flops // len(spread or positions)
+            at.bytes += nbytes // len(spread or positions)
+        self._track(outs, positions, spread)
         return out
 
 
-def analyze(fn, *args, **kwargs) -> dict:
+def _kernels(rows) -> dict:
+    return {name: dict(row) for name, row in sorted(rows.items())}
+
+
+def analyze(fn, *args, mesh=None, specs=None, **kwargs) -> dict:
     """``fn(*args, **kwargs)`` run once under the counter; its work as the
     module docstring says.  Best on ``meta`` tensors, where nothing is
     computed or allocated and the kernels report their formulas; on a
     real device the operations run and the kernels launch (and report no
-    work)."""
-    counter = _Counter((args, kwargs))
+    work).  ``mesh``: count each position's work (module docstring);
+    ``specs``: the rules of ``args``, one a positional argument, from
+    which a position's argument bytes come (``sharding.rules.local_bytes``;
+    without them, every argument whole at every position)."""
+    counter = _Counter((args, kwargs), mesh)
     t0 = time.perf_counter()
     work.COUNTERS.append(counter)
     try:
@@ -136,7 +268,29 @@ def analyze(fn, *args, **kwargs) -> dict:
             fn(*args, **kwargs)
     finally:
         work.COUNTERS.pop()
-    return {"flops": counter.flops, "bytes": counter.bytes,
-            "peak_bytes": counter.arg_bytes + counter.peak, "arg_bytes": counter.arg_bytes,
-            "kernels": {name: dict(row) for name, row in sorted(counter.kernels.items())},
-            "collective_bytes": None, "seconds": time.perf_counter() - t0}
+    seconds = time.perf_counter() - t0
+    if mesh is None:
+        at = counter.at[None]
+        return {"flops": at.flops, "bytes": at.bytes,
+                "peak_bytes": counter.arg_bytes + at.peak, "arg_bytes": counter.arg_bytes,
+                "kernels": _kernels(at.kernels), "collective_bytes": None, "seconds": seconds}
+    arg_bytes = counter.arg_bytes if specs is None else sum(
+        rules.local_bytes(a, sp, mesh) for a, sp in zip(args, specs))
+    first = counter.at[counter.first]
+    seen = list(counter.at.values())
+    kernel_calls: dict = collections.Counter()
+    for at in seen:
+        for name, row in at.kernels.items():
+            kernel_calls[name] += row["calls"] * counter.mirror
+    return {"flops": first.flops, "bytes": first.bytes,
+            "peak_bytes": arg_bytes + first.peak, "arg_bytes": arg_bytes,
+            "kernels": _kernels(first.kernels),
+            "collective_bytes": {k: dict(v) for k, v in first.collectives.items()},
+            "n_devices": mesh.size, "position": list(counter.first),
+            "positions_counted": len(seen),
+            "sum": {"flops": counter.mirror * sum(at.flops for at in seen),
+                    "bytes": counter.mirror * sum(at.bytes for at in seen),
+                    "collective_bytes": counter.mirror * sum(
+                        row["total_bytes"] for at in seen for row in at.collectives.values()),
+                    "kernel_calls": dict(sorted(kernel_calls.items()))},
+            "seconds": seconds}

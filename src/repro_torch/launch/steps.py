@@ -6,6 +6,9 @@ model (``launch.cost``) and chip_smoke's dry-run phase share.
     cell = steps.build("gemma3-1b", "train_4k", device="meta")
     cost.analyze(cell.fn, *cell.args)
     cell = steps.build("dplr-fwfm", "train_batch", device="cuda", mesh=make_host_mesh(4))
+    pod = make_production_mesh(device="meta")
+    cell = steps.build("dplr-fwfm", "train_batch", mesh=pod)
+    cost.analyze(cell.fn, *cell.args, mesh=pod, specs=cell.arg_specs())
 
 A cell's arguments keep the reference's names, shapes and types: the
 parameter and optimizer-state trees carry the checkpoint format's keys
@@ -34,18 +37,25 @@ The families:
     edges, as the reference sizes it).
 
 ``mesh`` (``launch.mesh.Mesh``): the cells as the reference builds them
-on a mesh, on the port's one-process mesh.  The recsys cells gather their
-arena rows through ``make_auto_take(mesh)`` (the arena row-blocked over
-the ``model`` axis, ``embedding.sharded``), the GNN batch pads its nodes
-and edges to a multiple of the mesh's size, and ``cell.specs`` holds the
-rules the reference would shard by (``sharding.rules``, ``auto_batch_specs``)
-as data: one data replica splits no batch.  Without a mesh every cell is
-one device's; ``dp`` is then 1 and ``partitioned`` and ``mp_scoring`` use
-a one-shard mesh.  Each cell's ``notes`` name what still waits: FSDP across
-data replicas and the production meshes (``SHARDING``).  The opts
-``moe_scatter`` and ``moe_fused`` map onto ``moe_impl="scatter"`` and
-``moe_fused_combine``; ``mp_scoring`` builds ``dplr-fwfm``'s rank cells
-through ``fwfm.rank_items_mp`` (``name+mp``), as the reference does.
+on a mesh, on the port's one-process mesh, ``cell.specs`` holding the
+rules the reference shards by (``sharding.rules``, ``auto_batch_specs``)
+as data.  The recsys cells run data-parallel: the train step is
+``train.data_parallel_step`` (each data replica's rows, the mean over
+the data axes, each position's update), the pointwise and rank cells
+score each replica's rows (``on_replicas``), and every arena gather is
+the row-blocked lookup on the replica's model axis
+(``make_auto_take``, ``embedding.sharded``).  ``cell.arg_specs()``
+gives ``cost.analyze(mesh=, specs=)`` a position's blocks of the
+arguments.  The GNN batch pads its nodes and edges to a multiple of the
+mesh's size.  An LM or PNA cell on a mesh with data replicas raises
+``NotImplementedError`` naming its ROADMAP item (``DATA_AXIS_WAITS``):
+it is not counted as one device.  Without a mesh every cell is one
+device's; ``dp`` is then 1 and ``partitioned`` and ``mp_scoring`` use a
+one-shard mesh.  Each cell's ``notes`` name what still waits
+(``SHARDING``).  The opts ``moe_scatter`` and ``moe_fused`` map onto
+``moe_impl="scatter"`` and ``moe_fused_combine``; ``mp_scoring`` builds
+``dplr-fwfm``'s rank cells through ``fwfm.rank_items_mp`` (``name+mp``),
+as the reference does.
 """
 from __future__ import annotations
 
@@ -65,13 +75,19 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.gnn import pna
 from repro_torch.models.gnn.sampler import subgraph_shapes
 from repro_torch.models.transformer import model as tm
-from repro_torch.sharding import rules
+from repro_torch.sharding import collectives, rules
 
 __all__ = ["Cell", "all_cells", "auto_batch_specs", "auto_leaf_spec", "build",
-           "make_auto_take"]
+           "make_auto_take", "on_replicas"]
 
-SHARDING = ("FSDP across data replicas and the production meshes wait for more than one "
-            "data replica (ROADMAP item 3c)")
+SHARDING = ("the data axis of the LM family (FSDP, tensor and expert parallelism; ROADMAP item "
+            "3c-ii) and of PNA (its node_constraint; ROADMAP item 3c-iii) waits; the recsys "
+            "family runs on it")
+
+# what a cell of each waiting family raises on a mesh with data replicas
+DATA_AXIS_WAITS = {"lm": "waits for ROADMAP item 3c-ii (the LM family's data axis: FSDP, "
+                         "tensor and expert parallelism)",
+                   "gnn": "waits for ROADMAP item 3c-iii (PNA's data axis: its node_constraint)"}
 
 
 @dataclasses.dataclass
@@ -86,6 +102,16 @@ class Cell:
     kind: str
     notes: tuple = ()
     specs: dict = dataclasses.field(default_factory=dict)
+
+    def arg_specs(self) -> tuple | None:
+        """The rules of ``args``, one a positional argument (``None`` for
+        a scalar), as ``cost.analyze(specs=)`` takes them; None without a
+        mesh."""
+        if "params" not in self.specs or "batch" not in self.specs:
+            return None
+        if self.kind == "train":
+            return (self.specs["params"], self.specs["opt_state"], self.specs["batch"], ())
+        return self.specs["params"], self.specs["batch"]
 
 
 def _dp_size(mesh) -> int:
@@ -110,6 +136,21 @@ def auto_leaf_spec(shape, mesh, min_shard: int = 1024) -> tuple:
 def auto_batch_specs(batch: dict, mesh) -> dict:
     """``auto_leaf_spec`` of every tensor of ``batch``."""
     return {k: auto_leaf_spec(tuple(v.shape), mesh) for k, v in batch.items()}
+
+
+def on_replicas(fn, mesh, inputs: dict, specs: dict, join: str):
+    """``fn(rows, replica_mesh)`` on each data replica's rows of ``inputs``
+    (``train.each_replica``), the outputs joined along the dim that
+    ``inputs[join]`` splits (the one process's join: the reference's
+    output stays split over the data axes)."""
+    outs, _ = train.each_replica(fn, mesh, inputs, specs)
+    if len(outs) == 1:
+        return outs[0]
+    dim = next((i for i, e in enumerate(specs[join]) if e is not None), None)
+    if dim is None:
+        raise ValueError(f"{join!r} splits over no data axis; the outputs cannot join")
+    with collectives.at(collectives.OFF):
+        return torch.cat(outs, dim)
 
 
 def make_auto_take(mesh):
@@ -166,7 +207,14 @@ def _cast(tree: dict, dtype) -> dict:
 
 # -- lm ------------------------------------------------------------------------
 
+def _refuse_data_axis(arch, shape, mesh) -> None:
+    if mesh is not None and mesh.dp > 1:
+        raise NotImplementedError(f"{arch.name}/{shape.name} on {mesh.dp} data replicas "
+                                  f"{DATA_AXIS_WAITS[arch.family]}")
+
+
 def build_lm(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cell:
+    _refuse_data_axis(arch, shape, mesh)
     cfg = cfg or arch.make_config()
     opts = opts or {}
     if opts.get("moe_scatter") and cfg.is_moe:
@@ -276,22 +324,25 @@ def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) ->
     notes = (f"shardings: {SHARDING}",)
     if opts.get("serve_bf16") and shape.kind in ("rank", "pointwise"):
         params = _cast(params, torch.bfloat16)
-    # on a mesh every arena gather is the row-blocked lookup; without one, today's
-    take = {} if mesh is None else {"take_fn": make_auto_take(mesh)}
+    # without a mesh, one device's cell; on one, the data-parallel cell whose
+    # arena gathers are the row-blocked lookup (embedding.sharded)
     specs = {} if mesh is None else {"params": rules.recsys_param_specs(params, mesh)}
 
     if shape.kind == "train":
         optimizer = optim.adagrad()
         opt_state = optimizer.init(params)
         batch = _recsys_train_batch(arch.name, cfg, shape.dims["batch"], inp)
-        step_mod = mod if not take else SimpleNamespace(
-            loss=lambda p, c, b: mod.loss(p, c, b, **take))
-
-        def train_step(params, opt_state, batch, lr):
-            return train.train_step(step_mod, cfg, optimizer, params, opt_state, batch, lr)
-
-        if mesh is not None:
+        if mesh is None:
+            def train_step(params, opt_state, batch, lr):
+                return train.train_step(mod, cfg, optimizer, params, opt_state, batch, lr)
+        else:
+            specs["opt_state"] = rules.opt_state_specs(specs["params"], opt_state)
             specs["batch"] = auto_batch_specs(batch, mesh)
+
+            def train_step(params, opt_state, batch, lr):
+                return train.data_parallel_step(mod, cfg, optimizer, params, opt_state, batch,
+                                                lr, mesh=mesh, batch_specs=specs["batch"])
+
         return Cell(name, train_step, (params, opt_state, batch, inp.scalar(0.05)),
                     shape.kind, notes, specs)
 
@@ -300,14 +351,21 @@ def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) ->
         batch.pop("label", None)
         if arch.name == "mind":
             batch.pop("neg_ids")
-        # MIND's apply takes no take_fn, in the reference either
-        apply_take = {} if arch.name == "mind" else take
-
-        def serve_pointwise(params, batch):
-            return mod.apply(params, cfg, batch, **apply_take)
-
-        if mesh is not None:
+        if mesh is None:
+            def serve_pointwise(params, batch):
+                return mod.apply(params, cfg, batch)
+        else:
             specs["batch"] = auto_batch_specs(batch, mesh)
+
+            def apply_rows(params, rows, sub):
+                # MIND's apply takes no take_fn, in the reference either
+                take = {} if arch.name == "mind" else {"take_fn": make_auto_take(sub)}
+                return mod.apply(params, cfg, rows, **take)
+
+            def serve_pointwise(params, batch):
+                return on_replicas(lambda rows, sub: apply_rows(params, rows, sub), mesh,
+                                   batch, specs["batch"], next(iter(batch)))
+
         return Cell(name, serve_pointwise, (params, batch), shape.kind, notes, specs)
 
     query = _recsys_rank_query(arch.name, cfg, shape.dims["n_queries"],
@@ -317,15 +375,25 @@ def build_recsys(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) ->
     if opts.get("mp_scoring") and arch.name == "dplr-fwfm":
         # the rank-rho projection inside each arena block's lookup: the
         # partials summed over the model axis are (rho k + 2) floats an item
-        mp_mesh = mesh or make_host_mesh(1, device=device)
-
-        def serve_rank_mp(params, query):
-            return mod.rank_items_mp(params, cfg, query, mesh=mp_mesh)
+        if mesh is None:
+            def serve_rank_mp(params, query):
+                return mod.rank_items_mp(params, cfg, query,
+                                         mesh=make_host_mesh(1, device=device))
+        else:
+            def serve_rank_mp(params, query):
+                return on_replicas(lambda q, sub: mod.rank_items_mp(params, cfg, q, mesh=sub),
+                                   mesh, query, specs["batch"], "item_ids")
 
         return Cell(f"{name}+mp", serve_rank_mp, (params, query), shape.kind, notes, specs)
 
-    def serve_rank(params, query):
-        return mod.rank_items(params, cfg, query, **take)
+    if mesh is None:
+        def serve_rank(params, query):
+            return mod.rank_items(params, cfg, query)
+    else:
+        def serve_rank(params, query):
+            return on_replicas(lambda q, sub: mod.rank_items(params, cfg, q,
+                                                             take_fn=make_auto_take(sub)),
+                               mesh, query, specs["batch"], "item_ids")
 
     return Cell(name, serve_rank, (params, query), shape.kind, notes, specs)
 
@@ -386,6 +454,7 @@ def _part_batch(shape, inp: _Inputs, total: int) -> dict:
 
 
 def build_gnn(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cell:
+    _refuse_data_axis(arch, shape, mesh)
     base = cfg or arch.make_config()
     # node_constraint stays None: the one-process mesh keeps each tensor whole
     cfg = dataclasses.replace(shape_config(base, shape), remat=False,

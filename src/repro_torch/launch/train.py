@@ -53,6 +53,8 @@ from repro_torch.data.synthetic_ctr import SyntheticCTR
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import autoint, bst, fwfm, mind, wide_deep
 from repro_torch.models.transformer import model as tm
+from repro_torch.optim.optimizers import tree_leaves
+from repro_torch.sharding import collectives, rules
 
 _RECSYS_MODULES = {"dplr-fwfm": fwfm, "wide-deep": wide_deep, "autoint": autoint,
                    "bst": bst, "mind": mind}
@@ -166,6 +168,153 @@ def train_step(mod, cfg, optimizer, params, opt_state, batch, lr, mark=None):
     if mark is not None:
         mark("update")
     return loss, params, opt_state
+
+
+def _split(tree: dict, specs: dict, keep) -> dict:
+    """``keep(leaf, spec)`` over a tree of dicts and its rules; leaves for
+    which it gives None are left out."""
+    out = {}
+    for k, v in tree.items():
+        got = _split(v, specs[k], keep) if isinstance(v, dict) else keep(v, specs[k])
+        if got is not None and not (isinstance(got, dict) and not got):
+            out[k] = got
+    return out
+
+
+def _model_split(spec) -> bool:
+    return any("model" in rules.entry_axes(e) for e in spec)
+
+
+def _mirrored(inputs: dict) -> bool:
+    """Whether the first data replica runs for all: on ``meta``, where the
+    work is counted, not done."""
+    return any(v.is_meta for v in inputs.values())
+
+
+def each_replica(fn, mesh, inputs: dict, specs: dict) -> tuple[list, int]:
+    """``fn(rows, replica)`` on each data replica's rows of ``inputs``
+    (``specs``: each leaf's rule), at the replica's first position.
+    Returns (outputs, ran): one output a replica, or one alone where no
+    leaf splits over a data axis (every replica would compute the same);
+    ``ran`` replicas ran.  On ``meta`` the first replica runs for all, the
+    others' outputs its own (``collectives.mirror``): 512 positions stay
+    quick to count."""
+    split = mesh.dp > 1 and any(e is not None for spec in specs.values() for e in spec)
+    ran = 1 if not split or _mirrored(inputs) else mesh.dp
+    if ran < mesh.dp:
+        collectives.mirror(mesh)
+    outs = []
+    for r in range(ran):
+        sub = mesh.replica(r)
+        first = sub.coords(0)
+        rows = {k: rules.local_block(v, specs[k], mesh, first) for k, v in inputs.items()}
+        with collectives.at(first):
+            outs.append(fn(rows, sub))
+    return [outs[r % ran] for r in range(mesh.dp if split else 1)], ran
+
+
+def data_parallel_grads(mod, cfg, params, batch, *, mesh, batch_specs: dict):
+    """(loss, grads, ran): the first two stages of ``data_parallel_step``,
+    the gradients the mean over the data axes (every position's copy
+    alike; the first replica's returned), ``ran`` as ``each_replica``."""
+    from repro_torch.embedding.sharded import make_sharded_take
+
+    def replica_grads(rows, sub):
+        take = make_sharded_take(sub)
+        return optim.value_and_grad(lambda p, c, b: mod.loss(p, c, b, take_fn=take))(
+            params, cfg, rows)
+
+    outs, ran = each_replica(replica_grads, mesh, batch, batch_specs)
+    pspecs = rules.recsys_param_specs(params, mesh)
+    # the mean over the data axes, in position order, into the first
+    # replica's gradients
+    firsts = [mesh.replica(r).coords(0) for r in range(len(outs))]
+    loss = collectives.all_reduce([o[0] for o in outs], firsts, "mean")[0]
+    grads = outs[0][1]
+    for (path, leaf), (_, spec) in zip(_leaves(grads), _leaves(pspecs)):
+        if _model_split(spec):
+            for s in range(mesh.shape["model"]):
+                group = [mesh.replica(r).coords(s) for r in range(len(outs))]
+                block = [rules.local_block(_get(o[1], path), spec, mesh, mesh.coords(s))
+                         for o in outs]
+                collectives.all_reduce(block, group, "mean", out=block[0])
+                collectives.hold(block[0], group[1:])
+        else:
+            collectives.all_reduce([_get(o[1], path) for o in outs], firsts, "mean", out=leaf)
+            collectives.hold(leaf, firsts[1:])
+            for r in range(ran):
+                sub = mesh.replica(r)
+                collectives.broadcast(leaf, sub.positions(), sub.devices)
+    return loss, grads, ran
+
+
+def data_parallel_step(mod, cfg, optimizer, params, opt_state, batch, lr, *, mesh,
+                       batch_specs: dict):
+    """One recsys step on a mesh with data replicas, the port's counterpart
+    of the step the reference's GSPMD derives from its rules.  Returns
+    (loss, params, opt_state), the parameters and state updated in place.
+
+    * Each data replica (``mesh.replica(r)``) takes its rows of the batch
+      (``batch_specs``: each leaf's rule, ``steps.auto_batch_specs``;
+      ``each_replica``), and computes its loss and gradients at its first
+      position, every arena lookup through
+      ``embedding.sharded.make_sharded_take`` on its model axis (kernels 5
+      and 5' on each of its blocks).
+    * The mean over the data axes (equal shares: the mean over the whole
+      batch, as GSPMD's): the losses and every gradient all-reduced in
+      position order (``sharding.collectives``), an arena leaf block by
+      block over its model position's data group, a replicated leaf over
+      the replicas' first positions and then sent on to the others of
+      each replica.  The arena's all-reduce of the dense block gradient is
+      the step's largest collective.
+    * The optimizer's update at each position of its blocks
+      (``sharding.rules.recsys_param_specs``: the arena's rows at its model
+      coordinate, the dense leaves whole).
+
+    ``params`` and ``opt_state`` are one copy, which every replica reads
+    (their values are alike).  On ``meta`` every position updates its
+    blocks, so that a count (``launch.cost.analyze(mesh=)``) sees each
+    device's work; on a real device each block, and each replicated leaf,
+    is updated once.  On ``meta`` the first replica runs for all, and with
+    a batch that splits over no data axis the first alone runs
+    (``each_replica``).  With one data replica the step is ``train_step``
+    with ``take_fn``, bitwise.  The optimizer's state must mirror the
+    parameters (adagrad's ``acc``; sgd's ``mom``)."""
+    if set(opt_state) - {"acc", "mom"}:
+        raise ValueError(f"state {sorted(opt_state)}: the data-parallel step updates state "
+                         f"that mirrors the parameters only")
+    loss, grads, ran = data_parallel_grads(mod, cfg, params, batch, mesh=mesh,
+                                           batch_specs=batch_specs)
+    pspecs = rules.recsys_param_specs(params, mesh)
+    update_all = tree_leaves(params)[0].device.type == "meta"
+    for r in range(ran) if update_all else [0]:
+        for s, pos in enumerate(mesh.replica(r).positions()):
+            def mine(leaf, spec, pos=pos, s=s):
+                if _model_split(spec):
+                    return rules.local_block(leaf, spec, mesh, pos)
+                return leaf if update_all or s == 0 else None
+
+            local = lambda tree: _split(tree, pspecs, mine)                     # noqa: E731
+            with collectives.at(pos):
+                optimizer.update(local(grads), {k: local(v) for k, v in opt_state.items()},
+                                 local(params), lr)
+    return loss, params, opt_state
+
+
+def _leaves(tree, prefix=()):
+    """(path, leaf) of nested dicts in ``tree_leaves`` order (a rule's
+    tuple is a leaf)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], prefix + (k,))
+        else:
+            yield prefix + (k,), tree[k]
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def main(argv=None):

@@ -23,7 +23,6 @@ Three scoring entry points:
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any
 
 import numpy as np
@@ -50,6 +49,7 @@ from repro_torch.embedding.sharded import block_rows, shard_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.device import init_device
 from repro_torch.models.layers import logistic_loss
+from repro_torch.sharding import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,8 +214,11 @@ def rank_items_mp(params: dict, cfg: FwFMConfig, query: dict, *, mesh) -> torch.
     (Bq, n) scores on the first device.  Requires a one-hot layout
     (multiplicity 1 for every field) and an arena whose rows divide by D.
 
-    The mesh has one data replica, so the items' batch dims are not split
-    (the reference's ``item_spec``)."""
+    ``mesh``: one data replica's model axis (``Mesh.replica``); on a mesh
+    with data replicas each replica calls it on its items
+    (``launch.steps``' ``+mp`` cells), the reference's ``item_spec``.
+    Each shard's work is its position's, and the partials are
+    all-reduced over the model axis (``sharding.collectives``)."""
     if cfg.interaction != "dplr":
         raise ValueError("rank_items_mp requires interaction='dplr'")
     layout = cfg.layout
@@ -230,26 +233,32 @@ def rank_items_mp(params: dict, cfg: FwFMConfig, query: dict, *, mesh) -> torch.
     d = -torch.einsum("r,rm,rm->m", params["e"], params["U"], params["U"])
     parts = []
     for s, dev in enumerate(mesh.devices):
-        lo = s * rows_per
-        block = table[lo:lo + rows_per].to(dev)
-        lin_block = lin[lo:lo + rows_per].to(dev)
-        U, d_s = params["U"].to(device=dev, dtype=table.dtype), d.to(dev)
-        off = offsets.to(dev)
-        ctx_w, item_w = (query[k].to(dev) for k in ("context_weights", "item_weights"))
-        vC, linC = shard_rows(block, lin_block, lo, query["context_ids"].to(dev) + off[:nC],
-                               ctx_w)
-        vI, linI = shard_rows(block, lin_block, lo, query["item_ids"].to(dev) + off[nC:],
-                               item_w)
-        parts.append((
-            torch.einsum("rm,qmk->qrk", U[:, :nC], vC),
-            0.5 * torch.einsum("qmk,m->q", vC * vC, d_s[:nC]) + linC.sum(-1),
-            torch.einsum("rm,qnmk->qnrk", U[:, nC:], vI),
-            0.5 * torch.einsum("qnmk,m->qn", vI * vI, d_s[nC:]) + linI.sum(-1),
-        ))
+        with collectives.at(mesh.coords(s)):
+            parts.append(_shard_projection(params, query, table, lin, d, offsets, nC,
+                                           s * rows_per, rows_per, dev))
     # the one cross-shard traffic: rank-rho projections and two scalars
-    P_C, s_C, P_I, s_I = (functools.reduce(torch.add, (t.to(first) for t in ts))
-                          for ts in zip(*parts))
+    group = mesh.positions()[:len(mesh.devices)]
+    P_C, s_C, P_I, s_I = (collectives.all_reduce(list(ts), group)[0] for ts in zip(*parts))
     e = params["e"].to(device=first, dtype=table.dtype)
     P = P_C[:, None] + P_I
     term_e = 0.5 * torch.einsum("qnrk,r->qn", P * P, e)
     return params["bias"].to(first) + s_C[:, None] + s_I + term_e
+
+
+def _shard_projection(params, query, table, lin, d, offsets, nC, lo, rows_per, dev):
+    """One shard's part of ``rank_items_mp``: its rows' rank-rho projections
+    of the context and the items, and its parts of the d-term and the
+    first-order scalars."""
+    block = table[lo:lo + rows_per].to(dev)
+    lin_block = lin[lo:lo + rows_per].to(dev)
+    U, d_s = params["U"].to(device=dev, dtype=table.dtype), d.to(dev)
+    off = offsets.to(dev)
+    ctx_w, item_w = (query[k].to(dev) for k in ("context_weights", "item_weights"))
+    vC, linC = shard_rows(block, lin_block, lo, query["context_ids"].to(dev) + off[:nC], ctx_w)
+    vI, linI = shard_rows(block, lin_block, lo, query["item_ids"].to(dev) + off[nC:], item_w)
+    return (
+        torch.einsum("rm,qmk->qrk", U[:, :nC], vC),
+        0.5 * torch.einsum("qmk,m->q", vC * vC, d_s[:nC]) + linC.sum(-1),
+        torch.einsum("rm,qnmk->qnrk", U[:, nC:], vI),
+        0.5 * torch.einsum("qnmk,m->qn", vI * vI, d_s[nC:]) + linI.sum(-1),
+    )

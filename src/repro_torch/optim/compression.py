@@ -22,6 +22,8 @@ import functools
 
 import torch
 
+from repro_torch.sharding import collectives
+
 
 def int8_compress(x: torch.Tensor):
     """Per-tensor symmetric quantization: ``(int8 values, float32 scale)``,
@@ -39,16 +41,23 @@ def int8_decompress(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -
     return (q.to(torch.float32) * scale).to(dtype)
 
 
-def compressed_psum(xs: list, errors: list) -> tuple[list, list]:
+def compressed_psum(xs: list, errors: list, positions=None) -> tuple[list, list]:
     """Error-feedback compressed mean over the positions of a data axis:
     ``xs[i]`` and ``errors[i]`` are position ``i``'s tensor and error (one
     shape and type, each on its position's device).  Returns ``(outs,
     new_errors)``: position ``i``'s copy of the dequantized mean, on its
     device, and its new error.  ``outs[i] + new_errors[i]`` is ``xs[i] +
     errors[i]`` plus the other positions' grid points, so with one position
-    it is the input, within rounding."""
+    it is the input, within rounding.  ``positions``: the mesh positions
+    of ``xs`` (``launch.mesh.Mesh.groups``), to which the wire's traffic is
+    reported (``sharding.collectives``): at each, an all-reduce of the
+    scale (4 bytes, the reference's ``pmax``) and one of the int8 grid (a
+    byte an element; the reference's HLO sums it as int32)."""
     if not xs or len(xs) != len(errors):
         raise ValueError(f"{len(xs)} tensors and {len(errors)} errors")
+    if positions is not None and len(xs) > 1:
+        collectives.report("all-reduce", positions, 4)
+        collectives.report("all-reduce", positions, xs[0].numel())
     first = xs[0].device
     corr = [x + e for x, e in zip(xs, errors)]
     # one scale for the axis (the reference's pmax), so the grids add exactly

@@ -22,6 +22,8 @@ embedding arenas are split (by rows), the dense parts replicate.
 """
 from __future__ import annotations
 
+import math
+
 
 def dp_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
@@ -43,6 +45,67 @@ def _spec(*entries) -> tuple:
 
 def _replicated(ndim: int) -> tuple:
     return (None,) * ndim
+
+
+def entry_axes(entry) -> tuple:
+    """The mesh axes a rule's entry names (none for ``None``)."""
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of one position's block of a tensor of ``shape`` under the
+    rule ``spec``: each dim divided by the product of the sizes of the
+    axes its entry names (axes the mesh lacks count 1).  A dim they do not
+    divide raises ``ValueError``."""
+    out = []
+    for d, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n = 1
+        for a in entry_axes(entry):
+            n *= mesh.shape.get(a, 1)
+        if d % n:
+            raise ValueError(f"a dim of {d} does not split over {entry!r} ({n} positions)")
+        out.append(d // n)
+    return tuple(out)
+
+
+def local_block(t, spec, mesh, position: tuple):
+    """The view of ``t`` that ``position`` (a mesh position's coordinates)
+    holds under ``spec``: along each split dim the block whose index is the
+    position's row-major index over that entry's axes."""
+    for dim, entry in enumerate(spec):
+        index, n = 0, 1
+        for a in entry_axes(entry):
+            if a in mesh.shape:
+                index = index * mesh.shape[a] + position[mesh.axis_names.index(a)]
+                n *= mesh.shape[a]
+        if n > 1:
+            size = t.shape[dim] // n
+            t = t.narrow(dim, index * size, size)
+    return t
+
+
+def _zip_leaves(tree, specs):
+    """(leaf, rule) of a tree of dicts and lists and its rules, nested alike."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _zip_leaves(tree[k], specs[k])
+    elif isinstance(tree, list):
+        for t, s in zip(tree, specs):
+            yield from _zip_leaves(t, s)
+    else:
+        yield tree, specs
+
+
+def local_bytes(tree, specs, mesh) -> int:
+    """Bytes of one position's blocks of every tensor of ``tree`` under its
+    rules ``specs`` (nested as the tree; the blocks of an even split are
+    alike at every position)."""
+    total = 0
+    for leaf, spec in _zip_leaves(tree, specs):
+        if hasattr(leaf, "shape"):
+            total += math.prod(local_shape(tuple(leaf.shape), spec, mesh)) * \
+                leaf.element_size()
+    return total
 
 
 # ---------------------------------------------------------------------------

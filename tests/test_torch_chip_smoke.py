@@ -1,5 +1,5 @@
 """``chip_smoke.py`` rehearsed on the CPU: its kernel, serving, serve-bf16,
-tenants, shard, wire, eval, train, models, lm, lm-train, gnn, timing, autotune and
+tenants, shard, data, wire, eval, train, models, lm, lm-train, gnn, timing, autotune and
 profile phases run at a tiny size with the plain versions (the
 timer stubbed, since CUDA events need a card), its exact top-K check (C1)
 catches what is not kernel 1's scores sorted, and without a card the
@@ -471,3 +471,108 @@ def test_kernel_1_edge_checks_reject_one_ulp(chip_smoke, monkeypatch, where, mat
     errs = {"dplr_corpus_score": 0.0, "dplr_corpus_score_bf16": 0.0}
     with pytest.raises(AssertionError, match=match):
         chip_smoke.full_checks(torch.device("cpu"), SimpleNamespace(**SMALL), errs, [])
+
+
+# the data phase at the smoke widths: B and the bulk rows the least that split
+# over two replicas (auto_leaf_spec's min_shard of 1,024 a dim), 4,096 items
+DATA = dict(shards=4, data_dims={"batch": 2048}, data_serve_dims={"batch": 2048},
+            data_retrieval_dims={"n_items": 4096}, data_steps=2)
+
+
+def _data_sz():
+    from repro_torch.configs import dplr_fwfm
+    return SimpleNamespace(make_config=dplr_fwfm.make_smoke, **DATA)
+
+
+def test_data_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke, capsys):
+    """The data phase on a (2, 2) mesh of the CPU: step 1's gradients, the
+    steps against the unsharded ones, a second run bitwise, (1, 4) bitwise
+    the step before the data axis, the bulk and retrieval cells; and the
+    production-mesh dry run's check on ``dplr-fwfm``'s records."""
+    cpu = torch.device("cpu")
+    launches = chip_smoke.data_phase(cpu, _data_sz())
+    assert set(launches) == {"embedding_bag_kernel", "bag_rows_radix_histogram",
+                             "bag_rows_radix_sort", "embedding_bag_backward_kernel"}
+    assert sum(launches.values()) == 0                      # the CPU runs no kernel
+    out = capsys.readouterr().out
+    assert "phase data: (2, 2) mesh, 4 positions on cpu; (a) dplr-fwfm/train_batch B=2048 " \
+        "(1024 rows a replica)" in out
+    for part in ("against the plain path on the replicas' rows", "a second run at (2, 2) "
+                 "bitwise the first", "(1, 4) bitwise the step before the data axis after every "
+                 "step", "serve_bulk (2048,) bitwise", "retrieval_cand (1, 4096) bitwise"):
+        assert part in out, part
+    sz = SimpleNamespace(dryrun_timeout=600, dryrun_mesh_args=("--mesh", "both", "--arch",
+                                                                "dplr-fwfm"))
+    out_dir = chip_smoke.BUILD / "dryrun_torch_mesh_rehearsal"
+    proc = chip_smoke.start_dryrun(cpu, list(sz.dryrun_mesh_args), out_dir)
+    try:
+        recs = chip_smoke.dryrun_records(proc, out_dir, sz.dryrun_timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    chip_smoke.dryrun_mesh_check(recs, 8)
+    bad = [dict(r, param_bytes=r["param_bytes"] + 4) if r["shape"] == "train_batch" else r
+           for r in recs]
+    with pytest.raises(AssertionError, match="the rules give"):
+        chip_smoke.dryrun_mesh_check(bad, 8)
+    with pytest.raises(AssertionError, match="8 records, want 40"):
+        chip_smoke.dryrun_mesh_check(recs, 40)
+    out = capsys.readouterr().out
+    assert out.count("coll=") == 8 and "8 recsys cells counted a device" in out
+
+
+def _sum_for_mean(real):
+    def all_reduce(xs, positions, op="sum", out=None):
+        return real(xs, positions, "sum", out)
+    return all_reduce
+
+
+def _scaled_block(real):
+    def block_grads(grad, table, ids, weights, bags, mesh):
+        d = real(grad, table, ids, weights, bags, mesh)
+        rows = table.shape[0] // len(mesh.devices)
+        d[:rows] *= 1.001                      # the first block of each replica
+        return d
+    return block_grads
+
+
+def _one_ulp_at_one_replica(real):
+    def step(*args, mesh, **kwargs):
+        loss, params, state = real(*args, mesh=mesh, **kwargs)
+        if mesh.dp == 1:
+            loss = torch.nextafter(loss, torch.tensor(float("inf")))
+        return loss, params, state
+    return step
+
+
+def _cold_accumulator(real):
+    def step(*args, mesh, **kwargs):
+        loss, params, state = real(*args, mesh=mesh, **kwargs)
+        if mesh.dp > 1:
+            state["acc"]["embedding"][-1, 0] += 1e-6       # a padding row no slot names
+        return loss, params, state
+    return step
+
+
+@pytest.mark.parametrize("target,plant,match", [
+    ("collectives.all_reduce", _sum_for_mean, "step 1's loss on the mesh"),
+    ("train.data_parallel_step", _cold_accumulator,
+     r"elements of embedding or its accumulator at \(2, 2\) past the bound"),
+    ("sharded._block_grads", _scaled_block, "step 1's d_embedding on the mesh"),
+    ("train.data_parallel_step", _one_ulp_at_one_replica,
+     "not bitwise the step before the data axis")])
+def test_data_phase_catches_a_planted_difference(chip_smoke, monkeypatch, target, plant,
+                                                  match):
+    """A sum over the data axis where the mean belongs, a cold row's
+    accumulator off by 1e-6 (within 1e-5 x max(1, max|leaf|)), one arena
+    block's gradient off by 0.1%, a one-ulp change of the (1, 4) step's
+    loss: each fails the phase."""
+    from repro_torch.embedding import sharded
+    from repro_torch.launch import train
+    from repro_torch.sharding import collectives
+    owner, name = target.split(".")
+    mod = {"collectives": collectives, "sharded": sharded, "train": train}[owner]
+    monkeypatch.setattr(mod, name, plant(getattr(mod, name)))
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.data_phase(torch.device("cpu"), _data_sz())

@@ -2,9 +2,10 @@
 and nothing of the JAX package, every module imports (and serves, trains,
 serves a sharded corpus, ranks through ``rank_items_mp``, trains through
 the row-blocked lookup of ``embedding.sharded``, reduces through
-``optim.compression``, and answers over the RPC server under an injected
-fault) with JAX blocked, and asking for the card where there is none
-raises."""
+``optim.compression`` and ``sharding.collectives``, trains on two data
+replicas, counts a device of the production mesh on ``meta``, and
+answers over the RPC server under an injected fault) with JAX blocked,
+and asking for the card where there is none raises."""
 import os
 import re
 import subprocess
@@ -133,6 +134,20 @@ assert torch.allclose(outs[0] + errs[0], g1["embedding"], atol=1e-6)
 cell = steps.build("dplr-fwfm", "train_batch", device="cpu", cfg=cfg, dims={"batch": 16},
                    mesh=make_host_mesh(4, device="cpu"))
 assert torch.isfinite(cell.fn(*cell.args)[0])
+from repro_torch.launch import cost
+from repro_torch.launch.mesh import Mesh, make_production_mesh
+from repro_torch.sharding import collectives
+m22 = Mesh(("data", "model"), (2, 2), ("cpu",) * 4)
+xs = [torch.ones(3), torch.full((3,), 2.0)]
+assert torch.equal(collectives.all_reduce(xs, m22.groups("data")[0], "mean")[1],
+                   torch.full((3,), 1.5))
+cell = steps.build("dplr-fwfm", "train_batch", device="cpu", cfg=cfg, dims={"batch": 2048},
+                   mesh=m22)
+assert torch.isfinite(cell.fn(*cell.args)[0])
+pod = make_production_mesh(device="meta")
+cell = steps.build("dplr-fwfm", "serve_p99", mesh=pod)
+got = cost.analyze(cell.fn, *cell.args, mesh=pod, specs=cell.arg_specs())
+assert got["n_devices"] == 256 and got["collective_bytes"]["all-reduce"]["count"] > 0
 print("ok")
 """
 
