@@ -106,6 +106,31 @@ Phases, one line each:
    ``serve_bulk`` (262,144 rows) and ``retrieval_cand`` (1 x 1,000,000)
    on (2, 2) against the unsharded cells.  Prints the median step (CUDA
    events) of each mesh, the launches and the phase's peak memory.
+5e. lm-mesh: the LM family on the mesh (``models.transformer.parallel``),
+   every position on the card, each cell beside the one-device cell from
+   the same weights and tokens: ``train_4k`` at B = 4 on (2, 2) for
+   gemma3-1b (full width and depth), granite-moe-1b-a400m (full depth, 16
+   experts a position) and yi-9b (full width, 2 of 48 layers, FSDP):
+   step 1's gradients (``train.lm_data_parallel_grads``, joined from each
+   block's first holder, every other holder's copy bitwise it), leaf by
+   leaf no further from one device's f32 leaf than ``LM_MESH_F32`` times
+   one device's bf16 leaf's distance plus ``LM_MESH_FLOOR`` of its largest
+   entry, each of 2 steps' loss within
+   ``LM_MESH_LOSS``, an MoE model's steps under one device's routes (its
+   own counted where they differ), a second run bitwise; prefills
+   through kernel 7 at each position's heads: gemma3-1b 2 x 32,752 on
+   (2, 2) (2 heads a position, KV = 1 gathered) with one ``decode_32k``
+   step on that cache at slot 32,752 of 32,768 (the sequence over the
+   model axis), granite-moe-1b-a400m 2 x 8,192 on (2, 2) (hd 64),
+   mixtral-8x7b at 4 layers 1 x 8,192 on (1, 16) (2 heads a position,
+   KV = 8 gathered, d_ff / 16 of every expert), gemma3-1b 1 x 32,752 on
+   (1, 8) (4 heads on 8 positions: the query rows split, kernel 7 at each
+   position's row offset), each position's first
+   kernel 7 launch held to its plain version, logits and cache by the
+   f32 yardstick, a second call bitwise.  Prints each cell's median step
+   or call (CUDA events) beside one device's, kernel 7's launches, the
+   peak memory and each cut's collective bytes counted a device on
+   ``meta``.
 6. wire: the serving front door on the serve phase's engine and the
    tenants phase's 16 states, one ``QueryFrontend(pack=True)`` behind
    ``RpcServer`` on loopback: 1,000 Bq = 1 top-16 requests pipelined over
@@ -204,10 +229,11 @@ Phases, one line each:
 10e. dryrun: ``launch.dryrun`` over every registry cell on ``meta`` in a
    process of its own started with the script (one line a cell: flops,
    bytes, peak bytes, whether it fits the card), and ``launch.dryrun
-   --mesh both`` over the five recsys architectures' 20 cells in another
-   (one line a cell and mesh: a device's peak, collective bytes and
-   whether it fits; ``dplr-fwfm/train_batch``'s bytes a device equal to
-   the partition rules' by hand, ``mesh_figures``); then each cut the script
+   --mesh both`` over the five recsys architectures' 20 cells and the
+   five LMs' 17 in another (one line a cell and mesh: a device's peak,
+   collective bytes and whether it fits; ``dplr-fwfm/train_batch``'s bytes
+   a device equal to the partition rules' by hand, ``mesh_figures``; each
+   LM's parameters a device ``LM_MESH_PARAMS``); then each cut the script
    runs (gemma3-1b and granite-moe-1b-a400m train at 4 x 4,096, gemma3-1b
    prefill of 2 x 32,752, PNA ``minibatch_lg``) counted on ``meta`` beside
    4 steps of it on the card after a warm one (the median step): its
@@ -453,8 +479,8 @@ FLASH_MOE = ((2, 32_256, 16, 8, 64, None), (1, 8192, 32, 8, 128, 4096))
 
 def mixtral_cut() -> tm.TransformerConfig:
     """mixtral-8x7b at its published widths with 4 of its 32 layers: at
-    full depth its 187 GB of f32 parameters wait for FSDP across data
-    replicas (ROADMAP item 3c)."""
+    full depth its 187 GB of f32 parameters do not fit one card (the dry
+    run counts it a device of the production meshes)."""
     return dataclasses.replace(mixtral_8x7b.make_config(), n_layers=4)
 
 
@@ -486,6 +512,30 @@ FULL = SimpleNamespace(
     # their registry sizes (dims None: B = 65,536, 262,144 and 1 x 1,000,000) on
     # a (2, 2) mesh, adagrad steps a run
     data_dims=None, data_serve_dims=None, data_retrieval_dims=None, data_steps=4,
+    # lm-mesh: (arch, config, train_4k's dims, mesh) of the train cells, adamw
+    # steps a run: gemma3-1b at full width and depth, B cut from 256 to 4;
+    # granite-moe-1b-a400m at full depth, B = 4; yi-9b at full width, 2 of its
+    # 48 layers, FSDP; then (arch, config, prefill_32k's dims, mesh, decode's
+    # cache slots) of the prefills: gemma3-1b at 2 x 32,752 (a decode step
+    # at slot 32,752 of 32,768), granite-moe-1b-a400m at 2 x 8,192, mixtral-8x7b
+    # at 4 of its 32 layers, 1 x 8,192 on the production model axis (1, 16),
+    # gemma3-1b at 1 x 32,752 on (1, 8), where its 4 heads do not split and
+    # the query rows do (kernel 7 at each position's row offset); timed calls
+    # a prefill
+    lm_mesh_train=(("gemma3-1b", gemma3_1b.make_config, {"batch": 4}, (2, 2)),
+                   ("granite-moe-1b-a400m", granite_moe_1b_a400m.make_config, {"batch": 4},
+                    (2, 2)),
+                   ("yi-9b", lambda: dataclasses.replace(yi_9b.make_config(), n_layers=2),
+                    {"batch": 4}, (2, 2))),
+    lm_mesh_steps=2,
+    lm_mesh_serve=(("gemma3-1b", gemma3_1b.make_config, {"batch": 2, "seq": 32_752}, (2, 2),
+                    32_768),
+                   ("granite-moe-1b-a400m", granite_moe_1b_a400m.make_config,
+                    {"batch": 2, "seq": 8192}, (2, 2), None),
+                   ("mixtral-8x7b", mixtral_cut, {"batch": 1, "seq": 8192}, (1, 16), None),
+                   ("gemma3-1b", gemma3_1b.make_config, {"batch": 1, "seq": 32_752}, (1, 8),
+                    None)),
+    lm_mesh_calls=2,
     # wire: Bq = 1 requests pipelined over connections, each with a window
     wire_requests=1000, wire_conns=4, wire_window=4,
     # embedding bag: rows of the context lookup (Bq), of the slab build
@@ -586,9 +636,11 @@ FULL = SimpleNamespace(
     # gnn phases run (arch, shape, dims, config), each counted on meta beside
     # dryrun_steps steps on the card (after a warm one), timed at the median
     dryrun_args=(), dryrun_timeout=900, dryrun_steps=4,
-    # the recsys family's cells counted a device of the production meshes
+    # the recsys and LM families' cells counted a device of the production meshes
     dryrun_mesh_args=("--mesh", "both", "--arch", "dplr-fwfm", "--arch", "wide-deep",
-                      "--arch", "autoint", "--arch", "bst", "--arch", "mind"),
+                      "--arch", "autoint", "--arch", "bst", "--arch", "mind",
+                      "--arch", "gemma3-1b", "--arch", "starcoder2-7b", "--arch", "yi-9b",
+                      "--arch", "granite-moe-1b-a400m", "--arch", "mixtral-8x7b"),
     dryrun_cuts=(("gemma3-1b", "train_4k", {"batch": 4}, None),
                  ("granite-moe-1b-a400m", "train_4k", {"batch": 4}, None),
                  ("gemma3-1b", "prefill_32k", {"batch": 2, "seq": 32_752}, None),
@@ -2815,10 +2867,15 @@ def part_gnn_check(dev, sz, mesh) -> str:
     and weights, on the card, within ``1e-4 max(1, |loss|)`` (each gradient
     leaf: ``1e-4`` of its largest entry) plus twice the whole-graph path's
     own spread when its node features move one ulp up (the gnn phase's
-    rule: ``index_add_``'s atomics add in any order on the card, and the
-    std aggregator's cancellation magnifies a last-bit difference); then
-    the bf16 cell's adamw steps on that partitioned graph, every loss
-    finite, and as many more timed after a warm one (``measure_cell``)."""
+    rule: the std aggregator's cancellation magnifies a last-bit
+    difference).  The three f32 runs are under ``train.deterministic()``:
+    with ``index_add_``'s atomics adding in any order, the spread was a
+    fresh draw each run, and a low draw beside a high error refused a
+    right program (on an H100 one leaf at 1.03 of its bound, where ten
+    repeats alone gave 0.58-0.80); each run now repeats bitwise, so the
+    verdict does too (0.603 there).  Then the bf16 cell's adamw steps on
+    that partitioned graph, every loss finite, and as many more timed
+    after a warm one (``measure_cell``)."""
     D = mesh.shape["model"]
     shape = next(s for s in pna_cfg.SHAPES if s.name == "full_graph_sm")
     if sz.strain_gnn_dims:
@@ -2841,19 +2898,20 @@ def part_gnn_check(dev, sz, mesh) -> str:
     pbatch = train.to_device(dict(nodes, **part), dev)
     params = pna.init(torch.Generator(device=dev).manual_seed(0), cfg32)
     grad_whole = optim.value_and_grad(pna.loss)
-    want, gw = grad_whole(params, cfg32, whole)
     feat = whole["node_feat"]
     nudged = dict(whole, node_feat=torch.nextafter(feat, torch.full_like(feat, np.inf)))
-    wn, gn = grad_whole(params, cfg32, nudged)
-    got, gg = optim.value_and_grad(
-        lambda p, c, b: pna.loss_partitioned(p, c, b, mesh=mesh))(params, cfg32, pbatch)
+    with train.deterministic():
+        want, gw = grad_whole(params, cfg32, whole)
+        wn, gn = grad_whole(params, cfg32, nudged)
+        got, gg = optim.value_and_grad(
+            lambda p, c, b: pna.loss_partitioned(p, c, b, mesh=mesh))(params, cfg32, pbatch)
     spread = abs(float(wn) - float(want))
     bound = 1e-4 * max(1.0, abs(float(want))) + 2 * spread
     if abs(float(got) - float(want)) > bound:
         raise AssertionError(f"shard-train: partitioned PNA loss {float(got):.7g} against "
                              f"{float(want):.7g} (bound {bound:.3g})")
     leaves = optim.optimizers.tree_leaves
-    worst = 0.0
+    worst = share = 0.0
     for a, b, c in zip(leaves(gg), leaves(gw), leaves(gn)):
         err = float((a - b).abs().max())
         lim = 1e-4 * float(b.abs().max()) + 2 * float((c - b).abs().max())
@@ -2861,6 +2919,7 @@ def part_gnn_check(dev, sz, mesh) -> str:
             raise AssertionError(f"shard-train: partitioned PNA gradient off by {err:.3g} "
                                  f"(bound {lim:.3g})")
         worst = max(worst, err / max(float(b.abs().max()), 1e-30))
+        share = max(share, err / (lim + 1e-30))
     cell = steps.build("pna", "full_graph_sm", device=dev, cfg=base, dims=sz.strain_gnn_dims,
                        opts={"partitioned": True}, mesh=mesh)
     p16, s16, _, lr = cell.args
@@ -2875,7 +2934,7 @@ def part_gnn_check(dev, sz, mesh) -> str:
             f"f32 loss {float(got):.6f} against the whole graph's {float(want):.6f} "
             f"(|diff| {abs(float(got) - float(want)):.3g} <= {bound:.3g}, spread "
             f"{spread:.3g}), gradients within {worst:.3g} of each leaf's largest entry and "
-            f"their bounds; bf16: {len(losses)} adamw steps, losses {losses[0]:.4f} -> "
+            f"{share:.3g} of their bounds (deterministic algorithms); bf16: {len(losses)} adamw steps, losses {losses[0]:.4f} -> "
             f"{losses[-1]:.4f}, then {sz.strain_gnn_steps} more after a warm one: median step "
             f"{ms:.3f} ms")
 
@@ -3230,6 +3289,389 @@ def data_phase(dev, sz) -> dict:
     print(f"phase data: (2, 2) mesh, 4 positions on {dev}; " + "; ".join(lines)
           + f"; launches over the phase {out}; peak memory {peak} (max_memory_allocated); "
           f"wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# -- phase 5c: the LM family on the mesh -----------------------------------------
+
+# The lm-mesh phase's bounds against the one-device cell from the same weights
+# and tokens, bf16 compute on both (the mesh sums its positions' partial
+# products, each rounded to bf16, where one device rounds one product): each
+# step's loss within LM_MESH_LOSS x max(1, |loss|); the logits, the caches and
+# the decode step's written slot no further from the one-device f32 run's than
+# LM_MESH_F32 times the one-device bf16 run's distance from it (the CPU
+# rehearsal at the smoke widths read 0.62-1.21 on logits and caches); step 1's
+# gradient leaf by leaf: its largest distance from the one-device f32 leaf at
+# most LM_MESH_F32 times the one-device bf16 leaf's, plus LM_MESH_FLOOR of the
+# f32 leaf's largest entry (a bf16 rounding of that entry), so that a leaf
+# whose bf16 gradient happens to sit near the f32 one is not held to less.
+LM_MESH_LOSS = 1e-3
+LM_MESH_F32 = 2.0
+LM_MESH_FLOOR = 2.0**-8
+
+
+def mesh_grid(sizes: tuple, dev) -> Mesh:
+    return Mesh(("data", "model"), sizes, (dev,) * math.prod(sizes))
+
+
+def joined(plan, blocks: list, params: dict) -> dict:
+    """The whole gradient tree from each position's blocks (the one
+    process's join): each block from its first holder, the copy that
+    ``train.lm_data_parallel_step`` updates with; every other holder's copy
+    must be bitwise that one."""
+    whole = rebuild(params, iter([torch.empty_like(p) for _, p in flat_items(params)]))
+    leaves = [p for _, p in flat_items(whole)]
+    specs = [s for _, s in flat_items(plan.specs)]
+    first = {}
+    for pos, fl in zip(plan.pos, blocks):
+        for li, (leaf, spec, g) in enumerate(zip(leaves, specs, fl)):
+            key = (li, tuple(rules.block_index(e, plan.mesh, pos)[0] for e in spec))
+            if key not in first:
+                first[key] = pos
+                rules.local_block(leaf, spec, plan.mesh, pos).copy_(g)
+            elif not torch.equal(g, rules.local_block(leaf, spec, plan.mesh, pos)):
+                raise AssertionError(f"lm-mesh: position {pos}'s copy of leaf {li}'s block is "
+                                     f"not its first holder {first[key]}'s")
+    return whole
+
+
+def held(got, want, f32, what: str) -> float:
+    """``max |got - f32|`` over ``LM_MESH_F32 max |want - f32|`` (plus f32's
+    unit roundoff of ``max |f32|``), which must be at most 1."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"lm-mesh: non-finite {what}")
+    err = _max_diff(got, f32)
+    ratio = err / (LM_MESH_F32 * _max_diff(want, f32) + 2.0**-24 * float(f32.float().abs().max()))
+    if not ratio <= 1.0:
+        raise AssertionError(f"lm-mesh: {what} {err:.4g} from the one-device f32 run's, "
+                             f"{ratio:.3g} x {LM_MESH_F32} x the one-device bf16 run's distance")
+    return ratio
+
+
+def counted_collectives(arch, shape, cfg, dims, mesh) -> str:
+    """The same cut counted on ``meta`` a device of ``mesh``: its
+    collectives' bytes by kind."""
+    meta_mesh = Mesh(mesh.axis_names, tuple(mesh.shape.values()),
+                     ("meta",) * mesh.size)
+    cell = steps.build(arch, shape, "meta", cfg=cfg, dims=dims, mesh=meta_mesh)
+    got = cost.analyze(cell.fn, *cell.args, mesh=meta_mesh, specs=cell.arg_specs())
+    kinds = {k: v["total_bytes"] for k, v in got["collective_bytes"].items() if v["count"]}
+    return "counted a device: " + ", ".join(f"{k} {v}" for k, v in kinds.items()) + \
+        f" B (peak_bytes {got['peak_bytes'] / 2**30:.2f} GiB)"
+
+
+def leaf_gaps(g: dict, f32: dict) -> dict:
+    """Each leaf's ``max|g - f32|`` over ``max|f32|`` (largest entry 0: 0
+    where they agree)."""
+    return {k: float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for (k, a), (_, b) in zip(flat_items(g), flat_items(f32))}
+
+
+def gradient_gaps(arch: str, sizes, g_m: dict, g_u: dict, g_f: dict) -> str:
+    """Step 1's gradient on the mesh ``g_m`` leaf by leaf against one
+    device's f32 gradient ``g_f``: each leaf's gap (``leaf_gaps``) at most
+    ``LM_MESH_F32`` times one device's bf16 leaf's plus ``LM_MESH_FLOOR``.
+    Returns a note of the readings: the worst leaf by its ratio to its
+    bound, and the largest gaps, mesh / one device."""
+    mesh_g, one = leaf_gaps(g_m, g_f), leaf_gaps(g_u, g_f)
+    ratio = {k: mesh_g[k] / (LM_MESH_F32 * one[k] + LM_MESH_FLOOR) for k in mesh_g}
+    worst = max(ratio, key=ratio.get)
+    if not ratio[worst] <= 1.0:
+        raise AssertionError(f"lm-mesh: {arch} step 1's gradient on {sizes}: leaf {worst} "
+                             f"{mesh_g[worst]:.3g} of its largest entry from one device's f32 "
+                             f"leaf, past {LM_MESH_F32} x one device's bf16 leaf's "
+                             f"{one[worst]:.3g} + {LM_MESH_FLOOR:.3g}")
+    top = max(mesh_g, key=mesh_g.get)
+    return (f"(mesh / one device's bf16 gap from one device's f32, of a leaf's largest entry) "
+            f"worst against its bound {worst} {mesh_g[worst]:.3g} / {one[worst]:.3g} "
+            f"({ratio[worst]:.3g} of the bound), largest {top} {mesh_g[top]:.3g} / "
+            f"{one[top]:.3g}, median over {len(ratio)} leaves of the ratio "
+            f"{float(np.median(list(ratio.values()))):.3g}")
+
+
+def mesh_train(dev, sz, arch: str, cfg, dims, sizes) -> str:
+    """``arch/train_4k`` cut to ``dims`` on a ``sizes`` mesh, beside the
+    one-device cell from the same weights and tokens: step 1's loss and
+    gradients (``train.lm_data_parallel_grads``, joined) within the bounds
+    above; ``sz.lm_mesh_steps`` adamw steps of each, each step's loss
+    within ``LM_MESH_LOSS``; a second mesh run bitwise the first (losses
+    and every parameter and state leaf); the median step of each and the
+    mesh run's peak memory."""
+    mesh = mesh_grid(sizes, dev)
+    cell = steps.build(arch, "train_4k", device=dev, cfg=cfg, dims=dims, mesh=mesh)
+    params, opt, batch, lr = cell.args
+    n_micro = min(cfg.micro_batches, max(batch["tokens"].shape[0] // mesh.dp, 1))
+    note = ""
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    with train.deterministic():
+        plain_n = min(cfg.micro_batches, batch["tokens"].shape[0])
+
+        def one_device(c):
+            loss_fn = lambda p, b: tm.lm_loss(p, c, b, device=dev)  # noqa: E731
+            return (optim.gradient_accumulation(loss_fn, plain_n) if plain_n > 1 else
+                    optim.value_and_grad(loss_fn))(params, batch)
+
+        with routed() as rec:
+            loss_u, g_u = one_device(cfg)
+        with routed(force=rec.own if cfg.is_moe else None):
+            _, g_f = one_device(f32)
+        if cfg.is_moe and (n_micro != 1 or plain_n != 1):
+            raise AssertionError(f"lm-mesh: {arch}'s routes are held with one microbatch")
+        plan = cell.plan
+        # step 1 under the one device's routes, routing by routing (the
+        # forward's L, then a remat recompute's)
+        with routed(force=rec.own, plan=plan) if cfg.is_moe else \
+                contextlib.nullcontext() as mrec:
+            loss_m, blocks = train.lm_data_parallel_grads(plan, params, batch, n_micro)
+        if cfg.is_moe:
+            flips = route_diff(mrec.own[:cfg.n_layers], rec.own[:cfg.n_layers], cfg.moe_cfg)
+            note = (" (under the one device's routes; the mesh's own against them: "
+                    + _share(flips, cfg.n_layers * batch["tokens"].numel()) + ")")
+        g_m = joined(plan, blocks, params)
+        del blocks
+    gap = gradient_gaps(arch, sizes, g_m, g_u, g_f)
+    del g_m, g_u, g_f
+    gc.collect()
+    # the one-device steps first (an MoE model's routes recorded a step), then
+    # the mesh's under those routes, twice
+    times = {"mesh": [], "one": []}
+    plain = steps.build(arch, "train_4k", device=dev, cfg=cfg, dims=dims)
+    if not torch.equal(plain.args[2]["tokens"], batch["tokens"]):
+        raise AssertionError("lm-mesh: the one-device cell drew other tokens")
+    pstate, want, routes = list(plain.args[:2]), [], []
+    for _ in range(sz.lm_mesh_steps):
+        with routed() as rec:
+            want.append(timed_step(dev, plain, pstate, batch, times["one"]))
+        routes.append(rec.own)
+    del plain, pstate
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    state, losses, worst_l = [params, opt], [], 0.0
+    for i in range(sz.lm_mesh_steps):
+        with routed(force=routes[i], plan=cell.plan) if cfg.is_moe else \
+                contextlib.nullcontext():
+            losses.append(timed_step(dev, cell, state, batch, times["mesh"]))
+        gap_l = abs(float(losses[i]) - float(want[i])) / max(1.0, abs(float(want[i])))
+        if not gap_l <= LM_MESH_LOSS:
+            raise AssertionError(f"lm-mesh: {arch} step {i + 1}'s loss on {sizes} "
+                                 f"{float(losses[i]):.7g} against one device's "
+                                 f"{float(want[i]):.7g}")
+        worst_l = max(worst_l, gap_l)
+    peak = None if dev.type != "cuda" else torch.cuda.max_memory_allocated(dev) - base
+    again = steps.build(arch, "train_4k", device=dev, cfg=cfg, dims=dims, mesh=mesh)
+    mine = list(again.args[:2])
+    for i in range(sz.lm_mesh_steps):
+        with routed(force=routes[i], plan=again.plan) if cfg.is_moe else \
+                contextlib.nullcontext():
+            loss, *mine = again.fn(*mine, batch, lr)
+        if not torch.equal(loss, losses[i]):
+            raise AssertionError(f"lm-mesh: {arch} on {sizes}: a second run's step {i + 1} "
+                                 f"loss is not bitwise the first's")
+    if not (same_tree(mine[0], state[0]) and same_tree(mine[1], state[1])):
+        raise AssertionError(f"lm-mesh: {arch} on {sizes}: a second run is not bitwise the "
+                             f"first")
+    del again, mine, state, cell
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    B, S = batch["tokens"].shape
+    routes_note = " under the one device's routes" if cfg.is_moe else ""
+    return (f"{arch} train_4k {B} x {S} on {sizes} ({cfg.n_layers} layers, fsdp={cfg.fsdp}, "
+            f"{n_micro} microbatch(es) a replica; {cell_plan(plan)}): step 1's loss "
+            f"{float(loss_m):.6f} against one device's {float(loss_u):.6f}, gradients "
+            f"leaf by leaf {gap}{note}; "
+            f"{sz.lm_mesh_steps} steps{routes_note}, "
+            f"losses within {worst_l:.3g} x max(1, |loss|) (<= {LM_MESH_LOSS}); a second "
+            f"run bitwise the first; median step ms (CUDA events) mesh {med['mesh']:.1f}, one "
+            f"device {med['one']:.1f}; peak memory of the mesh steps "
+            f"{_mib(None if peak is None else peak / 2**20)}; "
+            + counted_collectives(arch, "train_4k", cfg, dims, mesh))
+
+
+def cell_plan(plan) -> str:
+    cfg = plan.cfg
+    what = f"{cfg.n_heads // plan.m} heads a position" if plan.heads else "query rows a position"
+    if not plan.kv_whole and plan.heads:
+        what += ", the kv heads they read gathered"
+    if cfg.is_moe:
+        what += (f", {cfg.n_experts // plan.m} experts a position"
+                 if rules.expert_parallel(cfg, plan.mesh) else
+                 f", d_ff {cfg.d_ff // plan.m} of every expert a position")
+    return what
+
+
+def first_flash(record: list):
+    """Wraps ``ops.flash_attention``: the first call's inputs kept in
+    ``record``."""
+    real = ops.flash_attention
+
+    def wrapper(q, k, v, *, window=None, q_offset=0):
+        if not record:
+            record.append((q.clone(), k.clone(), v.clone(), window, q_offset))
+        return real(q, k, v, window=window, q_offset=q_offset)
+
+    return real, wrapper
+
+
+def mesh_serve(dev, sz, arch: str, cfg, dims, sizes, decode_slots) -> tuple[str, dict]:
+    """``arch/prefill_32k`` cut to ``dims`` on a ``sizes`` mesh beside the
+    one-device function (``model.prefill``) on the same weights and
+    tokens, an MoE model's under the one device's routes (the mesh's own
+    counted where they differ): the logits and the cache within the
+    bounds above, each position's kernel 7 launches counted (its first
+    launch, the first position's heads of layer 0, held to the kernel's
+    plain version by ``flash_ratio``), a timed call bitwise the first.
+    With ``decode_slots``: one ``decode_32k`` step on a cache of that many
+    slots holding the mesh prefill's, at the next slot, against
+    ``model.decode_step`` on a copy: logits and the written slot within
+    the bounds.  Returns (the line, kernel 7's launches over the mesh
+    calls)."""
+    mesh = mesh_grid(sizes, dev)
+    cell = steps.build(arch, "prefill_32k", device=dev, cfg=cfg, dims=dims, mesh=mesh)
+    params, tokens = cell.args
+    B, S = tokens.shape
+    flash = collections.Counter()
+    note = ""
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    with routed() as rec:
+        want_logits, want_cache = tm.prefill(params, cfg, tokens, S, device=dev)
+    with routed(force=rec.own if cfg.is_moe else None):
+        f32_logits, f32_cache = tm.prefill(params, f32, tokens, S, device=dev)
+    forced = (lambda: routed(force=rec.own, plan=cell.plan)) if cfg.is_moe else \
+        contextlib.nullcontext
+    record = []
+    real, wrapper = first_flash(record)
+    ops.flash_attention = wrapper
+    try:
+        with torch.no_grad(), counted(flash), forced() as mrec:
+            logits, cache = cell.fn(params, tokens)
+    finally:
+        ops.flash_attention = real
+    if cfg.is_moe:
+        flips = route_diff(mrec.own, rec.own, cfg.moe_cfg)
+        note = "; routes of the mesh's own logits against one device's: " + _share(
+            flips, cfg.n_layers * B * S)
+    V = cfg.vocab
+    ratios = {"logits": held(logits[..., :V], want_logits[..., :V], f32_logits[..., :V],
+                             f"{arch} prefill logits on {sizes}"),
+              "cache": max(held(cache[i], want_cache[i], f32_cache[i],
+                                f"{arch} prefill cache layer {i}")
+                           for i in range(cfg.n_layers))}
+    del want_logits, f32_logits, f32_cache
+    q, k, v, window, q_offset = record[0]
+    got = ops.flash_attention(q, k, v, window=window, q_offset=q_offset)
+    want, size = ref.flash_attention_plain(q, k, v, window=window, with_size=True,
+                                           q_offset=q_offset)
+    f_ratio = flash_ratio(got, want, size, v)
+    if not f_ratio <= 1.0:
+        raise AssertionError(f"lm-mesh: kernel 7 at the first position's "
+                             f"{'heads' if cell.plan.heads else 'rows'} {tuple(q.shape)} off "
+                             f"its plain version by {f_ratio:.3f} of its bound")
+    del q, k, v, got, want, size, record
+    launches = {g: flash[g] for g in ops.KERNELS["flash_attention"]}
+    heads = len(cell.plan.pos) * cfg.n_layers
+    if dev.type == "cuda" and sum(launches.values()) != heads:
+        raise AssertionError(f"lm-mesh: {arch} prefill on {sizes} launched kernel 7 "
+                             f"{launches}, not once a position and layer ({heads})")
+    times = []
+    if dev.type == "cuda":
+        _sync(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        for _ in range(sz.lm_mesh_calls):
+            with forced():
+                again = timed(dev, lambda: cell.fn(params, tokens), times)
+            if not (torch.equal(again[0], logits) and torch.equal(again[1], cache)):
+                raise AssertionError(f"lm-mesh: {arch} prefill on {sizes}: a second call is "
+                                     f"not bitwise the first")
+            del again
+    peak = None if dev.type != "cuda" else torch.cuda.max_memory_allocated(dev) - base
+    one = []
+    with torch.no_grad():
+        for _ in range(sz.lm_mesh_calls):
+            with routed(force=rec.own) if cfg.is_moe else contextlib.nullcontext():
+                timed(dev, lambda: tm.prefill(params, cfg, tokens, S, device=dev), one)
+    line = (f"{arch} prefill_32k {B} x {S} on {sizes} ({cfg.n_layers} layers; "
+            f"{cell_plan(cell.plan)}): logits {ratios['logits']:.3g} and cache "
+            f"{ratios['cache']:.3g} of their bounds (from one device's f32, against one "
+            f"device's bf16){note}; kernel 7 "
+            f"launches {launches}, its first position's launch {f_ratio:.3f} of the bound of "
+            f"its plain version; median call ms (CUDA events) mesh {np.median(times):.1f}, "
+            f"one device {np.median(one):.1f}; peak memory of the mesh calls "
+            f"{_mib(None if peak is None else peak / 2**20)}; a second call bitwise the "
+            f"first; " + counted_collectives(arch, "prefill_32k", cfg, dims, mesh))
+    del want_cache
+    if decode_slots:
+        line += "; " + mesh_decode(dev, arch, cfg, mesh, params, logits, cache, decode_slots,
+                                   flash)
+    del cell, logits, cache
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return line, dict(flash)
+
+
+def mesh_decode(dev, arch, cfg, mesh, params, logits, cache, slots: int, flash) -> str:
+    """One ``decode_32k`` step on the mesh at slot S (the prefill's length)
+    of a ``slots``-slot cache holding ``cache``, greedy from ``logits``,
+    against ``model.decode_step`` on a copy of that cache."""
+    L, _, B, S = cache.shape[:4]
+    big = torch.zeros((L, 2, B, slots, cfg.n_kv_heads, cfg.hd), dtype=cache.dtype,
+                      device=cache.device)
+    big[:, :, :, :S] = cache
+    copy = big.clone()
+    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    dcell = steps.build(arch, "decode_32k", device=dev, cfg=cfg, dims={"batch": B, "seq": slots},
+                        mesh=mesh)
+    index = torch.tensor(S, dtype=torch.int32, device=dev)
+    times = []
+    with torch.no_grad(), counted(flash):
+        got, _ = timed(dev, lambda: dcell.fn(params, big, tok, index), times)
+    f32_copy = copy.clone()
+    with torch.no_grad():
+        want, _ = tm.decode_step(params, cfg, tok, copy, S, device=dev)
+        f32, _ = tm.decode_step(params, dataclasses.replace(cfg, compute_dtype=torch.float32),
+                                tok, f32_copy, S, device=dev)
+    V = cfg.vocab
+    r_logits = held(got[..., :V], want[..., :V], f32[..., :V], f"{arch} decode logits")
+    r_slot = held(big[:, :, :, S], copy[:, :, :, S], f32_copy[:, :, :, S],
+                  f"{arch} decode's written slot")
+    if not torch.equal(big[:, :, :, :S], copy[:, :, :, :S]):
+        raise AssertionError(f"lm-mesh: {arch} decode changed a slot before {S}")
+    del big, copy, f32_copy, dcell
+    return (f"one decode_32k step at slot {S} of {slots} (the sequence over model): logits "
+            f"{r_logits:.3g} and the written slot {r_slot:.3g} of their bounds, every other "
+            f"slot as it was; {times[0]:.1f} ms (CUDA events, one step)")
+
+
+def lm_mesh_phase(dev, sz) -> dict:
+    """The LM family on the mesh, every position on the one card: train
+    cells (``mesh_train``) and prefills with a decode step (``mesh_serve``),
+    at ``sz.lm_mesh_train`` and ``sz.lm_mesh_serve``.  Returns kernel 7's
+    launches over the phase's mesh calls; on the card they must be
+    there."""
+    t_phase = time.perf_counter()
+    lines, launches = [], collections.Counter()
+    for arch, make, dims, sizes in sz.lm_mesh_train:
+        lines.append(mesh_train(dev, sz, arch, make(), dims, sizes))
+        gc.collect()
+    for arch, make, dims, sizes, slots in sz.lm_mesh_serve:
+        line, flash = mesh_serve(dev, sz, arch, make(), dims, sizes, slots)
+        lines.append(line)
+        launches.update(flash)
+        gc.collect()
+    out = {g: launches[g] for g in ops.KERNELS["flash_attention"]}
+    if dev.type == "cuda" and not sum(out.values()):
+        raise AssertionError(f"lm-mesh: kernel 7 did not launch: {out}")
+    print(f"phase lm-mesh: every position on {dev}; " + "; ".join(lines)
+          + f"; kernel 7 launches over the phase {out}; wall "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
@@ -4461,30 +4903,63 @@ def plain_extend(params, cfg, tokens, cache, start: int):
 
 
 @contextlib.contextmanager
-def routed(force=None, keep: int | None = None):
-    """Inside, each ``moe.moe_ffn`` call (an MoE model's layers, in order)
-    appends to ``.own`` the experts (T, k) its own logits choose
-    (``moe.route``), and runs under the next entry of ``force`` when given,
-    else under its own; the input of call number ``keep`` is kept as
-    ``.input``.  A check that compares two paths of an MoE model holds them
-    under one set of routes this way, and counts where their own differ."""
+def routed(force=None, keep: int | None = None, plan=None):
+    """Inside, each routing of an MoE layer (``moe.top_experts``, through
+    which the one-device FFN and the mesh plan both choose, layer by layer;
+    a remat recompute routes again) appends to ``.own`` the experts (T, k)
+    its own logits choose, and runs under the next entry of ``force`` when
+    given, else under its own.  ``plan`` (a mesh plan, with ``force``):
+    each running position routes a layer, so an entry spans that many
+    calls; a position takes its replica's rows of the forced entry (all
+    of it where the layer routed every token), and ``.own`` holds each
+    replica's rows from its model position 0.  ``keep``: the input of
+    ``moe.moe_ffn`` call number ``keep`` is kept as ``.input``.  A check
+    that compares two paths of an MoE model holds them under one set of
+    routes this way, and counts where their own differ."""
+    if plan is not None and force is None:
+        raise ValueError("routed: a mesh plan routes under forced entries")
     rec = SimpleNamespace(own=[], input=None)
-    real = moe.moe_ffn
+    real, real_ffn = moe.top_experts, moe.moe_ffn
     given = None if force is None else iter(force)
+    per = 1 if plan is None else len(plan.pos)
+    state = {"calls": 0, "entry": None, "mine": [], "ffn": 0}
 
-    def recording(x, router_w, w_gate, w_in, w_out, cfg, experts=None):
-        mine = moe.route(x, router_w, cfg)
-        if keep == len(rec.own):
+    def choosing(logits, k):
+        mine = real(logits, k)
+        i = state["calls"] % per
+        state["calls"] += 1
+        if i == 0:
+            state["entry"] = None if given is None else next(given)
+            state["mine"] = []
+        T = mine.numel() // k
+        want = state["entry"]
+        if plan is not None and plan.j(i) == 0:
+            state["mine"].append(mine.reshape(T, k))
+        if i == per - 1:
+            rec.own.append(mine.reshape(T, k) if plan is None else
+                           state["mine"][0] if T == want.shape[0] else torch.cat(state["mine"]))
+        if want is None:
+            return mine
+        if want.shape[0] != T:
+            r = plan.index[plan.pos[i]] // plan.m
+            want = want[r * T:(r + 1) * T]
+        return want.to(mine.device).reshape(mine.shape)
+
+    def keeping(x, *args, **kw):
+        if keep == state["ffn"]:
             rec.input = x
-        rec.own.append(mine)
-        return real(x, router_w, w_gate, w_in, w_out, cfg,
-                    mine if given is None else next(given))
+        state["ffn"] += 1
+        return real_ffn(x, *args, **kw)
 
-    moe.moe_ffn = recording
+    moe.top_experts = choosing
+    if keep is not None:
+        moe.moe_ffn = keeping
     try:
         yield rec
     finally:
-        moe.moe_ffn = real
+        moe.top_experts, moe.moe_ffn = real, real_ffn
+    if state["calls"] % per:
+        raise AssertionError(f"routed: {state['calls']} routings, not whole layers of {per}")
     if given is not None and next(given, None) is not None:
         raise AssertionError("routed: more forced routes than MoE calls")
 
@@ -5400,15 +5875,30 @@ def mesh_figures(cfg, mesh_name: str) -> dict:
             "n_devices": 512 if mesh_name == "multi" else 256}
 
 
+# An LM's f32 parameters a device of either production mesh (the rules'
+# blocks: vocabulary, heads or experts over the 16 model positions, with FSDP
+# the other dim over the 16 data positions); its serving cells hold them in bf16
+LM_MESH_PARAMS = {"gemma3-1b": 250_182_144, "starcoder2-7b": 1_850_886_144,
+                  "yi-9b": 139_542_528, "granite-moe-1b-a400m": 349_442_048,
+                  "mixtral-8x7b": 734_969_856}
+
+
 def dryrun_mesh_check(recs: list, want_cells: int) -> None:
     """The production-mesh dry run: ``want_cells`` records, each a device's
     ``peak``, ``coll`` and ``fits`` (one line a cell, with its mesh); the
     ``dplr-fwfm/train_batch`` records' bytes a device equal to
-    ``mesh_figures``."""
+    ``mesh_figures``; an LM cell's parameters a device ``LM_MESH_PARAMS``
+    (half that in a serving cell's bf16)."""
     if len(recs) != want_cells:
         raise AssertionError(f"dryrun --mesh: {len(recs)} records, want {want_cells}")
     cfg = dplr_fwfm.make_config()
     for rec in recs:
+        if rec["arch"] in LM_MESH_PARAMS:
+            want = LM_MESH_PARAMS[rec["arch"]] // (1 if rec["kind"] == "train" else 2)
+            if rec["param_bytes"] != want:
+                raise AssertionError(f"dryrun --mesh {rec['mesh']}: {rec['arch']}/"
+                                     f"{rec['shape']} holds {rec['param_bytes']} B of "
+                                     f"parameters a device, the rules give {want}")
         if (rec["arch"], rec["shape"]) != ("dplr-fwfm", "train_batch"):
             continue
         got = {k: rec[k] for k in ("param_bytes", "opt_state_bytes", "input_bytes",
@@ -5418,9 +5908,11 @@ def dryrun_mesh_check(recs: list, want_cells: int) -> None:
             raise AssertionError(f"dryrun --mesh {rec['mesh']}: dplr-fwfm/train_batch a "
                                  f"device {got}, the rules give {want}")
     fits = sum(r["fits_one_card"] for r in recs)
-    print(f"phase dryrun: {len(recs)} recsys cells counted a device of the production meshes "
-          f"on meta ({fits} fit one card); dplr-fwfm/train_batch's bytes a device equal the "
-          f"rules' on both meshes", flush=True)
+    lm = sum(r["arch"] in LM_MESH_PARAMS for r in recs)
+    print(f"phase dryrun: {len(recs) - lm} recsys cells" + (f" and {lm} LM cells" if lm else "")
+          + f" counted a device of the production meshes on meta ({fits} fit one card); "
+          f"dplr-fwfm/train_batch's bytes a device equal the rules' on both meshes"
+          + (", every LM's parameters a device the rules'" if lm else ""), flush=True)
 
 
 def dryrun_phase(dev, sz, proc: subprocess.Popen, out: Path, mesh_proc=None,
@@ -6385,6 +6877,8 @@ def run_phases(dev, peaks, model_batches, dry) -> list:
     # and on the mesh's data axis
     for g, count in data_phase(dev, FULL).items():
         launches[g] = launches.get(g, 0) + count
+    # the LM family on the mesh: kernel 7 at each position's heads
+    mesh_flash = lm_mesh_phase(dev, FULL)
     for g, count in wire_phase(dev, FULL, serve, tenants).items():
         launches[g] = launches.get(g, 0) + count
     # the eval phase's bf16 case adds to the bf16 rows (kernel 6's only path)
@@ -6396,6 +6890,8 @@ def run_phases(dev, peaks, model_batches, dry) -> list:
     for g, count in models_phase(dev, FULL, model_batches.result()).items():
         launches[g] = launches.get(g, 0) + count
     launches.update(lm_phase(dev, FULL))
+    for g, count in mesh_flash.items():
+        launches[g] = launches.get(g, 0) + count
     lm_train_phase(dev, FULL)
     gnn_phase(dev, FULL)
     # this slice's main path: the examples' launches, counted over their phase

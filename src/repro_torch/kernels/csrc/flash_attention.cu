@@ -5,9 +5,11 @@
 //                  * v[b, j, h / G]
 //   span(i) = {j : j <= i and (window == 0 or j > i - window)}
 //
-// q, out (B, S, H, hd); k, v (B, S, KV, hd); G = H / KV.  bf16 (the model's
-// compute type) or f32 (for parity checks), scores, running max and sum in
-// f32.
+// q, out (B, Sq, H, hd); k, v (B, S, KV, hd); G = H / KV.  Query row r sits
+// at position i = q_off + r (q_off + Sq <= S): 0 for a whole sequence, the
+// first row's position for a block of rows (the LM plan's query rows split
+// over a mesh's model axis).  bf16 (the model's compute type) or f32 (for
+// parity checks), scores, running max and sum in f32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py,
 // flash_attention() (_kernel): grid (B, KV, q blocks, kv blocks), the kv
@@ -61,7 +63,7 @@
 //    shared memory, loads staged by all threads.
 //  * f32 (parity checks only): the same tiling on the CUDA cores, 256
 //    threads, 32-key tiles; no tensor cores, so no TF32.
-//  * Any S: the ragged last tiles are masked in the kernel; rows past S are
+//  * Any S: the ragged last tiles are masked in the kernel; rows past Sq are
 //    never written.
 #include <cuda_bf16.h>
 
@@ -80,9 +82,20 @@ constexpr int kThreadsF32 = 256;
 constexpr int kMaxHdF32 = 256;
 
 struct Shape {
-  int S, H, KV, G, pos_per_block, window;
+  int S, H, KV, G, pos_per_block, window;   // S: keys
   float scale;
+  int Sq, q_off;                            // query rows, the position of row 0
 };
+
+// A block's first query row and the positions [q_lo, q_hi] of its rows.
+struct BlockRows {
+  int r_lo, q_lo, q_hi;
+};
+
+__device__ inline BlockRows block_rows(const Shape& sh) {
+  const int r_lo = (gridDim.x - 1 - blockIdx.x) * sh.pos_per_block;
+  return {r_lo, sh.q_off + r_lo, sh.q_off + min(r_lo + sh.pos_per_block, sh.Sq) - 1};
+}
 
 // The keys [k_first, k_last] a block of query positions [q_lo, q_hi] needs.
 __device__ inline void key_span(const Shape& sh, int q_lo, int q_hi, int keys_per_tile,
@@ -153,15 +166,15 @@ __device__ void attend_bf16(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* vs = ks + kKeysBf16 * kStride;
 
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * sh.pos_per_block;
-  const int q_hi = min(q_lo + sh.pos_per_block, sh.S) - 1;
+  const BlockRows br = block_rows(sh);
+  const int q_lo = br.q_lo, q_hi = br.q_hi;
   const int rows_used = sh.pos_per_block * sh.G;
-  const long long seq = (long long)b * sh.S;
+  const long long seq = (long long)b * sh.S, qseq = (long long)b * sh.Sq;
 
   stage<__nv_bfloat16, kThreadsBf16>(qs, kRows, HD, kStride, [&](int r) {
-    const int pos = q_lo + r / sh.G;
-    return (r < rows_used && pos < sh.S)
-               ? q + ((seq + pos) * sh.H + kvh * sh.G + r % sh.G) * HD
+    const int row = br.r_lo + r / sh.G;
+    return (r < rows_used && row < sh.Sq)
+               ? q + ((qseq + row) * sh.H + kvh * sh.G + r % sh.G) * HD
                : nullptr;
   });
 
@@ -173,7 +186,7 @@ __device__ void attend_bf16(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + g + 8 * i;
     qpos[i] = q_lo + r / sh.G;
-    row_ok[i] = r < rows_used && qpos[i] < sh.S;
+    row_ok[i] = r < rows_used && br.r_lo + r / sh.G < sh.Sq;
   }
   float o[HD / 8][4];
 #pragma unroll
@@ -280,7 +293,8 @@ __device__ void attend_bf16(const __nv_bfloat16* __restrict__ q,
     if (!row_ok[i]) continue;
     const int r = warp * 16 + g + 8 * i;
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* dst = out + ((seq + qpos[i]) * sh.H + kvh * sh.G + r % sh.G) * HD + 2 * t;
+    __nv_bfloat16* dst =
+        out + ((qseq + qpos[i] - sh.q_off) * sh.H + kvh * sh.G + r % sh.G) * HD + 2 * t;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) =
@@ -304,16 +318,16 @@ __device__ void attend_f32(const float* __restrict__ q, const float* __restrict_
   float* l_s = alpha_s + kRows;
 
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * sh.pos_per_block;
-  const int q_hi = min(q_lo + sh.pos_per_block, sh.S) - 1;
+  const BlockRows br = block_rows(sh);
+  const int q_lo = br.q_lo, q_hi = br.q_hi;
   const int rows_used = sh.pos_per_block * sh.G;
-  const long long seq = (long long)b * sh.S;
+  const long long seq = (long long)b * sh.S, qseq = (long long)b * sh.Sq;
   const int hd4 = hd / 4;
 
   stage<float, kThreadsF32>(qs, kRows, hd, stride, [&](int r) {
-    const int pos = q_lo + r / sh.G;
-    return (r < rows_used && pos < sh.S)
-               ? q + ((seq + pos) * sh.H + kvh * sh.G + r % sh.G) * hd
+    const int row = br.r_lo + r / sh.G;
+    return (r < rows_used && row < sh.Sq)
+               ? q + ((qseq + row) * sh.H + kvh * sh.G + r % sh.G) * hd
                : nullptr;
   });
 
@@ -325,7 +339,7 @@ __device__ void attend_f32(const float* __restrict__ q, const float* __restrict_
   for (int i = 0; i < 2; ++i) {
     const int r = 2 * rg + i;
     qpos[i] = q_lo + r / sh.G;
-    row_ok[i] = r < rows_used && qpos[i] < sh.S;
+    row_ok[i] = r < rows_used && br.r_lo + r / sh.G < sh.Sq;
   }
   // PV: thread (pr, dq) takes row pr and float4 columns dq + 4 j
   const int pr = threadIdx.x >> 2, dq = threadIdx.x & 3;
@@ -424,11 +438,11 @@ __device__ void attend_f32(const float* __restrict__ q, const float* __restrict_
     l_s[2 * rg + 1] = l[1];
   }
   __syncthreads();
-  const int pos = q_lo + pr / sh.G;
-  if (pr < rows_used && pos < sh.S) {
+  const int row = br.r_lo + pr / sh.G;
+  if (pr < rows_used && row < sh.Sq) {
     const float inv_l = 1.f / fmaxf(l_s[pr], 1e-30f);
     float4* dst = reinterpret_cast<float4*>(
-        out + ((seq + pos) * sh.H + kvh * sh.G + pr % sh.G) * hd);
+        out + ((qseq + row) * sh.H + kvh * sh.G + pr % sh.G) * hd);
 #pragma unroll
     for (int j = 0; j < kMaxHdF32 / 16; ++j) {
       if (dq + 4 * j < hd4)
@@ -631,8 +645,9 @@ __device__ __forceinline__ void hopper_consumer(const Ring<HD>& ring,
   const int g = lane >> 2;
   const int rows_used = sh.pos_per_block * sh.G;
   const float scale_log2 = sh.scale * 1.4426950408889634f;
+  const int r_lo = q_lo - sh.q_off;
   ConsumerRows rows;
-  rows.all_ok = rows_used == kHopperRows && q_lo + sh.pos_per_block <= sh.S;
+  rows.all_ok = rows_used == kHopperRows && r_lo + sh.pos_per_block <= sh.Sq;
   rows.q_lo = q_lo;
   rows.q_hi = q_hi;
   rows.t4 = lane & 3;
@@ -640,7 +655,7 @@ __device__ __forceinline__ void hopper_consumer(const Ring<HD>& ring,
   for (int i = 0; i < 2; ++i) {
     const int r = 64 * c + 16 * warp + g + 8 * i;
     rows.qpos[i] = q_lo + r / sh.G;
-    rows.ok[i] = r < rows_used && rows.qpos[i] < sh.S;
+    rows.ok[i] = r < rows_used && r_lo + r / sh.G < sh.Sq;
   }
   float o[HD / 2];
 #pragma unroll
@@ -684,7 +699,7 @@ __device__ __forceinline__ void hopper_consumer(const Ring<HD>& ring,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const long long seq = (long long)blockIdx.z * sh.S;
+  const long long qseq = (long long)blockIdx.z * sh.Sq;
   const int kvh = blockIdx.y;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -692,7 +707,8 @@ __device__ __forceinline__ void hopper_consumer(const Ring<HD>& ring,
     const int row = 64 * c + 16 * warp + g + 8 * r;
     const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* dst =
-        out + ((seq + rows.qpos[r]) * sh.H + kvh * sh.G + row % sh.G) * HD + 2 * rows.t4;
+        out + ((qseq + rows.qpos[r] - sh.q_off) * sh.H + kvh * sh.G + row % sh.G) * HD +
+        2 * rows.t4;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
@@ -704,7 +720,7 @@ __device__ __forceinline__ void hopper_consumer(const Ring<HD>& ring,
 template <int HD>
 __device__ __forceinline__ void hopper_producer(const Ring<HD>& ring, const CUtensorMap* tq,
                                                 const CUtensorMap* tk, const CUtensorMap* tv,
-                                                const Shape& sh, int q_lo, int t_first,
+                                                const Shape& sh, int r_lo, int t_first,
                                                 int t_last) {
   using T = HopperTile<HD>;
   hopper::prefetch_tensor_map(tq);
@@ -714,7 +730,7 @@ __device__ __forceinline__ void hopper_producer(const Ring<HD>& ring, const CUte
   hopper::mbar_expect_tx(ring.q_full(), T::kPanels * kSwizzleRow * sh.G * sh.pos_per_block);
 #pragma unroll
   for (int pn = 0; pn < T::kPanels; ++pn)
-    hopper::tma_load_4d(ring.q + pn * T::kQPanel, tq, ring.q_full(), 64 * pn, kvh * sh.G, q_lo,
+    hopper::tma_load_4d(ring.q + pn * T::kQPanel, tq, ring.q_full(), 64 * pn, kvh * sh.G, r_lo,
                         b);
   for (int i = 0, tile = t_first; tile <= t_last; ++i, ++tile) {
     const int st = i % kStages;
@@ -743,10 +759,9 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   using T = HopperTile<HD>;
   extern __shared__ unsigned char smem_raw[];
   const Ring<HD> ring(smem_raw);
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * sh.pos_per_block;
-  const int q_hi = min(q_lo + sh.pos_per_block, sh.S) - 1;
+  const BlockRows br = block_rows(sh);
   int t_first, t_last;
-  key_span(sh, q_lo, q_hi, T::kKeys, &t_first, &t_last);
+  key_span(sh, br.q_lo, br.q_hi, T::kKeys, &t_first, &t_last);
   constexpr int kEmptyArrivals = kConsumerWarps;
 
   if (threadIdx.x == 0) {
@@ -764,10 +779,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   if (threadIdx.x < kWgThreads) {
     // the producer warpgroup: one thread issues every load
     hopper::regs_dec<kProducerRegs>();
-    if (threadIdx.x == 0) hopper_producer<HD>(ring, &tq, &tk, &tv, sh, q_lo, t_first, t_last);
+    if (threadIdx.x == 0)
+      hopper_producer<HD>(ring, &tq, &tk, &tv, sh, br.r_lo, t_first, t_last);
   } else {
     hopper::regs_inc<kConsumerRegs>();
-    hopper_consumer<HD>(ring, out, sh, q_lo, q_hi, t_first, t_last);
+    hopper_consumer<HD>(ring, out, sh, br.q_lo, br.q_hi, t_first, t_last);
   }
 }
 
@@ -777,8 +793,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   using T = HopperTile<HD>;
   CUtensorMap tq, tk, tv;
   const uint64_t e = sizeof(__nv_bfloat16);
-  const uint64_t q_dims[4] = {HD, (uint64_t)sh.H, (uint64_t)sh.S, (uint64_t)B};
-  const uint64_t q_strides[3] = {HD * e, sh.H * HD * e, (uint64_t)sh.S * sh.H * HD * e};
+  const uint64_t q_dims[4] = {HD, (uint64_t)sh.H, (uint64_t)sh.Sq, (uint64_t)B};
+  const uint64_t q_strides[3] = {HD * e, sh.H * HD * e, (uint64_t)sh.Sq * sh.H * HD * e};
   const uint64_t kv_dims[4] = {HD, (uint64_t)sh.KV, (uint64_t)sh.S, (uint64_t)B};
   const uint64_t kv_strides[3] = {HD * e, sh.KV * HD * e, (uint64_t)sh.S * sh.KV * HD * e};
   cudaError_t err = hopper::encode_bf16_4d(&tq, q, q_dims, q_strides, sh.G, sh.pos_per_block);
@@ -789,7 +805,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   auto kernel = flash_attention_wgmma<HD>;
   err = repro::allow_smem(kernel, T::kSmem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sh.S + sh.pos_per_block - 1) / sh.pos_per_block, sh.KV, B);
+  const dim3 grid((sh.Sq + sh.pos_per_block - 1) / sh.pos_per_block, sh.KV, B);
   kernel<<<grid, kHopperThreads, T::kSmem, stream>>>(tq, tk, tv,
                                                      static_cast<__nv_bfloat16*>(out), sh);
   return cudaGetLastError();
@@ -823,7 +839,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   }
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sh.S + sh.pos_per_block - 1) / sh.pos_per_block, sh.KV, B);
+  const dim3 grid((sh.Sq + sh.pos_per_block - 1) / sh.pos_per_block, sh.KV, B);
   kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                           static_cast<const T*>(v), static_cast<T*>(out), hd,
                                           sh);
@@ -834,22 +850,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 extern "C" {
 
-// q, out (B, S, H, hd); k, v (B, S, KV, hd); contiguous, 16-byte aligned.
-// dtype 0: f32 (hd % 4 == 0, hd <= 256); 1: bf16 (hd in 16, 32, 64, 128,
-// 256).  window <= 0: global causal.  S = 0 or B = 0 launches nothing.
-int flash_attention(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-                    int KV, int hd, int window, float scale, int dtype, void* stream,
-                    int device) {
-  if (B < 0 || S < 0 || KV <= 0 || H % KV != 0 || H / KV > kRows || B > 65535 || KV > 65535)
+// q, out (B, Sq, H, hd); k, v (B, S, KV, hd); contiguous, 16-byte aligned;
+// query row r at position q_off + r, q_off + Sq <= S.  dtype 0: f32 (hd % 4
+// == 0, hd <= 256); 1: bf16 (hd in 16, 32, 64, 128, 256).  window <= 0:
+// global causal.  Sq = 0 or B = 0 launches nothing.
+int flash_attention(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                    int S, int q_off, int H, int KV, int hd, int window, float scale, int dtype,
+                    void* stream, int device) {
+  if (B < 0 || Sq < 0 || q_off < 0 || (long long)q_off + Sq > S || KV <= 0 || H % KV != 0 ||
+      H / KV > kRows || B > 65535 || KV > 65535)
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return 0;
+  if (B == 0 || Sq == 0) return 0;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KV;
-  const Shape sh{S, H, KV, G, kRows / G, window, scale};
-  const Shape wide{S, H, KV, G, kHopperRows / G, window, scale};
+  const Shape sh{S, H, KV, G, kRows / G, window, scale, Sq, q_off};
+  const Shape wide{S, H, KV, G, kHopperRows / G, window, scale, Sq, q_off};
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     if (hd <= 0 || hd % 4 != 0 || hd > kMaxHdF32) return (int)cudaErrorInvalidValue;

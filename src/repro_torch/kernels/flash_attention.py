@@ -5,8 +5,9 @@ optional sliding window, as a streaming softmax,
 
     out[b, i, h] = softmax_j(<q[b, i, h], k[b, j, h // G]> / sqrt(hd)) v[b, j, h // G]
 
-over ``j <= i`` (and ``j > i - window``), for ``q (B, S, H, hd)`` and
-``k, v (B, S, KV, hd)``, ``G = H // KV``.  Takes CUDA tensors that
+over ``j <= i`` (and ``j > i - window``), for ``q (B, Sq, H, hd)`` and
+``k, v (B, S, KV, hd)``, ``G = H // KV``, query row r at position ``i =
+q_offset + r`` (``q_offset + Sq <= S``).  Takes CUDA tensors that
 ``repro_torch.kernels.ops`` has already checked; callers go through
 ``ops``.
 """
@@ -44,7 +45,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention")
-    lib.flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _I]
+    lib.flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+                                    _I]
     lib.flash_attention.restype = _I
     return lib
 
@@ -61,15 +63,15 @@ def check_limits(dtype, H: int, KV: int, hd: int) -> None:
                          f"a multiple of 4 up to {MAX_HD_F32} in float32")
 
 
-def launch(q, k, v, window: int | None) -> torch.Tensor:
-    """``(B, S, H, hd)`` in q's dtype."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+def launch(q, k, v, window: int | None, q_offset: int = 0) -> torch.Tensor:
+    """``(B, Sq, H, hd)`` in q's dtype."""
+    B, Sq, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
     dev = q.device
     out = torch.empty_like(q)
     scale = float(np.float32(1.0 / np.sqrt(hd)))
     status = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, KV, hd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, S, q_offset, H, KV, hd,
         0 if window is None else int(window), scale, DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream, dev.index)
     _build.check(status, "flash_attention launch")

@@ -572,10 +572,12 @@ class _FwFMPairwise(torch.autograd.Function):
                 d_R if ctx.needs_input_grad[1] else None)
 
 
-def flash_attention(q, k, v, *, window: int | None = None):
-    """Causal GQA, optionally within a sliding ``window``: ``(B, S, H, hd)``
-    in q's dtype for ``q (B, S, H, hd)`` and ``k, v (B, S, KV, hd)``, query
-    position i attending to keys j <= i (and j > i - window).  The kernel
+def flash_attention(q, k, v, *, window: int | None = None, q_offset: int = 0):
+    """Causal GQA, optionally within a sliding ``window``: ``(B, Sq, H, hd)``
+    in q's dtype for ``q (B, Sq, H, hd)`` and ``k, v (B, S, KV, hd)``, query
+    row r at position i = ``q_offset`` + r attending to keys j <= i (and j >
+    i - window); ``q_offset + Sq <= S`` (0 and Sq = S: a whole sequence;
+    else a block of its query rows against its keys).  The kernel
     takes float32 or bfloat16 (one type for all three), ``H // KV <= 64``,
     and hd in (16, 32, 64, 128, 256) in bfloat16 or a multiple of 4 up to
     256 in float32; any S.  It has no backward: on the card, inputs that
@@ -583,19 +585,21 @@ def flash_attention(q, k, v, *, window: int | None = None):
     ``attention.gqa_attention``, as the JAX loss does (ROADMAP: kernel 7's
     backward, a speed item)."""
     if q.ndim != 4 or k.ndim != 4:
-        raise ValueError(f"q must be (B, S, H, hd) and k, v (B, S, KV, hd), got "
+        raise ValueError(f"q must be (B, Sq, H, hd) and k, v (B, S, KV, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
+    B, Sq, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
     _check_shape("k", k, (B, S, KV, hd))
     _check_shape("v", v, (B, S, KV, hd))
+    if q_offset < 0 or q_offset + Sq > S:
+        raise ValueError(f"query rows {q_offset} .. {q_offset + Sq} past the {S} keys' shape")
     if KV == 0 or H % KV != 0:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
     dev = _device(q, k, v)
     if dev.type == "cpu":
-        return ref.flash_attention_plain(q, k, v, window=window)
+        return ref.flash_attention_plain(q, k, v, window=window, q_offset=q_offset)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel "
                         f"takes one type")
@@ -608,9 +612,9 @@ def flash_attention(q, k, v, *, window: int | None = None):
                                   "model.lm_loss trains through the plain gqa_attention "
                                   "(ROADMAP: kernel 7's backward, a speed item)")
     if dev.type == "meta":
-        work.report("flash_attention", B=B, S=S, H=H, KV=KV, hd=hd,
-                     window=window, itemsize=q.element_size())
+        work.report("flash_attention", B=B, S=S, H=H, KV=KV, hd=hd, window=window,
+                    itemsize=q.element_size(), Sq=Sq, q_offset=q_offset)
         return torch.empty_like(q)
-    out = _flash.launch(q, k, v, window)
+    out = _flash.launch(q, k, v, window, q_offset)
     LAUNCHES[_flash.kernel_name(q.dtype, hd)] += 1
     return out

@@ -176,15 +176,16 @@ def fwfm_pairwise_vjp(V, R, grad):
     return d_V, d_R
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=None):
-    """``(B, S, H, hd)`` f32 causal (optionally windowed) GQA for
-    ``q (B, S, H, hd)``, ``k, v (B, S_k, KV, hd)``: the JAX oracle, with the
-    whole score matrix in memory (test sizes only)."""
+def flash_attention_ref(q, k, v, *, causal=True, window=None, q_offset: int = 0):
+    """``(B, Sq, H, hd)`` f32 causal (optionally windowed) GQA for
+    ``q (B, Sq, H, hd)``, ``k, v (B, S_k, KV, hd)``, query row r at position
+    ``q_offset + r``: the JAX oracle, with the whole score matrix in memory
+    (test sizes only)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd).float()
     logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / np.sqrt(hd)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
     if causal:
@@ -196,9 +197,11 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     return out.reshape(B, Sq, H, hd)
 
 
-def flash_attention_plain(q, k, v, *, window=None, block: int = 512, with_size: bool = False):
-    """The plain version of the flash-attention kernel: ``(B, S, H, hd)`` in
-    q's dtype for ``q (B, S, H, hd)``, ``k, v (B, S, KV, hd)``, rounded where
+def flash_attention_plain(q, k, v, *, window=None, block: int = 512, with_size: bool = False,
+                          q_offset: int = 0):
+    """The plain version of the flash-attention kernel: ``(B, Sq, H, hd)`` in
+    q's dtype for ``q (B, Sq, H, hd)``, ``k, v (B, S, KV, hd)``, query row r
+    at position ``q_offset + r`` (``q_offset + Sq <= S``), rounded where
     the kernel rounds: scores in f32 times ``1/sqrt(hd)``, masked scores
     ``NEG_INF``, max and sum in f32, ``p`` cast to v's dtype before the PV
     product (f32 sums), the sum divided by ``max(l, 1e-30)`` and cast to q's
@@ -208,21 +211,22 @@ def flash_attention_plain(q, k, v, *, window=None, block: int = 512, with_size: 
     With ``with_size``, also returns each output's size ``sum_j p_ij |v_j| /
     l_i`` in f32 (unrounded p): what one rounding of every p can move it
     by, in units of that rounding."""
-    B, S, H, hd = q.shape
+    B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = np.float32(1.0 / np.sqrt(hd))
     kg = k.permute(0, 2, 1, 3).float()                      # (B, KV, S, hd)
     vg = v.permute(0, 2, 1, 3)
-    pos = torch.arange(S, device=q.device)
+    pos = torch.arange(q_offset + Sq, device=q.device)
     out = torch.empty_like(q)
     size = torch.empty(q.shape, dtype=torch.float32, device=q.device) if with_size else None
-    for lo in range(0, S, block):
-        hi = min(lo + block, S)
-        k_lo = 0 if window is None else max(0, lo - window + 1)
+    for lo in range(0, Sq, block):
+        hi = min(lo + block, Sq)
+        p_lo, p_hi = q_offset + lo, q_offset + hi            # the rows' positions
+        k_lo = 0 if window is None else max(0, p_lo - window + 1)
         qc = q[:, lo:hi].reshape(B, hi - lo, KV, G, hd).float()
-        s = torch.einsum("bqkgh,bksh->bkgqs", qc, kg[:, :, k_lo:hi]) * scale
-        qp, kp = pos[lo:hi, None], pos[None, k_lo:hi]
+        s = torch.einsum("bqkgh,bksh->bkgqs", qc, kg[:, :, k_lo:p_hi]) * scale
+        qp, kp = pos[p_lo:p_hi, None], pos[None, k_lo:p_hi]
         mask = kp <= qp
         if window is not None:
             mask &= kp > qp - window
@@ -230,11 +234,11 @@ def flash_attention_plain(q, k, v, *, window=None, block: int = 512, with_size: 
         p = torch.exp(s - s.amax(-1, keepdim=True))
         l = p.sum(-1, keepdim=True)
         acc = torch.einsum("bkgqs,bksh->bkgqh", p.to(v.dtype).float(),
-                           vg[:, :, k_lo:hi].float())
+                           vg[:, :, k_lo:p_hi].float())
         o = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)   # (B, KV, G, n, hd)
         out[:, lo:hi] = o.permute(0, 3, 1, 2, 4).reshape(B, hi - lo, H, hd)
         if with_size:
-            mag = torch.einsum("bkgqs,bksh->bkgqh", p, vg[:, :, k_lo:hi].float().abs())
+            mag = torch.einsum("bkgqs,bksh->bkgqh", p, vg[:, :, k_lo:p_hi].float().abs())
             size[:, lo:hi] = (mag / torch.clamp(l, min=1e-30)).permute(0, 3, 1, 2, 4).reshape(
                 B, hi - lo, H, hd)
     return (out, size) if with_size else out

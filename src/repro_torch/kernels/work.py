@@ -72,10 +72,15 @@ def _fwfm(*, B, m, k, itemsize):
     return B * m * (m + 1) * (k + 1), B * m * k * itemsize + (m * m + B) * 4
 
 
-def _flash(*, B, S, H, KV, hd, window, itemsize):
-    """Kernel 7: 4 hd flops a (query, key) pair and head; q, k, v and the
-    output moved once."""
-    return 4 * hd * attention_pairs(S, window) * B * H, B * S * (2 * H + 2 * KV) * hd * itemsize
+def _flash(*, B, S, H, KV, hd, window, itemsize, Sq=None, q_offset=0):
+    """Kernel 7: 4 hd flops a (query, key) pair and head; q, the output and
+    the keys and values the rows can see (positions below ``q_offset +
+    Sq``) moved once.  ``Sq`` query rows from position ``q_offset`` (default
+    S rows from 0)."""
+    Sq = S if Sq is None else Sq
+    pairs = attention_pairs(q_offset + Sq, window) - attention_pairs(q_offset, window)
+    keys = q_offset + Sq
+    return 4 * hd * pairs * B * H, B * (2 * Sq * H + 2 * keys * KV) * hd * itemsize
 
 
 FORMULAS = {

@@ -43,8 +43,10 @@ allocating), and returns:
 program as the reference's dry run counts its per-device HLO: every
 operation is attributed to the mesh position that issued it
 (``sharding.collectives.at``, set by the mesh loops of
-``embedding.sharded`` and ``launch.train.data_parallel_step``; the
-mesh's first position where none is set), and the figures above are
+``embedding.sharded``, ``launch.train`` and
+``models.transformer.parallel``; in a backward, the position that ran the
+node's forward, which each autograd node is tagged with; the mesh's
+first position where none is set), and the figures above are
 those of the first position, the busiest (it holds the dense work of
 the first data replica): ``arg_bytes`` its blocks of the arguments under
 ``specs`` (``sharding.rules.local_bytes``), ``peak_bytes`` those plus the
@@ -57,15 +59,23 @@ reference's kinds (``all-gather``, ``all-reduce``, ``reduce-scatter``,
 positions.  On a symmetric plan the step may run the first data replica
 alone (``collectives.mirror``): the other replicas' figures are then the
 first's, and ``sum`` counts them so (``positions_counted`` says how many
-positions ran).
+positions ran); the LM plan runs its first position alone on ``meta``,
+and its first microbatch for all (``collectives.repeated``).  A train
+cell's count holds the backward's collectives (each autograd collective
+reports its conjugate) and those re-run by a layer's recompute under
+``torch.utils.checkpoint``, as GSPMD's remat re-gathers FSDP weights in
+the backward; the checkpoint stops its recompute after the last tensor
+the backward needs, so a layer's last all-reduce is not re-run.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 import weakref
 
 import torch
+from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -118,6 +128,7 @@ class _Counter(TorchDispatchMode):
         self.at: dict = collections.defaultdict(_Position)
         self.keep = None                     # the positions counted (all: None)
         self.mirror = 1
+        self.times = 1                       # identical runs the work in hand stands for
         self._arg_storages = set()
         self.arg_bytes = 0
         for t in _tensors(args):
@@ -133,11 +144,18 @@ class _Counter(TorchDispatchMode):
         if self.mesh is None:
             return None
         pos = collectives.current()
+        if pos is None:
+            # in a backward: the position that ran the node's forward
+            node = torch._C._current_autograd_node()
+            pos = None if node is None else node.metadata.get(_POSITION)
         return self.first if pos is None else pos
 
-    def set_mirror(self, mesh) -> None:
-        self.keep = set(mesh.positions()[:mesh.shape["model"]])
-        self.mirror = mesh.dp
+    def set_mirror(self, positions, factor: int) -> None:
+        self.keep = set(positions)
+        self.mirror = factor
+
+    def set_times(self, times: int) -> None:
+        self.times = times
 
     def _kept(self, positions):
         return [p for p in positions if self.keep is None or p in self.keep]
@@ -147,20 +165,20 @@ class _Counter(TorchDispatchMode):
         pos = self._where()
         if pos == collectives.OFF:
             return
-        at = self.at[pos]
+        at, n = self.at[pos], self.times
         row = at.kernels[name]
-        row["calls"] += 1
-        row["flops"] += flops
-        row["bytes"] += nbytes
-        at.flops += flops
-        at.bytes += nbytes
+        row["calls"] += n
+        row["flops"] += n * flops
+        row["bytes"] += n * nbytes
+        at.flops += n * flops
+        at.bytes += n * nbytes
 
     def add_collective(self, kind: str, position, nbytes: int) -> None:
         if self.mesh is None or not self._kept([position]):
             return
         row = self.at[position].collectives[kind]
-        row["count"] += 1
-        row["total_bytes"] += nbytes
+        row["count"] += self.times
+        row["total_bytes"] += self.times * nbytes
 
     def hold(self, t: torch.Tensor, positions, split: bool) -> None:
         if self.mesh is None:
@@ -241,9 +259,28 @@ class _Counter(TorchDispatchMode):
         positions = self._kept(spread) if spread else [pos]
         for p in positions:
             at = self.at[p]
-            at.flops += flops // len(spread or positions)
-            at.bytes += nbytes // len(spread or positions)
+            at.flops += self.times * flops // len(spread or positions)
+            at.bytes += self.times * nbytes // len(spread or positions)
         self._track(outs, positions, spread)
+        return out
+
+
+_POSITION = "repro_torch.position"
+
+
+class _Tagger(TorchFunctionMode):
+    """Marks the autograd node of each differentiable output with the
+    position that ``collectives.at`` names, so that the counter attributes
+    the node's backward to the position that ran its forward."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        pos = collectives.current()
+        if pos is not None and torch.is_grad_enabled():
+            for t in _tensors(out):
+                node = t.grad_fn
+                if node is not None and _POSITION not in node.metadata:
+                    node.metadata[_POSITION] = pos
         return out
 
 
@@ -264,7 +301,7 @@ def analyze(fn, *args, mesh=None, specs=None, **kwargs) -> dict:
     t0 = time.perf_counter()
     work.COUNTERS.append(counter)
     try:
-        with counter:
+        with counter, (_Tagger() if mesh is not None else contextlib.nullcontext()):
             fn(*args, **kwargs)
     finally:
         work.COUNTERS.pop()

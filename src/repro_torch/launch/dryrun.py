@@ -7,6 +7,7 @@ TPU pod meshes.
     PYTHONPATH=src python -m repro_torch.launch.dryrun               # every cell, one card
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mixtral-8x7b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --arch dplr-fwfm
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both --arch mixtral-8x7b
     PYTHONPATH=src python -m repro_torch.launch.dryrun --force       # recount
 
 Each cell is ``launch.steps.build(arch, shape, device="meta")`` counted by
@@ -34,7 +35,9 @@ the first position's (the busiest: it holds its replica's dense work)
 optimizer state and the inputs under the cell's rules
 (``param_bytes``, ``opt_state_bytes``, ``input_bytes``), the sums over
 the mesh, and whether a device's peak fits one card.  The recsys family
-runs data-parallel there (``launch.train.data_parallel_step``); an LM or
+runs data-parallel there (``launch.train.data_parallel_step``); the LM
+family runs its per-position plan (``models.transformer.parallel``),
+with an LM serving cell's ``cache_bytes`` (its block of the cache); a
 PNA cell fails with the ROADMAP item its data axis waits for, and is
 never counted as one device.  Prints one ``[ok]`` or ``[FAIL]`` line a
 cell and the number of failures; exits 1 if any.
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 import traceback
 from pathlib import Path
@@ -77,6 +81,13 @@ def _local(tree, specs, mesh) -> int:
     return rules.local_bytes(tree, specs, mesh)
 
 
+def _cache_bytes(cell, mesh) -> int:
+    """A device's bytes of an LM serving cell's bf16 cache under its rule
+    (the decode cell's argument, the prefill cell's output)."""
+    from repro_torch.sharding import rules
+    return math.prod(rules.local_shape(cell.cache, cell.specs["cache"], mesh)) * 2
+
+
 def count_cell(arch: str, shape: str, card_bytes: int, card: str,
                opts: dict | None = None, mesh_name: str | None = None) -> dict:
     """The record of one cell (``ok`` False with the error where it cannot
@@ -101,12 +112,15 @@ def count_cell(arch: str, shape: str, card_bytes: int, card: str,
             sizes = {"param_bytes": _tree_bytes(params), "opt_state_bytes": _tree_bytes(state),
                      "input_bytes": _tree_bytes(rest)}
         else:
-            work = cost.analyze(cell.fn, *cell.args, mesh=mesh, specs=cell.arg_specs())
-            sizes = {"param_bytes": _local(params, cell.specs["params"], mesh),
-                     "opt_state_bytes": 0 if state is None else
-                     _local(state, cell.specs["opt_state"], mesh),
-                     "input_bytes": _local(rest[0], cell.specs["batch"], mesh)
-                     + _tree_bytes(rest[1:])}
+            specs = cell.arg_specs()
+            work = cost.analyze(cell.fn, *cell.args, mesh=mesh, specs=specs)
+            sizes = {"param_bytes": _local(params, specs[0], mesh),
+                     "opt_state_bytes": 0 if state is None else _local(state, specs[1], mesh),
+                     "input_bytes": sum(_local(a, sp, mesh) for a, sp in
+                                        zip(cell.args, specs) if a is not params
+                                        and a is not state and sp is not cell.specs.get("cache"))}
+            if "cache" in cell.specs:
+                sizes["cache_bytes"] = _cache_bytes(cell, mesh)
         rec.update({
             "ok": True, "kind": cell.kind, "notes": list(cell.notes), **sizes,
             "flops": work["flops"], "bytes": work["bytes"], "peak_bytes": work["peak_bytes"],

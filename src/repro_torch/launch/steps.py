@@ -44,16 +44,22 @@ as data.  The recsys cells run data-parallel: the train step is
 the data axes, each position's update), the pointwise and rank cells
 score each replica's rows (``on_replicas``), and every arena gather is
 the row-blocked lookup on the replica's model axis
-(``make_auto_take``, ``embedding.sharded``).  ``cell.arg_specs()``
-gives ``cost.analyze(mesh=, specs=)`` a position's blocks of the
-arguments.  The GNN batch pads its nodes and edges to a multiple of the
-mesh's size.  An LM or PNA cell on a mesh with data replicas raises
-``NotImplementedError`` naming its ROADMAP item (``DATA_AXIS_WAITS``):
-it is not counted as one device.  Without a mesh every cell is one
-device's; ``dp`` is then 1 and ``partitioned`` and ``mp_scoring`` use a
-one-shard mesh.  Each cell's ``notes`` name what still waits
-(``SHARDING``).  The opts ``moe_scatter`` and ``moe_fused`` map onto
-``moe_impl="scatter"`` and ``moe_fused_combine``; ``mp_scoring`` builds
+(``make_auto_take``, ``embedding.sharded``).  An LM cell on a mesh of
+more than one position runs the per-position program of
+``models.transformer.parallel`` (``cell.plan``): its train step is
+``train.lm_data_parallel_step``, its prefill and decode return the
+logits joined for the caller (uncounted) and the cache in
+``lm_cache_spec``'s blocks; a (1, 1) mesh builds the one-device cell.
+``cell.arg_specs()`` gives ``cost.analyze(mesh=, specs=)`` a position's
+blocks of the arguments (a decode cell's cache too).  The GNN batch pads
+its nodes and edges to a multiple of the mesh's size.  A PNA cell on a
+mesh with data replicas raises ``NotImplementedError`` naming its
+ROADMAP item (``DATA_AXIS_WAITS``): it is not counted as one device.
+Without a mesh every cell is one device's; ``dp`` is then 1 and
+``partitioned`` and ``mp_scoring`` use a one-shard mesh.  Each cell's
+``notes`` name what still waits (``SHARDING``).  The opts ``moe_scatter``
+and ``moe_fused`` map onto ``moe_impl="scatter"`` and
+``moe_fused_combine``; ``mp_scoring`` builds
 ``dplr-fwfm``'s rank cells through ``fwfm.rank_items_mp`` (``name+mp``),
 as the reference does.
 """
@@ -75,19 +81,17 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.gnn import pna
 from repro_torch.models.gnn.sampler import subgraph_shapes
 from repro_torch.models.transformer import model as tm
+from repro_torch.models.transformer import parallel
 from repro_torch.sharding import collectives, rules
 
 __all__ = ["Cell", "all_cells", "auto_batch_specs", "auto_leaf_spec", "build",
            "make_auto_take", "on_replicas"]
 
-SHARDING = ("the data axis of the LM family (FSDP, tensor and expert parallelism; ROADMAP item "
-            "3c-ii) and of PNA (its node_constraint; ROADMAP item 3c-iii) waits; the recsys "
-            "family runs on it")
+SHARDING = ("the data axis of PNA (its node_constraint; ROADMAP item 3c-iii) waits; the recsys "
+            "and LM families run on it")
 
 # what a cell of each waiting family raises on a mesh with data replicas
-DATA_AXIS_WAITS = {"lm": "waits for ROADMAP item 3c-ii (the LM family's data axis: FSDP, "
-                         "tensor and expert parallelism)",
-                   "gnn": "waits for ROADMAP item 3c-iii (PNA's data axis: its node_constraint)"}
+DATA_AXIS_WAITS = {"gnn": "waits for ROADMAP item 3c-iii (PNA's data axis: its node_constraint)"}
 
 
 @dataclasses.dataclass
@@ -102,6 +106,8 @@ class Cell:
     kind: str
     notes: tuple = ()
     specs: dict = dataclasses.field(default_factory=dict)
+    cache: tuple | None = None      # an LM serving cell's (L, 2, B, S, KV, hd) cache
+    plan: object = None             # an LM cell's per-position plan on a mesh
 
     def arg_specs(self) -> tuple | None:
         """The rules of ``args``, one a positional argument (``None`` for
@@ -111,6 +117,8 @@ class Cell:
             return None
         if self.kind == "train":
             return (self.specs["params"], self.specs["opt_state"], self.specs["batch"], ())
+        if self.kind == "decode":
+            return self.specs["params"], self.specs["cache"], self.specs["batch"], ()
         return self.specs["params"], self.specs["batch"]
 
 
@@ -208,19 +216,20 @@ def _cast(tree: dict, dtype) -> dict:
 # -- lm ------------------------------------------------------------------------
 
 def _refuse_data_axis(arch, shape, mesh) -> None:
-    if mesh is not None and mesh.dp > 1:
+    if mesh is not None and mesh.dp > 1 and arch.family in DATA_AXIS_WAITS:
         raise NotImplementedError(f"{arch.name}/{shape.name} on {mesh.dp} data replicas "
                                   f"{DATA_AXIS_WAITS[arch.family]}")
 
 
 def build_lm(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cell:
-    _refuse_data_axis(arch, shape, mesh)
     cfg = cfg or arch.make_config()
     opts = opts or {}
     if opts.get("moe_scatter") and cfg.is_moe:
         cfg = dataclasses.replace(cfg, moe_impl="scatter")
     if opts.get("moe_fused") and cfg.is_moe:
         cfg = dataclasses.replace(cfg, moe_fused_combine=True)
+    if mesh is not None and mesh.size > 1:
+        return _build_lm_mesh(arch, shape, device, cfg, seed, mesh)
     B, S = shape.dims["batch"], shape.dims["seq"]
     inp = _Inputs(device, seed)
     name = f"{arch.name}/{shape.name}"
@@ -274,6 +283,89 @@ def build_lm(arch, shape, device, cfg=None, opts=None, seed=0, mesh=None) -> Cel
     return Cell(name, serve_decode,
                 (params, cache, inp.ids((B, 1), cfg.vocab), inp.scalar(S - 1, torch.int32)),
                 shape.kind, notes, specs)
+
+
+def _build_lm_mesh(arch, shape, device, cfg, seed, mesh) -> Cell:
+    """An LM cell on a mesh of more than one position: the per-position
+    program of ``models.transformer.parallel`` (the train step
+    ``train.lm_data_parallel_step``), ``cell.specs`` the reference's rules
+    (``lm_param_specs``, ``lm_batch_spec`` or its tokens' rule, and
+    ``lm_cache_spec``)."""
+    B, S = shape.dims["batch"], shape.dims["seq"]
+    inp = _Inputs(device, seed)
+    dp = _dp_size(mesh)
+    plan = parallel.Plan(cfg, mesh, device)
+    name = f"{arch.name}/{shape.name}"
+    where = ("heads" if plan.heads else "query rows") + " over model"
+    kv = "" if plan.kv_whole else ", the kv heads its query heads read gathered"
+    moe = "" if not cfg.is_moe else (
+        ", experts over model" if rules.expert_parallel(cfg, mesh) else
+        ", d_ff of every expert over model")
+    notes = (f"shardings: {SHARDING}",
+             f"plan on {dict(mesh.shape)}: attention {where}{kv}{moe}, vocabulary over model"
+             + (", FSDP over data" if cfg.fsdp and mesh.shape.get("data", 1) > 1 else ""))
+    specs = {"params": rules.lm_param_specs(cfg, mesh)}
+    rows = rules.lm_batch_spec(mesh)
+
+    if shape.kind == "train":
+        params = _params(tm.init, cfg, device, seed)
+        opt_state = optim.adamw(weight_decay=0.1).init(params)
+        specs["opt_state"] = rules.opt_state_specs(specs["params"], opt_state)
+        specs["batch"] = {"tokens": rows, "labels": rows}
+        n_micro = min(cfg.micro_batches, max(B // dp, 1))
+        optimizer = optim.adamw(weight_decay=0.1, clip_norm=None)
+
+        def train_step(params, opt_state, batch, lr):
+            return train.lm_data_parallel_step(plan, optimizer, params, opt_state, batch, lr,
+                                               n_micro)
+
+        batch = {"tokens": inp.ids((B, S), cfg.vocab), "labels": inp.ids((B, S), cfg.vocab)}
+        notes += (f"{n_micro} microbatch{'es' if n_micro > 1 else ''} of {B // dp // n_micro} "
+                  f"rows a replica (micro_batches={cfg.micro_batches})",)
+        return Cell(name, train_step, (params, opt_state, batch, inp.scalar(1e-4)),
+                    shape.kind, notes, specs, plan=plan)
+
+    params = _cast(_params(tm.init, cfg, device, seed), torch.bfloat16)
+    rows_split = B % dp == 0
+    tok = rows if rows_split else (None, None)
+    specs["batch"], specs["cache"] = tok, rules.lm_cache_spec(mesh, B)
+    shape_of_cache = (cfg.n_layers, 2, B, S, cfg.n_kv_heads, cfg.hd)
+
+    def blocks_of(cache):
+        return [rules.local_block(cache, specs["cache"], mesh, p) for p in plan.pos]
+
+    def rows_of(tokens):
+        return [rules.local_block(tokens, tok, mesh, p) for p in plan.pos]
+
+    if shape.kind == "prefill":
+        if not rows_split:
+            raise ValueError(f"{name}: a prefill on a mesh takes a batch that splits over "
+                             f"its {dp} data replicas, not {B}")
+
+        def serve_prefill(params, tokens):
+            plan.mirror()
+            with collectives.at(collectives.OFF):
+                cache = torch.empty(shape_of_cache, dtype=torch.bfloat16, device=device)
+            collectives.hold(cache, mesh.positions(), split=True)
+            blocks = blocks_of(cache)
+            plan.each(lambda i, b: b.zero_(), blocks)
+            logits = plan.prefill(params, rows_of(tokens), blocks, (B, S))
+            return parallel.join(plan, logits, True), cache
+
+        return Cell(name, serve_prefill, (params, inp.ids((B, S), cfg.vocab)), shape.kind,
+                    notes, specs, shape_of_cache, plan)
+
+    cache = inp.ones(shape_of_cache, torch.bfloat16)
+
+    def serve_decode(params, cache, tokens, cache_index):
+        plan.mirror()
+        index = S - 1 if cache_index.is_meta else int(cache_index)
+        logits = plan.decode(params, rows_of(tokens), blocks_of(cache), index, (B, S), rows_split)
+        return parallel.join(plan, logits, rows_split), cache
+
+    return Cell(name, serve_decode,
+                (params, cache, inp.ids((B, 1), cfg.vocab), inp.scalar(S - 1, torch.int32)),
+                shape.kind, notes, specs, shape_of_cache, plan)
 
 
 # -- recsys --------------------------------------------------------------------

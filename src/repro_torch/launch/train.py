@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import math
 import os
 import time
 from types import SimpleNamespace
@@ -299,6 +300,119 @@ def data_parallel_step(mod, cfg, optimizer, params, opt_state, batch, lr, *, mes
                 optimizer.update(local(grads), {k: local(v) for k, v in opt_state.items()},
                                  local(params), lr)
     return loss, params, opt_state
+
+
+# the LM cells' adamw clips the gradient's global norm at 1 (``optim.adamw``)
+LM_CLIP_NORM = 1.0
+
+
+def lm_data_parallel_step(plan, optimizer, params, opt_state, batch, lr, n_micro: int):
+    """One LM step of ``plan`` (``models.transformer.parallel.Plan``: a
+    config on a mesh), the port's counterpart of the step GSPMD derives
+    from ``rules.lm_param_specs``.  Returns (loss, params, opt_state), the
+    parameters and state updated in place.
+
+    * Each position takes its replica's rows of ``batch`` (``tokens``,
+      ``labels``; ``rules.lm_batch_spec``) and runs ``n_micro`` microbatches
+      of them (``Plan.grads``): the gradients of its blocks, accumulated
+      over the microbatches in blocks of its own.
+    * The mean over the data replicas: a leaf's gradient is all-reduced
+      over the data axes it does not split over (every one without FSDP;
+      with FSDP the gather's backward has reduce-scattered it over
+      ``data`` already, each microbatch), in position order, then divided
+      by their number.
+    * adamw's global-norm clip at ``LM_CLIP_NORM``
+      (``optim.clip_by_global_norm``'s formula): the squared norms of each position's blocks all-reduced
+      over the axes the leaves split over, a replicated leaf counted once.
+    * ``optimizer`` (an adamw without its own clip) at each position on
+      its blocks of the parameters and of ``m``/``v``; the step count
+      advances once.  On a real device each block is updated once, by the
+      first position that holds it; on ``meta`` every counted position
+      updates its blocks.
+
+    Runs under ``deterministic()``, as the one-device LM step does."""
+    with deterministic():
+        loss, flat = lm_data_parallel_grads(plan, params, batch, n_micro)
+        specs = tree_leaves(plan.specs)
+        flat = _clip_blocks(plan, flat, specs, LM_CLIP_NORM)
+        _update_blocks(plan, optimizer, flat, specs, params, opt_state, lr)
+    return loss, params, opt_state
+
+
+def lm_data_parallel_grads(plan, params, batch, n_micro: int):
+    """(loss, grads): the first two stages of ``lm_data_parallel_step``,
+    ``grads`` each running position's gradient blocks (``rules.lm_param_specs``
+    leaves in ``tree_leaves`` order) after the mean over the data replicas."""
+    mesh = plan.mesh
+    plan.mirror()
+    spec = rules.lm_batch_spec(mesh)
+    rows = {k: [rules.local_block(batch[k], spec, mesh, p) for p in plan.pos]
+            for k in ("tokens", "labels")}
+    dp_axes = rules.dp_axes(mesh)
+    losses, grads = plan.grads(params, rows["tokens"], rows["labels"], n_micro)
+    flat = [tree_leaves(g) for g in grads]
+    for li, sp in enumerate(tree_leaves(plan.specs)):
+        split = {a for e in sp for a in rules.entry_axes(e)}
+        rest = tuple(a for a in dp_axes if a not in split)
+        gs = [f[li] for f in flat]
+        if math.prod(mesh.shape[a] for a in rest) > 1:
+            gs = plan.over(rest, collectives.all_reduce, gs)
+        if mesh.dp > 1:
+            gs = plan.each(lambda i, g: g / mesh.dp, gs)
+        for f, g in zip(flat, gs):
+            f[li] = g
+    loss = plan.over(dp_axes, collectives.all_reduce, losses, op="mean")[0] \
+        if mesh.dp > 1 else losses[0]
+    return loss, flat
+
+
+def _clip_blocks(plan, flat: list, specs: list, max_norm: float) -> list:
+    """Each position's gradient blocks scaled by ``min(1, max_norm / |g|)``,
+    ``|g|`` the norm over every leaf of the whole gradient."""
+    kinds = [("model" in a, "data" in a) for a in
+             ({x for e in sp for x in rules.entry_axes(e)} for sp in specs)]
+
+    def squares(i, fl, want):
+        return sum((torch.sum(g.float() ** 2) for g, kind in zip(fl, kinds) if kind == want),
+                   torch.zeros((), device=fl[0].device))
+
+    total = plan.each(lambda i, fl: squares(i, fl, (False, False)), flat)
+    for want, axes in (((True, False), "model"), ((True, True), ("data", "model"))):
+        part = plan.over(axes, collectives.all_reduce,
+                         plan.each(lambda i, fl, w=want: squares(i, fl, w), flat))
+        total = plan.each(lambda i, t, p: t + p, total, part)
+
+    def scaled(i, fl, sq):
+        gnorm = torch.sqrt(sq)
+        scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        return [(g * scale).to(g.dtype) for g in fl]
+
+    return plan.each(scaled, flat, total)
+
+
+def _update_blocks(plan, optimizer, flat: list, specs: list, params, opt_state, lr) -> None:
+    mesh = plan.mesh
+    leaves = {k: tree_leaves(params if k == "p" else opt_state[k]) for k in ("p", "m", "v")}
+    t0 = opt_state["t"].clone()
+    seen, first = set(), True
+    for i, p in enumerate(plan.pos):
+        mine = []
+        for li, sp in enumerate(specs):
+            key = (li, tuple(rules.block_index(e, mesh, p)[0] for e in sp))
+            if plan.meta or key not in seen:
+                seen.add(key)
+                mine.append(li)
+        if not mine:
+            continue
+
+        def local(name):
+            return {str(li): rules.local_block(leaves[name][li], specs[li], mesh, p)
+                    for li in mine}
+
+        state = {"m": local("m"), "v": local("v"), "t": opt_state["t"] if first else t0.clone()}
+        first = False
+        with collectives.at(p):
+            optimizer.update({str(li): flat[i][li] for li in mine}, state, local("p"), lr)
 
 
 def _leaves(tree, prefix=()):

@@ -27,9 +27,10 @@ mixture-of-experts (granite-moe-1b-a400m, mixtral-8x7b).
     cache): a copy of a full cache each step would double its memory
 
 Not ported: the mesh hooks (``act_constraint``, ``act_gather``,
-``kv_constraint``), sharding constraints that one device has no use for.
-``micro_batches`` and ``fsdp`` are the reference's fields, read by
-``launch.steps`` and ``sharding.rules``.  The entry points run on the card
+``kv_constraint``), sharding constraints that one device has no use for;
+on a mesh the per-position program is ``parallel``'s.  ``micro_batches``
+and ``fsdp`` are the reference's fields, read by ``launch.steps`` and
+``sharding.rules``.  The entry points run on the card
 unless the caller passes ``device="cpu"``; the parameters must already be
 there.
 """
@@ -89,8 +90,9 @@ class TransformerConfig:
     # batch at once; ``launch.steps`` runs ``optim.gradient_accumulation``)
     micro_batches: int = 1
     # FSDP: every large weight also split over the ``data`` axis
-    # (``sharding.rules.lm_param_specs``); with the one-process mesh's one
-    # data replica it changes no computation
+    # (``sharding.rules.lm_param_specs``): on a mesh with data replicas each
+    # block is all-gathered before its layer (``parallel``); with one data
+    # replica it changes no computation
     fsdp: bool = False
 
     @property

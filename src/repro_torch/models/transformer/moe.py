@@ -22,9 +22,12 @@ Routing mirrors ``jax.lax.top_k``: equal logits go lowest expert first (a
 stable descending sort, then its first k), and slots are given in
 (token, choice) order, so earlier tokens keep theirs.  ``moe_ffn`` and
 ``moe_ffn_group`` take ``experts`` to run under given routes (the
-gates still come from the call's own logits): checks that compare two
-paths hold them under one set of routes, since a last-bit difference in
-the router's input can flip a choice at a near tie.
+gates still come from the call's own logits).  Every path that routes
+(``moe_ffn_group``, the mesh plan ``parallel.Plan``) chooses through
+``top_experts``, looked up in this module at each call: checks that
+compare two paths wrap it to hold them under one set of routes, since a
+last-bit difference in the router's input can flip a choice at a near
+tie.
 """
 from __future__ import annotations
 
@@ -110,40 +113,62 @@ def moe_ffn_group(x: torch.Tensor, router_w, w_gate, w_in, w_out, cfg: MoEConfig
     """Groups x (G, g, d) -> (G, g, d), each group routed on its own with
     ``cfg.group_size = g``.  ``experts`` (G, g, k): given routes in place of
     the top-k of the logits."""
-    G, g, d = x.shape
-    E, k, C = cfg.n_experts, cfg.top_k, capacity(cfg)
     logits = router_logits(x, router_w)                                  # (G, g, E)
     if experts is None:
-        experts = top_experts(logits, k)
-    gates = gates_of(logits, experts, cfg)                               # (G, g, k)
+        experts = top_experts(logits, cfg.top_k)
+    return expert_outputs(x, gates_of(logits, experts, cfg), experts, w_gate, w_in, w_out,
+                          cfg)
+
+
+def expert_outputs(x: torch.Tensor, gates, experts, w_gate, w_in, w_out, cfg: MoEConfig,
+                   first: int = 0) -> torch.Tensor:
+    """The routed tokens x (G, g, d) through the experts and combined by
+    their ``gates`` (G, g, k), the routes ``experts`` (G, g, k) of every
+    expert (the slots are counted over all of them).  ``w_gate`` (E', d,
+    f'): the experts ``first .. first + E'`` alone (expert parallelism:
+    the other experts' choices add nothing, and the output is this block's
+    part of the sum), or all E of them (each may hold a slice of f)."""
+    G, g, d = x.shape
+    E, k, C = cfg.n_experts, cfg.top_k, capacity(cfg)
     flat_e, slot, flat_gate, keep = _positions_in_expert(experts, gates, cfg)
     safe_slot = torch.where(keep, slot, torch.zeros_like(slot))
     cell = flat_e * C + safe_slot                                        # (G, g k)
     weight = flat_gate * keep.to(flat_gate.dtype)
+    n_loc = w_gate.shape[0]
+    if n_loc != E:
+        # another block's choices go to one spare cell past this block's, cut off after
+        mine = (flat_e >= first) & (flat_e < first + n_loc)
+        cell = torch.where(mine, cell - first * C, torch.full_like(cell, n_loc * C))
+        keep = keep & mine
+        weight = weight * mine.to(weight.dtype)
+    cells = n_loc * C + (n_loc != E)
 
     if cfg.impl == "einsum":
         # a token's k choices name k different experts, so no two of them
         # write one (token, expert, slot): dropped ones write their 0 at slot 0
         idx = cell.reshape(G, g, k)
-        zeros = x.new_zeros(G, g, E * C)
-        disp = zeros.scatter(-1, idx, keep.to(x.dtype).reshape(G, g, k))
-        comb = zeros.scatter(-1, idx, weight.reshape(G, g, k))
-        ex_in = torch.bmm(disp.transpose(1, 2), x).reshape(G, E, C, d)  # gec,gd->ecd
+        zeros = x.new_zeros(G, g, cells)
+        disp = zeros.scatter(-1, idx, keep.to(x.dtype).reshape(G, g, k))[..., :n_loc * C]
+        comb = zeros.scatter(-1, idx, weight.reshape(G, g, k))[..., :n_loc * C]
+        ex_in = torch.bmm(disp.transpose(1, 2), x).reshape(G, n_loc, C, d)  # gec,gd->ecd
         if cfg.fused_combine:
-            xe = ex_in.transpose(0, 1).reshape(E, G * C, d)
+            xe = ex_in.transpose(0, 1).reshape(n_loc, G * C, d)
             a = (F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_in)).to(x.dtype)
-            a = a.reshape(E, G, C, -1).transpose(0, 1)                   # (G, E, C, f)
-            z = torch.matmul(comb.reshape(G, g, E, C).transpose(1, 2), a)  # gec,ecf->egf
+            a = a.reshape(n_loc, G, C, -1).transpose(0, 1)               # (G, E, C, f)
+            z = torch.matmul(comb.reshape(G, g, n_loc, C).transpose(1, 2), a)  # gec,ecf->egf
             return z.transpose(1, 2).reshape(G, g, -1) @ w_out.reshape(-1, d)
-        ex_out = _expert_ffn(w_gate, w_in, w_out, ex_in).reshape(G, E * C, d)
+        ex_out = _expert_ffn(w_gate, w_in, w_out, ex_in).reshape(G, n_loc * C, d)
         return torch.bmm(comb, ex_out)                                   # gec,ecd->gd
 
     # scatter: each kept choice's token row added into its (expert, slot);
     # a dropped choice adds zeros at slot 0, as in the reference
     src = torch.where(keep[..., None], x.repeat_interleave(k, dim=1), x.new_zeros(()))
     rows = cell[..., None].expand(G, g * k, d)
-    ex_in = x.new_zeros(G, E * C, d).scatter_add(1, rows, src).reshape(G, E, C, d)
-    ex_out = _expert_ffn(w_gate, w_in, w_out, ex_in).reshape(G, E * C, d)
+    ex_in = x.new_zeros(G, cells, d).scatter_add(1, rows, src)[:, :n_loc * C]
+    ex_out = _expert_ffn(w_gate, w_in, w_out, ex_in.reshape(G, n_loc, C, d)).reshape(
+        G, n_loc * C, d)
+    if cells != n_loc * C:
+        ex_out = torch.cat([ex_out, ex_out.new_zeros(G, 1, d)], 1)
     contrib = (torch.gather(ex_out, 1, rows) * weight[..., None]).reshape(G, g, k, d)
     out = contrib[:, :, 0]
     for j in range(1, k):          # the reference's segment sum, in choice order

@@ -4,8 +4,10 @@ accumulated over microbatches.  Port of ``repro.optim.accumulate``.
 ``value_and_grad(loss_fn)`` is the counterpart of ``jax.value_and_grad``
 for ``loss_fn(params, *args) -> scalar``.  ``gradient_accumulation``
 trades activation memory for steps: the batch's leading axis is split as
-the JAX function splits it, ``(B, ...) -> (B/n, n, ...)``, and microbatch
-``i`` is ``[:, i]``; a Python loop takes the place of ``lax.scan``.
+the JAX function splits it (``microbatch``), and a Python loop takes the
+place of ``lax.scan``.  On a mesh the LM step accumulates each position's
+gradient blocks over its replica's microbatches
+(``models.transformer.parallel.Plan.grads``).
 """
 from __future__ import annotations
 
@@ -42,23 +44,27 @@ def value_and_grad(loss_fn, on_forward=None):
     return fn
 
 
+def microbatch(x: torch.Tensor, n_micro: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n_micro`` of ``x``'s leading axis, as the JAX
+    function splits it: ``(B, ...) -> (B/n, n, ...)``, then ``[:, i]`` (so a
+    data replica's block of rows holds its share of every microbatch)."""
+    b = x.shape[0]
+    if b % n_micro:
+        raise ValueError(f"{b} rows do not split into {n_micro} microbatches")
+    return x.reshape(b // n_micro, n_micro, *x.shape[1:])[:, i]
+
+
 def gradient_accumulation(loss_fn, n_micro: int):
     """``loss_fn(params, batch) -> scalar``.  Returns ``grad_fn(params,
     batch) -> (loss, grads)``, the mean over ``n_micro`` microbatches."""
 
-    def split(x):
-        b = x.shape[0]
-        assert b % n_micro == 0, (b, n_micro)
-        return x.reshape(b // n_micro, n_micro, *x.shape[1:])
-
     vg = value_and_grad(loss_fn)
 
     def grad_fn(params, batch):
-        micro = tree_map(split, batch)
         tot_l = torch.zeros((), device=tree_leaves(params)[0].device)
         tot_g = tree_map(torch.zeros_like, params)
         for i in range(n_micro):
-            loss, g = vg(params, tree_map(lambda x: x[:, i], micro))
+            loss, g = vg(params, tree_map(lambda x: microbatch(x, n_micro, i), batch))
             tot_g = tree_map(torch.add, tot_g, g)
             tot_l = tot_l + loss
         inv = 1.0 / n_micro

@@ -71,12 +71,17 @@ def apply_weight_decay(params, updates, weight_decay: float, lr):
 def _blocks(*leaves):
     """Matching flat views, at most ``BLOCK`` elements each, of tensors of
     one shape (the whole tensors when they are no larger): an in-place
-    update of a view writes its leaf.  A larger leaf must be contiguous
-    (``view`` raises otherwise), as params, states and the lookups'
-    gradients are."""
+    update of a view writes its leaf.  A larger leaf that is not contiguous
+    goes one index of its first dim at a time."""
     n = leaves[0].numel()
     if n <= BLOCK:
         yield leaves
+        return
+    if not all(t.is_contiguous() for t in leaves):
+        # a position's block of a leaf (a mesh's column block): one index of
+        # its first dim at a time
+        for i in range(leaves[0].shape[0]):
+            yield from _blocks(*(t[i] for t in leaves))
         return
     flat = [t.view(-1) for t in leaves]
     for i in range(0, n, BLOCK):

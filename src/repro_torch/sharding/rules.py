@@ -68,19 +68,34 @@ def local_shape(shape, spec, mesh) -> tuple:
     return tuple(out)
 
 
+def block_index(entry, mesh, position: tuple) -> tuple[int, int]:
+    """(index, count) of ``position``'s block along a dim whose rule entry
+    is ``entry``: its row-major index over the entry's axes, and their
+    positions (axes the mesh lacks count 1)."""
+    index, n = 0, 1
+    for a in entry_axes(entry):
+        if a in mesh.shape:
+            index = index * mesh.shape[a] + position[mesh.axis_names.index(a)]
+            n *= mesh.shape[a]
+    return index, n
+
+
+def block_range(length: int, entry, mesh, position: tuple) -> tuple[int, int]:
+    """(start, stop) of ``position``'s block of a dim of ``length`` under
+    ``entry``."""
+    index, n = block_index(entry, mesh, position)
+    size = length // n
+    return index * size, (index + 1) * size
+
+
 def local_block(t, spec, mesh, position: tuple):
     """The view of ``t`` that ``position`` (a mesh position's coordinates)
     holds under ``spec``: along each split dim the block whose index is the
     position's row-major index over that entry's axes."""
     for dim, entry in enumerate(spec):
-        index, n = 0, 1
-        for a in entry_axes(entry):
-            if a in mesh.shape:
-                index = index * mesh.shape[a] + position[mesh.axis_names.index(a)]
-                n *= mesh.shape[a]
-        if n > 1:
-            size = t.shape[dim] // n
-            t = t.narrow(dim, index * size, size)
+        lo, hi = block_range(t.shape[dim], entry, mesh, position)
+        if hi - lo != t.shape[dim]:
+            t = t.narrow(dim, lo, hi - lo)
     return t
 
 
@@ -163,6 +178,55 @@ def lm_cache_spec(mesh, batch: int) -> tuple:
     if batch % n_dp == 0 and batch >= n_dp:
         return _spec(None, None, dp, "model", None, None)
     return _spec(None, None, None, tuple(mesh.axis_names), None, None)
+
+
+# The LM plan on the model axis (``models.transformer.parallel``): data, not
+# compute.
+
+def heads_split(cfg, mesh) -> bool:
+    """Whether the query heads split whole over the model axis (else the
+    attention of a train or prefill cell splits its query rows)."""
+    return cfg.n_heads % model_size(mesh) == 0
+
+
+def position_heads(cfg, mesh, j: int) -> tuple[int, int]:
+    """(first, stop) of the query heads that model position ``j`` owns when
+    they split whole: the heads of its block of ``wq``'s columns."""
+    n = cfg.n_heads // model_size(mesh)
+    return j * n, (j + 1) * n
+
+
+def kv_heads_read(cfg, heads: tuple[int, int]) -> tuple[int, int]:
+    """(first, stop) of the kv heads that the query heads ``heads`` read:
+    head ``h`` reads kv head ``h // (H // KV)``."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    return heads[0] // group, (heads[1] - 1) // group + 1
+
+
+def kv_split(cfg, mesh) -> bool:
+    """Whether each position's block of ``wk``/``wv``'s columns is whole kv
+    heads, the ones its query heads read (else it gathers those)."""
+    return heads_split(cfg, mesh) and cfg.n_kv_heads % model_size(mesh) == 0
+
+
+def expert_parallel(cfg, mesh) -> bool:
+    """Whether each model position owns whole experts (``E % m == 0``);
+    else every position holds ``d_ff / m`` of every expert."""
+    return cfg.n_experts % model_size(mesh) == 0
+
+
+def position_experts(cfg, mesh, j: int) -> tuple[int, int]:
+    """(first, stop) of the experts that model position ``j`` owns."""
+    n = cfg.n_experts // model_size(mesh)
+    return j * n, (j + 1) * n
+
+
+def cache_block(mesh, batch: int, max_seq: int, position: tuple) -> dict:
+    """``position``'s block of an (L, 2, B, S, KV, hd) cache under
+    ``lm_cache_spec``: ``rows`` and ``seq``, each (start, stop)."""
+    spec = lm_cache_spec(mesh, batch)
+    return {"rows": block_range(batch, spec[2], mesh, position),
+            "seq": block_range(max_seq, spec[3], mesh, position)}
 
 
 # ---------------------------------------------------------------------------

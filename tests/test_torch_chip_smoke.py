@@ -7,6 +7,7 @@ script exits non-zero and prints nothing, in the repo and alone in a
 directory."""
 import dataclasses
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -576,3 +577,169 @@ def test_data_phase_catches_a_planted_difference(chip_smoke, monkeypatch, target
     monkeypatch.setattr(mod, name, plant(getattr(mod, name)))
     with pytest.raises(AssertionError, match=match):
         chip_smoke.data_phase(torch.device("cpu"), _data_sz())
+
+
+
+def _gradient_nudged(loss_partitioned):
+    """The partitioned loss with its value unchanged and 1e-3 added to
+    every entry of the first parameter leaf's gradient."""
+    from repro_torch import optim
+
+    def planted(params, cfg, batch, mesh=None):
+        leaf = optim.optimizers.tree_leaves(params)[0]
+        tilt = 1e-3 * (leaf.sum() - leaf.sum().detach())
+        return loss_partitioned(params, cfg, batch, mesh=mesh) + tilt
+    return planted
+
+
+@pytest.mark.parametrize("plant", [None, _gradient_nudged])
+def test_partitioned_pna_check_repeats_and_catches_a_planted_difference(chip_smoke, monkeypatch,
+                                                                        plant):
+    """The shard-train phase's partitioned-PNA check: its three f32 runs
+    (the whole graph, the whole graph one ulp up, the partitioned graph)
+    run under deterministic algorithms, so that its verdict repeats on the
+    card; a gradient leaf off by 1e-3 an entry fails it."""
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.gnn import pna
+
+    seen = []
+
+    def watch(fn):
+        def call(*a, **kw):
+            seen.append(torch.are_deterministic_algorithms_enabled())
+            return fn(*a, **kw)
+        return call
+    if plant is not None:
+        monkeypatch.setattr(pna, "loss_partitioned", plant(pna.loss_partitioned))
+    monkeypatch.setattr(pna, "loss", watch(pna.loss))
+    monkeypatch.setattr(pna, "loss_partitioned", watch(pna.loss_partitioned))
+    sz = SimpleNamespace(gnn_make=pna_cfg.make_smoke, **SMALL)
+    cpu = torch.device("cpu")
+    mesh = make_host_mesh(sz.shards, device=cpu)
+    if plant is not None:
+        with pytest.raises(AssertionError, match="partitioned PNA gradient off by"):
+            chip_smoke.part_gnn_check(cpu, sz, mesh)
+        assert seen == [True] * 3
+        return
+    line = chip_smoke.part_gnn_check(cpu, sz, mesh)
+    assert seen[:3] == [True] * 3 and not any(seen[3:])     # the bf16 steps as before
+    assert "of their bounds (deterministic algorithms)" in line
+    assert not torch.are_deterministic_algorithms_enabled()
+
+def _lm_mesh_sz(train=True, serve=True):
+    """The lm-mesh phase at the smoke widths: gemma3-1b's train and prefill
+    (with a decode step) on (2, 2), granite's on (2, 2) with routes held,
+    yi-9b's FSDP step with two microbatches, mixtral's prefill with 3
+    experts (tensor parallelism inside them) on (1, 4); head widths the
+    kernel takes (16)."""
+    from repro_torch.configs.registry import REGISTRY
+
+    def smoke(arch, **kw):
+        return lambda: dataclasses.replace(REGISTRY[arch].make_smoke(), **kw)
+
+    return SimpleNamespace(
+        lm_mesh_train=(("gemma3-1b", smoke("gemma3-1b"), {"batch": 4, "seq": 16}, (2, 2)),
+                       ("granite-moe-1b-a400m", smoke("granite-moe-1b-a400m", head_dim=16),
+                        {"batch": 4, "seq": 16}, (2, 2)),
+                       ("yi-9b", smoke("yi-9b", fsdp=True, micro_batches=2),
+                        {"batch": 4, "seq": 16}, (2, 2))) if train else (),
+        lm_mesh_steps=2,
+        lm_mesh_serve=(("gemma3-1b", smoke("gemma3-1b"), {"batch": 2, "seq": 20}, (2, 2), 24),
+                       ("granite-moe-1b-a400m", smoke("granite-moe-1b-a400m", head_dim=16),
+                        {"batch": 2, "seq": 16}, (2, 2), None),
+                       ("mixtral-8x7b", smoke("mixtral-8x7b", n_experts=3, head_dim=16),
+                        {"batch": 1, "seq": 16}, (1, 4), None),
+                       ("gemma3-1b", smoke("gemma3-1b"), {"batch": 1, "seq": 16}, (1, 8),
+                        None)) if serve else (),
+        lm_mesh_calls=2)
+
+
+def test_lm_mesh_phase_runs_on_the_cpu_at_a_tiny_size(chip_smoke, capsys):
+    """The lm-mesh phase on the CPU: train steps against the one-device
+    steps (gradients and losses), a second run bitwise, prefills and a
+    decode step against the one-device calls by the f32 yardstick, routes
+    held and counted, each cut's collectives counted on meta."""
+    launches = chip_smoke.lm_mesh_phase(torch.device("cpu"), _lm_mesh_sz())
+    assert launches == {"flash_attention_kernel": 0, "flash_attention_wgmma": 0}
+    out = capsys.readouterr().out
+    assert out.startswith("phase lm-mesh: every position on cpu; gemma3-1b train_4k 4 x 16 "
+                          "on (2, 2)")
+    for part in ("2 heads a position, the kv heads they read gathered",
+                 "4 experts a position", "(under the one device's routes; the mesh's own "
+                 "against them: experts", "yi-9b train_4k 4 x 16 on (2, 2) (2 layers, "
+                 "fsdp=True, 2 microbatch(es) a replica", "a second run bitwise the first",
+                 "one decode_32k step at slot 20 of 24", "d_ff 16 of every expert a position",
+                 "mixtral-8x7b prefill_32k 1 x 16 on (1, 4)", "counted a device: all-gather",
+                 "gemma3-1b prefill_32k 1 x 16 on (1, 8) (8 layers; query rows a position)",
+                 "gradients leaf by leaf (mesh / one device's bf16 gap"):
+        assert part in out, part
+
+
+def _drops_last_part(real):
+    def reduce_to_all(xs, positions):
+        return real(list(xs[:-1]) + [torch.zeros_like(xs[-1])], positions)
+    return reduce_to_all
+
+
+def _noisy_loss(real):
+    calls = []
+
+    def step(*args, **kwargs):
+        loss, params, state = real(*args, **kwargs)
+        calls.append(1)
+        if len(calls) > 2:                 # the second run's
+            loss = torch.nextafter(loss, torch.tensor(float("inf")))
+        return loss, params, state
+    return step
+
+
+def _scaled_logits(real):
+    def join(plan, parts, rows_split):
+        return real(plan, parts, rows_split) * 1.1
+    return join
+
+
+def _halved_leaf(real):
+    """The first leaf's gradient (``embed``) halved in half its rows."""
+    def grads(plan, params, batch, n_micro):
+        loss, flat = real(plan, params, batch, n_micro)
+        for f in flat:
+            f[0] = torch.cat([f[0][:len(f[0]) // 2] * 0.5, f[0][len(f[0]) // 2:]])
+        return loss, flat
+    return grads
+
+
+def _rows_at_zero(real):
+    """Kernel 7 at every position's rows as if they were the first rows."""
+    def flash_attention(q, k, v, *, window=None, q_offset=0):
+        return real(q, k, v, window=window)
+    return flash_attention
+
+
+@pytest.mark.parametrize("target,plant,train,match", [
+    ("collectives.reduce_to_all", _drops_last_part, True, "step 1's gradient on"),
+    ("train.lm_data_parallel_grads", _halved_leaf, True, "step 1's gradient on .* leaf embed"),
+    ("train.lm_data_parallel_step", _noisy_loss, True, "not bitwise the first"),
+    ("parallel.join", _scaled_logits, False, "prefill logits on"),
+    ("ops.flash_attention", _rows_at_zero, False, "prefill logits on (1, 8)")])
+def test_lm_mesh_phase_catches_a_planted_difference(chip_smoke, monkeypatch, target, plant,
+                                                    train, match):
+    """A model-axis sum that drops a position's part, one leaf's gradient
+    halved in half its rows, a second run's loss one ulp off, the joined
+    logits scaled by 1.1, kernel 7 at the query rows of a model axis whose
+    heads do not split taken at offset 0 (the (1, 8) prefill): each fails
+    the phase."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.transformer import parallel
+    from repro_torch.sharding import collectives
+    owner, name = target.split(".")
+    mod = {"collectives": collectives, "train": train_mod, "parallel": parallel,
+           "ops": ops}[owner]
+    monkeypatch.setattr(mod, name, plant(getattr(mod, name)))
+    sz = _lm_mesh_sz(train=train, serve=not train)
+    cell = 3 if owner == "ops" else 0
+    sz.lm_mesh_train, sz.lm_mesh_serve = sz.lm_mesh_train[:1], sz.lm_mesh_serve[cell:cell + 1]
+    with pytest.raises(AssertionError, match=re.escape(match).replace(r"\.\*", ".*")):
+        chip_smoke.lm_mesh_phase(torch.device("cpu"), sz)

@@ -808,6 +808,46 @@ def test_cuda_flash_attention_keeps_sequences_apart(cuda, dtype, B, S, H, KV, hd
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,lo,hi", [
+    (2, 300, 4, 1, 256, None, 37, 300),      # gemma3-1b's heads, rows off a block's edge
+    (2, 300, 4, 1, 256, 64, 100, 163),
+    (2, 1_024, 4, 1, 256, None, 512, 640),   # position 4 of 8 on a model axis
+    (3, 1_001, 8, 2, 128, None, 1, 1_000),
+    (1, 300, 36, 4, 128, 100, 150, 151),     # one row
+    (1, 130, 8, 2, 128, 33, 64, 130),
+    (2, 777, 8, 8, 64, None, 333, 700),
+    (3, 65, 4, 4, 16, 7, 20, 64),
+    (2, 100, 4, 1, 32, None, 50, 100),
+])
+def test_cuda_flash_attention_query_rows_match_the_whole_sequence(cuda, dtype, B, S, H, KV, hd,
+                                                                  window, lo, hi):
+    """Query rows lo..hi against all S keys (``q_offset=lo``, the LM plan's
+    rows on a model axis whose heads do not split): within the plain
+    version's bounds at that offset, and bitwise those rows of the whole
+    sequence's launch (a row's tiles differ only by whole tiles that mask
+    it, which leave its max, sum and accumulator as they were)."""
+    gen = torch.Generator(device=cuda).manual_seed(S + lo)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=cuda).to(dtype)
+               for n in (H, KV, KV))
+    rows = q[:, lo:hi].contiguous()
+    ops.reset_launches()
+    got = ops.flash_attention(rows, k, v, window=window, q_offset=lo)
+    whole = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert sum(ops.LAUNCHES.values()) == 2 and got.shape == rows.shape
+    want, size = ref.flash_attention_plain(rows, k, v, window=window, with_size=True,
+                                           q_offset=lo)
+    diff = (got.float() - want.float()).abs()
+    vmax = float(v.abs().max())
+    assert float(diff.max()) <= FLASH_TOL[dtype] * vmax, float(diff.max())
+    if dtype == torch.bfloat16:
+        ratio = float((diff / (2.0**-7 * (want.float().abs() + size) + 1e-5 * vmax)).max())
+        assert ratio <= 1.0, ratio
+    assert torch.equal(got, whole[:, lo:hi])
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_raises_on_what_it_does_not_take(cuda):
     q, k = torch.zeros((1, 8, 4, 64), device=cuda), torch.zeros((1, 8, 1, 64), device=cuda)
     for dt in (torch.float16, torch.float64):

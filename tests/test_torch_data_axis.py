@@ -418,20 +418,25 @@ def test_dry_run_counts_dplr_fwfm_train_batch_a_device(mesh_name, n):
 
 def test_dry_run_on_the_meshes_names_its_records_and_refuses_lm_and_pna(tmp_path, capsys):
     """``--mesh both`` writes ``<arch>__<shape>__<mesh>.json``, prints
-    ``coll=`` beside ``peak``; an LM or PNA cell fails naming its ROADMAP
-    item, and is never counted as one device."""
+    ``coll=`` beside ``peak``; a PNA cell fails naming its ROADMAP item,
+    and is never counted as one device; an LM cell (ROADMAP item 3c-ii,
+    done) counts a device of the mesh, its collectives and its blocks."""
     rc = dryrun.main(["--mesh", "both", "--arch", "dplr-fwfm", "--shape", "serve_p99",
                       "--out", str(tmp_path)])
     assert rc == 0
     assert sorted(p.name for p in tmp_path.glob("*.json")) == [
         "dplr-fwfm__serve_p99__multi.json", "dplr-fwfm__serve_p99__single.json"]
     assert capsys.readouterr().out.count("coll=") == 2
-    for arch, shape, item in (("gemma3-1b", "train_4k", "3c-ii"), ("pna", "molecule", "3c-iii")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            steps.build(arch, shape, mesh=make_production_mesh(device="meta"))
-        rec = dryrun.count_cell(arch, shape, dryrun.H100_BYTES, "test", mesh_name="multi")
-        assert not rec["ok"] and f"ROADMAP item {item}" in rec["error"]
-        assert "flops" not in rec and "param_bytes" not in rec
+    with pytest.raises(NotImplementedError, match="ROADMAP item 3c-iii"):
+        steps.build("pna", "molecule", mesh=make_production_mesh(device="meta"))
+    rec = dryrun.count_cell("pna", "molecule", dryrun.H100_BYTES, "test", mesh_name="multi")
+    assert not rec["ok"] and "ROADMAP item 3c-iii" in rec["error"]
+    assert "flops" not in rec and "param_bytes" not in rec
+    rec = dryrun.count_cell("gemma3-1b", "decode_32k", dryrun.H100_BYTES, "test",
+                            mesh_name="multi")
+    assert rec["ok"] and rec["n_devices"] == 512
+    assert rec["collective_bytes"]["all-reduce"]["count"] > 0
+    assert rec["param_bytes"] == 250_182_144 // 2 and rec["cache_bytes"] == 218_103_808
     # without --mesh, today's one-card record
     rec = dryrun.count_cell("dplr-fwfm", "serve_p99", dryrun.H100_BYTES, "test")
     assert rec["collective_bytes"] is None and "n_devices" not in rec

@@ -3,7 +3,9 @@ and nothing of the JAX package, every module imports (and serves, trains,
 serves a sharded corpus, ranks through ``rank_items_mp``, trains through
 the row-blocked lookup of ``embedding.sharded``, reduces through
 ``optim.compression`` and ``sharding.collectives``, trains on two data
-replicas, counts a device of the production mesh on ``meta``, and
+replicas, runs an MoE LM's train, prefill and decode cells on a (2, 2)
+mesh through ``models.transformer.parallel``, counts a device of the
+production mesh on ``meta`` (mixtral-8x7b's train step among them), and
 answers over the RPC server under an injected fault) with JAX blocked,
 and asking for the card where there is none raises."""
 import os
@@ -148,6 +150,16 @@ pod = make_production_mesh(device="meta")
 cell = steps.build("dplr-fwfm", "serve_p99", mesh=pod)
 got = cost.analyze(cell.fn, *cell.args, mesh=pod, specs=cell.arg_specs())
 assert got["n_devices"] == 256 and got["collective_bytes"]["all-reduce"]["count"] > 0
+from repro_torch.configs import granite_moe_1b_a400m
+from repro_torch.models.transformer import parallel
+for shape, dims in (("train_4k", {"batch": 4, "seq": 16}), ("prefill_32k", {"batch": 2, "seq": 16}),
+                    ("decode_32k", {"batch": 2, "seq": 16})):
+    cell = steps.build("granite-moe-1b-a400m", shape, device="cpu", dims=dims, mesh=m22,
+                       cfg=granite_moe_1b_a400m.make_smoke())
+    assert isinstance(cell.plan, parallel.Plan) and torch.isfinite(cell.fn(*cell.args)[0]).all()
+cell = steps.build("mixtral-8x7b", "train_4k", mesh=pod)
+got = cost.analyze(cell.fn, *cell.args, mesh=pod, specs=cell.arg_specs())
+assert got["collective_bytes"]["reduce-scatter"]["count"] > 0
 print("ok")
 """
 

@@ -17,7 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref, work  # noqa: E402
 from repro_torch.kernels.dplr_corpus_score import MAX_RK, NEG_INF  # noqa: E402
 
 from test_torch_parity import assert_scores, assert_topk, corpus_inputs, to_np  # noqa: E402
@@ -486,6 +486,54 @@ def test_flash_attention_plain_matches_pallas_and_oracle(B, S, H, KV, hd, window
                 assert (diff <= 2.0**-7 * (np.abs(want) + size) + 1e-5 * vmax).all()
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,S,H,KV,hd,window,lo,hi", [
+    (2, 128, 4, 1, 32, None, 37, 128),    # the last rows, off a block's edge
+    (1, 192, 4, 1, 256, 96, 64, 160),     # gemma3-1b's heads, a window
+    (2, 128, 4, 4, 16, 48, 100, 101),     # one row
+    (1, 200, 8, 2, 16, None, 24, 48),     # rows in the middle: later keys unseen
+])
+def test_flash_attention_at_a_row_offset_matches_the_whole_sequence(B, S, H, KV, hd, window,
+                                                                    lo, hi, dtype):
+    """Query rows lo..hi against all S keys (``q_offset=lo``: the LM plan's
+    rows on a model axis whose heads do not split) against the Pallas
+    kernel's and the oracle's whole sequence at those rows, within the
+    bounds above, and against the plain version's whole sequence; the
+    oracle at the offset agrees with the JAX oracle's rows."""
+    arrays, (jq, jk, jv) = _attn_inputs(13, B, S, H, KV, hd, dtype)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    rows = q[:, lo:hi]
+    got = ops.flash_attention(rows, k, v, window=window, q_offset=lo)
+    assert got.shape == rows.shape and got.dtype == tdt
+    size = ref.flash_attention_plain(rows, k, v, window=window, with_size=True,
+                                     q_offset=lo)[1].numpy()
+    vmax = np.abs(arrays[2]).max()
+    oracle = np.asarray(jref.flash_attention_ref(jq, jk, jv, causal=True, window=window),
+                        np.float32)[:, lo:hi]
+    pallas = np.asarray(jops.flash_attention(jq, jk, jv, window=window, block_q=8,
+                                             block_k=8), np.float32)[:, lo:hi]
+    out = got.float().numpy()
+    for against, want in (("pallas", pallas), ("oracle", oracle)):
+        if dtype == "f32":
+            np.testing.assert_allclose(out, want, atol=1e-5, rtol=1e-5, err_msg=against)
+        else:
+            diff = np.abs(out - want)
+            assert diff.max() <= 2.0**-7 * vmax
+            assert (diff <= 2.0**-7 * (np.abs(want) + size) + 1e-5 * vmax).all()
+    whole = ref.flash_attention_plain(q, k, v, window=window)[:, lo:hi]
+    assert float((got.float() - whole.float()).abs().max()) <= 1e-6 * vmax
+    np.testing.assert_allclose(
+        ref.flash_attention_ref(rows.float(), k.float(), v.float(), window=window,
+                                q_offset=lo).numpy(), oracle, atol=1e-5, rtol=1e-5)
+    # the count at the offset: the rows' pairs and the keys they can see
+    flops, nbytes = work.kernel_work("flash_attention", B=B, S=S, H=H, KV=KV, hd=hd,
+                                     window=window, itemsize=2, Sq=hi - lo, q_offset=lo)
+    pairs = sum(min(i + 1, window or S) for i in range(lo, hi))
+    assert flops == 4 * hd * pairs * B * H
+    assert nbytes == B * (2 * (hi - lo) * H + 2 * hi * KV) * hd * 2
+
+
 def test_flash_attention_oracle_matches_jax():
     arrays, jarrays = _attn_inputs(12, 2, 40, 4, 2, 8, "f32")
     for window in (None, 7):
@@ -504,6 +552,8 @@ def test_flash_attention_rejects_bad_shapes():
         ops.flash_attention(q, k, k[:, :4])
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, k, window=0)
+    with pytest.raises(ValueError, match="past the 8 keys"):
+        ops.flash_attention(q, k, k, q_offset=1)
     with pytest.raises(ValueError, match="device"):
         ops.flash_attention(q.to("meta"), k, k)
     assert ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta")).shape == q.shape
